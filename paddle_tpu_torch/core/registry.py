@@ -1,0 +1,64 @@
+"""Op kernel registry.
+
+A kernel is a plain function `kernel(ctx: OpContext) -> None` that reads
+its inputs (torch tensors or LoDArrays) from `ctx`, computes eagerly on
+their device, and assigns its outputs — the interface of
+paddle_tpu/core/registry.py, without the traced-RNG half.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List
+
+_KERNELS: Dict[str, Callable] = {}
+
+
+class OpContext:
+    """Execution context handed to a kernel: op descriptor + value env."""
+
+    def __init__(self, op, env: Dict[str, Any]):
+        self.op = op
+        self.env = env
+
+    def input(self, slot: str, idx: int = 0):
+        names = self.op.inputs.get(slot, [])
+        if not names:
+            return None
+        return self.env[names[idx]]
+
+    def inputs(self, slot: str) -> List[Any]:
+        return [self.env[n] for n in self.op.inputs.get(slot, [])]
+
+    def has_input(self, slot: str) -> bool:
+        return bool(self.op.inputs.get(slot))
+
+    def set_output(self, slot: str, value, idx: int = 0) -> None:
+        self.env[self.op.outputs[slot][idx]] = value
+
+    def has_output(self, slot: str) -> bool:
+        return bool(self.op.outputs.get(slot))
+
+    def attr(self, name: str, default=None):
+        return self.op.attrs.get(name, default)
+
+
+def register_op(type_name: str) -> Callable:
+    """Decorator: @register_op("mul") def mul_kernel(ctx): ..."""
+
+    def deco(fn):
+        if type_name in _KERNELS:
+            raise ValueError(f"op {type_name!r} already registered")
+        _KERNELS[type_name] = fn
+        return fn
+
+    return deco
+
+
+def get_kernel(type_name: str) -> Callable:
+    try:
+        return _KERNELS[type_name]
+    except KeyError:
+        raise NotImplementedError(
+            f"No kernel registered for op {type_name!r} in the PyTorch port; "
+            f"registered: {sorted(_KERNELS)}"
+        ) from None

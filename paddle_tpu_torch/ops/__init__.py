@@ -1,0 +1,9 @@
+"""Op kernels: importing this package registers every ported op."""
+
+from . import (  # noqa: F401
+    activation_ops,
+    attention_ops,
+    math_ops,
+    rnn_ops,
+    sequence_ops,
+)
