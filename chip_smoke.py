@@ -22,8 +22,8 @@ exits non-zero without the final `ok` line:
               order, and 2 gru_fwd launches per request; then one more
               request under torch.profiler: device busy share and device
               time by kernel.
-  5. parity   the same program at a small width, f32: card (kernel)
-              against CPU (plain versions).
+  5. parity   the same program at a small width, card (kernel) against
+              CPU (plain versions): f32, then bf16 amp.
   6. the kernels JSON line, then the device JSON line last.
 
 Weights are made with numpy from --seed at the shapes the program
@@ -57,9 +57,28 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # summed in another order (warp shuffles vs a BLAS GEMM) over 50 steps.
 # bf16: h and rh are rounded to bf16 at the same places on both sides, but
 # a sum that lands near a rounding boundary may round one bf16 ulp apart
-# (2^-8 relative, ~4e-3 near 1) and the difference is carried forward.
-TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-SLICE_SCORE_TOL = 1e-4  # phase 5, f32 scores card vs CPU
+# (2^-8 relative, ~4e-3 just below 1). So bf16 is held to one ulp near 1
+# and to the share of h_seq's elements that differ. A rounding in the
+# wrong place moves h by no more than a sound flip does, but in many more
+# elements: phase 3 prints, beside the kernel's share, the share of the
+# recurrence rounded to bf16 only at its output, and fails unless the
+# bound tells the two apart.
+TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-3}
+BF16_MAX_DIFFERING = 0.05
+# phase 5, card against CPU. f32: scores within 1e-4, ids and lengths
+# equal. bf16: encoder state and decoder h0 within one ulp near 1 and a
+# share of differing elements (the bounds of tests/test_torch_nmt_infer.py,
+# where the port is held to the JAX package). The beams are not held to
+# each other: bf16 scores near -200 have a 1.0 ulp, so candidates tie and
+# one rounding flip sends a beam elsewhere, where it may find an EOS the
+# other does not (the JAX package's beams drift from the port's the same
+# way). So a beam that both find must score within two ulps, and at least
+# 10% of the beams must be found by both; a decoder computing another
+# function shares no 32-token beam with the plain one.
+SLICE_SCORE_TOL = 1e-4
+BF16_SLICE_MAX_DIFFERING = {"encoder state": 0.02, "decoder h0": 0.10}
+BF16_SCORE_ULPS = 2
+BF16_MIN_SHARED_BEAMS = 0.10
 # (T, B, H) beyond the main path's: on a 132-SM card these take 1, 4 and
 # 16 hidden units per CTA, the last two with a partly empty last CTA
 EDGE_SHAPES = [(3, 1, 100), (5, 3, 301), (4, 5, 1100)]
@@ -142,14 +161,35 @@ def encoder_inputs(ptt, exe, program, scope, feed, amp):
 
 
 def bound(x, mask, w, h_seq, h_T):
-    """Least time the card could take for this GRU: bytes each input read
-    once and each output written once, over HBM bandwidth; the products
-    the valid tokens need (2*3H*H each), over the dtype's dense peak."""
-    nbytes = sum(t.numel() * t.element_size() for t in (x, mask, w, h_seq, h_T))
+    """Least time the card could take for this GRU, counted over the valid
+    tokens (a padded step only carries h and needs no x): the bytes of x's
+    valid rows, the mask and W read once and h_seq and h_T written once,
+    over HBM bandwidth; the products the valid tokens need (2*3H*H each),
+    over the dtype's dense peak."""
+    tokens = float(mask.float().sum())
+    nbytes = tokens * x.shape[2] * x.element_size() + sum(
+        t.numel() * t.element_size() for t in (mask, w, h_seq, h_T))
     H = w.shape[0]
-    flops = 2.0 * float(mask.float().sum()) * 3 * H * H
+    flops = 2.0 * tokens * 3 * H * H
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[x.dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes, flops
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at each element's magnitude (numpy float array)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(v), 2.0 ** -126))) - 7)
+
+
+def kernel_error(got, want, dt):
+    """(max abs error over h_seq and h_T, share of h_seq elements that
+    differ); fails past the dtype's bounds."""
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    differing = float((got[0] != want[0]).float().mean())
+    check(all(torch.isfinite(t.float()).all() for t in got), "non-finite kernel output")
+    check(err <= TOL[dt], f"gru_fwd disagrees with its plain version: {err}")
+    check(dt != torch.bfloat16 or differing <= BF16_MAX_DIFFERING,
+          f"gru_fwd differs from its plain version in {differing:.4%} of h_seq")
+    return err, differing
 
 
 def breakdown(run, median_ms):
@@ -230,6 +270,8 @@ def main():
         phase(3, "kernel against plain")
         feed = ragged_feed(ptt, rng, B, S, V, min_len=10)
         exe = ptt.Executor()
+        print("cuBLAS bf16 reduced-precision reduction: "
+              f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
         max_err, main_row = 0.0, None
         for amp, dt in ((None, torch.float32), ("bfloat16", torch.bfloat16)):
             for x, mask, w, reverse in encoder_inputs(ptt, exe, program, scope, feed, amp):
@@ -237,17 +279,26 @@ def main():
                 got = rnn_kernels.gru_fwd(x, mask, w, reverse=reverse)
                 want = rnn_kernels.gru_fwd_plain(x, mask, w, reverse=reverse)
                 torch.cuda.synchronize()
-                err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
-                check(all(torch.isfinite(t.float()).all() for t in got), "non-finite kernel output")
                 k_ms = cuda_ms(lambda: rnn_kernels.gru_fwd(x, mask, w, reverse=reverse), 20)
                 p_ms = cuda_ms(lambda: rnn_kernels.gru_fwd_plain(x, mask, w, reverse=reverse), 5)
                 b_ms, b_by, nbytes, flops = bound(x, mask, w, *got)
                 T_, B_, H3 = x.shape
                 print(f"  gru_fwd T={T_} B={B_} H={H3 // 3} {str(dt)[6:]} "
-                      f"{'rev' if reverse else 'fwd'}: max_abs_err={err:.3e} (tol {TOL[dt]:g}) "
-                      f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
-                      f"by {b_by} ({nbytes} B, {flops:.4g} FLOP)")
-                check(err <= TOL[dt], f"gru_fwd disagrees with its plain version: {err}")
+                      f"{'rev' if reverse else 'fwd'}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                      f"bound {b_ms:.5f} ms by {b_by} ({nbytes:.0f} B, {flops:.4g} FLOP)")
+                err, differing = kernel_error(got, want, dt)
+                print(f"    max_abs_err={err:.3e} (tol {TOL[dt]:g}), h_seq differing "
+                      f"{differing:.4%}" + (f" (max {BF16_MAX_DIFFERING:.0%})"
+                                            if dt == torch.bfloat16 else ""))
+                if dt == torch.bfloat16:
+                    f32_seq = rnn_kernels.gru_fwd_plain(x.float(), mask, w.float(),
+                                                        reverse=reverse)[0].to(dt)
+                    off = float((f32_seq != got[0]).float().mean())
+                    off_err = float((f32_seq.float() - got[0].float()).abs().max())
+                    print(f"    rounded only at the output: {off_err:.3e} apart, "
+                          f"h_seq differing {off:.4%}")
+                    check(off > BF16_MAX_DIFFERING,
+                          "the bf16 share bound does not catch a misplaced rounding")
                 max_err = max(max_err, err)
                 if dt == torch.bfloat16 and not reverse:  # the main path's dtype
                     main_row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
@@ -260,10 +311,9 @@ def main():
             got = rnn_kernels.gru_fwd(x, mask, w, reverse=reverse)
             want = rnn_kernels.gru_fwd_plain(x, mask, w, reverse=reverse)
             torch.cuda.synchronize()
-            err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+            err, differing = kernel_error(got, want, dt)
             print(f"  gru_fwd T={T_} B={B_} H={H_} {str(dt)[6:]} {'rev' if reverse else 'fwd'}: "
-                  f"max_abs_err={err:.3e} (tol {TOL[dt]:g})")
-            check(err <= TOL[dt], f"gru_fwd disagrees with its plain version: {err}")
+                  f"max_abs_err={err:.3e} (tol {TOL[dt]:g}), h_seq differing {differing:.4%}")
             max_err = max(max_err, err)
 
         phase(4, "slice at full width (bf16)")
@@ -293,25 +343,48 @@ def main():
               f"(B={B}, beam {K}, max_len {T}) on {smi}")
         breakdown(lambda: exe.run(program, {feeds[0]: requests[0]}, fetches, scope=scope), med)
 
-        phase(5, "small-width slice: card against CPU (f32)")
+        phase(5, "small-width slice: card against CPU (f32, then bf16)")
         small = os.path.join(work, "nmt_beam_small")
         write_params(os.path.join(ROOT, "paddle_tpu_torch", "artifacts", "nmt_beam_small"),
                      small, args.seed + 1)
-        res = {}
-        for dev in ("cpu", "cuda"):
-            sc_ = ptt.Scope()
-            prog, fd, ft = ptt.io.load_inference_model(small, scope=sc_, device=dev)
-            a = prog.global_block().ops[-1].attrs
-            vs = sc_.get("s2s.trg_emb").shape[0]
-            feed = ragged_feed(ptt, np.random.RandomState(args.seed + 2), 16, a["src_max_len"],
-                               vs, min_len=1)
-            res[dev] = ptt.Executor(device=dev).run(prog, {fd[0]: feed}, ft, scope=sc_)
-        (ci, cs, cl), (gi, gs, gl) = res["cpu"], res["cuda"]
-        score_err = float(np.abs(cs - gs).max())
-        print(f"  ids equal: {np.array_equal(ci, gi)}; lengths equal: {np.array_equal(cl, gl)}; "
-              f"max score diff {score_err:.3e} (tol {SLICE_SCORE_TOL:g})")
-        check(np.array_equal(ci, gi) and np.array_equal(cl, gl), "card and CPU ids/lengths differ")
-        check(score_err <= SLICE_SCORE_TOL, "card and CPU scores differ")
+        for amp in (None, "bfloat16"):
+            res = {}
+            for dev in ("cpu", "cuda"):
+                sc_ = ptt.Scope()
+                prog, fd, ft = ptt.io.load_inference_model(small, scope=sc_, device=dev)
+                prog.set_amp(amp)
+                beam = prog.global_block().ops[-1]
+                a = beam.attrs
+                vs = sc_.get("s2s.trg_emb").shape[0]
+                feed = ragged_feed(ptt, np.random.RandomState(args.seed + 2), 16,
+                                   a["src_max_len"], vs, min_len=1)
+                names = [beam.inputs["EncState"][0], beam.inputs["H0"][0]] + list(ft)
+                enc, h0, *fetched = ptt.Executor(device=dev).run(prog, {fd[0]: feed}, names,
+                                                                 scope=sc_)
+                res[dev] = [enc.data.float().cpu().numpy(), h0] + fetched
+            (ce, ch, ci, cs, cl), (ge, gh, gi, gs, gl) = res["cpu"], res["cuda"]
+            score_err = float(np.abs(cs - gs).max())
+            if amp is None:
+                print(f"  f32: ids equal: {np.array_equal(ci, gi)}; lengths equal: "
+                      f"{np.array_equal(cl, gl)}; max score diff {score_err:.3e} "
+                      f"(tol {SLICE_SCORE_TOL:g})")
+                check(np.array_equal(ci, gi) and np.array_equal(cl, gl),
+                      "card and CPU ids/lengths differ")
+                check(score_err <= SLICE_SCORE_TOL, "card and CPU scores differ")
+                continue
+            for name, g, c in (("encoder state", ge, ce), ("decoder h0", gh, ch)):
+                err, differing = float(np.abs(g - c).max()), float(np.mean(g != c))
+                print(f"  bf16 {name}: max abs diff {err:.3e} (tol {TOL[torch.bfloat16]:g}), "
+                      f"differing {differing:.4%} (max {BF16_SLICE_MAX_DIFFERING[name]:.0%})")
+                check(err <= TOL[torch.bfloat16] and differing <= BF16_SLICE_MAX_DIFFERING[name],
+                      f"card and CPU {name} differ under bf16")
+            shared = np.all(ci == gi, axis=-1)  # [B, K] beams both found
+            score_ulps = float((np.abs(cs - gs) / bf16_ulp(cs))[shared].max(initial=0.0))
+            print(f"  bf16 beams: {shared.mean():.1%} found by both (min "
+                  f"{BF16_MIN_SHARED_BEAMS:.0%}); their scores at most {score_ulps:g} bf16 "
+                  f"ulps apart (max {BF16_SCORE_ULPS}); all scores at most {score_err:g} apart")
+            check(shared.mean() >= BF16_MIN_SHARED_BEAMS, "card and CPU beams differ under bf16")
+            check(score_ulps <= BF16_SCORE_ULPS, "card and CPU scores differ under bf16")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

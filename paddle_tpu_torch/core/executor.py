@@ -64,6 +64,11 @@ class Executor:
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # bf16 GEMMs must reduce in f32, as the JAX package's
+            # preferred_element_type=f32 does (ops/math_ops.dot); cuBLAS
+            # may otherwise reduce split-K partial sums in bf16
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     def _to_device(self, name, v):
         if isinstance(v, np.ndarray):

@@ -1,25 +1,16 @@
-"""Global flags read by the port, with the JAX package's env override
-(`PT_FLAGS_<NAME>`). Only the flags the ported paths read are defined."""
+"""Global flags read by the port, as plain in-process attributes. Only the
+flags the ported paths read are defined."""
 
 from __future__ import annotations
 
-import os
 from typing import Dict
-
-
-def _env_bool(name: str, default: bool) -> bool:
-    env = os.environ.get(f"PT_FLAGS_{name.upper()}")
-    if env is None:
-        return default
-    return env.lower() in ("1", "true", "yes", "on")
 
 
 class _Flags:
     """Attribute access over a fixed set of flags: `FLAGS.use_fused_rnn`."""
 
     def __init__(self, defaults: Dict[str, bool]):
-        object.__setattr__(self, "_values",
-                           {k: _env_bool(k, v) for k, v in defaults.items()})
+        object.__setattr__(self, "_values", dict(defaults))
 
     def __getattr__(self, name: str):
         try:

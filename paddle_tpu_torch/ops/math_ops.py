@@ -24,7 +24,10 @@ def _like(x, data):
 
 def dot(a, b):
     """a @ b in a's dtype, accumulated in f32 — the JAX package's
-    `jnp.dot(a, b, preferred_element_type=f32).astype(a.dtype)`."""
+    `jnp.dot(a, b, preferred_element_type=f32).astype(a.dtype)`. On the
+    card this holds for bf16 because the Executor turns off cuBLAS's
+    reduced-precision bf16 reduction; the CPU's bf16 GEMM accumulates in
+    f32."""
     return torch.matmul(a, b.to(a.dtype))
 
 
