@@ -8,7 +8,9 @@ exits non-zero without the final `ok` line:
 
   1. device   the card's name, torch/CUDA versions, nvidia-smi's name and
               power limit; TF32 off for matmuls and cuDNN.
-  2. build    compiles the CUDA kernels from paddle_tpu_torch/csrc.
+  2. build    compiles the CUDA kernels from paddle_tpu_torch/csrc, one nvcc
+              per source, all started together; prints ptxas's registers
+              and shared memory.
   3. kernel   gru_fwd (csrc/gru_fwd.cu) against gru_fwd_plain on the card,
               on x from the full-width artifact's lookup_table + mul for a
               ragged request: forward and reverse, f32 and bf16; errors
@@ -24,17 +26,39 @@ exits non-zero without the final `ok` line:
               time by kernel.
   5. parity   the same program at a small width, card (kernel) against
               CPU (plain versions): f32, then bf16 amp.
-  6. the kernels JSON line, then the device JSON line last.
+  6. train    bench.py's NMT training program (artifacts/nmt_train_wmt:
+              V=30000, emb = hidden = 512, lengths 50, B=256, bf16 amp):
+              its startup program on the card, then a warm-up step on one
+              ragged batch of 256 pairs, recording the inputs the step
+              hands each training kernel.
+  7. kernels  gru_bwd (csrc/gru_bwd.cu) and attn_fwd, attn_bwd_step and
+              attn_phase2 (csrc/bahdanau_attn.cu) against their plain
+              versions on the card: on the warm-up step's own inputs, in
+              bf16 and in f32, then on seeded inputs at the main path's
+              shapes and at edge shapes, where each output must also lie
+              above its tolerance (an output left at zero fails); errors
+              beside their tolerances, kernel, plain and bound times.
+  8. steps    3 timed training steps on the same batch with the launch
+              counts set to 0 just before: finite, falling losses, median
+              ms per step, target tokens/s, exact launches per step; then
+              one more step under torch.profiler.
+  9. parity   the small training program (artifacts/nmt_train_small), card
+              against CPU from the same state and feeds: losses and the
+              state after 2 Adam steps, f32 then bf16 amp.
+  10. the kernels JSON line, then the device JSON line last.
 
 Weights are made with numpy from --seed at the shapes the program
-declares (normal / sqrt(fan_in)) and written as params.npz beside a copy
-of the committed program.json/meta.json: nothing is downloaded and
+declares (normal / sqrt(fan_in)): for the inference artifact written as
+params.npz beside a copy of the committed program.json/meta.json, for the
+small training program over its startup's state; the full-width training
+program starts from its own startup program. Nothing is downloaded and
 nothing of the JAX package is needed.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import shutil
@@ -192,7 +216,7 @@ def kernel_error(got, want, dt):
     return err, differing
 
 
-def breakdown(run, median_ms):
+def breakdown(run, median_ms, what="request"):
     """One call of `run` under torch.profiler: device busy time, as a
     share of the profiled wall time (which the profiler's own host cost
     inflates) and of the unprofiled median, and device time by kernel
@@ -214,12 +238,212 @@ def breakdown(run, median_ms):
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
         by_name[name] = by_name.get(name, 0.0) + (e - s)
-    print(f"  profiled request: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+    print(f"  profiled {what}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"({100 * busy / wall_us:.1f}% of the profiled wall, "
           f"{100 * busy / 1e3 / median_ms:.1f}% of the unprofiled median), "
           f"{len(spans)} device events")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"    {us / 1e3:9.3f} ms  {name[:100]}")
+
+
+# ---------------------------------------------------------------- training --
+# Training kernels against their plain versions: max error relative to the
+# largest element of the plain output, or for a sum whose terms cancel to
+# the largest sum of its terms' magnitudes (term_scales). f32: the same
+# f32 arithmetic summed in another order (warp shuffles, a batch-ordered
+# dW, per-block dv partials) over 50 steps: 1e-5. The attention kernels
+# compute in f32 in both io dtypes and round each bf16 output once, from
+# an f32 sum that may land on the other side of a rounding boundary: so
+# 1e-5 of the scale beyond one bf16 ulp of each plain value. In gru_bwd a
+# flip travels with the bf16 dh carry into dx and dW: 1e-2 of the scale,
+# and for dx a share of differing elements, which a dh carry rounded in
+# the wrong place breaks (printed beside it).
+# A check must be able to fail: an output left at zero must read above its
+# tolerance (checked for every attention output; for gru_bwd at the edge
+# shapes). On the warm-up step's inputs ddp and dv nearly cancel (the
+# startup's small weights leave tanh(ep+dp) nearly the same at every s,
+# and Σ_S dsc = 0), so the attention kernels also run on seeded normal
+# inputs at the main path's shapes, where nothing cancels.
+TRAIN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+BF16_MAX_DIFFERING_DX = 0.05
+# (T, B, H) for gru_bwd beyond the main path's: on a 132-SM card they take
+# 1, 4 and 8 hidden units per CTA, the last with dW outside the kernel
+GRU_BWD_EDGE = [(3, 3, 100), (5, 3, 301), (4, 5, 700)]
+# (B, S, A, C, T) for the attention kernels: the second takes the loops
+# over S, A and C (256 threads, 8 warps, a 32-lane softmax) more than once
+ATTN_EDGE = [(3, 7, 100, 130, 4), (5, 45, 300, 520, 3)]
+# the launches of one training step at T = S = 50
+STEP_LAUNCHES = {"gru_fwd": 2, "gru_bwd": 2, "attn_fwd": 50, "attn_bwd_step": 50,
+                 "attn_phase2": 1}
+# small training program, card against CPU from one state (the bounds of
+# tests/test_torch_train.py, where the port is held to the JAX package):
+# loss relative error; parameters after two Adam steps in units of the
+# learning rate: most elements within `close`, at most `share` beyond it;
+# f32: every element within `far`; bf16: a gradient near 0 may flip its
+# sign, and a step moves a value by lr·sign(g), so the bound is on the
+# elements whose first gradient (the CPU's) exceeds `robust_grad` of the
+# parameter's largest, within `robust`; moments relative to their largest
+LR = 5e-4
+TRAIN_PARITY = {
+    None: dict(loss=1e-5, close=0.02, share=0.005, far=0.05, moment=5e-5, moment_share=0.0),
+    "bfloat16": dict(loss=1e-4, close=0.1, share=0.03, robust_grad=0.05, robust=0.5,
+                     moment=5e-2, moment_share=0.10),
+}
+F32_PEAK = PEAK_FLOPS[torch.float32]  # the attention kernels' math is f32
+
+
+def rel_err(got, want, scale=None):
+    """(max abs error, the same over `scale`, by default want's largest
+    element)."""
+    err = float((got.float() - want.float()).abs().max())
+    if scale is None:
+        scale = float(want.float().abs().max())
+    return err, err / max(scale, 1e-30)
+
+
+def beyond_ulp(got, want, scale):
+    """Largest |got - want| beyond one bf16 ulp of the plain value (none
+    for an f32 output), over `scale`."""
+    g, w = (t.float().cpu().numpy() for t in (got, want))
+    slack = bf16_ulp(w) if want.dtype == torch.bfloat16 else 0.0
+    return float(np.maximum(np.abs(g - w) - slack, 0.0).max()) / max(scale, 1e-30)
+
+
+def amax(t):
+    return float(t.float().abs().max())
+
+
+def term_scales(name, ins, want):
+    """The scale each output's error is held to: its largest element, or
+    for a sum whose terms cancel (dW over T·B, ddp and dv over a softmax
+    gradient that sums to 0, dep over T) the largest sum of its terms'
+    magnitudes, which bounds the error an f32 sum in another order makes."""
+    out = [amax(w) for w in want]
+    if name == "gru_bwd":
+        h_prev, rh = ins[2].float().abs(), ins[3].float().abs()
+        out[1] = max(amax(h_prev.sum((0, 1))), amax(rh.sum((0, 1)))) * out[0]
+    elif name == "attn_bwd_step":  # ddp = v·Σ_S dsc·(1-t²), with |1-t²| ≤ 1
+        out[0] = amax(want[1].abs().sum(1)) * amax(ins[3])
+    elif name == "attn_phase2":
+        out[0] = amax(ins[2].abs().sum(0)) * amax(ins[3])
+        out[1] = float(ins[2].abs().sum())
+    return out
+
+
+def record_calls(mod, keep):
+    """Wrap mod's kernel wrappers so they record their arguments: `keep`
+    maps a name to "all", "first" or "last". Returns (calls, restore)."""
+    calls, orig = {}, {}
+    for name, which in keep.items():
+        fn = orig[name] = getattr(mod, name)
+
+        def spy(*a, _fn=fn, _name=name, _which=which, **k):
+            seen = calls.setdefault(_name, [])
+            rec = (tuple(t.detach() if torch.is_tensor(t) else t for t in a), k)
+            if _which == "all" or not seen:
+                seen.append(rec)
+            elif _which == "last":
+                seen[-1] = rec
+            return _fn(*a, **k)
+
+        setattr(mod, name, spy)
+    return calls, lambda: [setattr(mod, n, f) for n, f in orig.items()]
+
+
+def bound_ms(nbytes, ops, peak):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def gru_bwd_bound(args):
+    """Valid tokens only: ur_pre, c_pre, h_prev, rh and dh_seq in and dx
+    out for each; W, dhT and the f32 mask in and dW out once; the three
+    products (drh, dur, dW) 12·H² operations per token."""
+    ur, c, hp, rh, dh, mask, w, dhT = args
+    tokens = float(mask.float().sum())
+    H, item = hp.shape[2], hp.element_size()
+    nbytes = tokens * 9 * H * item + 2 * w.numel() * item + dhT.numel() * item + mask.numel() * 4
+    return (*bound_ms(nbytes, tokens * 12 * H * H, PEAK_FLOPS[hp.dtype]), nbytes)
+
+
+def attn_bound(kind, args):
+    """Valid source positions only (the mask's, or for phase 2 those with a
+    nonzero dsc at some step): ep and enc (phase 2: ep in, dep out) once
+    each, the small per-row tensors once; the f32 operations per valid
+    element, over the f32 peak (the kernels compute in f32 on CUDA cores)."""
+    ep = args[0]
+    B, S, A = ep.shape
+    item = ep.element_size()
+    if kind == "attn_phase2":
+        _, dp_seq, dsc_seq, _ = args
+        nz = dsc_seq != 0
+        valid_bs, valid_tb = float(nz.any(0).sum()), float(nz.any(-1).sum())
+        nbytes = 2 * valid_bs * A * item + valid_tb * A * item + dsc_seq.numel() * 4 + A * (item + 4)
+        return (*bound_ms(nbytes, float(nz.sum()) * A * 9, F32_PEAK), nbytes)
+    enc, mask = args[1], args[4]
+    C = enc.shape[2]
+    valid = float((mask > 0).sum())
+    small = (2 * B * A + A + B * C) * item + 3 * B * S * 4
+    nbytes = valid * (A + C) * item + small
+    ops = valid * ((4 * A + 2 * C) if kind == "attn_fwd" else (5 * A + 2 * C))
+    return (*bound_ms(nbytes, ops, F32_PEAK), nbytes)
+
+
+def train_feed(ptt, rng, batch, max_len, vocab, min_len):
+    """Ragged (src, trg) pairs; trg_in and label are the same sequence, as
+    bench.py feeds them."""
+    pack = lambda seqs: ptt.LoDArray.from_sequences(  # noqa: E731
+        seqs, capacity=batch * max_len, max_seqs=batch)
+    lens = rng.randint(min_len, max_len + 1, size=(2, batch))
+    lens[:, 0] = max_len
+    src, trg = ([rng.randint(2, vocab, size=(n,)).astype(np.int32) for n in row] for row in lens)
+    return {"src": pack(src), "trg_in": pack(trg), "label": pack(trg)}
+
+
+def seeded_state(ptt, main, startup, seed):
+    """The small program's startup state on the CPU, with its parameters
+    replaced by normal/sqrt(fan_in) values from `seed`."""
+    scope = ptt.Scope()
+    ptt.Executor(device="cpu").run(startup, scope=scope, seed=seed)
+    names = [v.name for v in main.persistables()]
+    state = ptt.io.state_to_numpy(scope, names)
+    rng = np.random.RandomState(seed)
+    for v in main.global_block().vars.values():
+        if v.is_parameter:
+            shape = state[v.name].shape
+            state[v.name] = (rng.standard_normal(shape) / np.sqrt(shape[0])).astype(np.float32)
+    return state
+
+
+def compare_state(got, want, amp, grads):
+    """Parameters and Adam moments after the steps, with TRAIN_PARITY's
+    bounds (`grads`: want's first-step P@GRAD); returns the worst readings
+    for printing."""
+    b = TRAIN_PARITY[amp]
+    worst = dict(param_share=0.0, param_far=0.0, moment=0.0, moment_share=0.0)
+    for n, w in want.items():
+        d = np.abs(got[n] - w)
+        if ".moment" in n:
+            scale = max(float(np.abs(w).max()), 1e-30)
+            rel, share = float(d.max()) / scale, float(np.mean(d > 0.01 * scale))
+            worst["moment"] = max(worst["moment"], rel)
+            worst["moment_share"] = max(worst["moment_share"], share)
+            check(rel <= b["moment"] and share <= b["moment_share"],
+                  f"{n}: moments {rel:.3e} apart ({share:.2%} beyond 1%)")
+        elif "_pow." in n or n.endswith(".lr"):
+            check(np.array_equal(got[n], w), f"{n}: {got[n]} != {w}")
+        else:
+            held = d
+            if "robust" in b:
+                g = np.abs(grads[n + "@GRAD"])
+                held = d[g > b["robust_grad"] * g.max()]
+            share, far = float(np.mean(d > b["close"] * LR)), float(held.max()) / LR
+            worst["param_share"] = max(worst["param_share"], share)
+            worst["param_far"] = max(worst["param_far"], far)
+            check(share <= b["share"] and far <= b.get("far", b.get("robust")),
+                  f"{n}: {share:.2%} of the parameter beyond {b['close']} lr, "
+                  f"the largest held value {far:.3f} lr apart")
+    return worst
 
 
 def main():
@@ -231,8 +455,9 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA GPU")
     sys.path.insert(0, ROOT)
+    torch.manual_seed(args.seed)
     import paddle_tpu_torch as ptt
-    from paddle_tpu_torch.ops import cuda_build, rnn_kernels
+    from paddle_tpu_torch.ops import attention_kernels, cuda_build, rnn_kernels
 
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -245,13 +470,19 @@ def main():
 
     phase(2, "build")
     t0 = time.perf_counter()
-    path = cuda_build.build("gru_fwd")
-    print(f"built {os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.2f} s")
-    with open(os.path.join(cuda_build.BUILD_DIR, "gru_fwd.log")) as f:
-        for line in f:
-            if "registers" in line or "Compiling entry" in line:
-                print("  ptxas:", line.strip())
+    names = ("gru_fwd", "gru_bwd", "bahdanau_attn")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        paths = list(pool.map(cuda_build.build, names))  # one nvcc each, together
+    print(f"built {', '.join(os.path.relpath(p, ROOT) for p in paths)} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in names:
+        with open(os.path.join(cuda_build.BUILD_DIR, f"{name}.log")) as f:
+            for line in f:
+                if "registers" in line or "Compiling entry" in line:
+                    print(f"  ptxas {name}:", line.strip())
     rnn_kernels._lib()
+    rnn_kernels._bwd_lib()
+    attention_kernels._lib()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -387,17 +618,246 @@ def main():
             check(score_ulps <= BF16_SCORE_ULPS, "card and CPU scores differ under bf16")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    infer_launches = launches
 
+    phase(6, "training program at full width (bf16): startup and a warm-up step")
+    wdir = os.path.join(ROOT, "paddle_tpu_torch", "artifacts", "nmt_train_wmt")
+    main_p, startup, meta = ptt.io.load_train_program(wdir)
+    check(main_p.amp_dtype == "bfloat16", f"amp {main_p.amp_dtype!r}")
+    tscope = ptt.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=tscope, seed=args.seed)
+    torch.cuda.synchronize()
+    n_values = sum(tscope.get(n).numel() for n in meta["param_names"])
+    print(f"  startup: {len(startup.global_block().ops)} ops, {len(meta['param_names'])} "
+          f"parameters with {n_values} values, in {time.perf_counter() - t0:.2f} s")
+    wd = meta["widths"]
+    TB, TS, TV = wd["batch"], wd["max_len"], wd["vocab"]
+    tfeed = train_feed(ptt, rng, TB, TS, TV, min_len=10)
+    trg_tokens = int(tfeed["label"].lengths.sum())
+    loss_name = meta["loss_name"]
+    gcalls, grestore = record_calls(rnn_kernels, {"gru_bwd": "all"})
+    acalls, arestore = record_calls(attention_kernels, {
+        "attn_fwd": "first", "attn_bwd_step": "last", "attn_phase2": "first"})
+    try:
+        t0 = time.perf_counter()
+        losses = [float(exe.run(main_p, tfeed, [loss_name], scope=tscope)[0])]
+        torch.cuda.synchronize()
+    finally:
+        grestore()
+        arestore()
+    print(f"  warm-up step: loss {losses[0]:.6f}, {time.perf_counter() - t0:.3f} s; "
+          f"{trg_tokens} target tokens, {int(tfeed['src'].lengths.sum())} source tokens")
+
+    phase(7, "training kernels against plain (the warm-up step's inputs, then seeded inputs)")
+    rows, max_errs = {}, {}
+
+    for i, (a, k) in enumerate(gcalls["gru_bwd"]):
+        rev = k.get("reverse", False)
+        for dt in (torch.bfloat16, torch.float32):
+            ins = [t.to(dt) if t.is_floating_point() else t for t in a]
+            got = rnn_kernels.gru_bwd(*ins, reverse=rev)
+            want = rnn_kernels.gru_bwd_plain(*ins, reverse=rev)
+            torch.cuda.synchronize()
+            scales = term_scales("gru_bwd", ins, want)
+            abs_errs, errs = zip(*(rel_err(g, w, sc) for g, w, sc in zip(got, want, scales)))
+            zero = [amax(w) / sc for w, sc in zip(want, scales)]
+            differing = float((got[0] != want[0]).float().mean())
+            k_ms = cuda_ms(lambda: rnn_kernels.gru_bwd(*ins, reverse=rev), 10)
+            p_ms = cuda_ms(lambda: rnn_kernels.gru_bwd_plain(*ins, reverse=rev), 2)
+            b_ms, b_by, nbytes = gru_bwd_bound(ins)
+            T_, B_, H_ = ins[2].shape
+            print(f"  gru_bwd T={T_} B={B_} H={H_} {str(dt)[6:]} {'rev' if rev else 'fwd'}: "
+                  f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
+                  f"({nbytes:.0f} B)")
+            print(f"    rel err dx {errs[0]:.3e} dW {errs[1]:.3e} (tol {TRAIN_TOL[dt]:g}; zeros "
+                  f"would read {zero[0]:.3e}, {zero[1]:.3e}); dx differing {differing:.4%}")
+            check(all(torch.isfinite(t.float()).all() for t in got), "non-finite gru_bwd output")
+            check(max(errs) <= TRAIN_TOL[dt], "gru_bwd disagrees with its plain version")
+            if dt == torch.bfloat16:
+                check(differing <= BF16_MAX_DIFFERING_DX,
+                      f"gru_bwd's dx differs in {differing:.4%} (max {BF16_MAX_DIFFERING_DX:.0%})")
+                f32 = rnn_kernels.gru_bwd_plain(*(t.float() if t.is_floating_point() else t
+                                                  for t in ins), reverse=rev)
+                off = float((f32[0].to(dt) != got[0]).float().mean())
+                print(f"    dh carried in f32 instead: dx differing {off:.4%}")
+                check(off > BF16_MAX_DIFFERING_DX,
+                      "the bf16 share bound does not catch a dh carry rounded elsewhere")
+                if i == 0:
+                    rows["gru_bwd"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+            max_errs["gru_bwd"] = max(max_errs.get("gru_bwd", 0.0), *abs_errs)
+    for T_, B_, H_ in GRU_BWD_EDGE:
+        for dt in TRAIN_TOL:
+            for rev in (False, True):
+                lens = torch.as_tensor(rng.randint(1, T_ + 1, size=B_))
+                mask = (torch.arange(T_)[:, None] < lens[None, :]).cuda()
+                x = torch.as_tensor(rng.standard_normal((T_, B_, 3 * H_)), dtype=dt).cuda()
+                w = torch.as_tensor(rng.standard_normal((H_, 3 * H_)) / np.sqrt(H_), dtype=dt).cuda()
+                h_seq, _ = rnn_kernels.gru_fwd_plain(x, mask, w, rev)
+                h_prev, ur, c, rh = rnn_kernels.gru_bwd_inputs(x, w, h_seq, rev)
+                dh = (0.1 * torch.randn(T_, B_, H_, device="cuda")).to(dt)
+                dhT = (0.1 * torch.randn(B_, H_, device="cuda")).to(dt)
+                ins = (ur, c, h_prev, rh, dh, mask, w, dhT)
+                want = rnn_kernels.gru_bwd_plain(*ins, reverse=rev)
+                scales = term_scales("gru_bwd", ins, want)
+                abs_errs, errs = zip(*(rel_err(g, w_, sc) for g, w_, sc in zip(
+                    rnn_kernels.gru_bwd(*ins, reverse=rev), want, scales)))
+                zero = [amax(w_) / sc for w_, sc in zip(want, scales)]
+                torch.cuda.synchronize()
+                print(f"  gru_bwd T={T_} B={B_} H={H_} {str(dt)[6:]} {'rev' if rev else 'fwd'}: "
+                      f"rel err dx {errs[0]:.3e} dW {errs[1]:.3e} (tol {TRAIN_TOL[dt]:g}; "
+                      f"zeros would read {zero[0]:.3e}, {zero[1]:.3e})")
+                check(max(errs) <= TRAIN_TOL[dt], "gru_bwd disagrees with its plain version")
+                check(min(zero) > TRAIN_TOL[dt], "gru_bwd: an output left at zero would pass")
+                max_errs["gru_bwd"] = max(max_errs["gru_bwd"], *abs_errs)
+
+    plain = {"attn_fwd": attention_kernels.attn_fwd_plain,
+             "attn_bwd_step": attention_kernels.attn_bwd_step_plain,
+             "attn_phase2": attention_kernels.attn_phase2_plain}
+
+    def attn_check(name, ins, label, timed=False):
+        """Kernel against plain on `ins`, and an output left at zero must
+        fail the same bound (see TRAIN_TOL)."""
+        got = getattr(attention_kernels, name)(*ins)
+        want = plain[name](*ins)
+        torch.cuda.synchronize()
+        scales = term_scales(name, ins, want)
+        errs = [beyond_ulp(g, w, sc) for g, w, sc in zip(got, want, scales)]
+        zero = [beyond_ulp(torch.zeros_like(w), w, sc) for w, sc in zip(want, scales)]
+        tol = TRAIN_TOL[torch.float32]
+        dt = ins[0].dtype
+        line = (f"  {name} {label} {str(dt)[6:]}: err beyond one ulp "
+                f"{', '.join(f'{e:.3e}' for e in errs)} (tol {tol:g}; zeros would read "
+                f"{', '.join(f'{z:.3e}' for z in zero)})")
+        if dt == torch.bfloat16:
+            line += f", {float((got[0] != want[0]).float().mean()):.4%} of {name}'s first output differing"
+        if timed:
+            k_ms = cuda_ms(lambda: getattr(attention_kernels, name)(*ins), 20)
+            p_ms = cuda_ms(lambda: plain[name](*ins), 3)
+            b_ms, b_by, nbytes = attn_bound(name, ins)
+            line += (f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms by "
+                     f"{b_by} ({nbytes:.0f} B)")
+            if dt == torch.bfloat16:
+                rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+        print(line)
+        check(all(torch.isfinite(t.float()).all() for t in got), f"non-finite {name} output")
+        check(max(errs) <= tol, f"{name} disagrees with its plain version")
+        check(min(zero) > tol, f"{name} {label}: an output left at zero would pass its check")
+        max_errs[name] = max(max_errs.get(name, 0.0),
+                             *(rel_err(g, w)[0] for g, w in zip(got, want)))
+
+    def seeded_attn(B_, S_, A_, C_, T_, dt, mask):
+        """Normal inputs at these widths, on which no output's sum cancels."""
+        f = lambda *shape, sc=1.0: (sc * torch.randn(*shape, device="cuda")).to(dt)  # noqa: E731
+        ep, enc, dp, v = f(B_, S_, A_), f(B_, S_, C_, sc=0.3), f(B_, A_), f(A_, sc=0.1)
+        _, alpha = attention_kernels.attn_fwd_plain(ep, enc, dp, v, mask)
+        dsc = 0.01 * torch.randn(T_, B_, S_, device="cuda") * mask
+        return {"attn_fwd": (ep, enc, dp, v, mask),
+                "attn_bwd_step": (ep, enc, dp, v, mask, f(B_, C_, sc=0.1), alpha),
+                "attn_phase2": (ep, f(T_, B_, A_), dsc, v)}
+
+    for name in plain:
+        a, _ = acalls[name][0]
+        B_, S_, A_ = a[0].shape
+        for dt in (torch.bfloat16, torch.float32):
+            ins = [t.to(dt) if t.dtype == torch.bfloat16 else t for t in a]
+            attn_check(name, ins, f"B={B_} S={S_} A={A_} (main path)", timed=True)
+    a_fwd, a_p2 = acalls["attn_fwd"][0][0], acalls["attn_phase2"][0][0]
+    (B_, S_, A_), C_, T_ = a_fwd[0].shape, a_fwd[1].shape[2], a_p2[1].shape[0]
+    for dt in TRAIN_TOL:  # the main path's shapes and source mask, seeded values
+        for name, ins in seeded_attn(B_, S_, A_, C_, T_, dt, a_fwd[4]).items():
+            attn_check(name, ins, f"B={B_} S={S_} A={A_} C={C_} T={T_} (main shapes, seeded)")
+    for B_, S_, A_, C_, T_ in ATTN_EDGE:
+        lens = torch.as_tensor(rng.randint(1, S_ + 1, size=B_))
+        mask = (torch.arange(S_)[None, :] < lens[:, None]).float().cuda()
+        for dt in TRAIN_TOL:
+            for name, ins in seeded_attn(B_, S_, A_, C_, T_, dt, mask).items():
+                attn_check(name, ins, f"B={B_} S={S_} A={A_} C={C_} T={T_}")
+    a, _ = acalls["attn_phase2"][0]
+    dv1, dv2 = (attention_kernels.attn_phase2(*a)[1] for _ in range(2))
+    check(torch.equal(dv1, dv2), "attn_phase2's dv differs between two runs")
+    print("  attn_phase2: dv has the same bits in two runs")
+
+    phase(8, "training at full width (bf16): 3 timed steps")
+    counters = {"gru_fwd": (rnn_kernels, "gru_fwd_launches"),
+                "gru_bwd": (rnn_kernels, "gru_bwd_launches"),
+                "attn_fwd": (attention_kernels, "attn_fwd_launches"),
+                "attn_bwd_step": (attention_kernels, "attn_bwd_step_launches"),
+                "attn_phase2": (attention_kernels, "attn_phase2_launches")}
+    torch.cuda.reset_peak_memory_stats()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main_p, tfeed, [loss_name], scope=tscope)[0]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    train_launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    print(f"  losses (warm-up, then timed): {losses}")
+    check(all(np.isfinite(losses)), "non-finite loss")
+    check(losses[-1] < losses[0], "the loss did not fall over 4 steps on one batch")
+    print(f"  launches in 3 steps: {train_launches}; per step expected {STEP_LAUNCHES}")
+    for k, n in STEP_LAUNCHES.items():
+        check(train_launches[k] == 3 * n, f"{k} launched {train_launches[k]} times in 3 steps")
+    tmed = statistics.median(times)
+    print(f"  steps ms: {[round(t, 3) for t in times]}; median {tmed:.3f} ms/step, "
+          f"{trg_tokens / tmed * 1e3:.1f} target tokens/s (B={TB}, lengths 10-{TS}); "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+    breakdown(lambda: exe.run(main_p, tfeed, [loss_name], scope=tscope), tmed, "step")
+
+    phase(9, "small training program: card against CPU (f32, then bf16)")
+    sdir = os.path.join(ROOT, "paddle_tpu_torch", "artifacts", "nmt_train_small")
+    smain, sstart, smeta = ptt.io.load_train_program(sdir)
+    state = seeded_state(ptt, smain, sstart, args.seed + 3)
+    sw = smeta["widths"]
+    srng = np.random.RandomState(args.seed + 4)
+    sfeeds = [train_feed(ptt, srng, sw["batch"], sw["max_len"], sw["vocab"], min_len=2)
+              for _ in range(2)]
+    gnames = [p + "@GRAD" for p in smeta["param_names"]]
+    for amp in (None, "bfloat16"):
+        smain.set_amp(amp)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            sc_ = ptt.Scope()
+            ptt.io.params_from_numpy(sc_, state, dev)
+            dexe = ptt.Executor(device=dev)
+            out = dexe.run(smain, sfeeds[0], [smeta["loss_name"]] + gnames, scope=sc_)
+            ls = [float(out[0]), float(dexe.run(smain, sfeeds[1], [smeta["loss_name"]],
+                                                scope=sc_)[0])]
+            res[dev] = (ls, ptt.io.state_to_numpy(sc_, list(state)), dict(zip(gnames, out[1:])))
+        (cl, cs, cg), (gl, gs, _) = res["cpu"], res["cuda"]
+        lerr = max(abs(a - b) / abs(a) for a, b in zip(cl, gl))
+        worst = compare_state(gs, cs, amp, cg)
+        b = TRAIN_PARITY[amp]
+        held = ("every value" if "far" in b else
+                f"the values whose gradient exceeds {b['robust_grad']:.0%} of the largest")
+        print(f"  {amp or 'f32'}: losses cpu {cl} card {gl}, rel {lerr:.3e} (tol {b['loss']:g}); "
+              f"after 2 steps {worst['param_share']:.3%} of parameter values beyond "
+              f"{b['close']} lr (max {b['share']:.1%}); of {held}, the largest "
+              f"{worst['param_far']:.3f} lr apart (max {b.get('far', b.get('robust'))}); "
+              f"moments {worst['moment']:.3e} (tol {b['moment']:g}), "
+              f"{worst['moment_share']:.3%} beyond 1% (max {b['moment_share']:.0%})")
+        check(lerr <= b["loss"], "card and CPU losses differ")
+
+    sources = {"gru_fwd": ("gru_fwd.cu", "paddle_tpu/ops/pallas_kernels.py:493"),
+               "gru_bwd": ("gru_bwd.cu", "paddle_tpu/ops/pallas_kernels.py:608"),
+               "attn_fwd": ("bahdanau_attn.cu", "paddle_tpu/ops/bahdanau_kernels.py:257"),
+               "attn_bwd_step": ("bahdanau_attn.cu", "paddle_tpu/ops/bahdanau_kernels.py:285"),
+               "attn_phase2": ("bahdanau_attn.cu", "paddle_tpu/ops/bahdanau_kernels.py:315")}
+    rows["gru_fwd"] = main_row
+    max_errs["gru_fwd"] = max_err
     kernels = [{
-        "name": "gru_fwd", "route": "cuda", "source": "paddle_tpu_torch/csrc/gru_fwd.cu",
-        "replaces": "paddle_tpu/ops/pallas_kernels.py:493", "launches": launches,
-        "max_abs_err": max_err, **main_row, "library_ms": None,
+        "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
+        "replaces": rep, "launches": train_launches[name],
+        "launches_by_path": ({"nmt_beam_infer": infer_launches, "nmt_train": train_launches[name]}
+                             if name == "gru_fwd" else {"nmt_train": train_launches[name]}),
+        "max_abs_err": max_errs[name], **rows[name], "library_ms": None,
         "checked_against_plain": True,
-    }]
+    } for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
-
 
 if __name__ == "__main__":
     main()

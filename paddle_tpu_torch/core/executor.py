@@ -4,22 +4,39 @@ The JAX package traces the block into one jitted XLA program per feed
 signature (paddle_tpu/core/executor.py). PyTorch runs eagerly, so the port
 walks the ops in order with no trace and no cache — the imperative
 semantics the reference executor (paddle/framework/executor.cc:117-146)
-has. Persistable values (parameters) live in a Scope across runs.
+has. Persistable values (parameters, optimizer state) live in a Scope
+across runs; every persistable an op replaced is written back after the
+run, as the JAX package's `new_state` is.
 
-This slice is forward-only: an `autodiff` op raises.
+A block with an `autodiff` op (what `append_backward` inserts) trains: the
+ops before it run once with autograd recording, each parameter the op
+names being a leaf that requires grad; at the op, `torch.autograd.grad`
+writes `P@GRAD` for every parameter; the ops after it (the optimizer
+updates) run under `torch.no_grad()`. The JAX package instead wraps the
+forward slice in `jax.grad` (`_run_autodiff`, executor.py:187-228); the
+forward is not run a second time here. A block without `autodiff` runs
+under `torch.inference_mode()`.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..amp import AMP_KEY
 from . import registry
 from .lod import LoDArray
 from .place import resolve_device
 from .program import Program, Variable
+
+GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
 
 
 class Scope:
@@ -48,12 +65,29 @@ def global_scope() -> Scope:
     return _global_scope
 
 
+def _detach(v):
+    if isinstance(v, LoDArray):
+        return v.with_data(v.data.detach())
+    return v.detach() if isinstance(v, torch.Tensor) else v
+
+
 def _to_numpy(v):
     if isinstance(v, LoDArray):
         return v
     if v.dtype == torch.bfloat16:  # numpy has no bfloat16
         v = v.float()
-    return v.detach().cpu().numpy()
+    return v.cpu().numpy()
+
+
+def _grad_leaf(name, value):
+    """A parameter as a leaf that requires grad. A value made under
+    inference_mode (a startup program's output) cannot record autograd, so
+    it is copied once; later steps find the optimizer's ordinary tensors."""
+    if not isinstance(value, torch.Tensor):
+        raise TypeError(f"autodiff: parameter {name!r} is a "
+                        f"{type(value).__name__}, not a tensor")
+    leaf = value.clone() if value.is_inference() else value.detach()
+    return leaf.requires_grad_(True)
 
 
 class Executor:
@@ -78,6 +112,15 @@ class Executor:
         raise TypeError(f"feed {name!r}: expected a numpy array, a tensor or a "
                         f"LoDArray, got {type(v).__name__}")
 
+    def _generator(self, seed: Optional[int]) -> torch.Generator:
+        """The random ops' generator for one run: from `seed`, else a fresh
+        seed, as the JAX package draws one (executor.py `_draw_seed`)."""
+        if seed is None:
+            seed = int.from_bytes(os.urandom(4), "little")
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        return gen
+
     def run(
         self,
         program: Program,
@@ -85,39 +128,96 @@ class Executor:
         fetch_list: Optional[Sequence] = None,
         scope: Optional[Scope] = None,
         return_numpy: bool = True,
+        seed: Optional[int] = None,
     ):
+        """Runs the global block; returns the fetches (numpy unless
+        return_numpy=False). `seed` seeds the random ops of this run
+        (default: a fresh seed)."""
         scope = scope or global_scope()
         fetch_names = [v.name if isinstance(v, Variable) else v
                        for v in (fetch_list or [])]
         env: Dict[str, Any] = {}
-        for v in program.persistables():
-            if scope.has(v.name):
-                val = scope.get(v.name)
+        persist = [v.name for v in program.persistables()]
+        for name in persist:
+            if scope.has(name):
+                val = scope.get(name)
                 if val.device != self.device:
                     raise ValueError(
-                        f"scope value {v.name!r} lies on {val.device}, the "
+                        f"scope value {name!r} lies on {val.device}, the "
                         f"executor runs on {self.device}: load the "
                         "parameters onto the executor's device")
-                env[v.name] = val
+                env[name] = val
         for k, v in (feed or {}).items():
             env[k] = self._to_device(k, v)
-        env["@AMP@"] = program.amp_dtype
+        env[AMP_KEY] = program.amp_dtype
+        env[registry.RNG_KEY] = self._generator(seed)
 
-        block = program.global_block()
-        with torch.inference_mode():
-            for i, op in enumerate(block.ops):
-                if op.type == "autodiff":
-                    raise NotImplementedError(
-                        "the PyTorch port is forward-only so far: autodiff "
-                        "comes with the training slice (ROADMAP.md, queue A)")
-                kernel = registry.get_kernel(op.type)
-                try:
-                    kernel(registry.OpContext(op, env))
-                except Exception as e:
-                    raise RuntimeError(
-                        f"{e}\n  while executing op #{i} {op.type!r} "
-                        f"inputs={op.inputs} outputs={op.outputs}") from e
-        fetches = [env[n] for n in fetch_names]
+        ops = program.global_block().ops
+        env[registry.LIVE_KEY] = {n for op in ops for names in op.inputs.values()
+                                  for n in names} | set(fetch_names) | set(persist)
+        at = [i for i, op in enumerate(ops) if op.type == "autodiff"]
+        if not at:
+            with torch.inference_mode():
+                self._run_ops(ops, 0, env)
+        elif len(at) > 1:
+            raise NotImplementedError(
+                f"{len(at)} autodiff ops in one block: the port runs one")
+        else:
+            k = at[0]
+            leaves = self._grad_leaves(program, ops[k], env)
+            with torch.enable_grad():
+                self._run_ops(ops[:k], 0, env)
+                self._run_autodiff(ops[k], env, leaves)
+            with torch.no_grad():
+                self._run_ops(ops[k + 1:], k + 1, env)
+        for name in persist:
+            if name in env:
+                scope.set(name, _detach(env[name]))
+        fetches = [_detach(env[n]) for n in fetch_names]
         if return_numpy:
             fetches = [_to_numpy(f) for f in fetches]
         return fetches
+
+    @staticmethod
+    def _run_ops(ops, first: int, env) -> None:
+        for i, op in enumerate(ops, first):
+            kernel = registry.get_kernel(op.type)
+            try:
+                kernel(registry.OpContext(op, env))
+            except Exception as e:
+                raise RuntimeError(
+                    f"{e}\n  while executing op #{i} {op.type!r} "
+                    f"inputs={op.inputs} outputs={op.outputs}") from e
+
+    @staticmethod
+    def _grad_leaves(program: Program, op, env) -> Dict[str, torch.Tensor]:
+        """Replace each parameter the autodiff op names with a leaf that
+        requires grad, before the forward ops read it."""
+        block = program.global_block()
+        sparse = [p for p in op.attrs["params"]
+                  if p in block.vars and block.vars[p].sparse_update]
+        if sparse:
+            raise NotImplementedError(
+                f"parameters {sparse} take SelectedRows gradients "
+                "(is_sparse embeddings), which are not ported yet "
+                "(ROADMAP.md, queue A, A7 core/sparse.py)")
+        leaves = {}
+        for p in op.attrs["params"]:
+            if p not in env:
+                raise KeyError(f"autodiff: parameter {p!r} is not in the scope; "
+                               "run the startup program first")
+            leaves[p] = env[p] = _grad_leaf(p, env[p])
+        return leaves
+
+    @staticmethod
+    def _run_autodiff(op, env, leaves) -> None:
+        loss_name = op.inputs["Loss"][0]
+        loss = env[loss_name]
+        if loss.numel() != 1:
+            raise ValueError(f"loss {loss_name!r} must be scalar for "
+                             f"append_backward; got shape {tuple(loss.shape)}")
+        names = list(op.attrs["params"])
+        grads = torch.autograd.grad(loss.reshape(()), [leaves[p] for p in names],
+                                    allow_unused=True)
+        for p, g in zip(names, grads):
+            env[grad_var_name(p)] = torch.zeros_like(leaves[p]) if g is None else g

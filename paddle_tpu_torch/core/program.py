@@ -1,7 +1,7 @@
 """Program IR: Program → Block → Operator / Variable.
 
-The port's copy of paddle_tpu/core/program.py, cut to what an inference
-artifact needs: the three-level structure, `set_amp`, and the
+The port's copy of paddle_tpu/core/program.py, cut to what a saved
+program needs: the three-level structure, `set_amp`, and the
 `to_dict`/`from_dict` schema (version 1), kept field for field so a
 `program.json` written by the JAX package loads here unchanged and a
 program loaded here serializes back to the same dict.

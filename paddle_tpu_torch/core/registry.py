@@ -3,7 +3,9 @@
 A kernel is a plain function `kernel(ctx: OpContext) -> None` that reads
 its inputs (torch tensors or LoDArrays) from `ctx`, computes eagerly on
 their device, and assigns its outputs — the interface of
-paddle_tpu/core/registry.py, without the traced-RNG half.
+paddle_tpu/core/registry.py. Random ops draw from the run's
+torch.Generator (`ctx.generator()`) where the JAX package splits a traced
+key.
 """
 
 from __future__ import annotations
@@ -11,6 +13,12 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List
 
 _KERNELS: Dict[str, Callable] = {}
+
+# env key of the run's torch.Generator, which the random ops draw from
+RNG_KEY = "@RNG@"
+# env key of the names a run reads after they are written (a later op's
+# input, a fetch or a persistable); absent, every output counts as read
+LIVE_KEY = "@LIVE@"
 
 
 class OpContext:
@@ -38,8 +46,20 @@ class OpContext:
     def has_output(self, slot: str) -> bool:
         return bool(self.op.outputs.get(slot))
 
+    def output_read(self, slot: str) -> bool:
+        """Whether anything of the run reads this output. An eager run has
+        no compiler to drop a dead output, as XLA drops it for the JAX
+        package, so a kernel may skip computing one that nothing reads."""
+        live = self.env.get(LIVE_KEY)
+        names = self.op.outputs.get(slot, [])
+        return bool(names) and (live is None or any(n in live for n in names))
+
     def attr(self, name: str, default=None):
         return self.op.attrs.get(name, default)
+
+    def generator(self):
+        """The run's random generator, on the executor's device."""
+        return self.env[RNG_KEY]
 
 
 def register_op(type_name: str) -> Callable:

@@ -4,6 +4,8 @@ from . import (  # noqa: F401
     activation_ops,
     attention_ops,
     math_ops,
+    nn_ops,
+    optimizer_ops,
     rnn_ops,
     sequence_ops,
 )

@@ -9,11 +9,28 @@ import torch
 from ..core.lod import LoDArray
 from ..core.registry import register_op
 
+
+def sigmoid(x):
+    """jax.nn.sigmoid as the JAX package's programs compute it: lowered to
+    1/(1+exp(-x)) op by op in x's dtype. In bf16 that rounds after each op,
+    where torch.sigmoid rounds once, and the two differ in about a third of
+    the values."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def softmax(x, dim=-1):
+    """jax.nn.softmax's own formula, exp(x - max) / sum, op by op in x's
+    dtype, so bf16 rounds where the JAX package rounds; torch.softmax
+    rounds once."""
+    e = torch.exp(x - x.max(dim, keepdim=True).values)
+    return e / e.sum(dim, keepdim=True)
+
+
 # name -> fn(x, attrs), the JAX package's table signature
 _ACTIVATIONS = {
     "identity": lambda x, a: x,
     "linear": lambda x, a: x,
-    "sigmoid": lambda x, a: torch.sigmoid(x),
+    "sigmoid": lambda x, a: sigmoid(x),
     "tanh": lambda x, a: torch.tanh(x),
 }
 

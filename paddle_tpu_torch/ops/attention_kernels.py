@@ -1,0 +1,317 @@
+"""Bahdanau attention decoder for training: the three hand-written Hopper
+kernels (csrc/bahdanau_attn.cu), their plain PyTorch versions, and
+`fused_attention_decoder`, the autograd Function around them.
+
+The counterpart of paddle_tpu/ops/bahdanau_kernels.py, with the per-step
+(scan) formulation that is the JAX package's default:
+
+  attn_fwd       replaces `_attn_fwd_kernel` / `_attn_fwd` (:170,257): one
+                 decoder step's scores Σ_A tanh(ep+dp)·v, the masked softmax
+                 over S and ctx = α·enc, never materialising [B,S,A].
+  attn_bwd_step  replaces `_attn_bwd_kernel` / `_attn_bwd_step` (:190,285):
+                 dα = dctx·enc, the softmax backward dsc, and
+                 ddp = Σ_S dsc·(1-t²)·v from a recomputed tanh.
+  attn_phase2    replaces `_attn_phase2_kernel` / `_attn_phase2` (:217,315):
+                 d(enc_proj) [B,S,A] summed in f32 over all T steps and
+                 written once, and dv [A] in f32.
+
+The kernels read [B,S,A] and [B,S,C] once per call and compute little on
+each byte, so bytes bound them. The S axis is not padded: the TPU pads it
+to a multiple of 16 for its tiles (tune/space.py:39-43), and a padded slot
+carries a -1e9 score, so it changes nothing but the tile.
+
+Each wrapper takes CUDA tensors to its kernel, or raises; CPU tensors to
+its plain version. There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build
+from .activation_ops import sigmoid
+from .rnn_ops import gru_cell
+
+# launches of the CUDA kernels in this process; chip_smoke.py reads them
+attn_fwd_launches = 0
+attn_bwd_step_launches = 0
+attn_phase2_launches = 0
+
+_IO_DTYPES = (torch.float32, torch.bfloat16)
+_NEG = -1e9
+
+
+# ------------------------------------------------------------ plain versions --
+def attn_fwd_plain(ep, enc, dp, v, mask):
+    """ep [B,S,A], enc [B,S,C], dp [B,A], v [A] in the io dtype; mask [B,S]
+    (>0 on real source tokens). Scores and softmax in f32; ctx is α (rounded
+    to the io dtype) times enc, summed in f32. Returns (ctx [B,C] io dtype,
+    alpha [B,S] f32)."""
+    t = torch.tanh(ep.float() + dp.float()[:, None, :])
+    scores = (t * v.float()).sum(-1)
+    scores = torch.where(mask > 0, scores, torch.full((), _NEG, device=ep.device))
+    e = torch.exp(scores - scores.max(-1, keepdim=True).values)
+    alpha = e / e.sum(-1, keepdim=True)
+    ctx = torch.bmm(alpha.to(enc.dtype).float()[:, None, :], enc.float())[:, 0]
+    return ctx.to(enc.dtype), alpha
+
+
+def attn_bwd_step_plain(ep, enc, dp, v, mask, dctx, alpha):
+    """One step's attention backward. dctx [B,C] io dtype, alpha [B,S] f32
+    (attn_fwd's). Returns (ddp [B,A] io dtype, dsc [B,S] f32, masked to 0)."""
+    dalpha = torch.bmm(enc.float(), dctx.float()[:, :, None])[..., 0]
+    tot = (alpha * dalpha).sum(-1, keepdim=True)
+    dsc = alpha * (dalpha - tot)
+    dsc = torch.where(mask > 0, dsc, torch.zeros((), device=dsc.device))
+    t = torch.tanh(ep.float() + dp.float()[:, None, :])
+    ddp = torch.bmm(dsc[:, None, :], 1.0 - t * t)[:, 0] * v.float()
+    return ddp.to(ep.dtype), dsc
+
+
+def attn_phase2_plain(ep, dp_seq, dsc_seq, v):
+    """dep[b,s,a] = Σ_t dsc·(1-tanh(ep+dp_t)²)·v, summed in f32 over t in
+    order and rounded once to the io dtype; dv[a] = Σ_{t,b,s} tanh·dsc in
+    f32. dp_seq [T,B,A] io dtype, dsc_seq [T,B,S] f32. Returns (dep [B,S,A],
+    dv [A] f32)."""
+    epf, vf = ep.float(), v.float()
+    dep = torch.zeros_like(epf)
+    dv = torch.zeros_like(vf)
+    for t in range(dp_seq.shape[0]):
+        th = torch.tanh(epf + dp_seq[t].float()[:, None, :])
+        dsc = dsc_seq[t][:, :, None]
+        dep = dep + dsc * (1.0 - th * th) * vf
+        dv = dv + (th * dsc).sum((0, 1))
+    return dep.to(ep.dtype), dv
+
+
+# --------------------------------------------------------------- wrappers --
+def _lib():
+    lib = cuda_build.load("bahdanau_attn")
+    if lib.attn_fwd_launch.argtypes is None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        lib.attn_fwd_launch.argtypes = [i] + [ptr] * 7 + [i] * 4 + [ptr]
+        lib.attn_bwd_step_launch.argtypes = [i] + [ptr] * 9 + [i] * 4 + [ptr]
+        lib.attn_phase2_launch.argtypes = [i] + [ptr] * 8 + [i] * 4 + [ptr]
+        for fn in (lib.attn_fwd_launch, lib.attn_bwd_step_launch, lib.attn_phase2_launch):
+            fn.restype = i
+        lib.attn_error_string.argtypes = [i]
+        lib.attn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name, ep, others):
+    """ep [B,S,A] sets the shapes; `others` maps a name to (tensor, shape,
+    dtype), dtype None meaning ep's io dtype and "any" no check."""
+    if ep.dim() != 3 or min(ep.shape) < 1:
+        raise ValueError(f"{name}: ep must be a non-empty [B,S,A], got {tuple(ep.shape)}")
+    if ep.dtype not in _IO_DTYPES:
+        raise TypeError(f"{name}: io dtype must be float32 or bfloat16, got {ep.dtype}")
+    for arg, (t, shape, dtype) in others.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {arg} must be {list(shape)}, got {list(t.shape)}")
+        want = dtype or ep.dtype
+        if want != "any" and t.dtype != want:
+            raise TypeError(f"{name}: {arg} is {t.dtype}, expected {want}")
+        if t.device != ep.device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, ep on {ep.device}")
+    if ep.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {ep.device}")
+
+
+def _raise(lib, name, err, shapes):
+    raise RuntimeError(f"{name} kernel launch failed ({shapes}): "
+                       f"{lib.attn_error_string(err).decode()}")
+
+
+def attn_fwd(ep, enc, dp, v, mask):
+    """One decoder step's attention; see attn_fwd_plain for the contract.
+    CUDA tensors launch the sm_90a kernel; CPU tensors run the plain
+    version."""
+    global attn_fwd_launches
+    B, S, A = ep.shape
+    C = enc.shape[-1] if enc.dim() == 3 else -1
+    _check("attn_fwd", ep, {"enc": (enc, (B, S, C), None), "dp": (dp, (B, A), None),
+                            "v": (v, (A,), None), "mask": (mask, (B, S), "any")})
+    if ep.device.type == "cpu":
+        return attn_fwd_plain(ep, enc, dp, v, mask)
+    ep, enc, dp, v = (t.contiguous() for t in (ep, enc, dp, v))
+    mask = mask.to(torch.float32).contiguous()
+    with torch.cuda.device(ep.device):
+        lib = _lib()
+        ctx = torch.empty(B, C, dtype=ep.dtype, device=ep.device)
+        alpha = torch.empty(B, S, dtype=torch.float32, device=ep.device)
+        err = lib.attn_fwd_launch(
+            int(ep.dtype == torch.bfloat16), ep.data_ptr(), enc.data_ptr(), dp.data_ptr(),
+            v.data_ptr(), mask.data_ptr(), ctx.data_ptr(), alpha.data_ptr(), B, S, A, C,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        _raise(lib, "attn_fwd", err, f"B={B} S={S} A={A} C={C} {ep.dtype}")
+    attn_fwd_launches += 1
+    return ctx, alpha
+
+
+def attn_bwd_step(ep, enc, dp, v, mask, dctx, alpha):
+    """One step's attention backward; see attn_bwd_step_plain."""
+    global attn_bwd_step_launches
+    B, S, A = ep.shape
+    C = enc.shape[-1] if enc.dim() == 3 else -1
+    _check("attn_bwd_step", ep, {
+        "enc": (enc, (B, S, C), None), "dp": (dp, (B, A), None), "v": (v, (A,), None),
+        "mask": (mask, (B, S), "any"), "dctx": (dctx, (B, C), None),
+        "alpha": (alpha, (B, S), torch.float32)})
+    if ep.device.type == "cpu":
+        return attn_bwd_step_plain(ep, enc, dp, v, mask, dctx, alpha)
+    ep, enc, dp, v, dctx, alpha = (t.contiguous() for t in (ep, enc, dp, v, dctx, alpha))
+    mask = mask.to(torch.float32).contiguous()
+    with torch.cuda.device(ep.device):
+        lib = _lib()
+        ddp = torch.empty(B, A, dtype=ep.dtype, device=ep.device)
+        dsc = torch.empty(B, S, dtype=torch.float32, device=ep.device)
+        err = lib.attn_bwd_step_launch(
+            int(ep.dtype == torch.bfloat16), ep.data_ptr(), enc.data_ptr(), dp.data_ptr(),
+            v.data_ptr(), mask.data_ptr(), dctx.data_ptr(), alpha.data_ptr(), ddp.data_ptr(),
+            dsc.data_ptr(), B, S, A, C, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        _raise(lib, "attn_bwd_step", err, f"B={B} S={S} A={A} C={C} {ep.dtype}")
+    attn_bwd_step_launches += 1
+    return ddp, dsc
+
+
+def attn_phase2(ep, dp_seq, dsc_seq, v):
+    """d(enc_proj) and dv over all steps; see attn_phase2_plain. dv is
+    summed over the batch from per-block partials in a fixed order, without
+    float atomics, so two runs give the same bits."""
+    global attn_phase2_launches
+    B, S, A = ep.shape
+    T = dp_seq.shape[0] if dp_seq.dim() == 3 else -1
+    _check("attn_phase2", ep, {"dp_seq": (dp_seq, (T, B, A), None),
+                               "dsc_seq": (dsc_seq, (T, B, S), torch.float32),
+                               "v": (v, (A,), None)})
+    if T < 1:
+        raise ValueError(f"attn_phase2: empty dp_seq {tuple(dp_seq.shape)}")
+    if ep.device.type == "cpu":
+        return attn_phase2_plain(ep, dp_seq, dsc_seq, v)
+    ep, dp_seq, dsc_seq, v = (t.contiguous() for t in (ep, dp_seq, dsc_seq, v))
+    with torch.cuda.device(ep.device):
+        lib = _lib()
+        dep = torch.empty(B, S, A, dtype=ep.dtype, device=ep.device)
+        dv = torch.empty(A, dtype=torch.float32, device=ep.device)
+        dv_part = torch.empty(B, A, dtype=torch.float32, device=ep.device)
+        done = torch.zeros(1, dtype=torch.int32, device=ep.device)
+        err = lib.attn_phase2_launch(
+            int(ep.dtype == torch.bfloat16), ep.data_ptr(), dp_seq.data_ptr(),
+            dsc_seq.data_ptr(), v.data_ptr(), dep.data_ptr(), dv.data_ptr(),
+            dv_part.data_ptr(), done.data_ptr(), T, B, S, A,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        _raise(lib, "attn_phase2", err, f"T={T} B={B} S={S} A={A} {ep.dtype}")
+    attn_phase2_launches += 1
+    return dep, dv
+
+
+# ----------------------------------------------------- the decoder Function --
+class _DecoderFn(torch.autograd.Function):
+    """Teacher-forcing attention-GRU decoder: the counterpart of
+    `_decoder_fn`'s scan branches (bahdanau_kernels.py:665-823).
+
+    (enc [B,S,C], ep [B,S,A], maskf [B,S], trg [T,B,E], tmask [T,B], h0,
+     wa_dec [H,A], v [A], wx [(E+C),3H], wh [H,3H], bias [3H]) -> h_seq,
+    everything but the two masks in one io dtype. The GRU cell computes in
+    the io dtype, as `_gru_fwd_step` does."""
+
+    @staticmethod
+    def forward(ctx, enc, ep, maskf, trg, tmask, h0, wa_dec, v, wx, wh, bias):
+        T, B, _ = trg.shape
+        dt = h0.dtype
+        h = h0
+        h_seq, alpha_seq, ctx_seq = [], [], []
+        for t in range(T):
+            dp = torch.matmul(h, wa_dec)
+            ctx_t, alpha = attn_fwd(ep, enc, dp, v, maskf)
+            xp = torch.matmul(torch.cat([trg[t], ctx_t], -1), wx) + bias
+            hn = gru_cell(xp, h, wh, sigmoid, torch.tanh)
+            m = tmask[t][:, None].to(dt)
+            h = m * hn + (1 - m) * h
+            h_seq.append(h)
+            alpha_seq.append(alpha)
+            ctx_seq.append(ctx_t)
+        h_seq = torch.stack(h_seq)
+        ctx.save_for_backward(enc, ep, maskf, trg, tmask, h0, wa_dec, v, wx, wh, bias,
+                              h_seq, torch.stack(alpha_seq), torch.stack(ctx_seq))
+        return h_seq
+
+    @staticmethod
+    def backward(ctx, g_seq):
+        (enc, ep, maskf, trg, tmask, h0, wa_dec, v, wx, wh, bias,
+         h_seq, alpha_seq, ctx_seq) = ctx.saved_tensors
+        T, B, H = h_seq.shape
+        E = trg.shape[-1]
+        dt = h_seq.dtype
+        g_seq = g_seq.to(dt)
+        # batched recompute of every gate (no sequential dependency)
+        hp_seq = torch.cat([h0[None], h_seq[:-1]])
+        dp_seq = torch.matmul(hp_seq, wa_dec)
+        xin_seq = torch.cat([trg, ctx_seq], -1)
+        xp_seq = torch.matmul(xin_seq, wx) + bias
+        w_ur, w_c = wh[:, : 2 * H], wh[:, 2 * H:]
+        ur_seq = sigmoid(xp_seq[..., : 2 * H] + torch.matmul(hp_seq, w_ur))
+        u_seq, r_seq = ur_seq[..., :H], ur_seq[..., H:]
+        rh_seq = r_seq * hp_seq
+        c_seq = torch.tanh(xp_seq[..., 2 * H:] + torch.matmul(rh_seq, w_c))
+        wx_ctx = wx[E:]
+        # the sequential dh chain, newest step first
+        dh = torch.zeros_like(h0)
+        dxp_seq, dctx_seq = [None] * T, [None] * T
+        dsc_seq, ddp_seq = [None] * T, [None] * T
+        for t in range(T - 1, -1, -1):
+            hp, u, r, c = hp_seq[t], u_seq[t], r_seq[t], c_seq[t]
+            dh = dh + g_seq[t]
+            m = tmask[t][:, None].to(dt)
+            dh_cell = dh * m
+            dh_prev = dh * (1 - m)
+            du = dh_cell * (c - hp)
+            dc = dh_cell * u
+            dh_prev = dh_prev + dh_cell * (1 - u)
+            dpre_c = dc * (1 - c * c)
+            drh = torch.matmul(dpre_c, w_c.T)
+            dr = drh * hp
+            dh_prev = dh_prev + drh * r
+            dpre_u = du * u * (1 - u)
+            dpre_r = dr * r * (1 - r)
+            dur = torch.cat([dpre_u, dpre_r], -1)
+            dh_prev = dh_prev + torch.matmul(dur, w_ur.T)
+            dxp = torch.cat([dur, dpre_c], -1)
+            dctx = torch.matmul(dxp, wx_ctx.T)
+            ddp, dsc = attn_bwd_step(ep, enc, dp_seq[t], v, maskf, dctx, alpha_seq[t])
+            dh = dh_prev + torch.matmul(ddp, wa_dec.T)
+            dxp_seq[t], dctx_seq[t], dsc_seq[t], ddp_seq[t] = dxp, dctx, dsc, ddp
+        dxp_seq, dctx_seq = torch.stack(dxp_seq), torch.stack(dctx_seq)
+        dsc_seq, ddp_seq = torch.stack(dsc_seq), torch.stack(ddp_seq)
+        # the [B,S,A]-sized gradient, written once
+        dep, dv = attn_phase2(ep, dp_seq, dsc_seq, v)
+        # the shared tail: batched products outside any kernel
+        TB = T * B
+        dx_seq = torch.matmul(dxp_seq, wx[:E].T)
+        dxp2 = dxp_seq.reshape(TB, 3 * H)
+        dwx = torch.matmul(xin_seq.reshape(TB, -1).T, dxp2)
+        dbias = dxp_seq.sum((0, 1))
+        hp2 = hp_seq.reshape(TB, H).T
+        dwh = torch.cat([torch.matmul(hp2, dxp2[:, : 2 * H]),
+                         torch.matmul(rh_seq.reshape(TB, H).T, dxp2[:, 2 * H:])], -1)
+        dwa_dec = torch.matmul(hp2, ddp_seq.reshape(TB, -1))
+        denc = torch.einsum("tbs,tbc->bsc", alpha_seq.to(dt), dctx_seq)
+        return (denc, dep, None, dx_seq, None, dh, dwa_dec, dv.to(v.dtype), dwx, dwh, dbias)
+
+
+def fused_attention_decoder(enc_b, enc_proj, enc_mask, trg_b, trg_mask, h0,
+                            wa_dec, v_att, wx, wh, bias):
+    """Public entry, the counterpart of bahdanau_kernels.fused_attention_decoder:
+    enc_b [B,S,C], enc_proj [B,S,A], enc_mask [B,S] bool, trg_b [T,B,E],
+    trg_mask [T,B], h0 [B,H], weights in trg_b's dtype, bias may be None.
+    Returns h_seq [T,B,H]."""
+    if bias is None:
+        bias = torch.zeros(wx.shape[1], dtype=trg_b.dtype, device=trg_b.device)
+    return _DecoderFn.apply(enc_b, enc_proj, enc_mask.to(torch.float32), trg_b,
+                            trg_mask.to(torch.float32), h0, wa_dec, v_att, wx, wh, bias)

@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with nvcc for sm_90a into a shared library
 with a plain C interface, under `paddle_tpu_torch/_build/` (listed in
-.gitignore). The file name carries a hash of the source, so an edited
-kernel is rebuilt and a built one is reused. Nothing here runs at import.
+.gitignore). The file name carries a hash of the source and the shared
+headers, so an edited kernel is rebuilt and a built one is reused. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -35,9 +35,14 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path, named by a hash of the source and of the shared
+    headers (csrc/*.cuh) it may include."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:

@@ -1,12 +1,15 @@
-"""Math op kernels of the inference slice: mul, elementwise_add,
-lookup_table (paddle_tpu/ops/math_ops.py:35,108,274), on torch tensors.
+"""Math op kernels: mul, elementwise_add, mean, lookup_table and the
+startup program's fill_constant, uniform_random and gaussian_random
+(paddle_tpu/ops/math_ops.py:35,108,118,274,306,335,346), on torch tensors.
 The matrix products go to torch.matmul, as the JAX package leaves them to
-XLA."""
+XLA. The random ops draw from the run's torch.Generator: the same
+distributions as the JAX package's, not the same numbers."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .. import amp
@@ -79,3 +82,46 @@ def lookup_table_kernel(ctx):
         out = torch.where((ids_data == pad)[..., None], torch.zeros((), dtype=out.dtype,
                                                                     device=out.device), out)
     ctx.set_output("Out", _like(ids, out))
+
+
+@register_op("mean")
+def mean_kernel(ctx):
+    """Loss-style reduction: a reduced-precision float input (bf16 under
+    amp) accumulates and emits f32."""
+    x = _data(ctx.input("X"))
+    if x.is_floating_point() and x.dtype != torch.float32:
+        x = x.float()
+    ctx.set_output("Out", x.mean())
+
+
+def _torch_dtype(name):
+    return torch.from_numpy(np.zeros((), np.dtype(name))).dtype
+
+
+def _random_out(ctx, sample):
+    """Draw in f32 on the generator's device, then cast to the op's dtype."""
+    gen = ctx.generator()
+    out = sample(tuple(ctx.attr("shape")), gen)
+    ctx.set_output("Out", out.to(_torch_dtype(ctx.attr("dtype", "float32"))))
+
+
+@register_op("fill_constant")
+def fill_constant_kernel(ctx):
+    dev = ctx.generator().device
+    ctx.set_output("Out", torch.full(tuple(ctx.attr("shape")), ctx.attr("value", 0.0),
+                                     dtype=_torch_dtype(ctx.attr("dtype", "float32")),
+                                     device=dev))
+
+
+@register_op("uniform_random")
+def uniform_random_kernel(ctx):
+    lo, hi = ctx.attr("min", -1.0), ctx.attr("max", 1.0)
+    _random_out(ctx, lambda shape, gen: torch.empty(
+        shape, device=gen.device).uniform_(lo, hi, generator=gen))
+
+
+@register_op("gaussian_random")
+def gaussian_random_kernel(ctx):
+    mean, std = ctx.attr("mean", 0.0), ctx.attr("std", 1.0)
+    _random_out(ctx, lambda shape, gen: torch.empty(
+        shape, device=gen.device).normal_(mean, std, generator=gen))

@@ -1,7 +1,8 @@
-"""Recurrent op kernels of the inference slice: `dynamic_gru`
-(paddle_tpu/ops/rnn_ops.py:398-430) with `gru_scan` (:126) and
-`gru_cell` (:103). Packed GRU gate layout in the 3H weight/bias:
-[u(update), r(reset), c(candidate)]."""
+"""Recurrent op kernels: `dynamic_gru` (paddle_tpu/ops/rnn_ops.py:398-430)
+with `gru_scan` (:126) and `gru_cell` (:103). Packed GRU gate layout in the
+3H weight/bias: [u(update), r(reset), c(candidate)]. With the fused flag on
+the op trains through the hand-written kernels' autograd Function
+(rnn_kernels.gru_fused); gru_scan trains through plain autograd."""
 
 from __future__ import annotations
 
@@ -63,9 +64,7 @@ def dynamic_gru_kernel(ctx):
     cand_act = ctx.attr("candidate_activation", "tanh")
     reverse = ctx.attr("is_reverse", False)
     if FLAGS.use_fused_rnn and gate_act == "sigmoid" and cand_act == "tanh":
-        # the bias joins x in the io dtype before the kernel, as gru_fused does
-        xb = x_tb if b is None else x_tb + b.to(x_tb.dtype)
-        h_seq, h_T = rnn_kernels.gru_fwd(xb, mask, w.to(x_tb.dtype), reverse=reverse)
+        h_seq, h_T = rnn_kernels.gru_fused(x_tb, mask, w, b, reverse=reverse)
     else:
         h_seq, h_T = gru_scan(x_tb, mask, w, b, gate_act=gate_act,
                               cand_act=cand_act, reverse=reverse)

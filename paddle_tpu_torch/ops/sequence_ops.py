@@ -1,5 +1,5 @@
-"""Sequence (LoD) op kernels of the inference slice: sequence_concat and
-sequence_first_step (paddle_tpu/ops/sequence_ops.py:111,121)."""
+"""Sequence (LoD) op kernels: sequence_concat, sequence_first_step and
+sequence_pool (paddle_tpu/ops/sequence_ops.py:52,111,121)."""
 
 from __future__ import annotations
 
@@ -11,7 +11,14 @@ from ..core.registry import register_op
 
 def segment_reduce(x: LoDArray, mode: str):
     """[capacity, ...] → [max_seqs, ...] per-sequence reduction. Only the
-    mode the ported ops use is here; an absent sequence reads slot 0."""
+    modes the ported ops use are here (`sum`, `first`); an absent sequence
+    reads slot 0 under `first` and sums to 0 under `sum`."""
+    if mode == "sum":
+        # padding slots go to a dump segment past the last sequence
+        ids = torch.where(x.seq_ids >= 0, x.seq_ids, x.max_seqs).long()
+        out = torch.zeros((x.max_seqs + 1,) + tuple(x.data.shape[1:]),
+                          dtype=x.data.dtype, device=x.device)
+        return out.index_add(0, ids, x.data)[:-1]
     if mode == "first":
         idx = x.offsets[:-1].long().clamp(0, x.capacity - 1)
         return x.data[idx]
@@ -28,3 +35,14 @@ def sequence_concat_kernel(ctx):
 @register_op("sequence_first_step")
 def sequence_first_step_kernel(ctx):
     ctx.set_output("Out", segment_reduce(ctx.input("X"), "first"))
+
+
+@register_op("sequence_pool")
+def sequence_pool_kernel(ctx):
+    """Per-sequence pooling, absent sequences (past num_seqs) zeroed."""
+    x = ctx.input("X")
+    out = segment_reduce(x, ctx.attr("pooltype", "sum").lower())
+    valid = torch.arange(x.max_seqs, device=x.device) < x.num_seqs
+    valid = valid.reshape((-1,) + (1,) * (out.dim() - 1))
+    ctx.set_output("Out", torch.where(valid, out, torch.zeros((), dtype=out.dtype,
+                                                              device=out.device)))
