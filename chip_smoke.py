@@ -45,13 +45,32 @@ exits non-zero without the final `ok` line:
   9. parity   the small training program (artifacts/nmt_train_small), card
               against CPU from the same state and feeds: losses and the
               state after 2 Adam steps, f32 then bf16 amp.
-  10. the kernels JSON line, then the device JSON line last.
+  10. lstm    bench.py's lstm program (V=30000, emb 128, H=512, T=100,
+              B=128, bf16; Adam(2e-3), L2Decay(8e-4), global-norm clip 25),
+              built by the port's own layer DSL and optimizer front end:
+              its startup program on the card, then a warm-up step on
+              bench.py's feed, recording the LSTM kernels' inputs.
+  11. kernels lstm_fwd and lstm_bwd (csrc/lstm_fwd.cu, csrc/lstm_bwd.cu)
+              against their plain versions on the card: the warm-up step's
+              inputs (forward, forward reversed, backward; bf16 and f32),
+              then seeded inputs with a ragged mask at the main path's
+              shapes and at edge shapes; errors beside their tolerances, an
+              output left at zero failing, kernel, plain, bound and cuDNN
+              (torch.nn.LSTM, the yardstick) times.
+  12. steps   3 timed LSTM training steps with the launch counts set to 0
+              just before: finite, falling losses, exactly 2 lstm_fwd and
+              2 lstm_bwd launches a step, median ms per step, tokens/s,
+              peak memory; then one more step under torch.profiler.
+  13. parity  the same program at a small width (V=64, emb 32, H=384, T=6,
+              B=8), card against CPU: losses and the state after 2 Adam
+              steps, f32 then bf16 amp.
+  14. the kernels JSON line, then the device JSON line last.
 
 Weights are made with numpy from --seed at the shapes the program
 declares (normal / sqrt(fan_in)): for the inference artifact written as
 params.npz beside a copy of the committed program.json/meta.json, for the
-small training program over its startup's state; the full-width training
-program starts from its own startup program. Nothing is downloaded and
+small training programs over their startups' state; the full-width
+training programs start from their own startup programs. Nothing is downloaded and
 nothing of the JAX package is needed.
 """
 
@@ -415,13 +434,16 @@ def seeded_state(ptt, main, startup, seed):
     return state
 
 
-def compare_state(got, want, amp, grads):
+def compare_state(got, want, amp, grads, lr=LR, biases=()):
     """Parameters and Adam moments after the steps, with TRAIN_PARITY's
-    bounds (`grads`: want's first-step P@GRAD); returns the worst readings
-    for printing."""
-    b = TRAIN_PARITY[amp]
+    bounds in units of `lr` (`grads`: want's first-step gradients as Adam
+    saw them, by P@GRAD name); the state of the parameters in `biases`
+    with LSTM_BIAS_PARITY's; returns the worst readings for printing."""
     worst = dict(param_share=0.0, param_far=0.0, moment=0.0, moment_share=0.0)
     for n, w in want.items():
+        b = dict(TRAIN_PARITY[amp])
+        if amp and any(n.endswith(p) for p in biases):
+            b.update(LSTM_BIAS_PARITY)
         d = np.abs(got[n] - w)
         if ".moment" in n:
             scale = max(float(np.abs(w).max()), 1e-30)
@@ -437,13 +459,339 @@ def compare_state(got, want, amp, grads):
             if "robust" in b:
                 g = np.abs(grads[n + "@GRAD"])
                 held = d[g > b["robust_grad"] * g.max()]
-            share, far = float(np.mean(d > b["close"] * LR)), float(held.max()) / LR
+            share, far = float(np.mean(d > b["close"] * lr)), float(held.max()) / lr
             worst["param_share"] = max(worst["param_share"], share)
             worst["param_far"] = max(worst["param_far"], far)
             check(share <= b["share"] and far <= b.get("far", b.get("robust")),
                   f"{n}: {share:.2%} of the parameter beyond {b['close']} lr, "
                   f"the largest held value {far:.3f} lr apart")
     return worst
+
+
+# ------------------------------------------------------------------- LSTM --
+# bench.py's lstm entry (_build_lstm_train, bench.py:261-317) at its
+# defaults: V=30000, emb 128, H=512, 100 tokens a sequence, B=128, bf16;
+# Adam(2e-3), L2Decay(8e-4), GradientClipByGlobalNorm(25)
+LSTM_BENCH = dict(vocab=30000, emb=128, hidden=512, seqlen=100, batch=128)
+LSTM_LR, LSTM_L2, LSTM_CLIP = 2e-3, 8e-4, 25.0
+# the small program of tests/test_torch_frontend.py, card against CPU
+LSTM_SMALL = dict(vocab=64, emb=32, hidden=384, seqlen=6, batch=8)
+# LSTM kernels against their plain versions, errors over the largest
+# element of each plain output, which an output left at zero reads as 1.
+# f32: the same f32 arithmetic summed in another order over 100 steps;
+# dW, a sum over T·B terms that nearly cancel, 1e-4 of its largest
+# element. bf16: h, c, the carries and the dgates are rounded at the same
+# places on both sides, and a sum that lands near a rounding boundary may
+# round one ulp apart, after which the flip travels through the
+# recurrence: 2e-2 of the scale (five ulps just below 1). On seeded inputs,
+# where every step's input is of one size, also a share of the differing
+# elements of h_seq (dx), which a rounding in the wrong place breaks
+# (checked beside it). On the training step's own inputs the share is
+# printed, not held: the loss reaches the LSTM at its last step only, so
+# the backward's dh decays over the 100 steps and one flip late in time
+# moves every smaller value after it by an ulp of its own.
+LSTM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+LSTM_DW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LSTM_MAX_DIFFERING = 0.05
+# (T, B, H) beyond the main path's: on a 132-SM card they take 1, 4 and 8
+# hidden units per CTA, the last two with a partly empty last CTA, the
+# last with dW outside the backward kernel
+LSTM_EDGE = [(3, 1, 100), (5, 3, 301), (4, 5, 700)]
+# the launches of one training step: two stacked layers
+LSTM_STEP_LAUNCHES = {"lstm_fwd": 2, "lstm_bwd": 2}
+# the small program's biases on the card against the CPU in bf16: their
+# gradients, sums over B·T cotangents that nearly cancel, are held to 0.1
+# of their largest (tests/test_torch_frontend.py), so the values held to
+# `robust` lr are those past 10% of the largest, and the moments within
+# 0.2 (the gradient's bound, squared)
+LSTM_BIAS_PARITY = dict(robust_grad=0.1, moment=0.2, moment_share=1.0)
+
+
+def build_lstm_program(ptt, vocab, emb, hidden, seqlen, batch=None):
+    """bench.py's _build_lstm_train through the port's own front end.
+    Returns (main, startup, loss)."""
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        words = ptt.layers.data("words", shape=[-1], dtype=np.int32, lod_level=1,
+                                append_batch_size=False)
+        label = ptt.layers.data("label", shape=[1], dtype=np.int32)
+        logits = ptt.models.lstm_benchmark_net(words, vocab_size=vocab, emb_dim=emb,
+                                               hidden=hidden, max_len=seqlen)
+        loss = ptt.layers.mean(ptt.layers.softmax_with_cross_entropy(logits, label))
+        ptt.optimizer.Adam(learning_rate=LSTM_LR,
+                           regularization=ptt.regularizer.L2Decay(LSTM_L2),
+                           grad_clip=ptt.optimizer.GradientClipByGlobalNorm(LSTM_CLIP)
+                           ).minimize(loss)
+    return main, startup, loss
+
+
+def lstm_bench_feed(ptt, vocab, seqlen, batch, device):
+    """bench.py's feed: `batch` sequences of `seqlen` tokens and binary
+    labels from RandomState(0)."""
+    rng = np.random.RandomState(0)
+    seqs = [rng.randint(0, vocab, (seqlen,)).astype(np.int32) for _ in range(batch)]
+    return {"words": ptt.LoDArray.from_sequences(seqs, capacity=batch * seqlen,
+                                                 max_seqs=batch, device=device),
+            "label": rng.randint(0, 2, (batch, 1)).astype(np.int32)}
+
+
+def lstm_fwd_bound(x, mask, w):
+    """Valid tokens only: x's valid rows, W and the f32 mask read once;
+    h_seq, c_seq, h_T and c_T written once; the product h@W, 8·H² operations
+    a token, at the io dtype's dense peak."""
+    T, B, H4 = x.shape
+    H, item = H4 // 4, x.element_size()
+    tokens = float(mask.float().sum())
+    nbytes = tokens * H4 * item + w.numel() * item + mask.numel() * 4 + 2 * (T + 1) * B * H * item
+    return (*bound_ms(nbytes, tokens * 2 * H4 * H, PEAK_FLOPS[x.dtype]), nbytes)
+
+
+def lstm_bwd_bound(args):
+    """Valid tokens only: gates_pre (4H), c_prev, h_prev and dh_seq in and
+    dx (4H) out for each; W, dhT, dcT and the f32 mask in and dW out once;
+    the two products (dh, dW) 16·H² operations a token."""
+    gp, cp, hp, dh, mask, w, dhT, dcT = args
+    tokens = float(mask.float().sum())
+    H, item = hp.shape[2], hp.element_size()
+    nbytes = tokens * 11 * H * item + 2 * w.numel() * item + 2 * dhT.numel() * item \
+        + mask.numel() * 4
+    return (*bound_ms(nbytes, tokens * 16 * H * H, PEAK_FLOPS[hp.dtype]), nbytes)
+
+
+def lstm_check(lk, kind, ins, reverse, label, max_errs, hold_share=True):
+    """One LSTM kernel against its plain version on `ins`: errors over
+    their scales, which an output left at zero must exceed; in bf16 the
+    share of h_seq (dx) elements that differ, held where `hold_share`.
+    Returns (got, want, share)."""
+    fn, plain = (lk.lstm_fwd, lk.lstm_fwd_plain) if kind == "lstm_fwd" else \
+        (lk.lstm_bwd, lk.lstm_bwd_plain)
+    got = fn(*ins, reverse=reverse)
+    want = plain(*ins, reverse=reverse)
+    torch.cuda.synchronize()
+    dt = want[0].dtype
+    tols = [LSTM_TOL[dt]] * len(want)
+    if kind == "lstm_bwd":
+        tols[1] = LSTM_DW_TOL[dt]
+    abs_errs, errs = zip(*(rel_err(g, w_) for g, w_ in zip(got, want)))
+    share = float((got[0] != want[0]).float().mean())
+    names = ("h_seq", "c_seq", "h_T", "c_T") if kind == "lstm_fwd" else ("dx", "dW")
+    print(f"  {kind} {label} {str(dt)[6:]} {'rev' if reverse else 'fwd'}: rel err "
+          + ", ".join(f"{n} {e:.3e} (tol {t:g})" for n, e, t in zip(names, errs, tols))
+          + f"; {names[0]} differing {share:.4%}"
+          + (f" (max {LSTM_MAX_DIFFERING:.0%})" if hold_share and dt == torch.bfloat16 else ""))
+    check(all(torch.isfinite(t.float()).all() for t in got), f"non-finite {kind} output")
+    check(all(e <= t for e, t in zip(errs, tols)), f"{kind} disagrees with its plain version")
+    check(all(amax(w_) > 0 for w_ in want), f"{kind} {label}: an output left at zero would pass")
+    check(dt != torch.bfloat16 or not hold_share or share <= LSTM_MAX_DIFFERING,
+          f"{kind}'s {names[0]} differs in {share:.4%} (max {LSTM_MAX_DIFFERING:.0%})")
+    max_errs[kind] = max(max_errs.get(kind, 0.0), *abs_errs)
+    return got, want, share
+
+
+def cudnn_lstm_ms(x, mask, w):
+    """The yardstick: torch.nn.LSTM (cuDNN) on the same pre-projected x,
+    with input_size 4H, weight_ih the identity, zero biases and
+    weight_hh = W^T, on a PackedSequence of the mask's lengths. Times its
+    forward (training mode) and its backward (dx and dW) alone, and the
+    [T·B,4H]x[4H,4H] identity product it adds, in x's dtype. Returns a
+    dict of the times, the dtype timed and cuDNN's h_seq."""
+    from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+    T, B, H4 = x.shape
+    H, dt = H4 // 4, x.dtype
+    lengths = mask.sum(0).cpu()
+    lstm = torch.nn.LSTM(H4, H).to(device=x.device, dtype=dt)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(torch.eye(H4))
+        lstm.weight_hh_l0.copy_(w.T)
+        lstm.bias_ih_l0.zero_()
+        lstm.bias_hh_l0.zero_()
+    lstm.flatten_parameters()  # one weight buffer, as cuDNN wants it
+    xin = x.detach().requires_grad_(True)
+    out, _ = lstm(pack_padded_sequence(xin, lengths, enforce_sorted=False))
+    grad = torch.randn_like(out.data)
+    fwd = cuda_ms(lambda: lstm(pack_padded_sequence(xin, lengths, enforce_sorted=False)), 10)
+    bwd = cuda_ms(lambda: torch.autograd.backward(out.data, grad, retain_graph=True), 10)
+    eye = torch.eye(H4, device=x.device, dtype=dt)
+    proj = cuda_ms(lambda: torch.matmul(xin.detach().reshape(T * B, H4), eye), 20)
+    h_seq, _ = pad_packed_sequence(out, total_length=T)
+    return dict(fwd_ms=fwd, bwd_ms=bwd, proj_ms=proj, dtype=str(dt)[6:], h_seq=h_seq.detach())
+
+
+def lstm_phases(ptt, exe, rng, smi, seed, first_phase):
+    """Phases first_phase.. of the LSTM slice; returns the kernels' rows,
+    their largest errors and their launches on the training path."""
+    from paddle_tpu_torch.ops import lstm_kernels as lk
+
+    n = first_phase
+    phase(n, "LSTM training program at full width (bf16), built by the port's front end: "
+          "startup and a warm-up step")
+    main_p, startup, loss = build_lstm_program(ptt, **LSTM_BENCH)
+    main_p.set_amp("bfloat16")
+    ops = [o.type for o in main_p.global_block().ops]
+    print(f"  main program: {len(ops)} ops ({ops.count('stacked_lstm2')} stacked_lstm2, "
+          f"{ops.count('adam')} adam, {ops.count('clip_by_global_norm')} clip_by_global_norm, "
+          f"{ops.count('scale')} scale); startup: {len(startup.global_block().ops)} ops")
+    scope = ptt.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope, seed=seed)
+    torch.cuda.synchronize()
+    n_values = sum(scope.get(p.name).numel() for p in main_p.parameters())
+    print(f"  startup: {len(main_p.parameters())} parameters with {n_values} values, "
+          f"{time.perf_counter() - t0:.2f} s")
+    feed = lstm_bench_feed(ptt, LSTM_BENCH["vocab"], LSTM_BENCH["seqlen"],
+                           LSTM_BENCH["batch"], exe.device)
+    tokens = LSTM_BENCH["batch"] * LSTM_BENCH["seqlen"]
+    calls, restore = record_calls(lk, {"lstm_fwd": "all", "lstm_bwd": "all"})
+    try:
+        t0 = time.perf_counter()
+        losses = [float(exe.run(main_p, feed, [loss.name], scope=scope)[0])]
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    print(f"  warm-up step: loss {losses[0]:.6f}, {time.perf_counter() - t0:.3f} s; "
+          f"{tokens} tokens; recorded {len(calls['lstm_fwd'])} lstm_fwd and "
+          f"{len(calls['lstm_bwd'])} lstm_bwd calls")
+    check(len(calls["lstm_fwd"]) == 2 and len(calls["lstm_bwd"]) == 2,
+          "the warm-up step did not run 2 lstm_fwd and 2 lstm_bwd")
+
+    n += 1
+    phase(n, "LSTM kernels against plain (the warm-up step's inputs, then seeded inputs)")
+    rows, max_errs = {}, {}
+    # the backward runs layer 2's call first
+    for i, ((a, _), (ba, _)) in enumerate(zip(calls["lstm_fwd"], calls["lstm_bwd"][::-1])):
+        x, mask, w = a
+        for dt in (torch.bfloat16, torch.float32):
+            fx, fw = x.to(dt), w.to(dt)
+            for rev in (False, True):
+                label = f"layer {i + 1} T={x.shape[0]} B={x.shape[1]} H={w.shape[0]}"
+                got, want, _ = lstm_check(lk, "lstm_fwd", (fx, mask, fw), rev, label, max_errs,
+                                          hold_share=False)
+                bins = lk.lstm_bwd_inputs(fx, fw, want[0], want[1], rev)
+                if rev:  # the step's own backward inputs are forward-only
+                    bargs = (*bins, torch.randn_like(want[0]) * 0.01, mask, fw,
+                             torch.zeros_like(want[2]), torch.zeros_like(want[3]))
+                else:
+                    bargs = tuple(t.to(dt) if t.is_floating_point() else t for t in ba)
+                lstm_check(lk, "lstm_bwd", bargs, rev, label, max_errs, hold_share=False)
+                if i == 0 and dt == torch.bfloat16 and not rev:
+                    k_ms = cuda_ms(lambda: lk.lstm_fwd(fx, mask, fw), 10)
+                    p_ms = cuda_ms(lambda: lk.lstm_fwd_plain(fx, mask, fw), 2)
+                    b_ms, b_by, nbytes = lstm_fwd_bound(fx, mask, fw)
+                    bk_ms = cuda_ms(lambda: lk.lstm_bwd(*bargs), 10)
+                    bp_ms = cuda_ms(lambda: lk.lstm_bwd_plain(*bargs), 2)
+                    bb_ms, bb_by, bbytes = lstm_bwd_bound(bargs)
+                    lib = cudnn_lstm_ms(fx, mask, fw)
+                    lib_err = float((lib["h_seq"].float() - want[0].float()).abs().max())
+                    T_ = fx.shape[0]
+                    print(f"    lstm_fwd: kernel {k_ms:.4f} ms ({k_ms / T_ * 1e3:.2f} us a time "
+                          f"step), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
+                          f"({nbytes:.0f} B)")
+                    print(f"    lstm_bwd: kernel {bk_ms:.4f} ms ({bk_ms / T_ * 1e3:.2f} us a "
+                          f"time step), plain {bp_ms:.4f} ms, bound {bb_ms:.5f} ms by {bb_by} "
+                          f"({bbytes:.0f} B)")
+                    print(f"    cuDNN torch.nn.LSTM ({lib['dtype']}, input_size 4H, identity "
+                          f"weight_ih, zero biases, PackedSequence): forward {lib['fwd_ms']:.4f} "
+                          f"ms, backward {lib['bwd_ms']:.4f} ms, of which its identity "
+                          f"[T*B,4H]x[4H,4H] product alone {lib['proj_ms']:.4f} ms; its h_seq "
+                          f"{lib_err:.3e} from the plain forward's")
+                    rows["lstm_fwd"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                            library_ms=lib["fwd_ms"])
+                    rows["lstm_bwd"] = dict(ms=bk_ms, plain_ms=bp_ms, bound_ms=bb_ms,
+                                            bound_by=bb_by, library_ms=lib["bwd_ms"])
+    main_shape = (LSTM_BENCH["seqlen"], LSTM_BENCH["batch"], LSTM_BENCH["hidden"])
+    for (T_, B_, H_), label in [(main_shape, "(main shapes, seeded, ragged)")] + \
+            [(s, "") for s in LSTM_EDGE]:
+        lens = torch.as_tensor(rng.randint(1, T_ + 1, size=B_))
+        lens[0] = T_
+        mask = (torch.arange(T_)[:, None] < lens[None, :]).cuda()
+        for dt in LSTM_TOL:
+            x = torch.as_tensor(rng.standard_normal((T_, B_, 4 * H_)), dtype=dt).cuda()
+            w = torch.as_tensor(rng.standard_normal((H_, 4 * H_)) / np.sqrt(H_), dtype=dt).cuda()
+            for rev in (False, True):
+                tag = f"T={T_} B={B_} H={H_} {label}".strip()
+                got, want, _ = lstm_check(lk, "lstm_fwd", (x, mask, w), rev, tag, max_errs)
+                gp, cp, hp = lk.lstm_bwd_inputs(x, w, want[0], want[1], rev)
+                dh, dhT, dcT = ((0.1 * torch.randn(*s, device="cuda")).to(dt)
+                                for s in ((T_, B_, H_), (B_, H_), (B_, H_)))
+                bargs = (gp, cp, hp, dh, mask, w, dhT, dcT)
+                bgot, _, _ = lstm_check(lk, "lstm_bwd", bargs, rev, tag, max_errs)
+                if dt != torch.bfloat16 or rev or label == "":
+                    continue
+                f32 = lk.lstm_fwd_plain(x.float(), mask, w.float())[0].to(dt)
+                off = float((f32 != got[0]).float().mean())
+                bf32 = lk.lstm_bwd_plain(*(t.float() if t.is_floating_point() else t
+                                           for t in bargs))[0].to(dt)
+                boff = float((bf32 != bgot[0]).float().mean())
+                print(f"    rounded only at the output: h_seq differing {off:.4%}; the "
+                      f"backward with f32 carries and dgates: dx differing {boff:.4%}")
+                check(off > LSTM_MAX_DIFFERING and boff > LSTM_MAX_DIFFERING,
+                      "the bf16 share bound does not catch a misplaced rounding")
+
+    n += 1
+    phase(n, "LSTM training at full width (bf16): 3 timed steps")
+    torch.cuda.reset_peak_memory_stats()
+    lk.lstm_fwd_launches = lk.lstm_bwd_launches = 0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main_p, feed, [loss.name], scope=scope)[0]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {"lstm_fwd": lk.lstm_fwd_launches, "lstm_bwd": lk.lstm_bwd_launches}
+    print(f"  losses (warm-up, then timed): {losses}")
+    check(all(np.isfinite(losses)), "non-finite loss")
+    check(losses[-1] < losses[0], "the loss did not fall over 4 steps on one batch")
+    print(f"  launches in 3 steps: {launches}; per step expected {LSTM_STEP_LAUNCHES}")
+    for k, c in LSTM_STEP_LAUNCHES.items():
+        check(launches[k] == 3 * c, f"{k} launched {launches[k]} times in 3 steps")
+    med = statistics.median(times)
+    print(f"  steps ms: {[round(t, 3) for t in times]}; median {med:.3f} ms/step, "
+          f"{tokens / med * 1e3:.1f} tokens/s (B={LSTM_BENCH['batch']}, "
+          f"{LSTM_BENCH['seqlen']} tokens each); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+    breakdown(lambda: exe.run(main_p, feed, [loss.name], scope=scope), med, "step")
+
+    n += 1
+    phase(n, "small LSTM program: card against CPU (f32, then bf16)")
+    smain, sstart, sloss = build_lstm_program(ptt, **LSTM_SMALL)
+    state = seeded_state(ptt, smain, sstart, seed + 5)
+    srng = np.random.RandomState(seed + 6)
+    T_, B_, V_ = LSTM_SMALL["seqlen"], LSTM_SMALL["batch"], LSTM_SMALL["vocab"]
+    sfeeds = []
+    for _ in range(2):
+        lens = srng.randint(2, T_ + 1, size=B_)
+        lens[0] = T_
+        seqs = [srng.randint(0, V_, size=k).astype(np.int32) for k in lens]
+        sfeeds.append({"words": ptt.LoDArray.from_sequences(seqs, capacity=B_ * T_, max_seqs=B_),
+                       "label": srng.randint(0, 2, (B_, 1)).astype(np.int32)})
+    params = [p.name for p in smain.parameters()]
+    biases = [p.name for p in smain.parameters() if len(p.shape) == 1]
+    gnames = [p + "@GRAD" for p in params]
+    for amp in (None, "bfloat16"):
+        smain.set_amp(amp)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            sc_ = ptt.Scope()
+            ptt.io.params_from_numpy(sc_, state, dev)
+            dexe = ptt.Executor(device=dev)
+            out = dexe.run(smain, sfeeds[0], [sloss.name] + gnames, scope=sc_)
+            ls = [float(out[0]), float(dexe.run(smain, sfeeds[1], [sloss.name], scope=sc_)[0])]
+            res[dev] = (ls, ptt.io.state_to_numpy(sc_, list(state)), dict(zip(gnames, out[1:])))
+        (cl, cs, cg), (gl, gs, _) = res["cpu"], res["cuda"]
+        seen = {g: cg[g] + LSTM_L2 * state[p] for p, g in zip(params, gnames)}
+        lerr = max(abs(a - b) / abs(a) for a, b in zip(cl, gl))
+        worst = compare_state(gs, cs, amp, seen, lr=LSTM_LR, biases=biases)
+        b = TRAIN_PARITY[amp]
+        loss_tol = b["loss"] if amp is None else 1e-3
+        print(f"  {amp or 'f32'}: losses cpu {cl} card {gl}, rel {lerr:.3e} (tol {loss_tol:g}); "
+              f"after 2 steps {worst['param_share']:.3%} of parameter values beyond "
+              f"{b['close']} lr (max {b['share']:.1%}); the largest held value "
+              f"{worst['param_far']:.3f} lr apart (max {b.get('far', b.get('robust'))}); "
+              f"moments {worst['moment']:.3e}, {worst['moment_share']:.3%} beyond 1%")
+        check(lerr <= loss_tol, "card and CPU losses differ")
+    return rows, max_errs, launches
 
 
 def main():
@@ -457,7 +805,7 @@ def main():
     sys.path.insert(0, ROOT)
     torch.manual_seed(args.seed)
     import paddle_tpu_torch as ptt
-    from paddle_tpu_torch.ops import attention_kernels, cuda_build, rnn_kernels
+    from paddle_tpu_torch.ops import attention_kernels, cuda_build, lstm_kernels, rnn_kernels
 
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -470,7 +818,7 @@ def main():
 
     phase(2, "build")
     t0 = time.perf_counter()
-    names = ("gru_fwd", "gru_bwd", "bahdanau_attn")
+    names = ("gru_fwd", "gru_bwd", "bahdanau_attn", "lstm_fwd", "lstm_bwd")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(cuda_build.build, names))  # one nvcc each, together
     print(f"built {', '.join(os.path.relpath(p, ROOT) for p in paths)} in "
@@ -483,6 +831,8 @@ def main():
     rnn_kernels._lib()
     rnn_kernels._bwd_lib()
     attention_kernels._lib()
+    lstm_kernels._lib("lstm_fwd")
+    lstm_kernels._lib("lstm_bwd")
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -840,20 +1190,28 @@ def main():
               f"{worst['moment_share']:.3%} beyond 1% (max {b['moment_share']:.0%})")
         check(lerr <= b["loss"], "card and CPU losses differ")
 
+    lrows, lerrs, lstm_launches = lstm_phases(ptt, exe, rng, smi, args.seed, 10)
+    rows.update(lrows)
+    max_errs.update(lerrs)
+
+    phase(14, "the kernels line, then the device line")
     sources = {"gru_fwd": ("gru_fwd.cu", "paddle_tpu/ops/pallas_kernels.py:493"),
                "gru_bwd": ("gru_bwd.cu", "paddle_tpu/ops/pallas_kernels.py:608"),
                "attn_fwd": ("bahdanau_attn.cu", "paddle_tpu/ops/bahdanau_kernels.py:257"),
                "attn_bwd_step": ("bahdanau_attn.cu", "paddle_tpu/ops/bahdanau_kernels.py:285"),
-               "attn_phase2": ("bahdanau_attn.cu", "paddle_tpu/ops/bahdanau_kernels.py:315")}
+               "attn_phase2": ("bahdanau_attn.cu", "paddle_tpu/ops/bahdanau_kernels.py:315"),
+               "lstm_fwd": ("lstm_fwd.cu", "paddle_tpu/ops/pallas_kernels.py:198"),
+               "lstm_bwd": ("lstm_bwd.cu", "paddle_tpu/ops/pallas_kernels.py:332")}
+    by_path = {k: {"nmt_train": n} for k, n in train_launches.items()}
+    by_path["gru_fwd"]["nmt_beam_infer"] = infer_launches
+    by_path.update({k: {"lstm_train": n} for k, n in lstm_launches.items()})
     rows["gru_fwd"] = main_row
     max_errs["gru_fwd"] = max_err
     kernels = [{
         "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
-        "replaces": rep, "launches": train_launches[name],
-        "launches_by_path": ({"nmt_beam_infer": infer_launches, "nmt_train": train_launches[name]}
-                             if name == "gru_fwd" else {"nmt_train": train_launches[name]}),
-        "max_abs_err": max_errs[name], **rows[name], "library_ms": None,
-        "checked_against_plain": True,
+        "replaces": rep, "launches": {**train_launches, **lstm_launches}[name],
+        "launches_by_path": by_path[name], "max_abs_err": max_errs[name],
+        "library_ms": None, **rows[name], "checked_against_plain": True,
     } for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,17 +6,34 @@ the two through the `Program.to_dict` schema and the
 `program.json`/`params.npz`/`meta.json` artifact format. Entry points run
 on the card (`device="cuda"`) unless the caller passes `device="cpu"`.
 
-This slice serves inference from a saved artifact:
+It serves inference from a saved artifact:
 
     program, feeds, fetches = paddle_tpu_torch.io.load_inference_model(d)
     out = paddle_tpu_torch.Executor().run(program, {feeds[0]: lod}, fetches)
+
+trains a program the JAX package saved (`io.load_train_program`), and
+trains programs built with its own layer DSL and optimizer front end:
+
+    with ptt.program_guard(main, startup):
+        words = ptt.layers.data("words", [-1], np.int32, lod_level=1,
+                                append_batch_size=False)
+        ...
+        ptt.optimizer.Adam(2e-3).minimize(loss)
+    exe = ptt.Executor()
+    exe.run(startup, scope=scope)
+    exe.run(main, feed, [loss], scope=scope)
 """
 
-from . import io, ops  # noqa: F401  (ops: registers the kernels)
+from . import initializer, io, layers, models, ops, optimizer, regularizer  # noqa: F401
+from .core.backward import append_backward
 from .core.executor import Executor, Scope, global_scope
 from .core.lod import LoDArray
-from .core.program import Program
+from .core.program import (Program, default_main_program, default_startup_program,
+                           program_guard, reset_default_programs)
 from .flags import FLAGS
+from .param_attr import ParamAttr
 
-__all__ = ["Executor", "FLAGS", "LoDArray", "Program", "Scope", "global_scope",
-           "io", "ops"]
+__all__ = ["Executor", "FLAGS", "LoDArray", "ParamAttr", "Program", "Scope",
+           "append_backward", "default_main_program", "default_startup_program",
+           "global_scope", "initializer", "io", "layers", "models", "ops", "optimizer",
+           "program_guard", "regularizer", "reset_default_programs"]

@@ -30,13 +30,7 @@ from ..amp import AMP_KEY
 from . import registry
 from .lod import LoDArray
 from .place import resolve_device
-from .program import Program, Variable
-
-GRAD_SUFFIX = "@GRAD"
-
-
-def grad_var_name(name: str) -> str:
-    return name + GRAD_SUFFIX
+from .program import Program, Variable, grad_var_name
 
 
 class Scope:

@@ -1,18 +1,40 @@
 """Program IR: Program → Block → Operator / Variable.
 
 The port's copy of paddle_tpu/core/program.py, cut to what a saved
-program needs: the three-level structure, `set_amp`, and the
-`to_dict`/`from_dict` schema (version 1), kept field for field so a
-`program.json` written by the JAX package loads here unchanged and a
-program loaded here serializes back to the same dict.
+program and the layer DSL need: the three-level structure, `set_amp`,
+parameters with their regularizer, clip and trainable flag, the default
+programs and `program_guard`, `unique_name` with the JAX package's counter
+and names, and the `to_dict`/`from_dict` schema (version 1), kept field
+for field so a `program.json` written by the JAX package loads here
+unchanged, a program loaded here serializes back to the same dict, and a
+program built here by the layer DSL serializes to the dict the JAX
+package's DSL gives.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+_unique_counter = itertools.count()
+
+
+def unique_name(prefix: str) -> str:
+    return f"{prefix}_{next(_unique_counter)}"
+
+
+def reset_unique_name() -> None:
+    global _unique_counter
+    _unique_counter = itertools.count()
+
+
+def grad_var_name(name: str) -> str:
+    """The gradient variable of `name`: `name@GRAD`."""
+    return name + "@GRAD"
 
 
 @dataclass
@@ -29,6 +51,11 @@ class Variable:
     is_parameter: bool = False
     sparse_format: Optional[str] = None
     sparse_update: bool = False
+    trainable: bool = True
+    # regularization / clipping attributes (set from a ParamAttr)
+    regularizer: Any = None
+    grad_clip: Any = None
+    optimize_attr: Dict[str, Any] = field(default_factory=lambda: {"learning_rate": 1.0})
 
     def __repr__(self):
         return f"Var({self.name}, shape={self.shape}, lod={self.lod_level})"
@@ -55,12 +82,37 @@ class Block:
         self.ops: List[Operator] = []
         self.vars: Dict[str, Variable] = {}
 
-    def create_var(self, name, shape=(), dtype=np.float32, **kw) -> Variable:
+    def create_var(self, name=None, shape=(), dtype=np.float32, **kw) -> Variable:
+        name = name or unique_name("tmp")
         if name in self.vars:
             return self.vars[name]
         v = Variable(self, name, tuple(shape), dtype, **kw)
         self.vars[name] = v
         return v
+
+    def create_parameter(self, name, shape, dtype=np.float32, **kw) -> Variable:
+        v = self.create_var(name, shape, dtype, persistable=True, is_parameter=True, **kw)
+        self.program.global_block().vars.setdefault(name, v)
+        return v
+
+    def var(self, name: str) -> Variable:
+        b: Optional[Block] = self
+        while b is not None:
+            if name in b.vars:
+                return b.vars[name]
+            b = self.program.blocks[b.parent_idx] if b.parent_idx >= 0 else None
+        raise KeyError(f"Variable {name!r} not found in block {self.idx}")
+
+    def append_op(self, type: str, inputs=None, outputs=None, attrs=None) -> "Operator":
+        """Variables (or names) per slot, a single one or a list."""
+        def norm(d):
+            return {k: [x.name if isinstance(x, Variable) else x
+                        for x in (v if isinstance(v, (list, tuple)) else [v])]
+                    for k, v in (d or {}).items()}
+
+        op = Operator(type, norm(inputs), norm(outputs), dict(attrs or {}))
+        self.ops.append(op)
+        return op
 
 
 class Program:
@@ -77,6 +129,13 @@ class Program:
 
     def global_block(self) -> Block:
         return self.blocks[0]
+
+    def current_block(self) -> Block:
+        # the port builds no sub-blocks: layers append to the global block
+        return self.blocks[0]
+
+    def parameters(self) -> List[Variable]:
+        return [v for v in self.global_block().vars.values() if v.is_parameter]
 
     def persistables(self) -> List[Variable]:
         return [v for v in self.global_block().vars.values() if v.persistable]
@@ -138,3 +197,39 @@ class Program:
                 b.ops.append(Operator(od["type"], od["inputs"], od["outputs"], od["attrs"]))
             p.blocks.append(b)
         return p
+
+
+# -- the default programs the layer DSL appends to ---------------------------
+_main_program = Program()
+_startup_program = Program()
+
+
+def default_main_program() -> Program:
+    return _main_program
+
+
+def default_startup_program() -> Program:
+    return _startup_program
+
+
+@contextlib.contextmanager
+def program_guard(main: Program, startup: Optional[Program] = None):
+    """Layers built inside append to `main` (and their initializers to
+    `startup`)."""
+    global _main_program, _startup_program
+    old_m, old_s = _main_program, _startup_program
+    _main_program = main
+    if startup is not None:
+        _startup_program = startup
+    try:
+        yield
+    finally:
+        _main_program, _startup_program = old_m, old_s
+
+
+def reset_default_programs():
+    """Fresh default programs and unique-name counter."""
+    global _main_program, _startup_program
+    _main_program = Program()
+    _startup_program = Program()
+    reset_unique_name()

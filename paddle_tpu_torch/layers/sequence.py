@@ -1,0 +1,81 @@
+"""Sequence layer DSL (paddle_tpu/layers/sequence.py), cut to the layers
+the ported programs use: dynamic_lstm (:41), stacked_lstm2 (:89) and
+sequence_pool (:252). All take lod_level=1 variables, a LoDArray at run
+time."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..initializer import XavierInitializer
+from ..param_attr import ParamAttr
+from .helper import LayerHelper
+
+__all__ = ["dynamic_lstm", "stacked_lstm2", "sequence_pool"]
+
+
+def dynamic_lstm(input, size: int, use_peepholes: bool = False, is_reverse: bool = False,
+                 gate_activation: str = "sigmoid", cell_activation: str = "tanh",
+                 candidate_activation: str = "tanh", param_attr=None, bias_attr=None,
+                 max_len: Optional[int] = None, name=None):
+    """`size` is 4*hidden and `input` the [*, 4H] projection (an fc before).
+    `max_len` bounds the time steps run and must be at least the longest
+    sequence: steps past it are dropped. Default: the LoDArray capacity."""
+    helper = LayerHelper("dynamic_lstm", name=name)
+    hidden = size // 4
+    w = helper.create_parameter(param_attr, (hidden, 4 * hidden),
+                                default_initializer=XavierInitializer())
+    bias_len = 4 * hidden + (3 * hidden if use_peepholes else 0)
+    inputs = {"Input": [input], "Weight": [w]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(bias_attr, (bias_len,), is_bias=True)]
+    out = helper.create_tmp_variable(input.dtype, (-1, hidden), lod_level=1)
+    last_h = helper.create_tmp_variable(input.dtype, (-1, hidden))
+    last_c = helper.create_tmp_variable(input.dtype, (-1, hidden))
+    helper.append_op(
+        type="dynamic_lstm", inputs=inputs,
+        outputs={"Hidden": [out], "LastH": [last_h], "LastC": [last_c]},
+        attrs={"use_peepholes": use_peepholes, "is_reverse": is_reverse,
+               "gate_activation": gate_activation, "cell_activation": cell_activation,
+               "candidate_activation": candidate_activation, "max_len": max_len})
+    return out
+
+
+def stacked_lstm2(input, size: int, param_attr=None, bias_attr=None,
+                  max_len: Optional[int] = None, name=None):
+    """Two stacked LSTM layers with the inter-layer [H, 4H] projection
+    absorbed into one op (benchmark/paddle/rnn/rnn.py's 2x stacked LSTM).
+    `size` is 4*hidden; `input` the layer-1 [*, 4H] projection; `max_len`
+    as dynamic_lstm's."""
+    helper = LayerHelper("stacked_lstm2", name=name)
+    hidden = size // 4
+    xav = XavierInitializer()
+
+    def weight(suffix):
+        return helper.create_parameter(ParamAttr.derive(param_attr, helper.name, suffix),
+                                       (hidden, 4 * hidden), default_initializer=xav)
+
+    inputs = {"Input": [input], "Weight1": [weight("w1")], "WX2": [weight("wx2")],
+              "Weight2": [weight("w2")]}
+    if bias_attr is not False:
+        for slot, suffix in (("Bias1", "b1"), ("Bias2", "b2")):
+            inputs[slot] = [helper.create_parameter(
+                ParamAttr.derive(bias_attr, helper.name, suffix), (4 * hidden,),
+                is_bias=True)]
+    out = helper.create_tmp_variable(input.dtype, (-1, hidden), lod_level=1)
+    helper.append_op(type="stacked_lstm2", inputs=inputs, outputs={"Hidden": [out]},
+                     attrs={"max_len": max_len})
+    return out
+
+
+def sequence_pool(input, pool_type: str = "sum", name=None):
+    """Per-sequence pooling to a dense [num_seqs, D]; the port runs the
+    `sum`, `first` and `last` modes."""
+    if pool_type.lower() not in ("sum", "first", "last"):
+        raise NotImplementedError(f"sequence_pool mode {pool_type!r} is not ported to the "
+                                  "PyTorch port yet")
+    helper = LayerHelper("sequence_pool", name=name)
+    out = helper.create_tmp_variable(input.dtype, (-1,) + tuple(input.shape[1:]))
+    helper.append_op(type="sequence_pool", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"pooltype": pool_type})
+    return out

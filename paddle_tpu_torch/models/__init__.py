@@ -1,0 +1,5 @@
+"""Model zoo (paddle_tpu/models), cut to the ported models."""
+
+from .text import lstm_benchmark_net  # noqa: F401
+
+__all__ = ["lstm_benchmark_net"]

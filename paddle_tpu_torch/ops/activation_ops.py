@@ -1,5 +1,5 @@
 """Activation op kernels (paddle_tpu/ops/activation_ops.py), cut to the
-activations the ported paths name: the `tanh` op, and the gate and
+activations the ported paths name: the `tanh` op, and the gate, cell and
 candidate activations `rnn_ops._act` looks up in `_ACTIVATIONS`."""
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ def softmax(x, dim=-1):
 _ACTIVATIONS = {
     "identity": lambda x, a: x,
     "linear": lambda x, a: x,
+    "relu": lambda x, a: torch.relu(x),
     "sigmoid": lambda x, a: sigmoid(x),
     "tanh": lambda x, a: torch.tanh(x),
 }

@@ -1,6 +1,7 @@
-"""Math op kernels: mul, elementwise_add, mean, lookup_table and the
-startup program's fill_constant, uniform_random and gaussian_random
-(paddle_tpu/ops/math_ops.py:35,108,118,274,306,335,346), on torch tensors.
+"""Math op kernels: mul, elementwise_add, mean, lookup_table, scale, sign,
+clip_by_global_norm and the startup program's fill_constant,
+uniform_random and gaussian_random (paddle_tpu/ops/math_ops.py:35,108,118,
+274,207,228,245,306,335,346), on torch tensors.
 The matrix products go to torch.matmul, as the JAX package leaves them to
 XLA. The random ops draw from the run's torch.Generator: the same
 distributions as the JAX package's, not the same numbers."""
@@ -82,6 +83,32 @@ def lookup_table_kernel(ctx):
         out = torch.where((ids_data == pad)[..., None], torch.zeros((), dtype=out.dtype,
                                                                     device=out.device), out)
     ctx.set_output("Out", _like(ids, out))
+
+
+@register_op("scale")
+def scale_kernel(ctx):
+    """x * scale + bias (the L2 decay's coeff·param, a learning-rate
+    multiplier)."""
+    x = ctx.input("X")
+    ctx.set_output("Out", _like(x, _data(x) * ctx.attr("scale", 1.0) + ctx.attr("bias", 0.0)))
+
+
+@register_op("sign")
+def sign_kernel(ctx):
+    x = ctx.input("X")
+    ctx.set_output("Out", _like(x, torch.sign(_data(x))))
+
+
+@register_op("clip_by_global_norm")
+def clip_by_global_norm_kernel(ctx):
+    """Scales every X[i] by min(max_norm / max(gnorm, 1e-12), 1), gnorm the
+    joint L2 norm of all of them, summed in f32 (the gradients of the f32
+    master parameters)."""
+    xs = [_data(x) for x in ctx.inputs("X")]
+    gnorm = torch.sqrt(sum(x.float().square().sum() for x in xs))
+    scale = torch.clamp(ctx.attr("max_global_norm") / torch.clamp(gnorm, min=1e-12), max=1.0)
+    for i, x in enumerate(xs):
+        ctx.set_output("Out", x * scale.to(x.dtype), idx=i)
 
 
 @register_op("mean")

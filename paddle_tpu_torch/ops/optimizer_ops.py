@@ -1,5 +1,6 @@
-"""Optimizer update op kernels: the dense branch of `adam`
-(paddle_tpu/ops/optimizer_ops.py:139-171) with `_write`/`_lr` (:20-31).
+"""Optimizer update op kernels: the dense branches of `sgd` and `adam`
+(paddle_tpu/ops/optimizer_ops.py:34-45, 139-171) with `_write`/`_lr`
+(:20-31).
 
 Each op replaces the parameter and its state persistables in the env; the
 executor writes them back to the Scope after the run. The update makes new
@@ -25,14 +26,25 @@ def _lr(ctx):
     return ctx.input("LearningRate").reshape(())
 
 
+def _dense_grad(ctx, op):
+    g = ctx.input("Grad")
+    if not isinstance(g, torch.Tensor):
+        raise NotImplementedError(
+            f"{op}: a {type(g).__name__} gradient (SelectedRows, from an "
+            "is_sparse embedding) is not ported yet (ROADMAP.md, queue A, A7)")
+    return g
+
+
+@register_op("sgd")
+def sgd_kernel(ctx):
+    """Reference: sgd_op.cc — p -= lr * g."""
+    _write(ctx, "Param", ctx.input("Param") - _lr(ctx) * _dense_grad(ctx, "sgd"))
+
+
 @register_op("adam")
 def adam_kernel(ctx):
     """Reference: adam_op.cc — bias-corrected via Beta1Pow/Beta2Pow state."""
-    p, g = ctx.input("Param"), ctx.input("Grad")
-    if not isinstance(g, torch.Tensor):
-        raise NotImplementedError(
-            f"adam: a {type(g).__name__} gradient (SelectedRows, from an "
-            "is_sparse embedding) is not ported yet (ROADMAP.md, queue A, A7)")
+    p, g = ctx.input("Param"), _dense_grad(ctx, "adam")
     m1, m2 = ctx.input("Moment1"), ctx.input("Moment2")
     b1p, b2p = ctx.input("Beta1Pow"), ctx.input("Beta2Pow")
     b1 = ctx.attr("beta1", 0.9)

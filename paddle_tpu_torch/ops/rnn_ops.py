@@ -1,8 +1,18 @@
 """Recurrent op kernels: `dynamic_gru` (paddle_tpu/ops/rnn_ops.py:398-430)
-with `gru_scan` (:126) and `gru_cell` (:103). Packed GRU gate layout in the
-3H weight/bias: [u(update), r(reset), c(candidate)]. With the fused flag on
-the op trains through the hand-written kernels' autograd Function
-(rnn_kernels.gru_fused); gru_scan trains through plain autograd."""
+with `gru_scan` (:126) and `gru_cell` (:103); `dynamic_lstm` (:352-395)
+and `stacked_lstm2` (:203-228) with `lstm_scan` (:39) and
+`stacked_lstm2_scan` (:162). Packed gate layouts: GRU 3H [u(update),
+r(reset), c(candidate)], LSTM 4H [i, f, g(candidate), o]. With the fused
+flag on, the ops train through the hand-written kernels' autograd
+Functions (rnn_kernels.gru_fused, lstm_kernels.lstm_fused) for the
+standard gates; the scans train through plain autograd. The JAX package's
+TPU eligibility rules (B a multiple of 8, H a multiple of 128 in a window)
+do not carry over: a CUDA tensor goes to the kernel or the wrapper raises.
+
+The scans compute in the io dtype op by op, as the JAX scans do: in bf16
+the recurrent product is rounded before the add and the bias is added in
+bf16, where the kernels add the unrounded f32 product to x. They are two
+different bf16 functions."""
 
 from __future__ import annotations
 
@@ -11,8 +21,8 @@ import torch
 from ..core.lod import LoDArray
 from ..core.registry import register_op
 from ..flags import FLAGS
-from . import rnn_kernels
-from .activation_ops import apply_activation
+from . import lstm_kernels, rnn_kernels
+from .activation_ops import apply_activation, sigmoid
 from .math_ops import dot
 
 
@@ -51,6 +61,122 @@ def gru_scan(x_tbh, mask, w_rec, bias, h0=None, gate_act="sigmoid",
         h = m * hn + (1 - m) * h
         h_seq[t] = h
     return h_seq, h
+
+
+def lstm_scan(x_tbh, mask, w_rec, bias, w_peephole=None, h0=None, c0=None,
+              gate_act="sigmoid", cell_act="tanh", cand_act="tanh", reverse=False):
+    """Masked LSTM as a Python loop over T steps, with optional peepholes
+    ([3H]: Wic, Wfc, Woc) and named activations. Returns
+    (h_seq [T,B,H], (h_T, c_T))."""
+    T, B, H4 = x_tbh.shape
+    H = H4 // 4
+    ga, ca, da = _act(gate_act), _act(cell_act), _act(cand_act)
+    dt = x_tbh.dtype
+    w_rec = w_rec.to(dt)
+    bias = None if bias is None else bias.to(dt)
+    dev = x_tbh.device
+    h = torch.zeros(B, H, dtype=dt, device=dev) if h0 is None else h0.to(dt)
+    c = torch.zeros(B, H, dtype=dt, device=dev) if c0 is None else c0.to(dt)
+    w_ic = w_fc = w_oc = None
+    if w_peephole is not None:
+        w_ic, w_fc, w_oc = torch.chunk(w_peephole.to(dt), 3)
+    h_seq = torch.empty(T, B, H, dtype=dt, device=dev)
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        gates = x_tbh[t] + dot(h, w_rec)
+        if bias is not None:
+            gates = gates + bias
+        i, f, g, o = torch.chunk(gates, 4, dim=-1)
+        if w_ic is not None:
+            i = i + c * w_ic
+            f = f + c * w_fc
+        i, f = ga(i), ga(f)
+        cn = f * c + i * da(g)
+        if w_oc is not None:
+            o = o + cn * w_oc
+        hn = ga(o) * ca(cn)
+        m = mask[t][:, None].to(dt)
+        h = m * hn + (1 - m) * h
+        c = m * cn + (1 - m) * c
+        h_seq[t] = h
+    return h_seq, (h, c)
+
+
+def stacked_lstm2_scan(x_tbh, mask, w1, b1, wx2, w2, b2):
+    """Two stacked LSTM layers in one masked loop: layer 2's input
+    projection (h1 @ wx2) runs inside the step. Standard gates, forward.
+    Returns (h2_seq [T,B,H], (h2_T, c2_T))."""
+    T, B, H4 = x_tbh.shape
+    H = H4 // 4
+    dt = x_tbh.dtype
+    w1, wx2, w2 = (w.to(dt) for w in (w1, wx2, w2))
+    b1 = None if b1 is None else b1.to(dt)
+    b2 = None if b2 is None else b2.to(dt)
+
+    def cell(x_t, h_prev, c_prev, w, b, m):
+        gates = x_t + dot(h_prev, w)
+        if b is not None:
+            gates = gates + b
+        i, f, g, o = torch.chunk(gates, 4, dim=-1)
+        c = sigmoid(f) * c_prev + sigmoid(i) * torch.tanh(g)
+        h = sigmoid(o) * torch.tanh(c)
+        return m * h + (1 - m) * h_prev, m * c + (1 - m) * c_prev
+
+    h1 = c1 = h2 = c2 = torch.zeros(B, H, dtype=dt, device=x_tbh.device)
+    h2_seq = torch.empty(T, B, H, dtype=dt, device=x_tbh.device)
+    for t in range(T):
+        m = mask[t][:, None].to(dt)
+        h1, c1 = cell(x_tbh[t], h1, c1, w1, b1, m)
+        h2, c2 = cell(dot(h1, wx2), h2, c2, w2, b2, m)
+        h2_seq[t] = h2
+    return h2_seq, (h2, c2)
+
+
+@register_op("stacked_lstm2")
+def stacked_lstm2_kernel(ctx):
+    """Two stacked LSTM layers with the inter-layer projection absorbed.
+    With the fused flag on: the layer-1 kernel, one batched h1_seq @ wx2
+    product, the layer-2 kernel. Off: the single two-layer scan."""
+    x: LoDArray = ctx.input("Input")  # [*, 4H] pre-projected layer 1
+    w1, wx2, w2 = (ctx.input(k) for k in ("Weight1", "WX2", "Weight2"))
+    b1 = ctx.input("Bias1") if ctx.has_input("Bias1") else None
+    b2 = ctx.input("Bias2") if ctx.has_input("Bias2") else None
+    max_len = ctx.attr("max_len") or x.capacity
+    x_tb, mask = x.to_batch(max_len=max_len)
+    if FLAGS.use_fused_rnn:
+        h1_seq, _ = lstm_kernels.lstm_fused(x_tb, mask, w1, bias=b1)
+        h2_seq, _ = lstm_kernels.lstm_fused(dot(h1_seq, wx2), mask, w2, bias=b2)
+    else:
+        h2_seq, _ = stacked_lstm2_scan(x_tb, mask, w1, b1, wx2, w2, b2)
+    ctx.set_output("Hidden", LoDArray.from_batch(h2_seq, mask, x))
+
+
+@register_op("dynamic_lstm")
+def dynamic_lstm_kernel(ctx):
+    """Input is the pre-projected [*, 4H] LoDArray. Peepholes, non-default
+    activations and (off the fused flag) everything go to lstm_scan, as
+    the reference's dispatch does; the rest to the kernels, reversed by
+    their index walk."""
+    x: LoDArray = ctx.input("Input")
+    w = ctx.input("Weight")  # [H, 4H]
+    b = ctx.input("Bias") if ctx.has_input("Bias") else None
+    peep = None
+    if b is not None and ctx.attr("use_peepholes", False):
+        b, peep = b[: w.shape[1]], b[w.shape[1] :]
+    max_len = ctx.attr("max_len") or x.capacity
+    x_tb, mask = x.to_batch(max_len=max_len)
+    acts = (ctx.attr("gate_activation", "sigmoid"), ctx.attr("cell_activation", "tanh"),
+            ctx.attr("candidate_activation", "tanh"))
+    reverse = ctx.attr("is_reverse", False)
+    if FLAGS.use_fused_rnn and peep is None and acts == ("sigmoid", "tanh", "tanh"):
+        h_seq, (h_T, c_T) = lstm_kernels.lstm_fused(x_tb, mask, w, bias=b, reverse=reverse)
+    else:
+        h_seq, (h_T, c_T) = lstm_scan(x_tb, mask, w, b, w_peephole=peep, gate_act=acts[0],
+                                      cell_act=acts[1], cand_act=acts[2], reverse=reverse)
+    ctx.set_output("Hidden", LoDArray.from_batch(h_seq, mask, x))
+    if ctx.has_output("LastH"):
+        ctx.set_output("LastH", h_T)
+    if ctx.has_output("LastC"):
+        ctx.set_output("LastC", c_T)
 
 
 @register_op("dynamic_gru")

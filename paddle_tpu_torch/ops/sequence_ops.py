@@ -1,5 +1,6 @@
 """Sequence (LoD) op kernels: sequence_concat, sequence_first_step and
-sequence_pool (paddle_tpu/ops/sequence_ops.py:52,111,121)."""
+sequence_pool (paddle_tpu/ops/sequence_ops.py:52,111,121), with
+`segment_reduce` (:25) cut to the sum, first and last modes."""
 
 from __future__ import annotations
 
@@ -11,8 +12,9 @@ from ..core.registry import register_op
 
 def segment_reduce(x: LoDArray, mode: str):
     """[capacity, ...] → [max_seqs, ...] per-sequence reduction. Only the
-    modes the ported ops use are here (`sum`, `first`); an absent sequence
-    reads slot 0 under `first` and sums to 0 under `sum`."""
+    modes the ported ops use are here (`sum`, `first`, `last`); an absent
+    sequence reads slot 0 under `first`, the slot before its offset under
+    `last` (the padded-flat layout's clamp) and sums to 0 under `sum`."""
     if mode == "sum":
         # padding slots go to a dump segment past the last sequence
         ids = torch.where(x.seq_ids >= 0, x.seq_ids, x.max_seqs).long()
@@ -21,6 +23,9 @@ def segment_reduce(x: LoDArray, mode: str):
         return out.index_add(0, ids, x.data)[:-1]
     if mode == "first":
         idx = x.offsets[:-1].long().clamp(0, x.capacity - 1)
+        return x.data[idx]
+    if mode == "last":
+        idx = (x.offsets[1:].long() - 1).clamp(0, x.capacity - 1)
         return x.data[idx]
     raise NotImplementedError(f"segment_reduce mode {mode!r} is not ported yet")
 

@@ -1,0 +1,293 @@
+"""LSTM forward and backward, and the LSTM scans.
+
+Forward: the port's plain version (ops/lstm_kernels.lstm_fwd_plain)
+against the JAX package's Pallas kernel `_lstm_pallas_raw` run in
+interpret mode (on flipped operands for a reversed LSTM, as lstm_fused
+does): h_seq, c_seq, h_T and c_T.
+
+Tolerances: f32 1e-5 (the same f32 arithmetic summed in another order;
+measured at most 2.4e-7). bf16: h and c are rounded to bf16 at the same
+places on both sides, but a different f32 summation order can move a
+rounding by one bf16 ulp, which then travels through the recurrence: at
+most 8e-3 apart (one ulp of a c between 1 and 2) and at most 1% of h_seq's
+elements differing (measured: 9.8e-4 and 0.07%). An LSTM that rounds its
+recurrent product to bf16 before the add, as the JAX and the port's scans
+do, differs in 43-67% of h_seq and fails
+(`test_bf16_bounds_reject_the_scans_rounding`).
+
+Backward: `lstm_bwd_plain`, on the pre-activations `lstm_bwd_inputs`
+recomputes, against `_lstm_bwd_pallas` in interpret mode, with dW inside
+the kernel and, with the threshold lowered on both sides, outside it; and
+the autograd Function `lstm_fused` against jax.vjp of the JAX package's.
+f32: dx and dW within 1e-6 of their largest element (measured 2.3e-7).
+bf16: within 1e-2 of the largest element and at most 1% of dx's elements
+differing (measured: dW 2.1e-3, dx differing in 0.007%). The same
+backward with the dh and dc carries and the dgates kept in f32, rounded
+only at the output, is at most 5.5e-3 off but differs in 16.5% of dx and
+fails (`test_bwd_bf16_bound_rejects_carries_in_f32`).
+
+Scans: the port's lstm_scan (peepholes, reverse, other activations) and
+stacked_lstm2_scan against the JAX scans, f32 within 1e-5, bf16 bit for
+bit (both compute op by op in bf16; measured: identical)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import pallas_kernels, rnn_ops
+from paddle_tpu_torch.ops import lstm_kernels
+from paddle_tpu_torch.ops import rnn_ops as prnn
+
+T, H = 7, 128
+
+
+def _inputs(B, seed, H=H):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(T, B, 4 * H).astype(np.float32)
+    w = (rng.randn(H, 4 * H) / np.sqrt(H)).astype(np.float32)
+    b = (0.1 * rng.randn(4 * H)).astype(np.float32)
+    lens = rng.randint(1, T + 1, size=B)
+    lens[0] = T
+    mask = np.arange(T)[:, None] < lens[None, :]  # [T, B], left aligned
+    return x, w, b, mask
+
+
+def _flip(a, reverse):
+    return a[::-1] if reverse else a
+
+
+def _pallas_fwd(xb, w, mask, reverse):
+    """_lstm_pallas_raw on jnp inputs (bias added), flipped in and out for
+    reverse; h_seq, c_seq, h_T, c_T as f32 numpy."""
+    out = pallas_kernels._lstm_pallas_raw(_flip(xb, reverse), jnp.asarray(_flip(mask, reverse)),
+                                          w.astype(xb.dtype))
+    h_seq, c_seq = (_flip(o, reverse) for o in out[:2])
+    return [np.asarray(o, np.float32) for o in (h_seq, c_seq, *out[2:])]
+
+
+def _port_x(x, b, tdt):
+    return torch.tensor(x).to(tdt) + torch.tensor(b).to(tdt)
+
+
+_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+_BF16_MAX_DIFFERING = 0.01  # share of h_seq elements
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_plain_matches_pallas_interpret(reverse, dtype):
+    x, w, b, mask = _inputs(8, seed=1 + reverse)
+    tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+    want = _pallas_fwd(jnp.asarray(x).astype(jdt) + jnp.asarray(b).astype(jdt),
+                       jnp.asarray(w), mask, reverse)
+    got = lstm_kernels.lstm_fwd_plain(_port_x(x, b, tdt), torch.tensor(mask),
+                                      torch.tensor(w), reverse=reverse)
+    assert [t.dtype for t in got] == [tdt] * 4 and got[0].shape == (T, 8, H)
+    for name, a, t in zip(("h_seq", "c_seq", "h_T", "c_T"), want, got):
+        np.testing.assert_allclose(t.float().numpy(), a, rtol=0, atol=_TOL[dtype], err_msg=name)
+    if dtype == "bfloat16":
+        assert np.mean(got[0].float().numpy() != want[0]) <= _BF16_MAX_DIFFERING
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_bf16_bounds_reject_the_scans_rounding(reverse):
+    """The bf16 LSTM that rounds h@W before adding x (the scans' rounding)
+    breaks the kernel path's share bound."""
+    x, w, b, mask = _inputs(8, seed=1 + reverse)
+    bf = jnp.bfloat16
+    want = _pallas_fwd(jnp.asarray(x).astype(bf) + jnp.asarray(b).astype(bf),
+                       jnp.asarray(w), mask, reverse)
+    h_seq, _ = prnn.lstm_scan(_port_x(x, b, torch.bfloat16), torch.tensor(mask),
+                              torch.tensor(w), None, reverse=reverse)
+    assert np.mean(h_seq.float().numpy() != want[0]) > _BF16_MAX_DIFFERING
+
+
+def test_cpu_wrapper_runs_plain_and_launches_nothing():
+    x, w, b, mask = _inputs(8, seed=3)
+    args = (torch.tensor(x + b), torch.tensor(mask), torch.tensor(w))
+    before = (lstm_kernels.lstm_fwd_launches, lstm_kernels.lstm_bwd_launches)
+    got = lstm_kernels.lstm_fwd(*args, reverse=True)
+    want = lstm_kernels.lstm_fwd_plain(*args, reverse=True)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, want))
+    gp, cp, hp = lstm_kernels.lstm_bwd_inputs(args[0], args[2], got[0], got[1], True)
+    bargs = (gp, cp, hp, torch.ones_like(hp), args[1], args[2], torch.zeros(8, H),
+             torch.zeros(8, H))
+    got = lstm_kernels.lstm_bwd(*bargs, reverse=True)
+    want = lstm_kernels.lstm_bwd_plain(*bargs, reverse=True)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, want))
+    assert (lstm_kernels.lstm_fwd_launches, lstm_kernels.lstm_bwd_launches) == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "w_shape", "mask_shape", "x_width"])
+def test_fwd_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    x, w, mask = torch.zeros(T, 8, 4 * H), torch.zeros(H, 4 * H), torch.ones(T, 8)
+    if bad == "dtype":
+        x = x.half()
+    elif bad == "w_shape":
+        w = torch.zeros(H, 3 * H)
+    elif bad == "mask_shape":
+        mask = torch.ones(8, T)
+    else:
+        x = torch.zeros(T, 8, 4 * H + 2)
+    with pytest.raises((TypeError, ValueError)):
+        lstm_kernels.lstm_fwd(x, mask, w)
+
+
+@pytest.mark.parametrize("bad", ["mixed_dtype", "gates_shape", "dcT_shape", "device"])
+def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    B = 8
+    gp, cp, hp, dh = (torch.zeros(T, B, k) for k in (4 * H, H, H, H))
+    w, mask, dhT, dcT = torch.zeros(H, 4 * H), torch.ones(T, B), torch.zeros(B, H), torch.zeros(B, H)
+    if bad == "mixed_dtype":
+        w = w.bfloat16()
+    elif bad == "gates_shape":
+        gp = torch.zeros(T, B, 3 * H)
+    elif bad == "dcT_shape":
+        dcT = torch.zeros(B, 2 * H)
+    else:
+        dcT = torch.zeros(B, H, device="meta")
+    with pytest.raises((TypeError, ValueError)):
+        lstm_kernels.lstm_bwd(gp, cp, hp, dh, mask, w, dhT, dcT)
+
+
+# ------------------------------------------------------------- backward --
+_BWD_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
+_BWD_BF16_MAX_DIFFERING = 0.01  # share of dx's elements
+
+
+def _bwd_case(seed, reverse, dtype, carries_f32=False, B=8):
+    """(Pallas dx, dW), (port dx, dW) as f32 numpy, on one seeded case."""
+    x, w, b, mask = _inputs(B, seed)
+    rng = np.random.RandomState(seed + 100)
+    tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+    xt, wt, mt = _port_x(x, b, tdt), torch.tensor(w).to(tdt), torch.tensor(mask)
+    dh, dhT, dcT = (torch.tensor(0.1 * rng.randn(*s), dtype=torch.float32).to(tdt)
+                    for s in ((T, B, H), (B, H), (B, H)))
+    h_seq, c_seq, _, _ = lstm_kernels.lstm_fwd_plain(xt, mt, wt, reverse)
+    gp, cp, hp = lstm_kernels.lstm_bwd_inputs(xt, wt, h_seq, c_seq, reverse)
+    args = (gp, cp, hp, dh, mt, wt, dhT, dcT)
+    if carries_f32:
+        got = lstm_kernels.lstm_bwd_plain(*(a.float() if a.is_floating_point() else a
+                                            for a in args), reverse=reverse)
+    else:
+        got = lstm_kernels.lstm_bwd_plain(*args, reverse=reverse)
+        assert got[0].dtype == tdt and got[1].shape == (H, 4 * H) and got[1].dtype == tdt
+    to_j = lambda t: jnp.asarray(t.float().numpy()).astype(jdt)  # noqa: E731
+    jx, jh, jc, jdh = (_flip(to_j(t), reverse) for t in (xt, h_seq, c_seq, dh))
+    j_dx, j_dw = pallas_kernels._lstm_bwd_pallas(jx, jnp.asarray(_flip(mask, reverse)),
+                                                 to_j(wt), jh, jc, jdh, to_j(dhT), to_j(dcT))
+    want = [np.asarray(a, np.float32) for a in (_flip(j_dx, reverse), j_dw)]
+    return want, [t.to(tdt).float().numpy() for t in got]
+
+
+def _assert_bwd_close(want, got, dtype):
+    for name, a, b in zip(("dx", "dW"), want, got):
+        assert np.abs(a - b).max() <= _BWD_TOL[dtype] * np.abs(a).max(), name
+    if dtype == "bfloat16":
+        assert np.mean(want[0] != got[0]) <= _BWD_BF16_MAX_DIFFERING
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_bwd_plain_matches_pallas_interpret(reverse, dtype):
+    want, got = _bwd_case(3 + reverse, reverse, dtype)
+    _assert_bwd_close(want, got, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_outer_dw_path_matches_pallas_interpret(monkeypatch, dtype):
+    """Past the fused-dW threshold dW is one batched product outside the
+    kernel, on both sides (the threshold lowered below H on both)."""
+    monkeypatch.setattr(pallas_kernels, "_LSTM_FUSED_DW_MAX_H", H // 2)
+    monkeypatch.setattr(lstm_kernels, "LSTM_FUSED_DW_MAX_H", H // 2)
+    want, got = _bwd_case(5, False, dtype)
+    _assert_bwd_close(want, got, dtype)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_bwd_bf16_bound_rejects_carries_in_f32(reverse):
+    want, got = _bwd_case(3 + reverse, reverse, "bfloat16", carries_f32=True)
+    assert np.mean(want[0] != got[0]) > _BWD_BF16_MAX_DIFFERING
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_lstm_fused_autograd_matches_jax_vjp(reverse):
+    """The autograd Function over the kernels' plain versions against
+    jax.vjp of the JAX package's lstm_fused (Pallas in interpret mode):
+    the outputs, and the gradients of x, W and the bias for cotangents on
+    h_seq, h_T and c_T, f32."""
+    x, w, b, mask = _inputs(8, seed=20 + reverse)
+    rng = np.random.RandomState(1)
+    cots = [rng.randn(*s).astype(np.float32) for s in ((T, 8, H), (8, H), (8, H))]
+
+    def jfn(x, w, b):
+        h_seq, (h_T, c_T) = pallas_kernels.lstm_fused(x, jnp.asarray(mask), w, bias=b,
+                                                      reverse=reverse)
+        return h_seq, h_T, c_T
+
+    outs, vjp = jax.vjp(jfn, jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    want = vjp(tuple(jnp.asarray(c) for c in cots))
+    xt, wt, bt = (torch.tensor(a, requires_grad=True) for a in (x, w, b))
+    h_seq, (h_T, c_T) = lstm_kernels.lstm_fused(xt, torch.tensor(mask), wt, bt, reverse=reverse)
+    for a, t in zip(outs, (h_seq, h_T, c_T)):
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(a), rtol=0, atol=1e-5)
+    sum((t * torch.tensor(c)).sum() for t, c in zip((h_seq, h_T, c_T), cots)).backward()
+    for name, a, t in zip(("x", "W", "bias"), want, (xt, wt, bt)):
+        a = np.asarray(a)
+        np.testing.assert_allclose(t.grad.numpy(), a, rtol=0, atol=1e-5 * np.abs(a).max(),
+                                   err_msg=name)
+
+
+# ----------------------------------------------------------------- scans --
+_SCAN_CASES = {
+    "plain": {},
+    "reverse": dict(reverse=True),
+    "peepholes": dict(peep=True),
+    "activations": dict(gate_act="sigmoid", cell_act="relu", cand_act="identity"),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(_SCAN_CASES))
+def test_lstm_scan_matches_jax(case, dtype):
+    kw = dict(_SCAN_CASES[case])
+    x, w, b, mask = _inputs(8, seed=30, H=32)
+    peep = (0.1 * np.random.RandomState(31).randn(3 * 32)).astype(np.float32) \
+        if kw.pop("peep", False) else None
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    j_seq, (j_h, j_c) = rnn_ops.lstm_scan(
+        jnp.asarray(x).astype(jdt), jnp.asarray(mask), jnp.asarray(w), jnp.asarray(b),
+        w_peephole=None if peep is None else jnp.asarray(peep), **kw)
+    p_seq, (p_h, p_c) = prnn.lstm_scan(
+        torch.tensor(x).to(tdt), torch.tensor(mask), torch.tensor(w), torch.tensor(b),
+        w_peephole=None if peep is None else torch.tensor(peep), **kw)
+    for a, t in ((j_seq, p_seq), (j_h, p_h), (j_c, p_c)):
+        assert t.dtype == tdt
+        a, t = np.asarray(a, np.float32), t.float().numpy()
+        if dtype == "bfloat16":
+            np.testing.assert_array_equal(t, a)
+        else:
+            np.testing.assert_allclose(t, a, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stacked_lstm2_scan_matches_jax(dtype):
+    x, w1, b1, mask = _inputs(8, seed=40, H=32)
+    rng = np.random.RandomState(41)
+    wx2, w2 = ((rng.randn(32, 128) / np.sqrt(32)).astype(np.float32) for _ in range(2))
+    b2 = (0.1 * rng.randn(128)).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    j_seq, (j_h, j_c) = rnn_ops.stacked_lstm2_scan(
+        jnp.asarray(x).astype(jdt), jnp.asarray(mask),
+        *(jnp.asarray(a) for a in (w1, b1, wx2, w2, b2)))
+    p_seq, (p_h, p_c) = prnn.stacked_lstm2_scan(
+        torch.tensor(x).to(tdt), torch.tensor(mask),
+        *(torch.tensor(a) for a in (w1, b1, wx2, w2, b2)))
+    for a, t in ((j_seq, p_seq), (j_h, p_h), (j_c, p_c)):
+        a, t = np.asarray(a, np.float32), t.float().numpy()
+        if dtype == "bfloat16":
+            np.testing.assert_array_equal(t, a)
+        else:
+            np.testing.assert_allclose(t, a, rtol=0, atol=1e-5)
