@@ -55,7 +55,6 @@ class Variable:
     # regularization / clipping attributes (set from a ParamAttr)
     regularizer: Any = None
     grad_clip: Any = None
-    optimize_attr: Dict[str, Any] = field(default_factory=lambda: {"learning_rate": 1.0})
 
     def __repr__(self):
         return f"Var({self.name}, shape={self.shape}, lod={self.lod_level})"

@@ -44,4 +44,29 @@ __device__ __forceinline__ float warp_max(float v) {
 
 __device__ __forceinline__ float sigmoid_f(float v) { return 1.f / (1.f + expf(-v)); }
 
+// What a persistent cooperative launch needs to know of the current device:
+// its SM count and the shared memory a block may opt in to.
+// cudaErrorNotSupported where the device cannot launch cooperatively.
+inline cudaError_t coop_device(int* n_sms, int* smem_max) {
+  int dev = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(n_sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  return coop ? cudaSuccess : cudaErrorNotSupported;
+}
+
+// The LSTM kernels' hidden units per CTA: the smallest power of two that
+// puts at most one CTA on each SM, as gru_fwd.cu chooses its columns.
+// 0 when H needs more than 16.
+inline int units_per_cta(int H, int n_sms) {
+  for (int hc = 1; hc <= 16; hc *= 2)
+    if ((H + hc - 1) / hc <= n_sms) return hc;
+  return 0;
+}
+
 }  // namespace ptt

@@ -226,14 +226,6 @@ cudaError_t launch_hc(int hc, const void* const* in, const float* mask, void* dx
 
 }  // namespace
 
-// Units per CTA: the smallest power of two that puts at most one CTA on
-// each SM, as lstm_fwd.cu chooses. Returns 0 when H needs more than 16.
-extern "C" int lstm_bwd_units_per_cta(int H, int n_sms) {
-  for (int hc = 1; hc <= 16; hc *= 2)
-    if ((H + hc - 1) / hc <= n_sms) return hc;
-  return 0;
-}
-
 // gates_pre [T,B,4H], c_prev, h_prev, dh_seq [T,B,H], w [H,4H], dhT, dcT
 // [B,H], dx [T,B,4H], dw [H,4H], scratch dgbuf [2,B,4H]: io dtype (bf16 when
 // io_bf16, else f32), contiguous; mask [T,B] f32. dw is written only when
@@ -245,17 +237,10 @@ extern "C" int lstm_bwd_launch(int io_bf16, const void* gates_pre, const void* c
                                const void* w, const void* dhT, const void* dcT, void* dx,
                                void* dw, void* dgbuf, int n_steps, int B, int H, int reverse,
                                int acc_dw, void* stream) {
-  int dev = 0, n_sms = 0, coop = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int n_sms = 0, smem_max = 0;
+  const cudaError_t err = ptt::coop_device(&n_sms, &smem_max);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  const int hc = lstm_bwd_units_per_cta(H, n_sms);
+  const int hc = ptt::units_per_cta(H, n_sms);
   const size_t item = io_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
   if (hc == 0 || n_steps < 1 || B < 1 || (acc_dw && hc > kMaxDwUnits) ||
       smem_bytes(B, H, hc, acc_dw, item) > (size_t)smem_max)

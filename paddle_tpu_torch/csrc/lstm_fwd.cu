@@ -161,14 +161,6 @@ cudaError_t launch_hc(int hc, const void* x, const float* mask, const void* w,
 
 }  // namespace
 
-// Units per CTA: the smallest power of two that puts at most one CTA on
-// each SM, as gru_fwd.cu chooses. Returns 0 when H needs more than 16.
-extern "C" int lstm_fwd_units_per_cta(int H, int n_sms) {
-  for (int hc = 1; hc <= 16; hc *= 2)
-    if ((H + hc - 1) / hc <= n_sms) return hc;
-  return 0;
-}
-
 // x [T,B,4H], w [H,4H], h_seq, c_seq [T,B,H], h_T, c_T [B,H], hbuf [2,B,H]
 // (zeroed): io dtype (bf16 when io_bf16, else f32), contiguous; mask [T,B]
 // f32. Returns a cudaError_t: cudaErrorInvalidValue where the shape is out
@@ -176,17 +168,10 @@ extern "C" int lstm_fwd_units_per_cta(int H, int n_sms) {
 extern "C" int lstm_fwd_launch(int io_bf16, const void* x, const void* mask, const void* w,
                                void* h_seq, void* c_seq, void* h_T, void* c_T, void* hbuf,
                                int n_steps, int B, int H, int reverse, void* stream) {
-  int dev = 0, n_sms = 0, coop = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int n_sms = 0, smem_max = 0;
+  const cudaError_t err = ptt::coop_device(&n_sms, &smem_max);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  const int hc = lstm_fwd_units_per_cta(H, n_sms);
+  const int hc = ptt::units_per_cta(H, n_sms);
   const size_t item = io_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
   if (hc == 0 || n_steps < 1 || B < 1 || smem_bytes(B, H, hc, item) > (size_t)smem_max)
     return cudaErrorInvalidValue;

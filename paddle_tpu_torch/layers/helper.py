@@ -38,6 +38,10 @@ class LayerHelper:
             raise NotImplementedError(
                 "parameter update hooks (ParamAttr.update_hooks) are not ported "
                 "to the PyTorch port yet")
+        if attr.learning_rate != 1.0:
+            raise NotImplementedError(
+                "per-parameter learning-rate multipliers (ParamAttr.learning_rate) "
+                "are not ported to the PyTorch port yet")
         name = attr.name or unique_name(f"{self.name}.w" if not is_bias else f"{self.name}.b")
         init = attr.initializer or default_initializer or (
             ConstantInitializer(0.0) if is_bias else XavierInitializer())
@@ -54,7 +58,6 @@ class LayerHelper:
             return param
         param.regularizer = attr.regularizer
         param.grad_clip = attr.gradient_clip
-        param.optimize_attr = {"learning_rate": attr.learning_rate}
         init(param, self.startup_program)
         return param
 

@@ -101,13 +101,7 @@ class Optimizer:
         lr = self._lr_var(helper)
         self._create_accumulators(helper, [p for p, _ in params_grads])
         for p, g in params_grads:
-            plr = lr
-            mult = p.optimize_attr.get("learning_rate", 1.0)
-            if mult != 1.0:
-                plr = helper.create_tmp_variable(np.float32, ())
-                helper.append_op(type="scale", inputs={"X": [lr]}, outputs={"Out": [plr]},
-                                 attrs={"scale": mult})
-            self._append_update_op(helper, p, g, plr)
+            self._append_update_op(helper, p, g, lr)
         # the backward and update slice, as the JAX package marks it
         for op in block.ops[opt_pass_start:]:
             op.attrs["is_optimizer_op"] = True

@@ -1,6 +1,7 @@
 """ParamAttr: per-parameter configuration (paddle_tpu/param_attr.py):
-name, initializer, learning-rate multiplier, regularizer, trainable,
-gradient clip. Update hooks (StaticPruningHook) need the prune_mask_init
+name, initializer, regularizer, trainable, gradient clip. A
+learning-rate multiplier other than 1 raises when the parameter is
+created; update hooks (StaticPruningHook) need the prune_mask_init
 and apply_mask ops, which are not ported yet."""
 
 from __future__ import annotations

@@ -31,7 +31,7 @@ Tolerances, and why:
   fused softmax sum the f32 exp unrounded where the op-by-op formula
   rounds it to bf16 first. The port's scan decoder gives the JAX op run op
   by op bit for bit, and the jitted op with
-  --xla_allow_excess_precision=false gives the port's bits again
+  `xla_allow_excess_precision` off gives the port's bits again
   (`test_bf16_scan_decoder_parts_only_under_xla_excess_precision`: 7.6%
   of that case's states differ under XLA's default, by at most 3.9e-3),
   so the share is held on the kernel path only.
@@ -63,7 +63,6 @@ Tolerances, and why:
 
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -388,10 +387,11 @@ def _decoder_op(pkg_op, case):
                   {"src_max_len": case["S"], "trg_max_len": case["T"]})
 
 
-def jax_decoder_states(case, jit):
+def jax_decoder_states(case, jit, excess_precision=True):
     """The JAX package's decoder op on the case, with its fused attention
-    off (its scan), jitted as its Executor runs it, or op by op (a Python
-    loop under jax.disable_jit). Returns Hidden's data as f32 numpy."""
+    off (its scan), jitted as its Executor runs it (with XLA's
+    `xla_allow_excess_precision` as given), or op by op (a Python loop
+    under jax.disable_jit). Returns Hidden's data as f32 numpy."""
     import jax
     from jax import numpy as jnp
     from paddle_tpu.core import registry as jreg
@@ -412,7 +412,8 @@ def jax_decoder_states(case, jit):
     try:
         FLAGS.use_fused_attention = False
         if jit:
-            out = jax.jit(run)(enc, trg, weights)
+            opts = {"xla_allow_excess_precision": excess_precision}
+            out = jax.jit(run, compiler_options=opts)(enc, trg, weights)
         else:
             with jax.disable_jit():
                 out = run(enc, trg, weights)
@@ -441,34 +442,23 @@ def port_decoder_states(case):
     return env["h"].data.float().numpy()
 
 
-def jax_decoder_states_in_child(out_path):
-    """Run with XLA_FLAGS=--xla_allow_excess_precision=false: the jitted
-    JAX decoder states, saved to `out_path`."""
-    np.save(out_path, jax_decoder_states(_decoder_case(), jit=True))
-
-
-def test_bf16_scan_decoder_parts_only_under_xla_excess_precision(tmp_path):
+def test_bf16_scan_decoder_parts_only_under_xla_excess_precision():
     """The bf16 scan decoder's difference from the JAX package lies on the
     JAX side. The port's states are the JAX op's run op by op, bit for
     bit. Jitted, as the JAX Executor runs it, XLA's excess precision lets
     the fused softmax sum the f32 exp unrounded (the first op of a step at
-    which the two part: 8.3% of α), and the states differ; with
-    --xla_allow_excess_precision=false the jitted op gives the port's bits
-    again."""
+    which the two part: 8.3% of α), and the states differ; compiled with
+    `xla_allow_excess_precision` off (jit's compiler_options, as the flag
+    --xla_allow_excess_precision=false sets it for a process), the jitted
+    op gives the port's bits again."""
     case = _decoder_case()
     port = port_decoder_states(case)
     eager = jax_decoder_states(case, jit=False)
     jitted = jax_decoder_states(case, jit=True)
     np.testing.assert_array_equal(port, eager)
     assert np.mean(jitted != eager) > 0.01, np.mean(jitted != eager)
-    out = tmp_path / "jit.npy"
-    code = (f"import sys; sys.path[:0] = [{REPO!r}, {os.path.join(REPO, 'tests')!r}]; "
-            f"import test_torch_train as m; m.jax_decoder_states_in_child({str(out)!r})")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_allow_excess_precision=false")
-    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
-                          text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    np.testing.assert_array_equal(np.load(out), port)
+    np.testing.assert_array_equal(jax_decoder_states(case, jit=True, excess_precision=False),
+                                  port)
 
 
 @pytest.mark.parametrize("name", sorted(WIDTHS))
