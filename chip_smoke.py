@@ -607,7 +607,19 @@ def cudnn_lstm_ms(x, mask, w):
         lstm.weight_hh_l0.copy_(w.T)
         lstm.bias_ih_l0.zero_()
         lstm.bias_hh_l0.zero_()
-    lstm.flatten_parameters()  # one weight buffer, as cuDNN wants it
+    # One weight buffer, as cuDNN wants it. flatten_parameters() skips any
+    # dtype that torch.backends.cudnn.is_acceptable rejects, bf16 among
+    # them, and cuDNN would then compact the weights at every call: let it
+    # accept x's dtype for that call.
+    acceptable = torch.backends.cudnn.is_acceptable
+    torch.backends.cudnn.is_acceptable = lambda t: t.dtype == dt or acceptable(t)
+    try:
+        lstm.flatten_parameters()
+    finally:
+        torch.backends.cudnn.is_acceptable = acceptable
+    storages = {p.untyped_storage().data_ptr() for p in lstm._flat_weights}
+    if len(storages) != 1:
+        raise RuntimeError(f"cuDNN's LSTM weights lie in {len(storages)} buffers, not one")
     xin = x.detach().requires_grad_(True)
     out, _ = lstm(pack_padded_sequence(xin, lengths, enforce_sorted=False))
     grad = torch.randn_like(out.data)
