@@ -64,7 +64,27 @@ exits non-zero without the final `ok` line:
   13. parity  the same program at a small width (V=64, emb 32, H=384, T=6,
               B=8), card against CPU: losses and the state after 2 Adam
               steps, f32 then bf16 amp.
-  14. the kernels JSON line, then the device JSON line last.
+  14. tfm     bench.py's transformer LM (the `all` sweep's row: dim 2048,
+              32 heads of D=64, 8 layers, FFN 8192, T=1024, vocab 32000,
+              B=8, causal, bf16; Adam(3e-4)), built by the port's own front
+              end: its startup program on the card, then a warm-up step on
+              bench.py's feed, recording the flash kernels' inputs; the
+              parameter count and the peak memory.
+  15. kernels flash_fwd, flash_bwd_dkv and flash_bwd_dq (csrc/flash_attn.cu)
+              against their plain versions on the card: the warm-up step's
+              inputs of layers 0 and 7, then seeded inputs at ragged T,
+              causal and not, D=64 and 128, bf16 and f32; the same bits in
+              two runs of the backward kernels; kernel, plain and bound
+              times, and scaled_dot_product_attention's (the yardstick).
+  16. steps   3 timed transformer training steps with the launch counts set
+              to 0 just before: finite, falling losses, exactly 8 launches
+              of each flash kernel a step, median ms per step, tokens/s,
+              peak memory; then one more step under torch.profiler.
+  17. parity  a small transformer program (dim 128, 2 heads of D=64, 2
+              layers, T=200, vocab 512, B=4), card against CPU from one
+              startup state: losses and the state after 2 Adam steps, f32
+              then bf16 amp.
+  18. the kernels JSON line, then the device JSON line last.
 
 Weights are made with numpy from --seed at the shapes the program
 declares (normal / sqrt(fan_in)): for the inference artifact written as
@@ -235,11 +255,12 @@ def kernel_error(got, want, dt):
     return err, differing
 
 
-def breakdown(run, median_ms, what="request"):
+def breakdown(run, median_ms, what="request", kinds=None):
     """One call of `run` under torch.profiler: device busy time, as a
     share of the profiled wall time (which the profiler's own host cost
     inflates) and of the unprofiled median, and device time by kernel
-    name, largest first."""
+    name, largest first; with `kinds` ({kind: name substrings}), also by
+    the first kind whose substring a kernel's name holds."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -263,6 +284,13 @@ def breakdown(run, median_ms, what="request"):
           f"{len(spans)} device events")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"    {us / 1e3:9.3f} ms  {name[:100]}")
+    if kinds:
+        by_kind = {}
+        for name, us in by_name.items():
+            kind = next((k for k, subs in kinds.items() if any(x in name for x in subs)), "other")
+            by_kind[kind] = by_kind.get(kind, 0.0) + us
+        print("  by kind: " + ", ".join(f"{k} {us / 1e3:.3f} ms" for k, us in
+                                        sorted(by_kind.items(), key=lambda kv: -kv[1])))
 
 
 # ---------------------------------------------------------------- training --
@@ -806,6 +834,314 @@ def lstm_phases(ptt, exe, rng, smi, seed, first_phase):
     return rows, max_errs, launches
 
 
+# ------------------------------------------------------------ transformer --
+# bench.py's transformer row of the `all` sweep (_build_transformer_train,
+# bench.py:378-422, with bench.py:445-446): dim 2048, 32 heads of D=64, 8
+# layers, FFN 8192 (gelu), T=1024, vocab 32000, B=8, causal pre-LN,
+# Adam(3e-4), bf16 amp; its BENCH_REMAT=full is left out (memory_optimize is
+# not ported)
+TFM_BENCH = dict(dim=2048, heads=32, layers=8, seqlen=1024, vocab=32000, batch=8)
+TFM_LR = 3e-4
+# the small program, card against CPU: D=64 as on the main path, a ragged T
+TFM_SMALL = dict(dim=128, heads=2, layers=2, seqlen=200, vocab=512, batch=4)
+# flash kernels against their plain versions. Each output's error over its
+# largest element, against the plain version computed in f32 from the same
+# io-dtype inputs. f32: the same f32 arithmetic in another order, 1e-5.
+# bf16: the kernels round P (relative to the running row max) and dS to
+# bf16 before their second products, as the TPU kernel does, where the f32
+# plain version does not: 2e-2 (tests/test_torch_transformer.py holds the
+# bf16 plain versions to the f32 formula with the same bound). In bf16 the
+# kernel is also held to the bf16 plain version, which rounds where it
+# does: at most FLASH_BEYOND_ULP of the elements more than one bf16 ulp
+# apart, which the f32 plain version rounded only at its outputs must break
+# on seeded inputs (phase 15 prints its share beside the kernel's).
+# LSE is f32 in both io dtypes: 1e-5 of its largest element.
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+FLASH_LSE_TOL = 1e-5
+FLASH_BEYOND_ULP = 0.02
+# seeded shapes beyond the main path's: (B, T, H, D), ragged T, both D
+FLASH_EDGE = [(2, 200, 3, 64), (2, 1000, 2, 64), (2, 200, 2, 128), (1, 1000, 2, 128)]
+# how phase 16 sums the profiled step's device time (cuBLAS's Hopper GEMMs
+# are named nvjet_* or *gemm*)
+TFM_KERNEL_KINDS = {"flash kernels": ("flash_",), "matrix products": ("nvjet", "gemm", "cutlass"),
+                    "elementwise": ("elementwise", "copy", "fill"),
+                    "reductions": ("reduce", "softmax", "norm")}
+# the launches of one training step: one a layer and pass
+TFM_STEP_LAUNCHES = {"flash_fwd": 8, "flash_bwd_dkv": 8, "flash_bwd_dq": 8}
+# the key projection's bias: its gradient is 0 in exact arithmetic (a
+# per-row shift of the scores leaves softmax unchanged), so its value after
+# two steps is rounding noise on both sides and is not held
+TFM_NULL_GRAD = ".attn.wk_b"
+
+
+def build_transformer_program(ptt, dim, heads, layers, seqlen, vocab, batch=None):
+    """bench.py's _build_transformer_train through the port's own front end.
+    Returns (main, startup, loss)."""
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        toks = ptt.layers.data("toks", shape=[seqlen], dtype=np.int32)
+        labels = ptt.layers.data("labels", shape=[seqlen, 1], dtype=np.int32)
+        logits = ptt.models.transformer_lm(toks, vocab_size=vocab, dim=dim, num_heads=heads,
+                                           num_layers=layers, max_len=seqlen)
+        loss = ptt.layers.mean(ptt.layers.softmax_with_cross_entropy(logits, labels))
+        ptt.optimizer.Adam(learning_rate=TFM_LR).minimize(loss)
+    return main, startup, loss
+
+
+def transformer_feed(rng, vocab, seqlen, batch):
+    """bench.py's feed: tokens and labels drawn from `rng`."""
+    return {"toks": rng.randint(0, vocab, (batch, seqlen)).astype(np.int32),
+            "labels": rng.randint(0, vocab, (batch, seqlen, 1)).astype(np.int32)}
+
+
+def flash_bound(name, q, causal):
+    """Least time for one kernel's function on these inputs: each [B,T,H,D]
+    input read and output written once (fwd: q, k, v in, o out; dkv: q, k,
+    v, dO in, dK, dV out; dq: q, k, v, dO in, dQ out) and the f32 LSE and
+    Di; the products over the visible (q, k) pairs only (causal: T(T+1)/2 a
+    head), 2·D operations a pair for each: S and P·V (fwd); S, dP, dV, dK
+    (dkv); S, dP, dQ (dq); at the io dtype's peak (bf16 on tensor cores, f32
+    on FMAs)."""
+    B, T, H, D = q.shape
+    pairs = (T * (T + 1) / 2 if causal else T * T) * B * H
+    tensors, stats, products = {"flash_fwd": (4, 1, 2), "flash_bwd_dkv": (6, 2, 4),
+                                "flash_bwd_dq": (5, 2, 3)}[name]
+    nbytes = tensors * q.numel() * q.element_size() + stats * B * H * T * 4
+    return (*bound_ms(nbytes, products * 2 * D * pairs, PEAK_FLOPS[q.dtype]), nbytes)
+
+
+def flash_call(fk, name, ins, plain=False):
+    """The kernel (or its plain version) on ins = (q, k, v[, dO, LSE, Di])
+    and causal; always a tuple of outputs."""
+    fn = getattr(fk, f"{name}_plain" if plain else name)
+    out = fn(*ins)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def flash_check(fk, name, ins, label, max_errs, seeded=False):
+    """Kernel against the f32 plain version (FLASH_TOL) and, in bf16, against
+    the bf16 plain version (FLASH_BEYOND_ULP); an output left at zero reads
+    an error of 1. On `seeded` inputs the f32 plain version rounded only at
+    its outputs (P and dS unrounded) must break the bf16 bound. Returns the
+    kernel's outputs."""
+    *tensors, causal = ins
+    dt = tensors[0].dtype
+    want = flash_call(fk, name, (*(t.float() for t in tensors), causal), plain=True)
+    got = flash_call(fk, name, ins)
+    torch.cuda.synchronize()
+    outs = {"flash_fwd": ("o", "lse"), "flash_bwd_dkv": ("dk", "dv"),
+            "flash_bwd_dq": ("dq",)}[name]
+    parts = []
+    for n, g, w in zip(outs, got, want):
+        check(g.dtype == (torch.float32 if n == "lse" else dt), f"{name} {n} dtype {g.dtype}")
+        check(bool(torch.isfinite(g.float()).all()), f"non-finite {name} {n}")
+        err, rel = rel_err(g, w)
+        tol = FLASH_LSE_TOL if n == "lse" else FLASH_TOL[dt]
+        parts.append(f"{n} {rel:.3e} (tol {tol:g})")
+        check(rel <= tol, f"{name} {label}: {n} disagrees with its plain version: {rel:.3e}")
+        max_errs[name] = max(max_errs.get(name, 0.0), err)
+    line = f"  {name} {label} {str(dt)[6:]} {'causal' if causal else 'full'}: rel err " + \
+        ", ".join(parts)
+    if dt == torch.bfloat16:
+        def beyond(a, b):  # share of a's elements more than one ulp of b from b
+            a, b = a.float().cpu().numpy(), b.float().cpu().numpy()
+            return float(np.mean(np.abs(a - b) > bf16_ulp(b)))
+
+        want_io = flash_call(fk, name, ins, plain=True)
+        pairs = [(g, w_io, w) for n, g, w_io, w in zip(outs, got, want_io, want) if n != "lse"]
+        share = max(beyond(g, w_io) for g, w_io, _ in pairs)
+        off = min(beyond(w.to(dt), w_io) for _, w_io, w in pairs)
+        line += f"; beyond one ulp of the bf16 plain version {share:.4%} " \
+                f"(max {FLASH_BEYOND_ULP:.0%}), rounded only at the output {off:.4%}"
+        check(share <= FLASH_BEYOND_ULP,
+              f"{name} {label}: differs from the bf16 plain version by more than one ulp "
+              f"in {share:.4%}")
+        check(not seeded or off > FLASH_BEYOND_ULP,
+              f"{name} {label}: the bf16 bound does not catch P or dS rounded elsewhere")
+    print(line)
+    return got
+
+
+def flash_seeded(fk, rng, B, T, H, D, dt, causal):
+    """Normal q, k, v, dO at these widths, LSE and Di from the f32 plain
+    forward: the inputs of the three kernels."""
+    q, k, v, do = (torch.as_tensor(rng.standard_normal((B, T, H, D)), dtype=torch.float32)
+                   .cuda().to(dt) for _ in range(4))
+    o, lse = fk.flash_fwd_plain(*(t.float() for t in (q, k, v)), causal)
+    di = fk.flash_di(o, do.float())
+    return {"flash_fwd": (q, k, v, causal),
+            "flash_bwd_dkv": (q, k, v, do, lse, di, causal),
+            "flash_bwd_dq": (q, k, v, do, lse, di, causal)}
+
+
+def sdpa_ms(q, k, v, do, causal):
+    """The yardstick, never called by the port: one
+    torch.nn.functional.scaled_dot_product_attention call on the same [B,T,H,D]
+    tensors seen as [B,H,T,D]: its forward, and its forward and backward
+    (dQ, dK, dV). Returns (forward ms, backward ms, its O)."""
+    import torch.nn.functional as F
+
+    bhtd = lambda t: t.transpose(1, 2)  # noqa: E731
+    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(bhtd(q), bhtd(k), bhtd(v),
+                                                         is_causal=causal), 20)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(*(bhtd(t) for t in leaves), is_causal=causal)
+        torch.autograd.grad(o, leaves, bhtd(do))
+
+    both = cuda_ms(fwd_bwd, 20)
+    with torch.no_grad():
+        o = F.scaled_dot_product_attention(bhtd(q), bhtd(k), bhtd(v), is_causal=causal)
+    return fwd, both - fwd, bhtd(o)
+
+
+def transformer_phases(ptt, exe, rng, smi, seed, first_phase):
+    """Phases first_phase.. of the transformer slice; returns the kernels'
+    rows, their largest errors and their launches on the training path."""
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    n = first_phase
+    phase(n, "transformer LM at full width (bf16), built by the port's front end: startup "
+          "and a warm-up step")
+    main_p, startup, loss = build_transformer_program(ptt, **TFM_BENCH)
+    main_p.set_amp("bfloat16")
+    ops = [o.type for o in main_p.global_block().ops]
+    print(f"  main program: {len(ops)} ops ({ops.count('flash_attention')} flash_attention, "
+          f"{ops.count('layer_norm')} layer_norm, {ops.count('gelu')} gelu, "
+          f"{ops.count('adam')} adam); startup: {len(startup.global_block().ops)} ops")
+    scope = ptt.Scope()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope, seed=seed)
+    torch.cuda.synchronize()
+    n_values = sum(scope.get(p.name).numel() for p in main_p.parameters())
+    print(f"  startup: {len(main_p.parameters())} parameters with {n_values} values, "
+          f"{time.perf_counter() - t0:.2f} s")
+    feed = transformer_feed(np.random.RandomState(0), TFM_BENCH["vocab"], TFM_BENCH["seqlen"],
+                            TFM_BENCH["batch"])
+    tokens = TFM_BENCH["batch"] * TFM_BENCH["seqlen"]
+    calls, restore = record_calls(fk, {"flash_fwd": "all", "flash_bwd_dkv": "all",
+                                       "flash_bwd_dq": "all"})
+    try:
+        t0 = time.perf_counter()
+        losses = [float(exe.run(main_p, feed, [loss.name], scope=scope)[0])]
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    print(f"  warm-up step: loss {losses[0]:.6f}, {time.perf_counter() - t0:.3f} s; {tokens} "
+          f"tokens; recorded " + ", ".join(f"{len(c)} {k}" for k, c in calls.items())
+          + f" calls; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for k, c in TFM_STEP_LAUNCHES.items():
+        check(len(calls[k]) == c, f"the warm-up step ran {len(calls[k])} {k}, not {c}")
+
+    n += 1
+    phase(n, "flash kernels against plain (the warm-up step's inputs, then seeded inputs)")
+    rows, max_errs = {}, {}
+    # the backward runs layer 7's calls first
+    for layer, i in ((0, 0), (7, -1)):
+        for name in TFM_STEP_LAUNCHES:
+            a, _ = calls[name][i if name == "flash_fwd" else -1 - i]
+            ins = tuple(a)
+            label = f"layer {layer} B={ins[0].shape[0]} T={ins[0].shape[1]} " \
+                    f"H={ins[0].shape[2]} D={ins[0].shape[3]}"
+            flash_check(fk, name, ins, label, max_errs)
+            if layer:
+                continue
+            k_ms = cuda_ms(lambda: flash_call(fk, name, ins), 20)
+            p_ms = cuda_ms(lambda: flash_call(fk, name, ins, plain=True), 3)
+            b_ms, b_by, nbytes = flash_bound(name, ins[0], ins[-1])
+            print(f"    {name}: kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
+                  f"{b_ms * 1e3:.2f} us by {b_by} ({nbytes:.0f} B), {100 * b_ms / k_ms:.2f}% "
+                  f"of the bound")
+            rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+            if name != "flash_fwd":
+                again = flash_call(fk, name, ins)
+                first = flash_call(fk, name, ins)
+                check(all(torch.equal(x, y) for x, y in zip(first, again)),
+                      f"{name}'s outputs differ between two runs")
+                print(f"    {name}: the same bits in two runs")
+    q, k, v, do = (calls["flash_bwd_dkv"][-1][0][j] for j in range(4))
+    fwd_ms, bwd_ms, o_lib = sdpa_ms(q, k, v, do, True)
+    o_plain = fk.flash_fwd_plain(q.float(), k.float(), v.float(), True)[0]
+    print(f"  scaled_dot_product_attention (the yardstick, bf16, causal, [B,H,T,D] views): "
+          f"forward {fwd_ms * 1e3:.2f} us, backward {bwd_ms * 1e3:.2f} us; its O "
+          f"{rel_err(o_lib, o_plain)[1]:.3e} from the f32 plain version")
+    rows["flash_fwd"]["library_ms"] = fwd_ms
+    rows["flash_bwd_dkv"]["library_ms"] = rows["flash_bwd_dq"]["library_ms"] = bwd_ms
+    srng = np.random.RandomState(seed + 7)
+    for B_, T_, H_, D_ in FLASH_EDGE:
+        for dt in FLASH_TOL:
+            for causal in (True, False):
+                for name, ins in flash_seeded(fk, srng, B_, T_, H_, D_, dt, causal).items():
+                    flash_check(fk, name, ins, f"B={B_} T={T_} H={H_} D={D_} (seeded)", max_errs,
+                                seeded=True)
+
+    n += 1
+    phase(n, "transformer training at full width (bf16): 3 timed steps")
+    torch.cuda.reset_peak_memory_stats()
+    for k in TFM_STEP_LAUNCHES:
+        setattr(fk, f"{k}_launches", 0)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main_p, feed, [loss.name], scope=scope)[0]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: getattr(fk, f"{k}_launches") for k in TFM_STEP_LAUNCHES}
+    print(f"  losses (warm-up, then timed): {losses}")
+    check(all(np.isfinite(losses)), "non-finite loss")
+    check(losses[-1] < losses[0], "the loss did not fall over 4 steps on one batch")
+    print(f"  launches in 3 steps: {launches}; per step expected {TFM_STEP_LAUNCHES}")
+    for k, c in TFM_STEP_LAUNCHES.items():
+        check(launches[k] == 3 * c, f"{k} launched {launches[k]} times in 3 steps")
+    med = statistics.median(times)
+    print(f"  steps ms: {[round(t, 3) for t in times]}; median {med:.3f} ms/step, "
+          f"{tokens / med * 1e3:.1f} tokens/s (B={TFM_BENCH['batch']}, T={TFM_BENCH['seqlen']}); "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+    breakdown(lambda: exe.run(main_p, feed, [loss.name], scope=scope), med, "step",
+              kinds=TFM_KERNEL_KINDS)
+    del scope, calls
+
+    n += 1
+    phase(n, "small transformer program (D=64, T=200): card against CPU (f32, then bf16)")
+    smain, sstart, sloss = build_transformer_program(ptt, **TFM_SMALL)
+    sc_ = ptt.Scope()
+    ptt.Executor(device="cpu").run(sstart, scope=sc_, seed=seed + 8)
+    names = [v.name for v in smain.persistables()]
+    state = ptt.io.state_to_numpy(sc_, names)  # carried to both devices by params_from_numpy
+    frng = np.random.RandomState(seed + 9)
+    sfeeds = [transformer_feed(frng, TFM_SMALL["vocab"], TFM_SMALL["seqlen"], TFM_SMALL["batch"])
+              for _ in range(2)]
+    params = [p.name for p in smain.parameters()]
+    vectors = [p for p in params if len(state[p].shape) == 1]
+    gnames = [p + "@GRAD" for p in params]
+    held = {n_ for n_ in names if TFM_NULL_GRAD not in n_}
+    for amp in (None, "bfloat16"):
+        smain.set_amp(amp)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            s = ptt.Scope()
+            ptt.io.params_from_numpy(s, state, dev)
+            dexe = ptt.Executor(device=dev)
+            out = dexe.run(smain, sfeeds[0], [sloss.name] + gnames, scope=s)
+            ls = [float(out[0]), float(dexe.run(smain, sfeeds[1], [sloss.name], scope=s)[0])]
+            res[dev] = (ls, ptt.io.state_to_numpy(s, names), dict(zip(gnames, out[1:])))
+        (cl, cs, cg), (gl, gs, _) = res["cpu"], res["cuda"]
+        lerr = max(abs(a - b) / abs(a) for a, b in zip(cl, gl))
+        worst = compare_state({k: gs[k] for k in held}, {k: cs[k] for k in held}, amp, cg,
+                              lr=TFM_LR, biases=vectors)
+        b = TRAIN_PARITY[amp]
+        print(f"  {amp or 'f32'}: losses cpu {cl} card {gl}, rel {lerr:.3e} (tol {b['loss']:g}); "
+              f"after 2 steps {worst['param_share']:.3%} of parameter values beyond "
+              f"{b['close']} lr (max {b['share']:.1%}); the largest held value "
+              f"{worst['param_far']:.3f} lr apart (max {b.get('far', b.get('robust'))}); "
+              f"moments {worst['moment']:.3e}, {worst['moment_share']:.3%} beyond 1%")
+        check(lerr <= b["loss"], "card and CPU losses differ")
+    return rows, max_errs, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -817,7 +1153,8 @@ def main():
     sys.path.insert(0, ROOT)
     torch.manual_seed(args.seed)
     import paddle_tpu_torch as ptt
-    from paddle_tpu_torch.ops import attention_kernels, cuda_build, lstm_kernels, rnn_kernels
+    from paddle_tpu_torch.ops import (attention_kernels, cuda_build, flash_kernels, lstm_kernels,
+                                      rnn_kernels)
 
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -830,7 +1167,7 @@ def main():
 
     phase(2, "build")
     t0 = time.perf_counter()
-    names = ("gru_fwd", "gru_bwd", "bahdanau_attn", "lstm_fwd", "lstm_bwd")
+    names = ("gru_fwd", "gru_bwd", "bahdanau_attn", "lstm_fwd", "lstm_bwd", "flash_attn")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(cuda_build.build, names))  # one nvcc each, together
     print(f"built {', '.join(os.path.relpath(p, ROOT) for p in paths)} in "
@@ -845,6 +1182,7 @@ def main():
     attention_kernels._lib()
     lstm_kernels._lib("lstm_fwd")
     lstm_kernels._lib("lstm_bwd")
+    flash_kernels._lib()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1205,23 +1543,30 @@ def main():
     lrows, lerrs, lstm_launches = lstm_phases(ptt, exe, rng, smi, args.seed, 10)
     rows.update(lrows)
     max_errs.update(lerrs)
+    trows, terrs, tfm_launches = transformer_phases(ptt, exe, rng, smi, args.seed, 14)
+    rows.update(trows)
+    max_errs.update(terrs)
 
-    phase(14, "the kernels line, then the device line")
+    phase(18, "the kernels line, then the device line")
     sources = {"gru_fwd": ("gru_fwd.cu", "paddle_tpu/ops/pallas_kernels.py:493"),
                "gru_bwd": ("gru_bwd.cu", "paddle_tpu/ops/pallas_kernels.py:608"),
                "attn_fwd": ("bahdanau_attn.cu", "paddle_tpu/ops/bahdanau_kernels.py:257"),
                "attn_bwd_step": ("bahdanau_attn.cu", "paddle_tpu/ops/bahdanau_kernels.py:285"),
                "attn_phase2": ("bahdanau_attn.cu", "paddle_tpu/ops/bahdanau_kernels.py:315"),
                "lstm_fwd": ("lstm_fwd.cu", "paddle_tpu/ops/pallas_kernels.py:198"),
-               "lstm_bwd": ("lstm_bwd.cu", "paddle_tpu/ops/pallas_kernels.py:332")}
+               "lstm_bwd": ("lstm_bwd.cu", "paddle_tpu/ops/pallas_kernels.py:332"),
+               "flash_fwd": ("flash_attn.cu", "paddle_tpu/ops/flash_ops.py:160"),
+               "flash_bwd_dkv": ("flash_attn.cu", "paddle_tpu/ops/flash_ops.py:160"),
+               "flash_bwd_dq": ("flash_attn.cu", "paddle_tpu/ops/flash_ops.py:160")}
     by_path = {k: {"nmt_train": n} for k, n in train_launches.items()}
     by_path["gru_fwd"]["nmt_beam_infer"] = infer_launches
     by_path.update({k: {"lstm_train": n} for k, n in lstm_launches.items()})
+    by_path.update({k: {"transformer_train": n} for k, n in tfm_launches.items()})
     rows["gru_fwd"] = main_row
     max_errs["gru_fwd"] = max_err
     kernels = [{
         "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
-        "replaces": rep, "launches": {**train_launches, **lstm_launches}[name],
+        "replaces": rep, "launches": {**train_launches, **lstm_launches, **tfm_launches}[name],
         "launches_by_path": by_path[name], "max_abs_err": max_errs[name],
         "library_ms": None, **rows[name], "checked_against_plain": True,
     } for name, (src, rep) in sources.items()]

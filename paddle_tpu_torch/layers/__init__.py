@@ -1,9 +1,13 @@
 """Layer DSL (paddle_tpu/layers), cut to what the ported programs use:
 functions that append ops to the default program."""
 
+from .attention import *  # noqa: F401,F403
+from .attention import __all__ as _attn_all
+from .misc import *  # noqa: F401,F403
+from .misc import __all__ as _misc_all
 from .nn import *  # noqa: F401,F403
 from .nn import __all__ as _nn_all
 from .sequence import *  # noqa: F401,F403
 from .sequence import __all__ as _seq_all
 
-__all__ = list(_nn_all) + list(_seq_all)
+__all__ = list(_nn_all) + list(_seq_all) + list(_misc_all) + list(_attn_all)

@@ -1,8 +1,8 @@
 """Layer DSL (paddle_tpu/layers/nn.py), cut to the layers the ported
-programs use: data (:73), fc (:96), embedding (:146),
-softmax_with_cross_entropy (:537) and mean (:602). Each builds its
-parameters through LayerHelper and appends ops to the default program;
-shapes use -1 for the batch dimension."""
+programs use: data (:73), fc (:96), embedding (:146), layer_norm (:492),
+softmax_with_cross_entropy (:537), mean (:602) and elementwise_add
+(:622). Each builds its parameters through LayerHelper and appends ops
+to the default program; shapes use -1 for the batch dimension."""
 
 from __future__ import annotations
 
@@ -11,10 +11,11 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..core.program import Variable, default_main_program
-from ..initializer import NormalInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from .helper import LayerHelper
 
-__all__ = ["data", "fc", "embedding", "softmax_with_cross_entropy", "mean"]
+__all__ = ["data", "fc", "embedding", "layer_norm", "softmax_with_cross_entropy", "mean",
+           "elementwise_add"]
 
 
 def data(name: str, shape: Sequence[int], dtype=np.float32, lod_level: int = 0,
@@ -71,6 +72,23 @@ def embedding(input, size: Sequence[int], is_sparse: bool = False,
     return out
 
 
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5, name=None):
+    """Normalises over the axes from begin_norm_axis on, with a learned
+    scale (ones) and shift (zeros) over those axes' elements."""
+    helper = LayerHelper("layer_norm", name=name)
+    dim = int(np.prod(input.shape[begin_norm_axis:]))
+    inputs = {"X": [input]}
+    if scale:
+        inputs["Scale"] = [helper.create_parameter(
+            None, (dim,), default_initializer=ConstantInitializer(1.0))]
+    if shift:
+        inputs["Bias"] = [helper.create_parameter(None, (dim,), is_bias=True)]
+    out = helper.create_tmp_variable(input.dtype, input.shape)
+    helper.append_op(type="layer_norm", inputs=inputs, outputs={"Y": [out]},
+                     attrs={"begin_norm_axis": begin_norm_axis, "epsilon": epsilon})
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label: bool = False):
     helper = LayerHelper("softmax_with_cross_entropy")
     softmax_out = helper.create_tmp_variable(logits.dtype, logits.shape,
@@ -88,4 +106,13 @@ def mean(x):
     helper = LayerHelper("mean")
     out = helper.create_tmp_variable(x.dtype, (), x.lod_level)
     helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]}, attrs={})
+    return out
+
+
+def elementwise_add(x, y, axis=-1):
+    """x + y, y broadcast onto a contiguous run of x's axes from `axis`."""
+    helper = LayerHelper("elementwise_add")
+    out = helper.create_tmp_variable(x.dtype, x.shape, x.lod_level)
+    helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
     return out

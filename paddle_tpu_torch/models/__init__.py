@@ -1,5 +1,6 @@
 """Model zoo (paddle_tpu/models), cut to the ported models."""
 
 from .text import lstm_benchmark_net  # noqa: F401
+from .transformer import transformer_lm  # noqa: F401
 
-__all__ = ["lstm_benchmark_net"]
+__all__ = ["lstm_benchmark_net", "transformer_lm"]

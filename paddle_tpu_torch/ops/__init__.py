@@ -3,7 +3,9 @@
 from . import (  # noqa: F401
     activation_ops,
     attention_ops,
+    flash_ops,
     math_ops,
+    misc_ops,
     nn_ops,
     optimizer_ops,
     rnn_ops,

@@ -1,8 +1,11 @@
 """Activation op kernels (paddle_tpu/ops/activation_ops.py), cut to the
-activations the ported paths name: the `tanh` op, and the gate, cell and
-candidate activations `rnn_ops._act` looks up in `_ACTIVATIONS`."""
+activations the ported paths name: the `tanh` op, `fc`'s `gelu`, and the
+gate, cell and candidate activations `rnn_ops._act` looks up in
+`_ACTIVATIONS`."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -26,6 +29,23 @@ def softmax(x, dim=-1):
     return e / e.sum(dim, keepdim=True)
 
 
+def rounded(v: float, dtype) -> float:
+    """The Python float v rounded to dtype, as JAX rounds a weakly typed
+    constant before an op in that dtype. A Python number, not a tensor, so
+    a CUDA op that takes it copies nothing to the card."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def gelu(x):
+    """jax.nn.gelu(approximate=True) as the JAX package computes it
+    (paddle_tpu/ops/activation_ops.py:75): x·(0.5·(1 + tanh(c·(x +
+    0.044715·x·(x·x))))), op by op in x's dtype, with the constants
+    rounded to it first. In bf16 that rounds after each op, where
+    F.gelu(approximate="tanh") rounds once."""
+    c, k = rounded(math.sqrt(2 / math.pi), x.dtype), rounded(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * (x * x))))))
+
+
 # name -> fn(x, attrs), the JAX package's table signature
 _ACTIVATIONS = {
     "identity": lambda x, a: x,
@@ -33,6 +53,7 @@ _ACTIVATIONS = {
     "relu": lambda x, a: torch.relu(x),
     "sigmoid": lambda x, a: sigmoid(x),
     "tanh": lambda x, a: torch.tanh(x),
+    "gelu": lambda x, a: gelu(x),
 }
 
 

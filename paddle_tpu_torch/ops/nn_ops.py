@@ -1,5 +1,6 @@
-"""Loss op kernels: `softmax_with_cross_entropy`
-(paddle_tpu/ops/nn_ops.py:247-272), on torch tensors."""
+"""Normalisation and loss op kernels: `layer_norm` and
+`softmax_with_cross_entropy` (paddle_tpu/ops/nn_ops.py:191-207, 247-272),
+on torch tensors."""
 
 from __future__ import annotations
 
@@ -33,3 +34,22 @@ def softmax_with_cross_entropy_kernel(ctx):
     if ctx.output_read("Softmax"):
         ctx.set_output("Softmax", wrap(logp.exp()))
     ctx.set_output("Loss", wrap(loss))
+
+
+@register_op("layer_norm")
+def layer_norm_kernel(ctx):
+    """Normalises over the axes from begin_norm_axis on: statistics in f32
+    (the biased variance) even under amp, the f32 Scale and Bias applied in
+    f32, the output in x's dtype."""
+    x = ctx.input("X")
+    eps = ctx.attr("epsilon", 1e-5)
+    axes = tuple(range(ctx.attr("begin_norm_axis", 1), x.dim()))
+    x32 = x.float()
+    mean = x32.mean(axes, keepdim=True)
+    var = (x32 - mean).square().mean(axes, keepdim=True)
+    out = (x32 - mean) * torch.rsqrt(var + eps)
+    if ctx.has_input("Scale"):
+        out = out * ctx.input("Scale")
+    if ctx.has_input("Bias"):
+        out = out + ctx.input("Bias")
+    ctx.set_output("Y", out.to(x.dtype))

@@ -33,15 +33,17 @@ class Lod:
         return TLoD.from_sequences(self.seqs, capacity=self.capacity, max_seqs=self.max_seqs)
 
 
-def _run(op_type, inputs, attrs=None, amp=None, out_slot="Out"):
-    """Run one op in both packages; returns (jax_out, torch_out)."""
+def _run(op_type, inputs, attrs=None, amp=None, out_slot="Out", other_outs=()):
+    """Run one op in both packages; returns (jax_out, torch_out). An input
+    is a numpy array or a Lod (anything with .jax() and .torch());
+    `other_outs` names the op's other output slots, which are not read."""
     slots = {k: [f"{k}_{i}" for i in range(len(v))] for k, v in inputs.items()}
     jenv, tenv = {"@AMP@": amp}, {"@AMP@": amp}
     for k, vals in inputs.items():
         for name, v in zip(slots[k], vals):
             jenv[name] = v.jax() if isinstance(v, Lod) else jnp.asarray(v)
             tenv[name] = v.torch() if isinstance(v, Lod) else torch.as_tensor(v)
-    outs = {out_slot: ["out"]}
+    outs = {out_slot: ["out"], **{slot: [f"other_{slot}"] for slot in other_outs}}
     jreg.get_kernel(op_type)(jreg.OpContext(JOp(op_type, slots, outs, dict(attrs or {})), jenv))
     treg.get_kernel(op_type)(treg.OpContext(TOp(op_type, slots, outs, dict(attrs or {})), tenv))
     return jenv["out"], tenv["out"]
