@@ -84,7 +84,34 @@ exits non-zero without the final `ok` line:
               layers, T=200, vocab 512, B=4), card against CPU from one
               startup state: losses and the state after 2 Adam steps, f32
               then bf16 amp.
-  18. the kernels JSON line, then the device JSON line last.
+  18. resnet  bench.py's ResNet-50 training program (resnet_imagenet depth
+              50, NHWC 224x224x3, 1000 classes, Momentum(0.1, 0.9), B=128,
+              bf16), built by the port's own front end, in the slice's
+              configuration: fused_conv_dot_max_n = 128·56·56 and
+              fused_conv_pallas, so each of its 36 fused_conv_bn ops runs
+              the hand-written kernel; its startup program on the card,
+              then a warm-up step on bench.py's feed, recording the
+              kernel's inputs; the parameter count and the peak memory.
+  19. kernels fused_conv_bn and its statistics reduce (csrc/fused_conv_bn.cu)
+              against their plain versions on the card: the warm-up step's
+              own inputs at each of its shapes (bf16; f32 on two of them),
+              then seeded edge cases (N not a multiple of the row tile, N
+              below one tile, Cin 64, the prologue and ReLU on and off, a
+              stride-2 view); y beyond one bf16 ulp, s and sq, every output
+              nonzero, the same bits in two runs; kernel, plain, bound and
+              torch.matmul (the yardstick) times, summed over a step.
+  20. steps   3 timed ResNet-50 training steps with the launch counts set
+              to 0 just before: finite, falling losses, exactly 36 kernel
+              and 36 reduce launches a step and no input copied, median ms
+              per step, images/s, the share of the bf16 peak for bench.py's
+              3 × 8.2 GFLOP an image, peak memory; one more step under
+              torch.profiler; then, as context, the same step on the
+              default route (each 1x1 conv a cuDNN conv).
+  21. parity  the small ResNet-50 program of tests/test_torch_resnet.py
+              (64x64, B=4, 10 classes, lr 1e-5), card against CPU from one
+              startup state: losses, gradients, velocities, parameters and
+              BN running statistics after 2 Momentum steps, f32 then bf16.
+  22. the kernels JSON line, then the device JSON line last.
 
 Weights are made with numpy from --seed at the shapes the program
 declares (normal / sqrt(fan_in)): for the inference artifact written as
@@ -1142,6 +1169,408 @@ def transformer_phases(ptt, exe, rng, smi, seed, first_phase):
     return rows, max_errs, launches
 
 
+# ----------------------------------------------------------------- ResNet --
+# bench.py's resnet entry (_build_resnet_train, bench.py:158-192) at its
+# defaults: resnet_imagenet depth 50, NHWC 224x224x3, 1000 classes,
+# softmax_with_cross_entropy + mean, Momentum(0.1, 0.9), bf16, B=128; in
+# the slice's configuration, every 1x1 conv of the fused protocol a 2-D
+# product (fused_conv_dot_max_n >= 128·56·56) through the hand-written
+# kernel (fused_conv_pallas)
+RESNET_BENCH = dict(hw=224, class_dim=1000, batch=128, lr=0.1)
+RESNET_DOT_MAX_N = 128 * 56 * 56
+RESNET_FLOP_PER_IMAGE = 3 * 8.2e9  # bench.py's count: train = 3 × the 8.2 GFLOP forward
+# the small program of tests/test_torch_resnet.py, card against CPU
+RESNET_SMALL = dict(hw=64, class_dim=10, batch=4, lr=1e-5)
+# B11 against its plain version. Both sum the f32 products and round y
+# once, in other orders, so a bf16 y may round one ulp apart near a
+# rounding boundary, and further only where the sum cancels to far below
+# its terms (a 2048-term sum's f32 error passes a bf16 ulp of a y a
+# thousand times smaller than its terms): at most B11_BEYOND_ULP of y
+# more than one bf16 ulp from the plain value. f32 y within B11_F32_TOL of its
+# largest element. s and sq are f32 sums of the rounded y in other
+# orders; a y that rounds one ulp apart moves them further (2·|y|·ulp in
+# sq, past 1e-4 of a column of a few hundred rows), so they are held to
+# the sums of the kernel's own y: within B11_STATS_TOL of Σ|y| and Σy²,
+# and only printed beside the plain version's.
+B11_BEYOND_ULP = 1e-3
+B11_F32_TOL = 1e-5
+B11_STATS_TOL = 1e-5
+# seeded edge cases: (B, H, W, Cin, Cout, prologue, relu, stride): N not a
+# multiple of the 128-row tile, N below one tile, Cin = 64, the prologue
+# on and off, ReLU on and off, a stride-2 view read in place
+B11_EDGE = [(1, 1, 1000, 96, 128, True, False, 1), (1, 1, 37, 64, 64, True, True, 1),
+            (3, 5, 7, 64, 192, False, False, 1), (4, 7, 7, 256, 512, True, True, 2),
+            (4, 7, 7, 256, 512, False, False, 2), (2, 9, 9, 512, 64, True, False, 1)]
+# how phase 20 sums the profiled step's device time
+RESNET_KERNEL_KINDS = {"B11 (fused_conv_bn)": ("fused_conv_bn",),
+                       "convolutions (cuDNN)": ("conv", "cudnn", "xmma", "sm90_", "implicit"),
+                       "matrix products": ("nvjet", "gemm", "cutlass"),
+                       "elementwise": ("elementwise", "copy", "fill"),
+                       "reductions": ("reduce", "norm")}
+# small program, card against CPU, two steps at RESNET_SMALL's lr (the
+# bounds of tests/test_torch_resnet.py, where the port is held to the JAX
+# package): f32 losses (first, second step) relative, gradients and
+# updates relative L2; bf16 (the raw-statistics backward is noise in bf16
+# on both sides) losses and running statistics, and norms within a factor
+RESNET_PARITY = {
+    None: dict(loss=(1e-3, 1e-2), grad=0.1, state=0.3, running=1e-2),
+    "bfloat16": dict(loss=(5e-2, 1e-1), running=0.5, norm=2.0),
+}
+# BN scales whose gradient is 0 in exact arithmetic at the initial state
+RESNET_NULL = ("branch2a_bn.w_0", "branch2b_bn.w_0")
+
+
+def build_resnet_program(ptt, hw, class_dim, lr, batch=None):
+    """bench.py's _build_resnet_train through the port's own front end
+    (bf16 amp). Returns (main, startup, loss)."""
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        img = ptt.layers.data("img", shape=[hw, hw, 3])
+        label = ptt.layers.data("label", shape=[1], dtype=np.int32)
+        logits = ptt.models.resnet_imagenet(img, class_dim=class_dim, data_format="NHWC")
+        loss = ptt.layers.mean(ptt.layers.softmax_with_cross_entropy(logits, label))
+        ptt.optimizer.Momentum(learning_rate=lr, momentum=0.9).minimize(loss)
+    main.set_amp("bfloat16")
+    return main, startup, loss
+
+
+def resnet_feed(rng, hw, class_dim, batch):
+    """bench.py's feed: normal images and integer labels from `rng`."""
+    return {"img": rng.randn(batch, hw, hw, 3).astype(np.float32),
+            "label": rng.randint(0, class_dim, (batch, 1)).astype(np.int32)}
+
+
+class _Flags:
+    """Sets the port's FLAGS for a block and restores them."""
+
+    def __init__(self, flags, **values):
+        self.flags, self.values, self.old = flags, values, {}
+
+    def __enter__(self):
+        for k, v in self.values.items():
+            self.old[k] = getattr(self.flags, k)
+            setattr(self.flags, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            setattr(self.flags, k, v)
+
+
+def b11_bound(x, cin, cout):
+    """Least time for one call: x [N, Cin], W and y [N, Cout] in the io
+    dtype once each, the four [Cin] f32 vectors and the two [Cout] f32
+    statistics; 2·N·Cin·Cout operations at the io dtype's peak."""
+    n = x.numel() // cin
+    nbytes = (n * cin + cin * cout + n * cout) * x.element_size() + (4 * cin + 2 * cout) * 4
+    return (*bound_ms(nbytes, 2.0 * n * cin * cout, PEAK_FLOPS[x.dtype]), nbytes)
+
+
+def b11_label(x, w, vecs, relu):
+    n = x.numel() // x.shape[-1]
+    strided = not x.is_contiguous()
+    return (f"N={n} Cin={x.shape[-1]} Cout={w.shape[0]} "
+            f"{'prologue' + ('+relu' if relu else '') if vecs[0] is not None else 'no prologue'}"
+            f"{' strided' if strided else ''}")
+
+
+def b11_check(fk, args, label, max_errs, time_it=False):
+    """B11 and its stats reduce against their plain versions on one call's
+    inputs (x, w, pm, pi, ps, pb, relu): y beyond one bf16 ulp (or f32
+    relative), s and sq against Σ|y| and Σy², every output nonzero, the
+    same bits in two runs. With `time_it`, returns (kernel, plain, bound,
+    torch.matmul) ms."""
+    x, w, *vecs, relu = args
+    dt = x.dtype
+    got = fk.fused_matmul_bn(x, w, *vecs, relu=relu)
+    again = fk.fused_matmul_bn(x, w, *vecs, relu=relu)
+    want = fk.fused_matmul_bn_plain(x, w, *vecs, relu=relu)
+    torch.cuda.synchronize()
+    y, s, sq = got
+    check(y.dtype == dt and s.dtype == sq.dtype == torch.float32, f"B11 {label}: dtypes")
+    check(all(bool(torch.isfinite(t.float()).all()) for t in got), f"B11 {label}: non-finite")
+    check(amax(y) > 0 and amax(s) > 0 and amax(sq) > 0, f"B11 {label}: an output is all zero")
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(same, f"B11 {label}: two runs differ")
+    yw = want[0].float()
+    if dt == torch.bfloat16:
+        ulp = torch.as_tensor(bf16_ulp(yw.cpu().numpy()), device=yw.device)
+        y_read = float(((y.float() - yw).abs() > ulp).float().mean())
+        y_tol, y_what = B11_BEYOND_ULP, "beyond one ulp"
+    else:
+        y_read, y_tol, y_what = rel_err(y, yw)[1], B11_F32_TOL, "rel err"
+    yk = y.float()
+    abs_sum, sq_sum = yk.abs().sum(0).clamp_min(1e-30), (yk * yk).sum(0).clamp_min(1e-30)
+    s_err = float(((s - yk.sum(0)).abs() / abs_sum).max())
+    sq_err = float(((sq - (yk * yk).sum(0)).abs() / sq_sum).max())
+    s_plain = float(((s - want[1]).abs() / abs_sum).max())
+    sq_plain = float(((sq - want[2]).abs() / sq_sum).max())
+    differ = float((y != want[0]).float().mean())
+    print(f"  fused_conv_bn {label} {str(dt)[6:]}: y {y_what} {y_read:.3e} (max {y_tol:g}), "
+          f"{differ:.4%} differ; s {s_err:.3e}, sq {sq_err:.3e} from the sums of its y (max "
+          f"{B11_STATS_TOL:g}), {s_plain:.3e}, {sq_plain:.3e} from the plain version's; "
+          f"same bits in two runs")
+    check(y_read <= y_tol, f"B11 {label}: y disagrees with its plain version: {y_read:.3e}")
+    check(s_err <= B11_STATS_TOL and sq_err <= B11_STATS_TOL,
+          f"B11 {label}: the statistics are not the sums of y: {s_err:.3e} {sq_err:.3e}")
+    max_errs["fused_conv_bn"] = max(max_errs.get("fused_conv_bn", 0.0),
+                                    float((y.float() - yw).abs().max()))
+    if not time_it:
+        return None
+    cin, cout = x.shape[-1], w.shape[0]
+    k_ms = cuda_ms(lambda: fk.fused_matmul_bn(x, w, *vecs, relu=relu), 10)
+    p_ms = cuda_ms(lambda: fk.fused_matmul_bn_plain(x, w, *vecs, relu=relu), 2)
+    xn = x if vecs[0] is None else fk.prologue_plain(x, *vecs, relu)
+    xn = xn.reshape(-1, cin).contiguous()
+    lib_ms = cuda_ms(lambda: torch.matmul(xn, w.t()), 10)
+    b_ms, b_by, nbytes = b11_bound(x, cin, cout)
+    print(f"    kernel {k_ms * 1e3:.2f} us (with its reduce), plain {p_ms * 1e3:.2f} us, "
+          f"torch.matmul on the prologued operands {lib_ms * 1e3:.2f} us, bound "
+          f"{b_ms * 1e3:.2f} us by {b_by} ({nbytes:.0f} B), {100 * b_ms / k_ms:.2f}% of the bound")
+    return k_ms, p_ms, b_ms, b_by, lib_ms
+
+
+def b11_seeded(rng, B, H, W, cin, cout, prologue, relu, stride, dt):
+    """Normal x (a stride-s view of a larger NHWC tensor when stride > 1),
+    W / sqrt(Cin) and the prologue's vectors, on the card."""
+    t = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32).cuda()  # noqa
+    x = t(B, H * stride, W * stride, cin).to(dt)[:, ::stride, ::stride, :]
+    w = (t(cout, cin) / np.sqrt(cin)).to(dt)
+    vecs = [0.3 * t(cin), 1 + 0.1 * t(cin).abs(), 1 + 0.1 * t(cin), 0.1 * t(cin)] \
+        if prologue else [None] * 4
+    return (x, w, *vecs, relu)
+
+
+def resnet_small_runs(ptt, state, feeds, amp, dev):
+    """Two steps of the small program on `dev` from `state`: (losses, the
+    first step's P@GRAD, the state after)."""
+    main, _, loss = build_resnet_program(ptt, **{k: RESNET_SMALL[k]
+                                                  for k in ("hw", "class_dim", "lr")})
+    main.set_amp(amp)
+    sc_ = ptt.Scope()
+    ptt.io.params_from_numpy(sc_, state, dev)
+    grads = [p.name + "@GRAD" for p in main.parameters()]
+    dexe = ptt.Executor(device=dev)
+    out = dexe.run(main, feeds[0], [loss.name] + grads, scope=sc_)
+    second = dexe.run(main, feeds[1], [loss.name], scope=sc_)
+    return ([float(out[0]), float(second[0])], dict(zip(grads, out[1:])),
+            ptt.io.state_to_numpy(sc_, list(state)))
+
+
+def resnet_compare(state, cpu, card, amp):
+    """Card against CPU with RESNET_PARITY's bounds; returns the worst
+    readings."""
+    b = RESNET_PARITY[amp]
+    (cl, cg, cs), (gl, gg, gs) = cpu, card
+    worst = dict(loss=0.0, grad=0.0, state=0.0, running=0.0, norm=1.0)
+    for i, (a, g) in enumerate(zip(cl, gl)):
+        rel = abs(a - g) / abs(a)
+        worst["loss"] = max(worst["loss"], rel)
+        check(np.isfinite(g) and rel <= b["loss"][i], f"losses differ: cpu {cl} card {gl}")
+    null = lambda n: n.replace("@GRAD", "").endswith(RESNET_NULL)  # noqa: E731
+
+    def hold(name, got, want, bound_key):
+        if bound_key in b and not null(name):
+            r = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+            worst[bound_key] = max(worst[bound_key], r)
+            check(r <= b[bound_key], f"{name}: {r:.3e} apart (relative L2)")
+        else:
+            ratio = float(np.linalg.norm(got) / max(np.linalg.norm(want), 1e-30))
+            worst["norm"] = max(worst["norm"], ratio, 1 / max(ratio, 1e-30))
+            check(1 / 2.0 <= ratio <= 2.0, f"{name}: norm ratio {ratio:.3f}")
+
+    for n, a in cg.items():
+        hold(n, gg[n], a, "grad")
+    for n, a in cs.items():
+        if n.endswith(".lr"):
+            check(np.array_equal(gs[n], a), f"{n} differs")
+        elif n.endswith((".mean", ".variance")):
+            r = float(np.linalg.norm(gs[n] - a) / max(np.linalg.norm(a), 1e-30))
+            worst["running"] = max(worst["running"], r)
+            check(r <= b["running"], f"{n}: running statistics {r:.3e} apart")
+        elif ".velocity." in n:
+            hold(n, gs[n], a, "state")
+        else:
+            hold(n, gs[n] - state[n], a - state[n], "state")
+    return worst
+
+
+def resnet_phases(ptt, exe, rng, smi, seed, first_phase):
+    """Phases first_phase.. of the ResNet slice; returns the kernels' rows,
+    their largest errors and their launches on the training path."""
+    from paddle_tpu_torch.ops import fused_conv_kernels as fk
+
+    n = first_phase
+    phase(n, "ResNet-50 at full width (bf16), built by the port's front end, B11 route: "
+          "startup and a warm-up step")
+    flags = _Flags(ptt.FLAGS, fused_conv_dot_max_n=RESNET_DOT_MAX_N, fused_conv_pallas=True)
+    flags.__enter__()  # left in phase 20, before the default route's steps
+    main_p, startup, loss = build_resnet_program(ptt, **{k: RESNET_BENCH[k]
+                                                        for k in ("hw", "class_dim", "lr")})
+    ops = [o.type for o in main_p.global_block().ops]
+    counts = {t: ops.count(t) for t in sorted(set(ops))}
+    print(f"  main program: {len(ops)} ops {counts}; startup: "
+          f"{len(startup.global_block().ops)} ops")
+    fused = ops.count("fused_conv_bn")
+    scope = ptt.Scope()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope, seed=seed)
+    torch.cuda.synchronize()
+    n_values = sum(scope.get(p.name).numel() for p in main_p.parameters())
+    print(f"  startup: {len(main_p.parameters())} parameters with {n_values} values, "
+          f"{time.perf_counter() - t0:.2f} s")
+    batch = RESNET_BENCH["batch"]
+    feed = resnet_feed(np.random.RandomState(0), RESNET_BENCH["hw"], RESNET_BENCH["class_dim"],
+                       batch)
+    calls, restore = record_calls(fk, {"fused_matmul_bn": "all"})
+    try:
+        t0 = time.perf_counter()
+        losses = [float(exe.run(main_p, feed, [loss.name], scope=scope)[0])]
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    recorded = calls.get("fused_matmul_bn", [])
+    print(f"  warm-up step: loss {losses[0]:.6f}, {time.perf_counter() - t0:.3f} s; {batch} "
+          f"images; {len(recorded)} fused_matmul_bn calls recorded; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(len(recorded) == fused, f"the warm-up step ran {len(recorded)} B11 calls, "
+          f"not the program's {fused}")
+
+    n += 1
+    phase(n, "B11 against plain (the warm-up step's inputs at each shape, then seeded inputs)")
+    rows, max_errs = {}, {}
+    by_shape = {}  # a label: (the call's inputs, calls a step)
+    for a, _ in recorded:  # (x, w, pm, pi, ps, pb, relu), as _FusedConvBNFn passes them
+        by_shape.setdefault(b11_label(a[0], a[1], a[2:6], a[6]), [a, 0])[1] += 1
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    bound_by = {"bytes": 0.0, "operations": 0.0}
+    for key, (args, mult) in by_shape.items():
+        k_ms, p_ms, b_ms, b_by, lib_ms = b11_check(fk, args, f"{key} (x{mult} a step)",
+                                                   max_errs, time_it=True)
+        for name, v in zip(("ms", "plain_ms", "bound_ms", "library_ms"),
+                           (k_ms, p_ms, b_ms, lib_ms)):
+            totals[name] += mult * v
+        bound_by[b_by] += mult * b_ms
+    print(f"  a step's {fused} calls at {len(by_shape)} shapes: kernel {totals['ms']:.4f} ms, "
+          f"plain {totals['plain_ms']:.4f} ms, torch.matmul {totals['library_ms']:.4f} ms, "
+          f"bound {totals['bound_ms']:.4f} ms ({bound_by['bytes']:.4f} by bytes, "
+          f"{bound_by['operations']:.4f} by operations; the kernels at "
+          f"{100 * totals['bound_ms'] / totals['ms']:.2f}% of the bound)")
+    rows["fused_conv_bn"] = dict(totals, bound_by=max(bound_by, key=bound_by.get))
+    # f32 on a subset of the step's own inputs: the first call, and the last
+    for a, _ in (recorded[0], recorded[-1]):
+        b11_check(fk, (a[0].float(), a[1].float(), *a[2:]),
+                  b11_label(a[0], a[1], a[2:6], a[6]) + " (the step's input in f32)", max_errs)
+    srng = np.random.RandomState(seed + 11)
+    for B_, H_, W_, ci, co, pro, relu, stride in B11_EDGE:
+        for dt in (torch.bfloat16, torch.float32):
+            args = b11_seeded(srng, B_, H_, W_, ci, co, pro, relu, stride, dt)
+            b11_check(fk, args, b11_label(args[0], args[1], args[2:6], relu) + " (seeded)",
+                      max_errs)
+    # the stats reduce alone, on the largest workspace of the step
+    x, w = recorded[0][0][:2]
+    n_rows = x.numel() // x.shape[-1]
+    chunks, _ = fk._row_chunks(-(-n_rows // fk.ROW_TILE), w.shape[0] // fk.COL_TILE, x.device)
+    part = torch.as_tensor(srng.standard_normal((2, chunks, w.shape[0])),
+                           dtype=torch.float32).cuda()
+    got, want = fk.stats_reduce(part), fk.stats_reduce_plain(part)
+    again = fk.stats_reduce(part)
+    torch.cuda.synchronize()
+    r_err = float((got - want).abs().max())
+    r_rel = r_err / amax(part.abs().sum(1))
+    check(torch.equal(got, again), "stats_reduce: two runs differ")
+    check(r_rel <= B11_STATS_TOL, f"stats_reduce disagrees with its plain version: {r_rel:.3e}")
+    r_ms = cuda_ms(lambda: fk.stats_reduce(part), 20)
+    rp_ms = cuda_ms(lambda: fk.stats_reduce_plain(part), 20)
+    r_bound, r_by = bound_ms(part.numel() * 4 + 2 * w.shape[0] * 4, float(part.numel()),
+                             PEAK_FLOPS[torch.float32])
+    print(f"  fused_conv_bn_reduce [2, {chunks}, {w.shape[0]}]: err {r_rel:.3e} of Σ|part| "
+          f"(max {B11_STATS_TOL:g}), same bits in two runs; kernel {r_ms * 1e3:.2f} us, plain "
+          f"(torch.sum, also the library call) {rp_ms * 1e3:.2f} us, bound {r_bound * 1e3:.3f} us "
+          f"by {r_by}")
+    max_errs["fused_conv_bn_reduce"] = r_err
+    rows["fused_conv_bn_reduce"] = dict(ms=r_ms, plain_ms=rp_ms, bound_ms=r_bound, bound_by=r_by,
+                                        library_ms=rp_ms)
+    del recorded, calls, by_shape
+
+    n += 1
+    phase(n, "ResNet-50 training at full width (bf16, B11 route): 3 timed steps")
+    torch.cuda.reset_peak_memory_stats()
+    fk.fused_conv_bn_launches = fk.fused_conv_bn_reduce_launches = 0
+    fk.fused_conv_bn_input_copies = 0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main_p, feed, [loss.name], scope=scope)[0]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {"fused_conv_bn": fk.fused_conv_bn_launches,
+                "fused_conv_bn_reduce": fk.fused_conv_bn_reduce_launches}
+    print(f"  losses (warm-up, then timed): {losses}")
+    check(all(np.isfinite(losses)), "non-finite loss")
+    check(losses[-1] < losses[0], "the loss did not fall over 4 steps on one batch")
+    print(f"  launches in 3 steps: {launches}, input copies {fk.fused_conv_bn_input_copies}; "
+          f"per step expected {fused} of each")
+    for k, c in launches.items():
+        check(c == 3 * fused, f"{k} launched {c} times in 3 steps, not {3 * fused}")
+    check(fk.fused_conv_bn_input_copies == 0, "B11 copied an input on the main path")
+    med = statistics.median(times)
+    flops = RESNET_FLOP_PER_IMAGE * batch
+    print(f"  steps ms: {[round(t, 3) for t in times]}; median {med:.3f} ms/step, "
+          f"{batch / med * 1e3:.1f} images/s (B={batch}, 224x224); "
+          f"{100 * flops / (med / 1e3) / PEAK_FLOPS[torch.bfloat16]:.2f}% of the bf16 peak for "
+          f"bench.py's {flops / 1e12:.3f} TFLOP a step; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+    breakdown(lambda: exe.run(main_p, feed, [loss.name], scope=scope), med, "step",
+              kinds=RESNET_KERNEL_KINDS)
+    flags.__exit__()
+    with _Flags(ptt.FLAGS, fused_conv_dot_max_n=0, fused_conv_pallas=False):
+        before = fk.fused_conv_bn_launches
+        exe.run(main_p, feed, [loss.name], scope=scope)  # warm-up of the other route
+        torch.cuda.synchronize()
+        alt = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            exe.run(main_p, feed, [loss.name], scope=scope)
+            torch.cuda.synchronize()
+            alt.append((time.perf_counter() - t0) * 1e3)
+        check(fk.fused_conv_bn_launches == before, "the cuDNN route launched B11")
+    print(f"  context, not a gate: the same step on the default route (fused_conv_pallas off, "
+          f"fused_conv_dot_max_n 0: each 1x1 conv a cuDNN conv): steps ms "
+          f"{[round(t, 3) for t in alt]}, median {statistics.median(alt):.3f} ms/step, "
+          f"{batch / statistics.median(alt) * 1e3:.1f} images/s")
+    del scope
+
+    n += 1
+    phase(n, "small ResNet-50 program (64x64, B=4): card against CPU (f32, then bf16)")
+    with _Flags(ptt.FLAGS, fused_conv_dot_max_n=10 ** 9, fused_conv_pallas=True):
+        smain, sstart, _ = build_resnet_program(ptt, **{k: RESNET_SMALL[k]
+                                                        for k in ("hw", "class_dim", "lr")})
+        sc_ = ptt.Scope()
+        ptt.Executor(device="cpu").run(sstart, scope=sc_, seed=seed + 12)
+        state = ptt.io.state_to_numpy(sc_, [v.name for v in smain.persistables()])
+        frng = np.random.RandomState(seed + 13)
+        sfeeds = [resnet_feed(frng, RESNET_SMALL["hw"], RESNET_SMALL["class_dim"],
+                              RESNET_SMALL["batch"]) for _ in range(2)]
+        for amp in (None, "bfloat16"):
+            before = fk.fused_conv_bn_launches
+            cpu = resnet_small_runs(ptt, state, sfeeds, amp, "cpu")
+            card = resnet_small_runs(ptt, state, sfeeds, amp, "cuda")
+            check(fk.fused_conv_bn_launches - before == 2 * fused,
+                  f"the small program's card run launched B11 "
+                  f"{fk.fused_conv_bn_launches - before} times, not {2 * fused}")
+            worst = resnet_compare(state, cpu, card, amp)
+            b = RESNET_PARITY[amp]
+            print(f"  {amp or 'f32'}: losses cpu {cpu[0]} card {card[0]}, worst rel "
+                  f"{worst['loss']:.3e} (max {b['loss']}); " +
+                  (f"gradients {worst['grad']:.3e} (max {b['grad']}), velocities and updates "
+                   f"{worst['state']:.3e} (max {b['state']}) relative L2; " if amp is None else "")
+                  + f"running statistics {worst['running']:.3e} (max {b['running']}); norms "
+                  f"within a factor {worst['norm']:.3f} (max 2)")
+    return rows, max_errs, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1153,8 +1582,8 @@ def main():
     sys.path.insert(0, ROOT)
     torch.manual_seed(args.seed)
     import paddle_tpu_torch as ptt
-    from paddle_tpu_torch.ops import (attention_kernels, cuda_build, flash_kernels, lstm_kernels,
-                                      rnn_kernels)
+    from paddle_tpu_torch.ops import (attention_kernels, cuda_build, flash_kernels,
+                                      fused_conv_kernels, lstm_kernels, rnn_kernels)
 
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -1167,7 +1596,8 @@ def main():
 
     phase(2, "build")
     t0 = time.perf_counter()
-    names = ("gru_fwd", "gru_bwd", "bahdanau_attn", "lstm_fwd", "lstm_bwd", "flash_attn")
+    names = ("gru_fwd", "gru_bwd", "bahdanau_attn", "lstm_fwd", "lstm_bwd", "flash_attn",
+             "fused_conv_bn")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(cuda_build.build, names))  # one nvcc each, together
     print(f"built {', '.join(os.path.relpath(p, ROOT) for p in paths)} in "
@@ -1183,6 +1613,7 @@ def main():
     lstm_kernels._lib("lstm_fwd")
     lstm_kernels._lib("lstm_bwd")
     flash_kernels._lib()
+    fused_conv_kernels._lib()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1546,8 +1977,11 @@ def main():
     trows, terrs, tfm_launches = transformer_phases(ptt, exe, rng, smi, args.seed, 14)
     rows.update(trows)
     max_errs.update(terrs)
+    rrows, rerrs, resnet_launches = resnet_phases(ptt, exe, rng, smi, args.seed, 18)
+    rows.update(rrows)
+    max_errs.update(rerrs)
 
-    phase(18, "the kernels line, then the device line")
+    phase(22, "the kernels line, then the device line")
     sources = {"gru_fwd": ("gru_fwd.cu", "paddle_tpu/ops/pallas_kernels.py:493"),
                "gru_bwd": ("gru_bwd.cu", "paddle_tpu/ops/pallas_kernels.py:608"),
                "attn_fwd": ("bahdanau_attn.cu", "paddle_tpu/ops/bahdanau_kernels.py:257"),
@@ -1557,16 +1991,21 @@ def main():
                "lstm_bwd": ("lstm_bwd.cu", "paddle_tpu/ops/pallas_kernels.py:332"),
                "flash_fwd": ("flash_attn.cu", "paddle_tpu/ops/flash_ops.py:160"),
                "flash_bwd_dkv": ("flash_attn.cu", "paddle_tpu/ops/flash_ops.py:160"),
-               "flash_bwd_dq": ("flash_attn.cu", "paddle_tpu/ops/flash_ops.py:160")}
+               "flash_bwd_dq": ("flash_attn.cu", "paddle_tpu/ops/flash_ops.py:160"),
+               "fused_conv_bn": ("fused_conv_bn.cu", "paddle_tpu/ops/fused_conv_ops.py:140"),
+               "fused_conv_bn_reduce": ("fused_conv_bn.cu",
+                                        "paddle_tpu/ops/fused_conv_ops.py:140")}
     by_path = {k: {"nmt_train": n} for k, n in train_launches.items()}
     by_path["gru_fwd"]["nmt_beam_infer"] = infer_launches
     by_path.update({k: {"lstm_train": n} for k, n in lstm_launches.items()})
     by_path.update({k: {"transformer_train": n} for k, n in tfm_launches.items()})
+    by_path.update({k: {"resnet50_train": n} for k, n in resnet_launches.items()})
     rows["gru_fwd"] = main_row
     max_errs["gru_fwd"] = max_err
     kernels = [{
         "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
-        "replaces": rep, "launches": {**train_launches, **lstm_launches, **tfm_launches}[name],
+        "replaces": rep,
+        "launches": {**train_launches, **lstm_launches, **tfm_launches, **resnet_launches}[name],
         "launches_by_path": by_path[name], "max_abs_err": max_errs[name],
         "library_ms": None, **rows[name], "checked_against_plain": True,
     } for name, (src, rep) in sources.items()]

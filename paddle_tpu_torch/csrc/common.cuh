@@ -1,12 +1,15 @@
 // Helpers the port's kernels share: conversion between the io dtype (f32 or
-// bf16) and the f32 the math runs in, and warp reductions. Every kernel
-// computes in f32 and rounds to the io dtype only where the TPU kernel it
-// replaces rounds.
+// bf16) and the f32 the math runs in, warp reductions, and one warp's
+// matrix product on the tensor cores (bf16 mma.sync m16n8k16 with f32
+// accumulators, or the same fragments with f32 FMAs for f32 io). Every
+// kernel computes in f32 and rounds to the io dtype only where the TPU
+// kernel it replaces rounds.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace ptt {
 
@@ -43,6 +46,85 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 __device__ __forceinline__ float sigmoid_f(float v) { return 1.f / (1.f + expf(-v)); }
+
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// C[16 x 8·NT] += A[16 x K] · B[K x 8·NT] for one warp, in the m16n8k16
+// accumulator layout: lane (g = lane/4, q = lane%4) holds, for each n-tile
+// j, C[g][8j+2q], C[g][8j+2q+1], C[g+8][8j+2q], C[g+8][8j+2q+1].
+// A is row-major in shared memory (A[r][k] = a[r·lda + k]); B is either
+// stored as N rows of K (kBnk: B[k][n] = b[n·ldb + k], the Kᵀ and Vᵀ
+// operands) or as K rows of N (B[k][n] = b[k·ldb + n], the V, dO, Q and K
+// operands of the second product).
+template <typename T, int NT, bool kBnk>
+struct WarpMma;
+
+template <int NT, bool kBnk>
+struct WarpMma<__nv_bfloat16, NT, kBnk> {
+  static __device__ __forceinline__ void run(float (&c)[NT][4], const __nv_bfloat16* a, int lda,
+                                             const __nv_bfloat16* b, int ldb, int K) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      const __nv_bfloat16* ar = a + g * lda + k0 + 2 * q;
+      const uint32_t a0 = *reinterpret_cast<const uint32_t*>(ar);
+      const uint32_t a1 = *reinterpret_cast<const uint32_t*>(ar + 8 * lda);
+      const uint32_t a2 = *reinterpret_cast<const uint32_t*>(ar + 8);
+      const uint32_t a3 = *reinterpret_cast<const uint32_t*>(ar + 8 * lda + 8);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = 8 * j + g;
+        uint32_t b0, b1;
+        if (kBnk) {
+          const __nv_bfloat16* br = b + n * ldb + k0 + 2 * q;
+          b0 = *reinterpret_cast<const uint32_t*>(br);
+          b1 = *reinterpret_cast<const uint32_t*>(br + 8);
+        } else {
+          const __nv_bfloat16* br = b + (k0 + 2 * q) * ldb + n;
+          b0 = pack2(br[0], br[ldb]);
+          b1 = pack2(br[8 * ldb], br[9 * ldb]);
+        }
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      }
+    }
+  }
+};
+
+template <int NT, bool kBnk>
+struct WarpMma<float, NT, kBnk> {
+  static __device__ __forceinline__ void run(float (&c)[NT][4], const float* a, int lda,
+                                             const float* b, int ldb, int K) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    for (int k = 0; k < K; ++k) {
+      const float a0 = a[g * lda + k], a1 = a[(g + 8) * lda + k];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = 8 * j + 2 * q;
+        const float b0 = kBnk ? b[n * ldb + k] : b[k * ldb + n];
+        const float b1 = kBnk ? b[(n + 1) * ldb + k] : b[k * ldb + n + 1];
+        c[j][0] = fmaf(a0, b0, c[j][0]);
+        c[j][1] = fmaf(a0, b1, c[j][1]);
+        c[j][2] = fmaf(a1, b0, c[j][2]);
+        c[j][3] = fmaf(a1, b1, c[j][3]);
+      }
+    }
+  }
+};
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&c)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+}
+
+// The accumulator's element (j, e) in the tile: row offset, column offset.
+__device__ __forceinline__ int frag_row(int e) { return ((threadIdx.x & 31) >> 2) + (e >> 1) * 8; }
+__device__ __forceinline__ int frag_col(int j, int e) { return 8 * j + 2 * (threadIdx.x & 3) + (e & 1); }
 
 // What a persistent cooperative launch needs to know of the current device:
 // its SM count and the shared memory a block may opt in to.

@@ -5,13 +5,13 @@ rather than being ignored."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Union
 
 
 class _Flags:
     """Attribute access over a fixed set of flags: `FLAGS.use_fused_rnn`."""
 
-    def __init__(self, defaults: Dict[str, bool], unported: Dict[str, str]):
+    def __init__(self, defaults: Dict[str, Union[bool, int]], unported: Dict[str, str]):
         object.__setattr__(self, "_values", dict(defaults))
         object.__setattr__(self, "_unported", dict(unported))
 
@@ -32,7 +32,9 @@ class _Flags:
             return
         if name not in self._values:
             raise AttributeError(f"undefined flag {name!r}")
-        self._values[name] = bool(value)
+        # each flag keeps its default's type: a bool flag stores bool(value),
+        # an int flag (fused_conv_dot_max_n) int(value)
+        self._values[name] = type(self._values[name])(value)
 
 
 FLAGS = _Flags({
@@ -43,7 +45,19 @@ FLAGS = _Flags({
     # kernels (ops/attention_kernels.py) under its own backward; off, it
     # takes the plain scan formulation with autograd
     "use_fused_attention": True,
+    # resnet_imagenet's NHWC training bottlenecks build through the fused
+    # raw-stats protocol (fused_conv_bn / bn_stats / bn_apply); read when
+    # the program is built
+    "use_fused_conv": True,
+    # fused_conv_bn runs its 1x1 conv as a 2-D product when its rows N <=
+    # this, else as a 1x1 F.conv2d (the 4-D route)
+    "fused_conv_dot_max_n": 0,
+    # the 2-D product is the hand-written fused conv + BN kernel
+    # (ops/fused_conv_kernels.py) where its eligibility holds; off, the
+    # plain 2-D formula
+    "fused_conv_pallas": False,
 }, unported={
     "fused_attention_seq_fwd": "the whole-sequence decoder forward kernel (B9)",
     "fused_attention_seq_bwd": "the decoder mega backward kernel (B10)",
+    "bn_bf16_stats": "batch-norm statistics squared in the io dtype",
 })

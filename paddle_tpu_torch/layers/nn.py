@@ -1,8 +1,11 @@
 """Layer DSL (paddle_tpu/layers/nn.py), cut to the layers the ported
-programs use: data (:73), fc (:96), embedding (:146), layer_norm (:492),
-softmax_with_cross_entropy (:537), mean (:602) and elementwise_add
-(:622). Each builds its parameters through LayerHelper and appends ops
-to the default program; shapes use -1 for the batch dimension."""
+programs use: data (:73), fc (:96), embedding (:146), conv2d (:198),
+pool2d (:278), batch_norm (:348), the fused conv + BN protocol's
+RawConvBN (:376), fused_conv_bn (:394), bn_stats (:451) and bn_apply
+(:477), layer_norm (:492), softmax_with_cross_entropy (:537), mean
+(:602), relu (:610) and elementwise_add (:622). Each builds its
+parameters through LayerHelper and appends ops to the default program;
+shapes use -1 for the batch dimension."""
 
 from __future__ import annotations
 
@@ -12,10 +15,12 @@ import numpy as np
 
 from ..core.program import Variable, default_main_program
 from ..initializer import ConstantInitializer, NormalInitializer
+from ..param_attr import ParamAttr
 from .helper import LayerHelper
 
-__all__ = ["data", "fc", "embedding", "layer_norm", "softmax_with_cross_entropy", "mean",
-           "elementwise_add"]
+__all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm", "RawConvBN",
+           "fused_conv_bn", "bn_stats", "bn_apply", "layer_norm", "softmax_with_cross_entropy",
+           "mean", "relu", "elementwise_add"]
 
 
 def data(name: str, shape: Sequence[int], dtype=np.float32, lod_level: int = 0,
@@ -72,6 +77,162 @@ def embedding(input, size: Sequence[int], is_sparse: bool = False,
     return out
 
 
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+
+
+def _conv_out_hw(hw, ksize, stride, padding, dilation=1):
+    """Static output spatial dims; -1 propagates unknowns."""
+    k, s, p, d = _pair(ksize), _pair(stride), _pair(padding), _pair(dilation)
+    return tuple(-1 if hw[i] == -1 else (hw[i] + 2 * p[i] - (d[i] * (k[i] - 1) + 1)) // s[i] + 1
+                 for i in range(2))
+
+
+def conv2d(input, num_filters: int, filter_size, stride=1, padding=0, dilation=1,
+           groups: int = 1, act: Optional[str] = None, param_attr=None, bias_attr=None,
+           name=None, data_format: str = "NCHW") -> Variable:
+    """The filter is OIHW in either layout, initialised N(0, sqrt(2 /
+    fan_in)); an NHWC input gives an NHWC output."""
+    helper = LayerHelper("conv2d", name=name)
+    in_c = input.shape[1] if data_format == "NCHW" else input.shape[3]
+    fh, fw = _pair(filter_size)
+    fan_in = (in_c // groups) * fh * fw
+    w = helper.create_parameter(param_attr, (num_filters, in_c // groups, fh, fw),
+                                default_initializer=NormalInitializer(0.0, (2.0 / fan_in) ** 0.5))
+    inputs = {"Input": [input], "Filter": [w]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(bias_attr, (num_filters,), is_bias=True)]
+    hw_in = input.shape[2:4] if data_format == "NCHW" else input.shape[1:3]
+    out_hw = _conv_out_hw(hw_in, (fh, fw), stride, padding, dilation)
+    out_shape = ((-1, num_filters) + out_hw if data_format == "NCHW"
+                 else (-1,) + out_hw + (num_filters,))
+    out = helper.create_tmp_variable(input.dtype, out_shape)
+    helper.append_op(type="conv2d", inputs=inputs, outputs={"Output": [out]},
+                     attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+                            "groups": groups, "data_format": data_format})
+    return helper.append_activation(out, act)
+
+
+def pool2d(input, pool_size=2, pool_type: str = "max", pool_stride=None, pool_padding=0,
+           global_pooling: bool = False, exclusive: bool = True, name=None,
+           data_format: str = "NCHW") -> Variable:
+    helper = LayerHelper("pool2d", name=name)
+    hw_in = input.shape[2:4] if data_format == "NCHW" else input.shape[1:3]
+    c = input.shape[1] if data_format == "NCHW" else input.shape[3]
+    stride = pool_stride if pool_stride is not None else pool_size
+    out_hw = (1, 1) if global_pooling else _conv_out_hw(hw_in, pool_size, stride, pool_padding)
+    out_shape = (-1, c) + out_hw if data_format == "NCHW" else (-1,) + out_hw + (c,)
+    out = helper.create_tmp_variable(input.dtype, out_shape)
+    helper.append_op(type="pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type, "ksize": pool_size, "strides": stride,
+                            "paddings": pool_padding, "global_pooling": global_pooling,
+                            "exclusive": exclusive, "data_format": data_format})
+    return out
+
+
+def _create_bn_params(helper, c, param_attr=None, bias_attr=None):
+    """Scale (ones) and bias (zeros) trainables, then the running mean
+    (zeros) and variance (ones) persistables `{name}.mean` and
+    `{name}.variance`, in the order batch_norm and the fused protocol
+    both create them."""
+    scale = helper.create_parameter(param_attr, (c,),
+                                    default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bias_attr, (c,), is_bias=True)
+    mean = helper.create_parameter(ParamAttr(name=f"{helper.name}.mean"), (c,),
+                                   default_initializer=ConstantInitializer(0.0))
+    var = helper.create_parameter(ParamAttr(name=f"{helper.name}.variance"), (c,),
+                                  default_initializer=ConstantInitializer(1.0))
+    for v in (mean, var):  # state, not trainable weights
+        v.trainable = False
+        v.is_parameter = False
+    return scale, bias, mean, var
+
+
+def batch_norm(input, act: Optional[str] = None, momentum: float = 0.9, epsilon: float = 1e-5,
+               is_test: bool = False, param_attr=None, bias_attr=None, name=None,
+               data_format: str = "NCHW") -> Variable:
+    helper = LayerHelper("batch_norm", name=name)
+    c = input.shape[1] if data_format == "NCHW" else input.shape[-1]
+    scale, bias, mean, var = _create_bn_params(helper, c, param_attr, bias_attr)
+    out = helper.create_tmp_variable(input.dtype, input.shape)
+    helper.append_op(type="batch_norm",
+                     inputs={"X": [input], "Scale": [scale], "Bias": [bias], "Mean": [mean],
+                             "Variance": [var]},
+                     outputs={"Y": [out]},
+                     attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+                            "data_format": data_format})
+    return helper.append_activation(out, act)
+
+
+class RawConvBN:
+    """A raw (pre-BatchNorm) activation with the batch statistics and the
+    parameters that normalise it, the currency of the fused conv + BN
+    protocol (ops/fused_conv_ops.py): a consumer normalises it (bn_apply)
+    or hands it to the next fused_conv_bn, whose prologue normalises it."""
+
+    __slots__ = ("out", "mean", "inv", "scale", "bias")
+
+    def __init__(self, out, mean, inv, scale, bias):
+        self.out, self.mean, self.inv, self.scale, self.bias = out, mean, inv, scale, bias
+
+
+def fused_conv_bn(input, num_filters: int, stride: int = 1,
+                  prologue_act: Optional[str] = "relu", momentum: float = 0.9,
+                  epsilon: float = 1e-5, param_attr=None, bn_param_attr=None, bn_bias_attr=None,
+                  name=None) -> RawConvBN:
+    """1x1 conv + BatchNorm (NHWC, train mode) through the fused protocol.
+    `input` is a Variable (no prologue) or a RawConvBN (its normalise and
+    `prologue_act` run in this conv's prologue). The parameter names are
+    an unfused conv2d + batch_norm's; `name` names the BN half."""
+    prologue = isinstance(input, RawConvBN)
+    x = input.out if prologue else input
+    in_c = x.shape[3]
+    conv_helper = LayerHelper("conv2d")
+    w = conv_helper.create_parameter(param_attr, (num_filters, in_c, 1, 1),
+                                     default_initializer=NormalInitializer(0.0, (2.0 / in_c) ** 0.5))
+    scale, bias, mean, var = _create_bn_params(LayerHelper("batch_norm", name=name), num_filters,
+                                               bn_param_attr, bn_bias_attr)
+    out_hw = tuple(-1 if d == -1 else (d + stride - 1) // stride for d in x.shape[1:3])
+    out = conv_helper.create_tmp_variable(x.dtype, (-1,) + out_hw + (num_filters,))
+    bmean = conv_helper.create_tmp_variable(np.float32, (num_filters,))
+    binv = conv_helper.create_tmp_variable(np.float32, (num_filters,))
+    inputs = {"X": [x], "Filter": [w], "Mean": [mean], "Variance": [var]}
+    if prologue:
+        inputs.update({"XMean": [input.mean], "XInv": [input.inv], "XScale": [input.scale],
+                       "XBias": [input.bias]})
+    conv_helper.append_op(type="fused_conv_bn", inputs=inputs,
+                          outputs={"Out": [out], "BatchMean": [bmean], "BatchInv": [binv]},
+                          attrs={"stride": stride, "epsilon": epsilon, "momentum": momentum,
+                                 "prologue_act": prologue_act})
+    return RawConvBN(out, bmean, binv, scale, bias)
+
+
+def bn_stats(input, momentum: float = 0.9, epsilon: float = 1e-5, param_attr=None,
+             bias_attr=None, name=None) -> RawConvBN:
+    """The statistics half of a BatchNorm over a raw NHWC activation; its
+    normalise runs in bn_apply or a fused_conv_bn prologue."""
+    helper = LayerHelper("batch_norm", name=name)
+    c = input.shape[-1]
+    scale, bias, mean, var = _create_bn_params(helper, c, param_attr, bias_attr)
+    bmean = helper.create_tmp_variable(np.float32, (c,))
+    binv = helper.create_tmp_variable(np.float32, (c,))
+    helper.append_op(type="bn_stats", inputs={"X": [input], "Mean": [mean], "Variance": [var]},
+                     outputs={"BatchMean": [bmean], "BatchInv": [binv]},
+                     attrs={"epsilon": epsilon, "momentum": momentum})
+    return RawConvBN(input, bmean, binv, scale, bias)
+
+
+def bn_apply(raw: RawConvBN, act: Optional[str] = None, name=None) -> Variable:
+    """The normalised activation of a RawConvBN (and `act`)."""
+    helper = LayerHelper("bn_apply", name=name)
+    out = helper.create_tmp_variable(raw.out.dtype, raw.out.shape)
+    helper.append_op(type="bn_apply",
+                     inputs={"X": [raw.out], "Mean": [raw.mean], "Inv": [raw.inv],
+                             "Scale": [raw.scale], "Bias": [raw.bias]},
+                     outputs={"Out": [out]}, attrs={"act": act})
+    return out
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5, name=None):
     """Normalises over the axes from begin_norm_axis on, with a learned
     scale (ones) and shift (zeros) over those axes' elements."""
@@ -106,6 +267,13 @@ def mean(x):
     helper = LayerHelper("mean")
     out = helper.create_tmp_variable(x.dtype, (), x.lod_level)
     helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]}, attrs={})
+    return out
+
+
+def relu(x):
+    helper = LayerHelper("relu")
+    out = helper.create_tmp_variable(x.dtype, x.shape, x.lod_level)
+    helper.append_op(type="relu", inputs={"X": [x]}, outputs={"Out": [out]}, attrs={})
     return out
 
 

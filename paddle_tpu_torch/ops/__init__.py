@@ -4,6 +4,7 @@ from . import (  # noqa: F401
     activation_ops,
     attention_ops,
     flash_ops,
+    fused_conv_ops,
     math_ops,
     misc_ops,
     nn_ops,

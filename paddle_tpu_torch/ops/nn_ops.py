@@ -1,13 +1,121 @@
-"""Normalisation and loss op kernels: `layer_norm` and
-`softmax_with_cross_entropy` (paddle_tpu/ops/nn_ops.py:191-207, 247-272),
-on torch tensors."""
+"""Convolution, pooling, normalisation and loss op kernels: `conv2d`,
+`pool2d`, `batch_norm`, `layer_norm` and `softmax_with_cross_entropy`
+(paddle_tpu/ops/nn_ops.py:30, 106, 146, 191-207, 247-272), on torch
+tensors.
+
+The convolution goes to F.conv2d (cuDNN on the card), as the JAX package
+leaves it to XLA. An NHWC tensor reaches it as a channels-last NCHW view
+(`permute(0, 3, 1, 2)`, no copy), so cuDNN runs its NHWC kernels and the
+output comes back NHWC without a transpose; the filter stays OIHW.
+"""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from .. import amp
 from ..core.lod import LoDArray
 from ..core.registry import register_op
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+
+
+def _nchw(x, fmt):
+    """x as an NCHW tensor (a view of an NHWC one) and the inverse view."""
+    if fmt == "NCHW":
+        return x, lambda t: t
+    if fmt != "NHWC":
+        raise ValueError(f"unsupported data_format {fmt!r}")
+    return x.permute(0, 3, 1, 2), lambda t: t.permute(0, 2, 3, 1)
+
+
+@register_op("conv2d")
+def conv2d_kernel(ctx):
+    """Strides, symmetric paddings, dilations and groups as the JAX op
+    takes them. Under amp the inputs drop to bf16 and the output stays
+    bf16 (f32 accumulation inside cuDNN); the f32 path accumulates in f32
+    where TF32 is off (torch.backends.cudnn.allow_tf32)."""
+    x, w = ctx.input("Input"), ctx.input("Filter")
+    xc, wc = amp.cast_inputs(ctx, x, w)
+    x4, back = _nchw(xc, ctx.attr("data_format", "NCHW"))
+    out = F.conv2d(x4, wc.to(xc.dtype), stride=_pair(ctx.attr("strides", (1, 1))),
+                   padding=_pair(ctx.attr("paddings", (0, 0))),
+                   dilation=_pair(ctx.attr("dilations", (1, 1))), groups=ctx.attr("groups", 1))
+    out = back(out)
+    if ctx.has_input("Bias"):
+        shape = (1, -1, 1, 1) if ctx.attr("data_format", "NCHW") == "NCHW" else (1, 1, 1, -1)
+        out = out + ctx.input("Bias").reshape(shape).to(out.dtype)
+    ctx.set_output("Output", out)
+
+
+@register_op("pool2d")
+def pool2d_kernel(ctx):
+    """Max pooling pads with -inf; average pooling sums the window (f32
+    accumulation, rounded to x's dtype) and then divides in x's dtype, by
+    the window's size or, `exclusive` with padding, by the count of its
+    unpadded elements, as the JAX op's reduce_window and division do.
+    `global_pooling` takes the whole plane."""
+    fmt = ctx.attr("data_format", "NCHW")
+    x4, back = _nchw(ctx.input("X"), fmt)
+    ptype = ctx.attr("pooling_type", "max")
+    ksize = _pair(ctx.attr("ksize", (2, 2)))
+    stride = _pair(ctx.attr("strides", (2, 2)))
+    pad = _pair(ctx.attr("paddings", (0, 0)))
+    if ctx.attr("global_pooling", False):
+        ksize = stride = tuple(x4.shape[2:])
+        pad = (0, 0)
+    if ptype == "max":
+        if any(2 * p > k for p, k in zip(pad, ksize)):  # F.max_pool2d's limit
+            x4 = F.pad(x4, (pad[1], pad[1], pad[0], pad[0]), value=float("-inf"))
+            pad = (0, 0)
+        out = F.max_pool2d(x4, ksize, stride, pad)
+    elif ptype == "avg":
+        summed = F.avg_pool2d(x4, ksize, stride, pad, divisor_override=1)
+        if ctx.attr("exclusive", True) and pad != (0, 0):
+            ones = torch.ones((1, 1) + tuple(x4.shape[2:]), dtype=x4.dtype, device=x4.device)
+            out = summed / F.avg_pool2d(ones, ksize, stride, pad, divisor_override=1)
+        else:
+            out = summed / float(ksize[0] * ksize[1])
+    else:
+        raise NotImplementedError(f"pool2d: pooling_type {ptype!r} is not ported yet")
+    ctx.set_output("Out", back(out))
+
+
+def update_running(ctx, bmean, bvar):
+    """momentum·running + (1 − momentum)·batch into the Mean and Variance
+    persistables, which the executor writes back to the scope. Made from
+    the detached batch statistics, so they hold no autograd graph."""
+    m = ctx.attr("momentum", 0.9)
+    for slot, batch in (("Mean", bmean), ("Variance", bvar)):
+        ctx.env[ctx.op.inputs[slot][0]] = m * ctx.input(slot) + (1 - m) * batch.detach()
+
+
+@register_op("batch_norm")
+def batch_norm_kernel(ctx):
+    """Train mode: the batch's mean and biased variance over every axis but
+    the channel's, in f32 even under amp, and the running statistics
+    updated; `is_test` normalises with the running statistics. The output
+    is ((x − mean)·inv)·scale + bias in f32, cast to x's dtype."""
+    x = ctx.input("X")
+    scale, bias = ctx.input("Scale"), ctx.input("Bias")
+    eps = ctx.attr("epsilon", 1e-5)
+    ch = x.dim() - 1 if ctx.attr("data_format", "NCHW") == "NHWC" else 1
+    axes = tuple(i for i in range(x.dim()) if i != ch)
+    shape = tuple(-1 if i == ch else 1 for i in range(x.dim()))
+    x32 = x.float()
+    if ctx.attr("is_test", False):
+        mean, var = ctx.input("Mean"), ctx.input("Variance")
+    else:
+        mean = x32.mean(axes)
+        var = (x32 - mean.reshape(shape)).square().mean(axes)
+        update_running(ctx, mean, var)
+    inv = torch.rsqrt(var + eps)
+    out = ((x32 - mean.reshape(shape)) * inv.reshape(shape) * scale.reshape(shape)
+           + bias.reshape(shape))
+    ctx.set_output("Y", out.to(x.dtype))
 
 
 @register_op("softmax_with_cross_entropy")

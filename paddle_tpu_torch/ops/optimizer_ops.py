@@ -1,6 +1,6 @@
-"""Optimizer update op kernels: the dense branches of `sgd` and `adam`
-(paddle_tpu/ops/optimizer_ops.py:34-45, 139-171) with `_write`/`_lr`
-(:20-31).
+"""Optimizer update op kernels: the dense branches of `sgd`, `momentum`
+and `adam` (paddle_tpu/ops/optimizer_ops.py:34-45, 48-70, 139-171) with
+`_write`/`_lr` (:20-31).
 
 Each op replaces the parameter and its state persistables in the env; the
 executor writes them back to the Scope after the run. The update makes new
@@ -39,6 +39,21 @@ def _dense_grad(ctx, op):
 def sgd_kernel(ctx):
     """Reference: sgd_op.cc — p -= lr * g."""
     _write(ctx, "Param", ctx.input("Param") - _lr(ctx) * _dense_grad(ctx, "sgd"))
+
+
+@register_op("momentum")
+def momentum_kernel(ctx):
+    """Reference: momentum_op.cc — v = mu·v + g; p -= lr·v, or with
+    use_nesterov p -= (g + mu·v)·lr."""
+    p, g, v = ctx.input("Param"), _dense_grad(ctx, "momentum"), ctx.input("Velocity")
+    mu, lr = ctx.attr("mu", 0.9), _lr(ctx)
+    v_new = mu * v + g
+    if ctx.attr("use_nesterov", False):
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    _write(ctx, "Velocity", v_new)
+    _write(ctx, "Param", p_new)
 
 
 @register_op("adam")

@@ -5,7 +5,7 @@ package's order, and marks everything after the forward as optimizer ops.
 State (moments, beta powers, the learning rate) lives in persistable
 variables that the startup program fills.
 
-Cut to SGD, Adam and GradientClipByGlobalNorm; the other optimizers, the
+Cut to SGD, Momentum, Adam and GradientClipByGlobalNorm; the other optimizers, the
 per-value and per-norm clips and learning-rate schedules are not ported
 yet and raise."""
 
@@ -20,7 +20,8 @@ from ..core.program import Variable, default_startup_program, unique_name
 from ..initializer import ConstantInitializer
 from ..layers.helper import LayerHelper
 
-__all__ = ["SGD", "Adam", "SGDOptimizer", "AdamOptimizer", "GradientClipByGlobalNorm"]
+__all__ = ["SGD", "Momentum", "Adam", "SGDOptimizer", "MomentumOptimizer", "AdamOptimizer",
+           "GradientClipByGlobalNorm"]
 
 
 class GradientClipByGlobalNorm:
@@ -117,6 +118,26 @@ class SGDOptimizer(Optimizer):
                          outputs={"ParamOut": [param]})
 
 
+class MomentumOptimizer(Optimizer):
+    op_type = "momentum"
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self.momentum, self.use_nesterov = momentum, use_nesterov
+
+    def _create_accumulators(self, helper, params):
+        for p in params:
+            self._add_accumulator(helper, "velocity", p)
+
+    def _append_update_op(self, helper, param, grad, lr):
+        v = self._accumulators["velocity"][param.name]
+        helper.append_op(type="momentum",
+                         inputs={"Param": [param], "Grad": [grad], "Velocity": [v],
+                                 "LearningRate": [lr]},
+                         outputs={"ParamOut": [param], "VelocityOut": [v]},
+                         attrs={"mu": self.momentum, "use_nesterov": self.use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     op_type = "adam"
 
@@ -145,4 +166,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

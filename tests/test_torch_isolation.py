@@ -22,7 +22,9 @@ def test_import_pulls_in_no_jax_and_no_paddle_tpu():
         "for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, 'paddle_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert {'paddle_tpu_torch.models.text', 'paddle_tpu_torch.models.transformer',\n"
-        "        'paddle_tpu_torch.ops.flash_kernels', 'paddle_tpu_torch.layers.attention'}"
+        "        'paddle_tpu_torch.ops.flash_kernels', 'paddle_tpu_torch.layers.attention',\n"
+        "        'paddle_tpu_torch.models.image', 'paddle_tpu_torch.ops.fused_conv_kernels',\n"
+        "        'paddle_tpu_torch.ops.fused_conv_ops'}"
         " <= set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
