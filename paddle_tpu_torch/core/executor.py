@@ -97,6 +97,10 @@ class Executor:
             # preferred_element_type=f32 does (ops/math_ops.dot); cuBLAS
             # may otherwise reduce split-K partial sums in bf16
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+            # and f32 convolutions multiply in f32, where torch's default
+            # lets cuDNN round their operands to TF32 (ops/nn_ops.conv2d);
+            # f32 GEMMs already do (matmul.allow_tf32 defaults to False)
+            torch.backends.cudnn.allow_tf32 = False
 
     def _to_device(self, name, v):
         if isinstance(v, np.ndarray):

@@ -1,7 +1,6 @@
 """Global flags read by the port, as plain in-process attributes. Only the
-flags the ported paths read are defined, plus the JAX package's flags for
-paths not ported yet, which may only stay off: turning one on raises
-rather than being ignored."""
+flags the ported paths read are defined; setting or reading any other
+raises rather than being ignored."""
 
 from __future__ import annotations
 
@@ -11,25 +10,16 @@ from typing import Dict, Union
 class _Flags:
     """Attribute access over a fixed set of flags: `FLAGS.use_fused_rnn`."""
 
-    def __init__(self, defaults: Dict[str, Union[bool, int]], unported: Dict[str, str]):
+    def __init__(self, defaults: Dict[str, Union[bool, int]]):
         object.__setattr__(self, "_values", dict(defaults))
-        object.__setattr__(self, "_unported", dict(unported))
 
     def __getattr__(self, name: str):
         try:
             return self._values[name]
         except KeyError:
-            if name in self._unported:
-                return False
             raise AttributeError(f"undefined flag {name!r}") from None
 
     def __setattr__(self, name: str, value):
-        if name in self._unported:
-            if value:
-                raise NotImplementedError(
-                    f"FLAGS.{name}: {self._unported[name]} is not ported to the "
-                    "PyTorch port yet (ROADMAP.md, queue B)")
-            return
         if name not in self._values:
             raise AttributeError(f"undefined flag {name!r}")
         # each flag keeps its default's type: a bool flag stores bool(value),
@@ -56,8 +46,15 @@ FLAGS = _Flags({
     # (ops/fused_conv_kernels.py) where its eligibility holds; off, the
     # plain 2-D formula
     "fused_conv_pallas": False,
-}, unported={
-    "fused_attention_seq_fwd": "the whole-sequence decoder forward kernel (B9)",
-    "fused_attention_seq_bwd": "the decoder mega backward kernel (B10)",
-    "bn_bf16_stats": "batch-norm statistics squared in the io dtype",
+    # under use_fused_attention, the decoder's forward is one whole-sequence
+    # kernel (csrc/decoder_seq.cu) instead of a per-step kernel in a loop;
+    # off by default, as in the JAX package
+    "fused_attention_seq_fwd": False,
+    # the same for the decoder's backward: one whole-sequence kernel instead
+    # of a per-step kernel in a loop and the phase-2 kernel
+    "fused_attention_seq_bwd": False,
+    # batch-norm statistics (batch_norm, bn_stats, fused_conv_bn's routes
+    # other than the kernel) square the activation in its io dtype and sum
+    # in f32; off, they square in f32. On by default, as in the JAX package
+    "bn_bf16_stats": True,
 })

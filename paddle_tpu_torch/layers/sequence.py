@@ -1,7 +1,8 @@
 """Sequence layer DSL (paddle_tpu/layers/sequence.py), cut to the layers
-the ported programs use: dynamic_lstm (:41), stacked_lstm2 (:89) and
-sequence_pool (:252). All take lod_level=1 variables, a LoDArray at run
-time."""
+the ported programs use: dynamic_lstm (:41), stacked_lstm2 (:89),
+dynamic_gru (:199), sequence_pool (:252), sequence_concat (:286) and
+sequence_first_step (:298). All take lod_level=1 variables, a LoDArray at
+run time."""
 
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ from ..initializer import XavierInitializer
 from ..param_attr import ParamAttr
 from .helper import LayerHelper
 
-__all__ = ["dynamic_lstm", "stacked_lstm2", "sequence_pool"]
+__all__ = ["dynamic_lstm", "stacked_lstm2", "dynamic_gru", "sequence_pool", "sequence_concat",
+           "sequence_first_step"]
 
 
 def dynamic_lstm(input, size: int, use_peepholes: bool = False, is_reverse: bool = False,
@@ -68,6 +70,26 @@ def stacked_lstm2(input, size: int, param_attr=None, bias_attr=None,
     return out
 
 
+def dynamic_gru(input, size: int, is_reverse: bool = False, gate_activation: str = "sigmoid",
+                candidate_activation: str = "tanh", param_attr=None, bias_attr=None,
+                max_len: Optional[int] = None, name=None):
+    """`size` is the hidden width H and `input` the [*, 3H] projection (an
+    fc before); `max_len` as dynamic_lstm's."""
+    helper = LayerHelper("dynamic_gru", name=name)
+    w = helper.create_parameter(param_attr, (size, 3 * size),
+                                default_initializer=XavierInitializer())
+    inputs = {"Input": [input], "Weight": [w]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(bias_attr, (3 * size,), is_bias=True)]
+    out = helper.create_tmp_variable(input.dtype, (-1, size), lod_level=1)
+    last_h = helper.create_tmp_variable(input.dtype, (-1, size))
+    helper.append_op(
+        type="dynamic_gru", inputs=inputs, outputs={"Hidden": [out], "LastH": [last_h]},
+        attrs={"is_reverse": is_reverse, "gate_activation": gate_activation,
+               "candidate_activation": candidate_activation, "max_len": max_len})
+    return out
+
+
 def sequence_pool(input, pool_type: str = "sum", name=None):
     """Per-sequence pooling to a dense [num_seqs, D]; the port runs the
     `sum`, `first` and `last` modes."""
@@ -78,4 +100,23 @@ def sequence_pool(input, pool_type: str = "sum", name=None):
     out = helper.create_tmp_variable(input.dtype, (-1,) + tuple(input.shape[1:]))
     helper.append_op(type="sequence_pool", inputs={"X": [input]}, outputs={"Out": [out]},
                      attrs={"pooltype": pool_type})
+    return out
+
+
+def sequence_concat(input, name=None):
+    """The sequences of each input joined along the feature axis (equal
+    lods): [*, D1 + D2 + ...]."""
+    helper = LayerHelper("sequence_concat", name=name)
+    feat = sum(int(x.shape[-1]) for x in input)
+    out = helper.create_tmp_variable(input[0].dtype, tuple(input[0].shape[:-1]) + (feat,),
+                                     lod_level=1)
+    helper.append_op(type="sequence_concat", inputs={"X": list(input)}, outputs={"Out": [out]})
+    return out
+
+
+def sequence_first_step(input, name=None):
+    """Each sequence's first token, a dense [num_seqs, D]."""
+    helper = LayerHelper("sequence_first_step", name=name)
+    out = helper.create_tmp_variable(input.dtype, (-1,) + tuple(input.shape[1:]))
+    helper.append_op(type="sequence_first_step", inputs={"X": [input]}, outputs={"Out": [out]})
     return out

@@ -1,9 +1,9 @@
-"""Bahdanau attention decoder for training: the three hand-written Hopper
-kernels (csrc/bahdanau_attn.cu), their plain PyTorch versions, and
-`fused_attention_decoder`, the autograd Function around them.
+"""Bahdanau attention decoder for training: the hand-written Hopper kernels
+(csrc/bahdanau_attn.cu, csrc/decoder_seq.cu), their plain PyTorch versions,
+and `fused_attention_decoder`, the autograd Function around them.
 
-The counterpart of paddle_tpu/ops/bahdanau_kernels.py, with the per-step
-(scan) formulation that is the JAX package's default:
+The counterpart of paddle_tpu/ops/bahdanau_kernels.py. Its default is the
+per-step (scan) formulation:
 
   attn_fwd       replaces `_attn_fwd_kernel` / `_attn_fwd` (:170,257): one
                  decoder step's scores Σ_A tanh(ep+dp)·v, the masked softmax
@@ -15,10 +15,26 @@ The counterpart of paddle_tpu/ops/bahdanau_kernels.py, with the per-step
                  d(enc_proj) [B,S,A] summed in f32 over all T steps and
                  written once, and dv [A] in f32.
 
-The kernels read [B,S,A] and [B,S,C] once per call and compute little on
-each byte, so bytes bound them. The S axis is not padded: the TPU pads it
-to a multiple of 16 for its tiles (tune/space.py:39-43), and a padded slot
-carries a -1e9 score, so it changes nothing but the tile.
+With FLAGS.fused_attention_seq_fwd and fused_attention_seq_bwd (off by
+default, as in the JAX package) the decoder runs whole-sequence kernels
+instead, one launch each a step:
+
+  decoder_seq_fwd  replaces `_decoder_seq_kernel` / `_decoder_seq_fwd`
+                   (:347,399): all T steps of dp = h·wa_dec (f32, not
+                   rounded), the attention, xp = io(xpx_t + io(ctx·wx_c)) and
+                   the GRU cell, h carried on chip.
+  decoder_seq_bwd  replaces `_decoder_seq_bwd_kernel` / `_decoder_seq_bwd`
+                   (:460,568): the T reverse steps of the GRU cell's
+                   backward, the attention's backward and the d(enc_proj)/dv
+                   accumulation, dh carried in f32.
+
+Those two are bound by their T dependent steps (four grid barriers a
+step), not by bytes or operations; csrc/decoder_seq.cu says what its
+design does about it. The per-step kernels read [B,S,A] and [B,S,C] once
+per call and compute little on each byte, so bytes bound them. The S axis
+is not padded: the TPU pads it to a multiple of 16 for its tiles
+(tune/space.py:39-43), and a padded slot carries a -1e9 score, so it
+changes nothing but the tile.
 
 Each wrapper takes CUDA tensors to its kernel, or raises; CPU tensors to
 its plain version. There is no fallback from one to the other.
@@ -30,6 +46,7 @@ import ctypes
 
 import torch
 
+from ..flags import FLAGS
 from . import cuda_build
 from .activation_ops import sigmoid
 from .rnn_ops import gru_cell
@@ -38,6 +55,8 @@ from .rnn_ops import gru_cell
 attn_fwd_launches = 0
 attn_bwd_step_launches = 0
 attn_phase2_launches = 0
+decoder_seq_fwd_launches = 0
+decoder_seq_bwd_launches = 0
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 _NEG = -1e9
@@ -84,6 +103,92 @@ def attn_phase2_plain(ep, dp_seq, dsc_seq, v):
         dep = dep + dsc * (1.0 - th * th) * vf
         dv = dv + (th * dsc).sum((0, 1))
     return dep.to(ep.dtype), dv
+
+
+def _mm(a, b):
+    """a @ b summed in f32, from operands already in the io dtype: the
+    kernels' products (and the JAX kernels' preferred_element_type=f32)."""
+    return torch.matmul(a.float(), b.float())
+
+
+def decoder_seq_fwd_plain(ep, enc, mask, xpx, tmask, h0, wa_dec, v, wx_c, w_ur, w_c):
+    """All T steps of the decoder's forward, with the whole-sequence
+    kernel's roundings (which are not the scan's): dp = h·wa_dec kept in f32,
+    and xp = io(xpx_t + io(ctx·wx_c)) rounded twice where the scan rounds
+    the product of [trg, ctx] once. ep [B,S,A], enc [B,S,C], xpx [T,B,3H]
+    (trg·wx[:E] + bias), h0 [B,H], wa_dec [H,A], v [A], wx_c [C,3H], w_ur
+    [H,2H], w_c [H,H] in the io dtype; mask [B,S] and tmask [T,B] f32. The
+    GRU cell runs in the io dtype (`gru_cell`, the op-by-op sigmoid).
+    Returns (h_seq [T,B,H], alpha [T,B,S] f32, ctx [T,B,C])."""
+    dt = h0.dtype
+    epf, encf, vf = ep.float(), enc.float(), v.float()
+    wh = torch.cat([w_ur, w_c], -1)
+    neg = torch.full((), _NEG, device=ep.device)
+    h, hs, alphas, ctxs = h0, [], [], []
+    for t in range(xpx.shape[0]):
+        dp = _mm(h, wa_dec)
+        scores = (torch.tanh(epf + dp[:, None, :]) * vf).sum(-1)
+        scores = torch.where(mask > 0, scores, neg)
+        e = torch.exp(scores - scores.max(-1, keepdim=True).values)
+        alpha = e / e.sum(-1, keepdim=True)
+        ctx = torch.bmm(alpha.to(dt).float()[:, None, :], encf)[:, 0].to(dt)
+        xp = xpx[t] + _mm(ctx, wx_c).to(dt)
+        hn = gru_cell(xp, h, wh, sigmoid, torch.tanh)
+        m = tmask[t][:, None].to(dt)
+        h = m * hn + (1 - m) * h
+        hs.append(h)
+        alphas.append(alpha)
+        ctxs.append(ctx)
+    return torch.stack(hs), torch.stack(alphas), torch.stack(ctxs)
+
+
+def decoder_seq_bwd_plain(ep, enc, mask, g_seq, tmask, hp_seq, u_seq, r_seq, c_seq, dp_seq,
+                          alpha_seq, v, w_c, w_ur, wx_c, wa_dec):
+    """The decoder's backward over all T steps, newest first, with the
+    whole-sequence kernel's arithmetic: dh carried in f32, each product's
+    left operand rounded to the io dtype and summed in f32, d(enc_proj)
+    summed in f32 over t from newest to oldest and rounded once, dv in f32.
+    g_seq, hp_seq, u_seq, r_seq, c_seq [T,B,H] and dp_seq [T,B,A] in the io
+    dtype (the batched recompute), alpha_seq [T,B,S] f32, the rest as
+    decoder_seq_fwd_plain's. Returns (dxp [T,B,3H], dctx [T,B,C], ddp
+    [T,B,A], dh0 [B,H], dep [B,S,A], dv [A] f32)."""
+    dt = hp_seq.dtype
+    T = hp_seq.shape[0]
+    epf, encf, vf = ep.float(), enc.float(), v.float()
+    dh = torch.zeros(hp_seq.shape[1:], device=ep.device)
+    dep = torch.zeros_like(epf)
+    dv = torch.zeros_like(vf)
+    dxps, dctxs, ddps = [None] * T, [None] * T, [None] * T
+    for t in range(T - 1, -1, -1):
+        hp, u, r, c = (x[t].float() for x in (hp_seq, u_seq, r_seq, c_seq))
+        m = tmask[t][:, None]
+        dh = dh + g_seq[t].float()
+        dh_cell = dh * m
+        dh_prev = dh * (1.0 - m)
+        du = dh_cell * (c - hp)
+        dc = dh_cell * u
+        dh_prev = dh_prev + dh_cell * (1.0 - u)
+        dpre_c = dc * (1.0 - c * c)
+        drh = _mm(dpre_c.to(dt), w_c.T)
+        dr = drh * hp
+        dh_prev = dh_prev + drh * r
+        dur = torch.cat([du * u * (1.0 - u), dr * r * (1.0 - r)], -1)
+        dh_prev = dh_prev + _mm(dur.to(dt), w_ur.T)
+        dxp = torch.cat([dur, dpre_c], -1).to(dt)
+        dctx = _mm(dxp, wx_c.T).to(dt)
+        dalpha = torch.bmm(encf, dctx.float()[:, :, None])[..., 0]
+        alpha = alpha_seq[t]
+        dsc = alpha * (dalpha - (alpha * dalpha).sum(-1, keepdim=True))
+        dsc = torch.where(mask > 0, dsc, torch.zeros((), device=dsc.device))
+        th = torch.tanh(epf + dp_seq[t].float()[:, None, :])
+        term = dsc[:, :, None] * (1.0 - th * th)
+        ddp = (term.sum(1) * vf).to(dt)
+        dh = dh_prev + _mm(ddp, wa_dec.T)
+        dep = dep + term * vf
+        dv = dv + (th * dsc[:, :, None]).sum((0, 1))
+        dxps[t], dctxs[t], ddps[t] = dxp, dctx, ddp
+    return (torch.stack(dxps), torch.stack(dctxs), torch.stack(ddps), dh.to(dt), dep.to(ep.dtype),
+            dv)
 
 
 # --------------------------------------------------------------- wrappers --
@@ -211,10 +316,174 @@ def attn_phase2(ep, dp_seq, dsc_seq, v):
     return dep, dv
 
 
+def _seq_lib():
+    lib = cuda_build.load("decoder_seq")
+    if lib.decoder_seq_fwd_launch.argtypes is None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.decoder_seq_fwd_launch, lib.decoder_seq_bwd_launch):
+            fn.argtypes = [i, ctypes.POINTER(ptr)] + [i] * 6 + [ptr]
+            fn.restype = i
+        lib.decoder_seq_ctas.argtypes = [i]
+        lib.decoder_seq_ctas.restype = i
+        lib.decoder_seq_error_string.argtypes = [i]
+        lib.decoder_seq_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _seq_dims(name, ep, enc, xs):
+    """(B, S, A) of ep [B,S,A], C of enc [B,S,C] and (T, H) of xs, a
+    [T,B,.H] tensor, as far as their ranks allow (-1 where not): _check
+    then holds every tensor to them."""
+    B, S, A = ep.shape if ep.dim() == 3 else (-1, -1, -1)
+    C = enc.shape[2] if enc.dim() == 3 else -1
+    T, H = xs.shape[0], xs.shape[2]
+    if T < 1 or H < 1:
+        raise ValueError(f"{name}: empty sequence or hidden width {tuple(xs.shape)}")
+    return B, S, A, C, T, H
+
+
+def _seq_launch(name, fn, ins, outs, dims, dt):
+    """One launch of a whole-sequence kernel: every pointer in order, then
+    T, B, S, A, C, H; raises with the kernel's error."""
+    lib = _seq_lib()
+    ptrs = (ctypes.c_void_p * (len(ins) + len(outs)))(*(t.data_ptr() for t in (*ins, *outs)))
+    err = getattr(lib, fn)(int(dt == torch.bfloat16), ptrs, *dims,
+                           torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        T, B, S, A, C, H = dims
+        raise RuntimeError(
+            f"{name} kernel launch failed (T={T} B={B} S={S} A={A} C={C} H={H} {dt}; the "
+            "kernel takes H up to 16 units a CTA and its weights' slices within one SM's "
+            f"shared memory): {lib.decoder_seq_error_string(err).decode()}")
+
+
+def decoder_seq_fwd(ep, enc, mask, xpx, tmask, h0, wa_dec, v, wx_c, w_ur, w_c):
+    """The whole-sequence decoder forward; see decoder_seq_fwd_plain for the
+    contract. CUDA tensors launch the sm_90a kernel (csrc/decoder_seq.cu);
+    CPU tensors run the plain version."""
+    global decoder_seq_fwd_launches
+    if xpx.dim() != 3 or xpx.shape[2] % 3:
+        raise ValueError(f"decoder_seq_fwd: xpx must be [T,B,3H], got {tuple(xpx.shape)}")
+    B, S, A, C, T, H = _seq_dims("decoder_seq_fwd", ep, enc, xpx[..., : xpx.shape[2] // 3])
+    _check("decoder_seq_fwd", ep, {
+        "enc": (enc, (B, S, C), None), "mask": (mask, (B, S), torch.float32),
+        "xpx": (xpx, (T, B, 3 * H), None), "tmask": (tmask, (T, B), torch.float32),
+        "h0": (h0, (B, H), None), "wa_dec": (wa_dec, (H, A), None), "v": (v, (A,), None),
+        "wx_c": (wx_c, (C, 3 * H), None), "w_ur": (w_ur, (H, 2 * H), None),
+        "w_c": (w_c, (H, H), None)})
+    if ep.device.type == "cpu":
+        return decoder_seq_fwd_plain(ep, enc, mask, xpx, tmask, h0, wa_dec, v, wx_c, w_ur, w_c)
+    dt = ep.dtype
+    ins = [t.contiguous() for t in (ep, enc, mask, xpx, tmask, h0, wa_dec, v, wx_c, w_ur, w_c)]
+    with torch.cuda.device(ep.device):
+        new = lambda *shape, dtype=dt: torch.empty(*shape, dtype=dtype, device=ep.device)  # noqa
+        outs = [new(T, B, H), new(T, B, S, dtype=torch.float32), new(T, B, C),
+                new(B, A, dtype=torch.float32), new(B, H)]
+        _seq_launch("decoder_seq_fwd", "decoder_seq_fwd_launch", ins, outs, (T, B, S, A, C, H), dt)
+    decoder_seq_fwd_launches += 1
+    return tuple(outs[:3])
+
+
+def decoder_seq_bwd(ep, enc, mask, g_seq, tmask, hp_seq, u_seq, r_seq, c_seq, dp_seq, alpha_seq,
+                    v, w_c, w_ur, wx_c, wa_dec):
+    """The whole-sequence decoder backward; see decoder_seq_bwd_plain. dep
+    and dv are summed in a fixed order without float atomics, so two runs
+    give the same bits."""
+    global decoder_seq_bwd_launches
+    if hp_seq.dim() != 3:
+        raise ValueError(f"decoder_seq_bwd: hp_seq must be [T,B,H], got {tuple(hp_seq.shape)}")
+    B, S, A, C, T, H = _seq_dims("decoder_seq_bwd", ep, enc, hp_seq)
+    seq = ((T, B, H), None)
+    _check("decoder_seq_bwd", ep, {
+        "enc": (enc, (B, S, C), None), "mask": (mask, (B, S), torch.float32),
+        "g_seq": (g_seq, *seq), "tmask": (tmask, (T, B), torch.float32),
+        "hp_seq": (hp_seq, *seq), "u_seq": (u_seq, *seq), "r_seq": (r_seq, *seq),
+        "c_seq": (c_seq, *seq), "dp_seq": (dp_seq, (T, B, A), None),
+        "alpha_seq": (alpha_seq, (T, B, S), torch.float32), "v": (v, (A,), None),
+        "w_c": (w_c, (H, H), None), "w_ur": (w_ur, (H, 2 * H), None),
+        "wx_c": (wx_c, (C, 3 * H), None), "wa_dec": (wa_dec, (H, A), None)})
+    args = (ep, enc, mask, g_seq, tmask, hp_seq, u_seq, r_seq, c_seq, dp_seq, alpha_seq, v, w_c,
+            w_ur, wx_c, wa_dec)
+    if ep.device.type == "cpu":
+        return decoder_seq_bwd_plain(*args)
+    dt = ep.dtype
+    ins = [t.contiguous() for t in args]
+    with torch.cuda.device(ep.device):
+        ctas = _seq_lib().decoder_seq_ctas(H)
+        if ctas < 1:
+            raise RuntimeError(f"decoder_seq_bwd: H={H} is past the kernel's 16 units a CTA")
+        new = lambda *shape, dtype=dt: torch.empty(*shape, dtype=dtype, device=ep.device)  # noqa
+        outs = [new(T, B, 3 * H), new(T, B, C), new(T, B, A), new(B, H), new(B, S, A),
+                new(A, dtype=torch.float32), new(B, S, A, dtype=torch.float32),
+                new(ctas, A, dtype=torch.float32)]
+        _seq_launch("decoder_seq_bwd", "decoder_seq_bwd_launch", ins, outs, (T, B, S, A, C, H), dt)
+    decoder_seq_bwd_launches += 1
+    return tuple(outs[:6])
+
+
+def decoder_bwd_inputs(trg, h0, wa_dec, wx, wh, bias, h_seq, ctx_seq):
+    """The backward's batched recompute of every gate from the forward's
+    h_seq and ctx_seq (no sequential dependency), as `_decoder_fn`'s bwd
+    does it (bahdanau_kernels.py:736-747), each product rounded to the io
+    dtype once, from [trg, ctx] concatenated: so in bf16 the backward sees
+    slightly other gates than the whole-sequence forward used, as the TPU
+    kernels' do. Returns (hp_seq, dp_seq, xin_seq, u_seq, r_seq, rh_seq,
+    c_seq)."""
+    H = h0.shape[-1]
+    hp_seq = torch.cat([h0[None], h_seq[:-1]])
+    dp_seq = torch.matmul(hp_seq, wa_dec)
+    xin_seq = torch.cat([trg, ctx_seq], -1)
+    xp_seq = torch.matmul(xin_seq, wx) + bias
+    ur_seq = sigmoid(xp_seq[..., : 2 * H] + torch.matmul(hp_seq, wh[:, : 2 * H]))
+    u_seq, r_seq = ur_seq[..., :H], ur_seq[..., H:]
+    rh_seq = r_seq * hp_seq
+    c_seq = torch.tanh(xp_seq[..., 2 * H:] + torch.matmul(rh_seq, wh[:, 2 * H:]))
+    return hp_seq, dp_seq, xin_seq, u_seq, r_seq, rh_seq, c_seq
+
+
+def _decoder_bwd_steps(ep, enc, maskf, g_seq, tmask, hp_seq, u_seq, r_seq, c_seq, dp_seq,
+                       alpha_seq, v, w_c, w_ur, wx_ctx, wa_dec):
+    """The scan's backward (decoder_seq_bwd's contract): the dh chain in the
+    io dtype, newest step first, one attn_bwd_step a step, then attn_phase2
+    for d(enc_proj) and dv."""
+    dt = hp_seq.dtype
+    T = hp_seq.shape[0]
+    dh = torch.zeros_like(hp_seq[0])
+    dxp_seq, dctx_seq = [None] * T, [None] * T
+    dsc_seq, ddp_seq = [None] * T, [None] * T
+    for t in range(T - 1, -1, -1):
+        hp, u, r, c = hp_seq[t], u_seq[t], r_seq[t], c_seq[t]
+        dh = dh + g_seq[t]
+        m = tmask[t][:, None].to(dt)
+        dh_cell = dh * m
+        dh_prev = dh * (1 - m)
+        du = dh_cell * (c - hp)
+        dc = dh_cell * u
+        dh_prev = dh_prev + dh_cell * (1 - u)
+        dpre_c = dc * (1 - c * c)
+        drh = torch.matmul(dpre_c, w_c.T)
+        dr = drh * hp
+        dh_prev = dh_prev + drh * r
+        dpre_u = du * u * (1 - u)
+        dpre_r = dr * r * (1 - r)
+        dur = torch.cat([dpre_u, dpre_r], -1)
+        dh_prev = dh_prev + torch.matmul(dur, w_ur.T)
+        dxp = torch.cat([dur, dpre_c], -1)
+        dctx = torch.matmul(dxp, wx_ctx.T)
+        ddp, dsc = attn_bwd_step(ep, enc, dp_seq[t], v, maskf, dctx, alpha_seq[t])
+        dh = dh_prev + torch.matmul(ddp, wa_dec.T)
+        dxp_seq[t], dctx_seq[t], dsc_seq[t], ddp_seq[t] = dxp, dctx, dsc, ddp
+    dsc_seq = torch.stack(dsc_seq)
+    # the [B,S,A]-sized gradient, written once
+    dep, dv = attn_phase2(ep, dp_seq, dsc_seq, v)
+    return torch.stack(dxp_seq), torch.stack(dctx_seq), torch.stack(ddp_seq), dh, dep, dv
+
+
 # ----------------------------------------------------- the decoder Function --
 class _DecoderFn(torch.autograd.Function):
     """Teacher-forcing attention-GRU decoder: the counterpart of
-    `_decoder_fn`'s scan branches (bahdanau_kernels.py:665-823).
+    `_decoder_fn` (bahdanau_kernels.py:665-823), its scan branches or, with
+    FLAGS.fused_attention_seq_fwd / _bwd, its whole-sequence ones.
 
     (enc [B,S,C], ep [B,S,A], maskf [B,S], trg [T,B,E], tmask [T,B], h0,
      wa_dec [H,A], v [A], wx [(E+C),3H], wh [H,3H], bias [3H]) -> h_seq,
@@ -223,23 +492,31 @@ class _DecoderFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, enc, ep, maskf, trg, tmask, h0, wa_dec, v, wx, wh, bias):
-        T, B, _ = trg.shape
+        T, B, E = trg.shape
+        H = h0.shape[-1]
         dt = h0.dtype
-        h = h0
-        h_seq, alpha_seq, ctx_seq = [], [], []
-        for t in range(T):
-            dp = torch.matmul(h, wa_dec)
-            ctx_t, alpha = attn_fwd(ep, enc, dp, v, maskf)
-            xp = torch.matmul(torch.cat([trg[t], ctx_t], -1), wx) + bias
-            hn = gru_cell(xp, h, wh, sigmoid, torch.tanh)
-            m = tmask[t][:, None].to(dt)
-            h = m * hn + (1 - m) * h
-            h_seq.append(h)
-            alpha_seq.append(alpha)
-            ctx_seq.append(ctx_t)
-        h_seq = torch.stack(h_seq)
+        if FLAGS.fused_attention_seq_fwd:
+            # the x-half of the gate projection has no sequential dependency:
+            # one batched product, outside the kernel
+            xpx = torch.matmul(trg, wx[:E]) + bias
+            h_seq, alpha_seq, ctx_seq = decoder_seq_fwd(
+                ep, enc, maskf, xpx, tmask, h0, wa_dec, v, wx[E:], wh[:, : 2 * H], wh[:, 2 * H:])
+        else:
+            h = h0
+            h_seq, alpha_seq, ctx_seq = [], [], []
+            for t in range(T):
+                dp = torch.matmul(h, wa_dec)
+                ctx_t, alpha = attn_fwd(ep, enc, dp, v, maskf)
+                xp = torch.matmul(torch.cat([trg[t], ctx_t], -1), wx) + bias
+                hn = gru_cell(xp, h, wh, sigmoid, torch.tanh)
+                m = tmask[t][:, None].to(dt)
+                h = m * hn + (1 - m) * h
+                h_seq.append(h)
+                alpha_seq.append(alpha)
+                ctx_seq.append(ctx_t)
+            h_seq, alpha_seq, ctx_seq = (torch.stack(x) for x in (h_seq, alpha_seq, ctx_seq))
         ctx.save_for_backward(enc, ep, maskf, trg, tmask, h0, wa_dec, v, wx, wh, bias,
-                              h_seq, torch.stack(alpha_seq), torch.stack(ctx_seq))
+                              h_seq, alpha_seq, ctx_seq)
         return h_seq
 
     @staticmethod
@@ -250,47 +527,18 @@ class _DecoderFn(torch.autograd.Function):
         E = trg.shape[-1]
         dt = h_seq.dtype
         g_seq = g_seq.to(dt)
-        # batched recompute of every gate (no sequential dependency)
-        hp_seq = torch.cat([h0[None], h_seq[:-1]])
-        dp_seq = torch.matmul(hp_seq, wa_dec)
-        xin_seq = torch.cat([trg, ctx_seq], -1)
-        xp_seq = torch.matmul(xin_seq, wx) + bias
+        hp_seq, dp_seq, xin_seq, u_seq, r_seq, rh_seq, c_seq = decoder_bwd_inputs(
+            trg, h0, wa_dec, wx, wh, bias, h_seq, ctx_seq)
         w_ur, w_c = wh[:, : 2 * H], wh[:, 2 * H:]
-        ur_seq = sigmoid(xp_seq[..., : 2 * H] + torch.matmul(hp_seq, w_ur))
-        u_seq, r_seq = ur_seq[..., :H], ur_seq[..., H:]
-        rh_seq = r_seq * hp_seq
-        c_seq = torch.tanh(xp_seq[..., 2 * H:] + torch.matmul(rh_seq, w_c))
         wx_ctx = wx[E:]
-        # the sequential dh chain, newest step first
-        dh = torch.zeros_like(h0)
-        dxp_seq, dctx_seq = [None] * T, [None] * T
-        dsc_seq, ddp_seq = [None] * T, [None] * T
-        for t in range(T - 1, -1, -1):
-            hp, u, r, c = hp_seq[t], u_seq[t], r_seq[t], c_seq[t]
-            dh = dh + g_seq[t]
-            m = tmask[t][:, None].to(dt)
-            dh_cell = dh * m
-            dh_prev = dh * (1 - m)
-            du = dh_cell * (c - hp)
-            dc = dh_cell * u
-            dh_prev = dh_prev + dh_cell * (1 - u)
-            dpre_c = dc * (1 - c * c)
-            drh = torch.matmul(dpre_c, w_c.T)
-            dr = drh * hp
-            dh_prev = dh_prev + drh * r
-            dpre_u = du * u * (1 - u)
-            dpre_r = dr * r * (1 - r)
-            dur = torch.cat([dpre_u, dpre_r], -1)
-            dh_prev = dh_prev + torch.matmul(dur, w_ur.T)
-            dxp = torch.cat([dur, dpre_c], -1)
-            dctx = torch.matmul(dxp, wx_ctx.T)
-            ddp, dsc = attn_bwd_step(ep, enc, dp_seq[t], v, maskf, dctx, alpha_seq[t])
-            dh = dh_prev + torch.matmul(ddp, wa_dec.T)
-            dxp_seq[t], dctx_seq[t], dsc_seq[t], ddp_seq[t] = dxp, dctx, dsc, ddp
-        dxp_seq, dctx_seq = torch.stack(dxp_seq), torch.stack(dctx_seq)
-        dsc_seq, ddp_seq = torch.stack(dsc_seq), torch.stack(ddp_seq)
-        # the [B,S,A]-sized gradient, written once
-        dep, dv = attn_phase2(ep, dp_seq, dsc_seq, v)
+        if FLAGS.fused_attention_seq_bwd:
+            dxp_seq, dctx_seq, ddp_seq, dh, dep, dv = decoder_seq_bwd(
+                ep, enc, maskf, g_seq, tmask, hp_seq, u_seq, r_seq, c_seq, dp_seq, alpha_seq, v,
+                w_c, w_ur, wx_ctx, wa_dec)
+        else:
+            dxp_seq, dctx_seq, ddp_seq, dh, dep, dv = _decoder_bwd_steps(
+                ep, enc, maskf, g_seq, tmask, hp_seq, u_seq, r_seq, c_seq, dp_seq, alpha_seq, v,
+                w_c, w_ur, wx_ctx, wa_dec)
         # the shared tail: batched products outside any kernel
         TB = T * B
         dx_seq = torch.matmul(dxp_seq, wx[:E].T)

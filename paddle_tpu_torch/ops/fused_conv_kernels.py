@@ -71,21 +71,28 @@ def prologue_plain(x, pm, pi, ps, pb, relu: bool):
 
 
 def sum_sq(y, dims):
-    """Per-channel sum and sum of squares of y, in f32."""
+    """Per-channel sum and sum of squares of y, in f32: the kernel squares
+    its rounded y in f32 whatever FLAGS.bn_bf16_stats says, as the TPU
+    kernel does (paddle_tpu/ops/fused_conv_ops.py:126-131)."""
     yf = y.float()
     return yf.sum(dims), (yf * yf).sum(dims)
 
 
-def fused_matmul_bn_plain(x, w, pm=None, pi=None, ps=None, pb=None, relu: bool = True):
-    """The function the kernel computes, on any device: x [..., Cin] (a
-    view, any strides), w [Cout, Cin], both in the io dtype; pm, pi, ps, pb
-    [Cin] f32, or None for no prologue. Returns (y [N, Cout] in the io
-    dtype, s, sq [Cout] f32). The product accumulates in f32 (the products
-    of two bf16 values are exact in f32) and rounds once."""
-    dt = x.dtype
+def conv1x1_plain(x, w, pm=None, pi=None, ps=None, pb=None, relu: bool = True):
+    """The product the kernel computes, on any device: x [..., Cin] (a view,
+    any strides), w [Cout, Cin], both in the io dtype; pm, pi, ps, pb [Cin]
+    f32, or None for no prologue. Returns y [N, Cout] in the io dtype,
+    accumulated in f32 (the products of two bf16 values are exact in f32)
+    and rounded once."""
     x2 = x.reshape(-1, x.shape[-1])
     xn = x2 if pm is None else prologue_plain(x2, pm, pi, ps, pb, relu)
-    y = torch.matmul(xn.float(), w.float().t()).to(dt)
+    return torch.matmul(xn.float(), w.float().t()).to(x.dtype)
+
+
+def fused_matmul_bn_plain(x, w, pm=None, pi=None, ps=None, pb=None, relu: bool = True):
+    """The function the kernel computes: conv1x1_plain's y and its f32
+    statistics. Returns (y [N, Cout] in the io dtype, s, sq [Cout] f32)."""
+    y = conv1x1_plain(x, w, pm, pi, ps, pb, relu)
     return (y, *sum_sq(y, 0))
 
 

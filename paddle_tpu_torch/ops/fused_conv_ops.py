@@ -13,8 +13,10 @@ all. `fused_conv_bn` routes its product three ways, as the JAX op does
   kernel, under the autograd Function whose backward transcribes the
   JAX package's;
 - N ≤ fused_conv_dot_max_n otherwise: the 2-D plain formula when the
-  kernel is off, the 4-D route when the kernel is on but refuses the
-  shape (never the plain version in the kernel's place);
+  kernel is off (its statistics by FLAGS.bn_bf16_stats, where the kernel
+  and its plain version square in f32, as the TPU kernel does), the 4-D
+  route when the kernel is on but refuses the shape (never the plain
+  version in the kernel's place);
 - N > fused_conv_dot_max_n: the 4-D route, a 1x1 F.conv2d (cuDNN) on the
   prologued activation, and the same statistics; autograd differentiates
   it.
@@ -34,7 +36,7 @@ from .. import amp
 from ..core.registry import register_op
 from ..flags import FLAGS
 from . import fused_conv_kernels as fk
-from .nn_ops import update_running
+from .nn_ops import bn_sum_sq, update_running
 
 
 def stats_to_mean_inv(s, sq, n, eps):
@@ -48,10 +50,11 @@ def stats_to_mean_inv(s, sq, n, eps):
 def _fused4(x4, w, vecs, relu):
     """The 4-D route: the prologue, then the product as a 1x1 conv on the
     NHWC activation seen as channels-last NCHW, the output rounded to the
-    io dtype (f32 accumulation), and the per-channel statistics."""
+    io dtype (f32 accumulation), and the per-channel statistics
+    (FLAGS.bn_bf16_stats)."""
     xn = x4 if vecs is None else fk.prologue_plain(x4, *vecs, relu)
     y = F.conv2d(xn.permute(0, 3, 1, 2), w[:, :, None, None]).permute(0, 2, 3, 1)
-    return (y, *fk.sum_sq(y, (0, 1, 2)))
+    return (y, *bn_sum_sq(y, (0, 1, 2)))
 
 
 @register_op("fused_conv_bn")
@@ -76,7 +79,8 @@ def fused_conv_bn_kernel(ctx):
     if ctx.has_input("XMean"):
         vecs = tuple(ctx.input(s) for s in ("XMean", "XInv", "XScale", "XBias"))
     if n <= FLAGS.fused_conv_dot_max_n and not FLAGS.fused_conv_pallas:
-        y2, s, sq = fk.fused_matmul_bn_plain(xc, wc, *(vecs or ()), relu=relu)
+        y2 = fk.conv1x1_plain(xc, wc, *(vecs or ()), relu=relu)
+        s, sq = bn_sum_sq(y2, 0)
         y = y2.reshape(b, h, wd, cout)
     elif n <= FLAGS.fused_conv_dot_max_n and fk.fused_conv_eligible(n, cin, cout, xc.dtype):
         y, s, sq = fk.fused_conv_bn_fused(xc, wc, *(vecs or (None,) * 4), relu=relu)
@@ -95,7 +99,7 @@ def bn_stats_kernel(ctx):
     mean and inv, and the running-statistics update; the normalise runs in
     the consumer (bn_apply or a fused_conv_bn prologue)."""
     x = ctx.input("X")
-    s, sq = fk.sum_sq(x, (0, 1, 2))
+    s, sq = bn_sum_sq(x, (0, 1, 2))
     n = float(x.numel() // x.shape[-1])
     bmean, bvar, binv = stats_to_mean_inv(s, sq, n, ctx.attr("epsilon", 1e-5))
     update_running(ctx, bmean, bvar)

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from .. import amp
 from ..core.lod import LoDArray
 from ..core.registry import register_op
+from ..flags import FLAGS
 
 
 def _pair(v):
@@ -36,8 +37,12 @@ def _nchw(x, fmt):
 def conv2d_kernel(ctx):
     """Strides, symmetric paddings, dilations and groups as the JAX op
     takes them. Under amp the inputs drop to bf16 and the output stays
-    bf16 (f32 accumulation inside cuDNN); the f32 path accumulates in f32
-    where TF32 is off (torch.backends.cudnn.allow_tf32)."""
+    bf16 (f32 accumulation inside cuDNN). In f32 the JAX op multiplies in
+    full f32 (preferred_element_type=f32), and cuDNN would by default round
+    each operand to TF32 (10 mantissa bits): on the card the Executor turns
+    `torch.backends.cudnn.allow_tf32` off when it is made (core/executor.py)
+    rather than this op scoping it, because autograd runs the convolution's
+    backward later, outside the op."""
     x, w = ctx.input("Input"), ctx.input("Filter")
     xc, wc = amp.cast_inputs(ctx, x, w)
     x4, back = _nchw(xc, ctx.attr("data_format", "NCHW"))
@@ -53,11 +58,13 @@ def conv2d_kernel(ctx):
 
 @register_op("pool2d")
 def pool2d_kernel(ctx):
-    """Max pooling pads with -inf; average pooling sums the window (f32
-    accumulation, rounded to x's dtype) and then divides in x's dtype, by
-    the window's size or, `exclusive` with padding, by the count of its
-    unpadded elements, as the JAX op's reduce_window and division do.
-    `global_pooling` takes the whole plane."""
+    """Max pooling pads with -inf; average pooling sums the window and
+    divides in x's dtype, by the window's size or, `exclusive` with
+    padding, by the count of its unpadded elements, as the JAX op does.
+    `global_pooling` takes the whole plane. One difference in bf16: the
+    port sums a window in f32 and rounds the sum once (F.avg_pool2d), where
+    the JAX op's reduce_window on the CPU sums in bf16, rounding after each
+    add; at the tests' shapes the two lie up to 86 bf16 ulps apart."""
     fmt = ctx.attr("data_format", "NCHW")
     x4, back = _nchw(ctx.input("X"), fmt)
     ptype = ctx.attr("pooling_type", "max")
@@ -93,12 +100,28 @@ def update_running(ctx, bmean, bvar):
         ctx.env[ctx.op.inputs[slot][0]] = m * ctx.input(slot) + (1 - m) * batch.detach()
 
 
+def bn_sum_sq(y, dims):
+    """Per-channel sum and sum of squares of y over `dims`, summed in f32:
+    the JAX package's `_sum_sq` (paddle_tpu/ops/fused_conv_ops.py:273-285),
+    the statistics of bn_stats and of fused_conv_bn's routes other than the
+    kernel. Under FLAGS.bn_bf16_stats (the default) y is squared in its own
+    dtype, so in bf16 each square is rounded before the f32 sum; off, in
+    f32."""
+    yf = y.float()
+    if FLAGS.bn_bf16_stats:
+        return yf.sum(dims), (y * y).float().sum(dims)
+    return yf.sum(dims), (yf * yf).sum(dims)
+
+
 @register_op("batch_norm")
 def batch_norm_kernel(ctx):
     """Train mode: the batch's mean and biased variance over every axis but
     the channel's, in f32 even under amp, and the running statistics
-    updated; `is_test` normalises with the running statistics. The output
-    is ((x − mean)·inv)·scale + bias in f32, cast to x's dtype."""
+    updated; `is_test` normalises with the running statistics. Under
+    FLAGS.bn_bf16_stats (the default, as in the JAX package) the variance
+    is max(E[x²] − E[x]², 0) with x squared in its own dtype; off, the mean
+    of (x − mean)² in f32. The output is ((x − mean)·inv)·scale + bias in
+    f32, cast to x's dtype."""
     x = ctx.input("X")
     scale, bias = ctx.input("Scale"), ctx.input("Bias")
     eps = ctx.attr("epsilon", 1e-5)
@@ -108,6 +131,12 @@ def batch_norm_kernel(ctx):
     x32 = x.float()
     if ctx.attr("is_test", False):
         mean, var = ctx.input("Mean"), ctx.input("Variance")
+    elif FLAGS.bn_bf16_stats:
+        n = x.numel() // x.shape[ch]
+        s, sq = bn_sum_sq(x, axes)
+        mean = s / n
+        var = torch.clamp_min(sq / n - mean * mean, 0.0)
+        update_running(ctx, mean, var)
     else:
         mean = x32.mean(axes)
         var = (x32 - mean.reshape(shape)).square().mean(axes)

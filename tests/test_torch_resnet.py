@@ -21,7 +21,11 @@ Tolerances, each with its reading:
   torch sum in other orders, and the batch variance max(sq/n − mean², 0)
   cancels: measured at most 8.5e-7, a BatchInv). bf16: at most 2% of the
   elements differ (0.011%), by at most one ulp; their f32 statistics
-  within 2e-5 (6.6e-7). Average pooling in bf16 is held to the JAX op in
+  within 2e-5 (6.6e-7). Each op with batch statistics runs with
+  `bn_bf16_stats` on (both packages' default: the activation squared in
+  bf16 before the f32 sum) and off (squared in f32), the same on both
+  sides; a port that ignored the flag fails eight of the bf16 cases (its
+  statistics past 2e-5). Average pooling in bf16 is held to the JAX op in
   f32 on the same values, within 2^-7 of the largest element (3.0e-3):
   the JAX op sums a bf16 window in bf16 on the CPU (up to 86 ulps from
   the port here), where the port sums in f32.
@@ -84,12 +88,16 @@ F32, BF16 = torch.float32, torch.bfloat16
 _JDT = {F32: jnp.float32, BF16: jnp.bfloat16}
 
 
-@pytest.fixture(autouse=True)
-def _full_f32_statistics(monkeypatch):
-    """The JAX package's default `bn_bf16_stats` squares the activation in
-    bf16 before its f32 sums; the port has not ported that flag and takes
-    its statistics in f32, so the JAX side runs with it off."""
-    monkeypatch.setattr(JFLAGS, "bn_bf16_stats", False)
+def _set_stats(mp, bf16_stats):
+    """`bn_bf16_stats` on both sides (both default to True: the statistics
+    square the activation in its io dtype before their f32 sums)."""
+    mp.setattr(JFLAGS, "bn_bf16_stats", bf16_stats)
+    mp.setattr(ptt.FLAGS, "bn_bf16_stats", bf16_stats)
+
+
+# the ops whose statistics follow bn_bf16_stats: their cases run with it on
+# (the default, no suffix) and off ("-f32-stats")
+_STATS_OPS = ("batch_norm", "fused_conv_bn", "bn_stats")
 
 
 def build(pkg, hw=224, class_dim=1000, lr=0.1):
@@ -317,15 +325,18 @@ def _op_cases():
     ]
 
 
-@pytest.mark.parametrize("case,dtype", [
-    pytest.param(c, dt, id=f"{c[0]}-{name}") for c in _op_cases()
-    for dt, name in ((F32, "f32"), (BF16, "bf16"))
-    if not (dt == BF16 and c[1] == "momentum")])  # the update of f32 master parameters
-def test_op_matches_jax(case, dtype):
+@pytest.mark.parametrize("case,dtype,bf16_stats", [
+    pytest.param(c, dt, stats, id=f"{c[0]}-{name}" + ("" if stats else "-f32-stats"))
+    for c in _op_cases() for dt, name in ((F32, "f32"), (BF16, "bf16"))
+    if not (dt == BF16 and c[1] == "momentum")  # the update of f32 master parameters
+    for stats in ((True, False) if c[1] in _STATS_OPS and not c[3].get("is_test") else (True,))])
+def test_op_matches_jax(case, dtype, bf16_stats, monkeypatch):
     """Every output and every value the op writes back (running
     statistics, parameter and velocity), the activations in `dtype` under
-    bf16 amp, f32 parameters and statistics."""
+    bf16 amp, f32 parameters and statistics; an op with batch statistics
+    with `bn_bf16_stats` on (both packages' default) and off."""
     _, op, inputs, attrs = case
+    _set_stats(monkeypatch, bf16_stats)
     amp = "bfloat16" if dtype == BF16 else None
     jn, tn = _run_op(op, inputs, attrs, amp=amp, dtype=dtype)
     if dtype == BF16 and attrs.get("pooling_type") == "avg":
@@ -339,12 +350,18 @@ def test_op_matches_jax(case, dtype):
     _assert_op_close(jn, tn, dtype)
 
 
-@pytest.mark.parametrize("route", ["4d", "2d", "kernel"])
-def test_fused_conv_bn_routes_match_jax(route):
+@pytest.mark.parametrize("route,dtype,bf16_stats", [
+    pytest.param(r, dt, stats, id=r + ("" if dt == F32 else "-bf16")
+                 + ("" if stats else "-f32-stats"))
+    for r in ("4d", "2d", "kernel") for dt in (F32, BF16)
+    for stats in ((True,) if dt == F32 else (True, False))])
+def test_fused_conv_bn_routes_match_jax(route, dtype, bf16_stats):
     """The op's three routes, by the port's flags, against the JAX op on
     its 4-D route (the first two) or its Pallas kernel in interpret mode
     (the third): the output, the statistics and the running statistics,
-    in f32, with the prologue, at a stride of 2."""
+    with the prologue, at a stride of 2; in f32, and in bf16 with
+    `bn_bf16_stats` on and off, which the first two routes follow and the
+    kernel, on both sides, does not (it squares its rounded y in f32)."""
     rng = np.random.RandomState(4)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     inputs = {"X": [f(2, 16, 16, 128)], "Filter": [0.1 * f(128, 128, 1, 1)],
@@ -358,13 +375,15 @@ def test_fused_conv_bn_routes_match_jax(route):
                                    (ptt.FLAGS, "fused_conv_pallas", route == "kernel"),
                                    (ptt.FLAGS, "fused_conv_dot_max_n", 10 ** 6 * (route != "4d"))):
             mp.setattr(flags, name, value)
-        jn, tn = _run_op("fused_conv_bn", inputs, attrs)
-    _assert_op_close(jn, tn, F32)
+        _set_stats(mp, bf16_stats)
+        jn, tn = _run_op("fused_conv_bn", inputs, attrs, amp=None if dtype == F32 else "bfloat16",
+                         dtype=dtype)
+    _assert_op_close(jn, tn, dtype)
 
 
 def test_flags():
-    """fused_conv_dot_max_n keeps ints; bn_bf16_stats is not ported and may
-    only stay off."""
+    """fused_conv_dot_max_n keeps ints; bn_bf16_stats defaults to True, as
+    the JAX package's does, and keeps a bool."""
     flags = ptt.FLAGS
     old = flags.fused_conv_dot_max_n
     try:
@@ -373,10 +392,31 @@ def test_flags():
     finally:
         flags.fused_conv_dot_max_n = old
     assert flags.use_fused_conv is True and flags.fused_conv_pallas is False
-    assert flags.bn_bf16_stats is False
-    flags.bn_bf16_stats = False
-    with pytest.raises(NotImplementedError, match="bn_bf16_stats"):
+    assert flags.bn_bf16_stats is True and JFLAGS.bn_bf16_stats is True
+    try:
+        flags.bn_bf16_stats = 0
+        assert flags.bn_bf16_stats is False
+    finally:
         flags.bn_bf16_stats = True
+
+
+def test_executor_turns_cudnn_tf32_off_on_cuda(monkeypatch):
+    """An Executor made for the card turns cuDNN's TF32 off (torch's default
+    is on), so an f32 convolution, forward and backward, multiplies in f32
+    as the JAX op does; the card is mocked here, and chip_smoke.py shows
+    the effect on one. On the CPU it leaves the flags as they are."""
+    from paddle_tpu_torch.core import executor
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_bf16_reduced_precision_reduction",
+                        True)
+    ptt.Executor(device="cpu")
+    assert torch.backends.cudnn.allow_tf32 is True
+    monkeypatch.setattr(executor, "resolve_device", lambda d: torch.device("cuda", 0))
+    ptt.Executor()
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
 
 
 # --------------------------------------------------------------- program --
@@ -472,7 +512,6 @@ def runs():
     feeds = _feeds()
     out = {}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(JFLAGS, "bn_bf16_stats", False)  # as _full_f32_statistics
         mp.setattr(ptt.FLAGS, "fused_conv_pallas", True)
         mp.setattr(ptt.FLAGS, "fused_conv_dot_max_n", 10 ** 9)
         for amp in (None, "bfloat16"):

@@ -576,11 +576,22 @@ def test_lod_gradients_reach_the_padding_as_zeros():
 
 
 def test_unported_decoder_flags_refuse_to_turn_on():
+    """The whole-sequence decoder flags are ported now (their kernels,
+    csrc/decoder_seq.cu, are held to the JAX package's in
+    tests/test_torch_seq2seq.py): off by default as in the JAX package, and
+    they turn on. A flag the port does not define still refuses to be set
+    or read."""
     for flag in ("fused_attention_seq_fwd", "fused_attention_seq_bwd"):
-        assert getattr(ptt.FLAGS, flag) is False
-        ptt.FLAGS.__setattr__(flag, False)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            setattr(ptt.FLAGS, flag, True)
+        assert getattr(ptt.FLAGS, flag) is False and getattr(FLAGS, flag) is False
+        try:
+            setattr(ptt.FLAGS, flag, 1)
+            assert getattr(ptt.FLAGS, flag) is True
+        finally:
+            setattr(ptt.FLAGS, flag, False)
+    with pytest.raises(AttributeError, match="undefined flag"):
+        ptt.FLAGS.fused_attention_seq_everything = True
+    with pytest.raises(AttributeError, match="undefined flag"):
+        ptt.FLAGS.fused_attention_seq_everything
 
 
 if __name__ == "__main__":
