@@ -108,12 +108,16 @@ exits non-zero without the final `ok` line:
               3 × 8.2 GFLOP an image, peak memory; one more step under
               torch.profiler; then, as context, the same step on the
               default route (each 1x1 conv a cuDNN conv).
-  21. parity  the small ResNet-50 program of tests/test_torch_resnet.py
-              (64x64, B=4, 10 classes, lr 1e-5), card against CPU from one
-              startup state: losses, gradients, velocities, parameters and
-              BN running statistics after 2 Momentum steps, f32 then bf16
-              (its statistics squared in f32); as context, bf16 with the
-              default bn_bf16_stats, and moved images on the CPU.
+  21. parity  the full-width step's own bn_stats and batch_norm calls with
+              bn_bf16_stats on (the default), card against CPU: batch and
+              running statistics, batch_norm's output, and what each would
+              read left at zero; then the small ResNet-50 program of
+              tests/test_torch_resnet.py (64x64, B=4, 10 classes, lr 1e-5),
+              card against CPU from one startup state: losses, gradients,
+              velocities, parameters and BN running statistics after 2
+              Momentum steps, f32 then bf16 (its statistics squared in
+              f32); as context, bf16 with the default bn_bf16_stats, and
+              moved images on the CPU.
   22. nmt     bench.py's NMT training program (V=30000, emb = hidden = 512,
               S = T = 50, B=256, Adam(5e-4), bf16), built by the port's own
               front end (its main and startup equal to
@@ -126,8 +130,9 @@ exits non-zero without the final `ok` line:
               inputs (bf16 and f32), then seeded inputs with ragged source
               and target masks and a row with no target step, at the main
               path's shapes (with a misplaced rounding that the bf16 bound
-              must catch) and at edge shapes; the same bits in two runs of
-              the backward; kernel, plain and bound times.
+              must catch) and at edge shapes, each output beside what it
+              would read left at zero; the same bits in two runs of the
+              backward; kernel, plain and bound times.
   24. steps   3 timed steps with the launch counts set to 0 just before:
               finite, falling losses, exactly 1 decoder_seq_fwd, 1
               decoder_seq_bwd, 2 gru_fwd, 2 gru_bwd and no per-step
@@ -1245,14 +1250,26 @@ RESNET_PARITY = {
     None: dict(loss=(1e-3, 1e-2), grad=0.1, state=0.3, running=1e-2),
     "bfloat16": dict(loss=(5e-2, 1e-1), running=0.5, norm=2.0),
 }
-# RESNET_BF16_STATS_NOTE: phase 21 holds the bf16 program with its batch
-# statistics squared in f32 (bn_bf16_stats off), the configuration its
-# bounds were set for. With the JAX package's default (bf16 squares, then
-# max(E[x²] − E[x]², 0)) the B=4, 64x64 program is chaotic: its last stage
-# normalises 16 rows a channel, where a one-ulp flip in a square moves the
-# variance after the cancellation, so its losses move far when its images
-# move by 1e-3 (phase 21 prints how far, as context). Tier-1 holds the
-# flag's ops to the JAX package's, on and off.
+# RESNET_BF16_STATS_NOTE: phase 21 holds the small bf16 program with its
+# batch statistics squared in f32 (bn_bf16_stats off), the configuration
+# its bounds were set for. With the JAX package's default (bf16 squares,
+# then max(E[x²] − E[x]², 0)) the B=4, 64x64 program is chaotic: its last
+# stage normalises 16 rows a channel, where a one-ulp flip in a square
+# moves the variance after the cancellation, so its losses move far when
+# its images move by 1e-3 (phase 21 prints how far, as context). The
+# default is held op by op instead: phase 21 replays the full-width step's
+# own bn_stats and batch_norm calls, with the flag on as that step ran
+# them, on the card and on the CPU. Each square rounds to bf16 alike on
+# both, so only the order of the f32 sums differs: each channel's batch
+# mean within BN_STATS_TOL of its rms, its batch variance (from BatchInv)
+# within BN_STATS_TOL of its mean square, the running statistics beyond
+# one f32 ulp within BN_STATS_TOL of (1 − momentum) times the same, and
+# batch_norm's Y beyond one bf16 ulp within BN_STATS_TOL of its largest.
+# Squares taken in f32 on one side move BatchInv by up to 9.4e-4 of its
+# largest value (ROADMAP queue C, C2). A statistic left at zero must read
+# above the bound. Tier-1 holds the flag's ops to the JAX package's, on
+# and off.
+BN_STATS_TOL = 1e-5
 # BN scales whose gradient is 0 in exact arithmetic at the initial state
 RESNET_NULL = ("branch2a_bn.w_0", "branch2b_bn.w_0")
 
@@ -1432,9 +1449,89 @@ def resnet_compare(state, cpu, card, amp):
     return worst
 
 
+def record_ops(registry, types):
+    """Wrap the registered kernels of `types` so each call records (its
+    operator, its inputs by name, detached). Returns (calls, restore)."""
+    calls, orig = {t: [] for t in types}, {}
+    for t in types:
+        fn = orig[t] = registry._KERNELS[t]
+
+        def spy(ctx, _fn=fn, _t=t):
+            names = [n for slot in ctx.op.inputs.values() for n in slot]
+            calls[_t].append((ctx.op, {n: ctx.env[n].detach() for n in names}))
+            return _fn(ctx)
+
+        registry._KERNELS[t] = spy
+    return calls, lambda: registry._KERNELS.update(orig)
+
+
+def f32_ulp(v):
+    """One f32 ulp at each element's magnitude (numpy float array)."""
+    return np.spacing(np.abs(v).astype(np.float32)).astype(np.float64)
+
+
+def bn_op_readings(registry, op, ins):
+    """One recorded bn_stats or batch_norm call run by its registered kernel
+    on the card and on the CPU from the same inputs (see
+    RESNET_BF16_STATS_NOTE): {output: (reading, a zero output's reading)}."""
+    env = {}
+    for dev in ("cuda", "cpu"):
+        env[dev] = {k: v.to(dev) for k, v in ins.items()}
+        registry.get_kernel(op.type)(registry.OpContext(op, env[dev]))
+    torch.cuda.synchronize()
+    x = ins[op.inputs["X"][0]].double()
+    nhwc = op.type == "bn_stats" or op.attrs.get("data_format", "NCHW") == "NHWC"
+    ch = x.dim() - 1 if nhwc else 1
+    ms = (x * x).mean(tuple(i for i in range(x.dim()) if i != ch)).cpu().numpy()
+    rms, keep = np.sqrt(ms), 1 - op.attrs.get("momentum", 0.9)
+    eps = op.attrs.get("epsilon", 1e-5)
+    out = lambda name: [env[d][op.outputs[name][0]].double().cpu().numpy()  # noqa: E731
+                        for d in ("cuda", "cpu")]
+    running = lambda slot: [env[d][op.inputs[slot][0]].double().cpu().numpy()  # noqa: E731
+                            for d in ("cuda", "cpu")]
+    rd = {}
+    for slot, scale in (("Mean", rms), ("Variance", ms)):
+        g, w = running(slot)
+        rd["running " + slot.lower()] = (
+            float((np.maximum(np.abs(g - w) - f32_ulp(w), 0) / (keep * scale)).max()),
+            float((np.abs(w) / (keep * scale)).max()))
+    if op.type == "bn_stats":
+        g, w = out("BatchMean")
+        rd["BatchMean"] = float((np.abs(g - w) / rms).max()), float((np.abs(w) / rms).max())
+        g, w = (1 / v ** 2 - eps for v in out("BatchInv"))  # the batch variance
+        rd["BatchInv"] = float((np.abs(g - w) / ms).max()), float((np.abs(w) / ms).max())
+    else:
+        g, w = (env[d][op.outputs["Y"][0]] for d in ("cuda", "cpu"))
+        scale = amax(w)
+        rd["Y"] = beyond_ulp(g, w, scale), beyond_ulp(torch.zeros_like(w), w, scale)
+    return rd
+
+
+def bn_stats_gate(ptt, recorded):
+    """The full-width step's own bn_stats and batch_norm calls, card against
+    CPU with bn_bf16_stats on (RESNET_BF16_STATS_NOTE): prints each
+    output's worst reading and the least a zero output would read."""
+    from paddle_tpu_torch.core import registry
+
+    check(ptt.FLAGS.bn_bf16_stats, "bn_bf16_stats is off; the gate holds the default")
+    for t, calls in recorded.items():
+        worst = {}
+        for op, ins in calls:
+            for name, (r, z) in bn_op_readings(registry, op, ins).items():
+                w = worst.setdefault(name, [0.0, float("inf")])
+                w[0], w[1] = max(w[0], r), min(w[1], z)
+        print(f"  {t} x{len(calls)} (bn_bf16_stats on), card against CPU: " + "; ".join(
+            f"{k} {r:.3e} (zeros would read {z:.3e})" for k, (r, z) in worst.items())
+            + f" (tol {BN_STATS_TOL:g})")
+        for k, (r, z) in worst.items():
+            check(r <= BN_STATS_TOL, f"{t}: {k} {r:.3e} apart on the card and the CPU")
+            check(z > BN_STATS_TOL, f"{t}: a {k} left at zero would pass its check")
+
+
 def resnet_phases(ptt, exe, rng, smi, seed, first_phase):
     """Phases first_phase.. of the ResNet slice; returns the kernels' rows,
     their largest errors and their launches on the training path."""
+    from paddle_tpu_torch.core import registry
     from paddle_tpu_torch.ops import fused_conv_kernels as fk
 
     n = first_phase
@@ -1461,12 +1558,16 @@ def resnet_phases(ptt, exe, rng, smi, seed, first_phase):
     feed = resnet_feed(np.random.RandomState(0), RESNET_BENCH["hw"], RESNET_BENCH["class_dim"],
                        batch)
     calls, restore = record_calls(fk, {"fused_matmul_bn": "all"})
+    bn_calls, bn_restore = record_ops(registry, ("bn_stats", "batch_norm"))
     try:
         t0 = time.perf_counter()
         losses = [float(exe.run(main_p, feed, [loss.name], scope=scope)[0])]
         torch.cuda.synchronize()
     finally:
         restore()
+        bn_restore()
+    for t, c in bn_calls.items():
+        check(len(c) == counts[t], f"the warm-up step ran {len(c)} {t} calls, not {counts[t]}")
     recorded = calls.get("fused_matmul_bn", [])
     print(f"  warm-up step: loss {losses[0]:.6f}, {time.perf_counter() - t0:.3f} s; {batch} "
           f"images; {len(recorded)} fused_matmul_bn calls recorded; peak device memory "
@@ -1580,7 +1681,10 @@ def resnet_phases(ptt, exe, rng, smi, seed, first_phase):
     del scope
 
     n += 1
-    phase(n, "small ResNet-50 program (64x64, B=4): card against CPU (f32, then bf16)")
+    phase(n, "the step's bn_stats and batch_norm calls, then the small ResNet-50 program "
+          "(64x64, B=4): card against CPU (f32, then bf16)")
+    bn_stats_gate(ptt, bn_calls)
+    del bn_calls
     with _Flags(ptt.FLAGS, fused_conv_dot_max_n=10 ** 9, fused_conv_pallas=True):
         smain, sstart, _ = build_resnet_program(ptt, **{k: RESNET_SMALL[k]
                                                         for k in ("hw", "class_dim", "lr")})
@@ -1592,7 +1696,8 @@ def resnet_phases(ptt, exe, rng, smi, seed, first_phase):
                               RESNET_SMALL["batch"]) for _ in range(2)]
         for amp in (None, "bfloat16"):
             before = fk.fused_conv_bn_launches
-            # the statistics squared in f32 (see RESNET_BF16_STATS_NOTE)
+            # the statistics squared in f32; the default is held op by op
+            # above (see RESNET_BF16_STATS_NOTE)
             with _Flags(ptt.FLAGS, bn_bf16_stats=False):
                 cpu = resnet_small_runs(ptt, state, sfeeds, amp, "cpu")
                 card = resnet_small_runs(ptt, state, sfeeds, amp, "cuda")
@@ -1630,18 +1735,25 @@ SEQ_FLAGS = dict(fused_attention_seq_fwd=True, fused_attention_seq_bwd=True)
 SEQ_STEP_LAUNCHES = {"decoder_seq_fwd": 1, "decoder_seq_bwd": 1, "attn_fwd": 0,
                      "attn_bwd_step": 0, "attn_phase2": 0, "gru_fwd": 2, "gru_bwd": 2}
 # B9 and B10 against their plain versions, each output's error over its
-# scale (seq_scales: its largest element, or for ddp, dep and dv, whose
-# terms cancel, the largest sum of their terms' magnitudes). f32: within
-# 1e-5 (the same f32 arithmetic summed in other orders; tests/
-# test_torch_seq2seq.py holds the plain versions to the JAX kernels). bf16:
-# the kernel and cuBLAS sum in other orders, so an output may round one
-# ulp apart, and the flip travels through h, or through the dh carry, to
-# the later steps and spreads, as gru_bwd's does: at most 10% of h_seq,
-# ctx, dxp, dctx and dh0 lies more than one ulp from the plain value, and
-# alpha, ddp, dep and dv (f32, or sums that cancel) lie beyond one ulp by
-# at most 1e-2 (gru_bwd's bf16 bound). A version with its roundings
-# elsewhere must break the share bound at the main path's shapes
-# (seq_control, printed beside it).
+# scale (seq_scales). f32: within 1e-5 (the same f32 arithmetic summed in
+# other orders; tests/test_torch_seq2seq.py holds the plain versions to
+# the JAX kernels) of its largest element, or for ddp (over S) and dep
+# (over T) of the largest sum of their terms' magnitudes, to which an f32
+# sum's error in another order grows: on the warm-up step's inputs ddp
+# cancels to 7e-5 of it (a softmax gradient sums to 0, and at the
+# startup's weights tanh(ep+dp) is nearly the same at every s). bf16: the
+# kernel and cuBLAS sum in other orders, so an output may round one ulp
+# apart, and the flip travels through h, or through the dh carry, to the
+# later steps and spreads, as gru_bwd's does: at most 10% of h_seq, ctx,
+# dxp, dctx and dh0 lies more than one ulp from the plain value, and
+# alpha, ddp, dep and dv (f32 outputs and sums) lie beyond one ulp by at
+# most 1e-2 (gru_bwd's bf16 bound) of their own largest element. dv, f32
+# and summed in f32 on both sides, is held to its own largest element in
+# both dtypes: its terms over every step, row and position cancel, so the
+# sum of their magnitudes is up to 2e4 times dv. A check must be able to
+# fail: every output left at zero must read above its bound (printed
+# beside it), and a version with its roundings elsewhere must break the
+# share bound at the main path's shapes (seq_control, printed beside it).
 SEQ_TOL = 1e-5
 SEQ_BF16_TOL = 1e-2
 SEQ_BEYOND_ULP = 0.10
@@ -1739,53 +1851,65 @@ def seq_seeded(rng, B, S, T, E, C, A, H, dt):
 
 
 def seq_scales(name, args, want):
-    """The scale each output's error is held to: its largest element, or
-    for the sums whose terms cancel (ddp over S, dep over T, dv over every
-    step, row and position: a softmax gradient sums to 0, and at the
-    startup's weights tanh(ep+dp) is nearly the same at every s) the
-    largest sum of their terms' magnitudes, from the plain version's dctx
-    (|1 - t²| <= 1, |tanh| <= 1)."""
+    """The scale each output's error is held to (see SEQ_TOL's note): its
+    largest element, or in f32 for ddp and dep the largest sum of their
+    terms' magnitudes, from the plain version's dctx (|1 - t²| <= 1).
+    Returns (scales, {sum: the sum of its terms' magnitudes over its
+    largest element}) for ddp, dep and dv, which the backward prints."""
     scales = [max(amax(w), 1e-30) for w in want]
-    if name == "decoder_seq_bwd":
-        enc, mask, alpha, v = args[1], args[2], args[10], args[11]
-        dal = torch.einsum("bsc,tbc->tbs", enc.float(), want[1].float())
-        dsc = (alpha * (dal - (alpha * dal).sum(-1, keepdim=True)) * (mask > 0)).abs()
-        vmax = amax(v)
-        scales[2] = amax(dsc.sum(2)) * vmax
-        scales[4] = amax(dsc.sum(0)) * vmax
-        scales[5] = float(dsc.sum())
-    return scales
+    if name != "decoder_seq_bwd":
+        return scales, {}
+    enc, mask, alpha, v = args[1], args[2], args[10], args[11]
+    dal = torch.einsum("bsc,tbc->tbs", enc.float(), want[1].float())
+    dsc = (alpha * (dal - (alpha * dal).sum(-1, keepdim=True)) * (mask > 0)).abs()
+    vmax = amax(v)
+    terms = {2: amax(dsc.sum(2)) * vmax, 4: amax(dsc.sum(0)) * vmax, 5: float(dsc.sum())}
+    if args[0].dtype == torch.float32:
+        scales[2], scales[4] = terms[2], terms[4]
+    return scales, {SEQ_BWD_OUT[i]: t / max(amax(want[i]), 1e-30) for i, t in terms.items()}
+
+
+def seq_reading(g, w, scale, dt, n):
+    """(reading, bound, what it reads) of one output under SEQ_*'s bounds."""
+    over = beyond_ulp(g, w, scale)  # the error itself for an f32 output
+    if dt == torch.float32:
+        return over, SEQ_TOL, ""
+    if w.dtype == torch.float32 or n in SEQ_CANCELS:
+        return over, SEQ_BF16_TOL, " beyond 1 ulp"
+    gn, wn = g.float().cpu().numpy(), w.float().cpu().numpy()
+    return float((np.abs(gn - wn) > bf16_ulp(wn)).mean()), SEQ_BEYOND_ULP, " beyond 1 ulp"
 
 
 def seq_check(ak, name, args, label, max_errs):
     """Kernel against plain on `args` with SEQ_*'s bounds (errors over
-    seq_scales); prints every output's reading, then fails on the first
-    out of bounds. Returns (got, want)."""
+    seq_scales); prints every output's reading and what it would read left
+    at zero, then fails on the first out of bounds. Returns (got, want)."""
     got = getattr(ak, name)(*args)
     want = getattr(ak, name + "_plain")(*args)
     torch.cuda.synchronize()
     dt = args[0].dtype
     names = SEQ_FWD_OUT if name == "decoder_seq_fwd" else SEQ_BWD_OUT
     parts, faults = [], []
-    for n, g, w, scale in zip(names, got, want, seq_scales(name, args, want)):
+    scales, terms = seq_scales(name, args, want)
+    for n, g, w, scale in zip(names, got, want, scales):
         check(bool(torch.isfinite(g.float()).all()), f"{name}: non-finite {n}")
         check(g.shape == w.shape and g.dtype == w.dtype, f"{name}: {n} {g.shape} {g.dtype}")
         err = float((g.float() - w.float()).abs().max())
         max_errs[name] = max(max_errs.get(name, 0.0), err)
-        over = beyond_ulp(g, w, scale)  # the error itself for an f32 output
-        if dt == torch.float32:
-            tol, reading = SEQ_TOL, f"{n} {over:.2e}"
-        elif w.dtype == torch.float32 or n in SEQ_CANCELS:
-            tol, reading = SEQ_BF16_TOL, f"{n} {over:.2e} beyond 1 ulp"
-        else:
-            gn, wn = g.float().cpu().numpy(), w.float().cpu().numpy()
-            over = float((np.abs(gn - wn) > bf16_ulp(wn)).mean())
-            tol, reading = SEQ_BEYOND_ULP, f"{n} {over:.3%} beyond 1 ulp ({err / scale:.1e})"
-        parts.append(reading)
+        over, tol, what = seq_reading(g, w, scale, dt, n)
+        zero = seq_reading(torch.zeros_like(w), w, scale, dt, n)[0]
+        fmt = ".3%" if tol == SEQ_BEYOND_ULP else ".2e"
+        parts.append(f"{n} {over:{fmt}}{what} (zeros {zero:{fmt}})")
         if over > tol:
             faults.append(f"{n} {over:.3e} (tol {tol:g})")
+        if zero <= tol:
+            faults.append(f"{n} left at zero would read {zero:.3e} (tol {tol:g})")
+    if terms:
+        parts.append("their terms' magnitudes sum to " + ", ".join(
+            f"{t:.3g}x {n}'s largest" for n, t in terms.items()))
     print(f"  {name} {label} {str(dt)[6:]}: " + "; ".join(parts))
-    check(not faults, f"{name} {label} disagrees with its plain version: {', '.join(faults)}")
+    check(not faults, f"{name} {label} disagrees with its plain version, or its check "
+          f"cannot fail: {', '.join(faults)}")
     return got, want
 
 

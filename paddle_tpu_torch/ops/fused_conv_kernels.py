@@ -70,12 +70,16 @@ def prologue_plain(x, pm, pi, ps, pb, relu: bool):
     return xh.to(x.dtype)
 
 
-def sum_sq(y, dims):
-    """Per-channel sum and sum of squares of y, in f32: the kernel squares
-    its rounded y in f32 whatever FLAGS.bn_bf16_stats says, as the TPU
-    kernel does (paddle_tpu/ops/fused_conv_ops.py:126-131)."""
+def sum_sq(y, dims, f32_squares: bool):
+    """Per-channel sum and sum of squares of y over `dims`, summed in f32:
+    the JAX package's `_sum_sq` (paddle_tpu/ops/fused_conv_ops.py:273-285).
+    With `f32_squares` y is squared in f32; without, in its own dtype, so
+    in bf16 each square is rounded before the sum. The kernel squares its
+    rounded y in f32 whatever FLAGS.bn_bf16_stats says, as the TPU kernel
+    does (paddle_tpu/ops/fused_conv_ops.py:126-131); the ops' other routes
+    pass `not FLAGS.bn_bf16_stats`."""
     yf = y.float()
-    return yf.sum(dims), (yf * yf).sum(dims)
+    return yf.sum(dims), ((yf * yf) if f32_squares else (y * y).float()).sum(dims)
 
 
 def conv1x1_plain(x, w, pm=None, pi=None, ps=None, pb=None, relu: bool = True):
@@ -93,7 +97,7 @@ def fused_matmul_bn_plain(x, w, pm=None, pi=None, ps=None, pb=None, relu: bool =
     """The function the kernel computes: conv1x1_plain's y and its f32
     statistics. Returns (y [N, Cout] in the io dtype, s, sq [Cout] f32)."""
     y = conv1x1_plain(x, w, pm, pi, ps, pb, relu)
-    return (y, *sum_sq(y, 0))
+    return (y, *sum_sq(y, 0, f32_squares=True))
 
 
 # ------------------------------------------------------------------ kernel --

@@ -36,7 +36,7 @@ from .. import amp
 from ..core.registry import register_op
 from ..flags import FLAGS
 from . import fused_conv_kernels as fk
-from .nn_ops import bn_sum_sq, update_running
+from .nn_ops import update_running
 
 
 def stats_to_mean_inv(s, sq, n, eps):
@@ -54,7 +54,7 @@ def _fused4(x4, w, vecs, relu):
     (FLAGS.bn_bf16_stats)."""
     xn = x4 if vecs is None else fk.prologue_plain(x4, *vecs, relu)
     y = F.conv2d(xn.permute(0, 3, 1, 2), w[:, :, None, None]).permute(0, 2, 3, 1)
-    return (y, *bn_sum_sq(y, (0, 1, 2)))
+    return (y, *fk.sum_sq(y, (0, 1, 2), not FLAGS.bn_bf16_stats))
 
 
 @register_op("fused_conv_bn")
@@ -80,7 +80,7 @@ def fused_conv_bn_kernel(ctx):
         vecs = tuple(ctx.input(s) for s in ("XMean", "XInv", "XScale", "XBias"))
     if n <= FLAGS.fused_conv_dot_max_n and not FLAGS.fused_conv_pallas:
         y2 = fk.conv1x1_plain(xc, wc, *(vecs or ()), relu=relu)
-        s, sq = bn_sum_sq(y2, 0)
+        s, sq = fk.sum_sq(y2, 0, not FLAGS.bn_bf16_stats)
         y = y2.reshape(b, h, wd, cout)
     elif n <= FLAGS.fused_conv_dot_max_n and fk.fused_conv_eligible(n, cin, cout, xc.dtype):
         y, s, sq = fk.fused_conv_bn_fused(xc, wc, *(vecs or (None,) * 4), relu=relu)
@@ -99,7 +99,7 @@ def bn_stats_kernel(ctx):
     mean and inv, and the running-statistics update; the normalise runs in
     the consumer (bn_apply or a fused_conv_bn prologue)."""
     x = ctx.input("X")
-    s, sq = bn_sum_sq(x, (0, 1, 2))
+    s, sq = fk.sum_sq(x, (0, 1, 2), not FLAGS.bn_bf16_stats)
     n = float(x.numel() // x.shape[-1])
     bmean, bvar, binv = stats_to_mean_inv(s, sq, n, ctx.attr("epsilon", 1e-5))
     update_running(ctx, bmean, bvar)

@@ -18,6 +18,7 @@ from .. import amp
 from ..core.lod import LoDArray
 from ..core.registry import register_op
 from ..flags import FLAGS
+from .fused_conv_kernels import sum_sq
 
 
 def _pair(v):
@@ -100,19 +101,6 @@ def update_running(ctx, bmean, bvar):
         ctx.env[ctx.op.inputs[slot][0]] = m * ctx.input(slot) + (1 - m) * batch.detach()
 
 
-def bn_sum_sq(y, dims):
-    """Per-channel sum and sum of squares of y over `dims`, summed in f32:
-    the JAX package's `_sum_sq` (paddle_tpu/ops/fused_conv_ops.py:273-285),
-    the statistics of bn_stats and of fused_conv_bn's routes other than the
-    kernel. Under FLAGS.bn_bf16_stats (the default) y is squared in its own
-    dtype, so in bf16 each square is rounded before the f32 sum; off, in
-    f32."""
-    yf = y.float()
-    if FLAGS.bn_bf16_stats:
-        return yf.sum(dims), (y * y).float().sum(dims)
-    return yf.sum(dims), (yf * yf).sum(dims)
-
-
 @register_op("batch_norm")
 def batch_norm_kernel(ctx):
     """Train mode: the batch's mean and biased variance over every axis but
@@ -133,7 +121,7 @@ def batch_norm_kernel(ctx):
         mean, var = ctx.input("Mean"), ctx.input("Variance")
     elif FLAGS.bn_bf16_stats:
         n = x.numel() // x.shape[ch]
-        s, sq = bn_sum_sq(x, axes)
+        s, sq = sum_sq(x, axes, f32_squares=False)
         mean = s / n
         var = torch.clamp_min(sq / n - mean * mean, 0.0)
         update_running(ctx, mean, var)

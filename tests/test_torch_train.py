@@ -576,11 +576,23 @@ def test_lod_gradients_reach_the_padding_as_zeros():
 
 
 def test_unported_decoder_flags_refuse_to_turn_on():
-    """The whole-sequence decoder flags are ported now (their kernels,
+    """A decoder flag of the JAX package that the port does not define
+    (fused_attention_interpret: Pallas's interpret mode, which a CUDA
+    kernel has no counterpart of) refuses to be set or read, as does a
+    flag that neither package defines."""
+    assert FLAGS.fused_attention_interpret is False
+    for flag in ("fused_attention_interpret", "fused_attention_seq_everything"):
+        with pytest.raises(AttributeError, match="undefined flag"):
+            setattr(ptt.FLAGS, flag, True)
+        with pytest.raises(AttributeError, match="undefined flag"):
+            getattr(ptt.FLAGS, flag)
+
+
+def test_decoder_seq_flags_default_off_and_turn_on():
+    """The whole-sequence decoder flags are ported (their kernels,
     csrc/decoder_seq.cu, are held to the JAX package's in
-    tests/test_torch_seq2seq.py): off by default as in the JAX package, and
-    they turn on. A flag the port does not define still refuses to be set
-    or read."""
+    tests/test_torch_seq2seq.py): off by default as in the JAX package,
+    and they turn on."""
     for flag in ("fused_attention_seq_fwd", "fused_attention_seq_bwd"):
         assert getattr(ptt.FLAGS, flag) is False and getattr(FLAGS, flag) is False
         try:
@@ -588,10 +600,6 @@ def test_unported_decoder_flags_refuse_to_turn_on():
             assert getattr(ptt.FLAGS, flag) is True
         finally:
             setattr(ptt.FLAGS, flag, False)
-    with pytest.raises(AttributeError, match="undefined flag"):
-        ptt.FLAGS.fused_attention_seq_everything = True
-    with pytest.raises(AttributeError, match="undefined flag"):
-        ptt.FLAGS.fused_attention_seq_everything
 
 
 if __name__ == "__main__":
