@@ -145,14 +145,43 @@ exits non-zero without the final `ok` line:
   26. tf32    torch's TF32 defaults restored, an Executor made for the card,
               an f32 conv2d program: its output within 1e-5 of float64's
               largest, where cuDNN with TF32 lies about 3e-4 away.
-  27. the kernels JSON line, then the device JSON line last.
+  27. int8   quant_matmul (csrc/quant_matmul.cu, B12) against its plain
+              version (float64) on the card, tolerance 0: the site shapes of
+              the transformer and MLP requests, M in {1, 8, 17, 8193} x K in
+              {40, 8192} x N in {1000, 24}, every value -128 then 127 at the
+              largest K, the same bits in two runs; kernel, bound, plain and
+              torch._int_mm (the yardstick) times, summed over a request.
+  28. serve   bench.py's transformer LM at the `all` sweep's row, is_test,
+              built by the port's front end from --seed: saved, loaded,
+              calibrated in bf16 on the JAX `quant` command's 8 synthetic
+              samples (B=4), converted (49 sites), saved, loaded (sidecar
+              checked), then 3 requests of B=8 x 1024 tokens in bf16 with
+              the launch counts set to 0 just before: exactly 49 quant_matmul
+              launches a request, ms, tokens/s, peak memory, a profiled
+              request (busy share, B12's share); logits bit-identical to the
+              same program with quant_matmul sent to its plain version; the
+              fp artifact in bf16 as context. A request ends with its logits
+              on the card, fetched as tensors (their 1 GB copy to pageable
+              host memory would outweigh the request's own work).
+  29. mlp     bench.py's serving_quant MLP (512-1024-1024-128, B=8) through
+              the same recipe: rel_delta <= 0.05 on the RandomState(99)
+              feed, 3 launches a request; a stale program and a tampered
+              scale raise QuantMetaError at load.
+  30. parity  a small quantized transformer (dim 64, 2 layers, T=16, vocab
+              128) and the MLP, card against CPU, f32 then bf16: calibration
+              ranges, payload digests, and the CPU's artifact served on both,
+              each quantized op's output within what its row's differing
+              activation codes can move it.
+  31. the kernels JSON line, then the device JSON line last.
 
 Weights are made with numpy from --seed at the shapes the program
 declares (normal / sqrt(fan_in)): for the inference artifact written as
 params.npz beside a copy of the committed program.json/meta.json, for the
 small training programs over their startups' state; the full-width
-training programs start from their own startup programs. Nothing is downloaded and
-nothing of the JAX package is needed.
+training programs and the quantized ones start from their own startup
+programs. The quantized phases write their artifacts to a temporary
+directory (the fp transformer's params.npz is 1.9 GB) and delete it.
+Nothing is downloaded and nothing of the JAX package is needed.
 """
 
 from __future__ import annotations
@@ -321,7 +350,8 @@ def breakdown(run, median_ms, what="request", kinds=None):
     share of the profiled wall time (which the profiler's own host cost
     inflates) and of the unprofiled median, and device time by kernel
     name, largest first; with `kinds` ({kind: name substrings}), also by
-    the first kind whose substring a kernel's name holds."""
+    the first kind whose substring a kernel's name holds. Returns (device
+    busy µs, µs by kind), or (None, {}) where nothing was recorded."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -333,7 +363,7 @@ def breakdown(run, median_ms, what="request", kinds=None):
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
         print("  profiler: no device events recorded; breakdown not measured")
-        return
+        return None, {}
     busy, end, by_name = 0.0, float("-inf"), {}
     for s, e, name in spans:
         busy += max(0.0, e - max(s, end))
@@ -345,13 +375,14 @@ def breakdown(run, median_ms, what="request", kinds=None):
           f"{len(spans)} device events")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"    {us / 1e3:9.3f} ms  {name[:100]}")
+    by_kind = {}
     if kinds:
-        by_kind = {}
         for name, us in by_name.items():
             kind = next((k for k, subs in kinds.items() if any(x in name for x in subs)), "other")
             by_kind[kind] = by_kind.get(kind, 0.0) + us
         print("  by kind: " + ", ".join(f"{k} {us / 1e3:.3f} ms" for k, us in
                                         sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    return busy, by_kind
 
 
 # ---------------------------------------------------------------- training --
@@ -2157,6 +2188,503 @@ def tf32_phase(ptt, smi, n):
     check(err <= CONV_F32_TOL, "the port's f32 convolution is not f32-accurate on the card")
 
 
+# ------------------------------------------------------------ int8 serving --
+# bench.py's transformer LM at the `all` sweep's row (_build_transformer_train,
+# bench.py:378-422, is_test), quantized as the JAX package's `quant` command
+# does it (paddle_tpu/cli.py:1079 _cmd_quant): an fp artifact saved and
+# loaded, calibrated on 8 synthetic samples (B=4), converted with the first
+# as the check feed, saved and loaded again (its sidecar checked), then
+# serving requests of B=8 in bf16
+QTFM = dict(dim=2048, heads=32, layers=8, seqlen=1024, vocab=32000)
+QTFM_BATCH = 8
+QTFM_SITES = 6 * QTFM["layers"] + 1  # q, k, v, o, FFN in and out a block; the head
+# bench.py's serving_quant MLP (run_serving_quant, bench.py:2137-2200):
+# 512 → 1024 → 1024 → 128, B=8, calibrated on 8 RandomState(0) feeds, held
+# out RandomState(99)
+QMLP = dict(in_dim=512, hidden=1024, out_dim=128, batch=8)
+QMLP_SITES = 3
+QMLP_REL_DELTA = 0.05  # the bound bench.py:2234 asserts
+# phase 30, card against CPU: the transformer cut to dim 64 (one head of
+# D=64, the flash kernel's), 2 layers, T=16, vocab 128, B=4; and the MLP
+QTFM_SMALL = dict(dim=64, heads=1, layers=2, seqlen=16, vocab=128)
+# calibration ranges card against CPU: f32 sums in another order; bf16
+# activations a few bf16 ulps (2^-8 relative each) apart
+QRANGE_TOL = {None: 1e-5, "bfloat16": 2e-2}
+# B12 against its plain version, tolerance 0: the sites of both paths, then
+# M in {1, 8, 17, 8193} x K in {40, 8192} x N in {1000, 24}, then every
+# value -128, then 127, at the largest K
+QMM_EDGE = [(m, k, n) for m in (1, 8, 17, 8193) for k in (40, 8192) for n in (1000, 24)]
+QMM_CONST = (8193, 8192, 1000)
+# the H100 SXM's dense int8 peak (NVIDIA data sheet), at a 700 W limit
+INT8_PEAK_OPS = 1979e12
+# how phase 28 sums the profiled request's device time
+QTFM_KERNEL_KINDS = {"int8 GEMM (B12)": ("quant_matmul",), "flash kernels": ("flash_",),
+                     "matrix products": ("nvjet", "gemm", "cutlass"),
+                     "elementwise": ("elementwise", "copy", "fill"),
+                     "reductions": ("reduce", "softmax", "norm")}
+
+
+def synthetic_samples(feed_specs, feed_names, n, batch=4):
+    """The JAX package's calibration feeds (paddle_tpu/cli.py
+    `_synthetic_samples`): seed-0 standard-normal floats and randint(0, 8)
+    ints, -1 dims pinned to the batch (dim 0) or 8 (inner dims)."""
+    rng = np.random.RandomState(0)
+    samples = []
+    for _ in range(n):
+        feed = {}
+        for name in feed_names:
+            spec = feed_specs[name]
+            shape = [batch if i == 0 and d == -1 else (8 if d == -1 else d)
+                     for i, d in enumerate(spec["shape"])]
+            dtype = np.dtype(spec["dtype"])
+            if dtype.kind in "iu":
+                feed[name] = rng.randint(0, 8, size=shape).astype(dtype)
+            else:
+                feed[name] = rng.standard_normal(shape).astype(dtype)
+        samples.append(feed)
+    return samples
+
+
+def mlp_samples(n=8):
+    """bench.py run_serving_quant's calibration feeds."""
+    rng = np.random.RandomState(0)
+    return [{"x": rng.standard_normal((QMLP["batch"], QMLP["in_dim"])).astype(np.float32)}
+            for _ in range(n)]
+
+
+def mlp_eval_feed():
+    return {"x": np.random.RandomState(99).standard_normal(
+        (QMLP["batch"], QMLP["in_dim"])).astype(np.float32)}
+
+
+def build_lm_infer(ptt, dim, heads, layers, seqlen, vocab):
+    """bench.py's transformer LM, is_test, through the port's front end:
+    (main, startup, logits)."""
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        toks = ptt.layers.data("toks", shape=[seqlen], dtype=np.int32)
+        logits = ptt.models.transformer_lm(toks, vocab_size=vocab, dim=dim, num_heads=heads,
+                                           num_layers=layers, max_len=seqlen, is_test=True)
+    return main, startup, logits
+
+
+def build_qmlp(ptt, in_dim, hidden, out_dim):
+    """bench.py run_serving_quant's MLP: (main, startup, pred)."""
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        x = ptt.layers.data("x", shape=[in_dim])
+        h1 = ptt.layers.fc(x, size=hidden, act="relu", name="q_fc1")
+        h2 = ptt.layers.fc(h1, size=hidden, act="relu", name="q_fc2")
+        pred = ptt.layers.fc(h2, size=out_dim, name="q_fc3")
+    return main, startup, pred
+
+
+def save_fp_artifact(ptt, build, feed_name, dirname, seed, device):
+    """Build, run the startup program from `seed` on `device`, and save the
+    fp inference artifact; returns the seconds the save took."""
+    main, startup, target = build()
+    scope = ptt.Scope()
+    ptt.Executor(device=device).run(startup, scope=scope, seed=seed)
+    t0 = time.perf_counter()
+    ptt.io.save_inference_model(dirname, [feed_name], [target], main_program=main, scope=scope)
+    return time.perf_counter() - t0
+
+
+def quantize_artifact(ptt, fp_dir, q_dir, samples, device, amp):
+    """The `quant` command's recipe on `device`: load, calibrate, convert
+    with samples[0] as the check feed, save. Returns (report, calibration,
+    seconds by step)."""
+    secs, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    scope = ptt.Scope()
+    prog, feeds, fetches = ptt.io.load_inference_model(fp_dir, scope=scope, device=device)
+    prog.set_amp(amp)
+    lap("load")
+    exe = ptt.Executor(device=device)
+    calib = ptt.quant.calibrate(prog, samples, scope=scope, exe=exe)
+    lap("calibrate")
+    report = ptt.quant.convert(prog, scope=scope, calib=calib, check_feed=samples[0],
+                               fetch_list=fetches, exe=exe)
+    lap("convert")
+    ptt.io.save_inference_model(q_dir, feeds, fetches, main_program=prog, scope=scope)
+    lap("save")
+    return report, calib, secs
+
+
+def qmm_bound(M, K, N):
+    """xq, wq read and the int32 output written once; 2·M·N·K int8
+    operations at the int8 peak."""
+    nbytes = M * K + K * N + 4 * M * N
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * M * N * K / INT8_PEAK_OPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def int_mm_takes(M, K, N):
+    """The shapes torch._int_mm (cuBLASLt int8, the yardstick) takes: its
+    documented M > 16 and N % 8 == 0, and K % 16 == 0 (it refuses K=40 on
+    the H100)."""
+    return M > 16 and K % 16 == 0 and N % 8 == 0
+
+
+def qmm_sites(program):
+    """{(M, K, N): calls} of one request's quantized ops, M from the feed's
+    batch and the ops' x_num_col_dims."""
+    block = program.global_block()
+    sites = {}
+    for op in block.ops:
+        if op.type != "quantized_mul":
+            continue
+        K, N = block.var(op.inputs["Y"][0]).shape
+        x_shape = block.var(op.inputs["X"][0]).shape
+        lead = x_shape[:op.attrs.get("x_num_col_dims", 1)]
+        M = int(np.prod([QTFM_BATCH if d == -1 else d for d in lead]))
+        sites[(M, int(K), int(N))] = sites.get((M, int(K), int(N)), 0) + 1
+    return sites
+
+
+def expect_quant_error(ptt, fn, match):
+    """fn() must raise io.QuantMetaError with `match` in its message."""
+    try:
+        fn()
+    except ptt.io.QuantMetaError as e:
+        check(match in str(e), f"QuantMetaError without {match!r}: {e}")
+        return str(e)
+    fail(f"a {match} artifact loaded without QuantMetaError")
+
+
+def flip_bound_check(qk, op, scope_get, xs, outs, amp):
+    """One quantized op on the card and the CPU, from their own inputs:
+    the activation codes that differ, and each output within what its
+    row's differing codes can move it, Σ|Δcode| · x_scale · max|w_col|,
+    plus the output's own rounding (two f32 ulps; one bf16 ulp). Returns
+    (share of codes differing, the largest excess over that bound)."""
+    wq = scope_get(op.inputs["Y"][0]).cpu()
+    ws = scope_get(op.inputs["Scale"][0]).cpu()
+    K, N = wq.shape
+    codes = [qk._quantize_act(torch.as_tensor(np.array(x, np.float32)).reshape(-1, K),
+                              op.attrs["x_scale"]).int() for x in xs]
+    flips = (codes[0] - codes[1]).abs().sum(1).double()
+    colmax = (wq.abs().double() * ws.double()).amax(0)
+    bound = flips[:, None] * op.attrs["x_scale"] * colmax[None, :]
+    a, b = (torch.as_tensor(np.array(o, np.float64)).reshape(-1, N) for o in outs)
+    big = torch.maximum(a.abs(), b.abs())
+    slack = torch.as_tensor(bf16_ulp(big.numpy())) if amp else 2.0 ** -22 * big
+    excess = float(((a - b).abs() - bound - slack).max())
+    return float((codes[0] != codes[1]).double().mean()), excess
+
+
+def quant_phases(ptt, exe, smi, seed, first_phase):
+    """Phases first_phase.. of the int8 serving slice; returns B12's row,
+    its largest error, and its launches on the transformer and MLP paths."""
+    from paddle_tpu_torch.ops import flash_kernels as fk
+    from paddle_tpu_torch.ops import quant_kernels as qk
+
+    n = first_phase
+    phase(n, "B12 (csrc/quant_matmul.cu) against its plain version (float64) on the card, "
+          "tolerance 0: the site shapes of both paths, then edge shapes")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 27)
+
+    def rnd(*shape):
+        return torch.randint(-128, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+
+    M_T = QTFM_BATCH * QTFM["seqlen"]
+    D, F, V = QTFM["dim"], 4 * QTFM["dim"], QTFM["vocab"]
+    paths = {"transformer request": {(M_T, D, D): 4 * QTFM["layers"], (M_T, D, F): QTFM["layers"],
+                                     (M_T, F, D): QTFM["layers"], (M_T, D, V): 1},
+             "MLP request": {(QMLP["batch"], QMLP["in_dim"], QMLP["hidden"]): 1,
+                             (QMLP["batch"], QMLP["hidden"], QMLP["hidden"]): 1,
+                             (QMLP["batch"], QMLP["hidden"], QMLP["out_dim"]): 1}}
+    max_err, totals = 0, {}
+    for path, sites in paths.items():
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+        by = {"bytes": 0.0, "operations": 0.0}
+        for (M, K, N), calls in sites.items():
+            a, b = rnd(M, K), rnd(K, N)
+            got, want = qk.quant_matmul(a, b), qk.quant_matmul_plain(a, b)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            check(got.dtype == torch.int32 and err == 0,
+                  f"quant_matmul M={M} K={K} N={N} differs from its plain version by {err}")
+            max_err = max(max_err, err)
+            k_ms = cuda_ms(lambda: qk.quant_matmul(a, b), 10)
+            p_ms = cuda_ms(lambda: qk.quant_matmul_plain(a, b), 2)
+            b_ms, b_by = qmm_bound(M, K, N)
+            lib_ms = cuda_ms(lambda: torch._int_mm(a, b), 10) if int_mm_takes(M, K, N) else None
+            print(f"  {path} M={M} K={K} N={N} (x{calls}): equal; kernel {k_ms * 1e3:.2f} us, "
+                  f"bound {b_ms * 1e3:.2f} us by {b_by} ({100 * b_ms / k_ms:.2f}%), plain "
+                  f"{p_ms:.4f} ms, torch._int_mm "
+                  + (f"{lib_ms * 1e3:.2f} us" if lib_ms else "refuses the shape")
+                  + f", {2.0 * M * N * K / k_ms / 1e9:.1f} TOP/s")
+            for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
+                           ("library_ms", lib_ms)):
+                tot[key] = None if v is None or tot[key] is None else tot[key] + calls * v
+            by[b_by] += calls * b_ms
+        totals[path] = dict(tot, bound_by=max(by, key=by.get))
+        lib = tot["library_ms"]
+        print(f"  {path}, {sum(sites.values())} calls: kernel {tot['ms']:.4f} ms, bound "
+              f"{tot['bound_ms']:.4f} ms ({100 * tot['bound_ms'] / tot['ms']:.2f}%), plain "
+              f"{tot['plain_ms']:.4f} ms, torch._int_mm "
+              + (f"{lib:.4f} ms" if lib else "not for every site") + f" on {smi}")
+    for M, K, N in QMM_EDGE:
+        a, b = rnd(M, K), rnd(K, N)
+        got, want = qk.quant_matmul(a, b), qk.quant_matmul_plain(a, b)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"quant_matmul M={M} K={K} N={N} differs from plain")
+        b_ms, b_by = qmm_bound(M, K, N)
+        line = (f"  edge M={M} K={K} N={N}: equal; kernel "
+                f"{cuda_ms(lambda: qk.quant_matmul(a, b), 5) * 1e3:.2f} us, bound "
+                f"{b_ms * 1e3:.2f} us by {b_by}, plain "
+                f"{cuda_ms(lambda: qk.quant_matmul_plain(a, b), 2):.4f} ms")
+        if int_mm_takes(M, K, N):
+            line += f", torch._int_mm {cuda_ms(lambda: torch._int_mm(a, b), 5) * 1e3:.2f} us"
+        print(line)
+    M, K, N = QMM_CONST
+    for v in (-128, 127):
+        a = torch.full((M, K), v, dtype=torch.int8, device="cuda")
+        b = torch.full((K, N), v, dtype=torch.int8, device="cuda")
+        got = qk.quant_matmul(a, b)
+        check(torch.equal(got, qk.quant_matmul_plain(a, b)) and int(got[0, 0]) == K * v * v,
+              f"quant_matmul with every value {v} differs from plain")
+        print(f"  M={M} K={K} N={N}, every value {v}: equal, C = {int(got[0, 0])}")
+    a, b = rnd(M_T, D), rnd(D, V)
+    check(torch.equal(qk.quant_matmul(a, b), qk.quant_matmul(a, b)),
+          "quant_matmul's outputs differ between two runs")
+    print(f"  M={M_T} K={D} N={V}: the same bits in two runs")
+    del a, b, got, want
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_quant_")
+    try:
+        n += 1
+        phase(n, "the quantized transformer LM at full width: save, load, calibrate, convert, "
+              "save, load, then 3 requests of B=8 x 1024 tokens in bf16")
+        fp_dir, q_dir = os.path.join(work, "tfm_fp"), os.path.join(work, "tfm_int8")
+        t0 = time.perf_counter()
+        save_s = save_fp_artifact(ptt, lambda: build_lm_infer(ptt, **QTFM), "toks", fp_dir,
+                                  seed, "cuda")
+        torch.cuda.empty_cache()
+        print(f"  fp artifact: built, startup from seed {seed} and saved in "
+              f"{time.perf_counter() - t0:.2f} s (the save {save_s:.2f} s, "
+              f"{os.path.getsize(os.path.join(fp_dir, 'params.npz')) / 2**30:.2f} GiB)")
+        with open(os.path.join(fp_dir, "meta.json")) as f:
+            fmeta = json.load(f)
+        samples = synthetic_samples(fmeta["feed_specs"], fmeta["feed_names"], 8)
+        report, _, secs = quantize_artifact(ptt, fp_dir, q_dir, samples, "cuda", "bfloat16")
+        meta = report.meta()
+        print(f"  quantized in bf16: load {secs['load']:.2f} s, calibrate (8 samples of "
+              f"B=4) {secs['calibrate']:.2f} s, convert {secs['convert']:.2f} s (quantize_weight "
+              f"in numpy and the check feed run twice), save {secs['save']:.2f} s")
+        print(f"  report: {meta['sites']} sites, {meta['skipped']} skipped, "
+              f"{meta['bytes_saved']} weight bytes saved, accuracy_delta "
+              f"{meta['accuracy_delta']:.6g} on the check feed")
+        check(meta["sites"] == QTFM_SITES and meta["skipped"] == 0,
+              f"{meta['sites']} sites quantized, {meta['skipped']} skipped")
+        check(np.isfinite(meta["accuracy_delta"]), "non-finite accuracy_delta")
+        torch.cuda.empty_cache()
+        scope = ptt.Scope()
+        t0 = time.perf_counter()
+        prog, feeds, fetches = ptt.io.load_inference_model(q_dir, scope=scope)
+        torch.cuda.synchronize()
+        print(f"  int8 artifact loaded (sidecar checked) in {time.perf_counter() - t0:.2f} s: "
+              f"{sorted({o.type for o in prog.global_block().ops})}")
+        check(qmm_sites(prog) == paths["transformer request"],
+              f"the request's sites {qmm_sites(prog)}")
+        prog.set_amp("bfloat16")
+        rng = np.random.RandomState(seed + 28)
+        reqs = [{"toks": rng.randint(0, QTFM["vocab"], (QTFM_BATCH, QTFM["seqlen"]))
+                 .astype(np.int32)} for _ in range(3)]
+        tokens = QTFM_BATCH * QTFM["seqlen"]
+        exe.run(prog, reqs[0], fetches, scope=scope)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        qk.quant_matmul_launches = fk.flash_fwd_launches = 0
+        times, outs = [], []
+        for r in reqs:
+            t0 = time.perf_counter()
+            outs.append(exe.run(prog, r, fetches, scope=scope, return_numpy=False)[0])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        tfm_launches = qk.quant_matmul_launches
+        print(f"  launches in 3 requests: quant_matmul {tfm_launches}, flash_fwd "
+              f"{fk.flash_fwd_launches}")
+        check(tfm_launches == 3 * QTFM_SITES, f"quant_matmul launched {tfm_launches} times")
+        check(fk.flash_fwd_launches == 3 * QTFM["layers"], "flash_fwd launches")
+        for o in outs:
+            check(tuple(o.shape) == (QTFM_BATCH, QTFM["seqlen"], QTFM["vocab"])
+                  and o.dtype == torch.bfloat16, f"logits {tuple(o.shape)} {o.dtype}")
+            check(bool(torch.isfinite(o.float()).all()), "non-finite logits")
+        med = statistics.median(times)
+        print(f"  requests ms: {[round(t, 3) for t in times]}; median {med:.3f} ms/request, "
+              f"{tokens / med * 1e3:.1f} tokens/s (B={QTFM_BATCH}, T={QTFM['seqlen']}); peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+        busy, by_kind = breakdown(lambda: exe.run(prog, reqs[0], fetches, scope=scope,
+                                                  return_numpy=False), med, "request",
+                                  kinds=QTFM_KERNEL_KINDS)
+        if busy:
+            print(f"  B12's share of the request's device time: "
+                  f"{100 * by_kind.get('int8 GEMM (B12)', 0.0) / busy:.1f}%")
+        again = exe.run(prog, reqs[0], fetches, scope=scope, return_numpy=False)[0]
+        kernel_route, before = qk.quant_matmul, qk.quant_matmul_launches
+        qk.quant_matmul = qk.quant_matmul_plain
+        try:
+            plain = exe.run(prog, reqs[0], fetches, scope=scope, return_numpy=False)[0]
+        finally:
+            qk.quant_matmul = kernel_route
+        torch.cuda.synchronize()
+        check(torch.equal(outs[0], again), "the kernel route's logits differ between two runs")
+        check(qk.quant_matmul_launches == before, "the plain route launched the kernel")
+        same = torch.equal(outs[0], plain)
+        print(f"  logits on the kernel route: the same bits in two runs; equal to the same "
+              f"program with quant_matmul sent to its plain version: {same}")
+        check(same, "the kernel route's logits differ from the plain route's")
+        del scope, outs, again, plain
+        torch.cuda.empty_cache()
+        fscope = ptt.Scope()
+        fprog, _, ffetch = ptt.io.load_inference_model(fp_dir, scope=fscope)
+        fprog.set_amp("bfloat16")
+        exe.run(fprog, reqs[0], ffetch, scope=fscope, return_numpy=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ftimes = []
+        for r in reqs:
+            t0 = time.perf_counter()
+            exe.run(fprog, r, ffetch, scope=fscope, return_numpy=False)
+            torch.cuda.synchronize()
+            ftimes.append((time.perf_counter() - t0) * 1e3)
+        fmed = statistics.median(ftimes)
+        print(f"  context, the fp artifact in bf16: requests ms {[round(t, 3) for t in ftimes]}; "
+              f"median {fmed:.3f} ms/request, {tokens / fmed * 1e3:.1f} tokens/s; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        breakdown(lambda: exe.run(fprog, reqs[0], ffetch, scope=fscope, return_numpy=False),
+                  fmed, "fp request", kinds=QTFM_KERNEL_KINDS)
+        del fscope
+        shutil.rmtree(fp_dir)
+        shutil.rmtree(q_dir)
+        torch.cuda.empty_cache()
+
+        n += 1
+        phase(n, "bench.py's serving_quant MLP (512-1024-1024-128, B=8), built by the port's "
+              "front end: quantized, served, and stale or tampered artifacts refused")
+        fp_dir, q_dir = os.path.join(work, "mlp_fp"), os.path.join(work, "mlp_int8")
+        mlp = lambda: build_qmlp(ptt, QMLP["in_dim"], QMLP["hidden"], QMLP["out_dim"])  # noqa: E731
+        save_fp_artifact(ptt, mlp, "x", fp_dir, seed + 29, "cuda")
+        report, _, secs = quantize_artifact(ptt, fp_dir, q_dir, mlp_samples(), "cuda", None)
+        meta = report.meta()
+        print(f"  report: {meta['sites']} sites, {meta['bytes_saved']} bytes saved, "
+              f"accuracy_delta {meta['accuracy_delta']:.6g}; load {secs['load']:.3f} s, "
+              f"calibrate {secs['calibrate']:.3f} s, convert {secs['convert']:.3f} s, save "
+              f"{secs['save']:.3f} s")
+        check(meta["sites"] == QMLP_SITES and meta["skipped"] == 0, f"MLP sites {meta}")
+        out = {}
+        for name, d in (("fp", fp_dir), ("int8", q_dir)):
+            sc_ = ptt.Scope()
+            p_, _, f_ = ptt.io.load_inference_model(d, scope=sc_)
+            feed = mlp_eval_feed()
+            exe.run(p_, feed, f_, scope=sc_)
+            torch.cuda.synchronize()
+            qk.quant_matmul_launches = 0
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out[name] = exe.run(p_, feed, f_, scope=sc_)[0]
+                times.append((time.perf_counter() - t0) * 1e3)
+            print(f"  {name}: {statistics.median(times):.3f} ms/request (B={QMLP['batch']}), "
+                  f"quant_matmul launches in 3 requests {qk.quant_matmul_launches}")
+        mlp_launches = qk.quant_matmul_launches
+        check(mlp_launches == 3 * QMLP_SITES, f"the MLP launched quant_matmul {mlp_launches} "
+              "times in 3 requests")
+        rel = float(np.abs(out["fp"] - out["int8"]).max() / np.abs(out["fp"]).max())
+        print(f"  held-out RandomState(99) feed: max |int8 - fp| over max |fp| {rel:.5f} "
+              f"(bench.py's bound {QMLP_REL_DELTA})")
+        check(out["int8"].shape == (QMLP["batch"], QMLP["out_dim"]) and np.isfinite(
+            out["int8"]).all(), "MLP outputs")
+        check(rel <= QMLP_REL_DELTA, f"the int8 MLP is {rel:.4f} from fp")
+        stale = os.path.join(work, "mlp_stale")
+        shutil.copytree(q_dir, stale)
+        with open(os.path.join(stale, "program.json")) as f:
+            pd = json.load(f)
+        next(o for o in pd["blocks"][0]["ops"] if o["type"] == "quantized_mul")[
+            "attrs"]["x_scale"] *= 2.0
+        with open(os.path.join(stale, "program.json"), "w") as f:
+            json.dump(pd, f)
+        msg = expect_quant_error(ptt, lambda: ptt.io.load_inference_model(
+            stale, scope=ptt.Scope()), "stale")
+        print(f"  stale program (an x_scale doubled): QuantMetaError: {msg[:90]}...")
+        tampered = os.path.join(work, "mlp_tampered")
+        shutil.copytree(q_dir, tampered)
+        path = os.path.join(tampered, "params.npz")
+        payload = dict(np.load(path))
+        payload[min(k for k in payload if k.endswith(ptt.quant.SCALE_SUFFIX))] *= 1.5
+        np.savez(path, **payload)
+        msg = expect_quant_error(ptt, lambda: ptt.io.load_inference_model(
+            tampered, scope=ptt.Scope()), "digest")
+        print(f"  tampered scale (x1.5): QuantMetaError: {msg[:90]}...")
+
+        n += 1
+        phase(n, "small quantized transformer (dim 64, 2 layers, T=16, vocab 128) and the MLP: "
+              "card against CPU, f32 then bf16")
+        small = {"transformer": (lambda: build_lm_infer(ptt, **QTFM_SMALL), "toks"),
+                 "MLP": (mlp, "x")}
+        for model, (build, feed_name) in small.items():
+            fp_dir = os.path.join(work, f"small_{feed_name}_fp")
+            save_fp_artifact(ptt, build, feed_name, fp_dir, seed + 30, "cpu")
+            with open(os.path.join(fp_dir, "meta.json")) as f:
+                fmeta = json.load(f)
+            if model == "MLP":
+                calib_feeds, feed = mlp_samples(), mlp_eval_feed()
+            else:
+                calib_feeds = synthetic_samples(fmeta["feed_specs"], fmeta["feed_names"], 8)
+                feed = {"toks": np.random.RandomState(seed + 30).randint(
+                    0, QTFM_SMALL["vocab"], (4, QTFM_SMALL["seqlen"])).astype(np.int32)}
+            for amp in (None, "bfloat16"):
+                ranges, digests = {}, {}
+                for dev in ("cpu", "cuda"):
+                    qd = os.path.join(work, f"small_{feed_name}_{dev}_{amp}")
+                    _, calib, _ = quantize_artifact(ptt, fp_dir, qd, calib_feeds, dev, amp)
+                    ranges[dev] = calib.act_ranges
+                    with open(os.path.join(qd, "meta.json")) as f:
+                        digests[dev] = json.load(f)["quant"]["scales_digest"]
+                rerr = max(abs(ranges["cuda"][k] - v) / v for k, v in ranges["cpu"].items())
+                check(digests["cpu"] == digests["cuda"], "card and CPU int8 payloads differ")
+                check(rerr <= QRANGE_TOL[amp], f"calibration ranges {rerr:.3e} apart")
+                # the CPU's artifact served on both
+                qd = os.path.join(work, f"small_{feed_name}_cpu_{amp}")
+                res, scopes = {}, {}
+                for dev in ("cpu", "cuda"):
+                    scopes[dev] = ptt.Scope()
+                    p_, _, _ = ptt.io.load_inference_model(qd, scope=scopes[dev], device=dev)
+                    p_.set_amp(amp)
+                    qops = [o for o in p_.global_block().ops if o.type == "quantized_mul"]
+                    names = [o.inputs["X"][0] for o in qops] + [o.outputs["Out"][0] for o in qops]
+                    res[dev] = ptt.Executor(device=dev).run(p_, feed, names, scope=scopes[dev])
+                sc_ = scopes["cpu"]
+                shares, excess = [], float("-inf")
+                for i, op in enumerate(qops):
+                    share, ex = flip_bound_check(
+                        qk, op, sc_.get, (res["cpu"][i], res["cuda"][i]),
+                        (res["cpu"][len(qops) + i], res["cuda"][len(qops) + i]), amp)
+                    shares.append(share)
+                    excess = max(excess, ex)
+                print(f"  {model} {amp or 'f32'}: calibration ranges at most {rerr:.3e} apart "
+                      f"(tol {QRANGE_TOL[amp]:g}), equal payload digests; the CPU's artifact on "
+                      f"both: activation codes differing at the {len(qops)} sites in order "
+                      f"{', '.join(f'{100 * x:.2f}%' for x in shares)}; every output within "
+                      f"its row's flipped codes' bound (largest excess {excess:.3e})")
+                check(excess <= 0.0, f"{model} {amp}: an output beyond its flipped codes' bound")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return totals["transformer request"], max_err, tfm_launches, mlp_launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2169,7 +2697,8 @@ def main():
     torch.manual_seed(args.seed)
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.ops import (attention_kernels, cuda_build, flash_kernels,
-                                      fused_conv_kernels, lstm_kernels, rnn_kernels)
+                                      fused_conv_kernels, lstm_kernels, quant_kernels,
+                                      rnn_kernels)
 
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -2183,7 +2712,7 @@ def main():
     phase(2, "build")
     t0 = time.perf_counter()
     names = ("gru_fwd", "gru_bwd", "bahdanau_attn", "lstm_fwd", "lstm_bwd", "flash_attn",
-             "fused_conv_bn", "decoder_seq")
+             "fused_conv_bn", "decoder_seq", "quant_matmul")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(cuda_build.build, names))  # one nvcc each, together
     print(f"built {', '.join(os.path.relpath(p, ROOT) for p in paths)} in "
@@ -2201,6 +2730,7 @@ def main():
     lstm_kernels._lib("lstm_bwd")
     flash_kernels._lib()
     fused_conv_kernels._lib()
+    quant_kernels._lib()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -2547,8 +3077,10 @@ def main():
     rows.update(srows)
     max_errs.update(serrs)
     tf32_phase(ptt, smi, 26)
+    rows["quant_matmul"], max_errs["quant_matmul"], q_tfm, q_mlp = quant_phases(
+        ptt, exe, smi, args.seed, 27)
 
-    phase(27, "the kernels line, then the device line")
+    phase(31, "the kernels line, then the device line")
     sources = {"gru_fwd": ("gru_fwd.cu", "paddle_tpu/ops/pallas_kernels.py:493"),
                "gru_bwd": ("gru_bwd.cu", "paddle_tpu/ops/pallas_kernels.py:608"),
                "attn_fwd": ("bahdanau_attn.cu", "paddle_tpu/ops/bahdanau_kernels.py:257"),
@@ -2563,7 +3095,8 @@ def main():
                "fused_conv_bn_reduce": ("fused_conv_bn.cu",
                                         "paddle_tpu/ops/fused_conv_ops.py:140"),
                "decoder_seq_fwd": ("decoder_seq.cu", "paddle_tpu/ops/bahdanau_kernels.py:399"),
-               "decoder_seq_bwd": ("decoder_seq.cu", "paddle_tpu/ops/bahdanau_kernels.py:568")}
+               "decoder_seq_bwd": ("decoder_seq.cu", "paddle_tpu/ops/bahdanau_kernels.py:568"),
+               "quant_matmul": ("quant_matmul.cu", "paddle_tpu/ops/quant_kernels.py:61")}
     by_path = {k: {"nmt_train": n} for k, n in train_launches.items()}
     by_path["gru_fwd"]["nmt_beam_infer"] = infer_launches
     by_path.update({k: {"lstm_train": n} for k, n in lstm_launches.items()})
@@ -2571,13 +3104,14 @@ def main():
     by_path.update({k: {"resnet50_train": n} for k, n in resnet_launches.items()})
     for k, c in seq_launches.items():
         by_path.setdefault(k, {})["nmt_train_seq"] = c
+    by_path["quant_matmul"] = {"transformer_int8_serve": q_tfm, "mlp_int8_serve": q_mlp}
     rows["gru_fwd"] = main_row
     max_errs["gru_fwd"] = max_err
     kernels = [{
         "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
         "replaces": rep,
         "launches": {**seq_launches, **train_launches, **lstm_launches, **tfm_launches,
-                     **resnet_launches}[name],
+                     **resnet_launches, "quant_matmul": q_tfm}[name],
         "launches_by_path": by_path[name], "max_abs_err": max_errs[name],
         "library_ms": None, **rows[name], "checked_against_plain": True,
     } for name, (src, rep) in sources.items()]

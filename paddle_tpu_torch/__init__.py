@@ -22,9 +22,12 @@ trains programs built with its own layer DSL and optimizer front end:
     exe = ptt.Executor()
     exe.run(startup, scope=scope)
     exe.run(main, feed, [loss], scope=scope)
+
+and quantizes a saved artifact to int8 for serving (`quant.calibrate`,
+`quant.convert`, `io.save_inference_model`).
 """
 
-from . import initializer, io, layers, models, ops, optimizer, regularizer  # noqa: F401
+from . import initializer, io, layers, models, ops, optimizer, quant, regularizer  # noqa: F401
 from .core.backward import append_backward
 from .core.executor import Executor, Scope, global_scope
 from .core.lod import LoDArray
@@ -36,4 +39,4 @@ from .param_attr import ParamAttr
 __all__ = ["Executor", "FLAGS", "LoDArray", "ParamAttr", "Program", "Scope",
            "append_backward", "default_main_program", "default_startup_program",
            "global_scope", "initializer", "io", "layers", "models", "ops", "optimizer",
-           "program_guard", "regularizer", "reset_default_programs"]
+           "program_guard", "quant", "regularizer", "reset_default_programs"]

@@ -19,6 +19,10 @@ LOW_PRECISION_OPS = frozenset({
     "flash_attention", "lookup_table",
 })
 
+# the low-precision sites the int8 converter may rewrite (quant/convert.py):
+# dense weight-carrying GEMMs with a quantized op (ops/quant_kernels.py)
+QUANTIZABLE_OPS = frozenset({"mul", "matmul"})
+
 # numerically sensitive: upcast internally, emit f32
 HIGH_PRECISION_OPS = frozenset({
     "batch_norm", "layer_norm", "softmax", "log_softmax",

@@ -2,6 +2,7 @@
 
 The port's copy of paddle_tpu/core/program.py, cut to what a saved
 program and the layer DSL need: the three-level structure, `set_amp`,
+`version`/`bump_version`, `clone(for_test)`,
 parameters with their regularizer, clip and trainable flag, the default
 programs and `program_guard`, `unique_name` with the JAX package's counter
 and names, and the `to_dict`/`from_dict` schema (version 1), kept field
@@ -14,6 +15,7 @@ package's DSL gives.
 from __future__ import annotations
 
 import contextlib
+import copy
 import itertools
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -67,6 +69,12 @@ class Operator:
     outputs: Dict[str, List[str]]
     attrs: Dict[str, Any] = field(default_factory=dict)
 
+    def input_names(self) -> List[str]:
+        return [n for ns in self.inputs.values() for n in ns]
+
+    def output_names(self) -> List[str]:
+        return [n for ns in self.outputs.values() for n in ns]
+
     def __repr__(self):
         return f"Op({self.type}: {self.inputs} -> {self.outputs})"
 
@@ -111,6 +119,7 @@ class Block:
 
         op = Operator(type, norm(inputs), norm(outputs), dict(attrs or {}))
         self.ops.append(op)
+        self.program.bump_version()
         return op
 
 
@@ -119,6 +128,7 @@ class Program:
 
     def __init__(self):
         self.blocks: List[Block] = [Block(self, 0)]
+        self._version = 0
         # mixed-precision compute dtype (None = full f32); see amp.py
         self.amp_dtype: Optional[str] = None
 
@@ -138,6 +148,29 @@ class Program:
 
     def persistables(self) -> List[Variable]:
         return [v for v in self.global_block().vars.values() if v.persistable]
+
+    def bump_version(self) -> None:
+        self._version += 1
+
+    @property
+    def version(self) -> int:
+        """Counts edits (ops appended, a quantization rewrite); not part of
+        to_dict, so a saved program and its reloaded self serialize alike."""
+        return self._version
+
+    def clone(self, for_test: bool = False) -> "Program":
+        """Deep copy; for_test=True also drops the backward and optimizer
+        ops and sets every `is_test` attr."""
+        p = copy.deepcopy(self)
+        if for_test:
+            for b in p.blocks:
+                b.ops = [op for op in b.ops
+                         if op.type != "autodiff" and not op.attrs.get("is_optimizer_op")]
+                for op in b.ops:
+                    if "is_test" in op.attrs:
+                        op.attrs["is_test"] = True
+            p.bump_version()
+        return p
 
     # -- serialization: the schema of paddle_tpu Program.to_dict ------------
     def to_dict(self) -> dict:
@@ -164,8 +197,8 @@ class Program:
                     "parent_idx": b.parent_idx,
                     "vars": [var_d(v) for v in b.vars.values()],
                     "ops": [
-                        {"type": op.type, "inputs": op.inputs,
-                         "outputs": op.outputs, "attrs": op.attrs}
+                        {"type": op.type, "inputs": op.inputs, "outputs": op.outputs,
+                         "attrs": {k: v for k, v in op.attrs.items() if _json_safe(v)}}
                         for op in b.ops
                     ],
                 }
@@ -196,6 +229,15 @@ class Program:
                 b.ops.append(Operator(od["type"], od["inputs"], od["outputs"], od["attrs"]))
             p.blocks.append(b)
         return p
+
+
+def _json_safe(v) -> bool:
+    """What to_dict keeps of an op's attrs, as the JAX package does."""
+    if isinstance(v, (bool, int, float, str, type(None))):
+        return True
+    if isinstance(v, (list, tuple)):
+        return all(_json_safe(x) for x in v)
+    return False
 
 
 # -- the default programs the layer DSL appends to ---------------------------

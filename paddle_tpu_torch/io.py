@@ -1,26 +1,32 @@
 """Saved programs and state passing between the JAX package and the port.
 
-An inference artifact (what paddle_tpu.io.save_inference_model writes) is a
-directory holding `program.json` (Program.to_dict), `params.npz` (one array
-per parameter name) and `meta.json` (feed, fetch and parameter names plus
-optional sidecars). A training program is a directory holding `main.json`
-and `startup.json` (Program.to_dict of each) and `meta.json` (feed, loss
-and parameter names, the widths, the amp dtype). State — parameters and
+An inference artifact (what `save_inference_model` here and in the JAX
+package writes) is a directory holding `program.json` (Program.to_dict),
+`params.npz` (one array per parameter name) and `meta.json` (feed, fetch and
+parameter names, feed specs, the program's fingerprint, and optional
+sidecars). A quantized artifact's `quant` sidecar pins its int8 payloads
+and scales to the program: `load_inference_model` raises QuantMetaError
+when either no longer matches. A training program is a directory holding
+`main.json` and `startup.json` (Program.to_dict of each) and `meta.json`
+(feed, loss and parameter names, the widths, the amp dtype). State — parameters and
 optimizer persistables alike — crosses as numpy arrays by name.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
-from typing import Dict, Iterable, Optional
+import tempfile
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .core.executor import Scope, global_scope
+from .core.lod import LoDArray
 from .core.place import resolve_device
-from .core.program import Program
+from .core.program import Program, Variable, default_main_program
 
 PARAMS_FILE = "params.npz"
 PROGRAM_FILE = "program.json"
@@ -30,7 +36,55 @@ STARTUP_FILE = "startup.json"
 
 # sidecars that change how the artifact must run; the port cannot honour
 # them yet, so it refuses the artifact rather than serve it wrongly
-_UNSUPPORTED_SIDECARS = ("quant", "sharding", "draft_model")
+_UNSUPPORTED_SIDECARS = ("sharding", "draft_model")
+# the suffix of a quantized weight's f32 scale var (quant/convert.py)
+SCALE_SUFFIX = "@quant_scale"
+
+
+class QuantMetaError(ValueError):
+    """A quantized artifact's quant sidecar does not match its payload: the
+    program changed after its scales were calibrated, or the int8 weights
+    or their scales were replaced."""
+
+
+def program_fingerprint(program: Program) -> str:
+    """Content hash of the program's to_dict (the JAX package's
+    `program_fingerprint`: the same dict gives the same hash there)."""
+    blob = json.dumps(program.to_dict(), sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def _scales_digest(arrays: Dict[str, np.ndarray]) -> str:
+    """Digest over every int8 array and every scale var, with name, numpy
+    dtype string and shape, in name order (the JAX package's
+    `quant_scales_digest`)."""
+    h = hashlib.sha256()
+    for name in sorted(arrays):
+        a = arrays[name]
+        if a.dtype != np.int8 and not name.endswith(SCALE_SUFFIX):
+            continue
+        h.update(name.encode())
+        h.update(str(a.dtype).encode())
+        h.update(str(a.shape).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+def quant_scales_digest(scope: Scope, param_names: Sequence[str]) -> str:
+    """`_scales_digest` over the named scope values that carry quant
+    payload (only those are copied to the host)."""
+    return _scales_digest({
+        n: _host(scope.get(n)) for n in param_names if scope.has(n)
+        and (scope.get(n).dtype == torch.int8 or n.endswith(SCALE_SUFFIX))})
+
+
+def _host(value) -> np.ndarray:
+    """A scope value as a numpy array (bf16 widens to f32, which numpy
+    has)."""
+    if isinstance(value, LoDArray):
+        raise TypeError("cannot save a LoDArray variable")
+    t = value.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def params_from_numpy(scope: Scope, arrays: Dict[str, np.ndarray], device) -> None:
@@ -46,12 +100,169 @@ def params_from_numpy(scope: Scope, arrays: Dict[str, np.ndarray], device) -> No
 
 def state_to_numpy(scope: Scope, names: Iterable[str]) -> Dict[str, np.ndarray]:
     """The reverse of params_from_numpy: the named scope values as numpy
-    arrays (bf16 values widen to f32, which numpy has)."""
-    out = {}
-    for n in names:
-        t = scope.get(n).detach()
-        out[n] = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
-    return out
+    arrays (bf16 values widen to f32, which numpy has; int8 payloads and
+    their f32 scales cross bit for bit)."""
+    return {n: _host(scope.get(n)) for n in names}
+
+
+# ---------------------------------------------------------- save and load --
+def save_vars(dirname: str, var_names: Sequence[str], scope: Optional[Scope] = None,
+              filename: str = PARAMS_FILE) -> str:
+    """The named scope values as one npz under `dirname`, written to a
+    temporary file and renamed over the old one, so a failed save never
+    leaves a torn file. (The JAX package's fault-injection point here waits
+    for the port of `resilience`.)"""
+    scope = scope or global_scope()
+    os.makedirs(dirname, exist_ok=True)
+    arrays = {n: _host(scope.get(n)) for n in var_names}
+    path = os.path.join(dirname, filename)
+    fd, tmp = tempfile.mkstemp(dir=dirname, suffix=".tmp")
+    os.close(fd)
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
+
+
+def _read_npz(path: str, var_names: Optional[Sequence[str]]) -> Dict[str, np.ndarray]:
+    """Every named array, read in full before anything is handed on, so a
+    bad file never leaves a scope half-updated."""
+    with np.load(path) as data:
+        names = list(data.files) if var_names is None else list(var_names)
+        missing = [n for n in names if n not in data]
+        if missing:
+            raise KeyError(f"variables {missing} not found in {path}")
+        return {n: data[n] for n in names}
+
+
+def load_vars(dirname: str, scope: Optional[Scope] = None, filename: str = PARAMS_FILE,
+              var_names: Optional[Sequence[str]] = None, device=None) -> List[str]:
+    """Loads the named arrays (all, by default) of `dirname`'s npz into
+    `scope` on `device` (default: the card); returns their names."""
+    arrays = _read_npz(os.path.join(dirname, filename), var_names)
+    params_from_numpy(scope or global_scope(), arrays, resolve_device(device))
+    return list(arrays)
+
+
+def save_params(dirname, main_program: Optional[Program] = None, scope=None):
+    """The program's parameters only (no optimizer state)."""
+    program = main_program or default_main_program()
+    scope = scope or global_scope()
+    missing = sorted(v.name for v in program.parameters() if not scope.has(v.name))
+    if missing:
+        raise ValueError(f"save_params: parameters {missing} are not in the scope — "
+                         "did the startup program run?")
+    return save_vars(dirname, sorted(v.name for v in program.parameters()), scope)
+
+
+def save_persistables(dirname, main_program: Optional[Program] = None, scope=None):
+    """Every persistable the scope holds: parameters and optimizer state."""
+    program = main_program or default_main_program()
+    scope = scope or global_scope()
+    return save_vars(dirname, sorted(v.name for v in program.persistables()
+                                     if scope.has(v.name)), scope)
+
+
+def load_params(dirname, main_program: Optional[Program] = None, scope=None, device=None):
+    program = main_program or default_main_program()
+    return load_vars(dirname, scope, var_names=sorted(v.name for v in program.parameters()),
+                     device=device)
+
+
+def load_persistables(dirname, main_program: Optional[Program] = None, scope=None,
+                      device=None):
+    """Whatever the file holds (the program may have been rebuilt with the
+    same names)."""
+    return load_vars(dirname, scope, device=device)
+
+
+def _prune_for_inference(program: Program, feed_names: Sequence[str],
+                         target_names: Sequence[str]) -> Program:
+    """Block 0 sliced to the ops that compute `target_names` from
+    `feed_names`, after clone(for_test=True) has dropped the backward and
+    optimizer ops and set is_test. Names an op's sub-block reads from the
+    enclosing block count as its inputs."""
+    pruned = program.clone(for_test=True)
+    block = pruned.global_block()
+
+    def sub_block_refs(op) -> set:
+        refs: set = set()
+        idx = op.attrs.get("sub_block")
+        if not isinstance(idx, int):
+            return refs
+        stack = [idx]
+        while stack:
+            produced: set = set()
+            for sop in pruned.blocks[stack.pop()].ops:
+                refs.update(n for n in sop.input_names() if n not in produced)
+                produced.update(sop.output_names())
+                inner = sop.attrs.get("sub_block")
+                if isinstance(inner, int):
+                    stack.append(inner)
+        return refs
+
+    needed = set(target_names)
+    kept = []
+    for op in reversed(block.ops):
+        if any(o in needed for o in op.output_names()):
+            kept.append(op)
+            needed.update(op.input_names())
+            needed.update(n for n in sub_block_refs(op) if n in block.vars)
+    kept.reverse()
+    block.ops = kept
+
+    referenced = set(feed_names) | set(target_names)
+    for op in kept:
+        referenced.update(op.input_names())
+        referenced.update(op.output_names())
+        referenced.update(n for n in sub_block_refs(op) if n in block.vars)
+    block.vars = {n: v for n, v in block.vars.items() if n in referenced}
+    missing = [n for n in feed_names if n not in needed]
+    if missing:
+        raise ValueError(f"feed vars {missing} are not inputs of the pruned inference "
+                         f"slice for targets {list(target_names)}")
+    return pruned
+
+
+def save_inference_model(dirname: str, feeded_var_names: Sequence[str], target_vars: Sequence,
+                         main_program: Optional[Program] = None,
+                         scope: Optional[Scope] = None) -> None:
+    """The pruned program and its persistables in `dirname`, in the JAX
+    package's artifact format. meta.json carries the feed specs, the
+    program's fingerprint and, for a program quant.convert rewrote, the
+    `quant` sidecar with the fingerprint and scales digest of what is
+    saved. It leaves out the JAX exporter's `tuning` record, which names a
+    TPU table (its loader reads an absent one as None)."""
+    program = main_program or default_main_program()
+    scope = scope or global_scope()
+    target_names = [v.name if isinstance(v, Variable) else v for v in target_vars]
+    pruned = _prune_for_inference(program, feeded_var_names, target_names)
+    os.makedirs(dirname, exist_ok=True)
+    param_names = sorted(v.name for v in pruned.global_block().vars.values()
+                         if v.persistable and scope.has(v.name))
+    save_vars(dirname, param_names, scope)
+    feed_specs = {}
+    for n in feeded_var_names:
+        if n in pruned.global_block().vars:
+            v = pruned.global_block().vars[n]
+            feed_specs[n] = {"dtype": np.dtype(v.dtype).name,
+                             "shape": [int(d) for d in v.shape]}
+    fingerprint = program_fingerprint(pruned)
+    meta = {"feed_names": list(feeded_var_names), "fetch_names": target_names,
+            "param_names": param_names, "feed_specs": feed_specs,
+            "program_fingerprint": fingerprint}
+    qmeta = getattr(program, "_quant_meta", None)
+    if qmeta:
+        meta["quant"] = dict(qmeta, program_fingerprint=fingerprint,
+                             scales_digest=quant_scales_digest(scope, param_names))
+    with open(os.path.join(dirname, PROGRAM_FILE), "w") as f:
+        json.dump(pruned.to_dict(), f)
+    with open(os.path.join(dirname, META_FILE), "w") as f:
+        json.dump(meta, f)
 
 
 def load_train_program(dirname: str):
@@ -73,7 +284,10 @@ def load_train_program(dirname: str):
 def load_inference_model(dirname: str, scope: Optional[Scope] = None, device=None):
     """Returns (program, feed_names, fetch_names); the parameters named in
     meta.json are loaded into `scope` on `device` (default: the card), so
-    `Executor(device).run(program, feed, fetch_list, scope)` runs it."""
+    `Executor(device).run(program, feed, fetch_list, scope)` runs it. A
+    quantized artifact whose program or int8 payload and scales no longer
+    match its `quant` sidecar raises QuantMetaError, and leaves the scope
+    untouched."""
     dev = resolve_device(device)
     scope = scope or global_scope()
     with open(os.path.join(dirname, META_FILE)) as f:
@@ -87,13 +301,22 @@ def load_inference_model(dirname: str, scope: Optional[Scope] = None, device=Non
     # tuned with; it says nothing about this card, so it is skipped on purpose
     with open(os.path.join(dirname, PROGRAM_FILE)) as f:
         program = Program.from_dict(json.load(f))
-    path = os.path.join(dirname, PARAMS_FILE)
-    # materialize every array before touching the scope, so a bad file
-    # never leaves the scope half-updated
-    with np.load(path) as data:
-        missing = [n for n in meta["param_names"] if n not in data]
-        if missing:
-            raise KeyError(f"variables {missing} not found in {path}")
-        arrays = {n: data[n] for n in meta["param_names"]}
+    arrays = _read_npz(os.path.join(dirname, PARAMS_FILE), meta["param_names"])
+    program._serving_meta = meta.get("feed_specs") or None
+    program._quant_meta = meta.get("quant") or None
+    if program._quant_meta:
+        q = program._quant_meta
+        fp = program_fingerprint(program)
+        if q.get("program_fingerprint") not in (None, fp):
+            raise QuantMetaError(
+                f"{dirname}: quantized artifact is stale — the program ({fp}) no longer "
+                f"matches the one its scales were calibrated for "
+                f"({q['program_fingerprint']}); re-run calibrate + convert and re-export")
+        digest = _scales_digest(arrays)
+        if q.get("scales_digest") not in (None, digest):
+            raise QuantMetaError(
+                f"{dirname}: quantized payload/scales digest {digest} does not match the "
+                f"recorded {q['scales_digest']} — the int8 weights or their scales were "
+                "modified after export; refusing to serve mismatched scales")
     params_from_numpy(scope, arrays, dev)
     return program, meta["feed_names"], meta["fetch_names"]

@@ -9,6 +9,7 @@ from . import (  # noqa: F401
     misc_ops,
     nn_ops,
     optimizer_ops,
+    quant_kernels,
     rnn_ops,
     sequence_ops,
 )

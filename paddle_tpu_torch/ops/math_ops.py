@@ -1,6 +1,6 @@
-"""Math op kernels: mul, elementwise_add, mean, lookup_table, scale, sign,
+"""Math op kernels: mul, matmul, elementwise_add, mean, lookup_table, scale, sign,
 clip_by_global_norm and the startup program's fill_constant,
-uniform_random and gaussian_random (paddle_tpu/ops/math_ops.py:35,108,118,
+uniform_random and gaussian_random (paddle_tpu/ops/math_ops.py:35,67,108,118,
 274,207,228,245,306,335,346), on torch tensors.
 The matrix products go to torch.matmul, as the JAX package leaves them to
 XLA. The random ops draw from the run's torch.Generator: the same
@@ -48,6 +48,19 @@ def mul_kernel(ctx):
     x2, y2 = amp.cast_inputs(ctx, x2, y2)
     out = dot(x2, y2).reshape(xs[:xd] + ys[yd:])
     ctx.set_output("Out", _like(x_in, out))
+
+
+@register_op("matmul")
+def matmul_kernel(ctx):
+    """Batched matmul with transpose flags; the int8 converter rewrites a
+    2-D site whose Y is a weight to `quantized_matmul`."""
+    x, y = _data(ctx.input("X")), _data(ctx.input("Y"))
+    if ctx.attr("transpose_X", False):
+        x = x.transpose(-1, -2)
+    if ctx.attr("transpose_Y", False):
+        y = y.transpose(-1, -2)
+    x, y = amp.cast_inputs(ctx, x, y)
+    ctx.set_output("Out", dot(x, y))
 
 
 def _broadcast_y(x, y, axis):

@@ -1,6 +1,10 @@
 """Programs and artifacts passing from the JAX package to the PyTorch port:
 the `Program.to_dict` schema, parameters carried bit for bit, the
-committed full-width NMT artifact, and sidecars the port refuses.
+committed full-width NMT artifact, and sidecars the port refuses
+(`sharding`, `draft_model`). A `quant` sidecar is no longer refused: the
+port checks it at load (its program fingerprint and scales digest) and
+raises QuantMetaError on a stale program or tampered scales
+(tests/test_torch_quant.py).
 
 Run as a script, this module rewrites the committed artifacts
 paddle_tpu_torch/artifacts/nmt_beam_{wmt,small}/ from the JAX package:
@@ -125,14 +129,14 @@ def test_committed_artifact_is_a_fresh_jax_export(tmp_path, name):
     assert ptt.Program.from_dict(committed).to_dict() == committed
 
 
-@pytest.mark.parametrize("sidecar", ["quant", "sharding", "draft_model"])
+@pytest.mark.parametrize("sidecar", ["sharding", "draft_model"])
 def test_unsupported_sidecar_raises(small_artifact, tmp_path, sidecar):
     for f in ("program.json", "params.npz"):
         with open(os.path.join(small_artifact, f), "rb") as src, \
                 open(os.path.join(tmp_path, f), "wb") as dst:
             dst.write(src.read())
     meta = json.load(open(os.path.join(small_artifact, "meta.json")))
-    meta[sidecar] = {"mode": "int8"} if sidecar == "quant" else {"dir": "x"}
+    meta[sidecar] = {"dir": "x"}
     with open(os.path.join(tmp_path, "meta.json"), "w") as f:
         json.dump(meta, f)
     with pytest.raises(NotImplementedError, match=sidecar):
