@@ -55,9 +55,12 @@ exits non-zero without the final `ok` line:
               against their plain versions on the card: the warm-up step's
               inputs (forward, forward reversed, backward; bf16 and f32),
               then seeded inputs with a ragged mask at the main path's
-              shapes and at edge shapes; errors beside their tolerances, an
-              output left at zero failing, kernel, plain, bound and cuDNN
-              (torch.nn.LSTM, the yardstick) times.
+              shapes and at edge shapes, and the forward alone at its own
+              edge shapes (T=1, H=100 with a row masked at every step, more
+              row tiles than groups, W past shared memory); errors beside
+              their tolerances, an output left at zero failing, kernel,
+              plain, bound and cuDNN (torch.nn.LSTM, the yardstick) times,
+              the forward's beside its time before the redesign.
   12. steps   3 timed LSTM training steps with the launch counts set to 0
               just before: finite, falling losses, exactly 2 lstm_fwd and
               2 lstm_bwd launches a step, median ms per step, tokens/s,
@@ -93,17 +96,20 @@ exits non-zero without the final `ok` line:
               the hand-written kernel; its startup program on the card,
               then a warm-up step on bench.py's feed, recording the
               kernel's inputs; the parameter count and the peak memory.
-  19. kernels fused_conv_bn and its statistics reduce (csrc/fused_conv_bn.cu)
-              against their plain versions on the card: the warm-up step's
-              own inputs at each of its shapes (bf16; f32 on two of them),
-              then seeded edge cases (N not a multiple of the row tile, N
-              below one tile, Cin 64, the prologue and ReLU on and off, a
-              stride-2 view); y beyond one bf16 ulp, s and sq, every output
-              nonzero, the same bits in two runs; kernel, plain, bound and
-              torch.matmul (the yardstick) times, summed over a step.
+  19. kernels fused_conv_bn (csrc/fused_conv_bn.cu, its statistics summed
+              in the same launch) against its plain version on the card:
+              the warm-up step's own inputs at each of its shapes (bf16; f32
+              on two of them), then seeded edge cases (N not a multiple of
+              the row tile, N below one tile, Cin 64 and 96, Cout 192, the
+              prologue and ReLU on and off, a stride-2 view, W too large to
+              stay in shared memory); y beyond one bf16 ulp, s and sq, every
+              output nonzero, the same bits in two runs; kernel (with the
+              wrapper, and its device time alone from a CUDA graph's
+              replay), plain, bound and torch.matmul (the yardstick) times,
+              summed over a step beside the time before the redesign.
   20. steps   3 timed ResNet-50 training steps with the launch counts set
               to 0 just before: finite, falling losses, exactly 36 kernel
-              and 36 reduce launches a step and no input copied, median ms
+              launches a step and no input copied, median ms
               per step, images/s, the share of the bf16 peak for bench.py's
               3 × 8.2 GFLOP an image, peak memory; one more step under
               torch.profiler; then, as context, the same step on the
@@ -617,8 +623,19 @@ LSTM_MAX_DIFFERING = 0.05
 # hidden units per CTA, the last two with a partly empty last CTA, the
 # last with dW outside the backward kernel
 LSTM_EDGE = [(3, 1, 100), (5, 3, 301), (4, 5, 700)]
+# (T, B, H) of the forward alone, beyond those: T=1; H=100, not a whole
+# group of 16 units, at B=3 with a row masked at every step; B=300, more
+# 32-row tiles than the card holds batch groups beside 32 unit groups, so a
+# CTA walks two; H=1800, whose W slice does not fit shared memory and is
+# read through L1. f32 where its kernel takes H (its W slice in shared
+# memory: not at 1800)
+LSTM_FWD_EDGE = [(1, 3, 100), (4, 300, 512), (3, 2, 1800)]
 # the launches of one training step: two stacked layers
 LSTM_STEP_LAUNCHES = {"lstm_fwd": 2, "lstm_bwd": 2}
+# the redesigned kernels' times before the redesign, at the main path's
+# shapes on an H100 at 700 W (PERF.md, the table of TPU kernels): B1 a
+# launch, B11 a step's 36 calls
+EARLIER_MS = {"lstm_fwd": 11.0729, "fused_conv_bn": 8.6320}
 # the small program's biases on the card against the CPU in bf16: their
 # gradients, sums over B·T cotangents that nearly cancel, are held to 0.1
 # of their largest (tests/test_torch_frontend.py), so the values held to
@@ -818,8 +835,8 @@ def lstm_phases(ptt, exe, rng, smi, seed, first_phase):
                     lib_err = float((lib["h_seq"].float() - want[0].float()).abs().max())
                     T_ = fx.shape[0]
                     print(f"    lstm_fwd: kernel {k_ms:.4f} ms ({k_ms / T_ * 1e3:.2f} us a time "
-                          f"step), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
-                          f"({nbytes:.0f} B)")
+                          f"step; {EARLIER_MS['lstm_fwd']} ms before the redesign), plain "
+                          f"{p_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} ({nbytes:.0f} B)")
                     print(f"    lstm_bwd: kernel {bk_ms:.4f} ms ({bk_ms / T_ * 1e3:.2f} us a "
                           f"time step), plain {bp_ms:.4f} ms, bound {bb_ms:.5f} ms by {bb_by} "
                           f"({bbytes:.0f} B)")
@@ -827,7 +844,8 @@ def lstm_phases(ptt, exe, rng, smi, seed, first_phase):
                           f"weight_ih, zero biases, PackedSequence): forward {lib['fwd_ms']:.4f} "
                           f"ms, backward {lib['bwd_ms']:.4f} ms, of which its identity "
                           f"[T*B,4H]x[4H,4H] product alone {lib['proj_ms']:.4f} ms; its h_seq "
-                          f"{lib_err:.3e} from the plain forward's")
+                          f"{lib_err:.3e} from the plain forward's; lstm_fwd at "
+                          f"{lib['fwd_ms'] / k_ms:.2f}x cuDNN's forward pace")
                     rows["lstm_fwd"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                                             library_ms=lib["fwd_ms"])
                     rows["lstm_bwd"] = dict(ms=bk_ms, plain_ms=bp_ms, bound_ms=bb_ms,
@@ -860,6 +878,20 @@ def lstm_phases(ptt, exe, rng, smi, seed, first_phase):
                       f"backward with f32 carries and dgates: dx differing {boff:.4%}")
                 check(off > LSTM_MAX_DIFFERING and boff > LSTM_MAX_DIFFERING,
                       "the bf16 share bound does not catch a misplaced rounding")
+    for T_, B_, H_ in LSTM_FWD_EDGE:
+        lens = torch.as_tensor(rng.randint(1, T_ + 1, size=B_))
+        lens[0] = T_
+        if B_ > 2:
+            lens[1] = 0  # a row masked at every step
+        mask = (torch.arange(T_)[:, None] < lens[None, :]).cuda()
+        for dt in LSTM_TOL:
+            if dt == torch.float32 and H_ > 1056:
+                continue
+            x = torch.as_tensor(rng.standard_normal((T_, B_, 4 * H_)), dtype=dt).cuda()
+            w = torch.as_tensor(rng.standard_normal((H_, 4 * H_)) / np.sqrt(H_), dtype=dt).cuda()
+            for rev in (False, True):
+                lstm_check(lk, "lstm_fwd", (x, mask, w), rev, f"T={T_} B={B_} H={H_} (forward edge)",
+                           max_errs)
 
     n += 1
     phase(n, "LSTM training at full width (bf16): 3 timed steps")
@@ -1262,10 +1294,13 @@ B11_F32_TOL = 1e-5
 B11_STATS_TOL = 1e-5
 # seeded edge cases: (B, H, W, Cin, Cout, prologue, relu, stride): N not a
 # multiple of the 128-row tile, N below one tile, Cin = 64, the prologue
-# on and off, ReLU on and off, a stride-2 view read in place
+# on and off, ReLU on and off, a stride-2 view read in place; and W's 2048
+# x 2048, whose column tile is too large to stay in shared memory (read a
+# K stage at a time, as in stage 4)
 B11_EDGE = [(1, 1, 1000, 96, 128, True, False, 1), (1, 1, 37, 64, 64, True, True, 1),
             (3, 5, 7, 64, 192, False, False, 1), (4, 7, 7, 256, 512, True, True, 2),
-            (4, 7, 7, 256, 512, False, False, 2), (2, 9, 9, 512, 64, True, False, 1)]
+            (4, 7, 7, 256, 512, False, False, 2), (2, 9, 9, 512, 64, True, False, 1),
+            (1, 1, 300, 2048, 2048, True, True, 1)]
 # how phase 20 sums the profiled step's device time
 RESNET_KERNEL_KINDS = {"B11 (fused_conv_bn)": ("fused_conv_bn",),
                        "convolutions (cuDNN)": ("conv", "cudnn", "xmma", "sm90_", "implicit"),
@@ -1359,12 +1394,25 @@ def b11_label(x, w, vecs, relu):
             f"{' strided' if strided else ''}")
 
 
+def graph_ms(fn, reps=20):
+    """The device time of one call of `fn`, replayed from a CUDA graph: the
+    host's part (Python, the launch) is left out."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    ms = cuda_ms(g.replay, reps)
+    del g
+    return ms
+
+
 def b11_check(fk, args, label, max_errs, time_it=False):
-    """B11 and its stats reduce against their plain versions on one call's
-    inputs (x, w, pm, pi, ps, pb, relu): y beyond one bf16 ulp (or f32
-    relative), s and sq against Σ|y| and Σy², every output nonzero, the
-    same bits in two runs. With `time_it`, returns (kernel, plain, bound,
-    torch.matmul) ms."""
+    """B11 against its plain version on one call's inputs (x, w, pm, pi,
+    ps, pb, relu): y beyond one bf16 ulp (or f32 relative), s and sq
+    against Σ|y| and Σy², every output nonzero, the same bits in two runs.
+    With `time_it`, returns (kernel, its device time, plain, bound, bound
+    by, torch.matmul) ms."""
     x, w, *vecs, relu = args
     dt = x.dtype
     got = fk.fused_matmul_bn(x, w, *vecs, relu=relu)
@@ -1404,15 +1452,17 @@ def b11_check(fk, args, label, max_errs, time_it=False):
         return None
     cin, cout = x.shape[-1], w.shape[0]
     k_ms = cuda_ms(lambda: fk.fused_matmul_bn(x, w, *vecs, relu=relu), 10)
+    d_ms = graph_ms(lambda: fk.fused_matmul_bn(x, w, *vecs, relu=relu))
     p_ms = cuda_ms(lambda: fk.fused_matmul_bn_plain(x, w, *vecs, relu=relu), 2)
     xn = x if vecs[0] is None else fk.prologue_plain(x, *vecs, relu)
     xn = xn.reshape(-1, cin).contiguous()
     lib_ms = cuda_ms(lambda: torch.matmul(xn, w.t()), 10)
     b_ms, b_by, nbytes = b11_bound(x, cin, cout)
-    print(f"    kernel {k_ms * 1e3:.2f} us (with its reduce), plain {p_ms * 1e3:.2f} us, "
-          f"torch.matmul on the prologued operands {lib_ms * 1e3:.2f} us, bound "
-          f"{b_ms * 1e3:.2f} us by {b_by} ({nbytes:.0f} B), {100 * b_ms / k_ms:.2f}% of the bound")
-    return k_ms, p_ms, b_ms, b_by, lib_ms
+    print(f"    kernel {k_ms * 1e3:.2f} us with the wrapper, {d_ms * 1e3:.2f} us on the device; "
+          f"plain {p_ms * 1e3:.2f} us, torch.matmul on the prologued operands {lib_ms * 1e3:.2f} "
+          f"us, bound {b_ms * 1e3:.2f} us by {b_by} ({nbytes:.0f} B), {100 * b_ms / k_ms:.2f}% of "
+          f"the bound")
+    return k_ms, d_ms, p_ms, b_ms, b_by, lib_ms
 
 
 def b11_seeded(rng, B, H, W, cin, cout, prologue, relu, stride, dt):
@@ -1612,20 +1662,21 @@ def resnet_phases(ptt, exe, rng, smi, seed, first_phase):
     by_shape = {}  # a label: (the call's inputs, calls a step)
     for a, _ in recorded:  # (x, w, pm, pi, ps, pb, relu), as _FusedConvBNFn passes them
         by_shape.setdefault(b11_label(a[0], a[1], a[2:6], a[6]), [a, 0])[1] += 1
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    totals = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     bound_by = {"bytes": 0.0, "operations": 0.0}
     for key, (args, mult) in by_shape.items():
-        k_ms, p_ms, b_ms, b_by, lib_ms = b11_check(fk, args, f"{key} (x{mult} a step)",
-                                                   max_errs, time_it=True)
-        for name, v in zip(("ms", "plain_ms", "bound_ms", "library_ms"),
-                           (k_ms, p_ms, b_ms, lib_ms)):
+        k_ms, d_ms, p_ms, b_ms, b_by, lib_ms = b11_check(fk, args, f"{key} (x{mult} a step)",
+                                                         max_errs, time_it=True)
+        for name, v in zip(("ms", "device_ms", "plain_ms", "bound_ms", "library_ms"),
+                           (k_ms, d_ms, p_ms, b_ms, lib_ms)):
             totals[name] += mult * v
         bound_by[b_by] += mult * b_ms
-    print(f"  a step's {fused} calls at {len(by_shape)} shapes: kernel {totals['ms']:.4f} ms, "
-          f"plain {totals['plain_ms']:.4f} ms, torch.matmul {totals['library_ms']:.4f} ms, "
-          f"bound {totals['bound_ms']:.4f} ms ({bound_by['bytes']:.4f} by bytes, "
-          f"{bound_by['operations']:.4f} by operations; the kernels at "
-          f"{100 * totals['bound_ms'] / totals['ms']:.2f}% of the bound)")
+    print(f"  a step's {fused} calls at {len(by_shape)} shapes: kernel {totals['ms']:.4f} ms with "
+          f"the wrapper ({EARLIER_MS['fused_conv_bn']} ms before the redesign), "
+          f"{totals['device_ms']:.4f} ms on the device; plain {totals['plain_ms']:.4f} ms, "
+          f"torch.matmul {totals['library_ms']:.4f} ms, bound {totals['bound_ms']:.4f} ms "
+          f"({bound_by['bytes']:.4f} by bytes, {bound_by['operations']:.4f} by operations; the "
+          f"kernels at {100 * totals['bound_ms'] / totals['ms']:.2f}% of the bound)")
     rows["fused_conv_bn"] = dict(totals, bound_by=max(bound_by, key=bound_by.get))
     # f32 on a subset of the step's own inputs: the first call, and the last
     for a, _ in (recorded[0], recorded[-1]):
@@ -1637,36 +1688,12 @@ def resnet_phases(ptt, exe, rng, smi, seed, first_phase):
             args = b11_seeded(srng, B_, H_, W_, ci, co, pro, relu, stride, dt)
             b11_check(fk, args, b11_label(args[0], args[1], args[2:6], relu) + " (seeded)",
                       max_errs)
-    # the stats reduce alone, on the largest workspace of the step
-    x, w = recorded[0][0][:2]
-    n_rows = x.numel() // x.shape[-1]
-    chunks, _ = fk._row_chunks(-(-n_rows // fk.ROW_TILE), w.shape[0] // fk.COL_TILE, x.device)
-    part = torch.as_tensor(srng.standard_normal((2, chunks, w.shape[0])),
-                           dtype=torch.float32).cuda()
-    got, want = fk.stats_reduce(part), fk.stats_reduce_plain(part)
-    again = fk.stats_reduce(part)
-    torch.cuda.synchronize()
-    r_err = float((got - want).abs().max())
-    r_rel = r_err / amax(part.abs().sum(1))
-    check(torch.equal(got, again), "stats_reduce: two runs differ")
-    check(r_rel <= B11_STATS_TOL, f"stats_reduce disagrees with its plain version: {r_rel:.3e}")
-    r_ms = cuda_ms(lambda: fk.stats_reduce(part), 20)
-    rp_ms = cuda_ms(lambda: fk.stats_reduce_plain(part), 20)
-    r_bound, r_by = bound_ms(part.numel() * 4 + 2 * w.shape[0] * 4, float(part.numel()),
-                             PEAK_FLOPS[torch.float32])
-    print(f"  fused_conv_bn_reduce [2, {chunks}, {w.shape[0]}]: err {r_rel:.3e} of Σ|part| "
-          f"(max {B11_STATS_TOL:g}), same bits in two runs; kernel {r_ms * 1e3:.2f} us, plain "
-          f"(torch.sum, also the library call) {rp_ms * 1e3:.2f} us, bound {r_bound * 1e3:.3f} us "
-          f"by {r_by}")
-    max_errs["fused_conv_bn_reduce"] = r_err
-    rows["fused_conv_bn_reduce"] = dict(ms=r_ms, plain_ms=rp_ms, bound_ms=r_bound, bound_by=r_by,
-                                        library_ms=rp_ms)
     del recorded, calls, by_shape
 
     n += 1
     phase(n, "ResNet-50 training at full width (bf16, B11 route): 3 timed steps")
     torch.cuda.reset_peak_memory_stats()
-    fk.fused_conv_bn_launches = fk.fused_conv_bn_reduce_launches = 0
+    fk.fused_conv_bn_launches = 0
     fk.fused_conv_bn_input_copies = 0
     times = []
     for _ in range(3):
@@ -1674,13 +1701,12 @@ def resnet_phases(ptt, exe, rng, smi, seed, first_phase):
         losses.append(float(exe.run(main_p, feed, [loss.name], scope=scope)[0]))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = {"fused_conv_bn": fk.fused_conv_bn_launches,
-                "fused_conv_bn_reduce": fk.fused_conv_bn_reduce_launches}
+    launches = {"fused_conv_bn": fk.fused_conv_bn_launches}
     print(f"  losses (warm-up, then timed): {losses}")
     check(all(np.isfinite(losses)), "non-finite loss")
     check(losses[-1] < losses[0], "the loss did not fall over 4 steps on one batch")
     print(f"  launches in 3 steps: {launches}, input copies {fk.fused_conv_bn_input_copies}; "
-          f"per step expected {fused} of each")
+          f"per step expected {fused} (the statistics summed in the same launch)")
     for k, c in launches.items():
         check(c == 3 * fused, f"{k} launched {c} times in 3 steps, not {3 * fused}")
     check(fk.fused_conv_bn_input_copies == 0, "B11 copied an input on the main path")
@@ -3092,8 +3118,6 @@ def main():
                "flash_bwd_dkv": ("flash_attn.cu", "paddle_tpu/ops/flash_ops.py:160"),
                "flash_bwd_dq": ("flash_attn.cu", "paddle_tpu/ops/flash_ops.py:160"),
                "fused_conv_bn": ("fused_conv_bn.cu", "paddle_tpu/ops/fused_conv_ops.py:140"),
-               "fused_conv_bn_reduce": ("fused_conv_bn.cu",
-                                        "paddle_tpu/ops/fused_conv_ops.py:140"),
                "decoder_seq_fwd": ("decoder_seq.cu", "paddle_tpu/ops/bahdanau_kernels.py:399"),
                "decoder_seq_bwd": ("decoder_seq.cu", "paddle_tpu/ops/bahdanau_kernels.py:568"),
                "quant_matmul": ("quant_matmul.cu", "paddle_tpu/ops/quant_kernels.py:61")}

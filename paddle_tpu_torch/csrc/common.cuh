@@ -51,6 +51,32 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
+// c += A·B for one m16n8k16 bf16 tile with f32 accumulators, in mma.sync's
+// fragment layout (a0..a3 of A, b0, b1 of B)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory: the 16x16 block at `p` of a
+// row-major array with rows `ld` elements apart (16-byte aligned rows).
+// r[0..3] are rows 0-7 | 8-15 by columns 0-7 | 8-15, in the order
+// (0-7, 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15): an A fragment of
+// mma_bf16 as it is, or, for B stored N rows of K, b0, b1 of n-tile 0 in
+// r[0], r[2] and of n-tile 1 in r[1], r[3].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p, int ld) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* row = p + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
 // C[16 x 8·NT] += A[16 x K] · B[K x 8·NT] for one warp, in the m16n8k16
 // accumulator layout: lane (g = lane/4, q = lane%4) holds, for each n-tile
 // j, C[g][8j+2q], C[g][8j+2q+1], C[g+8][8j+2q], C[g+8][8j+2q+1].
@@ -85,11 +111,7 @@ struct WarpMma<__nv_bfloat16, NT, kBnk> {
           b0 = pack2(br[0], br[ldb]);
           b1 = pack2(br[8 * ldb], br[9 * ldb]);
         }
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-            : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
-            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+        mma_bf16(c[j], a0, a1, a2, a3, b0, b1);
       }
     }
   }
@@ -115,6 +137,39 @@ struct WarpMma<float, NT, kBnk> {
     }
   }
 };
+
+// 16 bytes from global to shared memory past L1 (cp.async.cg); src_bytes
+// below 16 fills the rest with zeros (0: nothing is read).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+// this thread's copies landed, all but the newest N groups
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A counter in global memory that CTAs of one launch meet at: add with
+// release order (this thread's earlier writes, and through a preceding
+// __syncthreads its CTA's, are visible before the add), read with acquire
+// order (later reads see what the adders wrote before adding).
+__device__ __forceinline__ unsigned atomic_add_release(unsigned* p, unsigned v) {
+  unsigned old;
+  asm volatile("atom.add.release.gpu.global.u32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
 
 template <int NT>
 __device__ __forceinline__ void zero(float (&c)[NT][4]) {

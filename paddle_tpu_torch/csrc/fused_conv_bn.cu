@@ -17,71 +17,77 @@
 // Cin·Cout + N·Cout elements for 2·N·Cin·Cout operations; stages 1-3 are
 // bound by bytes (up to 257 MB, 77 µs, for N = 401408, Cin 64, Cout 256),
 // stage 4 by operations (13.2 GFLOP, 13 µs). So x is read once, the
-// prologue runs on it in the load path, and the normalised activation
-// never goes to memory; y is written once and its statistics come out of
-// the epilogue, with no second pass over y.
+// prologue runs on it once, and the normalised activation never goes to
+// memory; y is written once and its statistics come out of the epilogue,
+// with no second pass over y and no second launch.
 //
-// Design, simple first. A CTA of 8 warps owns a column tile of 64 output
-// channels and a chunk of consecutive 128-row tiles; each warp owns 16
-// rows of a tile. The K loop stages 32 input channels at a time: each
-// thread loads its 16-byte pieces of the x tile and of the filter tile
-// into registers one step ahead, then applies the prologue to the x
-// pieces in f32 (pi·ps formed first, no fused multiply-add, so the bits
-// are the plain version's) and rounds them into shared memory. The filter
-// tile is W's rows as they lie: K contiguous is the column-major B operand
-// of mma.sync m16n8k16 (ptt::WarpMma), so nothing is transposed. bf16
-// runs on the tensor cores with f32 accumulators; f32 io runs the same
-// fragments with f32 FMAs. x is read through its strides ([B, H, W, Cin],
-// Cin contiguous), so the stride-2 projection's subsampled view is read in
-// place. Tail rows load as zeros, skip the prologue, and are neither
-// stored nor summed.
+// bf16, the slice's dtype, runs on wgmma:
+// - A persistent grid of one CTA an SM: (Cout / BN column tiles, chunks),
+//   each CTA walking a contiguous chunk of 128-row tiles
+//   (fused_conv_kernels.plan). BN = 256 where Cout allows, so for Cout <=
+//   256 x is read from memory and prologued once; above 256 (stage 4, N =
+//   6272-25088) each column tile re-reads its chunk's x, a few MB from L2.
+// - Two consumer warpgroups of 64 rows each run wgmma m64nBNk16 with both
+//   operands in shared memory, K-major and 128-byte swizzled: B is W's rows
+//   as they lie, so nothing is transposed. A ring stage holds K=64 of the
+//   x tile; where all of the column tile's W fits beside the ring (Cin up
+//   to 128-512 by BN) it stays in shared memory for the launch, else a
+//   stage also holds W's K=64 block. The ring runs on across row tiles.
+// - Where x is a contiguous [N, Cin], thread 0 fills the ring with tensor
+//   copies (TMA, 2-D maps over x and W made on the host and kept, rows
+//   past N read as zeros), each stage completing on its own mbarrier; the
+//   CTA's threads issue no loads. The stride-2 projection's subsampled
+//   view has no box shape, so there every thread copies its 16-byte pieces
+//   with cp.async through x's strides, read in place.
+// - The prologue is a pass over the landed x tile in shared memory, each
+//   thread on its 16-byte pieces: pi·ps formed first, __fmul_rn/__fadd_rn,
+//   no fused multiply-add, so the bits are the plain version's.
+// - The epilogue rounds y, stages each warp's 16 rows in shared memory (two
+//   buffers where W is resident) and hands each row to the bulk-copy
+//   engine, which writes it while the warp goes on. Each lane then sums
+//   its columns of the staged, rounded rows in row order, tile after tile,
+//   in registers; at the end each CTA sums its 8 warps into one row of a
+//   [chunks, Cout] workspace.
+// - The statistics' reduce runs in the same launch: the CTA that takes
+//   the last ticket of a counter sums the workspace rows in chunk order and
+//   resets the counter for the next launch (the wrapper keeps one counter a
+//   device; launches on one stream). No float atomics: every sum has a
+//   fixed order, so two runs give the same bits.
+// What still holds it back: one instruction stream a CTA, so a tile's
+// epilogue and the next tile's products do not overlap and y's writes
+// drain behind the epilogue; where W is read a stage at a time, each stage
+// moves twice x's bytes from L2; the stride-2 calls load with cp.async.
+// A producer warp feeding two consumer warpgroups that take turns (one in
+// its epilogue while the other multiplies) is the next step.
 //
-// The statistics without float atomics: each thread sums its columns over
-// its rows of every tile of the chunk, the 8 lanes that share a column
-// reduce by shuffles, the 8 warps through shared memory in warp order, and
-// the CTA writes one row of a [chunks, Cout] f32 workspace; a second
-// launch sums the chunks in chunk order. Every sum has a fixed order, so
-// two runs give the same bits. wgmma, TMA, a pipeline deeper than one
-// step and a persistent schedule are later work.
+// f32 io keeps the exact path the port had before this kernel: mma.sync's
+// fragments with f32 FMAs on 128x64 tiles, grid (Cout / 64, chunks), and
+// the same folded reduce.
 
-#include "common.cuh"
-
+#include <cuda.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
 using namespace ptt;
+using bf16 = __nv_bfloat16;
 
-constexpr int kBM = 128;  // rows of a tile: 8 warps of 16
-constexpr int kBN = 64;   // output channels of a tile
-constexpr int kBK = 32;   // input channels a K step stages
-constexpr int kConvWarps = kBM / 16;
-constexpr int kConvThreads = 32 * kConvWarps;
-constexpr int kNT = kBN / 8;  // n-tiles of a warp's fragment
+constexpr int kBM = 128;  // rows of a tile
 
 struct Args {
   int B, H, W;           // x seen as [B, H, W, Cin]
   long long sb, sh, sw;  // its strides in elements; Cin's is 1
-  int cin, cout, n, n_tiles, tiles_per_chunk;
+  int cin, cout, n, n_tiles, tiles_per_chunk, chunks, prologue, relu;
   const void* x;
   const void* w;
   const float *pm, *pi, *ps, *pb;
   void* y;
-  float *part_s, *part_sq;
-};
-
-// One thread's 16-byte pieces of a K step: kA of the x tile, kB of the
-// filter tile.
-template <typename T>
-struct Stage {
-  static constexpr int kVec = 16 / sizeof(T);
-  static constexpr int kPieces = kBK / kVec;  // pieces in a staged row
-  static constexpr int kA = kBM * kPieces / kConvThreads;
-  static constexpr int kB = kBN * kPieces / kConvThreads;
-  static constexpr int kLd = kBK + kVec;  // a shared-memory row, padded by 16 bytes
-  uint4 a[kA];
-  uint4 b[kB];
+  float *part_s, *part_sq;  // [chunks, Cout] workspaces
+  float *s, *sq;            // [Cout] out
+  unsigned* ticket;         // 0 before the launch, and again after it
 };
 
 template <typename T>
@@ -91,110 +97,135 @@ __device__ __forceinline__ const T* x_row(const Args& a, int r) {
   return static_cast<const T*>(a.x) + b * a.sb + h * a.sh + w * a.sw;
 }
 
+
+// The end of every CTA: after its row of part_s/part_sq is written, the CTA
+// that takes the last ticket sums the rows in chunk order into s and sq.
+__device__ __forceinline__ void finish_stats(const Args& a) {
+  __shared__ bool last;
+  __syncthreads();  // this CTA's row is written
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(a.ticket, 1u) == gridDim.x * gridDim.y - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int c = threadIdx.x; c < a.cout; c += blockDim.x) {
+    float s = 0.f, q = 0.f;
+    for (int k = 0; k < a.chunks; ++k) {
+      s += __ldcg(a.part_s + (long long)k * a.cout + c);
+      q += __ldcg(a.part_sq + (long long)k * a.cout + c);
+    }
+    a.s[c] = s;
+    a.sq[c] = q;
+  }
+  if (threadIdx.x == 0) *a.ticket = 0u;
+}
+
+// ------------------------------------------------------------------ f32 --
+constexpr int kF32BN = 64;  // output channels of a tile
+constexpr int kF32BK = 32;  // input channels a K step stages
+constexpr int kF32Warps = kBM / 16;
+constexpr int kF32Threads = 32 * kF32Warps;
+constexpr int kF32NT = kF32BN / 8;  // n-tiles of a warp's fragment
+constexpr int kVec = 4;             // floats in 16 bytes
+constexpr int kPieces = kF32BK / kVec;
+constexpr int kPA = kBM * kPieces / kF32Threads;
+constexpr int kPB = kF32BN * kPieces / kF32Threads;
+constexpr int kF32Ld = kF32BK + kVec;  // a shared-memory row, padded by 16 bytes
+
+// One thread's 16-byte pieces of a K step: kPA of the x tile, kPB of the
+// filter tile.
+struct F32Stage {
+  uint4 a[kPA];
+  uint4 b[kPB];
+};
+
 // Global memory to registers: rows [row0, row0 + kBM) of x and rows
-// [col0, col0 + kBN) of W, channels [k0, k0 + kBK).
-template <typename T>
-__device__ __forceinline__ void load(Stage<T>& st, const Args& a, int row0, int col0, int k0) {
-  using S = Stage<T>;
+// [col0, col0 + kF32BN) of W, channels [k0, k0 + kF32BK).
+__device__ __forceinline__ void f32_load(F32Stage& st, const Args& a, int row0, int col0, int k0) {
 #pragma unroll
-  for (int i = 0; i < S::kA; ++i) {
-    const int p = threadIdx.x + i * kConvThreads, r = p / S::kPieces;
-    const int c = (p % S::kPieces) * S::kVec;
-    st.a[i] = row0 + r < a.n ? *reinterpret_cast<const uint4*>(x_row<T>(a, row0 + r) + k0 + c)
+  for (int i = 0; i < kPA; ++i) {
+    const int p = threadIdx.x + i * kF32Threads, r = p / kPieces, c = (p % kPieces) * kVec;
+    st.a[i] = row0 + r < a.n ? *reinterpret_cast<const uint4*>(x_row<float>(a, row0 + r) + k0 + c)
                              : make_uint4(0, 0, 0, 0);
   }
 #pragma unroll
-  for (int i = 0; i < S::kB; ++i) {
-    const int p = threadIdx.x + i * kConvThreads, r = p / S::kPieces;
-    const int c = (p % S::kPieces) * S::kVec;
-    st.b[i] = *reinterpret_cast<const uint4*>(static_cast<const T*>(a.w) +
+  for (int i = 0; i < kPB; ++i) {
+    const int p = threadIdx.x + i * kF32Threads, r = p / kPieces, c = (p % kPieces) * kVec;
+    st.b[i] = *reinterpret_cast<const uint4*>(static_cast<const float*>(a.w) +
                                               (long long)(col0 + r) * a.cin + k0 + c);
   }
 }
 
 // Registers to shared memory, the prologue applied to the x pieces of
 // valid rows.
-template <typename T, bool kPro, bool kRelu>
-__device__ __forceinline__ void store(Stage<T>& st, T* sA, T* sB, const Args& a, int row0,
-                                      int k0) {
-  using S = Stage<T>;
+template <bool kPro, bool kRelu>
+__device__ __forceinline__ void f32_store(F32Stage& st, float* sA, float* sB, const Args& a,
+                                          int row0, int k0) {
 #pragma unroll
-  for (int i = 0; i < S::kA; ++i) {
-    const int p = threadIdx.x + i * kConvThreads, r = p / S::kPieces;
-    const int c = (p % S::kPieces) * S::kVec;
+  for (int i = 0; i < kPA; ++i) {
+    const int p = threadIdx.x + i * kF32Threads, r = p / kPieces, c = (p % kPieces) * kVec;
     if (kPro && row0 + r < a.n) {
-      T* e = reinterpret_cast<T*>(&st.a[i]);
+      float* e = reinterpret_cast<float*>(&st.a[i]);
 #pragma unroll
-      for (int j = 0; j < S::kVec; ++j) {
+      for (int j = 0; j < kVec; ++j) {
         const int k = k0 + c + j;
         const float g = __fmul_rn(__ldg(a.pi + k), __ldg(a.ps + k));
-        float xh = __fadd_rn(__fmul_rn(__fsub_rn(to_f<T>(e[j]), __ldg(a.pm + k)), g),
-                             __ldg(a.pb + k));
+        float xh = __fadd_rn(__fmul_rn(__fsub_rn(e[j], __ldg(a.pm + k)), g), __ldg(a.pb + k));
         if (kRelu) xh = fmaxf(xh, 0.f);
-        e[j] = from_f<T>(xh);
+        e[j] = xh;
       }
     }
-    *reinterpret_cast<uint4*>(sA + r * S::kLd + c) = st.a[i];
+    *reinterpret_cast<uint4*>(sA + r * kF32Ld + c) = st.a[i];
   }
 #pragma unroll
-  for (int i = 0; i < S::kB; ++i) {
-    const int p = threadIdx.x + i * kConvThreads, r = p / S::kPieces;
-    const int c = (p % S::kPieces) * S::kVec;
-    *reinterpret_cast<uint4*>(sB + r * S::kLd + c) = st.b[i];
+  for (int i = 0; i < kPB; ++i) {
+    const int p = threadIdx.x + i * kF32Threads, r = p / kPieces, c = (p % kPieces) * kVec;
+    *reinterpret_cast<uint4*>(sB + r * kF32Ld + c) = st.b[i];
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void store_pair(T* p, float v0, float v1);
-template <>
-__device__ __forceinline__ void store_pair<float>(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-template <>
-__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-
-// grid (Cout / kBN, chunks): blockIdx.y's chunk is row tiles
+// grid (Cout / kF32BN, chunks): blockIdx.y's chunk is row tiles
 // [y·tiles_per_chunk, min(n_tiles, (y+1)·tiles_per_chunk)).
-template <typename T, bool kPro, bool kRelu>
-__global__ void __launch_bounds__(kConvThreads) fused_conv_bn_kernel(Args a) {
-  using S = Stage<T>;
-  __shared__ __align__(16) T sA[kBM * S::kLd];
-  __shared__ __align__(16) T sB[kBN * S::kLd];
-  __shared__ float red[2][kConvWarps][kBN];
+template <bool kPro, bool kRelu>
+__global__ void __launch_bounds__(kF32Threads) fused_conv_bn_f32_kernel(Args a) {
+  __shared__ __align__(16) float sA[kBM * kF32Ld];
+  __shared__ __align__(16) float sB[kF32BN * kF32Ld];
+  __shared__ float red[2][kF32Warps][kF32BN];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col0 = blockIdx.x * kBN;
+  const int col0 = blockIdx.x * kF32BN;
   const int t0 = blockIdx.y * a.tiles_per_chunk;
   const int t1 = min(a.n_tiles, t0 + a.tiles_per_chunk);
-  const int nk = a.cin / kBK;
+  const int nk = a.cin / kF32BK;
   const int steps = max(t1 - t0, 0) * nk;
 
-  float acc[kNT][4];
+  float acc[kF32NT][4];
   zero(acc);
-  float cs[kNT][2], cq[kNT][2];  // this thread's columns 8j+2q, 8j+2q+1
+  float cs[kF32NT][2], cq[kF32NT][2];  // this thread's columns 8j+2q, 8j+2q+1
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) cs[j][0] = cs[j][1] = cq[j][0] = cq[j][1] = 0.f;
-  S st;
-  if (steps > 0) load<T>(st, a, t0 * kBM, col0, 0);
+  for (int j = 0; j < kF32NT; ++j) cs[j][0] = cs[j][1] = cq[j][0] = cq[j][1] = 0.f;
+  F32Stage st;
+  if (steps > 0) f32_load(st, a, t0 * kBM, col0, 0);
   for (int it = 0; it < steps; ++it) {
     const int row0 = (t0 + it / nk) * kBM, kt = it % nk;
     __syncthreads();  // every warp is done with the previous step's tiles
-    store<T, kPro, kRelu>(st, sA, sB, a, row0, kt * kBK);
+    f32_store<kPro, kRelu>(st, sA, sB, a, row0, kt * kF32BK);
     __syncthreads();
-    if (it + 1 < steps) load<T>(st, a, (t0 + (it + 1) / nk) * kBM, col0, ((it + 1) % nk) * kBK);
-    WarpMma<T, kNT, true>::run(acc, sA + warp * 16 * S::kLd, S::kLd, sB, S::kLd, kBK);
+    if (it + 1 < steps)
+      f32_load(st, a, (t0 + (it + 1) / nk) * kBM, col0, ((it + 1) % nk) * kF32BK);
+    WarpMma<float, kF32NT, true>::run(acc, sA + warp * 16 * kF32Ld, kF32Ld, sB, kF32Ld, kF32BK);
     if (kt != nk - 1) continue;
-    // the tile's epilogue: round, store, and sum the rounded values
+    // the tile's epilogue: store, and sum the values
 #pragma unroll
     for (int e = 0; e < 4; e += 2) {
       const int row = row0 + warp * 16 + frag_row(e);
       if (row >= a.n) continue;
-      T* yrow = static_cast<T*>(a.y) + (long long)row * a.cout + col0;
+      float* yrow = static_cast<float*>(a.y) + (long long)row * a.cout + col0;
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const float v0 = round_io<T>(acc[j][e]), v1 = round_io<T>(acc[j][e + 1]);
-        store_pair<T>(yrow + frag_col(j, e), v0, v1);
+      for (int j = 0; j < kF32NT; ++j) {
+        const float v0 = acc[j][e], v1 = acc[j][e + 1];
+        *reinterpret_cast<float2*>(yrow + frag_col(j, e)) = make_float2(v0, v1);
         cs[j][0] += v0;
         cs[j][1] += v1;
         cq[j][0] = __fadd_rn(cq[j][0], __fmul_rn(v0, v0));
@@ -205,7 +236,7 @@ __global__ void __launch_bounds__(kConvThreads) fused_conv_bn_kernel(Args a) {
   }
   // the 8 lanes of a column (xor over g), then the warps in order
 #pragma unroll
-  for (int j = 0; j < kNT; ++j)
+  for (int j = 0; j < kF32NT; ++j)
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
       float s = cs[j][b], q = cq[j][b];
@@ -220,72 +251,546 @@ __global__ void __launch_bounds__(kConvThreads) fused_conv_bn_kernel(Args a) {
       }
     }
   __syncthreads();
-  if (threadIdx.x < 2 * kBN) {
-    const int which = threadIdx.x / kBN, c = threadIdx.x % kBN;
+  if (threadIdx.x < 2 * kF32BN) {
+    const int which = threadIdx.x / kF32BN, c = threadIdx.x % kF32BN;
     float v = 0.f;
 #pragma unroll
-    for (int w = 0; w < kConvWarps; ++w) v += red[which][w][c];
+    for (int w = 0; w < kF32Warps; ++w) v += red[which][w][c];
     (which ? a.part_sq : a.part_s)[(long long)blockIdx.y * a.cout + col0 + c] = v;
   }
+  finish_stats(a);
 }
 
-// s[c] = Σ_chunk part_s[chunk][c] (and sq), in chunk order: 8 strided
-// partial sums a column, then those 8 in order.
-constexpr int kRedCols = 32;
-__global__ void __launch_bounds__(256)
-fused_conv_bn_reduce_kernel(const float* __restrict__ part_s, const float* __restrict__ part_sq,
-                            int chunks, int cout, float* __restrict__ s, float* __restrict__ sq) {
-  __shared__ float red[2][8][kRedCols];
-  const int tx = threadIdx.x % kRedCols, r = threadIdx.x / kRedCols;
-  const int col = blockIdx.x * kRedCols + tx;
-  float a = 0.f, b = 0.f;
-  if (col < cout)
-    for (int c = r; c < chunks; c += 8) {
-      a += part_s[(long long)c * cout + col];
-      b += part_sq[(long long)c * cout + col];
-    }
-  red[0][r][tx] = a;
-  red[1][r][tx] = b;
-  __syncthreads();
-  if (r == 0 && col < cout) {
-    float u = 0.f, v = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      u += red[0][i][tx];
-      v += red[1][i][tx];
-    }
-    s[col] = u;
-    sq[col] = v;
+cudaError_t launch_f32(const Args& a, cudaStream_t st) {
+  const dim3 grid(a.cout / kF32BN, a.chunks);
+  if (!a.prologue)
+    fused_conv_bn_f32_kernel<false, false><<<grid, kF32Threads, 0, st>>>(a);
+  else if (a.relu)
+    fused_conv_bn_f32_kernel<true, true><<<grid, kF32Threads, 0, st>>>(a);
+  else
+    fused_conv_bn_f32_kernel<true, false><<<grid, kF32Threads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// ----------------------------------------------------------------- bf16 --
+constexpr int kBK = 64;               // input channels a stage: one 128-byte row
+constexpr int kTcThreads = 256;           // two consumer warpgroups of 64 rows
+constexpr int kTcWarps = kTcThreads / 32;
+constexpr int kRowStep = kTcThreads / 8;  // rows the CTA's 16-byte pieces cover at once
+constexpr int kRowBytes = kBK * 2;    // a swizzled row
+constexpr int kABytes = kBM * kRowBytes;
+
+template <int BN, bool kWRes>
+struct Tc {
+  static constexpr int kWBlock = BN * kRowBytes;  // W's tile of one K stage
+  // x's tile and, unless W stays resident, W's tile of one K stage
+  static constexpr int kStageBytes = kABytes + (kWRes ? 0 : kWBlock);
+  static constexpr int kStages = kWRes ? (BN == 64 ? 6 : 4) : BN == 256 ? 3 : BN == 128 ? 5 : 7;
+  // the epilogue stages y a warp at a time, 16 rows by up to 128 columns a
+  // pass, rows padded by 16 bytes against bank conflicts; with W resident,
+  // in two buffers a warp, so a pass waits for the copies of the pass
+  // before last, not of the last (where W is read a stage at a time the
+  // K loop is long beside the epilogue, and the ring takes the room)
+  static constexpr int kYCols = BN < 128 ? BN : 128;
+  static constexpr int kYLd = kYCols * 2 + 16;
+  static constexpr int kYBufs = kWRes ? 2 : 1;
+  static constexpr int kYWarp = kYBufs * 16 * kYLd;  // a warp's staging bytes
+  static constexpr int kYBytes = kTcWarps * kYWarp;
+  static constexpr int kStatFloats = kTcWarps * 2 * BN;  // per warp: Σy and Σy² of each column
+  static constexpr int kVals = BN / 2;            // a thread's accumulators
+  static constexpr int kLaneCols = kYCols / 32;  // columns a lane sums in a staging pass
+  // alignment slack, the ring, the y staging rows, the statistics, the
+  // ring's and W's mbarriers
+  static constexpr int kFixed = 1024 + kStages * kStageBytes + kYBytes + kStatFloats * 4 + 128;
+  // W's bytes a CTA can keep for the whole launch beside the rest (the
+  // opt-in limit less alignment slack and the static shared memory)
+  static constexpr int kWResMax = 232448 - 64 - kFixed;
+  // dynamic shared memory for nk K stages: the above and W when resident
+  static constexpr int smem(int nk) { return kFixed + (kWRes ? nk * kWBlock : 0); }
+};
+
+// y rows from shared to global memory by the bulk-copy engine: the copies
+// run on while the warp goes on; a lane waits for its earlier copies to
+// have read their rows before the rows are written again
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(gmem), "r"(s), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// this thread's bulk copies, all but the newest N groups, have read their rows
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// a lane's two bf16 values of one 8-column block, packed
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// byte offset of 16-byte piece c of row r in a tile of 128-byte rows, the
+// 128-byte swizzle wgmma's descriptor names (pieces XORed with r mod 8)
+__device__ __forceinline__ int sw128(int r, int c) { return r * kRowBytes + ((c ^ (r & 7)) << 4); }
+
+// wgmma descriptor of a K-major, 128-byte-swizzled tile at `p` (1024-byte
+// aligned): 8-row groups 1024 bytes apart; the leading offset is unused
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// D[64 x N] (+)= A[64 x 16] · B[16 x N], both from shared memory; the
+// accumulator layout of mma.sync per 8 columns: d[4j + e] is row
+// g + 8·(e / 2), column 8j + 2q + e % 2 of the warp's 16 rows.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+        "%58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void run(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+        "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+        "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+        "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+        "%124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+          "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+          "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+          "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+          "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
+          "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
+          "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
+          "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+          "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+          "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
+          "+f"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+constexpr long long kSpinCycles = 20000000000LL;  // about 10 s: a copy that never lands traps
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+// this thread's arrival, and `bytes` more for the tensor copies to bring
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const long long start = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - start > kSpinCycles) __trap();
   }
 }
 
-template <typename T>
-cudaError_t launch(const Args& a, bool prologue, bool relu, int chunks, cudaStream_t st) {
-  const dim3 grid(a.cout / kBN, chunks);
-  if (!prologue)
-    fused_conv_bn_kernel<T, false, false><<<grid, kConvThreads, 0, st>>>(a);
-  else if (relu)
-    fused_conv_bn_kernel<T, true, true><<<grid, kConvThreads, 0, st>>>(a);
-  else
-    fused_conv_bn_kernel<T, true, false><<<grid, kConvThreads, 0, st>>>(a);
+// the box at (column c0, row c1) of a 2-D tensor map, into shared memory,
+// completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar)) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// grid (Cout / BN, chunks), one CTA an SM: blockIdx.y's chunk is row tiles
+// [y·tiles_per_chunk, min(n_tiles, (y+1)·tiles_per_chunk)), its K stages
+// in one ring across the tiles. kTma: thread 0 fills the ring with tensor
+// copies of x (contiguous, [N, Cin]) and W through the maps tx and tw; else
+// every thread copies its 16-byte pieces (x read through its strides).
+template <int BN, bool kWRes, bool kTma>
+__global__ void __launch_bounds__(kTcThreads, 1)
+fused_conv_bn_tc_kernel(Args a, const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap tw) {
+  using C = Tc<BN, kWRes>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  unsigned char* smem = smem_raw + ((1024 - (base & 1023)) & 1023);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, g = lane >> 2, q = lane & 3;
+  const int col0 = blockIdx.x * BN;
+  const int t0 = blockIdx.y * a.tiles_per_chunk;
+  const int t1 = min(a.n_tiles, t0 + a.tiles_per_chunk);
+  const int nk = (a.cin + kBK - 1) / kBK;
+  const int steps = max(t1 - t0, 0) * nk;
+  const bf16* w = static_cast<const bf16*>(a.w) + (long long)col0 * a.cin;
+  unsigned char* wres = smem + C::kStages * C::kStageBytes;  // [nk][BN rows] when resident
+  unsigned char* ystage = wres + (kWRes ? nk * C::kWBlock : 0) + warp * C::kYWarp;
+  int ypass = 0;  // the warp's staging passes so far
+  float* stat = reinterpret_cast<float*>(wres + (kWRes ? nk * C::kWBlock : 0) + C::kYBytes);
+  // this lane's columns (kLaneCols of each staging pass) summed over the
+  // warp's rows of every tile, in row order: Σy, Σy²
+  float cs[BN / 32], cq[BN / 32];
+#pragma unroll
+  for (int i = 0; i < BN / 32; ++i) cs[i] = cq[i] = 0.f;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stat + C::kStatFloats);  // a ring slot's
+  uint64_t* wfull = full + C::kStages;                                   // resident W's
+  // kTma: stage `it`'s tensor copies, by thread 0
+  auto tma_stage = [&](int it) {
+    if (it >= steps) return;
+    unsigned char* sa = smem + (it % C::kStages) * C::kStageBytes;
+    const int row0 = (t0 + it / nk) * kBM, k0 = (it % nk) * kBK;
+    mbar_expect(full + it % C::kStages, C::kStageBytes);
+    tma_load(sa, &tx, k0, row0, full + it % C::kStages);
+    if (!kWRes) tma_load(sa + kABytes, &tw, k0, col0, full + it % C::kStages);
+  };
+  if constexpr (kTma) {
+    if (tid == 0) {
+      for (int i = 0; i <= C::kStages; ++i) mbar_init(full + i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+      if (kWRes) {
+        mbar_expect(wfull, nk * C::kWBlock);
+        for (int kb = 0; kb < nk; ++kb) tma_load(wres + kb * C::kWBlock, &tw, kb * kBK, col0, wfull);
+      }
+      for (int it = 0; it < C::kStages - 1; ++it) tma_stage(it);
+    }
+  } else if (kWRes) {  // every K stage of the column tile's W, once; the first group
+    for (int i = tid; i < nk * BN * 8; i += kTcThreads) {
+      const int kb = i / (BN * 8), r = (i / 8) % BN, c = i % 8, k = kb * kBK + c * 8;
+      if (k < a.cin) cp_async16(wres + kb * C::kWBlock + sw128(r, c), w + (long long)r * a.cin + k, 16);
+    }
+    cp_async_commit();
+  }
+
+  // the 16-byte pieces this thread copies (and prologues): piece lc of rows
+  // lr + kRowStep·i of the x tile and of the W tile
+  const int lc = tid & 7, lr = tid >> 3;
+  auto load = [&](int it) {  // stage `it` into its ring slot; always one group
+    if (it < steps) {
+      const int row0 = (t0 + it / nk) * kBM, k = (it % nk) * kBK + lc * 8;
+      unsigned char* sa = smem + (it % C::kStages) * C::kStageBytes;
+      unsigned char* sb = sa + kABytes;
+      if (k < a.cin) {
+#pragma unroll
+        for (int i = 0; i < kBM / kRowStep; ++i) {
+          const int r = lr + kRowStep * i, row = row0 + r;
+          const bool ok = row < a.n;
+          cp_async16(sa + sw128(r, lc), ok ? x_row<bf16>(a, row) + k : a.x, ok ? 16 : 0);
+        }
+#pragma unroll
+        for (int i = 0; i < (kWRes ? 0 : BN / kRowStep); ++i) {
+          const int r = lr + kRowStep * i;
+          cp_async16(sb + sw128(r, lc), w + (long long)r * a.cin + k, 16);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (!kTma)
+#pragma unroll
+    for (int s = 0; s < C::kStages - 1; ++s) load(s);
+  float acc[C::kVals];
+#pragma unroll
+  for (int i = 0; i < C::kVals; ++i) acc[i] = 0.f;
+  for (int it = 0; it < steps; ++it) {
+    const int kt = it % nk, row0 = (t0 + it / nk) * kBM, k0 = kt * kBK;
+    unsigned char* sa = smem + (it % C::kStages) * C::kStageBytes;
+    if constexpr (kTma) {  // stage `it` (and at first, W) landed
+      if (kWRes && it == 0) mbar_wait(wfull, 0);
+      mbar_wait(full + it % C::kStages, (it / C::kStages) & 1);
+    } else {
+      cp_async_wait<C::kStages - 2>();  // this thread's pieces of stage `it` landed
+    }
+    if (a.prologue && k0 + lc * 8 < a.cin) {
+      // xn = io((x − pm)·(pi·ps) + pb), ReLU, on this thread's pieces
+      float pm[8], gg[8], pb[8];
+      const int k = k0 + lc * 8;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 m4 = __ldg(reinterpret_cast<const float4*>(a.pm + k) + h);
+        const float4 i4 = __ldg(reinterpret_cast<const float4*>(a.pi + k) + h);
+        const float4 s4 = __ldg(reinterpret_cast<const float4*>(a.ps + k) + h);
+        const float4 b4 = __ldg(reinterpret_cast<const float4*>(a.pb + k) + h);
+        pm[4 * h] = m4.x, pm[4 * h + 1] = m4.y, pm[4 * h + 2] = m4.z, pm[4 * h + 3] = m4.w;
+        pb[4 * h] = b4.x, pb[4 * h + 1] = b4.y, pb[4 * h + 2] = b4.z, pb[4 * h + 3] = b4.w;
+        gg[4 * h] = __fmul_rn(i4.x, s4.x), gg[4 * h + 1] = __fmul_rn(i4.y, s4.y);
+        gg[4 * h + 2] = __fmul_rn(i4.z, s4.z), gg[4 * h + 3] = __fmul_rn(i4.w, s4.w);
+      }
+#pragma unroll
+      for (int i = 0; i < kBM / kRowStep; ++i) {
+        const int r = lr + kRowStep * i;
+        if (row0 + r >= a.n) continue;
+        uint4* piece = reinterpret_cast<uint4*>(sa + sw128(r, lc));
+        uint4 u = *piece;
+        bf16* e = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float xh = __fadd_rn(__fmul_rn(__fsub_rn(to_f<bf16>(e[j]), pm[j]), gg[j]), pb[j]);
+          if (a.relu) xh = fmaxf(xh, 0.f);
+          e[j] = from_f<bf16>(xh);
+        }
+        *piece = u;
+      }
+    }
+    fence_async_smem();  // this thread's copies and writes, visible to wgmma
+    __syncthreads();     // every piece of stage `it`; every wgmma of stage it-1 is done
+    if (!kTma)
+      load(it + C::kStages - 1);  // into the slot stage it-1 used
+    else if (tid == 0)
+      tma_stage(it + C::kStages - 1);
+    const int ksub = min(kBK, a.cin - k0) / 16;
+    const uint64_t da = sw128_desc(sa + wg * 64 * kRowBytes);
+    const uint64_t db = sw128_desc(kWRes ? wres + kt * C::kWBlock : sa + kABytes);
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      if (kk < ksub) Wgmma<BN>::run(acc, da + 2 * kk, db + 2 * kk, kt > 0 || kk > 0);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    if (kt != nk - 1) continue;
+
+    // the tile's epilogue: round, store, and sum the rounded values
+    const int ra = row0 + wg * 64 + (warp & 3) * 16 + g, rb = ra + 8;
+    const bool va = ra < a.n, vb = rb < a.n;  // rows past N stay 0, in y's sums too
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        acc[4 * j + e] = va ? round_io<bf16>(acc[4 * j + e]) : 0.f;
+        acc[4 * j + 2 + e] = vb ? round_io<bf16>(acc[4 * j + 2 + e]) : 0.f;
+      }
+    // the warp's 16 rows staged kYCols columns at a time; each row then one
+    // bulk copy by lane `row` (rows past N are not copied), and each lane
+    // sums its kLaneCols columns of the staged rows
+    const long long yrow = (long long)(ra - g + lane) * a.cout + col0;
+#pragma unroll
+    for (int p = 0; p < BN / C::kYCols; ++p, ++ypass) {
+      unsigned char* ybuf = ystage + (ypass % C::kYBufs) * 16 * C::kYLd;
+      if (lane < 16) bulk_wait_read<C::kYBufs - 1>();  // this buffer's last copies read it
+      __syncwarp();
+#pragma unroll
+      for (int jj = 0; jj < C::kYCols / 8; ++jj) {
+        const int j = p * C::kYCols / 8 + jj;
+        unsigned char* cell = ybuf + g * C::kYLd + (8 * jj + 2 * q) * 2;
+        *reinterpret_cast<uint32_t*>(cell) = pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(cell + 8 * C::kYLd) = pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      fence_async_smem();
+      __syncwarp();
+      if (lane < 16) {
+        if (ra - g + lane < a.n)
+          bulk_store(static_cast<bf16*>(a.y) + yrow + p * C::kYCols, ybuf + lane * C::kYLd,
+                     C::kYCols * 2);
+        bulk_commit();
+      }
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const bf16* row = reinterpret_cast<const bf16*>(ybuf + r * C::kYLd) + lane * C::kLaneCols;
+#pragma unroll
+        for (int c = 0; c < C::kLaneCols; ++c) {
+          const float v = to_f<bf16>(row[c]);
+          cs[p * C::kLaneCols + c] += v;
+          cq[p * C::kLaneCols + c] = __fadd_rn(cq[p * C::kLaneCols + c], __fmul_rn(v, v));
+        }
+      }
+    }
+  }
+  if (lane < 16) bulk_wait();  // the copies are done with the staging rows before exit
+#pragma unroll
+  for (int i = 0; i < BN / 32; ++i) {
+    const int col = (i / C::kLaneCols) * C::kYCols + lane * C::kLaneCols + i % C::kLaneCols;
+    stat[(warp * 2) * BN + col] = cs[i];
+    stat[(warp * 2 + 1) * BN + col] = cq[i];
+  }
+  // the CTA's row: its 8 warps in order
+  __syncthreads();
+  for (int c = tid; c < 2 * BN; c += kTcThreads) {
+    const int which = c / BN, col = c % BN;
+    float s = 0.f;
+#pragma unroll
+    for (int w8 = 0; w8 < kTcWarps; ++w8) s += stat[(w8 * 2 + which) * BN + col];
+    (which ? a.part_sq : a.part_s)[(long long)blockIdx.y * a.cout + col0 + col] = s;
+  }
+  finish_stats(a);
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time (the library
+// links only the runtime)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major bf16 [rows, cols] matrix read as boxes of box_rows x 64
+// columns, 128-byte swizzled as wgmma's descriptors name them; rows past
+// the end read as zeros
+bool encode_2d(CUtensorMap* m, const void* base, long long rows, int cols, int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN, bool kWRes, bool kTma>
+cudaError_t launch_tc(const Args& a, const CUtensorMap& tx, const CUtensorMap& tw,
+                      cudaStream_t st) {
+  auto kernel = fused_conv_bn_tc_kernel<BN, kWRes, kTma>;
+  const int smem = Tc<BN, kWRes>::smem((a.cin + kBK - 1) / kBK);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.cout / BN, a.chunks), kTcThreads, smem, st>>>(a, tx, tw);
   return cudaGetLastError();
+}
+
+// W resident where it fits; tensor copies where x is a contiguous [N, Cin]
+// of at least one K stage, else the 16-byte copies (the stride-2 view)
+template <int BN>
+cudaError_t launch_tc_bn(const Args& a, cudaStream_t st) {
+  const bool resident = (a.cin + kBK - 1) / kBK * Tc<BN, true>::kWBlock <= Tc<BN, true>::kWResMax;
+  const bool tma = a.cin >= kBK && a.sw == a.cin && a.sh == (long long)a.W * a.cin &&
+                   a.sb == (long long)a.H * a.W * a.cin;
+  CUtensorMap tx{}, tw{};
+  if (tma && !(encode_2d(&tx, a.x, a.n, a.cin, kBM) && encode_2d(&tw, a.w, a.cout, a.cin, BN)))
+    return cudaErrorNotSupported;
+  if (tma)
+    return resident ? launch_tc<BN, true, true>(a, tx, tw, st)
+                    : launch_tc<BN, false, true>(a, tx, tw, st);
+  return resident ? launch_tc<BN, true, false>(a, tx, tw, st)
+                  : launch_tc<BN, false, false>(a, tx, tw, st);
 }
 
 }  // namespace
 
 // x: a [B, H, W, Cin] view (strides sb, sh, sw in elements, Cin
 // contiguous, rows on 16 bytes); w: [Cout, Cin] contiguous; pm, pi, ps,
-// pb: [Cin] f32, or null without the prologue; y: [B·H·W, Cout] out;
-// part_s, part_sq: [chunks, Cout] f32 workspaces.
+// pb: [Cin] f32 (16-byte aligned), or null without the prologue; y:
+// [B·H·W, Cout] out; part_s, part_sq: [chunks, Cout] f32 workspaces; s,
+// sq: [Cout] f32 out; ticket: a u32 counter at 0, left at 0. col_tile is
+// fused_conv_kernels.plan's: 64 in f32; 64, 128 or 256 in bf16.
 extern "C" int fused_conv_bn_launch(int io_bf16, int prologue, int relu, int B, int H, int W,
                                     long long sb, long long sh, long long sw, int cin, int cout,
                                     const void* x, const void* w, const void* pm, const void* pi,
                                     const void* ps, const void* pb, void* y, void* part_s,
-                                    void* part_sq, int chunks, int tiles_per_chunk, void* stream) {
+                                    void* part_sq, void* s, void* sq, void* ticket, int col_tile,
+                                    int chunks, int tiles_per_chunk, void* stream) {
   const long long n = (long long)B * H * W;
-  if (B < 1 || H < 1 || W < 1 || n > INT_MAX || cin < kBK || cin % kBK || cout < kBN ||
-      cout % kBN || cout / kBN > 65535 || chunks < 1 || chunks > 65535 || tiles_per_chunk < 1 ||
-      (prologue && !(pm && pi && ps && pb)))
+  const bool tile_ok = io_bf16 ? (col_tile == 64 || col_tile == 128 || col_tile == 256)
+                               : col_tile == kF32BN;
+  if (B < 1 || H < 1 || W < 1 || n > INT_MAX || cin < 32 || cin % 32 || !tile_ok ||
+      cout < col_tile || cout % col_tile || cout / col_tile > 65535 || chunks < 1 ||
+      chunks > 65535 || tiles_per_chunk < 1 || !ticket || (prologue && !(pm && pi && ps && pb)))
     return cudaErrorInvalidValue;
   Args a{};
   a.B = B;
@@ -299,7 +804,10 @@ extern "C" int fused_conv_bn_launch(int io_bf16, int prologue, int relu, int B, 
   a.n = (int)n;
   a.n_tiles = (int)((n + kBM - 1) / kBM);
   a.tiles_per_chunk = tiles_per_chunk;
+  a.chunks = chunks;
   if ((long long)chunks * tiles_per_chunk < a.n_tiles) return cudaErrorInvalidValue;
+  a.prologue = prologue;
+  a.relu = relu;
   a.x = x;
   a.w = w;
   a.pm = static_cast<const float*>(pm);
@@ -309,20 +817,16 @@ extern "C" int fused_conv_bn_launch(int io_bf16, int prologue, int relu, int B, 
   a.y = y;
   a.part_s = static_cast<float*>(part_s);
   a.part_sq = static_cast<float*>(part_sq);
+  a.s = static_cast<float*>(s);
+  a.sq = static_cast<float*>(sq);
+  a.ticket = static_cast<unsigned*>(ticket);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return io_bf16 ? launch<__nv_bfloat16>(a, prologue, relu, chunks, st)
-                 : launch<float>(a, prologue, relu, chunks, st);
-}
-
-// s, sq: [Cout] f32 out, the chunk sums of part_s, part_sq.
-extern "C" int fused_conv_bn_reduce_launch(const void* part_s, const void* part_sq, int chunks,
-                                           int cout, void* s, void* sq, void* stream) {
-  if (chunks < 1 || cout < 1) return cudaErrorInvalidValue;
-  fused_conv_bn_reduce_kernel<<<(cout + kRedCols - 1) / kRedCols, 256, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part_s), static_cast<const float*>(part_sq), chunks, cout,
-      static_cast<float*>(s), static_cast<float*>(sq));
-  return cudaGetLastError();
+  if (!io_bf16) return launch_f32(a, st);
+  switch (col_tile) {
+    case 64: return launch_tc_bn<64>(a, st);
+    case 128: return launch_tc_bn<128>(a, st);
+    default: return launch_tc_bn<256>(a, st);
+  }
 }
 
 extern "C" const char* fused_conv_bn_error_string(int err) {

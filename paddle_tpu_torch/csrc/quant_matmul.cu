@@ -40,7 +40,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using ptt::cp_async16;
+using ptt::cp_async_commit;
+using ptt::cp_async_wait;
 
 constexpr int kBM = 128, kBN = 128, kBK = 64;
 constexpr int kWarpsM = 2, kWarpsN = 4;
@@ -59,18 +65,6 @@ constexpr int kStageBytes = kABytes + kBBytes;
 // in distinct chunks for q = 0..3.
 __device__ __forceinline__ int b_off(int k, int n) {
   return k * kBN + ((((n >> 4) ^ (((k >> 2) & 3) << 1)) << 4) | (n & 15));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // r[j] holds columns c0..c3 of row j; out[i] holds rows 0..3 of column i
@@ -145,7 +139,7 @@ __global__ void __launch_bounds__(kThreads)
       load_stage<kVecA, kVecB>(smem + ((kt + 1) & 1) * kStageBytes, A, B, M, N, K, m0, n0,
                                (kt + 1) * kBK);
     cp_async_commit();
-    cp_async_wait_prev();  // this stage's group has landed
+    cp_async_wait<1>();  // this stage's group has landed
     __syncthreads();
     const int8_t* sA = smem + (kt & 1) * kStageBytes;
     const int8_t* sB = sA + kABytes;

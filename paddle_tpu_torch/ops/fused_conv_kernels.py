@@ -19,11 +19,18 @@ ps, pb:
 `fused_matmul_bn` takes CUDA tensors to the kernel, or raises; CPU tensors
 to `fused_matmul_bn_plain`. There is no fallback from one to the other.
 
-The kernel's eligibility is Hopper's, not the TPU's: Cin a multiple of the
-kernel's 32-deep K tile and Cout of its 64-wide column tile, any N (tail
-rows masked), bf16 or f32. It admits all 36 `fused_conv_bn` calls of
-ResNet-50 (Cin 64..2048, Cout 64..2048), where the TPU rule (Cin and Cout
-multiples of 128, a row block dividing N that fits VMEM) admits 29.
+The kernel is one launch, its statistics' reduce folded in (the last CTA
+to finish sums the CTAs' rows in a fixed order). `plan` deals the work: in
+bf16 a persistent grid of one CTA an SM, each owning a column tile of up to
+256 output channels (so for Cout <= 256 x is read once) and a contiguous
+chunk of 128-row tiles; in f32 64-wide column tiles, about eight CTAs an
+SM.
+
+The kernel's eligibility is Hopper's, not the TPU's: Cin a multiple of 32
+and Cout of 64, any N (tail rows masked), bf16 or f32. It admits all 36
+`fused_conv_bn` calls of ResNet-50 (Cin 64..2048, Cout 64..2048), where
+the TPU rule (Cin and Cout multiples of 128, a row block dividing N that
+fits VMEM) admits 29.
 """
 
 from __future__ import annotations
@@ -31,31 +38,58 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import cuda_build
 
-# launches of the CUDA kernels in this process; chip_smoke.py reads them
+# launches of the CUDA kernel in this process; chip_smoke.py reads it
 fused_conv_bn_launches = 0
-fused_conv_bn_reduce_launches = 0
 # inputs the wrapper had to copy before a launch (a misaligned view);
 # the stride-2 projection's subsampled view is read in place
 fused_conv_bn_input_copies = 0
 
-K_TILE = 32     # kK in csrc/fused_conv_bn.cu
-COL_TILE = 64   # kBN
-ROW_TILE = 128  # kBM
+K_STEP = 32      # Cin's granule: the kernels' K steps take 32 channels or more
+COL_GRANULE = 64  # Cout's: the narrowest column tile
+ROW_TILE = 128   # kBM in csrc/fused_conv_bn.cu
 _IO_DTYPES = (torch.float32, torch.bfloat16)
-# CTAs a launch aims for on each SM (two fit by registers); the row tiles
-# are dealt to CTAs in contiguous chunks to reach about this many
-_CTAS_PER_SM = 8
+# CTAs a launch aims for on each SM: the bf16 kernel is persistent, one an
+# SM; the f32 kernel's smaller CTAs fit several
+_CTAS_PER_SM = {torch.bfloat16: 1, torch.float32: 8}
+
+
+class Plan(NamedTuple):
+    """How one call is dealt: column tiles of `col_tile` output channels,
+    each taken by `chunks` CTAs of `tiles_per_chunk` consecutive row tiles
+    (the last chunk may be shorter); grid (Cout / col_tile, chunks)."""
+    col_tile: int
+    chunks: int
+    tiles_per_chunk: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan(n: int, cout: int, dtype, n_sms: int) -> Plan:
+    """The launch's work split for N rows and Cout channels on a card of
+    `n_sms` SMs: in bf16 the widest of 256, 128, 64 that divides Cout, in
+    f32 64; row tiles dealt in contiguous chunks, no chunk empty, about
+    _CTAS_PER_SM CTAs an SM over the grid. Chunk c holds row tiles
+    [c·tiles_per_chunk, (c+1)·tiles_per_chunk); the statistics are summed
+    over chunks 0, 1, ... in that order."""
+    if dtype == torch.bfloat16:
+        col = next(c for c in (256, 128, 64) if cout % c == 0)
+    else:
+        col = COL_GRANULE
+    n_tiles = math.ceil(n / ROW_TILE)
+    want = max(1, min(n_tiles, (_CTAS_PER_SM[dtype] * n_sms) // (cout // col)))
+    per = math.ceil(n_tiles / want)
+    return Plan(col, math.ceil(n_tiles / per), per)
 
 
 def fused_conv_eligible(n: int, cin: int, cout: int, dtype) -> bool:
     """Whether the kernel takes these shapes."""
-    return (dtype in _IO_DTYPES and n >= 1 and cin >= K_TILE and cin % K_TILE == 0
-            and cout >= COL_TILE and cout % COL_TILE == 0)
+    return (dtype in _IO_DTYPES and n >= 1 and cin >= K_STEP and cin % K_STEP == 0
+            and cout >= COL_GRANULE and cout % COL_GRANULE == 0)
 
 
 # ------------------------------------------------------------------ plain --
@@ -105,14 +139,25 @@ def _lib():
     lib = cuda_build.load("fused_conv_bn")
     if lib.fused_conv_bn_launch.argtypes is None:
         i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-        lib.fused_conv_bn_launch.argtypes = [i] * 3 + [i] * 3 + [ll] * 3 + [i] * 2 + [p] * 9 + \
-            [i] * 2 + [p]
-        lib.fused_conv_bn_reduce_launch.argtypes = [p, p, i, i, p, p, p]
-        for fn in (lib.fused_conv_bn_launch, lib.fused_conv_bn_reduce_launch):
-            fn.restype = ctypes.c_int
+        lib.fused_conv_bn_launch.argtypes = [i] * 3 + [i] * 3 + [ll] * 3 + [i] * 2 + \
+            [p] * 12 + [i] * 3 + [p]
+        lib.fused_conv_bn_launch.restype = ctypes.c_int
         lib.fused_conv_bn_error_string.argtypes = [i]
         lib.fused_conv_bn_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_tickets = {}
+
+
+def _ticket(device):
+    """The device's u32 counter the kernel's CTAs take tickets from: 0
+    between launches (the last CTA resets it), so one serves every launch
+    on the device's stream."""
+    t = _tickets.get(device.index)
+    if t is None:
+        t = _tickets[device.index] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
 
 
 def _as_4d(x):
@@ -141,15 +186,6 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _row_chunks(n_tiles: int, col_tiles: int, device) -> tuple:
-    """(chunks, tiles a chunk): the row tiles dealt in contiguous chunks,
-    about _CTAS_PER_SM CTAs an SM over the grid."""
-    sms = _sm_count(device.index)
-    want = max(1, min(n_tiles, math.ceil(_CTAS_PER_SM * sms / col_tiles)))
-    per = math.ceil(n_tiles / want)
-    return math.ceil(n_tiles / per), per
-
-
 def _check(x, w, vecs):
     if x.dtype not in _IO_DTYPES:
         raise TypeError(f"fused_matmul_bn: io dtype must be float32 or bfloat16, got {x.dtype}")
@@ -168,10 +204,17 @@ def _check(x, w, vecs):
         raise ValueError(f"fused_matmul_bn: unsupported device {x.device}")
 
 
+def _aligned(v):
+    """v itself if contiguous and on 16 bytes (the kernel reads 16 at a
+    time), else a copy."""
+    return v if v.is_contiguous() and v.data_ptr() % 16 == 0 else \
+        v.clone(memory_format=torch.contiguous_format)
+
+
 def fused_matmul_bn(x, w, pm=None, pi=None, ps=None, pb=None, relu: bool = True):
     """See fused_matmul_bn_plain for the contract. CUDA tensors launch the
-    sm_90a kernel and its statistics reduce (stats_reduce); CPU tensors
-    run the plain version."""
+    sm_90a kernel (one launch, the statistics included); CPU tensors run
+    the plain version."""
     global fused_conv_bn_launches
     vecs = (pm, pi, ps, pb)
     prologue = pm is not None
@@ -185,59 +228,31 @@ def fused_matmul_bn(x, w, pm=None, pi=None, ps=None, pb=None, relu: bool = True)
     n = x4.shape[0] * x4.shape[1] * x4.shape[2]
     if not fused_conv_eligible(n, cin, cout, x.dtype):
         raise ValueError(f"fused_matmul_bn: the kernel does not take N={n}, Cin={cin}, "
-                         f"Cout={cout} ({x.dtype}); Cin must be a multiple of {K_TILE} and "
-                         f"Cout of {COL_TILE}")
-    w = w if w.is_contiguous() and w.data_ptr() % 16 == 0 else w.contiguous()
+                         f"Cout={cout} ({x.dtype}); Cin must be a multiple of {K_STEP} and "
+                         f"Cout of {COL_GRANULE}")
+    w = _aligned(w)
     if prologue:
-        vecs = tuple(v.contiguous() for v in vecs)
-    chunks, per = _row_chunks(math.ceil(n / ROW_TILE), cout // COL_TILE, x.device)
+        vecs = tuple(_aligned(v) for v in vecs)
+    pl = plan(n, cout, x.dtype, _sm_count(x.device.index))
     y = torch.empty(n, cout, dtype=x.dtype, device=x.device)
-    part = torch.empty(2, chunks, cout, dtype=torch.float32, device=x.device)
+    # one f32 workspace: the CTAs' rows of Σy and Σy² [2, chunks, Cout], then s, sq
+    ws = torch.empty(2 * (pl.chunks + 1) * cout, dtype=torch.float32, device=x.device)
+    part = pl.chunks * cout * 4  # bytes of one of the two
     ptrs = [v.data_ptr() if prologue else None for v in vecs]
     with torch.cuda.device(x.device):
         lib = _lib()
         err = lib.fused_conv_bn_launch(
             int(x.dtype == torch.bfloat16), int(prologue), int(bool(relu)), *x4.shape[:3],
             *x4.stride()[:3], cin, cout, x4.data_ptr(), w.data_ptr(), *ptrs, y.data_ptr(),
-            part[0].data_ptr(), part[1].data_ptr(), chunks, per,
-            torch.cuda.current_stream().cuda_stream)
+            ws.data_ptr(), ws.data_ptr() + part, ws.data_ptr() + 2 * part,
+            ws.data_ptr() + 2 * part + cout * 4, _ticket(x.device).data_ptr(), pl.col_tile,
+            pl.chunks, pl.tiles_per_chunk, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_conv_bn kernel launch failed (N={n}, Cin={cin}, "
                            f"Cout={cout}, {x.dtype}): {lib.fused_conv_bn_error_string(err).decode()}")
     fused_conv_bn_launches += 1
-    s, sq = stats_reduce(part)
+    s, sq = ws[-2 * cout:].view(2, cout).unbind(0)
     return y, s, sq
-
-
-def stats_reduce_plain(part):
-    """part [2, chunks, Cout] f32, the CTAs' per-chunk sums of y and y²:
-    the sums over the chunks, [2, Cout]."""
-    return part.sum(1)
-
-
-def stats_reduce(part):
-    """The second launch of the unit on a CUDA workspace (the chunks
-    summed in chunk order, the same bits on every run); the plain version
-    on a CPU one."""
-    global fused_conv_bn_reduce_launches
-    if part.dim() != 3 or part.shape[0] != 2 or part.dtype != torch.float32:
-        raise ValueError(f"stats_reduce: part must be [2, chunks, Cout] f32, got "
-                         f"{list(part.shape)} {part.dtype}")
-    if part.device.type == "cpu":
-        return stats_reduce_plain(part)
-    part = part.contiguous()
-    _, chunks, cout = part.shape
-    stats = torch.empty(2, cout, dtype=torch.float32, device=part.device)
-    with torch.cuda.device(part.device):
-        lib = _lib()
-        err = lib.fused_conv_bn_reduce_launch(part[0].data_ptr(), part[1].data_ptr(), chunks,
-                                              cout, stats[0].data_ptr(), stats[1].data_ptr(),
-                                              torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_conv_bn_reduce kernel launch failed (chunks={chunks}, "
-                           f"Cout={cout}): {lib.fused_conv_bn_error_string(err).decode()}")
-    fused_conv_bn_reduce_launches += 1
-    return stats
 
 
 # ---------------------------------------------------------------- autograd --

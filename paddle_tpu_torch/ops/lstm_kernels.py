@@ -7,9 +7,16 @@ Replaces the TPU kernels `_lstm_kernel` / `_lstm_pallas_raw` and
 155-389) and `lstm_fused` / `_lstm_core` (:391-453). Gate layout in the 4H
 columns: [i, f, g (candidate), o]. Both kernels are bound by their T
 dependent steps, not by bytes or FLOPs: each step needs all of the previous
-step's h (or the dgates of every unit), so the card meets at a grid
-barrier once a step. Each CTA keeps its slice of W in shared memory for all
-T steps, and the per-step exchange stays in L2 (see the sources' notes).
+step's h (or the dgates of every unit), so CTAs meet at a barrier once a
+step, and the per-step exchange stays in L2 (see the sources' notes).
+
+The bf16 forward runs its product on the tensor cores, a CTA owning
+UNITS_PER_CTA hidden units of a group of batch rows, with a barrier among
+the group's CTAs only. Its W slice is read in the packed layout `pack_w`
+makes: for each group of 16 units, 64 gate columns ordered so that one
+thread's mma.sync accumulator fragment holds i, f, g and o of one unit
+(`packed_columns`), each stored K-contiguous (Wᵀ), H padded to a multiple
+of 16 with zeros. The f32 forward and the backward read W as it is.
 
 `lstm_fwd` and `lstm_bwd` take CUDA tensors to the kernel, or raise; CPU
 tensors to the plain version. There is no fallback from one to the other.
@@ -32,6 +39,11 @@ lstm_bwd_launches = 0
 LSTM_FUSED_DW_MAX_H = 640
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
+
+# kUnits and kRows in csrc/lstm_fwd.cu: the bf16 forward's hidden units a
+# CTA and batch rows a sub-tile
+UNITS_PER_CTA = 16
+ROWS_PER_TILE = 32
 
 
 def _gates(gates):
@@ -69,11 +81,58 @@ def lstm_fwd_plain(x, mask, w, reverse: bool = False):
     return h_seq, c_seq, h, c
 
 
+def padded_units(H: int) -> int:
+    """H rounded up to whole groups of UNITS_PER_CTA (the bf16 forward's
+    Hp: the packed W's k extent and the h exchange buffer's row)."""
+    return -(-H // UNITS_PER_CTA) * UNITS_PER_CTA
+
+
+def packed_columns(H: int):
+    """The bf16 forward's packed gate-column order: for packed column
+    (group, n), n < 4·UNITS_PER_CTA, the column of W [H, 4H] it holds, or
+    -1 where its unit is padding. Within a group, warp quad uq's 16
+    columns hold units 4·uq + r (r < 4) as n = 16·uq + 8·(gate // 2) +
+    2·r + gate % 2, so mma.sync's accumulator lane r holds i, f (first
+    n-tile) and g, o (second) of one unit. Returns a [groups·64] long
+    tensor."""
+    groups = padded_units(H) // UNITS_PER_CTA
+    # axes: group, uq, gate // 2, r, gate % 2 (the packed order, n fastest last)
+    grp, uq, gh, r, gl = torch.meshgrid(
+        torch.arange(groups), torch.arange(UNITS_PER_CTA // 4), torch.arange(2),
+        torch.arange(4), torch.arange(2), indexing="ij")
+    unit = grp * UNITS_PER_CTA + uq * 4 + r
+    col = torch.where(unit < H, (2 * gh + gl) * H + unit, torch.full_like(unit, -1))
+    return col.reshape(-1)
+
+
+def pack_w(w):
+    """W [H, 4H] in the bf16 forward's layout: [groups, 64, Hp] with
+    packed[g, n, k] = W[k, packed_columns(H)[64·g + n]], zero where the
+    unit or k is padding (Hp = padded_units(H))."""
+    H = w.shape[0]
+    Hp = padded_units(H)
+    cols = packed_columns(H).to(w.device)
+    valid = cols >= 0
+    out = torch.zeros(cols.numel(), Hp, dtype=w.dtype, device=w.device)
+    out[valid, :H] = w.t()[cols[valid]]
+    return out.reshape(-1, 4 * UNITS_PER_CTA, Hp)
+
+
+def unpack_gates(packed, H: int):
+    """Gate pre-activations in the packed column order [..., groups·64]
+    back to W's order [..., 4H] (the padding columns dropped)."""
+    cols = packed_columns(H).to(packed.device)
+    valid = cols >= 0
+    out = packed.new_empty(*packed.shape[:-1], 4 * H)
+    out[..., cols[valid]] = packed[..., valid]
+    return out
+
+
 def _lib(name):
     lib = cuda_build.load(name)
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
-        n_ptr = 8 if name == "lstm_fwd" else 11
+        n_ptr = 9 if name == "lstm_fwd" else 11
         n_int = 4 if name == "lstm_fwd" else 5
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
@@ -125,21 +184,28 @@ def lstm_fwd(x, mask, w, reverse: bool = False):
     T, B, H4 = x.shape
     H = H4 // 4
     dt = x.dtype
+    bf16 = dt == torch.bfloat16
     x = x.contiguous()
-    w = w.to(dt).contiguous()
+    w = w.to(dt)
+    w = pack_w(w) if bf16 else w.contiguous()
     mask = mask.to(torch.float32).contiguous()
+    # one zeroed workspace: the two h exchange buffers [2, B, Hp], then
+    # (bf16) the batch groups' barrier counters, at most one a row tile
+    hp = padded_units(H) if bf16 else H
+    h_bytes = 2 * B * hp * x.element_size()
+    n_bars = -(-B // ROWS_PER_TILE) if bf16 else 0
     with torch.cuda.device(x.device):
         lib = _lib("lstm_fwd")
         h_seq = torch.empty(T, B, H, dtype=dt, device=x.device)
         c_seq = torch.empty(T, B, H, dtype=dt, device=x.device)
         h_T = torch.empty(B, H, dtype=dt, device=x.device)
         c_T = torch.empty(B, H, dtype=dt, device=x.device)
-        hbuf = torch.zeros(2, B, H, dtype=dt, device=x.device)
+        ws = torch.zeros(h_bytes + 4 * n_bars, dtype=torch.uint8, device=x.device)
         err = lib.lstm_fwd_launch(
-            int(dt == torch.bfloat16), x.data_ptr(), mask.data_ptr(), w.data_ptr(),
+            int(bf16), x.data_ptr(), mask.data_ptr(), w.data_ptr(),
             h_seq.data_ptr(), c_seq.data_ptr(), h_T.data_ptr(), c_T.data_ptr(),
-            hbuf.data_ptr(), T, B, H, int(bool(reverse)),
-            torch.cuda.current_stream().cuda_stream)
+            ws.data_ptr(), ws.data_ptr() + h_bytes if bf16 else None, T, B, H,
+            int(bool(reverse)), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"lstm_fwd kernel launch failed (T={T}, B={B}, H={H}, {dt}): "

@@ -152,6 +152,98 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(bad):
         lstm_kernels.lstm_bwd(gp, cp, hp, dh, mask, w, dhT, dcT)
 
 
+# ------------------------------------------- the bf16 forward's W layout --
+@pytest.mark.parametrize("H", [1, 16, 17, 100, 512])
+def test_packed_columns_hold_every_gate_column_once(H):
+    """pack_w's column order: each column of W [H, 4H] once, padding units
+    as -1, and in each warp quad's 16 columns lane r's accumulator pairs
+    (columns 2r, 2r+1 of the first n-tile, of the second) holding i, f and
+    g, o of one unit."""
+    cols = lstm_kernels.packed_columns(H)
+    Hp = lstm_kernels.padded_units(H)
+    assert Hp % 16 == 0 and H <= Hp < H + 16 and cols.numel() == 4 * Hp
+    valid = cols[cols >= 0]
+    assert sorted(valid.tolist()) == list(range(4 * H))
+    assert int((cols < 0).sum()) == 4 * (Hp - H)
+    quads = cols.reshape(Hp // 16, 4, 16)
+    for grp in range(Hp // 16):
+        for uq in range(4):
+            for r in range(4):
+                unit = grp * 16 + uq * 4 + r
+                got = [int(quads[grp, uq, n]) for n in (2 * r, 2 * r + 1, 8 + 2 * r, 9 + 2 * r)]
+                want = [g * H + unit if unit < H else -1 for g in range(4)]
+                assert got == want
+
+
+@pytest.mark.parametrize("H", [5, 100, 128])
+def test_packed_product_unpacks_to_h_times_w(H):
+    """h (padded to Hp) times the packed W, unpacked, is h @ W: the same
+    dot products over the same terms, the padding adding zeros (float64)."""
+    rng = np.random.RandomState(H)
+    w = torch.as_tensor(rng.randn(H, 4 * H))
+    h = torch.as_tensor(rng.randn(6, H))
+    packed = lstm_kernels.pack_w(w)
+    Hp = lstm_kernels.padded_units(H)
+    assert packed.shape == (Hp // 16, 64, Hp) and packed.dtype == w.dtype
+    hp = torch.zeros(6, Hp, dtype=h.dtype)
+    hp[:, :H] = h
+    got = lstm_kernels.unpack_gates(hp @ packed.reshape(-1, Hp).T, H)
+    torch.testing.assert_close(got, h @ w, rtol=0, atol=1e-12)
+
+
+def _packed_recurrence(x, mask, w, reverse):
+    """lstm_fwd_plain's recurrence with its product taken through the bf16
+    kernel's layout: h padded, times pack_w(W), unpacked."""
+    T, B, H4 = x.shape
+    H, dt = H4 // 4, x.dtype
+    Hp = lstm_kernels.padded_units(H)
+    wp = lstm_kernels.pack_w(w.to(dt)).float().reshape(-1, Hp)
+    mf = mask.float()
+    h = torch.zeros(B, H, dtype=dt)
+    c = torch.zeros(B, H, dtype=dt)
+    h_seq = torch.empty(T, B, H, dtype=dt)
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        hf, cf = h.float(), c.float()
+        hpad = torch.zeros(B, Hp)
+        hpad[:, :H] = hf
+        i, f, g, o = lstm_kernels._gates(x[t].float() + lstm_kernels.unpack_gates(hpad @ wp.T, H))
+        cn = f * cf + i * g
+        m = mf[t][:, None]
+        h = (m * o * torch.tanh(cn) + (1 - m) * hf).to(dt)
+        c = (m * cn + (1 - m) * cf).to(dt)
+        h_seq[t] = h
+    return h_seq, h, c
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("shape", [(T, 8, H), (1, 3, 100), (4, 3, 100)], ids=["main", "T1", "H100"])
+def test_packed_layout_matches_plain_and_pallas(shape, reverse, dtype):
+    """The recurrence through the packed W against lstm_fwd_plain and the
+    JAX package's kernel in interpret mode, with the forward's tolerances,
+    at H a multiple of 16 and not, T=1, and a row masked at every step."""
+    T_, B_, H_ = shape
+    rng = np.random.RandomState(7 + H_)
+    x = rng.randn(T_, B_, 4 * H_).astype(np.float32)
+    w = (rng.randn(H_, 4 * H_) / np.sqrt(H_)).astype(np.float32)
+    lens = rng.randint(1, T_ + 1, size=B_)
+    lens[0], lens[1] = T_, 0
+    mask = np.arange(T_)[:, None] < lens[None, :]
+    tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+    xt = torch.tensor(x).to(tdt)
+    got = _packed_recurrence(xt, torch.tensor(mask), torch.tensor(w), reverse)
+    plain = lstm_kernels.lstm_fwd_plain(xt, torch.tensor(mask), torch.tensor(w), reverse=reverse)
+    want = _pallas_fwd(jnp.asarray(x).astype(jdt), jnp.asarray(w), mask, reverse)
+    for name, g, p_, jw in zip(("h_seq", "h_T", "c_T"), got, (plain[0], plain[2], plain[3]),
+                               (want[0], want[2], want[3])):
+        for ref in (p_.float().numpy(), jw):
+            np.testing.assert_allclose(g.float().numpy(), ref, rtol=0, atol=_TOL[dtype],
+                                       err_msg=name)
+    if dtype == "bfloat16":
+        assert np.mean(got[0].float().numpy() != want[0]) <= _BF16_MAX_DIFFERING
+    assert not got[0][:, 1].float().abs().any()  # the masked row keeps its zero state
+
+
 # ------------------------------------------------------------- backward --
 _BWD_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
 _BWD_BF16_MAX_DIFFERING = 0.01  # share of dx's elements

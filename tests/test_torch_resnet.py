@@ -212,6 +212,65 @@ def test_unit_checks_its_inputs():
     assert not fk.fused_conv_eligible(64, 64, 96, BF16)
 
 
+# The bf16 kernel's planner (fused_conv_kernels.plan): a persistent grid of
+# one CTA an SM on a 132-SM card, column tiles of up to 256 channels.
+_SMS = 132
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_plan_deals_each_row_tile_to_one_cta(dtype):
+    """Every ResNet-50 1x1 shape at B=128 (all 36 eligible): the column
+    tile divides Cout (bf16: the widest of 256, 128, 64, so for Cout <= 256
+    x is read once), the chunks cover the row tiles exactly once in
+    ascending order with none empty, and the bf16 grid fits one wave."""
+    shapes = _resnet50_fused_shapes(128)
+    assert sum(fk.fused_conv_eligible(n, ci, co, dtype) for n, ci, co in shapes) == 36
+    for n, _, cout in set(shapes):
+        pl = fk.plan(n, cout, dtype, _SMS)
+        assert cout % pl.col_tile == 0
+        if dtype == BF16:
+            assert pl.col_tile == min(cout, 256)
+            assert (cout // pl.col_tile) * pl.chunks <= _SMS
+        else:
+            assert pl.col_tile == fk.COL_GRANULE
+        n_tiles = math.ceil(n / fk.ROW_TILE)
+        owners = [c for c in range(pl.chunks)
+                  for _ in range(c * pl.tiles_per_chunk,
+                                 min(n_tiles, (c + 1) * pl.tiles_per_chunk))]
+        assert owners == sorted(owners) and len(owners) == n_tiles
+        assert set(owners) == set(range(pl.chunks))
+
+
+def test_plan_fixes_the_statistics_order():
+    """The kernel sums each chunk's rows into one row of its workspace and
+    then the rows in chunk order: an order set by the plan alone, which is a
+    function of (N, Cout, dtype, SMs). The same sums taken that way in f32
+    on the CPU are the same bits every time, and within f32 rounding of the
+    plain version's statistics."""
+    rng = np.random.RandomState(5)
+    n, cout = 5000, 128
+    y = torch.as_tensor(rng.standard_normal((n, cout)), dtype=BF16)
+    pl = fk.plan(n, cout, BF16, 7)
+    assert pl == fk.plan(n, cout, BF16, 7) and pl.chunks == 7
+
+    def chunked(y):
+        yf = y.float()
+        rows = [yf[c * pl.tiles_per_chunk * fk.ROW_TILE:(c + 1) * pl.tiles_per_chunk * fk.ROW_TILE]
+                for c in range(pl.chunks)]
+        s = torch.zeros(cout)
+        q = torch.zeros(cout)
+        for r in rows:  # chunk order
+            s = s + r.sum(0)
+            q = q + (r * r).sum(0)
+        return s, q
+
+    a, b = chunked(y), chunked(y)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    want = fk.sum_sq(y, 0, f32_squares=True)
+    for got, w in zip(a, want):
+        assert float((got - w).abs().max()) <= 1e-5 * float(y.float().abs().sum(0).max())
+
+
 def _resnet50_fused_shapes(batch):
     """(N, Cin, Cout) of each fused_conv_bn op of the 224x224 program."""
     prog, _, _ = build(ptt)
