@@ -20,27 +20,62 @@
 // causal) the forward moves about 135 MB for 34 GFLOP and is bound by
 // bytes; the two backward kernels do 69 and 52 GFLOP for 200 and 170 MB
 // and are bound by their operations. So none of them writes the [T,T]
-// scores to memory: each block of scores lives in registers and one
-// shared-memory tile, as in the TPU kernel.
+// scores to memory: each block of scores lives in registers, as in the TPU
+// kernel.
 //
-// Design, simple first. A CTA of 4 warps owns 64 rows (queries for the
-// forward and dQ, keys for dK/dV) of one (b, h); each warp owns 16 of
-// them. Tiles of 64 rows of the other side are staged in shared memory, one
-// after the other, skipping the blocks above the diagonal when causal.
-// Both products of a block run on the tensor cores in bf16 (mma.sync
-// m16n8k16, f32 accumulators); the scores and softmax are f32 in registers.
-// The second product's left operand (P, or dS) goes through the warp's own
-// shared-memory rows, rounded to the io dtype there, as the TPU kernel
-// casts p and ds to the io dtype before its dots. In f32 io the same
-// fragments are computed with f32 FMAs, so f32 runs keep f32 precision.
-// Every output element is written by one CTA: no atomics, the same bits on
-// every run. wgmma, TMA and a pipelined, warp-specialised schedule are
-// later work.
+// The forward, and the backward in f32 io: a CTA of 4 warps owns 64 rows
+// (queries for the forward and dQ, keys for dK/dV) of one (b, h); each warp
+// owns 16 of them. Tiles of 64 rows of the other side are staged in shared
+// memory, one after the other, skipping the blocks above the diagonal when
+// causal. Both products of a block run on mma.sync m16n8k16 (bf16, f32
+// accumulators), or with f32 FMAs on the same fragments in f32 io; the
+// scores and softmax are f32 in registers. The second product's left
+// operand (P, or dS) goes through the warp's own shared-memory rows,
+// rounded to the io dtype there, as the TPU kernel casts p and ds to the io
+// dtype before its dots.
+//
+// The backward in bf16 io (flash_bwd_dkv_tc_kernel, flash_bwd_dq_tc_kernel)
+// is bound by its 7 products (4 in dK/dV, 3 in dQ: S and dP are computed
+// in both, so each output element is written by one CTA, with no atomics).
+// So they run on wgmma and keep the tensor cores fed:
+// - A CTA is one consumer warpgroup, which owns 64 rows (keys for dK/dV,
+//   queries for dQ) of one (b, h), and a producer warp; two CTAs fit an SM
+//   at D=64. TMA brings the CTA's own K and V (Q and dO) once; they stay in
+//   shared memory. The producer streams the other side's 64-row tiles (Q
+//   and dO, K and V) through a ring of three stages, each completing on
+//   its mbarrier and freed by the consumers on another, so the next tiles
+//   land while this one is multiplied. The dK/dV producer's lanes also copy
+//   each query tile's LSE·log2 e and Di rows into the stage. (128-row
+//   dK/dV CTAs, two warpgroups sharing each streamed tile, ran no faster.)
+// - The tensor maps are 4-D (D, H, T, B) over the [B,T,H,D] views as
+//   they are, boxes of 64 columns (one 128-byte swizzled row) by 64 rows;
+//   rows past T read as zeros and are not written.
+// - Sᵀ = K Qᵀ and dPᵀ = V dOᵀ (S = Q Kᵀ and dP = dO Vᵀ for dQ) are wgmma
+//   m64n64k16 with both operands K-major in shared memory. P = 2^(s·scale
+//   ·log2 e − LSE·log2 e) and dS = P∘(dP − Di)·scale are f32 in registers,
+//   then rounded to bf16 into the A fragments of the second products
+//   (wgmma's accumulator layout is its A layout per 16 columns): dV += Pᵀ
+//   dO, dK += dSᵀ Q, dQ += dS K, with dO, Q and K MN-major through their
+//   descriptors, so P and dS never go to shared memory.
+// - Only blocks on the diagonal (causal) or past T evaluate the mask; the
+//   walk and the mask flags are ops/flash_kernels.py's bwd_schedule.
+//   Causal CTAs with the most blocks launch first (key block 0, the last
+//   query block).
+// - Each output element is written once, by a TMA store of the rounded
+//   accumulator staged in shared memory: the same bits on every run.
+// What holds them back: a warpgroup waits on its own S and dP before the
+// exponentials and on dV and dK before the next block, so its products
+// idle through the block's 4096 exponentials and their arithmetic; only
+// the other CTA on the SM fills that time, and the accumulators' registers
+// keep a third off. Two consumer warpgroups a CTA that take turns are the
+// way on.
 
 #include "common.cuh"
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // A [B,T,H,D] tensor: its data and its strides in elements (d's is 1).
 // Outside the anonymous namespace: the C interface below takes it.
@@ -188,13 +223,14 @@ flash_fwd_kernel(View q, View k, View v, View o, float* __restrict__ lse, int T_
   }
 }
 
-// ------------------------------------------------------- backward dK/dV --
+// ------------------------------------------------- backward dK/dV, f32 --
 // One CTA per (k block of 64, h, b): walks the q blocks from the diagonal.
 // smem: K, V, Q, dO [64][D+kPad], Pᵀ then dSᵀ [64][kLdP], LSE and Di [64] f32.
 template <typename T, int D, bool kCausal>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_bwd_dkv_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
                      const float* __restrict__ di, View dk, View dv, int T_, int H, float scale) {
+  static_assert(std::is_same<T, float>::value, "bf16 runs flash_bwd_dkv_tc_kernel");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kLd = D + kPad;
   T* sK = reinterpret_cast<T*>(smem_raw);
@@ -271,13 +307,14 @@ flash_bwd_dkv_kernel(View q, View k, View v, View dout, const float* __restrict_
   }
 }
 
-// ---------------------------------------------------------- backward dQ --
+// ---------------------------------------------------- backward dQ, f32 --
 // One CTA per (q block of 64, h, b): walks the k blocks up to the diagonal.
 // smem: Q, dO, K, V [64][D+kPad], dS [64][kLdP].
 template <typename T, int D, bool kCausal>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_bwd_dq_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
                     const float* __restrict__ di, View dq, int T_, int H, float scale) {
+  static_assert(std::is_same<T, float>::value, "bf16 runs flash_bwd_dq_tc_kernel");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kLd = D + kPad;
   T* sQ = reinterpret_cast<T*>(smem_raw);
@@ -340,6 +377,349 @@ flash_bwd_dq_kernel(View q, View k, View v, View dout, const float* __restrict__
   }
 }
 
+// ------------------------------------------- backward, bf16: wgmma and TMA --
+constexpr int kBwdRows = 64;   // rows a CTA owns: its consumer warpgroup's
+constexpr int kBwdCols = 64;   // rows of each streamed tile
+constexpr int kBwdStages = 3;  // streamed tiles in flight
+constexpr int kBwdConsumers = 128;
+constexpr int kBwdThreads = kBwdConsumers + 32;  // and the producer warp
+constexpr int kBox = 64 * kSwRow;                // a TMA box: 64 rows of 64 bf16
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kBwdRows == 64 && kBwdCols == 64, "a box is 64 rows; a warpgroup owns 64 rows");
+
+// Shared memory of a CTA at head dim D: the resident tiles, the ring (each
+// stage two tiles and two rows of 64 f32), the barriers.
+template <int D>
+struct Bwd {
+  static constexpr int kTile = D / 64 * kBox;  // [64][D] in D/64 boxes of 64 columns
+  static constexpr int kStage = 2 * kTile + 1024;
+  static constexpr int kSmem = 1024 + 2 * kTile + kBwdStages * kStage + 64;  // and alignment slack
+};
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// 2^x, one MUFU op (results below 2^-126 flush to 0, far under P's bf16 rounding)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The walk of ops/flash_kernels.py's bwd_schedule. The dK/dV CTA of key
+// block kb walks query tiles dkv_first(kb).. to the last; the dQ CTA of
+// query block qb key tiles 0..dq_last(qb). A block evaluates the mask when
+// it holds a row or column past T or, causal, a pair above the diagonal
+// (a key after its query).
+__device__ __forceinline__ int dkv_first(int kb, bool causal) {
+  return causal ? kb * kBwdRows / kBwdCols : 0;
+}
+__device__ __forceinline__ int dq_last(int qb, int T, bool causal) {
+  const int last = cdiv(T, kBwdCols) - 1;
+  return causal ? min(last, (qb * kBwdRows + kBwdRows - 1) / kBwdCols) : last;
+}
+__device__ __forceinline__ bool dkv_masked(int k0, int q0, int T, bool causal) {
+  return k0 + kBwdRows > T || q0 + kBwdCols > T || (causal && k0 + kBwdRows - 1 > q0);
+}
+__device__ __forceinline__ bool dq_masked(int q0, int k0, int T, bool causal) {
+  return q0 + kBwdRows > T || k0 + kBwdCols > T || (causal && k0 + kBwdCols - 1 > q0);
+}
+
+// rows [t0, t0 + 64) of head (b, h) into a tile, completing on `bar`
+template <int D>
+__device__ __forceinline__ void load_rows(unsigned char* tile, const CUtensorMap* map, int b, int h,
+                                          int t0, uint64_t* bar) {
+#pragma unroll
+  for (int x = 0; x < D / 64; ++x) tma_load(tile + x * kBox, map, x * 64, h, t0, b, bar);
+}
+
+// a tile out to rows [t0, t0 + 64) of head (b, h), clipped at T
+template <int D>
+__device__ __forceinline__ void store_rows(const CUtensorMap* map, const unsigned char* tile, int b,
+                                           int h, int t0) {
+#pragma unroll
+  for (int x = 0; x < D / 64; ++x) tma_store(map, tile + x * kBox, x * 64, h, t0, b);
+}
+
+// descriptor of k16 step kk of a [64][D] tile read K-major (K = d)
+__device__ __forceinline__ uint64_t kmajor(const unsigned char* tile, int kk) {
+  return sw128_desc(tile + kk / 4 * kBox) + 2 * (kk % 4);
+}
+
+// descriptor of k16 step kk of a [64][D] tile read MN-major (K = its rows,
+// N = d)
+__device__ __forceinline__ uint64_t mnmajor(const unsigned char* tile, int kk) {
+  return sw128_desc_mn(tile + kk * 16 * kSwRow, kBox);
+}
+
+// An m64n64 f32 accumulator rounded to bf16: the A fragments of the four
+// k16 steps of a product over its 64 columns.
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&c)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16x2(c[8 * kk], c[8 * kk + 1]);
+    a[kk][1] = pack_bf16x2(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pack_bf16x2(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pack_bf16x2(c[8 * kk + 6], c[8 * kk + 7]);
+  }
+}
+
+// The warpgroup's [64][D] f32 accumulator rounded to bf16 into a tile, in
+// the swizzled layout a TMA store reads.
+template <int D>
+__device__ __forceinline__ void stage_acc(unsigned char* tile, const float (&acc)[D / 2]) {
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = warp * 16 + g + 8 * hf;
+      *reinterpret_cast<uint32_t*>(tile + j / 8 * kBox + sw128(r, j % 8) + 4 * q) =
+          pack_bf16x2(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
+    }
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// grid (B·H, key blocks), block 0 first. Each consumer thread holds rows
+// key_a = k0 + 16·warp + g and key_a + 8 of Sᵀ, dPᵀ, dK and dV.
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kBwdThreads, D == 64 ? 2 : 1)
+flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
+                        const float* __restrict__ lse, const float* __restrict__ di, int T_, int H,
+                        float scale) {
+  using S = Bwd<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sK = align1024(smem_raw);
+  unsigned char* sV = sK + S::kTile;
+  unsigned char* ring = sV + S::kTile;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kBwdStages * S::kStage);
+  uint64_t* empty = full + kBwdStages;
+  uint64_t* resident = empty + kBwdStages;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int kb = blockIdx.y, k0 = kb * kBwdRows;
+  const int first = dkv_first(kb, kCausal);
+  const int n_blocks = cdiv(T_, kBwdCols) - first;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full + s, 32);  // the producer's lanes; lane 0's arrival also expects the tiles
+      mbar_init(empty + s, kBwdConsumers);
+    }
+    mbar_init(resident, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kBwdConsumers) {  // the producer warp
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_expect(resident, 2 * S::kTile);
+      load_rows<D>(sK, &tk, b, h, k0, resident);
+      load_rows<D>(sV, &tv, b, h, k0, resident);
+    }
+    const float* lse_bh = lse + (size_t)bh * T_;
+    const float* di_bh = di + (size_t)bh * T_;
+    for (int i = 0; i < n_blocks; ++i) {
+      const int s = i % kBwdStages, q0 = (first + i) * kBwdCols;
+      if (i >= kBwdStages) mbar_wait(empty + s, (i / kBwdStages - 1) & 1);
+      unsigned char* st = ring + s * S::kStage;
+      float* rows = reinterpret_cast<float*>(st + 2 * S::kTile);  // LSE·log2 e, then Di
+      for (int r = lane; r < kBwdCols; r += 32) {
+        const bool ok = q0 + r < T_;
+        rows[r] = ok ? lse_bh[q0 + r] * kLog2e : 0.f;
+        rows[kBwdCols + r] = ok ? di_bh[q0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect(full + s, 2 * S::kTile);
+        load_rows<D>(st, &tq, b, h, q0, full + s);
+        load_rows<D>(st + S::kTile, &tdo, b, h, q0, full + s);
+      } else {
+        mbar_arrive(full + s);
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const int key_a = k0 + warp * 16 + g;
+  const float scale_log2 = scale * kLog2e;
+  float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  mbar_wait(resident, 0);
+  for (int i = 0; i < n_blocks; ++i) {
+    const int s = i % kBwdStages, q0 = (first + i) * kBwdCols;
+    const unsigned char* sQ = ring + s * S::kStage;
+    const unsigned char* sO = sQ + S::kTile;  // dO
+    const float* rows = reinterpret_cast<const float*>(sO + S::kTile);
+    mbar_wait(full + s, (i / kBwdStages) & 1);
+    float sc[32], dp[32];  // Sᵀ then Pᵀ, and dPᵀ then dSᵀ: [this thread's keys][queries]
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) Wgmma<64>::ss(sc, kmajor(sK, kk), kmajor(sQ, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) Wgmma<64>::ss(dp, kmajor(sV, kk), kmajor(sO, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sc);
+    fence_acc(dp);
+    const bool masked = dkv_masked(k0, q0, T_, kCausal);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * q + (e & 1);  // query q0 + col
+        float p = ex2(fmaf(sc[4 * j + e], scale_log2, -rows[col]));
+        if (masked) {
+          const int key = key_a + 8 * (e >> 1), qr = q0 + col;
+          if (qr >= T_ || key >= T_ || (kCausal && key > qr)) p = 0.f;
+        }
+        sc[4 * j + e] = p;
+        dp[4 * j + e] = (dp[4 * j + e] - rows[kBwdCols + col]) * p * scale;
+      }
+    uint32_t pa[4][4], da[4][4];
+    to_a_frags(pa, sc);
+    to_a_frags(da, dp);
+    fence_acc(acc_v);
+    fence_acc(acc_k);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) Wgmma<D>::template rs<1>(acc_v, pa[kk], mnmajor(sO, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) Wgmma<D>::template rs<1>(acc_k, da[kk], mnmajor(sQ, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc_v);
+    fence_acc(acc_k);
+    fence_regs(pa);
+    fence_regs(da);
+    mbar_arrive(empty + s);
+  }
+  bar_sync(1, kBwdConsumers);  // every warp is past its last product on K and V
+  stage_acc<D>(sK, acc_k);
+  stage_acc<D>(sV, acc_v);
+  fence_async_smem();
+  bar_sync(1, kBwdConsumers);
+  if (threadIdx.x == 0) {
+    store_rows<D>(&tdk, sK, b, h, k0);
+    store_rows<D>(&tdv, sV, b, h, k0);
+    bulk_commit();
+    bulk_wait_read<0>();  // the copies have read the tiles before the CTA ends
+  }
+}
+
+// grid (B·H, query blocks), the last block first. Each consumer thread
+// holds rows q0 + 16·warp + g and + 8 of S, dP and dQ.
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kBwdThreads, D == 64 ? 2 : 1)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,
+                       const float* __restrict__ di, int T_, int H, float scale) {
+  using S = Bwd<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sQ = align1024(smem_raw);
+  unsigned char* sO = sQ + S::kTile;  // dO
+  unsigned char* ring = sO + S::kTile;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kBwdStages * S::kStage);
+  uint64_t* empty = full + kBwdStages;
+  uint64_t* resident = empty + kBwdStages;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int qb = cdiv(T_, kBwdRows) - 1 - (int)blockIdx.y, q0 = qb * kBwdRows;
+  const int n_blocks = dq_last(qb, T_, kCausal) + 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kBwdConsumers);
+    }
+    mbar_init(resident, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kBwdConsumers) {  // the producer warp; its lane 0 issues every copy
+    if ((threadIdx.x & 31) != 0) return;
+    mbar_expect(resident, 2 * S::kTile);
+    load_rows<D>(sQ, &tq, b, h, q0, resident);
+    load_rows<D>(sO, &tdo, b, h, q0, resident);
+    for (int i = 0; i < n_blocks; ++i) {
+      const int s = i % kBwdStages, k0 = i * kBwdCols;
+      if (i >= kBwdStages) mbar_wait(empty + s, (i / kBwdStages - 1) & 1);
+      unsigned char* st = ring + s * S::kStage;
+      mbar_expect(full + s, 2 * S::kTile);
+      load_rows<D>(st, &tk, b, h, k0, full + s);
+      load_rows<D>(st + S::kTile, &tv, b, h, k0, full + s);
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const int row_a = q0 + warp * 16 + g;
+  const float scale_log2 = scale * kLog2e;
+  float lse2[2], dii[2];  // rows row_a and row_a + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_a + 8 * i;
+    lse2[i] = row < T_ ? lse[(size_t)bh * T_ + row] * kLog2e : 0.f;
+    dii[i] = row < T_ ? di[(size_t)bh * T_ + row] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(resident, 0);
+  for (int i = 0; i < n_blocks; ++i) {
+    const int s = i % kBwdStages, k0 = i * kBwdCols;
+    const unsigned char* sK = ring + s * S::kStage;
+    const unsigned char* sV = sK + S::kTile;
+    mbar_wait(full + s, (i / kBwdStages) & 1);
+    float sc[32], dp[32];  // S then P, and dP then dS: [this thread's queries][keys]
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) Wgmma<64>::ss(sc, kmajor(sQ, kk), kmajor(sK, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) Wgmma<64>::ss(dp, kmajor(sO, kk), kmajor(sV, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sc);
+    fence_acc(dp);
+    const bool masked = dq_masked(q0, k0, T_, kCausal);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(fmaf(sc[4 * j + e], scale_log2, -lse2[e >> 1]));
+        if (masked) {
+          const int key = k0 + 8 * j + 2 * q + (e & 1), row = row_a + 8 * (e >> 1);
+          if (row >= T_ || key >= T_ || (kCausal && key > row)) p = 0.f;
+        }
+        dp[4 * j + e] = (dp[4 * j + e] - dii[e >> 1]) * p * scale;
+      }
+    uint32_t da[4][4];
+    to_a_frags(da, dp);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) Wgmma<D>::template rs<1>(acc, da[kk], mnmajor(sK, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_regs(da);
+    mbar_arrive(empty + s);
+  }
+  bar_sync(1, kBwdConsumers);  // every warp is past its last product on Q
+  stage_acc<D>(sQ, acc);
+  fence_async_smem();
+  bar_sync(1, kBwdConsumers);
+  if (threadIdx.x == 0) {
+    store_rows<D>(&tdq, sQ, b, h, q0);
+    bulk_commit();
+    bulk_wait_read<0>();
+  }
+}
+
 // -------------------------------------------------------------- launch --
 // Shared memory for n_tiles [64][D+kPad] tiles and the P (dS) tile.
 template <typename T, int D>
@@ -350,6 +730,7 @@ constexpr size_t tile_bytes(int n_tiles) {
 struct Args {
   int causal, T, H, B;
   float scale;
+  int n_ctas;  // the backward's CTAs a head, from bwd_schedule
   View q, k, v, o, dout, dq, dk, dv;
   const float* lse_in;
   float* lse_out;
@@ -377,29 +758,69 @@ struct Fwd {
   }
 };
 
+// The 4-D map (D, H, T, B) over a [B,T,H,D] bf16 view, in boxes of 64
+// columns by 64 rows of one head.
+bool view_map(CUtensorMap* m, const View& v, const Args& a, int D) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)a.H, (cuuint64_t)a.T, (cuuint64_t)a.B};
+  const cuuint64_t strides[3] = {(cuuint64_t)v.sh * 2, (cuuint64_t)v.st * 2, (cuuint64_t)v.sb * 2};
+  const cuuint32_t box[4] = {64, 1, kBwdRows, 1};
+  return encode_tiled(m, 4, v.p, dims, strides, box);
+}
+
+// The maps over `views`, then the bf16 kernel on grid (B·H, n_ctas).
+template <int D, int N, typename Kernel, typename... Rest>
+cudaError_t launch_tc(Kernel kernel, const Args& a, const View* const (&views)[N], Rest... rest) {
+  CUtensorMap m[N];
+  for (int i = 0; i < N; ++i)
+    if (!view_map(&m[i], *views[i], a, D)) return cudaErrorInvalidValue;
+  const int smem = Bwd<D>::kSmem;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B * a.H, a.n_ctas);
+  if constexpr (N == 6)
+    kernel<<<grid, kBwdThreads, smem, a.st>>>(m[0], m[1], m[2], m[3], m[4], m[5], rest...);
+  else
+    kernel<<<grid, kBwdThreads, smem, a.st>>>(m[0], m[1], m[2], m[3], m[4], rest...);
+  return cudaGetLastError();
+}
+
+// f32 io: flash_bwd_dkv_kernel; bf16: flash_bwd_dkv_tc_kernel
 template <typename T, int D, bool kCausal>
 struct Dkv {
   static cudaError_t go(const Args& a) {
-    auto kernel = flash_bwd_dkv_kernel<T, D, kCausal>;
-    const size_t smem = tile_bytes<T, D>(4) + 2 * kRows * sizeof(float);
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<a.grid(), kFlashThreads, smem, a.st>>>(a.q, a.k, a.v, a.dout, a.lse_in, a.di, a.dk,
-                                                    a.dv, a.T, a.H, a.scale);
-    return cudaGetLastError();
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      const View* const views[6] = {&a.q, &a.k, &a.v, &a.dout, &a.dk, &a.dv};
+      return launch_tc<D>(flash_bwd_dkv_tc_kernel<D, kCausal>, a, views, a.lse_in, a.di, a.T,
+                          a.H, a.scale);
+    } else {
+      auto kernel = flash_bwd_dkv_kernel<T, D, kCausal>;
+      const size_t smem = tile_bytes<T, D>(4) + 2 * kRows * sizeof(float);
+      cudaError_t err = allow_smem(kernel, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<a.grid(), kFlashThreads, smem, a.st>>>(a.q, a.k, a.v, a.dout, a.lse_in, a.di,
+                                                      a.dk, a.dv, a.T, a.H, a.scale);
+      return cudaGetLastError();
+    }
   }
 };
 
+// f32 io: flash_bwd_dq_kernel; bf16: flash_bwd_dq_tc_kernel
 template <typename T, int D, bool kCausal>
 struct Dq {
   static cudaError_t go(const Args& a) {
-    auto kernel = flash_bwd_dq_kernel<T, D, kCausal>;
-    const size_t smem = tile_bytes<T, D>(4);
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<a.grid(), kFlashThreads, smem, a.st>>>(a.q, a.k, a.v, a.dout, a.lse_in, a.di, a.dq,
-                                                    a.T, a.H, a.scale);
-    return cudaGetLastError();
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      const View* const views[5] = {&a.q, &a.k, &a.v, &a.dout, &a.dq};
+      return launch_tc<D>(flash_bwd_dq_tc_kernel<D, kCausal>, a, views, a.lse_in, a.di, a.T,
+                          a.H, a.scale);
+    } else {
+      auto kernel = flash_bwd_dq_kernel<T, D, kCausal>;
+      const size_t smem = tile_bytes<T, D>(4);
+      cudaError_t err = allow_smem(kernel, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<a.grid(), kFlashThreads, smem, a.st>>>(a.q, a.k, a.v, a.dout, a.lse_in, a.di,
+                                                      a.dq, a.T, a.H, a.scale);
+      return cudaGetLastError();
+    }
   }
 };
 
@@ -418,6 +839,15 @@ cudaError_t dispatch(int io_bf16, int D, const Args& a) {
   }
 #undef PTT_FLASH_CASE
   return cudaErrorInvalidValue;  // D is neither 64 nor 128
+}
+
+// The backward's checks: the CTAs a head bwd_schedule counts are the
+// kernels' (both own 64 rows), and the bf16 grid's B·H fits.
+cudaError_t bwd_ok(const Args& a) {
+  if (a.T < 1 || a.n_ctas != cdiv(a.T, kBwdRows) || a.n_ctas > 65535 ||
+      (long long)a.B * a.H > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 Args args(int causal, int B, int T, int H, float scale, void* stream) {
@@ -446,12 +876,16 @@ extern "C" int flash_fwd_launch(int io_bf16, int causal, int B, int T, int H, in
   return dispatch<Fwd>(io_bf16, D, a);
 }
 
-// as flash_fwd_launch, plus dO in, lse and di [B,H,T] f32 in; dk, dv out
+// as flash_fwd_launch, plus n_ctas (bwd_schedule's CTAs a head), dO in,
+// lse and di [B,H,T] f32 in; dk, dv out. bf16 views: 16-byte aligned, strides
+// multiples of 8 elements (tensor maps).
 extern "C" int flash_bwd_dkv_launch(int io_bf16, int causal, int B, int T, int H, int D,
-                                    float scale, const View* q, const View* k, const View* v,
-                                    const View* dout, const void* lse, const void* di,
-                                    const View* dk, const View* dv, void* stream) {
+                                    float scale, int n_ctas, const View* q, const View* k,
+                                    const View* v, const View* dout, const void* lse,
+                                    const void* di, const View* dk, const View* dv, void* stream) {
   Args a = args(causal, B, T, H, scale, stream);
+  a.n_ctas = n_ctas;
+  if (bwd_ok(a) != cudaSuccess) return cudaErrorInvalidValue;
   a.q = *q;
   a.k = *k;
   a.v = *v;
@@ -465,10 +899,12 @@ extern "C" int flash_bwd_dkv_launch(int io_bf16, int causal, int B, int T, int H
 
 // as flash_bwd_dkv_launch, with dq out
 extern "C" int flash_bwd_dq_launch(int io_bf16, int causal, int B, int T, int H, int D,
-                                   float scale, const View* q, const View* k, const View* v,
-                                   const View* dout, const void* lse, const void* di,
-                                   const View* dq, void* stream) {
+                                   float scale, int n_ctas, const View* q, const View* k,
+                                   const View* v, const View* dout, const void* lse,
+                                   const void* di, const View* dq, void* stream) {
   Args a = args(causal, B, T, H, scale, stream);
+  a.n_ctas = n_ctas;
+  if (bwd_ok(a) != cudaSuccess) return cudaErrorInvalidValue;
   a.q = *q;
   a.k = *k;
   a.v = *v;

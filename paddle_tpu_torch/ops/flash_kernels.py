@@ -16,12 +16,15 @@ output rounded once.
 
 `flash_fwd`, `flash_bwd_dkv` and `flash_bwd_dq` take CUDA tensors to the
 kernels, or raise; CPU tensors to the plain versions. There is no fallback
-from one to the other.
+from one to the other. In bf16 io the backward kernels run on wgmma with
+TMA (see `bwd_schedule` for the blocks they walk); in f32 io all three,
+and the forward in bf16, on mma.sync fragments.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -35,6 +38,8 @@ flash_bwd_dq_launches = 0
 
 HEAD_DIMS = (64, 128)
 FLASH_BLOCK = 64  # keys a forward block stages (kRows in csrc/flash_attn.cu)
+BWD_ROWS = 64  # rows a backward CTA owns (kBwdRows)
+BWD_COLS = 64  # rows of each tile a backward CTA streams (kBwdCols)
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -115,6 +120,40 @@ def flash_di(o, do):
     return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+# --------------------------------------------------------------- schedule --
+@functools.lru_cache(maxsize=64)
+def bwd_schedule(T: int, causal: bool, rows: int = BWD_ROWS, cols: int = BWD_COLS):
+    """The blocks the backward kernels walk, as csrc/flash_attn.cu's
+    dkv_first, dq_last, dkv_masked and dq_masked compute them.
+
+    Returns {"dkv": ctas, "dq": ctas}, each CTA of one head in launch order
+    (blockIdx.y) as (own block, ((other block, masked), ...)) in walk order.
+    A dK/dV CTA owns keys [rows·kb, rows·(kb+1)) and walks query tiles of
+    `cols` from the first that holds a visible pair (causal: the tile of
+    its first key) to the last; a dQ CTA owns queries and walks key tiles
+    from 0 to the last that holds a visible pair (causal: the tile of its
+    last query). Causal CTAs with the most blocks come first: key block 0,
+    the last query block. A block is masked, and only then evaluates the
+    causal test and the T bound, when it holds a row or column past T or,
+    causal, a pair whose key comes after its query."""
+    n_rows, n_cols = -(-T // rows), -(-T // cols)
+    dkv = []
+    for kb in range(n_rows):
+        k0 = kb * rows
+        first = k0 // cols if causal else 0
+        dkv.append((kb, tuple(
+            (qt, k0 + rows > T or qt * cols + cols > T or (causal and k0 + rows - 1 > qt * cols))
+            for qt in range(first, n_cols))))
+    dq = []
+    for qb in reversed(range(n_rows)):
+        q0 = qb * rows
+        last = min(n_cols - 1, (q0 + rows - 1) // cols) if causal else n_cols - 1
+        dq.append((qb, tuple(
+            (kt, q0 + rows > T or kt * cols + cols > T or (causal and kt * cols + cols - 1 > q0))
+            for kt in range(last + 1))))
+    return {"dkv": tuple(dkv), "dq": tuple(dq)}
+
+
 # ------------------------------------------------------------------ kernel --
 class _View(ctypes.Structure):
     """A [B,T,H,D] tensor as csrc/flash_attn.cu's `View` takes it."""
@@ -133,8 +172,8 @@ def _lib():
         head = [ctypes.c_int] * 6 + [ctypes.c_float]
         ptr = ctypes.c_void_p
         lib.flash_fwd_launch.argtypes = head + [ptr] * 6
-        lib.flash_bwd_dkv_launch.argtypes = head + [ptr] * 9
-        lib.flash_bwd_dq_launch.argtypes = head + [ptr] * 8
+        lib.flash_bwd_dkv_launch.argtypes = head + [ctypes.c_int] + [ptr] * 9  # n_ctas first
+        lib.flash_bwd_dq_launch.argtypes = head + [ctypes.c_int] + [ptr] * 8
         for fn in (lib.flash_fwd_launch, lib.flash_bwd_dkv_launch, lib.flash_bwd_dq_launch):
             fn.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [ctypes.c_int]
@@ -143,8 +182,10 @@ def _lib():
 
 
 def _aligned(t):
-    """t itself if the kernel can read it (d contiguous, every row start on
-    16 bytes), else a contiguous copy."""
+    """t itself if the kernels can read it in place, else a contiguous copy:
+    d contiguous, the data on 16 bytes and every stride a multiple of 16
+    bytes, as the mma.sync kernels' 16-byte loads and the backward's tensor
+    maps (a 16-byte aligned base, strides in multiples of 16 bytes) need."""
     vec = 16 // t.element_size()
     if t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(s % vec == 0 for s in t.stride()[:3]):
         return t
@@ -181,13 +222,13 @@ def _stat_named(q, *pairs):
     return [(n, t, (B, H, T), torch.float32) for n, t in pairs]
 
 
-def _launch(name, q, causal, *ptrs):
+def _launch(name, q, causal, *args):
     B, T, H, D = q.shape
     with torch.cuda.device(q.device):
         lib = _lib()
         err = getattr(lib, f"{name}_launch")(
             int(q.dtype == torch.bfloat16), int(bool(causal)), B, T, H, D,
-            1.0 / math.sqrt(D), *ptrs, torch.cuda.current_stream().cuda_stream)
+            1.0 / math.sqrt(D), *args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (B={B}, T={T}, H={H}, D={D}, "
                            f"{q.dtype}): {lib.flash_error_string(err).decode()}")
@@ -221,8 +262,9 @@ def flash_bwd_dkv(q, k, v, do, lse, di, causal: bool):
     lse, di = lse.contiguous(), di.contiguous()
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("flash_bwd_dkv", q, causal, *(_view(t) for t in (q, k, v, do)), lse.data_ptr(),
-            di.data_ptr(), _view(dk), _view(dv))
+    ctas = len(bwd_schedule(q.shape[1], bool(causal))["dkv"])  # the grid's CTAs a head
+    _launch("flash_bwd_dkv", q, causal, ctas, *(_view(t) for t in (q, k, v, do)),
+            lse.data_ptr(), di.data_ptr(), _view(dk), _view(dv))
     flash_bwd_dkv_launches += 1
     return dk, dv
 
@@ -238,8 +280,9 @@ def flash_bwd_dq(q, k, v, do, lse, di, causal: bool):
     q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     lse, di = lse.contiguous(), di.contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("flash_bwd_dq", q, causal, *(_view(t) for t in (q, k, v, do)), lse.data_ptr(),
-            di.data_ptr(), _view(dq))
+    ctas = len(bwd_schedule(q.shape[1], bool(causal))["dq"])
+    _launch("flash_bwd_dq", q, causal, ctas, *(_view(t) for t in (q, k, v, do)),
+            lse.data_ptr(), di.data_ptr(), _view(dq))
     flash_bwd_dq_launches += 1
     return dq
 
