@@ -55,12 +55,13 @@ exits non-zero without the final `ok` line:
               against their plain versions on the card: the warm-up step's
               inputs (forward, forward reversed, backward; bf16 and f32),
               then seeded inputs with a ragged mask at the main path's
-              shapes and at edge shapes, and the forward alone at its own
-              edge shapes (T=1, H=100 with a row masked at every step, more
-              row tiles than groups, W past shared memory); errors beside
-              their tolerances, an output left at zero failing, kernel,
+              shapes and at edge shapes, then both at the bf16 kernels'
+              own edge shapes (T=1, H=100 with a row masked at every step,
+              more row tiles than groups, W past shared memory); errors
+              beside their tolerances, an output left at zero failing, the
+              backward's dx and dW the same bits in two runs, kernel,
               plain, bound and cuDNN (torch.nn.LSTM, the yardstick) times,
-              the forward's beside its time before the redesign.
+              each beside its time before the redesign.
   12. steps   3 timed LSTM training steps with the launch counts set to 0
               just before: finite, falling losses, exactly 2 lstm_fwd and
               2 lstm_bwd launches a step, median ms per step, tokens/s,
@@ -79,15 +80,18 @@ exits non-zero without the final `ok` line:
               inputs of layers 0 and 7, then seeded inputs at ragged T
               (1 to 1024, within one tile of 64 and 128), H=1 and odd,
               causal and not, D=64 and 128, bf16 and f32, and the backward
-              on packed q, k, v views and a strided dO; the same bits in
-              two runs of the backward kernels at the main shape and an
-              edge shape; kernel, plain and bound times, and
+              on packed q, k, v views and a strided dO, the forward on
+              the packed views and at the main shape, bf16 and f32, causal
+              and full; the same bits in two runs of every kernel at the
+              main shape and an edge shape; kernel, plain and bound times,
+              the forward's beside its time before the redesign, and
               scaled_dot_product_attention's (the yardstick) beside the
-              backward pair.
+              forward and the backward pair.
   16. steps   3 timed transformer training steps with the launch counts set
               to 0 just before: finite, falling losses, exactly 8 launches
               of each flash kernel a step, median ms per step, tokens/s,
-              peak memory; then one more step under torch.profiler.
+              peak memory; then one more step under torch.profiler, and
+              the step's flash time, forward and backward.
   17. parity  a small transformer program (dim 128, 2 heads of D=64, 2
               layers, T=200, vocab 512, B=4), card against CPU from one
               startup state: losses and the state after 2 Adam steps, f32
@@ -628,19 +632,21 @@ LSTM_MAX_DIFFERING = 0.05
 # hidden units per CTA, the last two with a partly empty last CTA, the
 # last with dW outside the backward kernel
 LSTM_EDGE = [(3, 1, 100), (5, 3, 301), (4, 5, 700)]
-# (T, B, H) of the forward alone, beyond those: T=1; H=100, not a whole
-# group of 16 units, at B=3 with a row masked at every step; B=300, more
-# 32-row tiles than the card holds batch groups beside 32 unit groups, so a
-# CTA walks two; H=1800, whose W slice does not fit shared memory and is
-# read through L1. f32 where its kernel takes H (its W slice in shared
+# (T, B, H) beyond those, first taken by the forward, and by the bf16
+# backward on the same partition: T=1; H=100, not a whole group of 16
+# units, at B=3 with a row masked at every step; B=300, more 32-row tiles
+# than the card holds batch groups beside 32 unit groups, so a CTA walks
+# several; H=1800, whose W slice does not fit shared memory and is read
+# through L1. f32 where its kernels take H (their W slices in shared
 # memory: not at 1800)
 LSTM_FWD_EDGE = [(1, 3, 100), (4, 300, 512), (3, 2, 1800)]
 # the launches of one training step: two stacked layers
 LSTM_STEP_LAUNCHES = {"lstm_fwd": 2, "lstm_bwd": 2}
 # the redesigned kernels' times before the redesign, at the main path's
-# shapes on an H100 at 700 W (PERF.md, the table of TPU kernels): B1 a
-# launch, B11 a step's 36 calls
-EARLIER_MS = {"lstm_fwd": 11.0729, "fused_conv_bn": 8.6320}
+# shapes on an H100 at 700 W (PERF.md, the table of TPU kernels): B1 and
+# B2 a launch, B11 a step's 36 calls, B8's forward at layer 0
+EARLIER_MS = {"lstm_fwd": 11.0729, "lstm_bwd": 10.5066, "fused_conv_bn": 8.6320,
+              "flash_fwd": 0.34521}
 # the small program's biases on the card against the CPU in bf16: their
 # gradients, sums over B·T cotangents that nearly cancel, are held to 0.1
 # of their largest (tests/test_torch_frontend.py), so the values held to
@@ -718,13 +724,19 @@ def lstm_check(lk, kind, ins, reverse, label, max_errs, hold_share=True):
     abs_errs, errs = zip(*(rel_err(g, w_) for g, w_ in zip(got, want)))
     share = float((got[0] != want[0]).float().mean())
     names = ("h_seq", "c_seq", "h_T", "c_T") if kind == "lstm_fwd" else ("dx", "dW")
+    # at T=1 dW = h_prevᵀ dgates is 0 in exact arithmetic (h_prev is the zero
+    # initial state): held to be exactly 0 on both sides instead
+    zero = ("dW",) if kind == "lstm_bwd" and ins[0].shape[0] == 1 else ()
     print(f"  {kind} {label} {str(dt)[6:]} {'rev' if reverse else 'fwd'}: rel err "
           + ", ".join(f"{n} {e:.3e} (tol {t:g})" for n, e, t in zip(names, errs, tols))
           + f"; {names[0]} differing {share:.4%}"
           + (f" (max {LSTM_MAX_DIFFERING:.0%})" if hold_share and dt == torch.bfloat16 else ""))
     check(all(torch.isfinite(t.float()).all() for t in got), f"non-finite {kind} output")
     check(all(e <= t for e, t in zip(errs, tols)), f"{kind} disagrees with its plain version")
-    check(all(amax(w_) > 0 for w_ in want), f"{kind} {label}: an output left at zero would pass")
+    check(all(amax(w_) > 0 for n, w_ in zip(names, want) if n not in zero),
+          f"{kind} {label}: an output left at zero would pass")
+    check(all(amax(g) == 0 and amax(w_) == 0 for n, g, w_ in zip(names, got, want) if n in zero),
+          f"{kind} {label}: dW is not 0 at T=1")
     check(dt != torch.bfloat16 or not hold_share or share <= LSTM_MAX_DIFFERING,
           f"{kind}'s {names[0]} differs in {share:.4%} (max {LSTM_MAX_DIFFERING:.0%})")
     max_errs[kind] = max(max_errs.get(kind, 0.0), *abs_errs)
@@ -843,14 +855,16 @@ def lstm_phases(ptt, exe, rng, smi, seed, first_phase):
                           f"step; {EARLIER_MS['lstm_fwd']} ms before the redesign), plain "
                           f"{p_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} ({nbytes:.0f} B)")
                     print(f"    lstm_bwd: kernel {bk_ms:.4f} ms ({bk_ms / T_ * 1e3:.2f} us a "
-                          f"time step), plain {bp_ms:.4f} ms, bound {bb_ms:.5f} ms by {bb_by} "
-                          f"({bbytes:.0f} B)")
+                          f"time step; {EARLIER_MS['lstm_bwd']} ms before the redesign), plain "
+                          f"{bp_ms:.4f} ms, bound {bb_ms:.5f} ms by {bb_by} ({bbytes:.0f} B)")
                     print(f"    cuDNN torch.nn.LSTM ({lib['dtype']}, input_size 4H, identity "
                           f"weight_ih, zero biases, PackedSequence): forward {lib['fwd_ms']:.4f} "
                           f"ms, backward {lib['bwd_ms']:.4f} ms, of which its identity "
                           f"[T*B,4H]x[4H,4H] product alone {lib['proj_ms']:.4f} ms; its h_seq "
                           f"{lib_err:.3e} from the plain forward's; lstm_fwd at "
-                          f"{lib['fwd_ms'] / k_ms:.2f}x cuDNN's forward pace")
+                          f"{lib['fwd_ms'] / k_ms:.2f}x cuDNN's forward pace, lstm_bwd at "
+                          f"{lib['bwd_ms'] / bk_ms:.2f}x its backward's ({bk_ms / T_ * 1e3:.2f} "
+                          f"against {lib['bwd_ms'] / T_ * 1e3:.2f} us a time step)")
                     rows["lstm_fwd"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                                             library_ms=lib["fwd_ms"])
                     rows["lstm_bwd"] = dict(ms=bk_ms, plain_ms=bp_ms, bound_ms=bb_ms,
@@ -874,6 +888,10 @@ def lstm_phases(ptt, exe, rng, smi, seed, first_phase):
                 bgot, _, _ = lstm_check(lk, "lstm_bwd", bargs, rev, tag, max_errs)
                 if dt != torch.bfloat16 or rev or label == "":
                     continue
+                again = lk.lstm_bwd(*bargs)
+                check(all(torch.equal(a_, b_) for a_, b_ in zip(bgot, again)),
+                      "lstm_bwd's dx or dW differ between two runs")
+                print(f"    lstm_bwd {tag}: dx and dW the same bits in two runs")
                 f32 = lk.lstm_fwd_plain(x.float(), mask, w.float())[0].to(dt)
                 off = float((f32 != got[0]).float().mean())
                 bf32 = lk.lstm_bwd_plain(*(t.float() if t.is_floating_point() else t
@@ -895,8 +913,12 @@ def lstm_phases(ptt, exe, rng, smi, seed, first_phase):
             x = torch.as_tensor(rng.standard_normal((T_, B_, 4 * H_)), dtype=dt).cuda()
             w = torch.as_tensor(rng.standard_normal((H_, 4 * H_)) / np.sqrt(H_), dtype=dt).cuda()
             for rev in (False, True):
-                lstm_check(lk, "lstm_fwd", (x, mask, w), rev, f"T={T_} B={B_} H={H_} (forward edge)",
-                           max_errs)
+                tag = f"T={T_} B={B_} H={H_} (forward's edge)"
+                _, want, _ = lstm_check(lk, "lstm_fwd", (x, mask, w), rev, tag, max_errs)
+                gp, cp, hp = lk.lstm_bwd_inputs(x, w, want[0], want[1], rev)
+                dh, dhT, dcT = ((0.1 * torch.randn(*s, device="cuda")).to(dt)
+                                for s in ((T_, B_, H_), (B_, H_), (B_, H_)))
+                lstm_check(lk, "lstm_bwd", (gp, cp, hp, dh, mask, w, dhT, dcT), rev, tag, max_errs)
 
     n += 1
     phase(n, "LSTM training at full width (bf16): 3 timed steps")
@@ -997,14 +1019,15 @@ FLASH_BEYOND_ULP = 0.02
 FLASH_EDGE = [(2, 200, 3, 64), (2, 1000, 2, 64), (2, 200, 2, 128), (1, 1000, 2, 128),
               (2, 1, 3, 64), (1, 63, 1, 128), (2, 65, 1, 64), (1, 127, 5, 128), (2, 129, 1, 64),
               (1, 1024, 4, 64)]
-# the views the backward kernels read in place or copy: q, k and v as
-# [B,T,H,D] views of one packed [B,T,3E] projection (strides 3E, D, read
-# through the tensor maps as they are), dO with d strided (copied by
+# the views the kernels read in place or copy: q, k and v as [B,T,H,D]
+# views of one packed [B,T,3E] projection (strides 3E, D, read through the
+# tensor maps as they are), dO with d strided (copied by
 # flash_kernels._aligned); (B, T, H, D)
 FLASH_VIEWS = [(2, 200, 3, 64), (1, 127, 2, 128)]
 # how phase 16 sums the profiled step's device time (cuBLAS's Hopper GEMMs
 # are named nvjet_* or *gemm*)
-TFM_KERNEL_KINDS = {"flash kernels": ("flash_",), "matrix products": ("nvjet", "gemm", "cutlass"),
+TFM_KERNEL_KINDS = {"flash forward": ("flash_fwd",), "flash backward": ("flash_bwd",),
+                    "matrix products": ("nvjet", "gemm", "cutlass"),
                     "elementwise": ("elementwise", "copy", "fill"),
                     "reductions": ("reduce", "softmax", "norm")}
 # the launches of one training step: one a layer and pass
@@ -1227,22 +1250,27 @@ def transformer_phases(ptt, exe, rng, smi, seed, first_phase):
             k_ms = cuda_ms(lambda: flash_call(fk, name, ins), 20)
             p_ms = cuda_ms(lambda: flash_call(fk, name, ins, plain=True), 3)
             b_ms, b_by, nbytes = flash_bound(name, ins[0], ins[-1])
-            print(f"    {name}: kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
-                  f"{b_ms * 1e3:.2f} us by {b_by} ({nbytes:.0f} B), {100 * b_ms / k_ms:.2f}% "
-                  f"of the bound")
+            earlier = f"; {EARLIER_MS[name] * 1e3:.2f} us before the redesign" \
+                if name in EARLIER_MS else ""
+            print(f"    {name}: kernel {k_ms * 1e3:.2f} us{earlier}, plain {p_ms * 1e3:.2f} us, "
+                  f"bound {b_ms * 1e3:.2f} us by {b_by} ({nbytes:.0f} B), "
+                  f"{100 * b_ms / k_ms:.2f}% of the bound")
             rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
-            if name != "flash_fwd":
-                again = flash_call(fk, name, ins)
-                first = flash_call(fk, name, ins)
-                check(all(torch.equal(x, y) for x, y in zip(first, again)),
-                      f"{name}'s outputs differ between two runs")
-                print(f"    {name}: the same bits in two runs")
+            again = flash_call(fk, name, ins)
+            first = flash_call(fk, name, ins)
+            check(all(torch.equal(x, y) for x, y in zip(first, again)),
+                  f"{name}'s outputs differ between two runs")
+            print(f"    {name}: the same bits in two runs")
     q, k, v, do = (calls["flash_bwd_dkv"][-1][0][j] for j in range(4))
     fwd_ms, bwd_ms, o_lib = sdpa_ms(q, k, v, do, True)
     o_plain = fk.flash_fwd_plain(q.float(), k.float(), v.float(), True)[0]
     print(f"  scaled_dot_product_attention (the yardstick, bf16, causal, [B,H,T,D] views): "
           f"forward {fwd_ms * 1e3:.2f} us, backward {bwd_ms * 1e3:.2f} us; its O "
           f"{rel_err(o_lib, o_plain)[1]:.3e} from the f32 plain version")
+    f_ms = rows["flash_fwd"]["ms"]
+    print(f"  flash_fwd at layer 0: {f_ms * 1e3:.2f} us, "
+          f"{100 * rows['flash_fwd']['bound_ms'] / f_ms:.2f}% of its bound, "
+          f"{f_ms / fwd_ms:.3f}x scaled_dot_product_attention's forward")
     rows["flash_fwd"]["library_ms"] = fwd_ms
     rows["flash_bwd_dkv"]["library_ms"] = rows["flash_bwd_dq"]["library_ms"] = bwd_ms
     pair_ms = rows["flash_bwd_dkv"]["ms"] + rows["flash_bwd_dq"]["ms"]
@@ -1250,6 +1278,14 @@ def transformer_phases(ptt, exe, rng, smi, seed, first_phase):
           f"scaled_dot_product_attention's backward {bwd_ms * 1e3:.2f} us "
           f"({pair_ms / bwd_ms:.3f}x)")
     srng = np.random.RandomState(seed + 7)
+    B_, T_, H_, D_ = (TFM_BENCH["batch"], TFM_BENCH["seqlen"],
+                      TFM_BENCH["heads"], TFM_BENCH["dim"] // TFM_BENCH["heads"])
+    for dt in FLASH_TOL:
+        for causal in (True, False):
+            ins = flash_seeded(fk, srng, B_, T_, H_, D_, dt, causal)["flash_fwd"]
+            flash_check(fk, "flash_fwd", ins, f"B={B_} T={T_} H={H_} D={D_} (main shape, seeded)",
+                        max_errs, seeded=True)
+    del ins
     for B_, T_, H_, D_ in FLASH_EDGE:
         for dt in FLASH_TOL:
             for causal in (True, False):
@@ -1262,12 +1298,14 @@ def transformer_phases(ptt, exe, rng, smi, seed, first_phase):
                 ins = flash_views(fk, srng, B_, T_, H_, D_, dt, causal)
                 check(ins[0].stride(1) == 3 * H_ * D_ and ins[3].stride(3) == 2,
                       "FLASH_VIEWS: not the packed and strided views")
+                flash_check(fk, "flash_fwd", (*ins[:3], causal), f"B={B_} T={T_} H={H_} D={D_} "
+                            f"(packed q, k, v)", max_errs, seeded=True)
                 for name in ("flash_bwd_dkv", "flash_bwd_dq"):
                     flash_check(fk, name, ins, f"B={B_} T={T_} H={H_} D={D_} (packed q, k, v; "
                                 f"strided dO)", max_errs, seeded=True)
     B_, T_, H_, D_ = 2, 129, 1, 64  # a FLASH_EDGE shape: a tile and a row, H=1
     edge = flash_seeded(fk, srng, B_, T_, H_, D_, torch.bfloat16, True)
-    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+    for name in TFM_STEP_LAUNCHES:
         first, again = flash_call(fk, name, edge[name]), flash_call(fk, name, edge[name])
         check(all(torch.equal(x, y) for x, y in zip(first, again)),
               f"{name}'s outputs differ between two runs at B={B_} T={T_} H={H_} D={D_}")
@@ -1295,8 +1333,12 @@ def transformer_phases(ptt, exe, rng, smi, seed, first_phase):
     print(f"  steps ms: {[round(t, 3) for t in times]}; median {med:.3f} ms/step, "
           f"{tokens / med * 1e3:.1f} tokens/s (B={TFM_BENCH['batch']}, T={TFM_BENCH['seqlen']}); "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
-    breakdown(lambda: exe.run(main_p, feed, [loss.name], scope=scope), med, "step",
-              kinds=TFM_KERNEL_KINDS)
+    _, by_kind = breakdown(lambda: exe.run(main_p, feed, [loss.name], scope=scope), med, "step",
+                           kinds=TFM_KERNEL_KINDS)
+    if by_kind:
+        fwd_us, bwd_us = by_kind.get("flash forward", 0.0), by_kind.get("flash backward", 0.0)
+        print(f"  the step's flash time: {(fwd_us + bwd_us) / 1e3:.3f} ms (forward "
+              f"{fwd_us / 1e3:.3f}, backward {bwd_us / 1e3:.3f} ms)")
     del scope, calls
 
     n += 1
@@ -2628,7 +2670,8 @@ def quant_phases(ptt, exe, smi, seed, first_phase):
                                   kinds=QTFM_KERNEL_KINDS)
         if busy:
             print(f"  B12's share of the request's device time: "
-                  f"{100 * by_kind.get('int8 GEMM (B12)', 0.0) / busy:.1f}%")
+                  f"{100 * by_kind.get('int8 GEMM (B12)', 0.0) / busy:.1f}%; the request's flash "
+                  f"time {by_kind.get('flash kernels', 0.0) / 1e3:.3f} ms")
         again = exe.run(prog, reqs[0], fetches, scope=scope, return_numpy=False)[0]
         kernel_route, before = qk.quant_matmul, qk.quant_matmul_launches
         qk.quant_matmul = qk.quant_matmul_plain

@@ -23,52 +23,64 @@
 // scores to memory: each block of scores lives in registers, as in the TPU
 // kernel.
 //
-// The forward, and the backward in f32 io: a CTA of 4 warps owns 64 rows
-// (queries for the forward and dQ, keys for dK/dV) of one (b, h); each warp
-// owns 16 of them. Tiles of 64 rows of the other side are staged in shared
-// memory, one after the other, skipping the blocks above the diagonal when
-// causal. Both products of a block run on mma.sync m16n8k16 (bf16, f32
-// accumulators), or with f32 FMAs on the same fragments in f32 io; the
-// scores and softmax are f32 in registers. The second product's left
-// operand (P, or dS) goes through the warp's own shared-memory rows,
-// rounded to the io dtype there, as the TPU kernel casts p and ds to the io
-// dtype before its dots.
+// In f32 io all three kernels are the first design: a CTA of 4 warps owns
+// 64 rows (queries for the forward and dQ, keys for dK/dV) of one (b, h);
+// each warp owns 16 of them. Tiles of 64 rows of the other side are staged
+// in shared memory, one after the other, skipping the blocks above the
+// diagonal when causal. Both products of a block run as f32 FMAs on
+// mma.sync's fragment layout; the scores and softmax are f32 in registers.
+// The second product's left operand (P, or dS) goes through the warp's own
+// shared-memory rows.
 //
-// The backward in bf16 io (flash_bwd_dkv_tc_kernel, flash_bwd_dq_tc_kernel)
-// is bound by its 7 products (4 in dK/dV, 3 in dQ: S and dP are computed
-// in both, so each output element is written by one CTA, with no atomics).
-// So they run on wgmma and keep the tensor cores fed:
-// - A CTA is one consumer warpgroup, which owns 64 rows (keys for dK/dV,
-//   queries for dQ) of one (b, h), and a producer warp; two CTAs fit an SM
-//   at D=64. TMA brings the CTA's own K and V (Q and dO) once; they stay in
-//   shared memory. The producer streams the other side's 64-row tiles (Q
-//   and dO, K and V) through a ring of three stages, each completing on
-//   its mbarrier and freed by the consumers on another, so the next tiles
-//   land while this one is multiplied. The dK/dV producer's lanes also copy
-//   each query tile's LSE·log2 e and Di rows into the stage. (128-row
-//   dK/dV CTAs, two warpgroups sharing each streamed tile, ran no faster.)
+// In bf16 io, the slice's dtype, all three run on wgmma fed by TMA
+// (flash_fwd_tc_kernel, flash_bwd_dkv_tc_kernel, flash_bwd_dq_tc_kernel).
+// The backward is bound by its 7 products (4 in dK/dV, 3 in dQ: S and dP
+// are computed in both, so each output element is written by one CTA, with
+// no atomics); the forward by its bytes at the main path's shapes, but with
+// 4096 exponentials a block it is the products and the softmax between
+// them that set its pace:
+// - A backward CTA is one consumer warpgroup, which owns 64 rows (keys for
+//   dK/dV, queries for dQ) of one (b, h), and a producer warp; a forward
+//   CTA two consumer warpgroups of 64 query rows each, which share every
+//   streamed tile. TMA brings the CTA's own tiles once (Q; K and V; Q and
+//   dO); they stay in shared memory. The producer streams the other side's
+//   64-row tiles (K and V, Q and dO) through a ring of stages, each
+//   completing on its mbarrier and freed by the consumers on another, so
+//   the next tiles land while this one is multiplied. The dK/dV
+//   producer's lanes also copy each query tile's LSE·log2 e and Di rows
+//   into the stage. (128-row dK/dV CTAs ran no faster; the forward with
+//   one warpgroup a CTA ran 1.15x slower causal, 1.55x full.)
 // - The tensor maps are 4-D (D, H, T, B) over the [B,T,H,D] views as
 //   they are, boxes of 64 columns (one 128-byte swizzled row) by 64 rows;
 //   rows past T read as zeros and are not written.
-// - Sᵀ = K Qᵀ and dPᵀ = V dOᵀ (S = Q Kᵀ and dP = dO Vᵀ for dQ) are wgmma
-//   m64n64k16 with both operands K-major in shared memory. P = 2^(s·scale
-//   ·log2 e − LSE·log2 e) and dS = P∘(dP − Di)·scale are f32 in registers,
-//   then rounded to bf16 into the A fragments of the second products
-//   (wgmma's accumulator layout is its A layout per 16 columns): dV += Pᵀ
-//   dO, dK += dSᵀ Q, dQ += dS K, with dO, Q and K MN-major through their
-//   descriptors, so P and dS never go to shared memory.
+// - S = Q Kᵀ (Sᵀ = K Qᵀ and dPᵀ = V dOᵀ for dK/dV, dP = dO Vᵀ for dQ) are
+//   wgmma m64n64k16 with both operands K-major in shared memory. The
+//   forward's online softmax runs in f32 registers in base 2, scale·log2 e
+//   folded into the scores, one ex2 an element: the row max m, the sum l
+//   of the unrounded P, acc and l rescaled by 2^(m_old − m), as
+//   flash_fwd_plain walks its 64-key blocks. P = 2^(s·scale·log2 e −
+//   LSE·log2 e) and dS = P∘(dP − Di)·scale in the backward. P and dS are
+//   rounded to bf16 into the A fragments of the second products (wgmma's
+//   accumulator layout is its A layout per 16 columns): O += P V, dV += Pᵀ
+//   dO, dK += dSᵀ Q, dQ += dS K, with V, dO, Q and K MN-major through
+//   their descriptors, so P and dS never go to shared memory.
 // - Only blocks on the diagonal (causal) or past T evaluate the mask; the
-//   walk and the mask flags are ops/flash_kernels.py's bwd_schedule.
-//   Causal CTAs with the most blocks launch first (key block 0, the last
-//   query block).
+//   walks and the mask flags are ops/flash_kernels.py's bwd_schedule (the
+//   forward's q_schedule is its dQ walk: 128-row CTAs, each warpgroup on
+//   its own 64-row entry). Causal CTAs with the most blocks launch first
+//   (key block 0, the last query block).
 // - Each output element is written once, by a TMA store of the rounded
-//   accumulator staged in shared memory: the same bits on every run.
-// What holds them back: a warpgroup waits on its own S and dP before the
-// exponentials and on dV and dK before the next block, so its products
-// idle through the block's 4096 exponentials and their arithmetic; only
-// the other CTA on the SM fills that time, and the accumulators' registers
-// keep a third off. Two consumer warpgroups a CTA that take turns are the
-// way on.
+//   accumulator staged in shared memory: the same bits on every run. The
+//   forward scales O by 1/l before its one rounding and writes LSE = m·ln 2
+//   + log l, f32, for the rows below T.
+// What holds them back: a warpgroup waits on its own first product before
+// the exponentials and on its second before the next block, so its
+// tensor cores idle through the block's 4096 exponentials and their
+// arithmetic; only the other warpgroups on the SM fill that time, without
+// a schedule. Overlapping one block's softmax with the last block's P·V
+// inside a warpgroup (two groups of wgmma in flight) ran 1.67x slower on
+// an H100: ptxas serialized the wgmmas (C7515) and spilled. Warpgroups
+// that take turns on the tensor cores by named barriers are the way on.
 
 #include "common.cuh"
 
@@ -137,12 +149,13 @@ __device__ __forceinline__ bool visible(int row, int col, int T_, bool causal) {
   return col < T_ && (!causal || col <= row);
 }
 
-// ------------------------------------------------------------ forward --
+// ------------------------------------------------------- forward, f32 --
 // One CTA per (q block of 64, h, b). smem: Q, K, V [64][D+kPad], P [64][kLdP].
 template <typename T, int D, bool kCausal>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_fwd_kernel(View q, View k, View v, View o, float* __restrict__ lse, int T_, int H,
                  float scale) {
+  static_assert(std::is_same<T, float>::value, "bf16 runs flash_fwd_tc_kernel");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kLd = D + kPad;
   T* sQ = reinterpret_cast<T*>(smem_raw);
@@ -385,6 +398,7 @@ constexpr int kBwdConsumers = 128;
 constexpr int kBwdThreads = kBwdConsumers + 32;  // and the producer warp
 constexpr int kBox = 64 * kSwRow;                // a TMA box: 64 rows of 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kBwdRows == 64 && kBwdCols == 64, "a box is 64 rows; a warpgroup owns 64 rows");
 
 // Shared memory of a CTA at head dim D: the resident tiles, the ring (each
@@ -464,10 +478,11 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&c)
 }
 
 // The warpgroup's [64][D] f32 accumulator rounded to bf16 into a tile, in
-// the swizzled layout a TMA store reads.
+// the swizzled layout a TMA store reads (warp w % 4 of the warpgroup owns
+// rows 16·(w % 4)..).
 template <int D>
 __device__ __forceinline__ void stage_acc(unsigned char* tile, const float (&acc)[D / 2]) {
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const int warp = (threadIdx.x >> 5) & 3, g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
@@ -720,6 +735,184 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   }
 }
 
+// ------------------------------------------- forward, bf16: wgmma and TMA --
+// The forward's CTA: two consumer warpgroups of 64 query rows each, which
+// share every streamed K and V tile (one warpgroup a CTA ran 1.15x slower
+// causal, 1.55x full, on an H100), and the producer warp.
+constexpr int kFwdWGs = 2;
+constexpr int kFwdRows = 64 * kFwdWGs;  // query rows a CTA owns
+constexpr int kFwdConsumers = 128 * kFwdWGs;
+constexpr int kFwdThreads = kFwdConsumers + 32;
+
+// Shared memory of a CTA at head dim D: the warpgroups' Q tiles, the ring
+// (each stage K and V), the barriers. Three stages at D=64 (two CTAs an
+// SM), two at D=128 (one).
+template <int D>
+struct FwdSmem {
+  static constexpr int kTile = D / 64 * kBox;
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kSmem = 1024 + kFwdWGs * kTile + kStages * kStage + 64;
+};
+
+// The online softmax of one 64-key block, rows row_a and row_a + 8 of this
+// thread: sc holds the block's scores and becomes the unrounded P; the
+// row max m (base 2) and the lane's share of l are updated, and alpha =
+// 2^(m_old − m) is returned for the accumulator.
+template <bool kCausal>
+__device__ __forceinline__ void softmax_block(float (&sc)[32], float (&m)[2], float (&l)[2],
+                                              float (&alpha)[2], bool masked, int k0, int row_a,
+                                              int T_, float scale_log2) {
+  const int q = threadIdx.x & 3;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (masked) {
+        const int key = k0 + 8 * j + 2 * q + (e & 1), row = row_a + 8 * (e >> 1);
+        if (key >= T_ || (kCausal && key > row)) sc[4 * j + e] = -INFINITY;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // every row sees key k0 of each block it visits (rows past T too: only
+    // keys past T or after the row are masked), so m is finite from the
+    // first block on
+    const float m_new = fmaxf(m[r], quad_max(mx[r]) * scale_log2);
+    alpha[r] = ex2(m[r] - m_new);  // 0 at the first block (m = -inf)
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(fmaf(sc[4 * j + e], scale_log2, -m[e >> 1]));
+      l[e >> 1] += p;
+      sc[4 * j + e] = p;
+    }
+}
+
+// grid (B·H, query blocks of kFwdRows), the last block first: the walk of
+// the dQ kernel at 128 rows (q_schedule). Consumer warpgroup w owns rows
+// q0 + 64·w.. and walks its own 64-row block's key tiles over the shared
+// ring (causal: one fewer for w = 0), with its own mask flags; each of its
+// threads holds rows 16·warp + g and + 8 of S, P and O, and their m and
+// its share of l.
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kFwdThreads, D == 64 ? 2 : 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                    float* __restrict__ lse, int T_, int H, float scale) {
+  using S = FwdSmem<D>;
+  constexpr int kSt = S::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sQ = align1024(smem_raw);
+  unsigned char* ring = sQ + kFwdWGs * S::kTile;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kSt * S::kStage);
+  uint64_t* empty = full + kSt;
+  uint64_t* resident = empty + kSt;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int qb = cdiv(T_, kFwdRows) - 1 - (int)blockIdx.y, q0 = qb * kFwdRows;
+  const int n_blocks = dq_last(q0 / 64 + kFwdWGs - 1, T_, kCausal) + 1;  // the last warpgroup's
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kFwdConsumers);
+    }
+    mbar_init(resident, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kFwdConsumers) {  // the producer warp; its lane 0 issues every copy
+    if ((threadIdx.x & 31) != 0) return;
+    mbar_expect(resident, kFwdWGs * S::kTile);
+#pragma unroll
+    for (int w = 0; w < kFwdWGs; ++w)
+      load_rows<D>(sQ + w * S::kTile, &tq, b, h, q0 + 64 * w, resident);
+    for (int i = 0; i < n_blocks; ++i) {
+      const int s = i % kSt, k0 = i * kBwdCols;
+      if (i >= kSt) mbar_wait(empty + s, (i / kSt - 1) & 1);
+      unsigned char* st = ring + s * S::kStage;
+      mbar_expect(full + s, 2 * S::kTile);
+      load_rows<D>(st, &tk, b, h, k0, full + s);
+      load_rows<D>(st + S::kTile, &tv, b, h, k0, full + s);
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const int q0w = q0 + 64 * wg, row_a = q0w + warp * 16 + g;
+  // this warpgroup's blocks; a block past them (causal, w = 0) is the
+  // CTA's last, whose stage no copy reuses
+  const int my_blocks = dq_last(q0w / 64, T_, kCausal) + 1;
+  unsigned char* sQw = sQ + wg * S::kTile;
+  const float scale_log2 = scale * kLog2e;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  mbar_wait(resident, 0);
+  for (int i = 0; i < my_blocks; ++i) {
+    const int s = i % kSt, k0 = i * kBwdCols;
+    const unsigned char* sK = ring + s * S::kStage;
+    const unsigned char* sV = sK + S::kTile;
+    mbar_wait(full + s, (i / kSt) & 1);
+    float sc[32];  // S, then P: [this thread's queries][keys]
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) Wgmma<64>::ss(sc, kmajor(sQw, kk), kmajor(sK, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sc);
+    float alpha[2];
+    softmax_block<kCausal>(sc, m, l, alpha, dq_masked(q0w, k0, T_, kCausal), k0, row_a, T_,
+                           scale_log2);
+    uint32_t pa[4][4];
+    to_a_frags(pa, sc);
+    fence_acc(acc);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * j + e] *= alpha[e >> 1];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) Wgmma<D>::template rs<1>(acc, pa[kk], mnmajor(sV, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_regs(pa);
+    mbar_arrive(empty + s);
+  }
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    inv[r] = 1.f / l[r];
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[4 * j + e] *= inv[e >> 1];
+  if (q == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row_a + 8 * r < T_) lse[(size_t)bh * T_ + row_a + 8 * r] = m[r] * kLn2 + logf(l[r]);
+  bar_sync(1 + wg, 128);  // every warp of the warpgroup is past its last product on its Q
+  stage_acc<D>(sQw, acc);
+  fence_async_smem();
+  bar_sync(1 + wg, 128);
+  if ((threadIdx.x & 127) == 0 && q0w < T_) {
+    store_rows<D>(&to, sQw, b, h, q0w);
+    bulk_commit();
+    bulk_wait_read<0>();
+  }
+}
+
 // -------------------------------------------------------------- launch --
 // Shared memory for n_tiles [64][D+kPad] tiles and the P (dS) tile.
 template <typename T, int D>
@@ -730,7 +923,7 @@ constexpr size_t tile_bytes(int n_tiles) {
 struct Args {
   int causal, T, H, B;
   float scale;
-  int n_ctas;  // the backward's CTAs a head, from bwd_schedule
+  int n_ctas;  // CTAs a head, from q_schedule and bwd_schedule
   View q, k, v, o, dout, dq, dk, dv;
   const float* lse_in;
   float* lse_out;
@@ -745,19 +938,6 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int D, bool kCausal>
-struct Fwd {
-  static cudaError_t go(const Args& a) {
-    auto kernel = flash_fwd_kernel<T, D, kCausal>;
-    const size_t smem = tile_bytes<T, D>(3);
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<a.grid(), kFlashThreads, smem, a.st>>>(a.q, a.k, a.v, a.o, a.lse_out, a.T, a.H,
-                                                    a.scale);
-    return cudaGetLastError();
-  }
-};
-
 // The 4-D map (D, H, T, B) over a [B,T,H,D] bf16 view, in boxes of 64
 // columns by 64 rows of one head.
 bool view_map(CUtensorMap* m, const View& v, const Args& a, int D) {
@@ -767,22 +947,45 @@ bool view_map(CUtensorMap* m, const View& v, const Args& a, int D) {
   return encode_tiled(m, 4, v.p, dims, strides, box);
 }
 
-// The maps over `views`, then the bf16 kernel on grid (B·H, n_ctas).
+// The maps over `views`, then the bf16 kernel on grid (B·H, n_ctas), with
+// `threads` threads and `smem` bytes of shared memory a CTA.
 template <int D, int N, typename Kernel, typename... Rest>
-cudaError_t launch_tc(Kernel kernel, const Args& a, const View* const (&views)[N], Rest... rest) {
+cudaError_t launch_tc(Kernel kernel, int threads, int smem, const Args& a,
+                      const View* const (&views)[N], Rest... rest) {
   CUtensorMap m[N];
   for (int i = 0; i < N; ++i)
     if (!view_map(&m[i], *views[i], a, D)) return cudaErrorInvalidValue;
-  const int smem = Bwd<D>::kSmem;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.B * a.H, a.n_ctas);
   if constexpr (N == 6)
-    kernel<<<grid, kBwdThreads, smem, a.st>>>(m[0], m[1], m[2], m[3], m[4], m[5], rest...);
+    kernel<<<grid, threads, smem, a.st>>>(m[0], m[1], m[2], m[3], m[4], m[5], rest...);
+  else if constexpr (N == 5)
+    kernel<<<grid, threads, smem, a.st>>>(m[0], m[1], m[2], m[3], m[4], rest...);
   else
-    kernel<<<grid, kBwdThreads, smem, a.st>>>(m[0], m[1], m[2], m[3], m[4], rest...);
+    kernel<<<grid, threads, smem, a.st>>>(m[0], m[1], m[2], m[3], rest...);
   return cudaGetLastError();
 }
+
+// f32 io: flash_fwd_kernel; bf16: flash_fwd_tc_kernel
+template <typename T, int D, bool kCausal>
+struct Fwd {
+  static cudaError_t go(const Args& a) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      const View* const views[4] = {&a.q, &a.k, &a.v, &a.o};
+      return launch_tc<D>(flash_fwd_tc_kernel<D, kCausal>, kFwdThreads, FwdSmem<D>::kSmem, a,
+                          views, a.lse_out, a.T, a.H, a.scale);
+    } else {
+      auto kernel = flash_fwd_kernel<T, D, kCausal>;
+      const size_t smem = tile_bytes<T, D>(3);
+      cudaError_t err = allow_smem(kernel, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<a.grid(), kFlashThreads, smem, a.st>>>(a.q, a.k, a.v, a.o, a.lse_out, a.T, a.H,
+                                                      a.scale);
+      return cudaGetLastError();
+    }
+  }
+};
 
 // f32 io: flash_bwd_dkv_kernel; bf16: flash_bwd_dkv_tc_kernel
 template <typename T, int D, bool kCausal>
@@ -790,8 +993,8 @@ struct Dkv {
   static cudaError_t go(const Args& a) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       const View* const views[6] = {&a.q, &a.k, &a.v, &a.dout, &a.dk, &a.dv};
-      return launch_tc<D>(flash_bwd_dkv_tc_kernel<D, kCausal>, a, views, a.lse_in, a.di, a.T,
-                          a.H, a.scale);
+      return launch_tc<D>(flash_bwd_dkv_tc_kernel<D, kCausal>, kBwdThreads, Bwd<D>::kSmem, a,
+                          views, a.lse_in, a.di, a.T, a.H, a.scale);
     } else {
       auto kernel = flash_bwd_dkv_kernel<T, D, kCausal>;
       const size_t smem = tile_bytes<T, D>(4) + 2 * kRows * sizeof(float);
@@ -810,8 +1013,8 @@ struct Dq {
   static cudaError_t go(const Args& a) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       const View* const views[5] = {&a.q, &a.k, &a.v, &a.dout, &a.dq};
-      return launch_tc<D>(flash_bwd_dq_tc_kernel<D, kCausal>, a, views, a.lse_in, a.di, a.T,
-                          a.H, a.scale);
+      return launch_tc<D>(flash_bwd_dq_tc_kernel<D, kCausal>, kBwdThreads, Bwd<D>::kSmem, a,
+                          views, a.lse_in, a.di, a.T, a.H, a.scale);
     } else {
       auto kernel = flash_bwd_dq_kernel<T, D, kCausal>;
       const size_t smem = tile_bytes<T, D>(4);
@@ -841,10 +1044,10 @@ cudaError_t dispatch(int io_bf16, int D, const Args& a) {
   return cudaErrorInvalidValue;  // D is neither 64 nor 128
 }
 
-// The backward's checks: the CTAs a head bwd_schedule counts are the
-// kernels' (both own 64 rows), and the bf16 grid's B·H fits.
-cudaError_t bwd_ok(const Args& a) {
-  if (a.T < 1 || a.n_ctas != cdiv(a.T, kBwdRows) || a.n_ctas > 65535 ||
+// The checks of every launch: the CTAs a head the schedule counts are the
+// kernel's (each owns `rows` rows), and the bf16 grid's B·H fits.
+cudaError_t grid_ok(const Args& a, int rows = kBwdRows) {
+  if (a.T < 1 || a.n_ctas != cdiv(a.T, rows) || a.n_ctas > 65535 ||
       (long long)a.B * a.H > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   return cudaSuccess;
@@ -863,11 +1066,16 @@ Args args(int causal, int B, int T, int H, float scale, void* stream) {
 
 }  // namespace
 
-// q, k, v, o: [B,T,H,D] views in the io dtype; lse: [B,H,T] f32 out.
+// q, k, v, o: [B,T,H,D] views in the io dtype; lse: [B,H,T] f32 out;
+// n_ctas: q_schedule's CTAs a head (128-row CTAs in bf16, 64-row in f32).
+// bf16 views: 16-byte aligned, strides multiples of 8 elements (tensor
+// maps).
 extern "C" int flash_fwd_launch(int io_bf16, int causal, int B, int T, int H, int D,
-                                float scale, const View* q, const View* k, const View* v,
-                                const View* o, void* lse, void* stream) {
+                                float scale, int n_ctas, const View* q, const View* k,
+                                const View* v, const View* o, void* lse, void* stream) {
   Args a = args(causal, B, T, H, scale, stream);
+  a.n_ctas = n_ctas;
+  if (grid_ok(a, io_bf16 ? kFwdRows : kRows) != cudaSuccess) return cudaErrorInvalidValue;
   a.q = *q;
   a.k = *k;
   a.v = *v;
@@ -876,7 +1084,7 @@ extern "C" int flash_fwd_launch(int io_bf16, int causal, int B, int T, int H, in
   return dispatch<Fwd>(io_bf16, D, a);
 }
 
-// as flash_fwd_launch, plus n_ctas (bwd_schedule's CTAs a head), dO in,
+// as flash_fwd_launch, n_ctas from bwd_schedule, with dO in,
 // lse and di [B,H,T] f32 in; dk, dv out. bf16 views: 16-byte aligned, strides
 // multiples of 8 elements (tensor maps).
 extern "C" int flash_bwd_dkv_launch(int io_bf16, int causal, int B, int T, int H, int D,
@@ -885,7 +1093,7 @@ extern "C" int flash_bwd_dkv_launch(int io_bf16, int causal, int B, int T, int H
                                     const void* di, const View* dk, const View* dv, void* stream) {
   Args a = args(causal, B, T, H, scale, stream);
   a.n_ctas = n_ctas;
-  if (bwd_ok(a) != cudaSuccess) return cudaErrorInvalidValue;
+  if (grid_ok(a) != cudaSuccess) return cudaErrorInvalidValue;
   a.q = *q;
   a.k = *k;
   a.v = *v;
@@ -904,7 +1112,7 @@ extern "C" int flash_bwd_dq_launch(int io_bf16, int causal, int B, int T, int H,
                                    const void* di, const View* dq, void* stream) {
   Args a = args(causal, B, T, H, scale, stream);
   a.n_ctas = n_ctas;
-  if (bwd_ok(a) != cudaSuccess) return cudaErrorInvalidValue;
+  if (grid_ok(a) != cudaSuccess) return cudaErrorInvalidValue;
   a.q = *q;
   a.k = *k;
   a.v = *v;

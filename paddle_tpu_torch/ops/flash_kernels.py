@@ -16,9 +16,9 @@ output rounded once.
 
 `flash_fwd`, `flash_bwd_dkv` and `flash_bwd_dq` take CUDA tensors to the
 kernels, or raise; CPU tensors to the plain versions. There is no fallback
-from one to the other. In bf16 io the backward kernels run on wgmma with
-TMA (see `bwd_schedule` for the blocks they walk); in f32 io all three,
-and the forward in bf16, on mma.sync fragments.
+from one to the other. In bf16 io all three kernels run on wgmma with TMA
+(see `bwd_schedule` and `q_schedule` for the blocks they walk); in f32 io
+on mma.sync's fragment layout with f32 FMAs.
 """
 
 from __future__ import annotations
@@ -37,8 +37,9 @@ flash_bwd_dkv_launches = 0
 flash_bwd_dq_launches = 0
 
 HEAD_DIMS = (64, 128)
-FLASH_BLOCK = 64  # keys a forward block stages (kRows in csrc/flash_attn.cu)
-BWD_ROWS = 64  # rows a backward CTA owns (kBwdRows)
+FLASH_BLOCK = 64  # keys a forward block stages (kBwdCols in csrc/flash_attn.cu)
+FWD_ROWS = 128  # query rows a bf16 forward CTA owns, 64 each warpgroup (kFwdRows)
+BWD_ROWS = 64  # rows a backward CTA owns (kBwdRows), and an f32 forward CTA
 BWD_COLS = 64  # rows of each tile a backward CTA streams (kBwdCols)
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -65,8 +66,10 @@ def flash_fwd_plain(q, k, v, causal: bool):
     and the online softmax over blocks of FLASH_BLOCK keys, as the kernel
     walks them: the running row max m, P = exp(s - m) rounded to the io
     dtype before P·V, the accumulator and the sum l of the unrounded P
-    rescaled by exp(m_old - m) at each block, O = acc · (1/l). Returns
-    (O [B,T,H,D] io dtype, LSE = m + log l [B,H,T] f32)."""
+    rescaled by exp(m_old - m) at each block, O = acc · (1/l). (The bf16
+    kernel computes the same exponentials in base 2, scale·log2 e folded
+    into the scores.) Returns (O [B,T,H,D] io dtype, LSE = m + log l
+    [B,H,T] f32)."""
     dt = q.dtype
     s, mask = _scores(q, k, causal)
     if mask is not None:
@@ -154,6 +157,18 @@ def bwd_schedule(T: int, causal: bool, rows: int = BWD_ROWS, cols: int = BWD_COL
     return {"dkv": tuple(dkv), "dq": tuple(dq)}
 
 
+def q_schedule(T: int, causal: bool, rows: int = BWD_ROWS, cols: int = FLASH_BLOCK):
+    """The walk of the kernels that own query blocks, the bf16 forward and
+    dQ: bwd_schedule's "dq" CTAs, each (query block, ((key block, masked),
+    ...)) in launch order, the heaviest causal CTAs first. The forward's
+    online softmax walks the key blocks in this order, FLASH_BLOCK keys
+    each, as flash_fwd_plain does. Its CTAs own FWD_ROWS queries and stream
+    the walk of rows=FWD_ROWS; each of its two warpgroups walks its own
+    64-row block's entry of rows=64 (causal: the first stops one tile
+    short), with that entry's mask flags."""
+    return bwd_schedule(T, causal, rows, cols)["dq"]
+
+
 # ------------------------------------------------------------------ kernel --
 class _View(ctypes.Structure):
     """A [B,T,H,D] tensor as csrc/flash_attn.cu's `View` takes it."""
@@ -171,7 +186,7 @@ def _lib():
     if lib.flash_fwd_launch.argtypes is None:
         head = [ctypes.c_int] * 6 + [ctypes.c_float]
         ptr = ctypes.c_void_p
-        lib.flash_fwd_launch.argtypes = head + [ptr] * 6
+        lib.flash_fwd_launch.argtypes = head + [ctypes.c_int] + [ptr] * 6  # n_ctas first
         lib.flash_bwd_dkv_launch.argtypes = head + [ctypes.c_int] + [ptr] * 9  # n_ctas first
         lib.flash_bwd_dq_launch.argtypes = head + [ctypes.c_int] + [ptr] * 8
         for fn in (lib.flash_fwd_launch, lib.flash_bwd_dkv_launch, lib.flash_bwd_dq_launch):
@@ -184,7 +199,7 @@ def _lib():
 def _aligned(t):
     """t itself if the kernels can read it in place, else a contiguous copy:
     d contiguous, the data on 16 bytes and every stride a multiple of 16
-    bytes, as the mma.sync kernels' 16-byte loads and the backward's tensor
+    bytes, as the f32 kernels' 16-byte loads and the bf16 kernels' tensor
     maps (a 16-byte aligned base, strides in multiples of 16 bytes) need."""
     vec = 16 // t.element_size()
     if t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(s % vec == 0 for s in t.stride()[:3]):
@@ -245,7 +260,9 @@ def flash_fwd(q, k, v, causal: bool):
     B, T, H, _ = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", q, causal, *(_view(t) for t in (q, k, v, o)), lse.data_ptr())
+    rows = FWD_ROWS if q.dtype == torch.bfloat16 else BWD_ROWS
+    ctas = len(q_schedule(T, bool(causal), rows))  # the grid's CTAs a head
+    _launch("flash_fwd", q, causal, ctas, *(_view(t) for t in (q, k, v, o)), lse.data_ptr())
     flash_fwd_launches += 1
     return o, lse
 
@@ -280,7 +297,7 @@ def flash_bwd_dq(q, k, v, do, lse, di, causal: bool):
     q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     lse, di = lse.contiguous(), di.contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    ctas = len(bwd_schedule(q.shape[1], bool(causal))["dq"])
+    ctas = len(q_schedule(q.shape[1], bool(causal)))
     _launch("flash_bwd_dq", q, causal, ctas, *(_view(t) for t in (q, k, v, do)),
             lse.data_ptr(), di.data_ptr(), _view(dq))
     flash_bwd_dq_launches += 1

@@ -16,7 +16,11 @@ the group's CTAs only. Its W slice is read in the packed layout `pack_w`
 makes: for each group of 16 units, 64 gate columns ordered so that one
 thread's mma.sync accumulator fragment holds i, f, g and o of one unit
 (`packed_columns`), each stored K-contiguous (Wᵀ), H padded to a multiple
-of 16 with zeros. The f32 forward and the backward read W as it is.
+of 16 with zeros. The bf16 backward, on the same partition (16 units a
+CTA, batch groups of 32-row tiles, a barrier a group), reads W padded by
+`pad_w_bwd` and takes dW off the recurrence: a second kernel behind the
+same launch computes it as one product over all T·B rows. The f32 kernels
+read W as it is.
 
 `lstm_fwd` and `lstm_bwd` take CUDA tensors to the kernel, or raise; CPU
 tensors to the plain version. There is no fallback from one to the other.
@@ -40,8 +44,8 @@ LSTM_FUSED_DW_MAX_H = 640
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
-# kUnits and kRows in csrc/lstm_fwd.cu: the bf16 forward's hidden units a
-# CTA and batch rows a sub-tile
+# kUnits and kRows in csrc/lstm_fwd.cu and csrc/lstm_bwd.cu: the bf16
+# kernels' hidden units a CTA and batch rows a sub-tile
 UNITS_PER_CTA = 16
 ROWS_PER_TILE = 32
 
@@ -128,11 +132,24 @@ def unpack_gates(packed, H: int):
     return out
 
 
+def pad_w_bwd(w):
+    """W [H, 4H] as the bf16 backward reads it: [Hp, 4·Hp] with row j the
+    weights of unit j and gate q's columns at q·Hp (Hp = padded_units(H)),
+    zero where the unit or k is padding, as the exchanged dgates are laid
+    out. Row j is the K-contiguous B operand of unit j's dh carry: nothing
+    is transposed."""
+    H = w.shape[0]
+    Hp = padded_units(H)
+    out = torch.zeros(Hp, 4, Hp, dtype=w.dtype, device=w.device)
+    out[:H, :, :H] = w.reshape(H, 4, H)
+    return out.reshape(Hp, 4 * Hp)
+
+
 def _lib(name):
     lib = cuda_build.load(name)
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
-        n_ptr = 9 if name == "lstm_fwd" else 11
+        n_ptr = 9 if name == "lstm_fwd" else 12
         n_int = 4 if name == "lstm_fwd" else 5
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
@@ -314,19 +331,29 @@ def lstm_bwd(gates_pre, c_prev, h_prev, dh_seq, mask, w, dhT, dcT, reverse: bool
         raise ValueError(f"lstm_bwd: unsupported device {h_prev.device}")
     T, B, H = h_prev.shape
     dt = h_prev.dtype
+    bf16 = dt == torch.bfloat16
     fuse_dw = H <= LSTM_FUSED_DW_MAX_H
     args = [t.contiguous() for t in (gates_pre, c_prev, h_prev, dh_seq, w, dhT, dcT)]
+    if bf16:
+        args[4] = pad_w_bwd(args[4])
     mask = mask.to(torch.float32).contiguous()
+    # the two dgates exchange buffers [2, B, 4·Hp] (bf16: zeroed, the
+    # padding columns stay zero), then (bf16) the batch groups' barrier
+    # counters, at most one a row tile
+    hp = padded_units(H) if bf16 else H
+    dg_bytes = 2 * B * 4 * hp * h_prev.element_size()
+    n_bars = -(-B // ROWS_PER_TILE) if bf16 else 0
     with torch.cuda.device(h_prev.device):
         lib = _lib("lstm_bwd")
         dx = torch.empty(T, B, 4 * H, dtype=dt, device=h_prev.device)
         dw = torch.empty(H, 4 * H, dtype=dt, device=h_prev.device)
-        dgbuf = torch.empty(2, B, 4 * H, dtype=dt, device=h_prev.device)
+        ws = (torch.zeros if bf16 else torch.empty)(dg_bytes + 4 * n_bars, dtype=torch.uint8,
+                                                    device=h_prev.device)
         err = lib.lstm_bwd_launch(
-            int(dt == torch.bfloat16), *(a.data_ptr() for a in args[:4]), mask.data_ptr(),
+            int(bf16), *(a.data_ptr() for a in args[:4]), mask.data_ptr(),
             *(a.data_ptr() for a in args[4:]), dx.data_ptr(), dw.data_ptr(),
-            dgbuf.data_ptr(), T, B, H, int(bool(reverse)), int(fuse_dw),
-            torch.cuda.current_stream().cuda_stream)
+            ws.data_ptr(), ws.data_ptr() + dg_bytes if bf16 else None, T, B, H,
+            int(bool(reverse)), int(fuse_dw), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"lstm_bwd kernel launch failed (T={T}, B={B}, H={H}, {dt}): "

@@ -1,6 +1,7 @@
-"""The bf16 backward flash kernels' block schedule (ops/flash_kernels.py
+"""The bf16 flash kernels' block schedule (ops/flash_kernels.py
 `bwd_schedule`, which csrc/flash_attn.cu's dkv_first, dq_last, dkv_masked
-and dq_masked follow), on the CPU.
+and dq_masked follow, and `q_schedule`, its dQ walk, which the forward
+walks too), on the CPU.
 
 The kernels need the card; what they walk does not. Each dK/dV CTA owns a
 block of keys and walks query tiles, each dQ CTA owns a block of queries
@@ -24,6 +25,14 @@ causal test and the T bound. Two things are held here:
   reads keys after their queries and fails by orders of magnitude. Past T
   the zero-filled tiles already make each product's padded terms 0; the
   mask makes P itself 0 there.
+- The forward: a tiled f32 emulation of flash_fwd_tc_kernel over
+  q_schedule's walk (64-key tiles zero-filled past T, masks only on the
+  flagged blocks, the online softmax in base 2 with scale·log2 e folded
+  into the scores, LSE = m·ln 2 + log l) against flash_fwd_plain, O within
+  2e-6 of its largest element and LSE within 2e-6 of its largest
+  magnitude (measured at most 3.7e-7 and 1.3e-7). With the flagged masks
+  left out, causal rows read later keys and past T the zero-filled keys
+  take a share of the softmax: it fails by orders of magnitude.
 """
 
 import math
@@ -35,7 +44,7 @@ import torch
 from paddle_tpu_torch.ops import flash_kernels as fk
 
 T_CASES = [1, 63, 64, 65, 127, 128, 129, 200, 1000]
-TILE_ROWS = [64, 128]  # the rows a CTA owns: the kernels' 64, and 128
+TILE_ROWS = [64, 128]  # rows a CTA owns: 64 (backward; a forward warpgroup), 128 (forward)
 LOG2E = 1.4426950408889634
 TOL = 2e-6
 
@@ -185,8 +194,88 @@ def test_emulation_fails_where_a_mask_is_left_out():
 
 def test_wrappers_size_their_grids_from_the_schedule():
     """The launch's CTA count a head is the schedule's: one CTA for every
-    64 rows, in both kernels."""
+    64 rows in the backward kernels, for every 128 in the bf16 forward."""
     for T in T_CASES:
         for causal in (True, False):
             s = fk.bwd_schedule(T, causal)
             assert len(s["dkv"]) == len(s["dq"]) == -(-T // fk.BWD_ROWS)
+            assert len(fk.q_schedule(T, causal, fk.FWD_ROWS)) == -(-T // 128)
+
+
+def _emulate_fwd(q, k, v, causal, rows, sched=None):
+    """flash_fwd_tc_kernel's arithmetic over q_schedule's walk (or `sched`),
+    in the io dtype's rounding of P (f32 here: none). Returns (O, LSE)."""
+    B, T, H, D = q.shape
+    cols = fk.FLASH_BLOCK
+    dt = q.dtype
+    sched = fk.q_schedule(T, causal, rows, cols) if sched is None else sched
+    Tp = -(-T // rows) * rows + cols
+
+    def pad(t):
+        return torch.cat([t.float(), torch.zeros(B, Tp - T, H, D)], 1)
+
+    qp, kp, vp = pad(q), pad(k), pad(v)
+    scale_log2 = LOG2E / math.sqrt(D)
+    o = torch.zeros(B, Tp, H, D)
+    lse = torch.zeros(B, H, Tp)
+    for qb, blocks in sched:
+        qs = np.arange(qb * rows, (qb + 1) * rows)
+        m = torch.full((B, H, rows, 1), float("-inf"))
+        l = torch.zeros(B, H, rows, 1)
+        acc = torch.zeros(B, H, rows, D)
+        for kt, masked in blocks:
+            ks = np.arange(kt * cols, (kt + 1) * cols)
+            s = torch.einsum("bqhd,bkhd->bhqk", qp[:, qs], kp[:, ks]) * scale_log2
+            if masked:
+                ok = np.ones((rows, 1), bool) & (ks[None, :] < T)
+                if causal:
+                    ok = ok & (ks[None, :] <= qs[:, None])
+                s = s.masked_fill(~torch.as_tensor(ok), float("-inf"))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bhqk,bkhd->bhqd", p.to(dt).float(), vp[:, ks])
+            m = m_new
+        o[:, qs] = (acc * (1.0 / l)).permute(0, 2, 1, 3)
+        lse[..., qs] = (m * math.log(2.0) + torch.log(l))[..., 0]
+    return o[:, :T], lse[..., :T]
+
+
+def _fwd_rel(got, want):
+    o, lse = got
+    wo, wl = want
+    return _rel(o, wo.float()), float((lse - wl).abs().max() / wl.abs().max())
+
+
+@pytest.mark.parametrize("rows", TILE_ROWS)
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("T", T_CASES)
+def test_forward_emulation_matches_plain(T, causal, D, rows):
+    q, k, v = _inputs(T, D, causal, seed=2 * T + D)[:3]
+    err_o, err_lse = _fwd_rel(_emulate_fwd(q, k, v, causal, rows), fk.flash_fwd_plain(q, k, v, causal))
+    assert err_o <= TOL and err_lse <= TOL, (err_o, err_lse)
+
+
+@pytest.mark.parametrize("T", [100, 129])
+def test_forward_emulation_fails_where_a_mask_is_left_out(T):
+    """The forward's emulation can fail: with the flagged blocks left
+    unmasked, causal rows read later keys (and past T, zero-filled keys)."""
+    causal, rows = True, 64
+    q, k, v = _inputs(T, 64, causal)[:3]
+    broken = tuple((qb, tuple((kt, False) for kt, _ in b))
+                   for qb, b in fk.q_schedule(T, causal, rows))
+    err_o, _ = _fwd_rel(_emulate_fwd(q, k, v, causal, rows, sched=broken),
+                        fk.flash_fwd_plain(q, k, v, causal))
+    assert err_o > 1e3 * TOL
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("T", T_CASES)
+def test_q_schedule_is_the_dq_walk(T, causal):
+    """The forward's walk is the dQ kernel's: each query block once,
+    heaviest first, key tiles of FLASH_BLOCK from 0, the same flags."""
+    assert fk.FLASH_BLOCK == fk.BWD_COLS
+    assert fk.q_schedule(T, causal) == fk.bwd_schedule(T, causal)["dq"]
+    assert len(fk.q_schedule(T, causal)) == -(-T // fk.BWD_ROWS)

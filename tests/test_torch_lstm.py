@@ -26,6 +26,15 @@ backward with the dh and dc carries and the dgates kept in f32, rounded
 only at the output, is at most 5.5e-3 off but differs in 16.5% of dx and
 fails (`test_bwd_bf16_bound_rejects_carries_in_f32`).
 
+The bf16 backward kernel's partition (`_tc_partition`: unit groups of 16
+by 32-row batch groups exchanging rounded dgates, W padded by
+`lstm_kernels.pad_w_bwd`, the dh carry's product as the kernel's warps sum
+it, dW as one product after the walk) against the Pallas kernel and
+lstm_bwd_plain with the same bounds, at H = 100, 301 and 512, B = 40
+(measured: f32 within 4.6e-7; bf16 within 2.2e-3, dx differing in at most
+0.15%). With the dgates exchanged unrounded it differs in 6.0% and 8.8% of
+dx and fails (`test_bwd_partition_bound_rejects_dgates_exchanged_unrounded`).
+
 Scans: the port's lstm_scan (peepholes, reverse, other activations) and
 stacked_lstm2_scan against the JAX scans, f32 within 1e-5, bf16 bit for
 bit (both compute op by op in bf16; measured: identical)."""
@@ -249,9 +258,10 @@ _BWD_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
 _BWD_BF16_MAX_DIFFERING = 0.01  # share of dx's elements
 
 
-def _bwd_case(seed, reverse, dtype, carries_f32=False, B=8):
-    """(Pallas dx, dW), (port dx, dW) as f32 numpy, on one seeded case."""
-    x, w, b, mask = _inputs(B, seed)
+def _bwd_inputs(seed, reverse, dtype, B=8, H=H):
+    """One seeded case: the backward's inputs in the io dtype, and the
+    Pallas kernel's (dx, dW) on them as f32 numpy."""
+    x, w, b, mask = _inputs(B, seed, H=H)
     rng = np.random.RandomState(seed + 100)
     tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
     xt, wt, mt = _port_x(x, b, tdt), torch.tensor(w).to(tdt), torch.tensor(mask)
@@ -260,17 +270,23 @@ def _bwd_case(seed, reverse, dtype, carries_f32=False, B=8):
     h_seq, c_seq, _, _ = lstm_kernels.lstm_fwd_plain(xt, mt, wt, reverse)
     gp, cp, hp = lstm_kernels.lstm_bwd_inputs(xt, wt, h_seq, c_seq, reverse)
     args = (gp, cp, hp, dh, mt, wt, dhT, dcT)
+    to_j = lambda t: jnp.asarray(t.float().numpy()).astype(jdt)  # noqa: E731
+    jx, jh, jc, jdh = (_flip(to_j(t), reverse) for t in (xt, h_seq, c_seq, dh))
+    j_dx, j_dw = pallas_kernels._lstm_bwd_pallas(jx, jnp.asarray(_flip(mask, reverse)),
+                                                 to_j(wt), jh, jc, jdh, to_j(dhT), to_j(dcT))
+    return args, [np.asarray(a, np.float32) for a in (_flip(j_dx, reverse), j_dw)]
+
+
+def _bwd_case(seed, reverse, dtype, carries_f32=False, B=8):
+    """(Pallas dx, dW), (port dx, dW) as f32 numpy, on one seeded case."""
+    tdt = getattr(torch, dtype)
+    args, want = _bwd_inputs(seed, reverse, dtype, B)
     if carries_f32:
         got = lstm_kernels.lstm_bwd_plain(*(a.float() if a.is_floating_point() else a
                                             for a in args), reverse=reverse)
     else:
         got = lstm_kernels.lstm_bwd_plain(*args, reverse=reverse)
         assert got[0].dtype == tdt and got[1].shape == (H, 4 * H) and got[1].dtype == tdt
-    to_j = lambda t: jnp.asarray(t.float().numpy()).astype(jdt)  # noqa: E731
-    jx, jh, jc, jdh = (_flip(to_j(t), reverse) for t in (xt, h_seq, c_seq, dh))
-    j_dx, j_dw = pallas_kernels._lstm_bwd_pallas(jx, jnp.asarray(_flip(mask, reverse)),
-                                                 to_j(wt), jh, jc, jdh, to_j(dhT), to_j(dcT))
-    want = [np.asarray(a, np.float32) for a in (_flip(j_dx, reverse), j_dw)]
     return want, [t.to(tdt).float().numpy() for t in got]
 
 
@@ -301,6 +317,100 @@ def test_bwd_outer_dw_path_matches_pallas_interpret(monkeypatch, dtype):
 @pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
 def test_bwd_bf16_bound_rejects_carries_in_f32(reverse):
     want, got = _bwd_case(3 + reverse, reverse, "bfloat16", carries_f32=True)
+    assert np.mean(want[0] != got[0]) > _BWD_BF16_MAX_DIFFERING
+
+
+# ------------------------------------------- the bf16 backward's partition --
+def _tc_partition(gates_pre, c_prev, h_prev, dh_seq, mask, w, dhT, dcT, reverse=False,
+                  exchange_rounded=True):
+    """lstm_bwd_plain's function as csrc/lstm_bwd.cu's lstm_bwd_tc_kernel
+    partitions it: CTAs of UNITS_PER_CTA units by ROWS_PER_TILE batch rows.
+    Each does its pairs' gate math and publishes its rounded dgates into
+    the exchange [B, 4·Hp] (gate q's columns at q·Hp, the padding zero);
+    after the step's barrier each takes its units' dh carry from its rows
+    of the exchange times its rows of pad_w_bwd(W): per gate (the k quarter
+    of one warp) the k16 products added in k order, the four quarters in
+    order, then (1-m)·dh, rounded once. dW after the walk, one product over
+    all T·B rows of h_prev and dx, rounded once (for H <= 640; outside the
+    kernel above, as lstm_bwd_plain). With `exchange_rounded` False the
+    dgates are published unrounded. Returns (dx, dW)."""
+    T_, B, H_ = h_prev.shape
+    dt = h_prev.dtype
+    U, R = lstm_kernels.UNITS_PER_CTA, lstm_kernels.ROWS_PER_TILE
+    Hp = lstm_kernels.padded_units(H_)
+    wp = lstm_kernels.pad_w_bwd(w.to(dt)).float()
+    mf = mask.float()
+
+    def units(t):  # [B, H] → [B, Hp] f32, the padding units 0
+        return torch.cat([t.float(), torch.zeros(B, Hp - H_)], 1)
+
+    dh_c, dc_c = units(dhT.to(dt)), units(dcT.to(dt))
+    dx = torch.empty(T_, B, 4 * H_, dtype=dt)
+    ctas = [(slice(u, u + U), slice(r, min(B, r + R))) for u in range(0, Hp, U)
+            for r in range(0, B, R)]
+    for t in (range(T_) if reverse else range(T_ - 1, -1, -1)):
+        ex = torch.zeros(B, 4 * Hp)
+        part = torch.zeros(B, Hp)
+        gp = gates_pre[t].float().reshape(B, 4, H_)
+        for js, bs in ctas:  # the gate math, from local values
+            js = slice(js.start, min(H_, js.stop))
+            if js.start >= js.stop:
+                continue
+            i, f = torch.sigmoid(gp[bs, 0, js]), torch.sigmoid(gp[bs, 1, js])
+            g, o = torch.tanh(gp[bs, 2, js]), torch.sigmoid(gp[bs, 3, js])
+            cp, m = c_prev[t, bs, js].float(), mf[t, bs][:, None]
+            tc = torch.tanh(f * cp + i * g)
+            dh = dh_seq[t, bs, js].float() + dh_c[bs, js]
+            dc = dc_c[bs, js]
+            dh_raw = m * dh
+            dc_raw = m * dc + dh_raw * o * (1 - tc * tc)
+            d = torch.stack([dc_raw * g * i * (1 - i), dc_raw * cp * f * (1 - f),
+                             dc_raw * i * (1 - g * g), dh_raw * tc * o * (1 - o)], 1)
+            dq = d.to(dt)
+            for q in range(4):
+                dx[t, bs, q * H_ + js.start:q * H_ + js.stop] = dq[:, q]
+                ex[bs, q * Hp + js.start:q * Hp + js.stop] = \
+                    dq[:, q].float() if exchange_rounded else d[:, q]
+            dc_c[bs, js] = (dc_raw * f + (1 - m) * dc).to(dt).float()
+            part[bs, js] = (1 - m) * dh
+        for js, bs in ctas:  # after the barrier: the dh carry
+            quarters = []
+            for kq in range(4):
+                acc = torch.zeros(bs.stop - bs.start, U)
+                for k in range(kq * Hp, (kq + 1) * Hp, 16):
+                    acc = acc + ex[bs, k:k + 16] @ wp[js, k:k + 16].T
+                quarters.append(acc)
+            total = ((quarters[0] + quarters[1]) + quarters[2]) + quarters[3]
+            dh_c[bs, js] = (total + part[bs, js]).to(dt).float()
+    if H_ > lstm_kernels.LSTM_FUSED_DW_MAX_H:
+        return dx, lstm_kernels._dw_outside(h_prev, dx)
+    rows = T_ * B
+    dw = h_prev.reshape(rows, H_).float().T @ dx.reshape(rows, 4 * H_).float()
+    return dx, dw.to(dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hs", [100, 301, 512])
+def test_bwd_partition_matches_plain_and_pallas(Hs, dtype):
+    """The bf16 backward kernel's partition (unit groups of 16, 32-row
+    batch groups exchanging rounded dgates, W padded to whole groups, dW
+    after the walk) against lstm_bwd_plain and the JAX package's kernel in
+    interpret mode, with the backward's bounds, at H a multiple of 16 and
+    not; B=40 walks two batch tiles, the second partial."""
+    args, want = _bwd_inputs(50 + Hs, False, dtype, B=40, H=Hs)
+    got = [t.float().numpy() for t in _tc_partition(*args)]
+    plain = [t.float().numpy() for t in lstm_kernels.lstm_bwd_plain(*args)]
+    _assert_bwd_close(want, got, dtype)
+    _assert_bwd_close(plain, got, dtype)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_bwd_partition_bound_rejects_dgates_exchanged_unrounded(reverse):
+    """In bf16 the partition with the dgates exchanged unrounded (the dh
+    carry's product on f32 dgates) breaks the share bound."""
+    args, want = _bwd_inputs(3 + reverse, reverse, "bfloat16")
+    got = [t.float().numpy() for t in _tc_partition(*args, reverse=reverse,
+                                                    exchange_rounded=False)]
     assert np.mean(want[0] != got[0]) > _BWD_BF16_MAX_DIFFERING
 
 
