@@ -15,9 +15,14 @@ exits non-zero without the final `ok` line:
   3. kernel   gru_fwd (csrc/gru_fwd.cu) against gru_fwd_plain on the card,
               on x from the full-width artifact's lookup_table + mul for a
               ragged request: forward and reverse, f32 and bf16; errors
-              beside their tolerances, both times, the kernel's bound.
-              Then a few small shapes whose H does not divide into the
-              CTAs' column slices, for the kernel's other tile widths.
+              beside their tolerances, both times (the bf16 one beside its
+              time before the redesign), the kernel's bound, and how the
+              card takes the bf16 kernel (CTAs an SM, batch groups,
+              sub-tiles a group). Then small shapes whose H does not divide
+              into the f32 kernel's column slices, and the bf16 kernel's own
+              edges (GRU_TC_EDGE: T=1, H=100 and 301, B=3 and 40, a row
+              masked at every step, more sub-tiles than groups, W past
+              shared memory); bf16 outputs the same bits in two runs.
   4. slice    the NMT beam-search artifact at bench.py run_infer's widths
               (V=30000, H=512, S=50, beam 4, max_len 32), seeded weights,
               bf16 amp: 3 requests of 128 ragged sentences through
@@ -32,13 +37,17 @@ exits non-zero without the final `ok` line:
               its startup program on the card, then a warm-up step on one
               ragged batch of 256 pairs, recording the inputs the step
               hands each training kernel.
-  7. kernels  gru_bwd (csrc/gru_bwd.cu) and attn_fwd, attn_bwd_step and
-              attn_phase2 (csrc/bahdanau_attn.cu) against their plain
-              versions on the card: on the warm-up step's own inputs, in
-              bf16 and in f32, then on seeded inputs at the main path's
-              shapes and at edge shapes, where each output must also lie
-              above its tolerance (an output left at zero fails); errors
-              beside their tolerances, kernel, plain and bound times.
+  7. kernels  gru_fwd at the step's B=256 and gru_bwd (csrc/gru_bwd.cu),
+              then attn_fwd, attn_bwd_step and attn_phase2
+              (csrc/bahdanau_attn.cu) against their plain versions on the
+              card: on the warm-up step's own inputs, in bf16 and in f32,
+              then on seeded inputs at the main path's shapes and at edge
+              shapes (gru_bwd also at GRU_TC_EDGE, where T=1 holds dW to
+              exactly 0), where each output must also lie above its
+              tolerance (an output left at zero fails); errors beside their
+              tolerances, kernel, plain and bound times (the bf16 GRU
+              kernels' beside their times before the redesign), the GRU
+              kernels' outputs the same bits in two runs.
   8. steps    3 timed training steps on the same batch with the launch
               counts set to 0 just before: finite, falling losses, median
               ms per step, target tokens/s, exact launches per step; then
@@ -89,7 +98,8 @@ exits non-zero without the final `ok` line:
               forward and the backward pair.
   16. steps   3 timed transformer training steps with the launch counts set
               to 0 just before: finite, falling losses, exactly 8 launches
-              of each flash kernel a step, median ms per step, tokens/s,
+              of each flash kernel a step and no attention routed to the
+              plain formula, median ms per step, tokens/s,
               peak memory; then one more step under torch.profiler, and
               the step's flash time, forward and backward.
   17. parity  a small transformer program (dim 128, 2 heads of D=64, 2
@@ -171,7 +181,8 @@ exits non-zero without the final `ok` line:
               samples (B=4), converted (49 sites), saved, loaded (sidecar
               checked), then 3 requests of B=8 x 1024 tokens in bf16 with
               the launch counts set to 0 just before: exactly 49 quant_matmul
-              launches a request, ms, tokens/s, peak memory, a profiled
+              launches a request and no attention routed to the plain
+              formula, ms, tokens/s, peak memory, a profiled
               request (busy share, B12's share); logits bit-identical to the
               same program with quant_matmul sent to its plain version; the
               fp artifact in bf16 as context. A request ends with its logits
@@ -186,7 +197,12 @@ exits non-zero without the final `ok` line:
               ranges, payload digests, and the CPU's artifact served on both,
               each quantized op's output within what its row's differing
               activation codes can move it.
-  31. the kernels JSON line, then the device JSON line last.
+  31. routing the `flash_attention` op's routing rule on the card: a
+              cross-attention program (12 queries over 20 keys, D=64) and
+              the transformer LM at a head dim of 32, which the flash
+              kernels do not take, card against CPU (f32, then bf16), each
+              attention call routed to the plain formula and counted.
+  32. the kernels JSON line, then the device JSON line last.
 
 Weights are made with numpy from --seed at the shapes the program
 declares (normal / sqrt(fan_in)): for the inference artifact written as
@@ -248,8 +264,19 @@ BF16_SLICE_MAX_DIFFERING = {"encoder state": 0.02, "decoder h0": 0.10}
 BF16_SCORE_ULPS = 2
 BF16_MIN_SHARED_BEAMS = 0.10
 # (T, B, H) beyond the main path's: on a 132-SM card these take 1, 4 and
-# 16 hidden units per CTA, the last two with a partly empty last CTA
+# 16 hidden units per CTA in the f32 kernel, the last two with a partly
+# empty last CTA
 EDGE_SHAPES = [(3, 1, 100), (5, 3, 301), (4, 5, 1100)]
+# (T, B, H) beyond those for the bf16 kernels' partition (16 units by
+# 32-row sub-tiles), each with a row masked at every step: T=1 (where the
+# backward's dW is exactly 0: h_prev and rh are 0); H=100, not a whole
+# group of 16 units, at B=3; H=301 at B=40, a partial second sub-tile;
+# B=520, more sub-tiles than the card holds batch groups beside 32 unit
+# groups, so a CTA walks several; H=2400, whose W slice does not fit shared
+# memory (or leaves the card too few CTAs) and is read through L1. f32
+# where its kernels take H (their W slices in shared memory: not at 2400)
+GRU_TC_EDGE = [(1, 3, 100), (4, 40, 301), (4, 520, 512), (3, 2, 2400)]
+GRU_F32_MAX_H = 1100
 
 
 def phase(n, name):
@@ -360,6 +387,46 @@ def kernel_error(got, want, dt):
     return err, differing
 
 
+def same_bits(again, first, name):
+    check(all(torch.equal(a, b) for a, b in zip(again, first)),
+          f"{name}'s outputs differ between two runs")
+
+
+def gru_edge_mask(rng, T, B, tc_edge):
+    """A ragged [T, B] mask on the card: lengths 1..T, and for the bf16
+    kernels' edges the first row whole and the second masked at every
+    step (B > 2)."""
+    lens = torch.as_tensor(rng.randint(1, T + 1, size=B))
+    if tc_edge:
+        lens[0] = T
+        if B > 2:
+            lens[1] = 0
+    return (torch.arange(T)[:, None] < lens[None, :]).cuda()
+
+
+def print_plan(rnn_kernels, name, B, H, what):
+    """How the card takes the bf16 kernel `name` at (B, H): CTAs an SM,
+    batch groups and their sub-tiles, where W's slice is read."""
+    plan = rnn_kernels.tc_plan(name, B, H)
+    print(f"  bf16 {name} at B={B}, H={H} ({what}): {plan['per_sm']} CTAs an SM fit, "
+          f"{plan['groups']} batch groups of {plan['tiles_per_group']} 32-row sub-tiles, W's "
+          f"slice in {'shared memory' if plan['w_smem'] else 'L1'}: "
+          + ("a CTA for every sub-tile" if plan["tiles_per_group"] == 1
+             else "a CTA walks several sub-tiles"))
+    return plan
+
+
+def gru_tc_plans(rnn_kernels, name):
+    """Print how the card takes the bf16 kernel at GRU_TC_EDGE's sub-tile
+    and W edges, and fail unless they take the walk and the L1 read."""
+    for T_, B_, H_ in GRU_TC_EDGE[2:]:
+        plan = print_plan(rnn_kernels, name, B_, H_, "an edge shape")
+        if H_ == 512:
+            check(plan["tiles_per_group"] > 1, f"{name} at B={B_}: no CTA walks several sub-tiles")
+        else:
+            check(not plan["w_smem"], f"{name} at H={H_}: W's slice still in shared memory")
+
+
 def breakdown(run, median_ms, what="request", kinds=None):
     """One call of `run` under torch.profiler: device busy time, as a
     share of the profiled wall time (which the profiler's own host cost
@@ -421,7 +488,8 @@ def breakdown(run, median_ms, what="request", kinds=None):
 TRAIN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 BF16_MAX_DIFFERING_DX = 0.05
 # (T, B, H) for gru_bwd beyond the main path's: on a 132-SM card they take
-# 1, 4 and 8 hidden units per CTA, the last with dW outside the kernel
+# 1, 4 and 8 hidden units per CTA in the f32 kernel, the last with dW
+# outside the kernel; then GRU_TC_EDGE
 GRU_BWD_EDGE = [(3, 3, 100), (5, 3, 301), (4, 5, 700)]
 # (B, S, A, C, T) for the attention kernels: the second takes the loops
 # over S, A and C (256 threads, 8 warps, a 32-lane softmax) more than once
@@ -644,9 +712,10 @@ LSTM_FWD_EDGE = [(1, 3, 100), (4, 300, 512), (3, 2, 1800)]
 LSTM_STEP_LAUNCHES = {"lstm_fwd": 2, "lstm_bwd": 2}
 # the redesigned kernels' times before the redesign, at the main path's
 # shapes on an H100 at 700 W (PERF.md, the table of TPU kernels): B1 and
-# B2 a launch, B11 a step's 36 calls, B8's forward at layer 0
+# B2 a launch, B11 a step's 36 calls, B8's forward at layer 0, B3 a launch
+# at the request's B=128 and B4 at the training step's B=256
 EARLIER_MS = {"lstm_fwd": 11.0729, "lstm_bwd": 10.5066, "fused_conv_bn": 8.6320,
-              "flash_fwd": 0.34521}
+              "flash_fwd": 0.34521, "gru_fwd": 4.1154, "gru_bwd": 9.8263}
 # the small program's biases on the card against the CPU in bf16: their
 # gradients, sums over B·T cotangents that nearly cancel, are held to 0.1
 # of their largest (tests/test_torch_frontend.py), so the values held to
@@ -1199,6 +1268,7 @@ def transformer_phases(ptt, exe, rng, smi, seed, first_phase):
     """Phases first_phase.. of the transformer slice; returns the kernels'
     rows, their largest errors and their launches on the training path."""
     from paddle_tpu_torch.ops import flash_kernels as fk
+    from paddle_tpu_torch.ops import flash_ops
 
     n = first_phase
     phase(n, "transformer LM at full width (bf16), built by the port's front end: startup "
@@ -1316,6 +1386,7 @@ def transformer_phases(ptt, exe, rng, smi, seed, first_phase):
     torch.cuda.reset_peak_memory_stats()
     for k in TFM_STEP_LAUNCHES:
         setattr(fk, f"{k}_launches", 0)
+    flash_ops.plain_routes = 0
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1323,12 +1394,15 @@ def transformer_phases(ptt, exe, rng, smi, seed, first_phase):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = {k: getattr(fk, f"{k}_launches") for k in TFM_STEP_LAUNCHES}
+    plain_routes = flash_ops.plain_routes
     print(f"  losses (warm-up, then timed): {losses}")
     check(all(np.isfinite(losses)), "non-finite loss")
     check(losses[-1] < losses[0], "the loss did not fall over 4 steps on one batch")
-    print(f"  launches in 3 steps: {launches}; per step expected {TFM_STEP_LAUNCHES}")
+    print(f"  launches in 3 steps: {launches}; per step expected {TFM_STEP_LAUNCHES}; "
+          f"flash_attention calls routed to the plain formula: {plain_routes}")
     for k, c in TFM_STEP_LAUNCHES.items():
         check(launches[k] == 3 * c, f"{k} launched {launches[k]} times in 3 steps")
+    check(plain_routes == 0, "the D=64 self-attention step routed attention to the plain formula")
     med = statistics.median(times)
     print(f"  steps ms: {[round(t, 3) for t in times]}; median {med:.3f} ms/step, "
           f"{tokens / med * 1e3:.1f} tokens/s (B={TFM_BENCH['batch']}, T={TFM_BENCH['seqlen']}); "
@@ -1343,28 +1417,44 @@ def transformer_phases(ptt, exe, rng, smi, seed, first_phase):
 
     n += 1
     phase(n, "small transformer program (D=64, T=200): card against CPU (f32, then bf16)")
-    smain, sstart, sloss = build_transformer_program(ptt, **TFM_SMALL)
+    routes = transformer_card_vs_cpu(ptt, TFM_SMALL, seed + 8)
+    check(routes == 0, "the D=64 program routed attention to the plain formula")
+    return rows, max_errs, launches
+
+
+def transformer_card_vs_cpu(ptt, widths, seed):
+    """The transformer program at `widths`, card against CPU from one
+    startup state (seeded on the CPU): losses and the state after 2 Adam
+    steps, f32 then bf16 amp, with TRAIN_PARITY's bounds. Returns the
+    flash_attention calls the card routed to the plain formula."""
+    from paddle_tpu_torch.ops import flash_ops
+
+    smain, sstart, sloss = build_transformer_program(ptt, **widths)
     sc_ = ptt.Scope()
-    ptt.Executor(device="cpu").run(sstart, scope=sc_, seed=seed + 8)
+    ptt.Executor(device="cpu").run(sstart, scope=sc_, seed=seed)
     names = [v.name for v in smain.persistables()]
     state = ptt.io.state_to_numpy(sc_, names)  # carried to both devices by params_from_numpy
-    frng = np.random.RandomState(seed + 9)
-    sfeeds = [transformer_feed(frng, TFM_SMALL["vocab"], TFM_SMALL["seqlen"], TFM_SMALL["batch"])
+    frng = np.random.RandomState(seed + 1)
+    sfeeds = [transformer_feed(frng, widths["vocab"], widths["seqlen"], widths["batch"])
               for _ in range(2)]
     params = [p.name for p in smain.parameters()]
     vectors = [p for p in params if len(state[p].shape) == 1]
     gnames = [p + "@GRAD" for p in params]
     held = {n_ for n_ in names if TFM_NULL_GRAD not in n_}
+    routes = 0
     for amp in (None, "bfloat16"):
         smain.set_amp(amp)
         res = {}
         for dev in ("cpu", "cuda"):
+            before = flash_ops.plain_routes
             s = ptt.Scope()
             ptt.io.params_from_numpy(s, state, dev)
             dexe = ptt.Executor(device=dev)
             out = dexe.run(smain, sfeeds[0], [sloss.name] + gnames, scope=s)
             ls = [float(out[0]), float(dexe.run(smain, sfeeds[1], [sloss.name], scope=s)[0])]
             res[dev] = (ls, ptt.io.state_to_numpy(s, names), dict(zip(gnames, out[1:])))
+            if dev == "cuda":
+                routes += flash_ops.plain_routes - before
         (cl, cs, cg), (gl, gs, _) = res["cpu"], res["cuda"]
         lerr = max(abs(a - b) / abs(a) for a, b in zip(cl, gl))
         worst = compare_state({k: gs[k] for k in held}, {k: cs[k] for k in held}, amp, cg,
@@ -1376,7 +1466,72 @@ def transformer_phases(ptt, exe, rng, smi, seed, first_phase):
               f"{worst['param_far']:.3f} lr apart (max {b.get('far', b.get('robust'))}); "
               f"moments {worst['moment']:.3e}, {worst['moment_share']:.3%} beyond 1%")
         check(lerr <= b["loss"], "card and CPU losses differ")
-    return rows, max_errs, launches
+    D = widths["dim"] // widths["heads"]
+    print(f"  head dim {D}: the card routed {routes} flash_attention calls to the plain formula")
+    return routes
+
+
+# The attention op's routing rule (flash_ops.kernel_takes): shapes the
+# flash kernels do not take run the plain formula on the card. A
+# cross-attention (multi_head_attention with 12 queries over 20 keys, 2
+# heads of D=64) and the transformer LM at a head dim of 32, each card
+# against CPU from one seeded state: the cross-attention's output within
+# FLASH_TOL of its largest element, the transformer with TRAIN_PARITY's
+# bounds.
+CROSS_ATTN = dict(batch=4, tq=12, tk=20, dim=128, heads=2)
+TFM_D32 = dict(dim=64, heads=2, layers=2, seqlen=16, vocab=64, batch=4)
+
+
+def build_cross_attention(ptt, batch, tq, tk, dim, heads):
+    """multi_head_attention of `tq` queries over `tk` keys through the
+    port's front end. Returns (main, startup, out)."""
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        q = ptt.layers.data("q", shape=[tq, dim], dtype=np.float32)
+        kv = ptt.layers.data("kv", shape=[tk, dim], dtype=np.float32)
+        out = ptt.layers.multi_head_attention(q, key=kv, value=kv, num_heads=heads, causal=False)
+    return main, startup, out
+
+
+def attention_routing_phase(ptt, seed, n):
+    from paddle_tpu_torch.ops import flash_ops
+
+    phase(n, "the attention op's routing: a cross-attention (Tk != Tq) and a D=32 transformer "
+          "program, card against CPU")
+    c = CROSS_ATTN
+    main, startup, out = build_cross_attention(ptt, **c)
+    sc_ = ptt.Scope()
+    ptt.Executor(device="cpu").run(startup, scope=sc_, seed=seed)
+    state = ptt.io.state_to_numpy(sc_, [v.name for v in main.persistables()])
+    rng = np.random.RandomState(seed + 1)
+    feed = {"q": rng.standard_normal((c["batch"], c["tq"], c["dim"])).astype(np.float32),
+            "kv": rng.standard_normal((c["batch"], c["tk"], c["dim"])).astype(np.float32)}
+    for amp, dt in ((None, torch.float32), ("bfloat16", torch.bfloat16)):
+        main.set_amp(amp)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            s = ptt.Scope()
+            ptt.io.params_from_numpy(s, state, dev)
+            flash_ops.plain_routes = 0
+            res[dev] = ptt.Executor(device=dev).run(main, feed, [out.name], scope=s,
+                                                    return_numpy=False)[0]
+        routes = flash_ops.plain_routes
+        got, want = res["cuda"], res["cpu"]
+        err, rel = rel_err(got.cpu(), want)
+        print(f"  cross-attention B={c['batch']} Tq={c['tq']} Tk={c['tk']} {c['heads']} heads of "
+              f"D={c['dim'] // c['heads']} {str(dt)[6:]}: card {tuple(got.shape)} {got.dtype}, "
+              f"{rel:.3e} of the CPU's largest element from it (tol {FLASH_TOL[dt]:g}); the card "
+              f"routed {routes} flash_attention call to the plain formula")
+        check(tuple(got.shape) == (c["batch"], c["tq"], c["dim"]) and got.dtype == want.dtype,
+              "the cross-attention's output shape or dtype")
+        check(bool(torch.isfinite(got.float()).all()), "non-finite cross-attention output")
+        check(routes == 1, f"the cross-attention routed {routes} calls to the plain formula")
+        check(rel <= FLASH_TOL[dt], "card and CPU cross-attention differ")
+    routes = transformer_card_vs_cpu(ptt, TFM_D32, seed + 2)
+    layers = TFM_D32["layers"]
+    check(routes == 2 * 2 * layers,  # f32 and bf16, two steps each, one call a layer
+          f"the D=32 program routed {routes} calls to the plain formula, not {4 * layers}")
 
 
 # ----------------------------------------------------------------- ResNet --
@@ -2525,6 +2680,7 @@ def quant_phases(ptt, exe, smi, seed, first_phase):
     """Phases first_phase.. of the int8 serving slice; returns B12's row,
     its largest error, and its launches on the transformer and MLP paths."""
     from paddle_tpu_torch.ops import flash_kernels as fk
+    from paddle_tpu_torch.ops import flash_ops
     from paddle_tpu_torch.ops import quant_kernels as qk
 
     n = first_phase
@@ -2645,7 +2801,7 @@ def quant_phases(ptt, exe, smi, seed, first_phase):
         exe.run(prog, reqs[0], fetches, scope=scope)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        qk.quant_matmul_launches = fk.flash_fwd_launches = 0
+        qk.quant_matmul_launches = fk.flash_fwd_launches = flash_ops.plain_routes = 0
         times, outs = [], []
         for r in reqs:
             t0 = time.perf_counter()
@@ -2654,9 +2810,11 @@ def quant_phases(ptt, exe, smi, seed, first_phase):
             times.append((time.perf_counter() - t0) * 1e3)
         tfm_launches = qk.quant_matmul_launches
         print(f"  launches in 3 requests: quant_matmul {tfm_launches}, flash_fwd "
-              f"{fk.flash_fwd_launches}")
+              f"{fk.flash_fwd_launches}; flash_attention calls routed to the plain formula "
+              f"{flash_ops.plain_routes}")
         check(tfm_launches == 3 * QTFM_SITES, f"quant_matmul launched {tfm_launches} times")
         check(fk.flash_fwd_launches == 3 * QTFM["layers"], "flash_fwd launches")
+        check(flash_ops.plain_routes == 0, "the int8 request routed attention to the plain formula")
         for o in outs:
             check(tuple(o.shape) == (QTFM_BATCH, QTFM["seqlen"], QTFM["vocab"])
                   and o.dtype == torch.bfloat16, f"logits {tuple(o.shape)} {o.dtype}")
@@ -2862,8 +3020,8 @@ def main():
             for line in f:
                 if "registers" in line or "Compiling entry" in line:
                     print(f"  ptxas {name}:", line.strip())
-    rnn_kernels._lib()
-    rnn_kernels._bwd_lib()
+    rnn_kernels._lib("gru_fwd")
+    rnn_kernels._lib("gru_bwd")
     attention_kernels._lib()
     attention_kernels._seq_lib()
     lstm_kernels._lib("lstm_fwd")
@@ -2887,6 +3045,9 @@ def main():
         rng = np.random.RandomState(args.seed)
 
         phase(3, "kernel against plain")
+        enc = next(o for o in program.global_block().ops if o.type == "dynamic_gru")
+        H_gru = scope.get(enc.inputs["Weight"][0]).shape[0]
+        print_plan(rnn_kernels, "gru_fwd", B, H_gru, "the request")
         feed = ragged_feed(ptt, rng, B, S, V, min_len=10)
         exe = ptt.Executor()
         print("cuBLAS bf16 reduced-precision reduction: "
@@ -2902,10 +3063,14 @@ def main():
                 p_ms = cuda_ms(lambda: rnn_kernels.gru_fwd_plain(x, mask, w, reverse=reverse), 5)
                 b_ms, b_by, nbytes, flops = bound(x, mask, w, *got)
                 T_, B_, H3 = x.shape
+                earlier = f" ({EARLIER_MS['gru_fwd']} ms before the redesign)" \
+                    if dt == torch.bfloat16 else ""
                 print(f"  gru_fwd T={T_} B={B_} H={H3 // 3} {str(dt)[6:]} "
-                      f"{'rev' if reverse else 'fwd'}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                      f"bound {b_ms:.5f} ms by {b_by} ({nbytes:.0f} B, {flops:.4g} FLOP)")
+                      f"{'rev' if reverse else 'fwd'}: kernel {k_ms:.4f} ms{earlier}, plain "
+                      f"{p_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} ({nbytes:.0f} B, "
+                      f"{flops:.4g} FLOP)")
                 err, differing = kernel_error(got, want, dt)
+                same_bits(rnn_kernels.gru_fwd(x, mask, w, reverse=reverse), got, "gru_fwd")
                 print(f"    max_abs_err={err:.3e} (tol {TOL[dt]:g}), h_seq differing "
                       f"{differing:.4%}" + (f" (max {BF16_MAX_DIFFERING:.0%})"
                                             if dt == torch.bfloat16 else ""))
@@ -2921,10 +3086,12 @@ def main():
                 max_err = max(max_err, err)
                 if dt == torch.bfloat16 and not reverse:  # the main path's dtype
                     main_row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
-        for (T_, B_, H_), dt, reverse in [(s, dt, rev) for s in EDGE_SHAPES
+        gru_tc_plans(rnn_kernels, "gru_fwd")
+        for (T_, B_, H_), dt, reverse in [(s, dt, rev) for s in EDGE_SHAPES + GRU_TC_EDGE
                                           for dt in TOL for rev in (False, True)]:
-            lens = torch.as_tensor(rng.randint(1, T_ + 1, size=B_))
-            mask = (torch.arange(T_)[:, None] < lens[None, :]).cuda()
+            if dt == torch.float32 and H_ > GRU_F32_MAX_H:
+                continue
+            mask = gru_edge_mask(rng, T_, B_, (T_, B_, H_) in GRU_TC_EDGE)
             x = torch.as_tensor(rng.standard_normal((T_, B_, 3 * H_)), dtype=dt).cuda()
             w = torch.as_tensor(rng.standard_normal((H_, 3 * H_)) / np.sqrt(H_), dtype=dt).cuda()
             got = rnn_kernels.gru_fwd(x, mask, w, reverse=reverse)
@@ -2933,7 +3100,11 @@ def main():
             err, differing = kernel_error(got, want, dt)
             print(f"  gru_fwd T={T_} B={B_} H={H_} {str(dt)[6:]} {'rev' if reverse else 'fwd'}: "
                   f"max_abs_err={err:.3e} (tol {TOL[dt]:g}), h_seq differing {differing:.4%}")
+            if dt == torch.bfloat16:
+                same_bits(rnn_kernels.gru_fwd(x, mask, w, reverse=reverse), got, "gru_fwd")
             max_err = max(max_err, err)
+        print("  gru_fwd: h_seq and h_T the same bits in two runs at the request's inputs and "
+              "every edge shape (bf16)")
 
         phase(4, "slice at full width (bf16)")
         program.set_amp("bfloat16")
@@ -3024,7 +3195,7 @@ def main():
     tfeed = train_feed(ptt, rng, TB, TS, TV, min_len=10)
     trg_tokens = int(tfeed["label"].lengths.sum())
     loss_name = meta["loss_name"]
-    gcalls, grestore = record_calls(rnn_kernels, {"gru_bwd": "all"})
+    gcalls, grestore = record_calls(rnn_kernels, {"gru_fwd": "all", "gru_bwd": "all"})
     acalls, arestore = record_calls(attention_kernels, {
         "attn_fwd": "first", "attn_bwd_step": "last", "attn_phase2": "first"})
     try:
@@ -3039,6 +3210,35 @@ def main():
 
     phase(7, "training kernels against plain (the warm-up step's inputs, then seeded inputs)")
     rows, max_errs = {}, {}
+    check(len(gcalls["gru_fwd"]) == STEP_LAUNCHES["gru_fwd"]
+          and len(gcalls["gru_bwd"]) == STEP_LAUNCHES["gru_bwd"],
+          "the warm-up step did not run 2 gru_fwd and 2 gru_bwd")
+    TH = gcalls["gru_fwd"][0][0][2].shape[0]
+    print_plan(rnn_kernels, "gru_fwd", TB, TH, "the step")
+    print_plan(rnn_kernels, "gru_bwd", TB, TH, "the step")
+    # the forward at the step's B=256, on the warm-up step's own inputs (the
+    # two encoder GRUs, the second reversed)
+    for i, (a, k) in enumerate(gcalls["gru_fwd"]):
+        rev = k.get("reverse", False)
+        for dt in (torch.bfloat16, torch.float32):
+            x, mask, w = a[0].to(dt), a[1], a[2].to(dt)
+            got = rnn_kernels.gru_fwd(x, mask, w, reverse=rev)
+            want = rnn_kernels.gru_fwd_plain(x, mask, w, reverse=rev)
+            torch.cuda.synchronize()
+            err, differing = kernel_error(got, want, dt)
+            same_bits(rnn_kernels.gru_fwd(x, mask, w, reverse=rev), got, "gru_fwd")
+            line = (f"  gru_fwd T={x.shape[0]} B={x.shape[1]} H={w.shape[0]} {str(dt)[6:]} "
+                    f"{'rev' if rev else 'fwd'} (the step's): max_abs_err={err:.3e} (tol "
+                    f"{TOL[dt]:g}), h_seq differing {differing:.4%}, the same bits in two runs")
+            if dt == torch.bfloat16 and i == 0:
+                k_ms = cuda_ms(lambda: rnn_kernels.gru_fwd(x, mask, w), 10)
+                p_ms = cuda_ms(lambda: rnn_kernels.gru_fwd_plain(x, mask, w), 2)
+                b_ms, b_by, _, _ = bound(x, mask, w, *got)
+                line += (f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms by "
+                         f"{b_by}")
+                gru_fwd_train_ms = k_ms
+            print(line)
+            max_errs["gru_fwd"] = max(max_errs.get("gru_fwd", 0.0), err)
 
     for i, (a, k) in enumerate(gcalls["gru_bwd"]):
         rev = k.get("reverse", False)
@@ -3055,9 +3255,12 @@ def main():
             p_ms = cuda_ms(lambda: rnn_kernels.gru_bwd_plain(*ins, reverse=rev), 2)
             b_ms, b_by, nbytes = gru_bwd_bound(ins)
             T_, B_, H_ = ins[2].shape
+            earlier = f" ({EARLIER_MS['gru_bwd']} ms before the redesign)" \
+                if dt == torch.bfloat16 else ""
             print(f"  gru_bwd T={T_} B={B_} H={H_} {str(dt)[6:]} {'rev' if rev else 'fwd'}: "
-                  f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
-                  f"({nbytes:.0f} B)")
+                  f"kernel {k_ms:.4f} ms{earlier}, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms by "
+                  f"{b_by} ({nbytes:.0f} B)")
+            same_bits(rnn_kernels.gru_bwd(*ins, reverse=rev), got, "gru_bwd")
             print(f"    rel err dx {errs[0]:.3e} dW {errs[1]:.3e} (tol {TRAIN_TOL[dt]:g}; zeros "
                   f"would read {zero[0]:.3e}, {zero[1]:.3e}); dx differing {differing:.4%}")
             check(all(torch.isfinite(t.float()).all() for t in got), "non-finite gru_bwd output")
@@ -3074,11 +3277,14 @@ def main():
                 if i == 0:
                     rows["gru_bwd"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
             max_errs["gru_bwd"] = max(max_errs.get("gru_bwd", 0.0), *abs_errs)
-    for T_, B_, H_ in GRU_BWD_EDGE:
+    print("  gru_bwd: dx and dW the same bits in two runs on the step's inputs")
+    gru_tc_plans(rnn_kernels, "gru_bwd")
+    for T_, B_, H_ in GRU_BWD_EDGE + GRU_TC_EDGE:
         for dt in TRAIN_TOL:
+            if dt == torch.float32 and H_ > GRU_F32_MAX_H:
+                continue
             for rev in (False, True):
-                lens = torch.as_tensor(rng.randint(1, T_ + 1, size=B_))
-                mask = (torch.arange(T_)[:, None] < lens[None, :]).cuda()
+                mask = gru_edge_mask(rng, T_, B_, (T_, B_, H_) in GRU_TC_EDGE)
                 x = torch.as_tensor(rng.standard_normal((T_, B_, 3 * H_)), dtype=dt).cuda()
                 w = torch.as_tensor(rng.standard_normal((H_, 3 * H_)) / np.sqrt(H_), dtype=dt).cuda()
                 h_seq, _ = rnn_kernels.gru_fwd_plain(x, mask, w, rev)
@@ -3087,17 +3293,33 @@ def main():
                 dhT = (0.1 * torch.randn(B_, H_, device="cuda")).to(dt)
                 ins = (ur, c, h_prev, rh, dh, mask, w, dhT)
                 want = rnn_kernels.gru_bwd_plain(*ins, reverse=rev)
-                scales = term_scales("gru_bwd", ins, want)
-                abs_errs, errs = zip(*(rel_err(g, w_, sc) for g, w_, sc in zip(
-                    rnn_kernels.gru_bwd(*ins, reverse=rev), want, scales)))
-                zero = [amax(w_) / sc for w_, sc in zip(want, scales)]
+                got = rnn_kernels.gru_bwd(*ins, reverse=rev)
                 torch.cuda.synchronize()
+                scales = term_scales("gru_bwd", ins, want)
+                if T_ == 1:  # dW = [h_prevᵀ dx_ur | rhᵀ dx_c] with h_prev = rh = 0
+                    check(amax(got[1]) == 0 and amax(want[1]) == 0, "gru_bwd: dW is not 0 at T=1")
+                    got, want, scales = got[:1], want[:1], scales[:1]
+                # where the sum of dW's terms' magnitudes over T·B rows is so
+                # large that dW left at zero would pass, hold dW to its own
+                # largest element instead (the stricter scale)
+                scales = [amax(w_) if amax(w_) / sc <= TRAIN_TOL[dt] else sc
+                          for w_, sc in zip(want, scales)]
+                abs_errs, errs = zip(*(rel_err(g, w_, sc) for g, w_, sc in zip(got, want, scales)))
+                zero = [amax(w_) / sc for w_, sc in zip(want, scales)]
+                differing = float((got[0] != want[0]).float().mean())
                 print(f"  gru_bwd T={T_} B={B_} H={H_} {str(dt)[6:]} {'rev' if rev else 'fwd'}: "
-                      f"rel err dx {errs[0]:.3e} dW {errs[1]:.3e} (tol {TRAIN_TOL[dt]:g}; "
-                      f"zeros would read {zero[0]:.3e}, {zero[1]:.3e})")
+                      f"rel err {', '.join(f'{n} {e:.3e}' for n, e in zip(('dx', 'dW'), errs))} "
+                      f"(tol {TRAIN_TOL[dt]:g}; zeros would read "
+                      f"{', '.join(f'{z:.3e}' for z in zero)}){'; dW 0 on both sides' if T_ == 1 else ''}"
+                      f"; dx differing {differing:.4%}")
                 check(max(errs) <= TRAIN_TOL[dt], "gru_bwd disagrees with its plain version")
                 check(min(zero) > TRAIN_TOL[dt], "gru_bwd: an output left at zero would pass")
+                check(dt != torch.bfloat16 or differing <= BF16_MAX_DIFFERING_DX,
+                      f"gru_bwd's dx differs in {differing:.4%} (max {BF16_MAX_DIFFERING_DX:.0%})")
+                if dt == torch.bfloat16:
+                    same_bits(rnn_kernels.gru_bwd(*ins, reverse=rev), got, "gru_bwd")
                 max_errs["gru_bwd"] = max(max_errs["gru_bwd"], *abs_errs)
+    print("  gru_bwd: dx and dW the same bits in two runs at every edge shape (bf16)")
 
     plain = {"attn_fwd": attention_kernels.attn_fwd_plain,
              "attn_bwd_step": attention_kernels.attn_bwd_step_plain,
@@ -3219,8 +3441,9 @@ def main():
     tf32_phase(ptt, smi, 26)
     rows["quant_matmul"], max_errs["quant_matmul"], q_tfm, q_mlp = quant_phases(
         ptt, exe, smi, args.seed, 27)
+    attention_routing_phase(ptt, args.seed + 31, 31)
 
-    phase(31, "the kernels line, then the device line")
+    phase(32, "the kernels line, then the device line")
     sources = {"gru_fwd": ("gru_fwd.cu", "paddle_tpu/ops/pallas_kernels.py:493"),
                "gru_bwd": ("gru_bwd.cu", "paddle_tpu/ops/pallas_kernels.py:608"),
                "attn_fwd": ("bahdanau_attn.cu", "paddle_tpu/ops/bahdanau_kernels.py:257"),
@@ -3243,8 +3466,9 @@ def main():
     for k, c in seq_launches.items():
         by_path.setdefault(k, {})["nmt_train_seq"] = c
     by_path["quant_matmul"] = {"transformer_int8_serve": q_tfm, "mlp_int8_serve": q_mlp}
-    rows["gru_fwd"] = main_row
-    max_errs["gru_fwd"] = max_err
+    # B3's row: the request's launch (B=128), and the training step's (B=256)
+    rows["gru_fwd"] = dict(main_row, train_ms=gru_fwd_train_ms)
+    max_errs["gru_fwd"] = max(max_err, max_errs["gru_fwd"])
     kernels = [{
         "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
         "replaces": rep,

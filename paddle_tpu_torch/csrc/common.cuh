@@ -545,4 +545,140 @@ inline bool encode_tiled(CUtensorMap* m, int rank, const void* base, const cuuin
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// ---------------------------------------------------------- dW products --
+// The recurrent kernels' weight gradients off the recurrence:
+// c[M, N] = Σ_r a[r, :M]ᵀ bm[r, :N] over R rows (h_prevᵀ dgates over all
+// T·B rows), bf16 in, f32 accumulators, each element written once and
+// rounded once: the same bits on every run. a's rows lie lda apart, bm's
+// ldb and c's ldc. A CTA owns a 64 x 128 tile of c and walks every row in
+// chunks of 32 (a ring of four, cp.async); warp w computes its 32 x 32
+// quarter-strip, m-tile w&1, n w>>1. Both operands are row-major over r, so
+// their fragments come transposed by ldmatrix's .trans.
+constexpr int kDwM = 64, kDwN = 128, kDwK = 32, kDwStages = 4;
+constexpr int kDwLdA = kDwM + 8, kDwLdB = kDwN + 8;  // padded by 16 bytes against bank conflicts
+constexpr size_t kDwSmem = (size_t)kDwStages * kDwK * (kDwLdA + kDwLdB) * sizeof(__nv_bfloat16);
+
+// Four 8x8 bf16 matrices from shared memory, each transposed: lane l gives
+// the address of row l % 8 of matrix l / 8; r[i] is matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+// kVec: the rows copied 16 bytes at a time with cp.async and c written in
+// pairs, which needs M, N, lda, ldb and ldc multiples of 8 and 16-byte
+// aligned bases; else element by element.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+dw_product_kernel(const __nv_bfloat16* __restrict__ a, int lda, const __nv_bfloat16* __restrict__ bm,
+                  int ldb, __nv_bfloat16* __restrict__ c, int ldc, int R, int M, int N) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  bf16* sa = reinterpret_cast<bf16*>(dw_smem);  // [kDwStages][kDwK][kDwLdA]
+  bf16* sb = sa + kDwStages * kDwK * kDwLdA;     // [kDwStages][kDwK][kDwLdB]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int m0 = blockIdx.y * kDwM, n0 = blockIdx.x * kDwN;
+  const int nk = (R + kDwK - 1) / kDwK;
+  auto stage = [&](int ch) {  // rows [32·ch, 32·ch + 32), zeros past R, M and N
+    if (ch < nk) {
+      const int r0 = ch * kDwK;
+      bf16* da = sa + (ch % kDwStages) * kDwK * kDwLdA;
+      bf16* db = sb + (ch % kDwStages) * kDwK * kDwLdB;
+      if constexpr (kVec) {
+        for (int i = tid; i < kDwK * kDwM / 8; i += kThreads) {
+          const int r = i / (kDwM / 8), m = (i % (kDwM / 8)) * 8;
+          const bool ok = r0 + r < R && m0 + m < M;
+          cp_async16(da + r * kDwLdA + m, ok ? a + (size_t)(r0 + r) * lda + m0 + m : a, ok ? 16 : 0);
+        }
+        for (int i = tid; i < kDwK * kDwN / 8; i += kThreads) {
+          const int r = i / (kDwN / 8), n = (i % (kDwN / 8)) * 8;
+          const bool ok = r0 + r < R && n0 + n < N;
+          cp_async16(db + r * kDwLdB + n, ok ? bm + (size_t)(r0 + r) * ldb + n0 + n : bm,
+                     ok ? 16 : 0);
+        }
+      } else {
+        for (int i = tid; i < kDwK * kDwM; i += kThreads) {
+          const int r = i / kDwM, m = i % kDwM;
+          da[r * kDwLdA + m] = r0 + r < R && m0 + m < M ? a[(size_t)(r0 + r) * lda + m0 + m]
+                                                         : from_f<bf16>(0.f);
+        }
+        for (int i = tid; i < kDwK * kDwN; i += kThreads) {
+          const int r = i / kDwN, n = i % kDwN;
+          db[r * kDwLdB + n] = r0 + r < R && n0 + n < N ? bm[(size_t)(r0 + r) * ldb + n0 + n]
+                                                         : from_f<bf16>(0.f);
+        }
+      }
+    }
+    if constexpr (kVec) cp_async_commit();
+  };
+#pragma unroll
+  for (int ch = 0; ch < kDwStages - 1; ++ch) stage(ch);
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) zero(acc[mi]);
+  const int mat = lane >> 3, rr = lane & 7;  // the matrix and row this lane addresses
+  for (int ch = 0; ch < nk; ++ch) {
+    cp_async_wait<kDwStages - 2>();
+    __syncthreads();  // chunk ch landed for every thread; chunk ch-1's buffers are free
+    stage(ch + kDwStages - 1);
+    const bf16* ta = sa + (ch % kDwStages) * kDwK * kDwLdA;
+    const bf16* tb = sb + (ch % kDwStages) * kDwK * kDwLdB;
+#pragma unroll
+    for (int kk = 0; kk < kDwK / 16; ++kk) {
+      uint32_t fa[2][4], fb[2][4];
+      // A[m][k] = a[k][m]: matrix i holds m-block i&1, k-block i>>1
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldmatrix_x4_trans(fa[mi], ta + (16 * kk + (mat >> 1) * 8 + rr) * kDwLdA + wm * 32 +
+                                      mi * 16 + (mat & 1) * 8);
+      // B[k][n] = bm[k][n]: matrix i holds k-block i&1, n-block i>>1, so
+      // b0, b1 of n-tile 2ni in r[0], r[1] and of 2ni+1 in r[2], r[3]
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+        ldmatrix_x4_trans(fb[ni], tb + (16 * kk + (mat & 1) * 8 + rr) * kDwLdB + wn * 32 +
+                                      ni * 16 + (mat >> 1) * 8);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_bf16(acc[mi][nt], fa[mi][0], fa[mi][1], fa[mi][2], fa[mi][3],
+                   fb[nt >> 1][(nt & 1) * 2], fb[nt >> 1][(nt & 1) * 2 + 1]);
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = m0 + wm * 32 + mi * 16 + frag_row(2 * hf);
+        const int col = n0 + wn * 32 + frag_col(nt, 0);
+        if (row >= M) continue;
+        bf16* out = c + (size_t)row * ldc + col;
+        if constexpr (kVec) {
+          if (col < N)  // N is a multiple of 8: col + 1 < N too
+            *reinterpret_cast<uint32_t*>(out) =
+                pack_bf16x2(acc[mi][nt][2 * hf], acc[mi][nt][2 * hf + 1]);
+        } else {
+          if (col < N) out[0] = from_f<bf16>(acc[mi][nt][2 * hf]);
+          if (col + 1 < N) out[1] = from_f<bf16>(acc[mi][nt][2 * hf + 1]);
+        }
+      }
+}
+
+// dw_product_kernel on `stream`; vec as its kVec.
+inline cudaError_t launch_dw_product(const __nv_bfloat16* a, int lda, const __nv_bfloat16* bm,
+                                     int ldb, __nv_bfloat16* c, int ldc, int R, int M, int N,
+                                     bool vec, cudaStream_t stream) {
+  auto kernel = vec ? dw_product_kernel<true> : dw_product_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kDwN - 1) / kDwN, (M + kDwM - 1) / kDwM);
+  kernel<<<grid, kThreads, kDwSmem, stream>>>(a, lda, bm, ldb, c, ldc, R, M, N);
+  return cudaGetLastError();
+}
+
 }  // namespace ptt

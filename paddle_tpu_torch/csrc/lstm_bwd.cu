@@ -58,8 +58,9 @@
 // - dW is off the recurrence: for H <= 640 (the TPU kernel's in-kernel
 //   product, LSTM_FUSED_DW_MAX_H) a second kernel behind the same launch
 //   computes dW = Σ_t h_prev[t]ᵀ dgates[t] as one product over all T·B rows
-//   of h_prev and dx, mma.sync with f32 accumulators, each element written
-//   once, rounded once: the same bits on every run. Above 640 the wrapper
+//   of h_prev and dx (common.cuh's dw_product_kernel), mma.sync with f32
+//   accumulators, each element written once, rounded once: the same bits
+//   on every run. Above 640 the wrapper
 //   computes it outside (`acc_dw` = 0), as the TPU kernel does.
 // The exchange is four times the forward's: B·4H·2 bytes for each unit
 // group a step (16 MB at the slice's shapes, through L2).
@@ -518,128 +519,6 @@ cudaError_t launch_tc(TcArgs a, size_t w_bytes, int n_sms, int smem_max, cudaStr
   return cudaGetLastError();
 }
 
-// --------------------------------------------------------------- dW, bf16 --
-// dW [M=H, N=4H] = Σ_r h_prev[r]ᵀ dx[r] over the R = T·B rows: a CTA owns a
-// 64 x 128 tile of dW and walks every row in chunks of 32 (a ring of four,
-// cp.async); warp w computes its 32 x 32 quarter-strip, m-tile w&1, n w>>1.
-// Both operands are row-major over r, so their fragments come transposed
-// by ldmatrix's .trans.
-constexpr int kDwM = 64, kDwN = 128, kDwK = 32, kDwStages = 4;
-constexpr int kLdA = kDwM + 8, kLdB = kDwN + 8;  // padded by 16 bytes against bank conflicts
-constexpr size_t kDwSmem = (size_t)kDwStages * kDwK * (kLdA + kLdB) * sizeof(bf16);
-
-// Four 8x8 bf16 matrices from shared memory, each transposed: lane l gives
-// the address of row l % 8 of matrix l / 8; r[i] is matrix i.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(row)));
-}
-
-// a [R, M], bm [R, N] and c [M, N], row-major bf16. kVec: M and N multiples
-// of 8 (16-byte rows, copied with cp.async); else element by element.
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-lstm_dw_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bm, bf16* __restrict__ c, int R,
-               int M, int N) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sa = reinterpret_cast<bf16*>(smem_raw);  // [kDwStages][kDwK][kLdA]
-  bf16* sb = sa + kDwStages * kDwK * kLdA;       // [kDwStages][kDwK][kLdB]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int m0 = blockIdx.y * kDwM, n0 = blockIdx.x * kDwN;
-  const int nk = (R + kDwK - 1) / kDwK;
-  auto stage = [&](int ch) {  // rows [32·ch, 32·ch + 32), zeros past R, M and N
-    if (ch < nk) {
-      const int r0 = ch * kDwK;
-      bf16* da = sa + (ch % kDwStages) * kDwK * kLdA;
-      bf16* db = sb + (ch % kDwStages) * kDwK * kLdB;
-      if constexpr (kVec) {
-        for (int i = tid; i < kDwK * kDwM / 8; i += kThreads) {
-          const int r = i / (kDwM / 8), m = (i % (kDwM / 8)) * 8;
-          const bool ok = r0 + r < R && m0 + m < M;
-          cp_async16(da + r * kLdA + m, ok ? a + (size_t)(r0 + r) * M + m0 + m : a, ok ? 16 : 0);
-        }
-        for (int i = tid; i < kDwK * kDwN / 8; i += kThreads) {
-          const int r = i / (kDwN / 8), n = (i % (kDwN / 8)) * 8;
-          const bool ok = r0 + r < R && n0 + n < N;
-          cp_async16(db + r * kLdB + n, ok ? bm + (size_t)(r0 + r) * N + n0 + n : bm, ok ? 16 : 0);
-        }
-      } else {
-        for (int i = tid; i < kDwK * kDwM; i += kThreads) {
-          const int r = i / kDwM, m = i % kDwM;
-          da[r * kLdA + m] = r0 + r < R && m0 + m < M ? a[(size_t)(r0 + r) * M + m0 + m]
-                                                       : from_f<bf16>(0.f);
-        }
-        for (int i = tid; i < kDwK * kDwN; i += kThreads) {
-          const int r = i / kDwN, n = i % kDwN;
-          db[r * kLdB + n] = r0 + r < R && n0 + n < N ? bm[(size_t)(r0 + r) * N + n0 + n]
-                                                       : from_f<bf16>(0.f);
-        }
-      }
-    }
-    if constexpr (kVec) cp_async_commit();
-  };
-#pragma unroll
-  for (int ch = 0; ch < kDwStages - 1; ++ch) stage(ch);
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) zero(acc[mi]);
-  const int mat = lane >> 3, rr = lane & 7;  // the matrix and row this lane addresses
-  for (int ch = 0; ch < nk; ++ch) {
-    cp_async_wait<kDwStages - 2>();
-    __syncthreads();  // chunk ch landed for every thread; chunk ch-1's buffers are free
-    stage(ch + kDwStages - 1);
-    const bf16* ta = sa + (ch % kDwStages) * kDwK * kLdA;
-    const bf16* tb = sb + (ch % kDwStages) * kDwK * kLdB;
-#pragma unroll
-    for (int kk = 0; kk < kDwK / 16; ++kk) {
-      uint32_t fa[2][4], fb[2][4];
-      // A[m][k] = h_prev[k][m]: matrix i holds m-block i&1, k-block i>>1
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4_trans(fa[mi], ta + (16 * kk + (mat >> 1) * 8 + rr) * kLdA + wm * 32 +
-                                      mi * 16 + (mat & 1) * 8);
-      // B[k][n] = dx[k][n]: matrix i holds k-block i&1, n-block i>>1, so
-      // b0, b1 of n-tile 2ni in r[0], r[1] and of 2ni+1 in r[2], r[3]
-#pragma unroll
-      for (int ni = 0; ni < 2; ++ni)
-        ldmatrix_x4_trans(fb[ni], tb + (16 * kk + (mat & 1) * 8 + rr) * kLdB + wn * 32 +
-                                      ni * 16 + (mat >> 1) * 8);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[mi][nt], fa[mi][0], fa[mi][1], fa[mi][2], fa[mi][3],
-                   fb[nt >> 1][(nt & 1) * 2], fb[nt >> 1][(nt & 1) * 2 + 1]);
-    }
-  }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = m0 + wm * 32 + mi * 16 + frag_row(2 * hf);
-        const int col = n0 + wn * 32 + frag_col(nt, 0);
-        if (row < M && col < N)  // N is even: col + 1 < N too
-          *reinterpret_cast<uint32_t*>(c + (size_t)row * N + col) =
-              pack_bf16x2(acc[mi][nt][2 * hf], acc[mi][nt][2 * hf + 1]);
-      }
-}
-
-template <bool kVec>
-cudaError_t launch_dw(const bf16* h_prev, const bf16* dx, bf16* dw, int R, int H,
-                      cudaStream_t stream) {
-  auto kernel = lstm_dw_kernel<kVec>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((4 * H + kDwN - 1) / kDwN, (H + kDwM - 1) / kDwM);
-  kernel<<<grid, kThreads, kDwSmem, stream>>>(h_prev, dx, dw, R, H, 4 * H);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // gates_pre [T,B,4H], c_prev, h_prev, dh_seq [T,B,H], dhT, dcT [B,H], dx
@@ -690,9 +569,8 @@ extern "C" int lstm_bwd_launch(int io_bf16, const void* gates_pre, const void* c
   err = tc_smem(1, w_bytes) <= (size_t)smem_max ? launch_tc<true>(a, w_bytes, n_sms, smem_max, st)
                                                  : launch_tc<false>(a, 0, n_sms, smem_max, st);
   if (err != cudaSuccess || !acc_dw) return err;
-  const bf16* hp = static_cast<const bf16*>(h_prev);
-  if (H % 8 == 0) return launch_dw<true>(hp, a.dx, static_cast<bf16*>(dw), n_steps * B, H, st);
-  return launch_dw<false>(hp, a.dx, static_cast<bf16*>(dw), n_steps * B, H, st);
+  return launch_dw_product(static_cast<const bf16*>(h_prev), H, a.dx, 4 * H,
+                           static_cast<bf16*>(dw), 4 * H, n_steps * B, H, 4 * H, H % 8 == 0, st);
 }
 
 extern "C" const char* lstm_bwd_error_string(int err) {

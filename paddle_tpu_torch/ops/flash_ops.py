@@ -7,8 +7,12 @@ formula, which is the JAX package's `_reference` (flash_ops.py:35-48) op by
 op: what its dispatcher runs off the TPU and its CPU tests hold the TPU
 kernel to. The JAX package's eligibility rules (128-aligned T, a minimum
 T, a score-bytes threshold, TPU block sizes and tuning overrides) choose
-between its kernel and XLA; the kernels here take any T and D in {64, 128}
-and raise on anything else.
+between its kernel and XLA; the kernels here take any T, D in {64, 128}
+and K, V of Q's shape, and raise on anything else. So on the card the op
+routes by shape before any launch (`kernel_takes`), as the JAX op routes
+by `flash_eligible`: the shapes the kernels take go to them, every other
+shape (another head dim, a cross-attention whose keys have another
+length) to the plain formula on the card. Nothing falls back on an error.
 """
 
 from __future__ import annotations
@@ -22,6 +26,10 @@ from . import flash_kernels
 from .activation_ops import rounded, softmax
 
 NEG_INF = -1e30  # the masked score, as the JAX package's
+
+# CUDA calls the routing rule sent to the plain formula in this process;
+# chip_smoke.py reads it (the kernels count their own launches)
+plain_routes = 0
 
 
 def scaled_dot_product_attention(q, k, v, causal: bool = False):
@@ -38,13 +46,24 @@ def scaled_dot_product_attention(q, k, v, causal: bool = False):
     return torch.einsum("bhqk,bkhd->bqhd", softmax(s, dim=-1), v)
 
 
+def kernel_takes(q, k, v) -> bool:
+    """The routing rule: the flash kernels take a head dim in HEAD_DIMS
+    and K, V of Q's shape."""
+    return q.shape[-1] in flash_kernels.HEAD_DIMS and k.shape == q.shape and v.shape == q.shape
+
+
 def flash_attention(q, k, v, causal: bool = False):
-    """[B, T, H, D] attention: the kernels on the card, the plain formula
-    on the CPU."""
+    """[B, T, H, D] attention (K, V [B, Tk, H, D]): on the card the kernels
+    where `kernel_takes` says so, else the plain formula; on the CPU the
+    plain formula."""
+    global plain_routes
     if q.dim() != 4:
         raise ValueError(f"expected [B, T, H, D], got {tuple(q.shape)}")
     if q.device.type == "cuda":
-        return flash_kernels.flash_fused(q, k, v, causal)
+        if kernel_takes(q, k, v):
+            return flash_kernels.flash_fused(q, k, v, causal)
+        plain_routes += 1
+        return scaled_dot_product_attention(q, k, v, causal)
     if q.device.type == "cpu":
         return scaled_dot_product_attention(q, k, v, causal)
     raise ValueError(f"flash_attention: unsupported device {q.device}")

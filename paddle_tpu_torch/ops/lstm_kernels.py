@@ -133,16 +133,18 @@ def unpack_gates(packed, H: int):
 
 
 def pad_w_bwd(w):
-    """W [H, 4H] as the bf16 backward reads it: [Hp, 4·Hp] with row j the
-    weights of unit j and gate q's columns at q·Hp (Hp = padded_units(H)),
-    zero where the unit or k is padding, as the exchanged dgates are laid
-    out. Row j is the K-contiguous B operand of unit j's dh carry: nothing
-    is transposed."""
+    """W [H, G·H] (G gates: 4 for the LSTM, 3 for the GRU) as the bf16
+    backward kernels read it: [Hp, G·Hp] with row j the weights of unit j
+    and gate q's columns at q·Hp (Hp = padded_units(H)), zero where the unit
+    or k is padding, as the exchanged gate gradients are laid out. Row j is
+    the K-contiguous B operand of unit j's products: nothing is
+    transposed."""
     H = w.shape[0]
+    G = w.shape[1] // H
     Hp = padded_units(H)
-    out = torch.zeros(Hp, 4, Hp, dtype=w.dtype, device=w.device)
-    out[:H, :, :H] = w.reshape(H, 4, H)
-    return out.reshape(Hp, 4 * Hp)
+    out = torch.zeros(Hp, G, Hp, dtype=w.dtype, device=w.device)
+    out[:H, :, :H] = w.reshape(H, G, H)
+    return out.reshape(Hp, G * Hp)
 
 
 def _lib(name):

@@ -5,10 +5,23 @@ versions, and `gru_fused`, the autograd Function over the two.
 Replaces the TPU kernels `_gru_kernel` / `_gru_pallas_raw` and
 `_gru_bwd_kernel` / `_gru_bwd_pallas` (paddle_tpu/ops/pallas_kernels.py:
 457-673) and `gru_fused` / `_gru_core` (:676-716). Both kernels are bound
-by their T dependent steps, not by bytes or FLOPs: each step needs all of
-the previous step's h (or dh), so the card meets at a grid barrier twice a
-step. Their design keeps each CTA's slice of W in shared memory for all T
-steps and the per-step exchange in L2 (see the sources' notes).
+by their T dependent steps, not by bytes or FLOPs: each step's products
+need all of the previous step's h (or the gate gradients of every unit),
+so CTAs meet at a barrier twice a step. Their design keeps each CTA's slice
+of W in shared memory for all T steps and the per-step exchange in L2 (see
+the sources' notes).
+
+In bf16 both run on the tensor cores on the LSTM kernels' partition
+(lstm_kernels): a CTA owns UNITS_PER_CTA hidden units of a group of
+ROWS_PER_TILE-row batch tiles, with barriers among the group's CTAs only.
+The forward reads W in the packed layout `pack_w` makes: for each group of
+16 units, u and r of one unit side by side (so one mma.sync accumulator
+lane holds both), then c's 16 columns (`packed_columns`), K-contiguous,
+H padded to Hp with zeros. It exchanges h and then io(r·h) each step. The
+backward reads W padded by `lstm_kernels.pad_w_bwd` ([Hp, 3·Hp]), exchanges
+[du | dc] and then dr each step, and takes dW off the recurrence: a second
+kernel behind the same launch computes it as one product over all T·B
+rows. The f32 kernels read W as it is.
 
 `gru_fwd` and `gru_bwd` take CUDA tensors to the kernel, or raise; CPU
 tensors to the plain version. There is no fallback from one to the other.
@@ -17,10 +30,12 @@ tensors to the plain version. There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import cuda_build
+from .lstm_kernels import ROWS_PER_TILE, UNITS_PER_CTA, pad_w_bwd, padded_units
 
 # launches of the CUDA kernels in this process; chip_smoke.py reads them
 gru_fwd_launches = 0
@@ -31,6 +46,10 @@ gru_bwd_launches = 0
 GRU_FUSED_DW_MAX_H = 640
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
+
+# kCols in csrc/gru_fwd.cu: the packed columns of a group of UNITS_PER_CTA
+# units, u and r in pairs, then c
+PACKED_COLUMNS = 3 * UNITS_PER_CTA
 
 
 def gru_fwd_plain(x, mask, w, reverse: bool = False):
@@ -63,16 +82,85 @@ def gru_fwd_plain(x, mask, w, reverse: bool = False):
     return h_seq, h
 
 
-def _lib():
-    lib = cuda_build.load("gru_fwd")
-    fn = lib.gru_fwd_launch
+def packed_columns(H: int):
+    """The bf16 forward's packed column order: for packed column (group, n),
+    n < PACKED_COLUMNS, the column of W [H, 3H] it holds, or -1 where its
+    unit is padding. Within a group, n = 8·uq + 2·r + gate (gate 0 u, 1 r)
+    holds unit 4·uq + r, so warp quad uq's n-tile gives mma.sync's
+    accumulator lane r u and r of one unit; n = 32 + i holds c of unit i.
+    Returns a [groups·48] long tensor."""
+    groups = padded_units(H) // UNITS_PER_CTA
+    # axes of the u, r part: group, uq, r, gate (the packed order)
+    grp, uq, r, gate = torch.meshgrid(torch.arange(groups), torch.arange(UNITS_PER_CTA // 4),
+                                      torch.arange(4), torch.arange(2), indexing="ij")
+    unit = grp * UNITS_PER_CTA + uq * 4 + r
+    ur = torch.where(unit < H, gate * H + unit, torch.full_like(unit, -1)).reshape(groups, -1)
+    cu = torch.arange(groups)[:, None] * UNITS_PER_CTA + torch.arange(UNITS_PER_CTA)
+    c = torch.where(cu < H, 2 * H + cu, torch.full_like(cu, -1))
+    return torch.cat([ur, c], dim=1).reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_index(H: int, device: torch.device):
+    """The packed rows that hold a column of W, and those columns, on
+    `device`: made once, so that pack_w copies nothing from the host and
+    waits for nothing on the card."""
+    cols = packed_columns(H)
+    rows = torch.nonzero(cols >= 0).squeeze(1)
+    return rows.to(device), cols[rows].to(device)
+
+
+def pack_w(w):
+    """W [H, 3H] in the bf16 forward's layout: [groups, 48, Hp] with
+    packed[g, n, k] = W[k, packed_columns(H)[48·g + n]], zero where the
+    unit or k is padding (Hp = padded_units(H))."""
+    H = w.shape[0]
+    Hp = padded_units(H)
+    rows, cols = _pack_index(H, w.device)
+    out = torch.zeros(3 * Hp, Hp, dtype=w.dtype, device=w.device)
+    out[rows, :H] = w.t()[cols]
+    return out.reshape(-1, PACKED_COLUMNS, Hp)
+
+
+def unpack_gates(packed, H: int):
+    """Pre-activations in the packed column order [..., groups·48] back to
+    W's order [..., 3H] (the padding columns dropped)."""
+    cols = packed_columns(H).to(packed.device)
+    valid = cols >= 0
+    out = packed.new_empty(*packed.shape[:-1], 3 * H)
+    out[..., cols[valid]] = packed[..., valid]
+    return out
+
+
+def _lib(name="gru_fwd"):
+    lib = cuda_build.load(name)
+    fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+        n_ptr = 6 if name == "gru_fwd" else 11
+        n_int = 4 if name == "gru_fwd" else 5
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.gru_fwd_error_string.argtypes = [ctypes.c_int]
-        lib.gru_fwd_error_string.restype = ctypes.c_char_p
+        plan = getattr(lib, f"{name}_tc_plan")
+        plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        plan.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
     return lib
+
+
+def tc_plan(name: str, B: int, H: int):
+    """How the current card takes the bf16 kernel `name` ("gru_fwd" or
+    "gru_bwd") at batch B and width H: CTAs an SM, batch groups, 32-row
+    sub-tiles a group and whether W's slice is in shared memory."""
+    lib = _lib(name)
+    out = (ctypes.c_int * 4)()
+    err = getattr(lib, f"{name}_tc_plan")(B, H, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"{name}: no plan for B={B}, H={H}: "
+                           f"{getattr(lib, f'{name}_error_string')(err).decode()}")
+    return dict(per_sm=out[0], groups=out[1], tiles_per_group=out[2], w_smem=bool(out[3]))
 
 
 def _check(x, mask, w):
@@ -106,19 +194,28 @@ def gru_fwd(x, mask, w, reverse: bool = False):
     T, B, H3 = x.shape
     H = H3 // 3
     dt = x.dtype
+    bf16 = dt == torch.bfloat16
     x = x.contiguous()
-    w = w.to(dt).contiguous()
+    w = w.to(dt)
+    w = pack_w(w) if bf16 else w.contiguous()
     mask = mask.to(torch.float32).contiguous()
+    # one zeroed workspace. f32: the h exchange [2, B, H], then rh [B, H];
+    # bf16: the h and rh exchanges [2, B, Hp] each, u [B, Hp] f32 for a CTA
+    # that walks several sub-tiles, then the batch groups' barrier counters
+    if bf16:
+        plane = B * padded_units(H)
+        nbytes = 2 * 2 * plane * 2 + 4 * plane + 4 * -(-B // ROWS_PER_TILE)
+    else:
+        nbytes = 3 * B * H * 4
     with torch.cuda.device(x.device):
         lib = _lib()
         h_seq = torch.empty(T, B, H, dtype=dt, device=x.device)
         h_T = torch.empty(B, H, dtype=dt, device=x.device)
-        hbuf = torch.zeros(2, B, H, dtype=dt, device=x.device)
-        rh = torch.empty(B, H, dtype=dt, device=x.device)
+        ws = torch.zeros(nbytes, dtype=torch.uint8, device=x.device)
         err = lib.gru_fwd_launch(
-            int(dt == torch.bfloat16), x.data_ptr(), mask.data_ptr(), w.data_ptr(),
-            h_seq.data_ptr(), h_T.data_ptr(), hbuf.data_ptr(), rh.data_ptr(),
-            T, B, H, int(bool(reverse)), torch.cuda.current_stream().cuda_stream)
+            int(bf16), x.data_ptr(), mask.data_ptr(), w.data_ptr(), h_seq.data_ptr(),
+            h_T.data_ptr(), ws.data_ptr(), T, B, H, int(bool(reverse)),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"gru_fwd kernel launch failed (T={T}, B={B}, H={H}, {dt}): "
@@ -201,18 +298,6 @@ def gru_bwd_plain(ur_pre, c_pre, h_prev, rh, dh_seq, mask, w, dhT, reverse: bool
     return dx, dw.to(dt)
 
 
-def _bwd_lib():
-    lib = cuda_build.load("gru_bwd")
-    fn = lib.gru_bwd_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.gru_bwd_error_string.argtypes = [ctypes.c_int]
-        lib.gru_bwd_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _check_bwd(ur_pre, c_pre, h_prev, rh, dh_seq, mask, w, dhT):
     if h_prev.dim() != 3:
         raise ValueError(f"gru_bwd: h_prev must be [T,B,H], got {tuple(h_prev.shape)}")
@@ -251,21 +336,28 @@ def gru_bwd(ur_pre, c_pre, h_prev, rh, dh_seq, mask, w, dhT, reverse: bool = Fal
         raise ValueError(f"gru_bwd: unsupported device {h_prev.device}")
     T, B, H = h_prev.shape
     dt = h_prev.dtype
+    bf16 = dt == torch.bfloat16
     fuse_dw = H <= GRU_FUSED_DW_MAX_H
     args = [t.contiguous() for t in (ur_pre, c_pre, h_prev, rh, dh_seq)]
     mask = mask.to(torch.float32).contiguous()
-    w, dhT = w.contiguous(), dhT.contiguous()
+    w, dhT = (pad_w_bwd(w) if bf16 else w.contiguous()), dhT.contiguous()
+    # f32: scratch for dc_pre [B, H] and [du | dr] [B, 2H]; bf16: the zeroed
+    # exchange [2, B, 3·Hp] (its padding columns stay zero), then the batch
+    # groups' barrier counters
+    if bf16:
+        nbytes = 2 * B * 3 * padded_units(H) * 2 + 4 * -(-B // ROWS_PER_TILE)
+    else:
+        nbytes = 3 * B * H * 4
     with torch.cuda.device(h_prev.device):
-        lib = _bwd_lib()
+        lib = _lib("gru_bwd")
         dx = torch.empty(T, B, 3 * H, dtype=dt, device=h_prev.device)
         dw = torch.empty(H, 3 * H, dtype=dt, device=h_prev.device)
-        dcp = torch.empty(B, H, dtype=dt, device=h_prev.device)
-        dur = torch.empty(B, 2 * H, dtype=dt, device=h_prev.device)
+        ws = (torch.zeros if bf16 else torch.empty)(nbytes, dtype=torch.uint8,
+                                                    device=h_prev.device)
         err = lib.gru_bwd_launch(
-            int(dt == torch.bfloat16), *(a.data_ptr() for a in args), mask.data_ptr(),
-            w.data_ptr(), dhT.data_ptr(), dx.data_ptr(), dw.data_ptr(), dcp.data_ptr(),
-            dur.data_ptr(), T, B, H, int(bool(reverse)), int(fuse_dw),
-            torch.cuda.current_stream().cuda_stream)
+            int(bf16), *(a.data_ptr() for a in args), mask.data_ptr(), w.data_ptr(),
+            dhT.data_ptr(), dx.data_ptr(), dw.data_ptr(), ws.data_ptr(), T, B, H,
+            int(bool(reverse)), int(fuse_dw), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"gru_bwd kernel launch failed (T={T}, B={B}, H={H}, {dt}): "
