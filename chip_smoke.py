@@ -154,12 +154,15 @@ exits non-zero without the final `ok` line:
               inputs (bf16 and f32), then seeded inputs with ragged source
               and target masks and a row with no target step, at the main
               path's shapes (with a misplaced rounding that the bf16 bound
-              must catch) and at edge shapes, each output beside what it
-              would read left at zero; the same bits in two runs of the
-              backward; kernel, plain and bound times.
+              must catch) and at edge shapes (T=1, the bf16 backward's batch
+              groups at B=64 and 65), each output beside what it would read
+              left at zero; the bf16 backward's plan at each shape; the same
+              bits in two runs of the backward; its post-walk d(enc_proj)/dv
+              pass (decoder_seq_dep) against its plain version on the walk's
+              own dsc; kernel, plain and bound times.
   24. steps   3 timed steps with the launch counts set to 0 just before:
               finite, falling losses, exactly 1 decoder_seq_fwd, 1
-              decoder_seq_bwd, 2 gru_fwd, 2 gru_bwd and no per-step
+              decoder_seq_bwd, 1 decoder_seq_dep, 2 gru_fwd, 2 gru_bwd and no per-step
               attention launch a step, median ms per step, target tokens/s,
               peak memory, one profiled step; then, as context, 3 steps of
               the per-step route (the seq flags off).
@@ -170,18 +173,24 @@ exits non-zero without the final `ok` line:
               an f32 conv2d program: its output within 1e-5 of float64's
               largest, where cuDNN with TF32 lies about 3e-4 away.
   27. int8   quant_matmul (csrc/quant_matmul.cu, B12) against its plain
-              version (float64) on the card, tolerance 0: the site shapes of
-              the transformer and MLP requests, M in {1, 8, 17, 8193} x K in
-              {40, 8192} x N in {1000, 24}, every value -128 then 127 at the
-              largest K, the same bits in two runs; kernel, bound, plain and
-              torch._int_mm (the yardstick) times, summed over a request.
+              version (float64) on the card, tolerance 0, each call on the
+              route quant_kernels.kernel_route names: the site shapes of the
+              transformer and MLP requests and M in {1, 8, 17, 64, 65, 127,
+              8193} x K in {32, 48, 8192} x N in {24, 256, 1000} on the
+              wgmma route, K=40 on the kept mma.sync route; each shape with
+              K % 16 == 0 also on the kept route (equal, timed beside, not
+              counted); every value -128 then 127 at the
+              largest K, the same bits in two runs on each route; kernel,
+              bound, plain and torch._int_mm (the yardstick,
+              with the weight column-major as cuBLASLt's int8 kernels want
+              it and row-major as it lies) times, summed over a request.
   28. serve   bench.py's transformer LM at the `all` sweep's row, is_test,
               built by the port's front end from --seed: saved, loaded,
               calibrated in bf16 on the JAX `quant` command's 8 synthetic
               samples (B=4), converted (49 sites), saved, loaded (sidecar
               checked), then 3 requests of B=8 x 1024 tokens in bf16 with
               the launch counts set to 0 just before: exactly 49 quant_matmul
-              launches a request and no attention routed to the plain
+              launches a request, all on the wgmma route, and no attention routed to the plain
               formula, ms, tokens/s, peak memory, a profiled
               request (busy share, B12's share); logits bit-identical to the
               same program with quant_matmul sent to its plain version; the
@@ -190,7 +199,8 @@ exits non-zero without the final `ok` line:
               host memory would outweigh the request's own work).
   29. mlp     bench.py's serving_quant MLP (512-1024-1024-128, B=8) through
               the same recipe: rel_delta <= 0.05 on the RandomState(99)
-              feed, 3 launches a request; a stale program and a tampered
+              feed, 3 launches a request, all on the wgmma route; a stale
+              program and a tampered
               scale raise QuantMetaError at load.
   30. parity  a small quantized transformer (dim 64, 2 layers, T=16, vocab
               128) and the MLP, card against CPU, f32 then bf16: calibration
@@ -715,7 +725,9 @@ LSTM_STEP_LAUNCHES = {"lstm_fwd": 2, "lstm_bwd": 2}
 # B2 a launch, B11 a step's 36 calls, B8's forward at layer 0, B3 a launch
 # at the request's B=128 and B4 at the training step's B=256
 EARLIER_MS = {"lstm_fwd": 11.0729, "lstm_bwd": 10.5066, "fused_conv_bn": 8.6320,
-              "flash_fwd": 0.34521, "gru_fwd": 4.1154, "gru_bwd": 9.8263}
+              "flash_fwd": 0.34521, "gru_fwd": 4.1154, "gru_bwd": 9.8263,
+              # B12 a call at the request's K=N=2048 site, and B10 a launch
+              "quant_matmul": 0.20372, "decoder_seq_bwd": 13.4923}
 # the small program's biases on the card against the CPU in bf16: their
 # gradients, sums over B·T cotangents that nearly cancel, are held to 0.1
 # of their largest (tests/test_torch_frontend.py), so the values held to
@@ -2057,7 +2069,8 @@ NMT_BENCH = dict(vocab=30000, emb=512, enc_hidden=512, dec_hidden=512, max_len=5
 NMT_SMALL = dict(vocab=64, emb=32, enc_hidden=128, dec_hidden=128, max_len=6, batch=8)
 NMT_VALUES = 53_455_664
 SEQ_FLAGS = dict(fused_attention_seq_fwd=True, fused_attention_seq_bwd=True)
-SEQ_STEP_LAUNCHES = {"decoder_seq_fwd": 1, "decoder_seq_bwd": 1, "attn_fwd": 0,
+SEQ_STEP_LAUNCHES = {"decoder_seq_fwd": 1, "decoder_seq_bwd": 1, "decoder_seq_dep": 1,
+                     "attn_fwd": 0,
                      "attn_bwd_step": 0, "attn_phase2": 0, "gru_fwd": 2, "gru_bwd": 2}
 # B9 and B10 against their plain versions, each output's error over its
 # scale (seq_scales). f32: within 1e-5 (the same f32 arithmetic summed in
@@ -2089,7 +2102,14 @@ SEQ_BWD_OUT = ("dxp", "dctx", "ddp", "dh0", "dep", "dv")
 # hidden units a CTA, a partly empty last CTA, slices of A and C that do not
 # divide, S past one warp, fewer batch rows than CTAs
 SEQ_EDGE = [(5, 7, 4, 16, 130, 100, 100), (3, 45, 5, 24, 520, 300, 301),
-            (4, 9, 3, 16, 130, 128, 700)]
+            (4, 9, 3, 16, 130, 128, 700),
+            # the bf16 backward's batch groups of 32-row sub-tiles at H=512:
+            # two whole sub-tiles, then a third of one row; and T=1
+            (64, 20, 6, 32, 1024, 512, 512), (65, 20, 6, 32, 1024, 512, 512),
+            (8, 10, 1, 16, 256, 128, 128),
+            # long source and target: the post-walk pass's tiles of S and T
+            # (T = S = 256 staged whole would pass shared memory's 227 KB)
+            (4, 256, 256, 16, 130, 128, 100)]
 
 
 def build_nmt_program(ptt, vocab, emb, enc_hidden, dec_hidden, max_len, batch=None):
@@ -2147,6 +2167,17 @@ def seq_bound(name, args):
         ops = steps * (2 * H * H + 2 * H * 2 * H + 2 * 3 * H * C + 2 * A * H
                        + src / B * (2 * C + 6 * A))
     return (*bound_ms(nbytes, ops, PEAK_FLOPS[torch.bfloat16]), nbytes)
+
+
+def seq_dep_bound(ep, dp_seq, dsc):
+    """Least time for the post-walk pass: ep, dp_seq, dsc and v read once,
+    dep and dv written once; per (t, b, s, a) term with a nonzero dsc, nine
+    f32 operations (tanh as one) at the f32 peak off the tensor cores."""
+    T, B, A = dp_seq.shape
+    S = ep.shape[1]
+    nbytes = (2 * B * S * A + T * B * A + A) * ep.element_size() + (T * B * S + A) * 4
+    ops = 9.0 * float((dsc != 0).sum()) * A
+    return (*bound_ms(nbytes, ops, PEAK_FLOPS[torch.float32]), nbytes)
 
 
 def seq_seeded(rng, B, S, T, E, C, A, H, dt):
@@ -2371,10 +2402,42 @@ def nmt_seq_phases(ptt, exe, rng, smi, seed, first_phase):
                     rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                                       library_ms=None)
         args = calls["decoder_seq_bwd"][0][0]
+        ep_, enc_, mask_, alpha_ = args[0], args[1], args[2], args[10]
+        plan = ak.decoder_seq_bwd_plan(ep_.shape[0], ep_.shape[1], ep_.shape[2], enc_.shape[2],
+                                       args[5].shape[2])
+        print(f"  decoder_seq_bwd (bf16) {rows['decoder_seq_bwd']['ms']:.4f} ms, "
+              f"{EARLIER_MS['decoder_seq_bwd']} ms before the redesign; the card's plan {plan}")
         first, again = ak.decoder_seq_bwd(*args), ak.decoder_seq_bwd(*args)
         check(all(torch.equal(a, b) for a, b in zip(first, again)),
               "decoder_seq_bwd gives other bits in a second run")
         print("  decoder_seq_bwd: the same bits in two runs (dep and dv included)")
+        # the post-walk pass against its plain version, on the dsc of the
+        # kernel's own walk (from its dctx, as the walk computes it)
+        dal = torch.einsum("bsc,tbc->tbs", enc_.float(), first[1].float())
+        dsc = alpha_ * (dal - (alpha_ * dal).sum(-1, keepdim=True)) * (mask_ > 0)
+        dep_args = (ep_, args[9], dsc.contiguous(), args[11])
+        dgot, dwant = ak.decoder_seq_dep(*dep_args), ak.decoder_seq_dep_plain(*dep_args)
+        torch.cuda.synchronize()
+        parts = []
+        for nm, g, w in zip(("dep", "dv"), dgot, dwant):
+            over, tol, what = seq_reading(g, w, amax(w), torch.bfloat16, nm)
+            zero = seq_reading(torch.zeros_like(w), w, amax(w), torch.bfloat16, nm)[0]
+            parts.append(f"{nm} {over:.2e}{what} (zeros {zero:.2e}), "
+                         f"{float((g != w).float().mean()):.4%} differing")
+            check(over <= tol and zero > tol, f"decoder_seq_dep's {nm} disagrees with plain")
+            max_errs["decoder_seq_dep"] = max(max_errs.get("decoder_seq_dep", 0.0),
+                                              float((g.float() - w.float()).abs().max()))
+        k_ms = cuda_ms(lambda: ak.decoder_seq_dep(*dep_args), 10)
+        p_ms = cuda_ms(lambda: ak.decoder_seq_dep_plain(*dep_args), 2)
+        b_ms, b_by, nbytes = seq_dep_bound(*dep_args[:3])
+        rows["decoder_seq_dep"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                       library_ms=None)
+        again = ak.decoder_seq_dep(*dep_args)
+        check(all(torch.equal(a, b) for a, b in zip(dgot, again)),
+              "decoder_seq_dep gives other bits in a second run")
+        print(f"  decoder_seq_dep (the post-walk pass, on the walk's dsc): {'; '.join(parts)}; "
+              f"the same bits in two runs; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms by {b_by} ({nbytes:.0f} B)")
         wb = NMT_BENCH
         main_shape = (wb["batch"], wb["max_len"], wb["max_len"], wb["emb"], 2 * wb["enc_hidden"],
                       wb["dec_hidden"], wb["dec_hidden"])
@@ -2382,6 +2445,7 @@ def nmt_seq_phases(ptt, exe, rng, smi, seed, first_phase):
                 [(s, "") for s in SEQ_EDGE]:
             B_, S_, T_, E_, C_, A_, H_ = shape
             tag = (f"B={B_} S={S_} T={T_} C={C_} A={A_} H={H_} " + label).strip()
+            print(f"  bf16 backward's plan at {tag}: {ak.decoder_seq_bwd_plan(B_, S_, A_, C_, H_)}")
             for dt in (torch.float32, torch.bfloat16):
                 fwd, bwd = seq_seeded(rng, *shape, dt)
                 got, _ = seq_check(ak, "decoder_seq_fwd", fwd, tag, max_errs)
@@ -2395,6 +2459,7 @@ def nmt_seq_phases(ptt, exe, rng, smi, seed, first_phase):
               "then the per-step route as context")
         counters = {"decoder_seq_fwd": (ak, "decoder_seq_fwd_launches"),
                     "decoder_seq_bwd": (ak, "decoder_seq_bwd_launches"),
+                    "decoder_seq_dep": (ak, "decoder_seq_dep_launches"),
                     "attn_fwd": (ak, "attn_fwd_launches"),
                     "attn_bwd_step": (ak, "attn_bwd_step_launches"),
                     "attn_phase2": (ak, "attn_phase2_launches"),
@@ -2505,9 +2570,16 @@ QTFM_SMALL = dict(dim=64, heads=1, layers=2, seqlen=16, vocab=128)
 # activations a few bf16 ulps (2^-8 relative each) apart
 QRANGE_TOL = {None: 1e-5, "bfloat16": 2e-2}
 # B12 against its plain version, tolerance 0: the sites of both paths, then
-# M in {1, 8, 17, 8193} x K in {40, 8192} x N in {1000, 24}, then every
-# value -128, then 127, at the largest K
-QMM_EDGE = [(m, k, n) for m in (1, 8, 17, 8193) for k in (40, 8192) for n in (1000, 24)]
+# on the wgmma route M in {1, 8, 17, 64, 65, 127, 8193} (below one 64-row
+# warpgroup, one and a row past it, a row past 64 tiles of 128) x K in {32,
+# 48, 8192} (one k32 step, a stage zero-filled past K, 64 stages) x N in
+# {24, 256, 1000} (below one 256-column tile, one, and ragged), each also on
+# the kept route, not taken; on the kept mma.sync route K=40 (no tensor
+# map: K % 16) at M in {1, 8, 17, 8193} x N in {1000, 24}; then every value
+# -128, then 127, at the largest K
+QMM_EDGE = [(m, k, n) for m in (1, 8, 17, 64, 65, 127, 8193) for k in (32, 48, 8192)
+            for n in (24, 256, 1000)]
+QMM_EDGE_KEPT = [(m, 40, n) for m in (1, 8, 17, 8193) for n in (1000, 24)]
 QMM_CONST = (8193, 8192, 1000)
 # the H100 SXM's dense int8 peak (NVIDIA data sheet), at a 700 W limit
 INT8_PEAK_OPS = 1979e12
@@ -2622,6 +2694,38 @@ def qmm_bound(M, K, N):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def qmm_on(qk, route, a, b):
+    """quant_matmul's kernel on `route`, whichever route kernel_route names:
+    the route not taken, held and timed beside the one taken. Not counted."""
+    M, N = a.shape[0], b.shape[1]
+    out = torch.empty(M, N, dtype=torch.int32, device=a.device)
+    lib = qk._lib()
+    launch, w = ((lib.quant_matmul_tc_launch, qk.kmajor_weight(b)) if route == qk.WGMMA
+                 else (lib.quant_matmul_launch, b))
+    err = launch(a.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, a.shape[1],
+                 torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"quant_matmul's {route} kernel at M={M} K={a.shape[1]} N={N}: "
+          f"{lib.quant_matmul_error_string(err).decode()}")
+    return out
+
+
+def int_mm_pair(a, b, M, K, N, reps):
+    """torch._int_mm's time (cuBLASLt int8, the yardstick) with the weight
+    as it lies ([K, N] row-major) and in the column-major layout its IMMA
+    kernels want (b.t().contiguous().t(), made before the timed calls); None
+    each where it refuses the shape."""
+    if not int_mm_takes(M, K, N):
+        return None, None
+    bc = b.t().contiguous().t()
+    try:
+        return (cuda_ms(lambda: torch._int_mm(a, b), reps),
+                cuda_ms(lambda: torch._int_mm(a, bc), reps))
+    except RuntimeError as e:  # cuBLASLt refuses some of those shapes too (M=65, K=48)
+        if "CUBLAS_STATUS_NOT_SUPPORTED" not in str(e):
+            raise
+        return None, None
+
+
 def int_mm_takes(M, K, N):
     """The shapes torch._int_mm (cuBLASLt int8, the yardstick) takes: its
     documented M > 16 and N % 8 == 0, and K % 16 == 0 (it refuses K=40 on
@@ -2677,8 +2781,9 @@ def flip_bound_check(qk, op, scope_get, xs, outs, amp):
 
 
 def quant_phases(ptt, exe, smi, seed, first_phase):
-    """Phases first_phase.. of the int8 serving slice; returns B12's row,
-    its largest error, and its launches on the transformer and MLP paths."""
+    """Phases first_phase.. of the int8 serving slice; returns B12's rows
+    (the wgmma route, the kept mma.sync route), each route's largest error,
+    and each route's launches on the transformer and MLP paths."""
     from paddle_tpu_torch.ops import flash_kernels as fk
     from paddle_tpu_torch.ops import flash_ops
     from paddle_tpu_torch.ops import quant_kernels as qk
@@ -2699,62 +2804,117 @@ def quant_phases(ptt, exe, smi, seed, first_phase):
              "MLP request": {(QMLP["batch"], QMLP["in_dim"], QMLP["hidden"]): 1,
                              (QMLP["batch"], QMLP["hidden"], QMLP["hidden"]): 1,
                              (QMLP["batch"], QMLP["hidden"], QMLP["out_dim"]): 1}}
-    max_err, totals = 0, {}
+    other = {qk.WGMMA: qk.MMA_SYNC, qk.MMA_SYNC: qk.WGMMA}
+
+    def on_route(fn, M, K, N, route):
+        """fn() (one quant_matmul call), which must take `route`."""
+        before = dict(qk.quant_matmul_routes)
+        out = fn()
+        took = {k: qk.quant_matmul_routes[k] - before[k] for k in before}
+        check(qk.kernel_route(M, K, N) == route and took == {**{k: 0 for k in took}, route: 1},
+              f"quant_matmul M={M} K={K} N={N} took {took}, not the {route} route")
+        return out
+
+    max_err, totals = {qk.WGMMA: 0, qk.MMA_SYNC: 0}, {}
+
+    def held(got, want, route, what):
+        """got against the plain version's want at tolerance 0, into the
+        route's largest error."""
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max()) if want.numel() else 0
+        check(got.dtype == torch.int32 and err == 0,
+              f"quant_matmul {what} ({route}) differs from its plain version by {err}")
+        max_err[route] = max(max_err[route], err)
+
+    route = qk.WGMMA  # every site of both paths
     for path, sites in paths.items():
-        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, library_row_ms=0.0,
+                   other_ms=0.0)
         by = {"bytes": 0.0, "operations": 0.0}
         for (M, K, N), calls in sites.items():
             a, b = rnd(M, K), rnd(K, N)
-            got, want = qk.quant_matmul(a, b), qk.quant_matmul_plain(a, b)
-            torch.cuda.synchronize()
-            err = int((got.long() - want.long()).abs().max())
-            check(got.dtype == torch.int32 and err == 0,
-                  f"quant_matmul M={M} K={K} N={N} differs from its plain version by {err}")
-            max_err = max(max_err, err)
+            got = on_route(lambda: qk.quant_matmul(a, b), M, K, N, route)
+            want = qk.quant_matmul_plain(a, b)
+            held(got, want, route, f"M={M} K={K} N={N}")
+            held(qmm_on(qk, other[route], a, b), want, other[route], f"M={M} K={K} N={N}")
+            o_ms = cuda_ms(lambda: qmm_on(qk, other[route], a, b), 10)
             k_ms = cuda_ms(lambda: qk.quant_matmul(a, b), 10)
             p_ms = cuda_ms(lambda: qk.quant_matmul_plain(a, b), 2)
             b_ms, b_by = qmm_bound(M, K, N)
-            lib_ms = cuda_ms(lambda: torch._int_mm(a, b), 10) if int_mm_takes(M, K, N) else None
-            print(f"  {path} M={M} K={K} N={N} (x{calls}): equal; kernel {k_ms * 1e3:.2f} us, "
-                  f"bound {b_ms * 1e3:.2f} us by {b_by} ({100 * b_ms / k_ms:.2f}%), plain "
-                  f"{p_ms:.4f} ms, torch._int_mm "
-                  + (f"{lib_ms * 1e3:.2f} us" if lib_ms else "refuses the shape")
-                  + f", {2.0 * M * N * K / k_ms / 1e9:.1f} TOP/s")
+            row_ms, col_ms = int_mm_pair(a, b, M, K, N, 10)
+            earlier = f" ({EARLIER_MS['quant_matmul'] * 1e3:.2f} us before the redesign)" \
+                if (M, K, N) == (M_T, D, D) else ""
+            print(f"  {path} M={M} K={K} N={N} (x{calls}): equal on both routes; {route} "
+                  f"kernel {k_ms * 1e3:.2f} us{earlier} ({other[route]}, not taken, "
+                  f"{o_ms * 1e3:.2f} us), bound {b_ms * 1e3:.2f} us by {b_by} "
+                  f"({100 * b_ms / k_ms:.2f}%), "
+                  f"{2.0 * M * N * K / k_ms / 1e9:.1f} TOP/s; plain {p_ms:.4f} ms; torch._int_mm "
+                  + (f"{col_ms * 1e3:.2f} us with the weight column-major, {row_ms * 1e3:.2f} us "
+                     "row-major as it lies" if row_ms else "refuses the shape"))
             for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
-                           ("library_ms", lib_ms)):
+                           ("library_ms", col_ms), ("library_row_ms", row_ms), ("other_ms", o_ms)):
                 tot[key] = None if v is None or tot[key] is None else tot[key] + calls * v
             by[b_by] += calls * b_ms
-        totals[path] = dict(tot, bound_by=max(by, key=by.get))
-        lib = tot["library_ms"]
-        print(f"  {path}, {sum(sites.values())} calls: kernel {tot['ms']:.4f} ms, bound "
+        # the row's yardstick: the faster of the two layouts over the path
+        row_lib, col_lib = tot.pop("library_row_ms"), tot["library_ms"]
+        if col_lib is not None:
+            layout = "column-major" if col_lib <= row_lib else "row-major"
+            tot["library_ms"] = min(col_lib, row_lib)
+        else:
+            layout = None
+        other_ms = tot.pop("other_ms")
+        totals[path] = dict(tot, bound_by=max(by, key=by.get), library_layout=layout,
+                            library_other_ms=None if layout is None else max(col_lib, row_lib),
+                            at=path, route_not_taken_ms=other_ms)
+        print(f"  {path}, {sum(sites.values())} calls on the {route} route: kernel "
+              f"{tot['ms']:.4f} ms ({other[route]}, not taken, {other_ms:.4f} ms), bound "
               f"{tot['bound_ms']:.4f} ms ({100 * tot['bound_ms'] / tot['ms']:.2f}%), plain "
               f"{tot['plain_ms']:.4f} ms, torch._int_mm "
-              + (f"{lib:.4f} ms" if lib else "not for every site") + f" on {smi}")
-    for M, K, N in QMM_EDGE:
-        a, b = rnd(M, K), rnd(K, N)
-        got, want = qk.quant_matmul(a, b), qk.quant_matmul_plain(a, b)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"quant_matmul M={M} K={K} N={N} differs from plain")
-        b_ms, b_by = qmm_bound(M, K, N)
-        line = (f"  edge M={M} K={K} N={N}: equal; kernel "
-                f"{cuda_ms(lambda: qk.quant_matmul(a, b), 5) * 1e3:.2f} us, bound "
-                f"{b_ms * 1e3:.2f} us by {b_by}, plain "
-                f"{cuda_ms(lambda: qk.quant_matmul_plain(a, b), 2):.4f} ms")
-        if int_mm_takes(M, K, N):
-            line += f", torch._int_mm {cuda_ms(lambda: torch._int_mm(a, b), 5) * 1e3:.2f} us"
-        print(line)
+              + (f"{col_lib:.4f} ms with the weight column-major, {row_lib:.4f} ms row-major"
+                 if layout else "not for every site") + f" on {smi}")
+    for shapes, route in ((QMM_EDGE, qk.WGMMA), (QMM_EDGE_KEPT, qk.MMA_SYNC)):
+        for M, K, N in shapes:
+            a, b = rnd(M, K), rnd(K, N)
+            got = on_route(lambda: qk.quant_matmul(a, b), M, K, N, route)
+            want = qk.quant_matmul_plain(a, b)
+            held(got, want, route, f"M={M} K={K} N={N}")
+            b_ms, b_by = qmm_bound(M, K, N)
+            k_ms = cuda_ms(lambda: qk.quant_matmul(a, b), 5)
+            p_ms = cuda_ms(lambda: qk.quant_matmul_plain(a, b), 2)
+            line = (f"  edge M={M} K={K} N={N} ({route}): equal; kernel {k_ms * 1e3:.2f} us, "
+                    f"bound {b_ms * 1e3:.2f} us by {b_by}, plain {p_ms:.4f} ms")
+            if K % 16 == 0:
+                held(qmm_on(qk, other[route], a, b), want, other[route], f"M={M} K={K} N={N}")
+                o_ms = cuda_ms(lambda: qmm_on(qk, other[route], a, b), 5)
+                line += f"; {other[route]} (not taken) equal, {o_ms * 1e3:.2f} us"
+            if (M, K, N) == QMM_EDGE_KEPT[-2]:
+                kept_row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=None, at=f"M={M} K={K} N={N}")
+            row_ms, col_ms = int_mm_pair(a, b, M, K, N, 5)
+            if row_ms:
+                line += (f", torch._int_mm {col_ms * 1e3:.2f} us column-major, "
+                         f"{row_ms * 1e3:.2f} us row-major")
+            print(line)
     M, K, N = QMM_CONST
     for v in (-128, 127):
         a = torch.full((M, K), v, dtype=torch.int8, device="cuda")
         b = torch.full((K, N), v, dtype=torch.int8, device="cuda")
         got = qk.quant_matmul(a, b)
-        check(torch.equal(got, qk.quant_matmul_plain(a, b)) and int(got[0, 0]) == K * v * v,
-              f"quant_matmul with every value {v} differs from plain")
+        held(got, qk.quant_matmul_plain(a, b), qk.kernel_route(M, K, N), f"every value {v}")
+        check(int(got[0, 0]) == K * v * v, f"quant_matmul with every value {v}: C[0, 0]")
         print(f"  M={M} K={K} N={N}, every value {v}: equal, C = {int(got[0, 0])}")
     a, b = rnd(M_T, D), rnd(D, V)
     check(torch.equal(qk.quant_matmul(a, b), qk.quant_matmul(a, b)),
           "quant_matmul's outputs differ between two runs")
-    print(f"  M={M_T} K={D} N={V}: the same bits in two runs")
+    a, b = rnd(QMM_EDGE_KEPT[-2][0], 40), rnd(40, QMM_EDGE_KEPT[-2][2])
+    check(torch.equal(qk.quant_matmul(a, b), qk.quant_matmul(a, b)),
+          "quant_matmul's kept route gives other bits in a second run")
+    for M, K, N in paths["MLP request"]:
+        a, b = rnd(M, K), rnd(K, N)
+        check(torch.equal(qk.quant_matmul(a, b), qk.quant_matmul(a, b)),
+              f"quant_matmul at the MLP's M={M} K={K} N={N} gives other bits in a second run")
+    print(f"  M={M_T} K={D} N={V} and the MLP's sites (wgmma), M={QMM_EDGE_KEPT[-2][0]} K=40 "
+          f"N={QMM_EDGE_KEPT[-2][2]} (mma.sync): the same bits in two runs")
     del a, b, got, want
 
     work = tempfile.mkdtemp(prefix="chip_smoke_quant_")
@@ -2802,17 +2962,22 @@ def quant_phases(ptt, exe, smi, seed, first_phase):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         qk.quant_matmul_launches = fk.flash_fwd_launches = flash_ops.plain_routes = 0
+        qk.quant_matmul_routes = {k: 0 for k in qk.quant_matmul_routes}
         times, outs = [], []
         for r in reqs:
             t0 = time.perf_counter()
             outs.append(exe.run(prog, r, fetches, scope=scope, return_numpy=False)[0])
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        tfm_launches = qk.quant_matmul_launches
-        print(f"  launches in 3 requests: quant_matmul {tfm_launches}, flash_fwd "
-              f"{fk.flash_fwd_launches}; flash_attention calls routed to the plain formula "
-              f"{flash_ops.plain_routes}")
+        tfm_launches, tfm_routes = qk.quant_matmul_launches, dict(qk.quant_matmul_routes)
+        print(f"  launches in 3 requests: quant_matmul {tfm_launches} (by route {tfm_routes}), "
+              f"flash_fwd {fk.flash_fwd_launches}; flash_attention calls routed to the plain "
+              f"formula {flash_ops.plain_routes}; K-major weight copies kept "
+              f"{len(qk._KMAJOR)} "
+              f"({sum(c.numel() for _, _, c in qk._KMAJOR.values()) / 1e6:.1f} MB)")
         check(tfm_launches == 3 * QTFM_SITES, f"quant_matmul launched {tfm_launches} times")
+        check(tfm_routes == {qk.WGMMA: 3 * QTFM_SITES, qk.MMA_SYNC: 0},
+              f"the request's quant_matmul calls took the routes {tfm_routes}")
         check(fk.flash_fwd_launches == 3 * QTFM["layers"], "flash_fwd launches")
         check(flash_ops.plain_routes == 0, "the int8 request routed attention to the plain formula")
         for o in outs:
@@ -2890,16 +3055,20 @@ def quant_phases(ptt, exe, smi, seed, first_phase):
             exe.run(p_, feed, f_, scope=sc_)
             torch.cuda.synchronize()
             qk.quant_matmul_launches = 0
+            qk.quant_matmul_routes = {k: 0 for k in qk.quant_matmul_routes}
             times = []
             for _ in range(3):
                 t0 = time.perf_counter()
                 out[name] = exe.run(p_, feed, f_, scope=sc_)[0]
                 times.append((time.perf_counter() - t0) * 1e3)
             print(f"  {name}: {statistics.median(times):.3f} ms/request (B={QMLP['batch']}), "
-                  f"quant_matmul launches in 3 requests {qk.quant_matmul_launches}")
-        mlp_launches = qk.quant_matmul_launches
+                  f"quant_matmul launches in 3 requests {qk.quant_matmul_launches} (by route "
+                  f"{qk.quant_matmul_routes})")
+        mlp_launches, mlp_routes = qk.quant_matmul_launches, dict(qk.quant_matmul_routes)
         check(mlp_launches == 3 * QMLP_SITES, f"the MLP launched quant_matmul {mlp_launches} "
               "times in 3 requests")
+        check(mlp_routes == {qk.WGMMA: 3 * QMLP_SITES, qk.MMA_SYNC: 0},
+              f"the MLP's quant_matmul calls took the routes {mlp_routes}")
         rel = float(np.abs(out["fp"] - out["int8"]).max() / np.abs(out["fp"]).max())
         print(f"  held-out RandomState(99) feed: max |int8 - fp| over max |fp| {rel:.5f} "
               f"(bench.py's bound {QMLP_REL_DELTA})")
@@ -2980,7 +3149,11 @@ def quant_phases(ptt, exe, smi, seed, first_phase):
                 check(excess <= 0.0, f"{model} {amp}: an output beyond its flipped codes' bound")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return totals["transformer request"], max_err, tfm_launches, mlp_launches
+    names = {"quant_matmul": qk.WGMMA, "quant_matmul_mma": qk.MMA_SYNC}
+    rows = {"quant_matmul": totals["transformer request"], "quant_matmul_mma": kept_row}
+    launches = {name: {"transformer_int8_serve": tfm_routes[route],
+                       "mlp_int8_serve": mlp_routes[route]} for name, route in names.items()}
+    return rows, {name: max_err[route] for name, route in names.items()}, launches
 
 
 def main():
@@ -3439,8 +3612,9 @@ def main():
     rows.update(srows)
     max_errs.update(serrs)
     tf32_phase(ptt, smi, 26)
-    rows["quant_matmul"], max_errs["quant_matmul"], q_tfm, q_mlp = quant_phases(
-        ptt, exe, smi, args.seed, 27)
+    qrows, qerrs, q_launches = quant_phases(ptt, exe, smi, args.seed, 27)
+    rows.update(qrows)
+    max_errs.update(qerrs)
     attention_routing_phase(ptt, args.seed + 31, 31)
 
     phase(32, "the kernels line, then the device line")
@@ -3457,7 +3631,11 @@ def main():
                "fused_conv_bn": ("fused_conv_bn.cu", "paddle_tpu/ops/fused_conv_ops.py:140"),
                "decoder_seq_fwd": ("decoder_seq.cu", "paddle_tpu/ops/bahdanau_kernels.py:399"),
                "decoder_seq_bwd": ("decoder_seq.cu", "paddle_tpu/ops/bahdanau_kernels.py:568"),
-               "quant_matmul": ("quant_matmul.cu", "paddle_tpu/ops/quant_kernels.py:61")}
+               "decoder_seq_dep": ("decoder_seq.cu", "paddle_tpu/ops/bahdanau_kernels.py:568"),
+               "quant_matmul": ("quant_matmul.cu", "paddle_tpu/ops/quant_kernels.py:61"),
+               # the kept mma.sync route, for shapes no tensor map
+               # describes: no main path's call takes it (counted)
+               "quant_matmul_mma": ("quant_matmul.cu", "paddle_tpu/ops/quant_kernels.py:61")}
     by_path = {k: {"nmt_train": n} for k, n in train_launches.items()}
     by_path["gru_fwd"]["nmt_beam_infer"] = infer_launches
     by_path.update({k: {"lstm_train": n} for k, n in lstm_launches.items()})
@@ -3465,7 +3643,7 @@ def main():
     by_path.update({k: {"resnet50_train": n} for k, n in resnet_launches.items()})
     for k, c in seq_launches.items():
         by_path.setdefault(k, {})["nmt_train_seq"] = c
-    by_path["quant_matmul"] = {"transformer_int8_serve": q_tfm, "mlp_int8_serve": q_mlp}
+    by_path.update(q_launches)
     # B3's row: the request's launch (B=128), and the training step's (B=256)
     rows["gru_fwd"] = dict(main_row, train_ms=gru_fwd_train_ms)
     max_errs["gru_fwd"] = max(max_err, max_errs["gru_fwd"])
@@ -3473,7 +3651,8 @@ def main():
         "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
         "replaces": rep,
         "launches": {**seq_launches, **train_launches, **lstm_launches, **tfm_launches,
-                     **resnet_launches, "quant_matmul": q_tfm}[name],
+                     **resnet_launches,
+                     **{k: sum(v.values()) for k, v in q_launches.items()}}[name],
         "launches_by_path": by_path[name], "max_abs_err": max_errs[name],
         "library_ms": None, **rows[name], "checked_against_plain": True,
     } for name, (src, rep) in sources.items()]

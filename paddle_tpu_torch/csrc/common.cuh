@@ -2,7 +2,7 @@
 // bf16) and the f32 the math runs in, warp reductions, one warp's matrix
 // product on the tensor cores (bf16 mma.sync m16n8k16 with f32
 // accumulators, or the same fragments with f32 FMAs for f32 io), and
-// Hopper's pieces (wgmma and its shared-memory descriptors, mbarriers,
+// Hopper's pieces (wgmma, bf16 and s8, and its shared-memory descriptors, mbarriers,
 // tensor copies by TMA and bulk stores, the tensor-map encoder). Every
 // kernel computes in f32 and rounds to the io dtype only where the TPU
 // kernel it replaces rounds.
@@ -216,6 +216,12 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
+// the first 1024-byte aligned address at or past p (the 128-byte swizzle's
+// tiles repeat every 1024 bytes)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
 // a lane's two bf16 values of one 8-column block, packed (lo in the low half)
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -393,6 +399,57 @@ struct Wgmma<256> {
   }
 };
 
+// The int8 variant: D[64 x N] (+)= A[64 x 32] · B[32 x N], s8 operands from
+// shared memory through K-major descriptors (for 8-bit types wgmma takes
+// both operands K-major only: it has no transpose), exact s32 accumulators
+// in the same layout as the f32 ones above. A k32 step is 32 bytes of K, as
+// a bf16 k16 step is. scale_d 0 overwrites D.
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<256> {
+  static __device__ __forceinline__ void ss(int32_t (&d)[128], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+          "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+          "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+          "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+          "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+          "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+          "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+          "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+          "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+          "+r"(d[126]), "+r"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -409,6 +466,11 @@ template <int N>
 __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(int32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
@@ -496,6 +558,13 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* sr
       "r"(c3) : "memory");
 }
 
+// the same for a 2-D map, the box at (c0, c1)
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1) : "memory");
+}
+
 // bytes from shared to global memory by the bulk-copy engine: the copy runs
 // on while the thread goes on
 __device__ __forceinline__ void bulk_store(void* gmem, const void* smem, int bytes) {
@@ -530,17 +599,19 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dimensions (dims innermost first, the innermost
-// contiguous; strides in bytes of dimensions 1.., multiples of 16) read and
-// written as boxes of `box`, 128-byte swizzled as wgmma's descriptors name
-// them (box[0] = 64: one 128-byte row); elements outside the tensor read as
-// zeros and are not written. False where the encoder refuses.
+// A tensor of `rank` dimensions (dims innermost first, the innermost
+// contiguous; strides in bytes of dimensions 1.., multiples of 16) of
+// `dtype` (bf16 unless named) read and written as boxes of `box`, 128-byte
+// swizzled as wgmma's descriptors name them (box[0] one 128-byte row: 64
+// bf16, 128 int8, 32 int32); elements outside the tensor read as zeros and
+// are not written. False where the encoder refuses.
 inline bool encode_tiled(CUtensorMap* m, int rank, const void* base, const cuuint64_t* dims,
-                         const cuuint64_t* strides, const cuuint32_t* box) {
+                         const cuuint64_t* strides, const cuuint32_t* box,
+                         CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled fn = tensor_map_encoder();
   if (!fn || rank < 1 || rank > 5) return false;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+  return fn(m, dtype, rank, const_cast<void*>(base), dims, strides,
             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

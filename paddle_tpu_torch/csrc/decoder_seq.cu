@@ -30,14 +30,66 @@
 //
 // What bounds them: the T dependent steps. Each step needs all of h (dh)
 // from the step before, through three products and the attention, so the
-// whole card meets at a grid barrier four times a step:
+// CTAs meet at a barrier four times a step:
 //   forward   after dp, after ctx, after u/r (r·h), after h;
-//   backward  after dc_pre, after dur, after dctx, after ddp.
+//   backward  after [du | dc], after dr, after dctx, after ddp.
 // The bytes (ep and enc read once a step from L2, about 39 MB at B=256,
 // S=50, A=512, C=1024 in bf16) and the operations are far below what the
-// card does in that time. As csrc/gru_fwd.cu does, each CTA owns HC hidden
-// units and keeps the weights those units need in shared memory for the
-// whole launch, so they are read from device memory once:
+// card does in that time.
+//
+// The backward in bf16, the slice's dtype, runs on the tensor cores on
+// csrc/gru_bwd.cu's partition, with the attention added:
+// - The grid is unit groups x batch groups. A CTA owns 16 hidden units and
+//   the batch rows of one group (32-row sub-tiles; a group takes several
+//   where the card cannot hold a CTA for each: 2 at B=256, H=512), and a
+//   slice of cs columns of C (C / 32 = 32 at bench widths). A cooperative
+//   launch keeps every CTA resident; a release/acquire counter a batch
+//   group replaces the grid barrier (a counter that never fills traps).
+//   Its weights stay in shared memory for the whole walk: its units' rows
+//   of [w_u | w_r | w_c] and of wa_dec, and its slice's rows of wx_c, each
+//   K-contiguous and padded as the exchanges are (48 + 16 + 96 KB at bench
+//   widths), or are read through L1 where they do not fit.
+// - Warps 0-3 own the (row, unit) pairs as mma.sync's accumulator lanes;
+//   warps 4-7 compute beside them. Per step, newest first:
+//   (A) the owners' gate math from local values (the f32 dh carry, the
+//       step's g, u, r, c, h_prev, loaded before the barriers): du and dc
+//       published rounded into the exchange [B, 3·Hp] (du at 0, dr at Hp,
+//       dc at 2·Hp, the padding zero) and written to dxp. Barrier.
+//   (B) the owners take drh = io(dc)·w_cᵀ, then dr, published rounded;
+//       warps 4-7 take io(du)·w_uᵀ, the du part of dur·w_urᵀ. Barrier.
+//   (C) the owners carry dur·w_urᵀ on over dr·w_rᵀ and add it to dh_prev;
+//       every warp takes its n-tiles of dctx = io(dxp)·wx_cᵀ for the CTA's
+//       slice of C, published rounded into the dctx output. Barrier.
+//   (D) the attention's backward for the group's rows the CTA takes (row i
+//       of the group to its CTA i mod 32): dα = enc·io(dctx) over the row's
+//       [S, C], dsc (written to a [T, B, S] f32 buffer), and ddp = io(Σ_S
+//       dsc·(1-t²)·v) over its [S, A] of ep, published into a padded
+//       exchange and the ddp output. Barrier.
+//   (E) the owners' dh = dh_prev + io(ddp)·wa_decᵀ, the new f32 carry. The
+//       next step's (A) is local, so (E) needs no barrier after it.
+//   Every product's left operand is rounded where decoder_seq_bwd_plain
+//   rounds it, and each k16 product goes into a fresh fragment, added in
+//   f32 in k order (the tensor core's own accumulation truncates); the
+//   exchanged rows are staged with cp.async.cg (past L1, which is not
+//   coherent across SMs) in chunks of 64 columns of two slots in (B) and
+//   128 of one in (C) and (E), a ring of three chunks; a chunk's fragments
+//   are loaded, then its products issued back to back, then added in k
+//   order. The exchanges are double-buffered by step parity.
+// - d(enc_proj) and dv are off the recurrence (they feed nothing in the
+//   carry): after the walk, decoder_dep_kernel sums each dep[b,s,a] over t,
+//   newest first, with the plain version's term (dsc·(1-th²))·v and one
+//   rounding, and dv[a] in a fixed order (per row, then over the rows by
+//   decoder_dv_kernel): each element written once, the same bits on every
+//   run; no [B,S,A] buffer is read and written a step. It walks S and T in
+//   fixed tiles, so it takes any T and S the walk takes.
+// What still holds it back: the chain of each phase (the barrier's round
+// trip through L2, the staged rows, the products, the attention's reads
+// of enc and ep, the stores before the next release), four phases with a
+// barrier a step.
+//
+// The forward, and the backward in f32, keep the first design: each CTA
+// owns HC hidden units and keeps the weights those units need in shared
+// memory for the whole launch, so they are read from device memory once:
 //   forward   wx_c's 3·HC columns of the units, w_ur's 2·HC and w_c's HC,
 //             and a slice of wa_dec's A columns (4 KB + 24 KB + 8 KB + 4 KB
 //             at H = 512, HC = 4, bf16);
@@ -49,24 +101,23 @@
 // launch (h, dp, ctx, r·h, dxp, dctx, ddp) go through global buffers that
 // stay in L2, read with ld.cg (past L1, which is not coherent across SMs);
 // a cooperative launch keeps every CTA resident, so grid.sync() is safe.
-// The backward's d(enc_proj) [B,S,A] does not fit on chip (26 MB in f32 at
-// bench widths): each batch row's owner adds its step's term to an f32
-// global buffer in a fixed order (t newest first) and rounds it once at the
-// end. dv is summed per CTA in shared memory and the CTAs' partials summed
-// in CTA order by one CTA after a last barrier: no float atomics, the same
-// bits on every run.
+// The f32 backward's d(enc_proj) [B,S,A] does not fit on chip (26 MB in
+// f32 at bench widths): each batch row's owner adds its step's term to an
+// f32 global buffer in a fixed order (t newest first) and rounds it once at
+// the end. dv is summed per CTA in shared memory and the CTAs' partials
+// summed in CTA order by one CTA after a last barrier: no float atomics,
+// the same bits on every run.
 //
-// Shared memory (bytes), at the launch's HC units, AC = ceil(A / CTAs) and
-// CC = ceil(C / CTAs) each rounded up to 4, item the io dtype's size:
+// Shared memory (bytes) of the first design, at the launch's HC units, AC =
+// ceil(A / CTAs) and CC = ceil(C / CTAs) each rounded up to 4, item the io
+// dtype's size:
 //   forward   (AC·H + 3·HC·C + 3·HC·H)·item + (2·B·HC + 2·A + S)·4
 //   backward  (HC·(3·H + A) + CC·3·H)·item + (3·B·HC + C + 3·A + S)·4
 // 53 KB and 64 KB at bench widths in bf16, 94 KB and 104 KB in f32; a shape
 // past the card's 227 KB is refused. Registers: 512 threads a CTA leave each
 // at most 128; the products keep 5·HC f32 sums a thread (20 at HC = 4).
-//
 // Simple first: f32 FMAs on CUDA cores, one warp per batch row with the
-// lanes splitting the reduction, 16 warps a CTA. Tensor cores, fewer
-// barriers and keeping ep/enc rows on chip are later work.
+// lanes splitting the reduction, 16 warps a CTA, four grid barriers a step.
 
 #include <cooperative_groups.h>
 
@@ -595,6 +646,657 @@ int launch(int io_bf16, void* const* p, int n_steps, int B, int S, int A, int C,
   return dispatch<float, kFwd>(hc, p, d, n_sms, smem_max, st);
 }
 
+// ---------------------------------------------- bf16 backward on tensor cores --
+// decoder_seq_bwd_tc_kernel and the post-walk d(enc_proj)/dv pass; see the
+// note at the top of the file.
+namespace tcb {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kUnits = 16;              // hidden units a CTA owns (lstm_kernels.UNITS_PER_CTA)
+constexpr int kRows = 32;               // batch rows of a sub-tile (ROWS_PER_TILE)
+constexpr int kPairs = kRows * kUnits;  // (row, unit) pairs of a sub-tile: four an owner lane
+constexpr int kKc = 64;                 // k of a staged chunk of two slots
+constexpr int kKcWide = 2 * kKc;        // k of a staged chunk of one slot
+constexpr int kStages = 3;              // chunks in the ring
+constexpr int kLdg = kKc + 8;           // a staged row, padded by 16 bytes against bank conflicts
+constexpr int kSlot = kRows * kLdg;     // one slot's rows of a chunk
+constexpr int kStage = 2 * kSlot;       // a chunk: two slots, or one wide slot
+static_assert(kRows * (kKcWide + 8) <= kStage, "a wide chunk fits a stage");
+constexpr size_t kRingBytes = (size_t)kStages * kStage * sizeof(bf16);
+// a sub-tile's state, one float a pair each: the f32 dh carry, r, h_prev,
+// dh_prev's running sum, and the dur·w_urᵀ product so far
+constexpr int kFields = 5;
+constexpr size_t kStateBytes = (size_t)kFields * kPairs * sizeof(float);
+constexpr int kCtxTiles = 4;                    // dctx n-tiles a warp at most
+constexpr int kMaxSlice = 4 * kCtxTiles * 8;    // columns of C a CTA at most
+constexpr long long kSpinCycles = 20000000000LL;  // about 10 s: a barrier that never fills traps
+constexpr int kDepCols = 128;                   // A columns a block of the post-walk pass
+constexpr int kDepS = 16;                       // positions of S its registers hold at a time
+constexpr int kDepT = 32;                       // steps of dsc it stages at a time
+
+struct Args {
+  const bf16 *ep, *enc;         // [B,S,A], [B,S,C]
+  const float* mask;            // [B,S]
+  const bf16* g;                // [T,B,H]
+  const float* tmask;           // [T,B]
+  const bf16 *hp, *u, *r, *c;   // [T,B,H]
+  const bf16* dp;               // [T,B,A]
+  const float* alpha;           // [T,B,S]
+  const bf16* v;                // [A]
+  const bf16 *wu, *wad, *wxc;   // [Hp,3Hp], [Hp,Ap], [n_ug·cs,3Hp], padded
+  bf16 *dxp, *dctx, *ddp, *dh0;  // [T,B,3H], [T,B,C], [T,B,A], [B,H]
+  float* dsc;                   // [T,B,S]
+  bf16 *ex, *dex;               // [2,B,3Hp], [2,B,Ap], zeroed
+  unsigned* bar;                // [groups], zeroed
+  int T, B, S, A, C, H, Hp, Ap, cs, n_tiles, tiles_per_group;
+};
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline size_t round16(size_t n) { return (n + 15) / 16 * 16; }
+
+// the attention's scratch: one row's io(dctx) [C], dp [A], v [A] and dsc [S], f32
+__host__ __device__ inline size_t scratch_bytes(int S, int A, int C) {
+  return round16((size_t)(C + 2 * A + S) * sizeof(float));
+}
+
+// the CTA's weights in shared memory: its 16 units' rows of [w_u | w_r | w_c]
+// and of wa_dec, and its cs rows of wx_c, each row padded by 16 bytes
+__host__ __device__ inline size_t w_bytes(int Hp, int Ap, int cs) {
+  return ((size_t)(kUnits + cs) * (3 * Hp + 8) + (size_t)kUnits * (Ap + 8)) * sizeof(bf16);
+}
+
+inline size_t tc_smem(int tiles_per_group, int S, int A, int C, int Hp, int Ap, int cs,
+                      bool w_smem) {
+  return kRingBytes + (size_t)tiles_per_group * kStateBytes + scratch_bytes(S, A, C) +
+         (w_smem ? w_bytes(Hp, Ap, cs) : 0);
+}
+
+// An owner lane's four pairs' inputs to a step's (A), which do not depend
+// on the carry: kept raw until used, so the loads stay in flight. Pair e is
+// row g + 8·(e>>1), unit 2q + (e&1) of the warp's tile.
+struct Pre {
+  bf16 u[4], r[4], c[4], hp[4], g[4];
+  float m[2];
+};
+
+__device__ __forceinline__ void prefetch(Pre& p, const Args& a, int s, int b0, int j0) {
+  const int t = a.T - 1 - s;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int b = b0 + 8 * rr;
+    if (b >= a.B) continue;
+    const size_t row = (size_t)t * a.B + b;
+    p.m[rr] = a.tmask[row];
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int e = 2 * rr + cc, j = j0 + cc;
+      if (j >= a.H) continue;
+      const size_t i = row * a.H + j;
+      p.u[e] = a.u[i];
+      p.r[e] = a.r[i];
+      p.c[e] = a.c[i];
+      p.hp[e] = a.hp[i];
+      p.g[e] = a.g[i];
+    }
+  }
+}
+
+// f32 arithmetic written out so that nothing contracts into an FMA: the
+// plain version's ops round one at a time
+__device__ __forceinline__ float mul(float x, float y) { return __fmul_rn(x, y); }
+__device__ __forceinline__ float add(float x, float y) { return __fadd_rn(x, y); }
+__device__ __forceinline__ float sub(float x, float y) { return __fsub_rn(x, y); }
+
+// grid (Hp / kUnits unit groups, batch groups). Warp w computes m-tile w&1;
+// warps 0-3 own the (row, unit) pairs of units 8·(w>>1) .. +7, warps 4-7
+// compute the du part of the same pairs' carry beside them; in (C) warp w
+// also takes dctx n-tiles (w>>1) + 4i of the CTA's slice of C.
+template <bool kWSmem>
+__global__ void __launch_bounds__(kThreads, 1) decoder_seq_bwd_tc_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tpg = a.tiles_per_group;
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);                  // [kStages][kStage]
+  float* state = reinterpret_cast<float*>(smem_raw + kRingBytes);  // [tiles][kFields][kPairs]
+  float* dct = state + (size_t)tpg * kFields * kPairs;             // [C]
+  float* dps = dct + a.C;                                          // [A]
+  float* vs = dps + a.A;                                           // [A]
+  float* ds = vs + a.A;                                            // [S]
+  bf16* wsh = reinterpret_cast<bf16*>(smem_raw + kRingBytes + (size_t)tpg * kStateBytes +
+                                      scratch_bytes(a.S, a.A, a.C));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int mt = warp & 1, nt = (warp >> 1) & 1, cg_ = warp >> 1, g = lane >> 2, q = lane & 3;
+  const bool owner = warp < 4;
+  const int Hp = a.Hp, K3 = 3 * Hp, Ap = a.Ap, B = a.B, H = a.H;
+  const int ldu = kWSmem ? K3 + 8 : K3, ldd = kWSmem ? Ap + 8 : Ap;
+  const int j0 = blockIdx.x * kUnits, c0 = blockIdx.x * a.cs;
+  const bf16* wu_src = a.wu + (size_t)j0 * K3;
+  const bf16* wad_src = a.wad + (size_t)j0 * Ap;
+  const bf16* wxc_src = a.wxc + (size_t)c0 * K3;
+  bf16* wu_sh = wsh;                                  // [kUnits][K3 + 8]
+  bf16* wad_sh = wu_sh + (size_t)kUnits * (K3 + 8);   // [kUnits][Ap + 8]
+  bf16* wxc_sh = wad_sh + (size_t)kUnits * (Ap + 8);  // [cs][K3 + 8]
+  if (kWSmem) {
+    auto copy_rows = [&](bf16* dst, const bf16* src, int rows, int cols) {
+      const int pieces = cols / 8;
+      for (int i = tid; i < rows * pieces; i += kThreads) {
+        const int n = i / pieces, pc = i - n * pieces;
+        *reinterpret_cast<uint4*>(dst + (size_t)n * (cols + 8) + pc * 8) =
+            *reinterpret_cast<const uint4*>(src + (size_t)n * cols + pc * 8);
+      }
+    };
+    copy_rows(wu_sh, wu_src, kUnits, K3);
+    copy_rows(wad_sh, wad_src, kUnits, Ap);
+    copy_rows(wxc_sh, wxc_src, a.cs, K3);
+  }
+  // the B columns this lane loads: unit nt·8 + g of the group, for the
+  // carry's products; row 8·n-tile + g of the C slice for dctx
+  const bf16* urow = (kWSmem ? wu_sh : wu_src) + (size_t)(nt * 8 + g) * ldu;
+  const bf16* drow = (kWSmem ? wad_sh : wad_src) + (size_t)(nt * 8 + g) * ldd;
+  const bf16* xbase = kWSmem ? wxc_sh : wxc_src;
+  for (int i = tid; i < a.A; i += kThreads) vs[i] = to_f<bf16>(a.v[i]);
+  const int tile0 = blockIdx.y * tpg;
+  const int n_mine = min(a.n_tiles, tile0 + tpg) - tile0;
+  unsigned* bar = a.bar + blockIdx.y;
+  const int ul = nt * 8 + 2 * q;                // the lane's first unit in the group
+  auto pair = [&](int e) { return (mt * 16 + g + 8 * (e >> 1)) * kUnits + ul + (e & 1); };
+
+  for (int i = tid; i < tpg * kFields * kPairs; i += kThreads) state[i] = 0.f;
+  __syncthreads();  // the state is zero before any owner writes its pairs' fields
+  Pre pre;
+  if (owner) prefetch(pre, a, 0, tile0 * kRows + mt * 16 + g, j0 + ul);
+
+  auto group_barrier = [&](unsigned k) {  // the k-th barrier of the launch
+    __syncthreads();
+    if (tid == 0) {  // release covers the CTA's writes before the __syncthreads
+      atomic_add_release(bar, 1u);
+      const unsigned target = k * gridDim.x;
+      const long long start = clock64();
+      while (load_acquire(bar) < target)
+        if (clock64() - start > kSpinCycles) __trap();
+    }
+    __syncthreads();
+  };
+
+  // Stages rows [r0, r0 + kRows) of src0 (and of src1 where it is not
+  // null), rows ld apart, over k in [0, klen) in chunks of kKc (two slots)
+  // or kKcWide (one), kStages - 1 chunks in flight, and calls body(its first k,
+  // slot0, slot1, its k, the slots' row pitch) after each landed for every
+  // thread. Rows past B read as zeros; k past klen is not staged (klen is a
+  // multiple of 16, and body reads below it only).
+  auto walk = [&](const bf16* src0, const bf16* src1, int ld, int r0, int klen, auto&& body) {
+    const int kcw = src1 ? kKc : kKcWide, ldg = kcw + 8, pieces = kcw / 8;
+    const int nkc = cdiv(klen, kcw);
+    auto stage = [&](int ch) {
+      if (ch < nkc) {
+        bf16* st = ring + (size_t)(ch % kStages) * kStage;
+        for (int i = tid; i < kRows * pieces; i += kThreads) {
+          const int row = i / pieces, pc = i - row * pieces;
+          const int kc = ch * kcw + pc * 8, b = r0 + row;
+          if (kc >= klen) continue;
+          const bool ok = b < B;
+          bf16* dst = st + row * ldg + pc * 8;
+          cp_async16(dst, ok ? src0 + (size_t)b * ld + kc : src0, ok ? 16 : 0);
+          if (src1) cp_async16(dst + kSlot, ok ? src1 + (size_t)b * ld + kc : src1, ok ? 16 : 0);
+        }
+      }
+      cp_async_commit();
+    };
+    __syncthreads();  // every warp is done with the ring's last chunks
+#pragma unroll
+    for (int ch = 0; ch < kStages - 1; ++ch) stage(ch);
+    for (int ch = 0; ch < nkc; ++ch) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // chunk ch landed for every thread; chunk ch-1's buffers are free
+      stage(ch + kStages - 1);
+      const bf16* s0 = ring + (size_t)(ch % kStages) * kStage + mt * 16 * ldg;
+      body(ch * kcw, s0, s0 + kSlot, min(kcw, klen - ch * kcw), ldg);
+    }
+  };
+  // The chunk's A fragments of the warp's 16 staged rows (kn columns from
+  // rows, row pitch ldg), loaded before any product uses them.
+  constexpr int kPieces = kKcWide / 16;  // k16 pieces of a chunk at most
+  auto load_frags = [&](uint32_t (&fa)[kPieces][4], const bf16* rows, int ldg, int kn) {
+#pragma unroll
+    for (int j = 0; j < kPieces; ++j)
+      if (16 * j < kn) ldmatrix_x4(fa[j], rows + 16 * j, ldg);
+  };
+  // acc[e] += the chunk's product with the column row `w` at k0.., over the
+  // k16 pieces j where use(j): each piece's product a fragment of its own,
+  // issued back to back, then added in k order in f32 (the tensor core's
+  // own accumulation truncates)
+  auto k16_sum = [&](float (&acc)[4], const uint32_t (&fa)[kPieces][4], const bf16* w, int k0,
+                     int kn, auto&& use) {
+    float p[kPieces][4];
+#pragma unroll
+    for (int j = 0; j < kPieces; ++j) {
+      p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
+      if (16 * j < kn && use(j)) {
+        const bf16* wk = w + k0 + 16 * j + 2 * q;
+        mma_bf16(p[j], fa[j][0], fa[j][1], fa[j][2], fa[j][3],
+                 *reinterpret_cast<const uint32_t*>(wk), *reinterpret_cast<const uint32_t*>(wk + 8));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPieces; ++j)
+      if (16 * j < kn && use(j))
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[e] += p[j][e];
+  };
+  auto every = [](int) { return true; };
+
+  for (int s = 0; s < a.T; ++s) {
+    const int t = a.T - 1 - s;
+    const size_t tb = (size_t)t * B;
+    bf16* exs = a.ex + (size_t)(s & 1) * B * K3;  // this step's [du | dr | dc] exchange
+    bf16* dexs = a.dex + (size_t)(s & 1) * B * Ap;  // and its ddp exchange
+
+    // (A) the owners' gate math, from local values; du and dc published
+    for (int tl = 0; tl < n_mine && owner; ++tl) {
+      float* st = state + (size_t)tl * kFields * kPairs;
+      const int r0 = (tile0 + tl) * kRows;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int b = r0 + mt * 16 + g + 8 * (e >> 1), j = j0 + ul + (e & 1);
+        if (b >= B || j >= H) continue;
+        const int p = pair(e);
+        const float u = to_f<bf16>(pre.u[e]), r = to_f<bf16>(pre.r[e]);
+        const float c = to_f<bf16>(pre.c[e]), hp = to_f<bf16>(pre.hp[e]), m = pre.m[e >> 1];
+        const float dh = add(st[p], to_f<bf16>(pre.g[e]));
+        const float dh_cell = mul(dh, m);
+        const float run = add(mul(dh, sub(1.f, m)), mul(dh_cell, sub(1.f, u)));
+        const float du = mul(dh_cell, sub(c, hp));
+        const float dpc = mul(mul(dh_cell, u), sub(1.f, mul(c, c)));
+        const bf16 duq = from_f<bf16>(mul(mul(du, u), sub(1.f, u)));
+        const bf16 dcq = from_f<bf16>(dpc);
+        bf16* dxr = a.dxp + (tb + b) * 3 * H + j;
+        dxr[0] = duq;
+        dxr[2 * H] = dcq;
+        bf16* er = exs + (size_t)b * K3 + j;
+        er[0] = duq;
+        er[2 * Hp] = dcq;
+        st[kPairs + p] = r;
+        st[2 * kPairs + p] = hp;
+        st[3 * kPairs + p] = run;
+      }
+      // the next (A)'s inputs: the next sub-tile's, or the next step's
+      const int tl1 = tl + 1 < n_mine ? tl + 1 : 0, s1 = tl + 1 < n_mine ? s : s + 1;
+      if (s1 < a.T) prefetch(pre, a, s1, (tile0 + tl1) * kRows + mt * 16 + g, j0 + ul);
+    }
+    group_barrier(4 * s + 1);
+
+    // (B) drh = dc·w_cᵀ (owners) and the du part of dur·w_urᵀ (warps 4-7)
+    for (int tl = 0; tl < n_mine; ++tl) {
+      float* st = state + (size_t)tl * kFields * kPairs;
+      const int r0 = (tile0 + tl) * kRows;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      walk(exs + 2 * Hp, exs, K3, r0, Hp,
+           [&](int k0, const bf16* s0, const bf16* s1, int kn, int ldg) {
+             uint32_t fa[kPieces][4];
+             load_frags(fa, owner ? s0 : s1, ldg, kn);
+             k16_sum(acc, fa, urow, owner ? 2 * Hp + k0 : k0, kn, every);
+           });
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int b = r0 + mt * 16 + g + 8 * (e >> 1), j = j0 + ul + (e & 1);
+        const int p = pair(e);
+        if (!owner) {
+          st[4 * kPairs + p] = acc[e];
+          continue;
+        }
+        if (b >= B || j >= H) continue;
+        const float drh = acc[e], r = st[kPairs + p], hp = st[2 * kPairs + p];
+        const bf16 drq = from_f<bf16>(mul(mul(mul(drh, hp), r), sub(1.f, r)));
+        a.dxp[(tb + b) * 3 * H + H + j] = drq;
+        exs[(size_t)b * K3 + Hp + j] = drq;
+        st[3 * kPairs + p] = add(st[3 * kPairs + p], mul(drh, r));
+      }
+    }
+    group_barrier(4 * s + 2);
+
+    // (C) the dr part of dur·w_urᵀ, carried on from the du part (owners),
+    // and dctx = dxp·wx_cᵀ for the CTA's slice of C (every warp)
+    for (int tl = 0; tl < n_mine; ++tl) {
+      float* st = state + (size_t)tl * kFields * kPairs;
+      const int r0 = (tile0 + tl) * kRows;
+      float urp[4], cacc[kCtxTiles][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) urp[e] = owner ? st[4 * kPairs + pair(e)] : 0.f;
+#pragma unroll
+      for (int i = 0; i < kCtxTiles; ++i) cacc[i][0] = cacc[i][1] = cacc[i][2] = cacc[i][3] = 0.f;
+      walk(exs, nullptr, K3, r0, K3, [&](int k0, const bf16* s0, const bf16*, int kn, int ldg) {
+        uint32_t fa[kPieces][4];
+        load_frags(fa, s0, ldg, kn);
+#pragma unroll
+        for (int i = 0; i < kCtxTiles; ++i) {
+          const int n8 = 8 * (cg_ + 4 * i);
+          if (n8 >= a.cs) break;
+          k16_sum(cacc[i], fa, xbase + (size_t)(n8 + g) * ldu, k0, kn, every);
+        }
+        if (owner)  // the dr part: the pieces in [Hp, 2·Hp)
+          k16_sum(urp, fa, urow, k0, kn,
+                  [&](int j) { return k0 + 16 * j >= Hp && k0 + 16 * j < 2 * Hp; });
+      });
+      if (owner)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = pair(e);
+          st[3 * kPairs + p] = add(st[3 * kPairs + p], urp[e]);  // dh_prev
+        }
+#pragma unroll
+      for (int i = 0; i < kCtxTiles; ++i) {
+        const int n8 = 8 * (cg_ + 4 * i);
+        if (n8 >= a.cs) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int b = r0 + mt * 16 + frag_row(e), col = c0 + n8 + frag_col(0, e);
+          if (b < B && col < a.C) a.dctx[(tb + b) * a.C + col] = from_f<bf16>(cacc[i][e]);
+        }
+      }
+    }
+    group_barrier(4 * s + 3);
+
+    // (D) the attention's backward for the group's rows this CTA takes
+    // (row i of the group goes to the group's CTA i mod gridDim.x):
+    // dα = enc·io(dctx), dsc, and ddp = io(Σ_S dsc·(1-t²)·v)
+    for (int li = blockIdx.x; li < n_mine * kRows; li += gridDim.x) {
+      const int b = tile0 * kRows + li;
+      if (b >= B) break;
+      const size_t row = tb + b;
+      for (int i = tid; i < a.C; i += kThreads) dct[i] = to_f<bf16>(__ldcg(a.dctx + row * a.C + i));
+      for (int i = tid; i < a.A; i += kThreads) dps[i] = to_f<bf16>(a.dp[row * a.A + i]);
+      __syncthreads();
+      // two source positions a warp at once, the lanes over C: more loads
+      // of enc in flight
+      const bool vec = (a.C & 7) == 0 && (reinterpret_cast<uintptr_t>(a.enc) & 15) == 0;
+      for (int s0 = warp; s0 < a.S; s0 += 2 * kWarps) {
+        const bool two = s0 + kWarps < a.S;
+        const bf16* e0 = a.enc + ((size_t)b * a.S + s0) * a.C;
+        const bf16* e1 = two ? e0 + (size_t)kWarps * a.C : e0;
+        float acc0 = 0.f, acc1 = 0.f;
+        if (vec) {
+#pragma unroll 4
+          for (int i = 8 * lane; i < a.C; i += 256) {
+            const uint4 r0 = *reinterpret_cast<const uint4*>(e0 + i);
+            const uint4 r1 = *reinterpret_cast<const uint4*>(e1 + i);
+            const bf16* x0 = reinterpret_cast<const bf16*>(&r0);
+            const bf16* x1 = reinterpret_cast<const bf16*>(&r1);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              acc0 += to_f<bf16>(x0[k]) * dct[i + k];
+              acc1 += to_f<bf16>(x1[k]) * dct[i + k];
+            }
+          }
+        } else {
+#pragma unroll 4
+          for (int i = lane; i < a.C; i += 32) {
+            acc0 += to_f<bf16>(e0[i]) * dct[i];
+            acc1 += to_f<bf16>(e1[i]) * dct[i];
+          }
+        }
+        acc0 = warp_sum(acc0);
+        acc1 = warp_sum(acc1);
+        if (lane == 0) {
+          ds[s0] = acc0;
+          if (two) ds[s0 + kWarps] = acc1;
+        }
+      }
+      __syncthreads();
+      if (warp == 0) {
+        const float* al = a.alpha + row * a.S;
+        float tot = 0.f;
+        for (int sp = lane; sp < a.S; sp += 32) tot += al[sp] * ds[sp];
+        tot = warp_sum(tot);
+        for (int sp = lane; sp < a.S; sp += 32) {
+          const float d = a.mask[(size_t)b * a.S + sp] > 0.f ? mul(al[sp], sub(ds[sp], tot)) : 0.f;
+          ds[sp] = d;
+          a.dsc[row * a.S + sp] = d;
+        }
+      }
+      __syncthreads();
+      // two columns of A a thread at once, each summed over S in order
+      for (int i0 = tid; i0 < a.A; i0 += 2 * kThreads) {
+        const int i1 = i0 + kThreads;
+        const bool two = i1 < a.A;
+        const bf16* col = a.ep + (size_t)b * a.S * a.A + i0;
+        const float dp0 = dps[i0], dp1 = two ? dps[i1] : 0.f;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll 5
+        for (int sp = 0; sp < a.S; ++sp) {
+          const float x0 = to_f<bf16>(col[(size_t)sp * a.A]);
+          const float x1 = two ? to_f<bf16>(col[(size_t)sp * a.A + kThreads]) : 0.f;
+          const float d = ds[sp];
+          const float th0 = tanhf(add(x0, dp0)), th1 = tanhf(add(x1, dp1));
+          sum0 = add(sum0, mul(d, sub(1.f, mul(th0, th0))));
+          sum1 = add(sum1, mul(d, sub(1.f, mul(th1, th1))));
+        }
+        const bf16 q0 = from_f<bf16>(mul(sum0, vs[i0]));
+        a.ddp[row * a.A + i0] = q0;
+        dexs[(size_t)b * Ap + i0] = q0;
+        if (two) {
+          const bf16 q1 = from_f<bf16>(mul(sum1, vs[i1]));
+          a.ddp[row * a.A + i1] = q1;
+          dexs[(size_t)b * Ap + i1] = q1;
+        }
+      }
+      __syncthreads();  // dct, dps and ds are the next row's
+    }
+    group_barrier(4 * s + 4);
+
+    // (E) dh = dh_prev + io(ddp)·wa_decᵀ, the new f32 carry (owners)
+    for (int tl = 0; tl < n_mine; ++tl) {
+      float* st = state + (size_t)tl * kFields * kPairs;
+      const int r0 = (tile0 + tl) * kRows;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      walk(dexs, nullptr, Ap, r0, Ap, [&](int k0, const bf16* s0, const bf16*, int kn, int ldg) {
+        if (!owner) return;
+        uint32_t fa[kPieces][4];
+        load_frags(fa, s0, ldg, kn);
+        k16_sum(acc, fa, drow, k0, kn, every);
+      });
+      if (!owner) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int b = r0 + mt * 16 + g + 8 * (e >> 1), j = j0 + ul + (e & 1);
+        const int p = pair(e);
+        const float dh = add(st[3 * kPairs + p], acc[e]);
+        st[p] = dh;
+        if (t == 0 && b < B && j < H) a.dh0[(size_t)b * H + j] = from_f<bf16>(dh);
+      }
+    }
+  }
+}
+
+// The post-walk pass: dep[b,s,a] = io(Σ_t (dsc·(1-th²))·v) over t from newest
+// to oldest, th = tanh(ep + dp_t), each element summed by one thread in the
+// plain version's order and rounded once; dv_part[b,a] = Σ th·dsc in a fixed
+// order (S in blocks of kDepS positions; in each, t newest first, then s).
+// grid (B, ceil(A / kDepCols)). The block walks its row's positions kDepS at
+// a time, their sums in registers, and the steps newest first in chunks of
+// kDepT, staging each chunk's dsc [kDepT][kDepS]: shared memory does not
+// grow with T or S.
+__global__ void __launch_bounds__(kDepCols)
+decoder_dep_kernel(const bf16* __restrict__ ep, const bf16* __restrict__ dp,
+                   const float* __restrict__ dsc, const bf16* __restrict__ v, bf16* __restrict__ dep,
+                   float* __restrict__ dv_part, int T, int B, int S, int A) {
+  __shared__ float dsc_s[kDepT][kDepS];
+  const int b = blockIdx.x, a = blockIdx.y * kDepCols + threadIdx.x;
+  const bool live = a < A;
+  const float vf = live ? to_f<bf16>(v[a]) : 0.f;
+  float dvp = 0.f;
+  for (int s0 = 0; s0 < S; s0 += kDepS) {
+    float e[kDepS], acc[kDepS];
+#pragma unroll
+    for (int i = 0; i < kDepS; ++i) {
+      acc[i] = 0.f;
+      e[i] = live && s0 + i < S ? to_f<bf16>(ep[((size_t)b * S + s0 + i) * A + a]) : 0.f;
+    }
+    for (int t1 = T; t1 > 0; t1 -= kDepT) {  // the chunk [t0, t1)
+      const int t0 = max(t1 - kDepT, 0);
+      __syncthreads();  // every thread is done with the last chunk
+      for (int i = threadIdx.x; i < kDepT * kDepS; i += kDepCols) {
+        const int tt = i / kDepS, si = i - tt * kDepS, t = t0 + tt, s = s0 + si;
+        dsc_s[tt][si] = t < t1 && s < S ? dsc[((size_t)t * B + b) * S + s] : 0.f;
+      }
+      __syncthreads();
+      if (!live) continue;
+      for (int t = t1 - 1; t >= t0; --t) {
+        const float dpt = to_f<bf16>(dp[((size_t)t * B + b) * A + a]);
+#pragma unroll
+        for (int i = 0; i < kDepS; ++i) {
+          const float d = dsc_s[t - t0][i];
+          if (d == 0.f) continue;  // a masked position, one past S, or a step that moved nothing
+          const float th = tanhf(add(e[i], dpt));
+          acc[i] = add(acc[i], mul(mul(d, sub(1.f, mul(th, th))), vf));
+          dvp = add(dvp, mul(th, d));
+        }
+      }
+    }
+    if (!live) continue;
+#pragma unroll
+    for (int i = 0; i < kDepS; ++i)
+      if (s0 + i < S) dep[((size_t)b * S + s0 + i) * A + a] = from_f<bf16>(acc[i]);
+  }
+  if (live) dv_part[(size_t)b * A + a] = dvp;
+}
+
+// dv[a] = Σ_b dv_part[b, a], b in order
+__global__ void __launch_bounds__(kThreads)
+decoder_dv_kernel(const float* __restrict__ dv_part, float* __restrict__ dv, int B, int A) {
+  const int a = blockIdx.x * kThreads + threadIdx.x;
+  if (a >= A) return;
+  float sum = 0.f;
+  for (int b = 0; b < B; ++b) sum = add(sum, dv_part[(size_t)b * A + a]);
+  dv[a] = sum;
+}
+
+// How the card takes a launch: CTAs an SM, batch groups, sub-tiles a
+// group, the columns of C a CTA owns, and whether the weights' slices are
+// in shared memory.
+struct Plan {
+  int per_sm, groups, tiles_per_group, cs, w_smem;
+  size_t smem;
+};
+
+template <bool kWSmem>
+cudaError_t occupancy(int* per_sm, size_t smem, int smem_max) {
+  auto kernel = decoder_seq_bwd_tc_kernel<kWSmem>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kThreads, smem);
+}
+
+// The weights' slices in shared memory where they fit beside the ring, one
+// sub-tile's state and the attention's scratch, else read through L1; then
+// the most CTAs an SM for which the card holds every unit group times as
+// many batch groups as it can, none empty, with their sub-tiles' state.
+// Refuses (cudaErrorInvalidValue) a slice of C past kMaxSlice columns, and
+// (cudaErrorCooperativeLaunchTooLarge) a shape the card cannot hold.
+cudaError_t plan(int B, int S, int A, int C, int H, Plan* p) {
+  int n_sms = 0, smem_max = 0;
+  cudaError_t err = coop_device(&n_sms, &smem_max);
+  if (err != cudaSuccess) return err;
+  if (B < 1 || S < 1 || A < 1 || C < 1 || H < 1) return cudaErrorInvalidValue;
+  const int Hp = cdiv(H, kUnits) * kUnits, n_ug = Hp / kUnits, Ap = cdiv(A, 16) * 16;
+  const int cs = cdiv(cdiv(C, n_ug), 8) * 8;
+  if (cs > kMaxSlice) return cudaErrorInvalidValue;
+  const int n_tiles = cdiv(B, kRows);
+  for (int w_smem = 1; w_smem >= 0; --w_smem) {
+    auto smem_of = [&](int tpg) { return tc_smem(tpg, S, A, C, Hp, Ap, cs, w_smem); };
+    if (smem_of(1) > (size_t)smem_max) continue;
+    auto occ = [&](int* n, size_t smem) {
+      return w_smem ? occupancy<true>(n, smem, smem_max) : occupancy<false>(n, smem, smem_max);
+    };
+    int most = 0;
+    err = occ(&most, smem_of(1));
+    if (err != cudaSuccess) return err;
+    for (int per_sm = most; per_sm >= 1; --per_sm) {
+      const int cap = per_sm * n_sms;
+      if (n_ug > cap) break;
+      int groups = min(n_tiles, cap / n_ug);
+      const int tpg = cdiv(n_tiles, groups);
+      groups = cdiv(n_tiles, tpg);
+      const size_t smem = smem_of(tpg);
+      if (smem > (size_t)smem_max) continue;
+      int got = 0;
+      err = occ(&got, smem);
+      if (err != cudaSuccess) return err;
+      if (got * n_sms < n_ug * groups) continue;
+      *p = Plan{got, groups, tpg, cs, w_smem, smem};
+      return cudaSuccess;
+    }
+  }
+  return cudaErrorCooperativeLaunchTooLarge;
+}
+
+cudaError_t launch(void* const* p, int T, int B, int S, int A, int C, int H, cudaStream_t st) {
+  Plan pl{};
+  cudaError_t err = plan(B, S, A, C, H, &pl);
+  if (err != cudaSuccess) return err;
+  Args a{};
+  a.ep = static_cast<const bf16*>(p[0]);
+  a.enc = static_cast<const bf16*>(p[1]);
+  a.mask = static_cast<const float*>(p[2]);
+  a.g = static_cast<const bf16*>(p[3]);
+  a.tmask = static_cast<const float*>(p[4]);
+  a.hp = static_cast<const bf16*>(p[5]);
+  a.u = static_cast<const bf16*>(p[6]);
+  a.r = static_cast<const bf16*>(p[7]);
+  a.c = static_cast<const bf16*>(p[8]);
+  a.dp = static_cast<const bf16*>(p[9]);
+  a.alpha = static_cast<const float*>(p[10]);
+  a.v = static_cast<const bf16*>(p[11]);
+  a.wu = static_cast<const bf16*>(p[12]);
+  a.wad = static_cast<const bf16*>(p[13]);
+  a.wxc = static_cast<const bf16*>(p[14]);
+  a.dxp = static_cast<bf16*>(p[15]);
+  a.dctx = static_cast<bf16*>(p[16]);
+  a.ddp = static_cast<bf16*>(p[17]);
+  a.dh0 = static_cast<bf16*>(p[18]);
+  a.dsc = static_cast<float*>(p[19]);
+  a.ex = static_cast<bf16*>(p[20]);
+  a.dex = static_cast<bf16*>(p[21]);
+  a.bar = static_cast<unsigned*>(p[22]);
+  a.T = T;
+  a.B = B;
+  a.S = S;
+  a.A = A;
+  a.C = C;
+  a.H = H;
+  a.Hp = cdiv(H, kUnits) * kUnits;
+  a.Ap = cdiv(A, 16) * 16;
+  a.cs = pl.cs;
+  a.n_tiles = cdiv(B, kRows);
+  a.tiles_per_group = pl.tiles_per_group;
+  void* args[] = {&a};
+  const void* kernel = pl.w_smem ? reinterpret_cast<const void*>(decoder_seq_bwd_tc_kernel<true>)
+                                 : reinterpret_cast<const void*>(decoder_seq_bwd_tc_kernel<false>);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(a.Hp / kUnits, pl.groups), dim3(kThreads), args,
+                                    pl.smem, st);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+cudaError_t dep_launch(void* const* p, int T, int B, int S, int A, cudaStream_t st) {
+  if (T < 1 || B < 1 || S < 1 || A < 1) return cudaErrorInvalidValue;
+  const bf16* ep = static_cast<const bf16*>(p[0]);
+  const bf16* dp = static_cast<const bf16*>(p[1]);
+  const float* dsc = static_cast<const float*>(p[2]);
+  const bf16* v = static_cast<const bf16*>(p[3]);
+  bf16* dep = static_cast<bf16*>(p[4]);
+  float* dv = static_cast<float*>(p[5]);
+  float* dv_part = static_cast<float*>(p[6]);
+  decoder_dep_kernel<<<dim3(B, cdiv(A, kDepCols)), kDepCols, 0, st>>>(ep, dp, dsc, v, dep, dv_part,
+                                                                     T, B, S, A);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decoder_dv_kernel<<<cdiv(A, kThreads), kThreads, 0, st>>>(dv_part, dv, B, A);
+  return cudaGetLastError();
+}
+
+}  // namespace tcb
+
 }  // namespace
 
 // p: ep [B,S,A], enc [B,S,C], mask [B,S] f32, xpx [T,B,3H], tmask [T,B] f32,
@@ -626,6 +1328,44 @@ extern "C" int decoder_seq_ctas(int H) {
   if (coop_device(&n_sms, &smem_max) != cudaSuccess) return 0;
   const int hc = units_per_cta(H, n_sms);
   return hc ? (H + hc - 1) / hc : 0;
+}
+
+// The bf16 backward on tensor cores. p: ep, enc, mask, g_seq, tmask, hp_seq,
+// u_seq, r_seq, c_seq, dp_seq, alpha, v as decoder_seq_bwd_launch's; then
+// the weights padded as attention_kernels.seq_bwd_weights lays them out: wu
+// [Hp,3Hp] (row j: unit j's w_u | w_r | w_c, gate q's columns at q·Hp), wad
+// [Hp,Ap] (row j: unit j's wa_dec), wxc [n_ug·cs,3Hp] (row c: wx_c's row c,
+// the gates padded as wu's); out dxp [T,B,3H], dctx [T,B,C], ddp [T,B,A],
+// dh0 [B,H], dsc [T,B,S] f32; zeroed workspace: the exchanges ex [2,B,3Hp]
+// and dex [2,B,Ap] bf16, the batch groups' counters [groups] u32. Hp is H
+// and Ap is A rounded up to 16, n_ug = Hp / 16, cs from the plan. dep and
+// dv come from decoder_seq_dep_launch on dsc after it.
+extern "C" int decoder_seq_bwd_tc_launch(void* const* p, int n_steps, int B, int S, int A, int C,
+                                         int H, void* stream) {
+  if (n_steps < 1) return cudaErrorInvalidValue;
+  return tcb::launch(p, n_steps, B, S, A, C, H, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 backward's plan at these widths on the current device: out[0..4]
+// = CTAs an SM, batch groups, 32-row sub-tiles a group, columns of C a CTA,
+// the weights' slices in shared memory (0/1).
+extern "C" int decoder_seq_bwd_tc_plan(int B, int S, int A, int C, int H, int* out) {
+  tcb::Plan pl{};
+  const cudaError_t err = tcb::plan(B, S, A, C, H, &pl);
+  if (err != cudaSuccess) return err;
+  out[0] = pl.per_sm;
+  out[1] = pl.groups;
+  out[2] = pl.tiles_per_group;
+  out[3] = pl.cs;
+  out[4] = pl.w_smem;
+  return cudaSuccess;
+}
+
+// The post-walk pass. p: ep [B,S,A], dp_seq [T,B,A] bf16, dsc [T,B,S] f32,
+// v [A] bf16; out dep [B,S,A] bf16, dv [A] f32; scratch dv_part [B,A] f32.
+extern "C" int decoder_seq_dep_launch(void* const* p, int n_steps, int B, int S, int A,
+                                      void* stream) {
+  return tcb::dep_launch(p, n_steps, B, S, A, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* decoder_seq_error_string(int err) {

@@ -493,10 +493,6 @@ __device__ __forceinline__ void stage_acc(unsigned char* tile, const float (&acc
     }
 }
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
 // grid (B·H, key blocks), block 0 first. Each consumer thread holds rows
 // key_a = k0 + 16·warp + g and key_a + 8 of Sᵀ, dPᵀ, dK and dV.
 template <int D, bool kCausal>

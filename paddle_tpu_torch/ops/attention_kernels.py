@@ -28,9 +28,15 @@ instead, one launch each a step:
                    backward, the attention's backward and the d(enc_proj)/dv
                    accumulation, dh carried in f32.
 
-Those two are bound by their T dependent steps (four grid barriers a
-step), not by bytes or operations; csrc/decoder_seq.cu says what its
-design does about it. The per-step kernels read [B,S,A] and [B,S,C] once
+Those two are bound by their T dependent steps (four barriers a step),
+not by bytes or operations; csrc/decoder_seq.cu says what its design does
+about it. In bf16 the backward runs on the tensor cores on the GRU
+kernels' partition (16 hidden units by 32-row batch sub-tiles a CTA,
+plus a slice of C and the attention of some of its group's rows; the
+weights padded by `seq_bwd_weights`; the card's plan by
+`decoder_seq_bwd_plan`), writing dsc [T,B,S]; `decoder_seq_dep` then sums
+d(enc_proj) and dv off the recurrence, in the plain version's order. The
+per-step kernels read [B,S,A] and [B,S,C] once
 per call and compute little on each byte, so bytes bound them. The S axis
 is not padded: the TPU pads it to a multiple of 16 for its tiles
 (tune/space.py:39-43), and a padded slot carries a -1e9 score, so it
@@ -49,6 +55,7 @@ import torch
 from ..flags import FLAGS
 from . import cuda_build
 from .activation_ops import sigmoid
+from .lstm_kernels import pad_w_bwd
 from .rnn_ops import gru_cell
 
 # launches of the CUDA kernels in this process; chip_smoke.py reads them
@@ -57,6 +64,11 @@ attn_bwd_step_launches = 0
 attn_phase2_launches = 0
 decoder_seq_fwd_launches = 0
 decoder_seq_bwd_launches = 0
+decoder_seq_dep_launches = 0
+
+# the bf16 backward's partition (tcb:: in csrc/decoder_seq.cu): hidden units
+# and batch rows of a sub-tile a CTA, and the most columns of C a CTA takes
+SEQ_UNITS, SEQ_ROWS, SEQ_MAX_SLICE = 16, 32, 128
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 _NEG = -1e9
@@ -102,6 +114,24 @@ def attn_phase2_plain(ep, dp_seq, dsc_seq, v):
         dsc = dsc_seq[t][:, :, None]
         dep = dep + dsc * (1.0 - th * th) * vf
         dv = dv + (th * dsc).sum((0, 1))
+    return dep.to(ep.dtype), dv
+
+
+def decoder_seq_dep_plain(ep, dp_seq, dsc_seq, v):
+    """The backward's d(enc_proj) and dv from the walk's dsc, as
+    decoder_seq_bwd_plain sums them: dep[b,s,a] = Σ_t (dsc·(1-th²))·v over t
+    from newest to oldest, th = tanh(ep + dp_t), summed in f32 and rounded
+    once to the io dtype; dv[a] = Σ_t Σ_{b,s} th·dsc in f32, newest first.
+    dp_seq [T,B,A] io dtype, dsc_seq [T,B,S] f32. Returns (dep [B,S,A], dv
+    [A] f32)."""
+    epf, vf = ep.float(), v.float()
+    dep = torch.zeros_like(epf)
+    dv = torch.zeros_like(vf)
+    for t in range(dp_seq.shape[0] - 1, -1, -1):
+        th = torch.tanh(epf + dp_seq[t].float()[:, None, :])
+        term = dsc_seq[t][:, :, None] * (1.0 - th * th)
+        dep = dep + term * vf
+        dv = dv + (th * dsc_seq[t][:, :, None]).sum((0, 1))
     return dep.to(ep.dtype), dv
 
 
@@ -323,6 +353,12 @@ def _seq_lib():
         for fn in (lib.decoder_seq_fwd_launch, lib.decoder_seq_bwd_launch):
             fn.argtypes = [i, ctypes.POINTER(ptr)] + [i] * 6 + [ptr]
             fn.restype = i
+        lib.decoder_seq_bwd_tc_launch.argtypes = [ctypes.POINTER(ptr)] + [i] * 6 + [ptr]
+        lib.decoder_seq_dep_launch.argtypes = [ctypes.POINTER(ptr)] + [i] * 4 + [ptr]
+        lib.decoder_seq_bwd_tc_plan.argtypes = [i] * 5 + [ptr]
+        for fn in (lib.decoder_seq_bwd_tc_launch, lib.decoder_seq_dep_launch,
+                   lib.decoder_seq_bwd_tc_plan):
+            fn.restype = i
         lib.decoder_seq_ctas.argtypes = [i]
         lib.decoder_seq_ctas.restype = i
         lib.decoder_seq_error_string.argtypes = [i]
@@ -342,19 +378,62 @@ def _seq_dims(name, ep, enc, xs):
     return B, S, A, C, T, H
 
 
-def _seq_launch(name, fn, ins, outs, dims, dt):
-    """One launch of a whole-sequence kernel: every pointer in order, then
-    T, B, S, A, C, H; raises with the kernel's error."""
+def _seq_launch(name, fn, ins, outs, dims, dt, lead=()):
+    """One launch of a whole-sequence kernel: `lead` (the first design's io
+    dtype flag), every pointer in order, then T, B, S, A, C, H as far as
+    `dims` goes; raises with the kernel's error."""
     lib = _seq_lib()
     ptrs = (ctypes.c_void_p * (len(ins) + len(outs)))(*(t.data_ptr() for t in (*ins, *outs)))
-    err = getattr(lib, fn)(int(dt == torch.bfloat16), ptrs, *dims,
-                           torch.cuda.current_stream().cuda_stream)
+    err = getattr(lib, fn)(*lead, ptrs, *dims, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        T, B, S, A, C, H = dims
+        shape = " ".join(f"{k}={v}" for k, v in zip("TBSACH", dims))
         raise RuntimeError(
-            f"{name} kernel launch failed (T={T} B={B} S={S} A={A} C={C} H={H} {dt}; the "
-            "kernel takes H up to 16 units a CTA and its weights' slices within one SM's "
-            f"shared memory): {lib.decoder_seq_error_string(err).decode()}")
+            f"{name} kernel launch failed ({shape} {dt}; the first design takes H up to 16 "
+            "units a CTA and its weights' slices within one SM's shared memory, the bf16 "
+            f"backward a slice of C up to {SEQ_MAX_SLICE} columns a CTA and a shape "
+            f"decoder_seq_bwd_plan places): {lib.decoder_seq_error_string(err).decode()}")
+
+
+def seq_bwd_layout(B, A, C, H):
+    """The bf16 backward's widths: H and A padded to whole 16s (Hp, Ap), the
+    unit groups n_ug = Hp / 16, each CTA's slice of C (cs = C / n_ug rounded
+    up to a whole n-tile of 8), and the 32-row sub-tiles of B."""
+    Hp, Ap = -(-H // SEQ_UNITS) * SEQ_UNITS, -(-A // 16) * 16
+    n_ug = Hp // SEQ_UNITS
+    return dict(Hp=Hp, Ap=Ap, n_ug=n_ug, cs=-(-(-(-C // n_ug)) // 8) * 8,
+                n_tiles=-(-B // SEQ_ROWS))
+
+
+def seq_bwd_weights(w_c, w_ur, wx_c, wa_dec):
+    """The bf16 backward's weights, each row the K-contiguous B column of one
+    output, padded as its exchange is: wu [Hp, 3Hp] (row j: unit j's w_u |
+    w_r | w_c, from pad_w_bwd), wad [Hp, Ap] (row j: unit j's wa_dec), wxc
+    [n_ug·cs, 3Hp] (row c: wx_c's row c, its gates at q·Hp); zero where a
+    unit, k or column is padding."""
+    H, A, C = w_c.shape[0], wa_dec.shape[1], wx_c.shape[0]
+    lay = seq_bwd_layout(1, A, C, H)
+    Hp, Ap = lay["Hp"], lay["Ap"]
+    wu = pad_w_bwd(torch.cat([w_ur, w_c], -1))
+    wad = torch.zeros(Hp, Ap, dtype=wa_dec.dtype, device=wa_dec.device)
+    wad[:H, :A] = wa_dec
+    wxc = torch.zeros(lay["n_ug"] * lay["cs"], 3, Hp, dtype=wx_c.dtype, device=wx_c.device)
+    wxc[:C, :, :H] = wx_c.reshape(C, 3, H)
+    return wu, wad, wxc.reshape(-1, 3 * Hp)
+
+
+def decoder_seq_bwd_plan(B, S, A, C, H):
+    """How the current card takes the bf16 backward at these widths: CTAs
+    an SM, batch groups, 32-row sub-tiles a group, columns of C a CTA, and
+    whether the weights' slices are in shared memory; raises for a shape
+    it cannot place."""
+    lib = _seq_lib()
+    out = (ctypes.c_int * 5)()
+    err = lib.decoder_seq_bwd_tc_plan(B, S, A, C, H, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"decoder_seq_bwd: no plan for B={B} S={S} A={A} C={C} H={H}: "
+                           f"{lib.decoder_seq_error_string(err).decode()}")
+    return dict(per_sm=out[0], groups=out[1], tiles_per_group=out[2], cs=out[3],
+                w_smem=bool(out[4]))
 
 
 def decoder_seq_fwd(ep, enc, mask, xpx, tmask, h0, wa_dec, v, wx_c, w_ur, w_c):
@@ -379,7 +458,8 @@ def decoder_seq_fwd(ep, enc, mask, xpx, tmask, h0, wa_dec, v, wx_c, w_ur, w_c):
         new = lambda *shape, dtype=dt: torch.empty(*shape, dtype=dtype, device=ep.device)  # noqa
         outs = [new(T, B, H), new(T, B, S, dtype=torch.float32), new(T, B, C),
                 new(B, A, dtype=torch.float32), new(B, H)]
-        _seq_launch("decoder_seq_fwd", "decoder_seq_fwd_launch", ins, outs, (T, B, S, A, C, H), dt)
+        _seq_launch("decoder_seq_fwd", "decoder_seq_fwd_launch", ins, outs, (T, B, S, A, C, H), dt,
+                    lead=(int(dt == torch.bfloat16),))
     decoder_seq_fwd_launches += 1
     return tuple(outs[:3])
 
@@ -407,6 +487,8 @@ def decoder_seq_bwd(ep, enc, mask, g_seq, tmask, hp_seq, u_seq, r_seq, c_seq, dp
     if ep.device.type == "cpu":
         return decoder_seq_bwd_plain(*args)
     dt = ep.dtype
+    if dt == torch.bfloat16:
+        return _decoder_seq_bwd_tc(args, (T, B, S, A, C, H))
     ins = [t.contiguous() for t in args]
     with torch.cuda.device(ep.device):
         ctas = _seq_lib().decoder_seq_ctas(H)
@@ -416,9 +498,70 @@ def decoder_seq_bwd(ep, enc, mask, g_seq, tmask, hp_seq, u_seq, r_seq, c_seq, dp
         outs = [new(T, B, 3 * H), new(T, B, C), new(T, B, A), new(B, H), new(B, S, A),
                 new(A, dtype=torch.float32), new(B, S, A, dtype=torch.float32),
                 new(ctas, A, dtype=torch.float32)]
-        _seq_launch("decoder_seq_bwd", "decoder_seq_bwd_launch", ins, outs, (T, B, S, A, C, H), dt)
+        _seq_launch("decoder_seq_bwd", "decoder_seq_bwd_launch", ins, outs, (T, B, S, A, C, H), dt,
+                    lead=(0,))
     decoder_seq_bwd_launches += 1
     return tuple(outs[:6])
+
+
+def _decoder_seq_bwd_tc(args, dims):
+    """decoder_seq_bwd in bf16 on the card: the walk on the tensor cores,
+    then the post-walk d(enc_proj)/dv pass on its dsc."""
+    global decoder_seq_bwd_launches
+    T, B, S, A, C, H = dims
+    ep = args[0]
+    lay = seq_bwd_layout(B, A, C, H)
+    Hp, Ap = lay["Hp"], lay["Ap"]
+    w_c, w_ur, wx_c, wa_dec = args[12:]
+    ins = [t.contiguous() for t in args[:12]] + list(seq_bwd_weights(w_c, w_ur, wx_c, wa_dec))
+    with torch.cuda.device(ep.device):
+        new = lambda *shape, dtype=torch.bfloat16: torch.empty(*shape, dtype=dtype,  # noqa
+                                                               device=ep.device)
+        outs = [new(T, B, 3 * H), new(T, B, C), new(T, B, A), new(B, H),
+                new(T, B, S, dtype=torch.float32)]
+        # zeroed: the [du | dr | dc] and ddp exchanges (their padding stays
+        # zero) and the batch groups' barrier counters
+        n_ex, n_dex = 2 * B * 3 * Hp, 2 * B * Ap
+        ws = torch.zeros(2 * (n_ex + n_dex) + 4 * lay["n_tiles"], dtype=torch.uint8,
+                         device=ep.device)
+        ex = ws[: 2 * n_ex].view(torch.bfloat16)
+        dex = ws[2 * n_ex: 2 * (n_ex + n_dex)].view(torch.bfloat16)
+        bar = ws[2 * (n_ex + n_dex):]
+        _seq_launch("decoder_seq_bwd", "decoder_seq_bwd_tc_launch", ins, outs + [ex, dex, bar],
+                    dims, ep.dtype)
+    decoder_seq_bwd_launches += 1
+    dxp, dctx, ddp, dh0, dsc = outs
+    dep, dv = decoder_seq_dep(ins[0], ins[9], dsc, ins[11])
+    return dxp, dctx, ddp, dh0, dep, dv
+
+
+def decoder_seq_dep(ep, dp_seq, dsc_seq, v):
+    """The backward's d(enc_proj) and dv from the walk's dsc; see
+    decoder_seq_dep_plain. CUDA bf16 tensors launch csrc/decoder_seq.cu's
+    post-walk pass (each element summed by one thread in the plain
+    version's order, dv's rows in order: the same bits on every run); CPU
+    tensors run the plain version."""
+    global decoder_seq_dep_launches
+    B, S, A = ep.shape if ep.dim() == 3 else (-1, -1, -1)
+    T = dp_seq.shape[0] if dp_seq.dim() == 3 else -1
+    _check("decoder_seq_dep", ep, {"dp_seq": (dp_seq, (T, B, A), None),
+                                   "dsc_seq": (dsc_seq, (T, B, S), torch.float32),
+                                   "v": (v, (A,), None)})
+    if T < 1:
+        raise ValueError(f"decoder_seq_dep: empty dp_seq {tuple(dp_seq.shape)}")
+    if ep.device.type == "cpu":
+        return decoder_seq_dep_plain(ep, dp_seq, dsc_seq, v)
+    if ep.dtype != torch.bfloat16:
+        raise TypeError(f"decoder_seq_dep: the card's pass takes bf16, got {ep.dtype}")
+    ins = [t.contiguous() for t in (ep, dp_seq, dsc_seq, v)]
+    with torch.cuda.device(ep.device):
+        outs = [torch.empty(B, S, A, dtype=ep.dtype, device=ep.device),
+                torch.empty(A, dtype=torch.float32, device=ep.device),
+                torch.empty(B, A, dtype=torch.float32, device=ep.device)]
+        _seq_launch("decoder_seq_dep", "decoder_seq_dep_launch", ins, outs, (T, B, S, A),
+                    ep.dtype)
+    decoder_seq_dep_launches += 1
+    return outs[0], outs[1]
 
 
 def decoder_bwd_inputs(trg, h0, wa_dec, wx, wh, bias, h_seq, ctx_seq):

@@ -2,11 +2,19 @@
 
 `quant_matmul(xq, wq)`: int8 [M, K] × int8 [K, N] → int32 [M, N], an exact
 sum. It replaces the TPU kernel `_quant_matmul_pallas`
-(paddle_tpu/ops/quant_kernels.py:61) with the hand-written Hopper kernel
-csrc/quant_matmul.cu for CUDA tensors, and runs `quant_matmul_plain` for
-CPU tensors; there is no fallback from one to the other. Unlike the JAX
-dispatch, which hands shapes outside its TPU tile model to an XLA
-reference, the kernel takes every shape with K up to QMM_MAX_K.
+(paddle_tpu/ops/quant_kernels.py:61) with the hand-written Hopper kernels
+of csrc/quant_matmul.cu for CUDA tensors, and runs `quant_matmul_plain`
+for CPU tensors; there is no fallback from one to the other. Unlike the
+JAX dispatch, which hands shapes outside its TPU tile model to an XLA
+reference, the kernels take every shape with K up to QMM_MAX_K:
+`kernel_route` sends each shape, before any launch, to the wgmma kernel
+(s8 wgmma fed by TMA, on the weight's K-major copy that `kmajor_weight`
+keeps once per weight on the card) where tensor maps can describe it, and
+to the kept mma.sync kernel, which reads the weight as it lies, elsewhere.
+Below 64 rows most of the wgmma tile is empty, but the route is kept
+there too: the mma.sync kernel walks all of K in each of its few CTAs,
+and at M = 8, K = 8192 it is several times slower (chip_smoke.py's phase
+27 times both routes at each shape).
 
 The ops `quantized_mul` and `quantized_matmul` (the rewrites of `mul` and
 `matmul` sites, quant/convert.py) round where the JAX ops round: the
@@ -28,6 +36,7 @@ import math
 
 import numpy as np
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 
 from .. import amp
 from ..core.registry import register_op
@@ -36,11 +45,16 @@ from . import cuda_build
 INT8_MAX = 127.0
 # |acc| <= K·128² must stay below 2³¹
 QMM_MAX_K = 131071
-_QMM_TILE_N = 128  # columns a CTA owns (kBN in csrc/quant_matmul.cu)
+_QMM_TILE_N = 128  # columns a CTA of the mma.sync route owns (kBN in csrc/quant_matmul.cu)
 _MAX_GRID_Y = 65535
 
-# launches of the CUDA kernel in this process; chip_smoke.py reads it
+WGMMA, MMA_SYNC = "wgmma", "mma.sync"
+
+# launches of the CUDA kernels in this process, in all and by route, and
+# the K-major weight copies made; chip_smoke.py reads them
 quant_matmul_launches = 0
+quant_matmul_routes = {WGMMA: 0, MMA_SYNC: 0}
+kmajor_copies = 0
 
 
 # ------------------------------------------------------------------ plain --
@@ -51,13 +65,53 @@ def quant_matmul_plain(xq, wq):
     return torch.matmul(xq.double(), wq.double()).to(torch.int32)
 
 
+# ----------------------------------------------------------- the routes --
+def kernel_route(M: int, K: int, N: int, aligned: bool = True) -> str:
+    """The kernel a CUDA call of this shape launches: WGMMA where TMA's
+    tensor maps can describe the operands (their row strides, K bytes and
+    4·N bytes, multiples of 16, and `aligned`: 16-byte aligned bases),
+    else MMA_SYNC. A pure function of the shape, decided before any
+    launch."""
+    if aligned and M >= 1 and K >= 16 and K % 16 == 0 and N >= 4 and N % 4 == 0:
+        return WGMMA
+    return MMA_SYNC
+
+
+# K-major copies of weights, {(storage pointer, offset, shape, device): (a
+# weak reference to the weight's storage, the weight's _version, the copy)}
+_KMAJOR = {}
+
+
+def kmajor_weight(wq):
+    """wq [K, N] as the wgmma route reads it, [N, K] contiguous: made once
+    per weight and kept while its storage lives. A weight replaced (a new
+    storage, even at a freed one's address) or written in place (its
+    _version moves) gets a new copy. The key is the storage, not the tensor
+    object: tensors compare elementwise, and the executor re-wraps a
+    persistable in a new tensor (detach) after every run, which shares the
+    storage and the version counter. Copies of freed weights are dropped
+    when the next copy is made."""
+    global kmajor_copies
+    key = (wq.untyped_storage().data_ptr(), wq.storage_offset(), tuple(wq.shape), wq.device)
+    hit = _KMAJOR.get(key)
+    if hit is not None and not hit[0].expired() and hit[1] == wq._version:
+        return hit[2]
+    for k in [k for k, v in _KMAJOR.items() if v[0].expired()]:
+        del _KMAJOR[k]
+    copy = wq.t().contiguous()
+    _KMAJOR[key] = (StorageWeakRef(wq.untyped_storage()), wq._version, copy)
+    kmajor_copies += 1
+    return copy
+
+
 # ------------------------------------------------------------------ kernel --
 def _lib():
     lib = cuda_build.load("quant_matmul")
     if lib.quant_matmul_launch.argtypes is None:
         ptr = ctypes.c_void_p
-        lib.quant_matmul_launch.argtypes = [ptr, ptr, ptr] + [ctypes.c_int] * 3 + [ptr]
-        lib.quant_matmul_launch.restype = ctypes.c_int
+        for fn in (lib.quant_matmul_launch, lib.quant_matmul_tc_launch):
+            fn.argtypes = [ptr, ptr, ptr] + [ctypes.c_int] * 3 + [ptr]
+            fn.restype = ctypes.c_int
         lib.quant_matmul_error_string.argtypes = [ctypes.c_int]
         lib.quant_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -81,13 +135,13 @@ def _check(xq, wq):
     if K > QMM_MAX_K:
         raise ValueError(f"quant_matmul: K={K} exceeds {QMM_MAX_K}, where the int32 sum "
                          "could overflow")
-    if math.ceil(N / _QMM_TILE_N) > _MAX_GRID_Y:
+    if kernel_route(M, K, N) == MMA_SYNC and math.ceil(N / _QMM_TILE_N) > _MAX_GRID_Y:
         raise ValueError(f"quant_matmul: N={N} exceeds {_MAX_GRID_Y * _QMM_TILE_N}")
 
 
 def quant_matmul(xq, wq):
     """int8 [M, K] × int8 [K, N] → int32 [M, N]. CUDA tensors launch the
-    sm_90a kernel; CPU tensors run the plain version."""
+    sm_90a kernel `kernel_route` names; CPU tensors run the plain version."""
     global quant_matmul_launches
     _check(xq, wq)
     if xq.device.type == "cpu":
@@ -96,14 +150,20 @@ def quant_matmul(xq, wq):
     out = torch.empty(M, N, dtype=torch.int32, device=xq.device)
     if M == 0 or N == 0:
         return out
+    route = kernel_route(M, K, N, aligned=xq.data_ptr() % 16 == 0)
     with torch.cuda.device(xq.device):
         lib = _lib()
-        err = lib.quant_matmul_launch(xq.data_ptr(), wq.data_ptr(), out.data_ptr(), M, N, K,
-                                      torch.cuda.current_stream().cuda_stream)
+        if route == WGMMA:
+            launch, b = lib.quant_matmul_tc_launch, kmajor_weight(wq)
+        else:
+            launch, b = lib.quant_matmul_launch, wq
+        err = launch(xq.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
+                     torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"quant_matmul kernel launch failed (M={M}, K={K}, N={N}): "
-                           f"{lib.quant_matmul_error_string(err).decode()}")
+        raise RuntimeError(f"quant_matmul kernel launch failed ({route} route, M={M}, K={K}, "
+                           f"N={N}): {lib.quant_matmul_error_string(err).decode()}")
     quant_matmul_launches += 1
+    quant_matmul_routes[route] += 1
     return out
 
 

@@ -212,6 +212,159 @@ def test_gemm_wrapper_refuses_what_the_kernel_does_not_take():
     assert tqk.quant_matmul_launches == 0
 
 
+# ---------------------------------------------- the wgmma route's layout ---
+# the int8 request's sites (M = 8·1024; dim 2048, FFN 8192, vocab 32000)
+# and the MLP's (M = 8); chip_smoke.py's edge shapes of the wgmma route
+_REQUEST_SITES = [(8192, 2048, 2048), (8192, 2048, 8192), (8192, 8192, 2048),
+                  (8192, 2048, 32000), (8, 512, 1024), (8, 1024, 1024), (8, 1024, 128)]
+_EDGES = [(m, k, n) for m in (1, 8, 17, 64, 65, 127, 8193) for k in (32, 48, 8192)
+          for n in (24, 256, 1000)]
+
+
+def test_kernel_route_takes_the_request_sites_and_edges_to_wgmma():
+    """kernel_route sends the int8 request's and the MLP's sites and every
+    edge shape (each with K % 16 == 0 and N % 4 == 0) to the wgmma kernel;
+    an unaligned activation base to the mma.sync kernel."""
+    for shape in _REQUEST_SITES + _EDGES:
+        assert tqk.kernel_route(*shape) == tqk.WGMMA, shape
+        assert tqk.kernel_route(*shape, aligned=False) == tqk.MMA_SYNC, shape
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((8193, 40, 1000), tqk.MMA_SYNC),  # K % 16: a map's row stride must be 16 bytes' multiple
+    ((17, 8, 24), tqk.MMA_SYNC),       # K below one 16-byte row
+    ((17, 0, 24), tqk.MMA_SYNC),
+    ((17, 64, 1001), tqk.MMA_SYNC),    # N % 4: the int32 output's row stride
+    ((1, 16, 4), tqk.WGMMA),           # the least shape a tensor map describes
+    ((3, 4096, 5), tqk.MMA_SYNC),
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_kernel_route_is_a_pure_function_of_the_shape(shape, route):
+    """The route's boundaries: K % 16 == 0 and N % 4 == 0 take the wgmma
+    kernel; an unaligned activation base never does."""
+    assert tqk.kernel_route(*shape) == route
+    assert tqk.kernel_route(*shape, aligned=False) == tqk.MMA_SYNC
+
+
+def test_kmajor_copy_is_made_once_per_weight_and_again_after_a_write():
+    """The wgmma route's [N, K] copy of a [K, N] weight: made once while the
+    weight's storage lives and is not written; made again after an in-place
+    write (its _version moves) and for a replacing weight; a view or a
+    detached re-wrap of the same storage shares it; a freed weight's copy
+    goes when the next is made; the CPU route copies nothing."""
+    rng = np.random.RandomState(7)
+    w = torch.as_tensor(_int8(rng, 40, 24))
+    before = tqk.kmajor_copies
+    c1 = tqk.kmajor_weight(w)
+    assert torch.equal(c1, w.t()) and c1.is_contiguous() and tqk.kmajor_copies == before + 1
+    assert tqk.kmajor_weight(w) is c1 and tqk.kmajor_weight(w.view(40, 24)) is c1
+    assert tqk.kmajor_copies == before + 1
+    w[0, 0] = 5  # written in place
+    c2 = tqk.kmajor_weight(w)
+    assert c2 is not c1 and int(c2[0, 0]) == 5 and tqk.kmajor_copies == before + 2
+    w = w.detach()  # the executor re-wraps a persistable after a run: same storage
+    assert tqk.kmajor_weight(w) is c2 and tqk.kmajor_copies == before + 2
+    w2 = torch.as_tensor(_int8(rng, 40, 24))  # a replacing payload
+    assert torch.equal(tqk.kmajor_weight(w2), w2.t()) and tqk.kmajor_copies == before + 3
+    n = len(tqk._KMAJOR)
+    del w2  # the next copy drops what only the cache would keep
+    tqk.kmajor_weight(torch.as_tensor(_int8(rng, 24, 40)))
+    assert len(tqk._KMAJOR) == n and tqk.kmajor_copies == before + 4
+    x = torch.as_tensor(_int8(rng, 5, 40))
+    tqk.quant_matmul(x, w)
+    assert tqk.kmajor_copies == before + 4
+
+
+# the wgmma kernel's walk (tc:: in csrc/quant_matmul.cu): output tiles of
+# _TM x _TN, K in stages of _STAGE_K bytes taken _K_STEP at a time, tiles
+# walked in groups of _GROUP_M row panels
+_TM, _TN, _STAGE_K, _K_STEP, _GROUP_M = 128, 256, 128, 32, 8
+
+
+def _tile_walk(M, N, n_ctas):
+    """For each of n_ctas CTAs, the (m0, n0) origins of the output tiles it
+    takes in order (tile i of the walk to CTA i mod n_ctas), the tiles
+    grouped by _GROUP_M row panels with the row panel fastest within a
+    group: tc::tile_origin's indexing."""
+    tm, tn = -(-M // _TM), -(-N // _TN)
+    walks = [[] for _ in range(n_ctas)]
+    for tile in range(tm * tn):
+        grp, inner = divmod(tile, _GROUP_M * tn)
+        first = grp * _GROUP_M
+        rows = min(_GROUP_M, tm - first)
+        walks[tile % n_ctas].append(((first + inner % rows) * _TM, (inner // rows) * _TN))
+    return walks
+
+
+def _wgmma_walk(x, w, n_ctas):
+    """The wgmma kernel's function as it computes it, in int64: each CTA's
+    tiles in _tile_walk's order; per tile, K in stages of _STAGE_K bytes
+    taken _K_STEP at a time from the K-major copy, each step's product
+    added to the tile's sums; rows, columns and K past the edges read as
+    zeros (TMA's fill), and only the tile's part inside [M, N] written."""
+    M, K = x.shape
+    N = w.shape[1]
+    tm, tn = _TM, _TN
+    Kp = -(-K // _STAGE_K) * _STAGE_K
+    xa = np.zeros((-(-M // tm) * tm, Kp), np.int64)
+    xa[:M, :K] = x
+    wt = np.zeros((-(-N // tn) * tn, Kp), np.int64)
+    wt[:N, :K] = tqk.kmajor_weight(torch.as_tensor(w)).numpy()
+    out = np.full((M, N), -1, np.int64)
+    seen = set()
+    for walk in _tile_walk(M, N, n_ctas):
+        for m0, n0 in walk:
+            assert (m0, n0) not in seen
+            seen.add((m0, n0))
+            acc = np.zeros((tm, tn), np.int64)
+            for k0 in range(0, Kp, _STAGE_K):
+                for kk in range(k0, k0 + _STAGE_K, _K_STEP):
+                    acc += xa[m0:m0 + tm, kk:kk + _K_STEP] @ \
+                        wt[n0:n0 + tn, kk:kk + _K_STEP].T
+            out[m0:m0 + tm, n0:n0 + tn] = acc[:M - m0, :N - n0]
+    assert len(seen) == -(-M // tm) * -(-N // tn)
+    return out
+
+
+@pytest.mark.parametrize("shape,n_ctas", [
+    ((256, 160, 512), 3),     # legal for the JAX kernel's (32, 128) tile: held to it too
+    ((300, 80, 520), 132),    # ragged M and N, K within one stage
+    ((17, 272, 24), 2),       # M below one tile, K over three stages, N below one tile
+    ((1100, 48, 1000), 5),    # more than one group of 8 row panels
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_wgmma_walk_matches_plain_and_jax(shape, n_ctas):
+    """The wgmma route's tiled walk, emulated exactly in int64, against
+    quant_matmul_plain and the JAX package's Pallas kernel (interpret
+    mode) or its reference, over the whole int8 range; every output tile
+    is taken once across the CTAs."""
+    M, K, N = shape
+    rng = np.random.RandomState(M + K + N + n_ctas)
+    x, w = _int8(rng, M, K), _int8(rng, K, N)
+    x[-1], w[:, -1] = -128, -128
+    got = _wgmma_walk(x, w, n_ctas)
+    plain = tqk.quant_matmul_plain(torch.as_tensor(x), torch.as_tensor(w)).numpy()
+    np.testing.assert_array_equal(got, plain)
+    if M % 32 == 0 and N % 128 == 0:
+        want = jqk._quant_matmul_pallas(jnp.asarray(x), jnp.asarray(w), 32, 128)
+    else:
+        want = jqk._quant_matmul_ref(jnp.asarray(x), jnp.asarray(w))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert got[-1, -1] == K * 128 * 128
+
+
+def test_wgmma_walk_orders_row_panels_fastest_in_groups():
+    """The walk: tiles i, i+1 of one group share a column panel and take
+    consecutive row panels (so the tiles in flight share B's panel and
+    the group's A panels in L2); the last group holds the remaining rows."""
+    tm, tn = _TM, _TN
+    M, N = 10 * tm, 3 * tn  # one group of 8 row panels, then one of 2
+    order = _tile_walk(M, N, 1)[0]
+    assert order[:9] == [(r * tm, 0) for r in range(8)] + [(0, tn)]
+    assert order[24:] == [(8 * tm, 0), (9 * tm, 0), (8 * tm, tn), (9 * tm, tn), (8 * tm, 2 * tn),
+                          (9 * tm, 2 * tn)]
+    spread = _tile_walk(M, N, 4)
+    assert [len(w) for w in spread] == [8, 8, 7, 7] and spread[1][0] == (tm, 0)
+
+
 def test_weight_and_activation_scales_match_jax():
     """quantize_weight (a zero column among them) and act_scale: the JAX
     package's bits."""
