@@ -47,11 +47,17 @@ exits non-zero without the final `ok` line:
               tolerance (an output left at zero fails); errors beside their
               tolerances, kernel, plain and bound times (the bf16 GRU
               kernels' beside their times before the redesign), the GRU
-              kernels' outputs the same bits in two runs.
+              kernels' outputs the same bits in two runs. attn_fwd in bf16
+              runs on staged rows of the valid positions (attn_fwd_path):
+              also at ATTN_ROW_EDGE (a non-prefix mask, a fully masked
+              row, S=300 streamed through the ring), its first design held
+              and timed beside it; B5-B7 timed with the wrapper and on the
+              device (a CUDA graph's replay).
   8. steps    3 timed training steps on the same batch with the launch
               counts set to 0 just before: finite, falling losses, median
-              ms per step, target tokens/s, exact launches per step; then
-              one more step under torch.profiler.
+              ms per step, target tokens/s, exact launches per step (every
+              attn_fwd on the bulk-copy path); then one more step under
+              torch.profiler.
   9. parity   the small training program (artifacts/nmt_train_small), card
               against CPU from the same state and feeds: losses and the
               state after 2 Adam steps, f32 then bf16 amp.
@@ -156,13 +162,17 @@ exits non-zero without the final `ok` line:
               path's shapes (with a misplaced rounding that the bf16 bound
               must catch) and at edge shapes (T=1, the bf16 backward's batch
               groups at B=64 and 65), each output beside what it would read
-              left at zero; the bf16 backward's plan at each shape; the same
-              bits in two runs of the backward; its post-walk d(enc_proj)/dv
-              pass (decoder_seq_dep) against its plain version on the walk's
-              own dsc; kernel, plain and bound times.
+              left at zero; the bf16 forward's route and plan and the
+              backward's plan at each shape; the same bits in two runs of
+              both; the bf16 forward's four phases by its timed instance
+              and its first design held and timed beside it; the
+              backward's post-walk d(enc_proj)/dv pass (decoder_seq_dep)
+              against its plain version on the walk's own dsc; kernel,
+              plain and bound times.
   24. steps   3 timed steps with the launch counts set to 0 just before:
-              finite, falling losses, exactly 1 decoder_seq_fwd, 1
-              decoder_seq_bwd, 1 decoder_seq_dep, 2 gru_fwd, 2 gru_bwd and no per-step
+              finite, falling losses, exactly 1 decoder_seq_fwd (on the
+              route seq_fwd_route gives the main shape), 1 decoder_seq_bwd,
+              1 decoder_seq_dep, 2 gru_fwd, 2 gru_bwd and no per-step
               attention launch a step, median ms per step, target tokens/s,
               peak memory, one profiled step; then, as context, 3 steps of
               the per-step route (the seq flags off).
@@ -502,8 +512,16 @@ BF16_MAX_DIFFERING_DX = 0.05
 # outside the kernel; then GRU_TC_EDGE
 GRU_BWD_EDGE = [(3, 3, 100), (5, 3, 301), (4, 5, 700)]
 # (B, S, A, C, T) for the attention kernels: the second takes the loops
-# over S, A and C (256 threads, 8 warps, a 32-lane softmax) more than once
+# over S, A and C (256 threads, 8 warps, a 32-lane softmax) more than once;
+# both have rows of 200/260 and 600/1040 bytes in bf16, which attn_fwd's
+# row routine copies by plain loads (no bulk copy takes them)
 ATTN_EDGE = [(3, 7, 100, 130, 4), (5, 45, 300, 520, 3)]
+# (what, B, S, A, C, T) for attn_fwd's row routine at the main path's A and
+# C: a mask with holes (no row a prefix); a row with no valid position
+# beside such rows (α = 1/S, every enc row read); S = 300 with 200-300
+# valid positions a row, past the 96 KB stage, streamed through its ring
+ATTN_ROW_EDGE = [("non-prefix", 6, 50, 512, 1024, 3), ("fully masked", 6, 50, 512, 1024, 3),
+                 ("S=300", 4, 300, 512, 1024, 3)]
 # the launches of one training step at T = S = 50
 STEP_LAUNCHES = {"gru_fwd": 2, "gru_bwd": 2, "attn_fwd": 50, "attn_bwd_step": 50,
                  "attn_phase2": 1}
@@ -621,6 +639,38 @@ def attn_bound(kind, args):
     return (*bound_ms(nbytes, ops, F32_PEAK), nbytes)
 
 
+def attn_fwd_first(ak, ep, enc, dp, v, mask):
+    """attn_fwd's first-design kernel (attn_fwd_kernel) on these inputs,
+    whichever route attn_fwd_path names: in bf16 the kernel before the
+    staged rows, held and timed beside them. Not counted."""
+    B, S, A = ep.shape
+    C = enc.shape[2]
+    ctx = torch.empty(B, C, dtype=ep.dtype, device=ep.device)
+    alpha = torch.empty(B, S, dtype=torch.float32, device=ep.device)
+    lib = ak._lib()
+    err = lib.attn_fwd_launch(int(ep.dtype == torch.bfloat16), ep.data_ptr(), enc.data_ptr(),
+                              dp.data_ptr(), v.data_ptr(), mask.data_ptr(), ctx.data_ptr(),
+                              alpha.data_ptr(), B, S, A, C, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"attn_fwd's first design at B={B} S={S} A={A} C={C}: "
+          f"{lib.attn_error_string(err).decode()}")
+    return ctx, alpha
+
+
+def row_mask(rng, kind, B, S):
+    """ATTN_ROW_EDGE's source masks on the card: holes in every row (the
+    first position masked), and for "fully masked" row 1 with no valid
+    position; for S=300 rows of 200-300 valid positions with holes."""
+    keep = 0.95 if kind == "S=300" else 0.6
+    m = (rng.rand(B, S) < keep).astype(np.float32)
+    m[:, 0] = 0.0
+    m[0, 1] = 1.0
+    if kind == "fully masked":
+        m[1] = 0.0
+    if kind == "S=300":
+        m[:, 200:] *= (np.arange(S - 200)[None] < rng.randint(0, S - 199, size=(B, 1)))
+    return torch.as_tensor(m).cuda()
+
+
 def train_feed(ptt, rng, batch, max_len, vocab, min_len):
     """Ragged (src, trg) pairs; trg_in and label are the same sequence, as
     bench.py feeds them."""
@@ -727,7 +777,10 @@ LSTM_STEP_LAUNCHES = {"lstm_fwd": 2, "lstm_bwd": 2}
 EARLIER_MS = {"lstm_fwd": 11.0729, "lstm_bwd": 10.5066, "fused_conv_bn": 8.6320,
               "flash_fwd": 0.34521, "gru_fwd": 4.1154, "gru_bwd": 9.8263,
               # B12 a call at the request's K=N=2048 site, and B10 a launch
-              "quant_matmul": 0.20372, "decoder_seq_bwd": 13.4923}
+              "quant_matmul": 0.20372, "decoder_seq_bwd": 13.4923,
+              # B9 a launch at the warm-up step's inputs, and B5 a call with
+              # its wrapper at the per-step route's main path
+              "decoder_seq_fwd": 11.7467, "attn_fwd": 0.0739}
 # the small program's biases on the card against the CPU in bf16: their
 # gradients, sums over B·T cotangents that nearly cancel, are held to 0.1
 # of their largest (tests/test_torch_frontend.py), so the values held to
@@ -2236,11 +2289,12 @@ def seq_reading(g, w, scale, dt, n):
     return float((np.abs(gn - wn) > bf16_ulp(wn)).mean()), SEQ_BEYOND_ULP, " beyond 1 ulp"
 
 
-def seq_check(ak, name, args, label, max_errs):
-    """Kernel against plain on `args` with SEQ_*'s bounds (errors over
-    seq_scales); prints every output's reading and what it would read left
-    at zero, then fails on the first out of bounds. Returns (got, want)."""
-    got = getattr(ak, name)(*args)
+def seq_check(ak, name, args, label, max_errs, fn=None):
+    """Kernel (`fn`, by default the wrapper `name`) against plain on `args`
+    with SEQ_*'s bounds (errors over seq_scales); prints every output's
+    reading and what it would read left at zero, then fails on the first
+    out of bounds. Returns (got, want)."""
+    got = (fn or getattr(ak, name))(*args)
     want = getattr(ak, name + "_plain")(*args)
     torch.cuda.synchronize()
     dt = args[0].dtype
@@ -2289,6 +2343,52 @@ def seq_control(ak, name, args, got):
     check(off > SEQ_BEYOND_ULP, f"{name}: the bf16 bound does not catch a misplaced rounding")
 
 
+def seq_fwd_first(ak, args):
+    """decoder_seq_fwd's first-design kernel on `args`, whichever route
+    seq_fwd_route names (it sends f32 there, and bf16 shapes the
+    tensor-core plan cannot place): in bf16 the kernel before the
+    redesign, held and timed beside it. Not counted."""
+    ep, enc, xpx, h0 = args[0], args[1], args[3], args[5]
+    (B, S, A), C, T, H = ep.shape, enc.shape[2], xpx.shape[0], h0.shape[1]
+    new = lambda *shape, dtype=ep.dtype: torch.empty(*shape, dtype=dtype,  # noqa: E731
+                                                     device=ep.device)
+    outs = [new(T, B, H), new(T, B, S, dtype=torch.float32), new(T, B, C),
+            new(B, A, dtype=torch.float32), new(B, H)]
+    ak._seq_launch("decoder_seq_fwd", "decoder_seq_fwd_launch", [t.contiguous() for t in args],
+                   outs, (T, B, S, A, C, H), ep.dtype, lead=(int(ep.dtype == torch.bfloat16),))
+    return tuple(outs[:3])
+
+
+def seq_fwd_report(ak, ins, row):
+    """The bf16 forward at the warm-up step's inputs: its route and plan, the
+    same bits in two runs, its four phases by the timed instance
+    (attention_kernels.decoder_seq_fwd_phase_us), and the first design held
+    to plain and timed beside it; adds the first design's time and the
+    phase split to the kernel's row."""
+    ep, enc, h0 = ins[0], ins[1], ins[5]
+    (B, S, A), C, H = ep.shape, enc.shape[2], h0.shape[1]
+    route = ak.seq_fwd_route(B, S, A, C, H, ep.dtype)
+    check(route == ak.SEQ_TC, f"the main shape's forward is on the {route} route")
+    print(f"  decoder_seq_fwd (bf16): route {route}, the card's plan "
+          f"{ak.decoder_seq_fwd_plan(B, S, A, C, H)}, row path {ak.row_path(A, C)}")
+    first = ak.decoder_seq_fwd(*ins)
+    same_bits(ak.decoder_seq_fwd(*ins), first, "decoder_seq_fwd")
+    split = ak.decoder_seq_fwd_phase_us(*ins)
+    T = ins[3].shape[0]
+    total = sum(split["us"].values())
+    print(f"  decoder_seq_fwd: the same bits in two runs; by its timed instance (SM clock "
+          f"{split['ghz']:.3f} GHz), µs a time step: "
+          + ", ".join(f"({i}) {n} {us:.2f}" for i, (n, us) in enumerate(split["us"].items(), 1))
+          + f"; {total:.2f} in all, {total * T / 1e3:.4f} ms over T={T}")
+    seq_check(ak, "decoder_seq_fwd", ins, "(the warm-up step's inputs, the first design)", {},
+              fn=lambda *a: seq_fwd_first(ak, a))
+    f_ms = cuda_ms(lambda: seq_fwd_first(ak, ins), 3)
+    print(f"    the first design (decoder_seq_fwd_kernel, {EARLIER_MS['decoder_seq_fwd']} ms in an "
+          f"earlier run) {f_ms:.4f} ms on the same inputs, the redesign {row['ms']:.4f} ms "
+          f"({f_ms / row['ms']:.2f}x)")
+    row.update(earlier_ms=f_ms, phase_us=split["us"])
+
+
 def nmt_card_vs_cpu(ptt, smain, loss_name, param_names, state, sfeeds, label=""):
     """The small training program from one state on the CPU and the card:
     both losses and the state after 2 Adam steps (TRAIN_PARITY), f32 then
@@ -2320,13 +2420,15 @@ def nmt_card_vs_cpu(ptt, smain, loss_name, param_names, state, sfeeds, label="")
     smain.set_amp(None)
 
 
-def timed_steps(exe, main_p, feed, loss_name, scope, counters, tokens, smi, what):
+def timed_steps(exe, main_p, feed, loss_name, scope, counters, tokens, smi, what, tally=None):
     """3 timed steps with the launch counts set to 0 just before: returns
-    (losses, launches, median ms); prints ms, tokens/s, peak memory and the
-    profiled step's busy share."""
+    (losses, launches, median ms), launches["routes"] the 3 steps' counts
+    in the dict `tally` (a wrapper's launches by route) where given; prints
+    ms, tokens/s, peak memory and the profiled step's busy share."""
     torch.cuda.reset_peak_memory_stats()
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
+    tally0 = dict(tally or {})
     times, losses = [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -2334,6 +2436,8 @@ def timed_steps(exe, main_p, feed, loss_name, scope, counters, tokens, smi, what
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    if tally is not None:
+        launches["routes"] = {k: n - tally0[k] for k, n in tally.items()}
     med = statistics.median(times)
     print(f"  {what}: steps ms {[round(t, 3) for t in times]}; median {med:.3f} ms/step, "
           f"{tokens / med * 1e3:.1f} target tokens/s; peak device memory "
@@ -2401,6 +2505,8 @@ def nmt_seq_phases(ptt, exe, rng, smi, seed, first_phase):
                           f"computes the decoder's recurrence)")
                     rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                                       library_ms=None)
+                    if name == "decoder_seq_fwd":
+                        seq_fwd_report(ak, ins, rows[name])
         args = calls["decoder_seq_bwd"][0][0]
         ep_, enc_, mask_, alpha_ = args[0], args[1], args[2], args[10]
         plan = ak.decoder_seq_bwd_plan(ep_.shape[0], ep_.shape[1], ep_.shape[2], enc_.shape[2],
@@ -2445,11 +2551,17 @@ def nmt_seq_phases(ptt, exe, rng, smi, seed, first_phase):
                 [(s, "") for s in SEQ_EDGE]:
             B_, S_, T_, E_, C_, A_, H_ = shape
             tag = (f"B={B_} S={S_} T={T_} C={C_} A={A_} H={H_} " + label).strip()
+            route = ak.seq_fwd_route(B_, S_, A_, C_, H_, torch.bfloat16)
+            check(route == ak.SEQ_TC, f"the bf16 forward at {tag} is on the {route} route")
+            print(f"  bf16 forward at {tag}: route {route}, plan "
+                  f"{ak.decoder_seq_fwd_plan(B_, S_, A_, C_, H_)}, row path {ak.row_path(A_, C_)}")
             print(f"  bf16 backward's plan at {tag}: {ak.decoder_seq_bwd_plan(B_, S_, A_, C_, H_)}")
             for dt in (torch.float32, torch.bfloat16):
                 fwd, bwd = seq_seeded(rng, *shape, dt)
                 got, _ = seq_check(ak, "decoder_seq_fwd", fwd, tag, max_errs)
                 bgot, _ = seq_check(ak, "decoder_seq_bwd", bwd, tag, max_errs)
+                if dt == torch.bfloat16:
+                    same_bits(ak.decoder_seq_fwd(*fwd), got, "decoder_seq_fwd")
                 if shape == main_shape and dt == torch.bfloat16:
                     seq_control(ak, "decoder_seq_fwd", fwd, got)
                     seq_control(ak, "decoder_seq_bwd", bwd, bgot)
@@ -2466,15 +2578,23 @@ def nmt_seq_phases(ptt, exe, rng, smi, seed, first_phase):
                     "gru_fwd": (rnn_kernels, "gru_fwd_launches"),
                     "gru_bwd": (rnn_kernels, "gru_bwd_launches")}
         step_losses, launches, med = timed_steps(exe, main_p, feed, loss.name, scope, counters,
-                                                 tokens, smi, "whole-sequence decoder")
+                                                 tokens, smi, "whole-sequence decoder",
+                                                 tally=ak.decoder_seq_fwd_routes)
     finally:
         flags.__exit__()
+    routes = launches.pop("routes")
+    wb = NMT_BENCH
+    route = ak.seq_fwd_route(wb["batch"], wb["max_len"], wb["dec_hidden"], 2 * wb["enc_hidden"],
+                             wb["dec_hidden"], torch.bfloat16)
     losses += step_losses
-    print(f"  losses (warm-up, then timed): {losses}; per step expected {SEQ_STEP_LAUNCHES}")
+    print(f"  losses (warm-up, then timed): {losses}; per step expected {SEQ_STEP_LAUNCHES}, "
+          f"decoder_seq_fwd on the {route} route (launches by route {routes})")
     check(all(np.isfinite(losses)), "non-finite loss")
     check(losses[-1] < losses[0], "the loss did not fall over 4 steps on one batch")
     for k, c in SEQ_STEP_LAUNCHES.items():
         check(launches[k] == 3 * c, f"{k} launched {launches[k]} times in 3 steps")
+    check(routes[route] == 3 * SEQ_STEP_LAUNCHES["decoder_seq_fwd"],
+          f"decoder_seq_fwd's launches by route {routes}: not all on the main shape's {route}")
     off_losses, off_launches, off_med = timed_steps(exe, main_p, feed, loss.name, scope, counters,
                                                     tokens, smi, "per-step route (seq flags off)")
     check(all(np.isfinite(off_losses)), "non-finite loss on the per-step route")
@@ -3516,12 +3636,35 @@ def main():
             line += f", {float((got[0] != want[0]).float().mean()):.4%} of {name}'s first output differing"
         if timed:
             k_ms = cuda_ms(lambda: getattr(attention_kernels, name)(*ins), 20)
+            d_ms = graph_ms(lambda: getattr(attention_kernels, name)(*ins))
             p_ms = cuda_ms(lambda: plain[name](*ins), 3)
             b_ms, b_by, nbytes = attn_bound(name, ins)
-            line += (f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms by "
-                     f"{b_by} ({nbytes:.0f} B)")
+            line += (f"; kernel {k_ms:.4f} ms with the wrapper, {d_ms:.4f} ms on the device (a "
+                     f"CUDA graph's replay), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
+                     f"({nbytes:.0f} B)")
             if dt == torch.bfloat16:
-                rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+                rows[name] = dict(ms=k_ms, device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                  bound_by=b_by)
+            if name == "attn_fwd" and dt == torch.bfloat16:
+                # the first design on the same inputs: the kernel before the
+                # staged rows, held and timed beside them
+                first = attn_fwd_first(attention_kernels, *ins)
+                f_err = [beyond_ulp(g, w, sc) for g, w, sc in zip(first, want, scales)]
+                check(max(f_err) <= TRAIN_TOL[torch.float32], "attn_fwd's first design disagrees")
+                f_ms = cuda_ms(lambda: attn_fwd_first(attention_kernels, *ins), 20)
+                f_dev = graph_ms(lambda: attn_fwd_first(attention_kernels, *ins))
+                # the wrapper's host floor: the same Python and launch on one
+                # row of one position, whose device work is negligible
+                tiny = (ins[0][:1, :1], ins[1][:1, :1], ins[2][:1], ins[3], ins[4][:1, :1])
+                h_ms = cuda_ms(lambda: attention_kernels.attn_fwd(*tiny), 50)
+                rows[name].update(earlier_ms=f_ms, earlier_device_ms=f_dev, host_floor_ms=h_ms)
+                line += (f"\n    the wrapper's host floor (the same call on B=1, S=1): {h_ms:.4f} ms "
+                         "a call")
+                line += (f"\n    the first design (attn_fwd_kernel, before the redesign; "
+                         f"{EARLIER_MS['attn_fwd']} ms in an earlier run) on the same inputs: err "
+                         f"beyond one ulp {', '.join(f'{e:.3e}' for e in f_err)}; {f_ms:.4f} ms "
+                         f"launched from Python, {f_dev:.4f} ms on the device; the staged rows "
+                         f"{f_dev / d_ms:.2f}x faster on the device")
         print(line)
         check(all(torch.isfinite(t.float()).all() for t in got), f"non-finite {name} output")
         check(max(errs) <= tol, f"{name} disagrees with its plain version")
@@ -3547,6 +3690,13 @@ def main():
             attn_check(name, ins, f"B={B_} S={S_} A={A_} (main path)", timed=True)
     a_fwd, a_p2 = acalls["attn_fwd"][0][0], acalls["attn_phase2"][0][0]
     (B_, S_, A_), C_, T_ = a_fwd[0].shape, a_fwd[1].shape[2], a_p2[1].shape[0]
+    valid = [int(n) for n in a_fwd[4].sum(1).tolist()]
+    whole = sum(attention_kernels.attn_row_chunks(n, True, A_, C_, attention_kernels.ATTN_ROW_STAGE)
+                ["whole"] for n in valid)
+    print(f"  attn_fwd's path at the main shape: "
+          f"{attention_kernels.attn_fwd_path(S_, A_, C_, torch.bfloat16)}; rows of "
+          f"{min(valid)}-{max(valid)} valid positions, {whole} of {B_} staged whole, the rest "
+          "streamed")
     for dt in TRAIN_TOL:  # the main path's shapes and source mask, seeded values
         for name, ins in seeded_attn(B_, S_, A_, C_, T_, dt, a_fwd[4]).items():
             attn_check(name, ins, f"B={B_} S={S_} A={A_} C={C_} T={T_} (main shapes, seeded)")
@@ -3556,6 +3706,21 @@ def main():
         for dt in TRAIN_TOL:
             for name, ins in seeded_attn(B_, S_, A_, C_, T_, dt, mask).items():
                 attn_check(name, ins, f"B={B_} S={S_} A={A_} C={C_} T={T_}")
+    for what, B_, S_, A_, C_, T_ in ATTN_ROW_EDGE:
+        mask = row_mask(rng, what, B_, S_)
+        ns = [int(n) for n in mask.sum(1).tolist()]
+        plans = [attention_kernels.attn_row_chunks(n or S_, n > 0, A_, C_,
+                                                   attention_kernels.ATTN_ROW_STAGE) for n in ns]
+        staged = ["whole" if k["whole"] else "in {na} + {nc} chunks".format(**k) for k in plans]
+        print(f"  attn_fwd {what}: valid positions a row {ns}; staged {staged}")
+        if what == "S=300":
+            check(not any(k["whole"] for k in plans), "the S=300 edge does not take the ring")
+        for dt in TRAIN_TOL:
+            for name, ins in seeded_attn(B_, S_, A_, C_, T_, dt, mask).items():
+                attn_check(name, ins, f"B={B_} S={S_} A={A_} C={C_} T={T_} ({what})")
+            if what == "fully masked":
+                got = attention_kernels.attn_fwd(*seeded_attn(B_, S_, A_, C_, T_, dt, mask)["attn_fwd"])
+                check(bool(torch.all(got[1][1] == 1.0 / S_)), "a fully masked row's α is not 1/S")
     a, _ = acalls["attn_phase2"][0]
     dv1, dv2 = (attention_kernels.attn_phase2(*a)[1] for _ in range(2))
     check(torch.equal(dv1, dv2), "attn_phase2's dv differs between two runs")
@@ -3570,6 +3735,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
+    paths0 = dict(attention_kernels.attn_fwd_paths)
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -3577,12 +3743,16 @@ def main():
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     train_launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    paths = {k: n - paths0[k] for k, n in attention_kernels.attn_fwd_paths.items()}
     print(f"  losses (warm-up, then timed): {losses}")
     check(all(np.isfinite(losses)), "non-finite loss")
     check(losses[-1] < losses[0], "the loss did not fall over 4 steps on one batch")
-    print(f"  launches in 3 steps: {train_launches}; per step expected {STEP_LAUNCHES}")
+    print(f"  launches in 3 steps: {train_launches}; per step expected {STEP_LAUNCHES}; "
+          f"attn_fwd by path {paths}")
     for k, n in STEP_LAUNCHES.items():
         check(train_launches[k] == 3 * n, f"{k} launched {train_launches[k]} times in 3 steps")
+    check(paths[attention_kernels.ATTN_BULK] == 3 * STEP_LAUNCHES["attn_fwd"],
+          f"attn_fwd's launches by path {paths}: not all on the staged rows' bulk path")
     tmed = statistics.median(times)
     print(f"  steps ms: {[round(t, 3) for t in times]}; median {tmed:.3f} ms/step, "
           f"{trg_tokens / tmed * 1e3:.1f} target tokens/s (B={TB}, lengths 10-{TS}); "

@@ -14,9 +14,20 @@
 // operations per element, far below the card's ~295 operations per byte.
 // So none materialises [B,S,A]: tanh(ep+dp) is recomputed where it is
 // needed and reduced on the spot.
-//   attn_fwd       one CTA per batch row: a warp per source position reduces
-//                  tanh(ep+dp)·v over A; one warp takes the masked softmax;
-//                  the threads split C for ctx = io(α)·enc.
+//   attn_fwd       in bf16 where the rows allow (`attn_fwd_row_kernel`,
+//                  attention_kernels.attn_fwd_path): one CTA per batch row,
+//                  two CTAs an SM (256 rows at B=256 in one wave on 132
+//                  SMs), running csrc/attn_row.cuh's row routine: the row's
+//                  valid positions listed, only their rows of ep and enc
+//                  staged (by the bulk-copy engine where rows are a
+//                  multiple of 16 bytes, else by plain loads), enc in flight
+//                  while the scores are computed, S streamed through a ring
+//                  where the valid rows pass the 96 KB stage, rows read 16
+//                  bytes at a time. In f32, and in bf16 past the routine's
+//                  C or shared memory, the first design (`attn_fwd_kernel`):
+//                  a warp per source position reduces tanh(ep+dp)·v over A;
+//                  one warp takes the masked softmax; the threads split C
+//                  for ctx = io(α)·enc.
 //   attn_bwd_step  one CTA per batch row: a warp per position reduces
 //                  dα = dctx·enc over C; one warp forms dsc = α(dα - Σα·dα);
 //                  the threads split A for ddp = v·Σ_S dsc·(1-t²).
@@ -27,9 +38,11 @@
 //                  counter, no float atomics) sums the partials over b in a
 //                  fixed order, so dv has the same bits on every run.
 //
-// Simple first: f32 FMAs on CUDA cores, plain loads. Vector loads, TMA and
-// fusing the per-step kernels into the decoder's step loop are later work.
+// attn_bwd_step and attn_phase2 are the first design: f32 FMAs on CUDA
+// cores, plain loads. Fusing the per-step kernels into the decoder's step
+// loop is later work.
 
+#include "attn_row.cuh"
 #include "common.cuh"
 
 namespace {
@@ -87,6 +100,42 @@ attn_fwd_kernel(const T* __restrict__ ep, const T* __restrict__ enc, const T* __
     for (int s = 0; s < S; ++s) acc += sc[s] * to_f<T>(col[(size_t)s * C]);
     ctx[(size_t)b * C + c] = from_f<T>(acc);
   }
+}
+
+// The bf16 forward on staged rows: one CTA a row, attn_row::attend. smem:
+// attn_row::fixed_bytes, then the stage.
+constexpr int kRowStage = 96 * 1024;  // two CTAs an SM: 2 x (96 KB + the rest) of its 228 KB
+
+__global__ void __launch_bounds__(kThreads, 2)
+attn_fwd_row_kernel(const __nv_bfloat16* __restrict__ ep, const __nv_bfloat16* __restrict__ enc,
+                    const __nv_bfloat16* __restrict__ dp, const __nv_bfloat16* __restrict__ v,
+                    const float* __restrict__ mask, __nv_bfloat16* __restrict__ ctx,
+                    float* __restrict__ alpha, int S, int A, int C, int bulk) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x, lda = attn_row::pad8(A);
+  attn_row::Bufs r;
+  r.bar = reinterpret_cast<uint64_t*>(smem_raw);
+  r.count = reinterpret_cast<int*>(smem_raw + 16);
+  r.dp = reinterpret_cast<float*>(smem_raw + 32);
+  r.v = r.dp + lda;
+  r.sc = r.v + lda;
+  r.idx = reinterpret_cast<int*>(r.sc + S);
+  r.stage = smem_raw + attn_row::fixed_bytes(S, A);
+  r.stage_bytes = kRowStage;
+  for (int a = threadIdx.x; a < lda; a += kThreads) {
+    r.dp[a] = a < A ? to_f<bf16>(dp[(size_t)b * A + a]) : 0.f;
+    r.v[a] = a < A ? to_f<bf16>(v[a]) : 0.f;
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(&r.bar[0], 1);
+    mbar_init(&r.bar[1], 1);
+    fence_mbar_init();
+  }
+  unsigned ph[2] = {0u, 0u};
+  attn_row::attend<kThreads>(ep + (size_t)b * S * A, enc + (size_t)b * S * C, mask + (size_t)b * S,
+                             S, A, C, bulk != 0, r, ph, alpha + (size_t)b * S,
+                             ctx + (size_t)b * C, nullptr);
 }
 
 // smem: dctx [C], dp [A], v [A], dalpha then dsc [S], all f32
@@ -270,6 +319,46 @@ extern "C" int attn_phase2_launch(int io_bf16, const void* ep, const void* dp_se
   if (io_bf16)
     return phase2<__nv_bfloat16>(ep, dp_seq, ds, v, dep, dvp, part, d, n_steps, B, S, A, st);
   return phase2<float>(ep, dp_seq, ds, v, dep, dvp, part, d, n_steps, B, S, A, st);
+}
+
+// The bf16 forward on staged rows (attn_fwd_row_kernel): ep, enc, dp, v,
+// ctx bf16 and mask, alpha f32 as attn_fwd_launch's. bulk: rows by the
+// bulk-copy engine, which needs A and C multiples of 8 and ep, enc 16-byte
+// aligned (cudaErrorMisalignedAddress otherwise); else plain loads.
+// cudaErrorInvalidValue where C passes the routine's 8 columns x kMaxG
+// groups a thread, or the stage or shared memory does not take the row.
+extern "C" int attn_fwd_row_launch(const void* ep, const void* enc, const void* dp,
+                                   const void* v, const void* mask, void* ctx, void* alpha, int B,
+                                   int S, int A, int C, int bulk, void* stream) {
+  if (bad_shape(B, S, A, C) || C > 8 * attn_row::kMaxG * kThreads ||
+      !attn_row::stage_fits(A, C, kRowStage))
+    return cudaErrorInvalidValue;
+  if (bulk && ((A | C) % 8 != 0 || (reinterpret_cast<uintptr_t>(ep) & 15) ||
+               (reinterpret_cast<uintptr_t>(enc) & 15)))
+    return cudaErrorMisalignedAddress;
+  const size_t smem = attn_row::fixed_bytes(S, A) + kRowStage;
+  // the shared memory a block may opt in to, queried and the kernel's limit
+  // raised to it once a device rather than at every launch
+  static int opt_in[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!opt_in[dev]) {
+    int smem_max = 0;
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    err = set_smem(reinterpret_cast<const void*>(attn_fwd_row_kernel), smem_max);
+    if (err != cudaSuccess) return err;
+    opt_in[dev] = smem_max;
+  }
+  if (smem > (size_t)opt_in[dev]) return cudaErrorInvalidValue;
+  attn_fwd_row_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(ep), static_cast<const __nv_bfloat16*>(enc),
+      static_cast<const __nv_bfloat16*>(dp), static_cast<const __nv_bfloat16*>(v),
+      static_cast<const float*>(mask), static_cast<__nv_bfloat16*>(ctx),
+      static_cast<float*>(alpha), S, A, C, bulk);
+  return cudaGetLastError();
 }
 
 extern "C" const char* attn_error_string(int err) {

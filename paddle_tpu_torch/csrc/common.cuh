@@ -3,7 +3,7 @@
 // product on the tensor cores (bf16 mma.sync m16n8k16 with f32
 // accumulators, or the same fragments with f32 FMAs for f32 io), and
 // Hopper's pieces (wgmma, bf16 and s8, and its shared-memory descriptors, mbarriers,
-// tensor copies by TMA and bulk stores, the tensor-map encoder). Every
+// tensor copies by TMA, bulk loads and stores, the tensor-map encoder). Every
 // kernel computes in f32 and rounds to the io dtype only where the TPU
 // kernel it replaces rounds.
 
@@ -563,6 +563,24 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* sr
   asm volatile(
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
       ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1) : "memory");
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory by the bulk-copy engine, completing on `bar` as the tensor
+// copies do (an mbar_expect names the bytes first); the source must not be
+// written in the same launch
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(smem)), "l"(gmem), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// the device's nanosecond clock, the same on every SM
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
 }
 
 // bytes from shared to global memory by the bulk-copy engine: the copy runs

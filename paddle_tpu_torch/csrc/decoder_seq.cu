@@ -87,7 +87,42 @@
 // of enc and ep, the stores before the next release), four phases with a
 // barrier a step.
 //
-// The forward, and the backward in f32, keep the first design: each CTA
+// The forward in bf16 runs on the same partition (decoder_seq_fwd_tc_kernel):
+// - The grid is unit groups x batch groups, placed by the backward's plan
+//   search on the forward's own shared memory (`fwd_plan`). A CTA owns 16
+//   hidden units, its group's 32-row sub-tiles and a slice of `as` columns
+//   of A for dp (A over the unit groups, rounded up to a whole n-tile: 16
+//   at bench widths). Its weights stay in shared memory for the whole walk:
+//   its units' 48 columns of [w_u | w_r | w_c] and of wx_c, and its slice's
+//   columns of wa_dec, each K-contiguous and padded by 16 bytes (49 + 97 +
+//   16 KB at bench widths), or are read through L1 where they do not fit.
+// - Four phases a step, each ending at its batch group's counter barrier:
+//   (1) stage h(t-1); dp for the slice (warps 4-7), f32 and not rounded,
+//       into an exchange [B, n_ug·as]; io(h·w_u) and io(h·w_r) of the
+//       owners' pairs (warps 0-3), kept.
+//   (2) the attention of the group's rows dealt to the CTAs (row i of the
+//       group to CTA i mod n_ug), by csrc/attn_row.cuh's routine on the
+//       row's dp read past L1: S streamed through the products' ring (and
+//       whatever shared memory is left where a CTA has an SM to itself);
+//       alpha, and ctx into its output and a padded exchange [B, Cp].
+//   (3) stage ctx; io(ctx·wx_c) for the units' 48 columns, xp = io(xpx_t +
+//       ·); u and r (owners) by sigmoid_io, io(r·h) published into an
+//       exchange; the candidate part of xp (warps 4-7), kept.
+//   (4) stage r·h; c = tanh_io(io(xp_c + io(rh·w_c))), h' and the masked
+//       carry (owners), rounded where decoder_seq_fwd_plain rounds; h_seq[t]
+//       and the h exchange (double-buffered by step parity) written.
+//   Every product is mma.sync m16n8k16 on rows staged with cp.async.cg
+//   through the backward's ring, each k16 product a fresh fragment added in
+//   f32 in k order. No float atomics: the same bits on every run. A second
+//   instance (kTimed) records each phase's end by the SM's clock for
+//   attention_kernels.decoder_seq_fwd_phase_us; the executor never launches
+//   it.
+// - attention_kernels.seq_fwd_route sends a shape the plan cannot place (a
+//   slice of A past 64 columns, C past the row routine's 8192, rows the ring
+//   cannot stage, more unit groups than the card holds) to the first design
+//   below, before any launch.
+//
+// The forward in f32, and the backward in f32, keep the first design: each CTA
 // owns HC hidden units and keeps the weights those units need in shared
 // memory for the whole launch, so they are read from device memory once:
 //   forward   wx_c's 3·HC columns of the units, w_ur's 2·HC and w_c's HC,
@@ -121,6 +156,7 @@
 
 #include <cooperative_groups.h>
 
+#include "attn_row.cuh"
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -748,6 +784,113 @@ __device__ __forceinline__ float mul(float x, float y) { return __fmul_rn(x, y);
 __device__ __forceinline__ float add(float x, float y) { return __fadd_rn(x, y); }
 __device__ __forceinline__ float sub(float x, float y) { return __fsub_rn(x, y); }
 
+// The tensor-core kernels' shared pieces (the backward's and the bf16
+// forward's).
+
+// rows x cols (a multiple of 8) from src, rows cols apart, into dst, rows
+// cols + 8 apart (16 bytes of padding against bank conflicts)
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, int rows, int cols) {
+  const int pieces = cols / 8;
+  for (int i = threadIdx.x; i < rows * pieces; i += kThreads) {
+    const int n = i / pieces, pc = i - n * pieces;
+    *reinterpret_cast<uint4*>(dst + (size_t)n * (cols + 8) + pc * 8) =
+        *reinterpret_cast<const uint4*>(src + (size_t)n * cols + pc * 8);
+  }
+}
+
+// The k-th barrier of the launch among the CTAs of one batch group (a
+// counter in global memory; one that never fills traps).
+__device__ __forceinline__ void group_barrier(unsigned* bar, unsigned k) {
+  __syncthreads();
+  if (threadIdx.x == 0) {  // release covers the CTA's writes before the __syncthreads
+    atomic_add_release(bar, 1u);
+    const unsigned target = k * gridDim.x;
+    const long long start = clock64();
+    while (load_acquire(bar) < target)
+      if (clock64() - start > kSpinCycles) __trap();
+  }
+  __syncthreads();
+}
+
+// Stages rows [r0, r0 + kRows) of src0 (and of src1 where it is not null)
+// into the ring, rows ld apart, over k in [0, klen) in chunks of kKc (two
+// slots) or kKcWide (one), kStages - 1 chunks in flight, and calls body(its
+// first k, slot0, slot1, its k, the slots' row pitch) after each landed for
+// every thread, slot0 and slot1 at the warp's m-tile mt. Rows past B read
+// as zeros; k past klen is not staged (klen is a multiple of 16, and body
+// reads below it only). No copy is in flight when it returns.
+template <class Body>
+__device__ __forceinline__ void walk(bf16* ring, const bf16* src0, const bf16* src1, int ld, int r0,
+                                     int B, int klen, int mt, Body&& body) {
+  const int tid = threadIdx.x;
+  const int kcw = src1 ? kKc : kKcWide, ldg = kcw + 8, pieces = kcw / 8;
+  const int nkc = cdiv(klen, kcw);
+  auto stage = [&](int ch) {
+    if (ch < nkc) {
+      bf16* st = ring + (size_t)(ch % kStages) * kStage;
+      for (int i = tid; i < kRows * pieces; i += kThreads) {
+        const int row = i / pieces, pc = i - row * pieces;
+        const int kc = ch * kcw + pc * 8, b = r0 + row;
+        if (kc >= klen) continue;
+        const bool ok = b < B;
+        bf16* dst = st + row * ldg + pc * 8;
+        cp_async16(dst, ok ? src0 + (size_t)b * ld + kc : src0, ok ? 16 : 0);
+        if (src1) cp_async16(dst + kSlot, ok ? src1 + (size_t)b * ld + kc : src1, ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  __syncthreads();  // every warp is done with the ring's last chunks
+#pragma unroll
+  for (int ch = 0; ch < kStages - 1; ++ch) stage(ch);
+  for (int ch = 0; ch < nkc; ++ch) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk ch landed for every thread; chunk ch-1's buffers are free
+    stage(ch + kStages - 1);
+    const bf16* s0 = ring + (size_t)(ch % kStages) * kStage + mt * 16 * ldg;
+    body(ch * kcw, s0, s0 + kSlot, min(kcw, klen - ch * kcw), ldg);
+  }
+}
+
+// The chunk's A fragments of the warp's 16 staged rows (kn columns from
+// rows, row pitch ldg), loaded before any product uses them.
+constexpr int kPieces = kKcWide / 16;  // k16 pieces of a chunk at most
+__device__ __forceinline__ void load_frags(uint32_t (&fa)[kPieces][4], const bf16* rows, int ldg,
+                                           int kn) {
+#pragma unroll
+  for (int j = 0; j < kPieces; ++j)
+    if (16 * j < kn) ldmatrix_x4(fa[j], rows + 16 * j, ldg);
+}
+
+// acc[e] += the chunk's product with the column row `w` at k0.., over the
+// k16 pieces j where use(j): each piece's product a fragment of its own,
+// issued back to back, then added in k order in f32 (the tensor core's
+// own accumulation truncates)
+template <class Use>
+__device__ __forceinline__ void k16_sum(float (&acc)[4], const uint32_t (&fa)[kPieces][4],
+                                        const bf16* w, int k0, int kn, Use&& use) {
+  const int q = threadIdx.x & 3;
+  float p[kPieces][4];
+#pragma unroll
+  for (int j = 0; j < kPieces; ++j) {
+    p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
+    if (16 * j < kn && use(j)) {
+      const bf16* wk = w + k0 + 16 * j + 2 * q;
+      mma_bf16(p[j], fa[j][0], fa[j][1], fa[j][2], fa[j][3],
+               *reinterpret_cast<const uint32_t*>(wk), *reinterpret_cast<const uint32_t*>(wk + 8));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kPieces; ++j)
+    if (16 * j < kn && use(j))
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[e] += p[j][e];
+}
+
+struct Every {
+  __device__ bool operator()(int) const { return true; }
+};
+
 // grid (Hp / kUnits unit groups, batch groups). Warp w computes m-tile w&1;
 // warps 0-3 own the (row, unit) pairs of units 8·(w>>1) .. +7, warps 4-7
 // compute the du part of the same pairs' carry beside them; in (C) warp w
@@ -777,14 +920,6 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_seq_bwd_tc_kernel(Args a)
   bf16* wad_sh = wu_sh + (size_t)kUnits * (K3 + 8);   // [kUnits][Ap + 8]
   bf16* wxc_sh = wad_sh + (size_t)kUnits * (Ap + 8);  // [cs][K3 + 8]
   if (kWSmem) {
-    auto copy_rows = [&](bf16* dst, const bf16* src, int rows, int cols) {
-      const int pieces = cols / 8;
-      for (int i = tid; i < rows * pieces; i += kThreads) {
-        const int n = i / pieces, pc = i - n * pieces;
-        *reinterpret_cast<uint4*>(dst + (size_t)n * (cols + 8) + pc * 8) =
-            *reinterpret_cast<const uint4*>(src + (size_t)n * cols + pc * 8);
-      }
-    };
     copy_rows(wu_sh, wu_src, kUnits, K3);
     copy_rows(wad_sh, wad_src, kUnits, Ap);
     copy_rows(wxc_sh, wxc_src, a.cs, K3);
@@ -806,84 +941,7 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_seq_bwd_tc_kernel(Args a)
   Pre pre;
   if (owner) prefetch(pre, a, 0, tile0 * kRows + mt * 16 + g, j0 + ul);
 
-  auto group_barrier = [&](unsigned k) {  // the k-th barrier of the launch
-    __syncthreads();
-    if (tid == 0) {  // release covers the CTA's writes before the __syncthreads
-      atomic_add_release(bar, 1u);
-      const unsigned target = k * gridDim.x;
-      const long long start = clock64();
-      while (load_acquire(bar) < target)
-        if (clock64() - start > kSpinCycles) __trap();
-    }
-    __syncthreads();
-  };
-
-  // Stages rows [r0, r0 + kRows) of src0 (and of src1 where it is not
-  // null), rows ld apart, over k in [0, klen) in chunks of kKc (two slots)
-  // or kKcWide (one), kStages - 1 chunks in flight, and calls body(its first k,
-  // slot0, slot1, its k, the slots' row pitch) after each landed for every
-  // thread. Rows past B read as zeros; k past klen is not staged (klen is a
-  // multiple of 16, and body reads below it only).
-  auto walk = [&](const bf16* src0, const bf16* src1, int ld, int r0, int klen, auto&& body) {
-    const int kcw = src1 ? kKc : kKcWide, ldg = kcw + 8, pieces = kcw / 8;
-    const int nkc = cdiv(klen, kcw);
-    auto stage = [&](int ch) {
-      if (ch < nkc) {
-        bf16* st = ring + (size_t)(ch % kStages) * kStage;
-        for (int i = tid; i < kRows * pieces; i += kThreads) {
-          const int row = i / pieces, pc = i - row * pieces;
-          const int kc = ch * kcw + pc * 8, b = r0 + row;
-          if (kc >= klen) continue;
-          const bool ok = b < B;
-          bf16* dst = st + row * ldg + pc * 8;
-          cp_async16(dst, ok ? src0 + (size_t)b * ld + kc : src0, ok ? 16 : 0);
-          if (src1) cp_async16(dst + kSlot, ok ? src1 + (size_t)b * ld + kc : src1, ok ? 16 : 0);
-        }
-      }
-      cp_async_commit();
-    };
-    __syncthreads();  // every warp is done with the ring's last chunks
-#pragma unroll
-    for (int ch = 0; ch < kStages - 1; ++ch) stage(ch);
-    for (int ch = 0; ch < nkc; ++ch) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();  // chunk ch landed for every thread; chunk ch-1's buffers are free
-      stage(ch + kStages - 1);
-      const bf16* s0 = ring + (size_t)(ch % kStages) * kStage + mt * 16 * ldg;
-      body(ch * kcw, s0, s0 + kSlot, min(kcw, klen - ch * kcw), ldg);
-    }
-  };
-  // The chunk's A fragments of the warp's 16 staged rows (kn columns from
-  // rows, row pitch ldg), loaded before any product uses them.
-  constexpr int kPieces = kKcWide / 16;  // k16 pieces of a chunk at most
-  auto load_frags = [&](uint32_t (&fa)[kPieces][4], const bf16* rows, int ldg, int kn) {
-#pragma unroll
-    for (int j = 0; j < kPieces; ++j)
-      if (16 * j < kn) ldmatrix_x4(fa[j], rows + 16 * j, ldg);
-  };
-  // acc[e] += the chunk's product with the column row `w` at k0.., over the
-  // k16 pieces j where use(j): each piece's product a fragment of its own,
-  // issued back to back, then added in k order in f32 (the tensor core's
-  // own accumulation truncates)
-  auto k16_sum = [&](float (&acc)[4], const uint32_t (&fa)[kPieces][4], const bf16* w, int k0,
-                     int kn, auto&& use) {
-    float p[kPieces][4];
-#pragma unroll
-    for (int j = 0; j < kPieces; ++j) {
-      p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
-      if (16 * j < kn && use(j)) {
-        const bf16* wk = w + k0 + 16 * j + 2 * q;
-        mma_bf16(p[j], fa[j][0], fa[j][1], fa[j][2], fa[j][3],
-                 *reinterpret_cast<const uint32_t*>(wk), *reinterpret_cast<const uint32_t*>(wk + 8));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPieces; ++j)
-      if (16 * j < kn && use(j))
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[e] += p[j][e];
-  };
-  auto every = [](int) { return true; };
+  const Every every{};
 
   for (int s = 0; s < a.T; ++s) {
     const int t = a.T - 1 - s;
@@ -923,14 +981,14 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_seq_bwd_tc_kernel(Args a)
       const int tl1 = tl + 1 < n_mine ? tl + 1 : 0, s1 = tl + 1 < n_mine ? s : s + 1;
       if (s1 < a.T) prefetch(pre, a, s1, (tile0 + tl1) * kRows + mt * 16 + g, j0 + ul);
     }
-    group_barrier(4 * s + 1);
+    group_barrier(bar, 4 * s + 1);
 
     // (B) drh = dc·w_cᵀ (owners) and the du part of dur·w_urᵀ (warps 4-7)
     for (int tl = 0; tl < n_mine; ++tl) {
       float* st = state + (size_t)tl * kFields * kPairs;
       const int r0 = (tile0 + tl) * kRows;
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      walk(exs + 2 * Hp, exs, K3, r0, Hp,
+      walk(ring, exs + 2 * Hp, exs, K3, r0, B, Hp, mt,
            [&](int k0, const bf16* s0, const bf16* s1, int kn, int ldg) {
              uint32_t fa[kPieces][4];
              load_frags(fa, owner ? s0 : s1, ldg, kn);
@@ -952,7 +1010,7 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_seq_bwd_tc_kernel(Args a)
         st[3 * kPairs + p] = add(st[3 * kPairs + p], mul(drh, r));
       }
     }
-    group_barrier(4 * s + 2);
+    group_barrier(bar, 4 * s + 2);
 
     // (C) the dr part of dur·w_urᵀ, carried on from the du part (owners),
     // and dctx = dxp·wx_cᵀ for the CTA's slice of C (every warp)
@@ -964,7 +1022,8 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_seq_bwd_tc_kernel(Args a)
       for (int e = 0; e < 4; ++e) urp[e] = owner ? st[4 * kPairs + pair(e)] : 0.f;
 #pragma unroll
       for (int i = 0; i < kCtxTiles; ++i) cacc[i][0] = cacc[i][1] = cacc[i][2] = cacc[i][3] = 0.f;
-      walk(exs, nullptr, K3, r0, K3, [&](int k0, const bf16* s0, const bf16*, int kn, int ldg) {
+      walk(ring, exs, nullptr, K3, r0, B, K3, mt,
+           [&](int k0, const bf16* s0, const bf16*, int kn, int ldg) {
         uint32_t fa[kPieces][4];
         load_frags(fa, s0, ldg, kn);
 #pragma unroll
@@ -994,7 +1053,7 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_seq_bwd_tc_kernel(Args a)
         }
       }
     }
-    group_barrier(4 * s + 3);
+    group_barrier(bar, 4 * s + 3);
 
     // (D) the attention's backward for the group's rows this CTA takes
     // (row i of the group goes to the group's CTA i mod gridDim.x):
@@ -1081,14 +1140,15 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_seq_bwd_tc_kernel(Args a)
       }
       __syncthreads();  // dct, dps and ds are the next row's
     }
-    group_barrier(4 * s + 4);
+    group_barrier(bar, 4 * s + 4);
 
     // (E) dh = dh_prev + io(ddp)·wa_decᵀ, the new f32 carry (owners)
     for (int tl = 0; tl < n_mine; ++tl) {
       float* st = state + (size_t)tl * kFields * kPairs;
       const int r0 = (tile0 + tl) * kRows;
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      walk(dexs, nullptr, Ap, r0, Ap, [&](int k0, const bf16* s0, const bf16*, int kn, int ldg) {
+      walk(ring, dexs, nullptr, Ap, r0, B, Ap, mt,
+           [&](int k0, const bf16* s0, const bf16*, int kn, int ldg) {
         if (!owner) return;
         uint32_t fa[kPieces][4];
         load_frags(fa, s0, ldg, kn);
@@ -1170,29 +1230,343 @@ decoder_dv_kernel(const float* __restrict__ dv_part, float* __restrict__ dv, int
   dv[a] = sum;
 }
 
+// ---------------------------------------------- bf16 forward on tensor cores --
+// decoder_seq_fwd_tc_kernel; see the note at the top of the file.
+constexpr int kGateRows = 3 * kUnits;  // a unit group's columns of [w_u | w_r | w_c] and of wx_c
+constexpr int kMaxAs = 64;             // columns of dp a CTA at most: 4 n-tiles a warp
+constexpr int kDpTiles = kMaxAs / 16;
+// a sub-tile's state, one float a pair each: h (its io value, carried),
+// io(h·w_u), io(h·w_r), u, and xp's candidate part
+constexpr int kFFields = 5;
+enum { kFH = 0, kFHu = 1, kFHr = 2, kFU = 3, kFXc = 4 };
+constexpr size_t kFStateBytes = (size_t)kFFields * kPairs * sizeof(float);
+
+struct FArgs {
+  const bf16 *ep, *enc;       // [B,S,A], [B,S,C]
+  const float* mask;          // [B,S]
+  const bf16* xpx;            // [T,B,3H]
+  const float* tmask;         // [T,B]
+  const bf16* h0;             // [B,H]
+  const bf16* v;              // [A]
+  const bf16 *wg, *wx, *wa;   // [n_ug·48, Hp], [n_ug·48, Cp], [n_ug·as, Hp], padded
+  bf16* h_seq;                // [T,B,H]
+  float* alpha;               // [T,B,S]
+  bf16* ctx;                  // [T,B,C]
+  bf16 *hx, *rx, *cx;         // exchanges [2,B,Hp] (slot 0: h0), [B,Hp], [B,Cp]; padding zero
+  float* dpx;                 // [B, n_ug·as]
+  unsigned* bar;              // [groups], zeroed
+  long long* clk;             // the timed instance's [grid][4T + 3]
+  int T, B, S, A, C, H, Hp, Cp, as, n_tiles, tiles_per_group, stage_bytes, bulk;
+};
+
+// the CTA's weights in shared memory: its 16 units' columns of [w_u | w_r |
+// w_c] and its as columns of wa_dec over Hp, its units' 48 columns of wx_c
+// over Cp, each K-contiguous and padded by 16 bytes
+__host__ __device__ inline size_t fwd_w_bytes(int Hp, int Cp, int as) {
+  return ((size_t)(kGateRows + as) * (Hp + 8) + (size_t)kGateRows * (Cp + 8)) * sizeof(bf16);
+}
+
+inline size_t fwd_smem(int tiles_per_group, int S, int A, int Hp, int Cp, int as, bool w_smem,
+                       int stage_bytes) {
+  return attn_row::fixed_bytes(S, A) + (size_t)tiles_per_group * kFStateBytes +
+         (w_smem ? fwd_w_bytes(Hp, Cp, as) : 0) + stage_bytes;
+}
+
+// grid (Hp / kUnits unit groups, batch groups). Warp w computes m-tile w&1;
+// warps 0-3 own the (row, unit) pairs of units 8·((w>>1)&1) .. +7 (u and r
+// in (1) and (3), c and the cell in (4)); warps 4-7 compute dp's n-tiles
+// ((w>>1)&1) + 2i of the CTA's slice of A in (1) and the candidate part of
+// xp for the same pairs as warp w-4 in (3). kTimed: thread 0 records its
+// SM's clock at every barrier, and the device's nanosecond clock at the
+// start and the end, into a.clk.
+template <bool kWSmem, bool kTimed>
+__global__ void __launch_bounds__(kThreads, 1) decoder_seq_fwd_tc_kernel(FArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tpg = a.tiles_per_group, Hp = a.Hp, Cp = a.Cp, as = a.as, B = a.B, H = a.H;
+  const int lda = attn_row::pad8(a.A), Ad = gridDim.x * as;
+  attn_row::Bufs rb;
+  rb.bar = reinterpret_cast<uint64_t*>(smem_raw);
+  rb.count = reinterpret_cast<int*>(smem_raw + 16);
+  rb.dp = reinterpret_cast<float*>(smem_raw + 32);
+  rb.v = rb.dp + lda;
+  rb.sc = rb.v + lda;
+  rb.idx = reinterpret_cast<int*>(rb.sc + a.S);
+  const size_t fixed = attn_row::fixed_bytes(a.S, a.A);
+  float* state = reinterpret_cast<float*>(smem_raw + fixed);  // [tiles][kFFields][kPairs]
+  bf16* wsh = reinterpret_cast<bf16*>(smem_raw + fixed + (size_t)tpg * kFStateBytes);
+  rb.stage = reinterpret_cast<unsigned char*>(wsh) + (kWSmem ? fwd_w_bytes(Hp, Cp, as) : 0);
+  rb.stage_bytes = a.stage_bytes;
+  bf16* ring = reinterpret_cast<bf16*>(rb.stage);  // the products' ring, the attention's stage
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int mt = warp & 1, nt = (warp >> 1) & 1, g = lane >> 2, q = lane & 3;
+  const bool owner = warp < 4;
+  const int x = blockIdx.x, j0 = x * kUnits, a0 = x * as;
+  const int ldh = kWSmem ? Hp + 8 : Hp, ldx = kWSmem ? Cp + 8 : Cp;
+  const bf16* wg_src = a.wg + (size_t)x * kGateRows * Hp;
+  const bf16* wa_src = a.wa + (size_t)a0 * Hp;
+  const bf16* wx_src = a.wx + (size_t)x * kGateRows * Cp;
+  bf16* wg_sh = wsh;                                     // [48][Hp + 8]
+  bf16* wa_sh = wg_sh + (size_t)kGateRows * (Hp + 8);   // [as][Hp + 8]
+  bf16* wx_sh = wa_sh + (size_t)as * (Hp + 8);          // [48][Cp + 8]
+  if (kWSmem) {
+    copy_rows(wg_sh, wg_src, kGateRows, Hp);
+    copy_rows(wa_sh, wa_src, as, Hp);
+    copy_rows(wx_sh, wx_src, kGateRows, Cp);
+  }
+  const bf16* wg = kWSmem ? wg_sh : wg_src;
+  const bf16* wa = kWSmem ? wa_sh : wa_src;
+  const bf16* wx = kWSmem ? wx_sh : wx_src;
+  // the B columns this lane loads: gate q's column of unit 8·nt + g
+  const bf16* gu = wg + (size_t)(nt * 8 + g) * ldh;
+  const bf16* gr = wg + (size_t)(kUnits + nt * 8 + g) * ldh;
+  const bf16* gc = wg + (size_t)(2 * kUnits + nt * 8 + g) * ldh;
+  const bf16* xu = wx + (size_t)(nt * 8 + g) * ldx;
+  const bf16* xr = wx + (size_t)(kUnits + nt * 8 + g) * ldx;
+  const bf16* xc = wx + (size_t)(2 * kUnits + nt * 8 + g) * ldx;
+  for (int i = tid; i < lda; i += kThreads) rb.v[i] = i < a.A ? to_f<bf16>(a.v[i]) : 0.f;
+  if (tid == 0) {
+    mbar_init(&rb.bar[0], 1);
+    mbar_init(&rb.bar[1], 1);
+    fence_mbar_init();
+  }
+  const int tile0 = blockIdx.y * tpg;
+  const int n_mine = min(a.n_tiles, tile0 + tpg) - tile0;
+  unsigned* bar = a.bar + blockIdx.y;
+  const int ul = nt * 8 + 2 * q;  // the lane's first unit in the group
+  auto pair = [&](int e) { return (mt * 16 + g + 8 * (e >> 1)) * kUnits + ul + (e & 1); };
+  auto row_of = [&](int r0, int e) { return r0 + mt * 16 + g + 8 * (e >> 1); };
+  const Every every{};
+
+  for (int i = tid; i < tpg * kFFields * kPairs; i += kThreads) state[i] = 0.f;
+  __syncthreads();  // the state is zero before any owner writes its pairs' fields
+  if (owner)
+    for (int tl = 0; tl < n_mine; ++tl)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int b = row_of((tile0 + tl) * kRows, e), j = j0 + ul + (e & 1);
+        if (b < B && j < H)
+          state[(size_t)tl * kFFields * kPairs + kFH * kPairs + pair(e)] =
+              to_f<bf16>(a.h0[(size_t)b * H + j]);
+      }
+  long long* clk = kTimed ? a.clk + ((size_t)blockIdx.y * gridDim.x + x) * (4 * a.T + 3) : nullptr;
+  if (kTimed && tid == 0) {
+    clk[0] = global_ns();
+    clk[1] = clock64();
+  }
+  auto barrier = [&](unsigned k) {
+    group_barrier(bar, k);
+    if (kTimed && tid == 0) clk[1 + k] = clock64();
+  };
+  unsigned ph[2] = {0u, 0u};
+
+  for (int s = 0; s < a.T; ++s) {
+    const size_t tb = (size_t)s * B;
+    const bf16* hx = a.hx + (size_t)(s & 1) * B * Hp;           // h(t-1)
+    bf16* hx_next = a.hx + (size_t)((s + 1) & 1) * B * Hp;
+
+    // (1) dp for the CTA's slice of A (warps 4-7), f32 and not rounded;
+    // io(h·w_u) and io(h·w_r) of the owners' pairs
+    for (int tl = 0; tl < n_mine; ++tl) {
+      float* st = state + (size_t)tl * kFFields * kPairs;
+      const int r0 = (tile0 + tl) * kRows;
+      float au[4] = {0.f, 0.f, 0.f, 0.f}, ar[4] = {0.f, 0.f, 0.f, 0.f}, ad[kDpTiles][4];
+#pragma unroll
+      for (int i = 0; i < kDpTiles; ++i) ad[i][0] = ad[i][1] = ad[i][2] = ad[i][3] = 0.f;
+      walk(ring, hx, nullptr, Hp, r0, B, Hp, mt,
+           [&](int k0, const bf16* s0, const bf16*, int kn, int ldg) {
+             uint32_t fa[kPieces][4];
+             load_frags(fa, s0, ldg, kn);
+             if (owner) {
+               k16_sum(au, fa, gu, k0, kn, every);
+               k16_sum(ar, fa, gr, k0, kn, every);
+             } else {
+#pragma unroll
+               for (int i = 0; i < kDpTiles; ++i) {
+                 const int n8 = 8 * (nt + 2 * i);
+                 if (n8 >= as) break;
+                 k16_sum(ad[i], fa, wa + (size_t)(n8 + g) * ldh, k0, kn, every);
+               }
+             }
+           });
+      if (owner) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[kFHu * kPairs + pair(e)] = round_io<bf16>(au[e]);
+          st[kFHr * kPairs + pair(e)] = round_io<bf16>(ar[e]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kDpTiles; ++i) {
+          const int n8 = 8 * (nt + 2 * i);
+          if (n8 >= as) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int b = r0 + mt * 16 + frag_row(e);
+            if (b < B) a.dpx[(size_t)b * Ad + a0 + n8 + frag_col(0, e)] = ad[i][e];
+          }
+        }
+      }
+    }
+    barrier(4 * s + 1);
+
+    // (2) the attention of the group's rows this CTA takes (row i of the
+    // group to its CTA i mod gridDim.x): alpha, and ctx into its output and
+    // the exchange
+    for (int li = x; li < n_mine * kRows; li += gridDim.x) {
+      const int b = tile0 * kRows + li;
+      if (b >= B) break;
+      __syncthreads();  // the last row's routine is done with dp
+      for (int i = tid; i < lda; i += kThreads)
+        rb.dp[i] = i < a.A ? __ldcg(a.dpx + (size_t)b * Ad + i) : 0.f;
+      attn_row::attend<kThreads>(a.ep + (size_t)b * a.S * a.A, a.enc + (size_t)b * a.S * a.C,
+                                 a.mask + (size_t)b * a.S, a.S, a.A, a.C, a.bulk != 0, rb, ph,
+                                 a.alpha + (tb + b) * a.S, a.ctx + (tb + b) * a.C,
+                                 a.cx + (size_t)b * Cp);
+    }
+    barrier(4 * s + 2);
+
+    // (3) xp = io(xpx + io(ctx·wx_c)) for the units' three gates: u and r
+    // (owners), io(r·h) published; the candidate part (warps 4-7) kept
+    for (int tl = 0; tl < n_mine; ++tl) {
+      float* st = state + (size_t)tl * kFFields * kPairs;
+      const int r0 = (tile0 + tl) * kRows;
+      bf16 x0[4], x1[4];  // xpx of the lane's pairs, loaded before the walk
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x0[e] = x1[e] = from_f<bf16>(0.f);
+        const int b = row_of(r0, e), j = j0 + ul + (e & 1);
+        if (b >= B || j >= H) continue;
+        const bf16* xr_ = a.xpx + (tb + b) * 3 * H + j;
+        if (owner) {
+          x0[e] = xr_[0];
+          x1[e] = xr_[H];
+        } else {
+          x0[e] = xr_[2 * H];
+        }
+      }
+      float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+      walk(ring, a.cx, nullptr, Cp, r0, B, Cp, mt,
+           [&](int k0, const bf16* s0, const bf16*, int kn, int ldg) {
+             uint32_t fa[kPieces][4];
+             load_frags(fa, s0, ldg, kn);
+             if (owner) {
+               k16_sum(c0, fa, xu, k0, kn, every);
+               k16_sum(c1, fa, xr, k0, kn, every);
+             } else {
+               k16_sum(c0, fa, xc, k0, kn, every);
+             }
+           });
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int b = row_of(r0, e), j = j0 + ul + (e & 1), p = pair(e);
+        if (b >= B || j >= H) continue;
+        if (owner) {
+          const float xu_ = round_io<bf16>(to_f<bf16>(x0[e]) + round_io<bf16>(c0[e]));
+          const float xr_ = round_io<bf16>(to_f<bf16>(x1[e]) + round_io<bf16>(c1[e]));
+          const float u = sigmoid_io<bf16>(round_io<bf16>(xu_ + st[kFHu * kPairs + p]));
+          const float r = sigmoid_io<bf16>(round_io<bf16>(xr_ + st[kFHr * kPairs + p]));
+          st[kFU * kPairs + p] = u;
+          a.rx[(size_t)b * Hp + j] = from_f<bf16>(r * st[kFH * kPairs + p]);
+        } else {
+          st[kFXc * kPairs + p] = round_io<bf16>(to_f<bf16>(x0[e]) + round_io<bf16>(c0[e]));
+        }
+      }
+    }
+    barrier(4 * s + 3);
+
+    // (4) c = tanh(xp_c + io(io(r·h)·w_c)), h' and the masked carry (owners)
+    for (int tl = 0; tl < n_mine; ++tl) {
+      float* st = state + (size_t)tl * kFFields * kPairs;
+      const int r0 = (tile0 + tl) * kRows;
+      float m[2] = {0.f, 0.f};
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int b = row_of(r0, 2 * rr);
+        if (owner && b < B) m[rr] = a.tmask[tb + b];
+      }
+      float cc[4] = {0.f, 0.f, 0.f, 0.f};
+      walk(ring, a.rx, nullptr, Hp, r0, B, Hp, mt,
+           [&](int k0, const bf16* s0, const bf16*, int kn, int ldg) {
+             if (!owner) return;
+             uint32_t fa[kPieces][4];
+             load_frags(fa, s0, ldg, kn);
+             k16_sum(cc, fa, gc, k0, kn, every);
+           });
+      if (!owner) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int b = row_of(r0, e), j = j0 + ul + (e & 1), p = pair(e);
+        if (b >= B || j >= H) continue;
+        const float c = tanh_io<bf16>(round_io<bf16>(st[kFXc * kPairs + p] + round_io<bf16>(cc[e])));
+        const float h = st[kFH * kPairs + p], u = st[kFU * kPairs + p];
+        const float mm = round_io<bf16>(m[e >> 1]);
+        const float hn = round_io<bf16>(round_io<bf16>(round_io<bf16>(1.f - u) * h) +
+                                        round_io<bf16>(u * c));
+        const float ho = round_io<bf16>(round_io<bf16>(mm * hn) +
+                                        round_io<bf16>(round_io<bf16>(1.f - mm) * h));
+        const bf16 hv = from_f<bf16>(ho);
+        a.h_seq[(tb + b) * H + j] = hv;
+        hx_next[(size_t)b * Hp + j] = hv;
+        st[kFH * kPairs + p] = ho;
+      }
+    }
+    barrier(4 * s + 4);
+  }
+  if (kTimed && tid == 0) clk[4 * a.T + 2] = global_ns();
+}
+
 // How the card takes a launch: CTAs an SM, batch groups, sub-tiles a
-// group, the columns of C a CTA owns, and whether the weights' slices are
-// in shared memory.
+// group, the columns of C (backward) or of A (forward) a CTA owns, whether
+// the weights' slices are in shared memory, and the forward's stage.
 struct Plan {
-  int per_sm, groups, tiles_per_group, cs, w_smem;
+  int per_sm, groups, tiles_per_group, cs, w_smem, stage;
   size_t smem;
 };
 
-template <bool kWSmem>
-cudaError_t occupancy(int* per_sm, size_t smem, int smem_max) {
-  auto kernel = decoder_seq_bwd_tc_kernel<kWSmem>;
+cudaError_t occupancy(const void* kernel, int* per_sm, size_t smem, int smem_max) {
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kThreads, smem);
 }
 
-// The weights' slices in shared memory where they fit beside the ring, one
-// sub-tile's state and the attention's scratch, else read through L1; then
-// the most CTAs an SM for which the card holds every unit group times as
-// many batch groups as it can, none empty, with their sub-tiles' state.
-// Refuses (cudaErrorInvalidValue) a slice of C past kMaxSlice columns, and
-// (cudaErrorCooperativeLaunchTooLarge) a shape the card cannot hold.
+// The search both tensor-core kernels share. The weights' slices in shared
+// memory where they fit beside one sub-tile's state and the rest
+// (smem_of(tiles, w_smem)), else read through L1; then the most CTAs an SM
+// for which the card holds every unit group times as many batch groups as
+// it can, none empty, with their sub-tiles' state. kernel_of(w_smem) is the
+// kernel whose occupancy counts. cudaErrorCooperativeLaunchTooLarge for a
+// shape the card cannot hold.
+template <class SmemOf, class KernelOf>
+cudaError_t search(int n_ug, int n_tiles, int n_sms, int smem_max, SmemOf&& smem_of,
+                   KernelOf&& kernel_of, Plan* p) {
+  for (int w_smem = 1; w_smem >= 0; --w_smem) {
+    if (smem_of(1, w_smem) > (size_t)smem_max) continue;
+    int most = 0;
+    cudaError_t err = occupancy(kernel_of(w_smem), &most, smem_of(1, w_smem), smem_max);
+    if (err != cudaSuccess) return err;
+    for (int per_sm = most; per_sm >= 1; --per_sm) {
+      const int cap = per_sm * n_sms;
+      if (n_ug > cap) break;
+      int groups = min(n_tiles, cap / n_ug);
+      const int tpg = cdiv(n_tiles, groups);
+      groups = cdiv(n_tiles, tpg);
+      const size_t smem = smem_of(tpg, w_smem);
+      if (smem > (size_t)smem_max) continue;
+      int got = 0;
+      err = occupancy(kernel_of(w_smem), &got, smem, smem_max);
+      if (err != cudaSuccess) return err;
+      if (got * n_sms < n_ug * groups) continue;
+      *p = Plan{got, groups, tpg, 0, w_smem, 0, smem};
+      return cudaSuccess;
+    }
+  }
+  return cudaErrorCooperativeLaunchTooLarge;
+}
+
+// The backward's plan. Refuses (cudaErrorInvalidValue) a slice of C past
+// kMaxSlice columns, and (cudaErrorCooperativeLaunchTooLarge) a shape the
+// card cannot hold.
 cudaError_t plan(int B, int S, int A, int C, int H, Plan* p) {
   int n_sms = 0, smem_max = 0;
   cudaError_t err = coop_device(&n_sms, &smem_max);
@@ -1201,33 +1575,72 @@ cudaError_t plan(int B, int S, int A, int C, int H, Plan* p) {
   const int Hp = cdiv(H, kUnits) * kUnits, n_ug = Hp / kUnits, Ap = cdiv(A, 16) * 16;
   const int cs = cdiv(cdiv(C, n_ug), 8) * 8;
   if (cs > kMaxSlice) return cudaErrorInvalidValue;
-  const int n_tiles = cdiv(B, kRows);
-  for (int w_smem = 1; w_smem >= 0; --w_smem) {
-    auto smem_of = [&](int tpg) { return tc_smem(tpg, S, A, C, Hp, Ap, cs, w_smem); };
-    if (smem_of(1) > (size_t)smem_max) continue;
-    auto occ = [&](int* n, size_t smem) {
-      return w_smem ? occupancy<true>(n, smem, smem_max) : occupancy<false>(n, smem, smem_max);
-    };
-    int most = 0;
-    err = occ(&most, smem_of(1));
-    if (err != cudaSuccess) return err;
-    for (int per_sm = most; per_sm >= 1; --per_sm) {
-      const int cap = per_sm * n_sms;
-      if (n_ug > cap) break;
-      int groups = min(n_tiles, cap / n_ug);
-      const int tpg = cdiv(n_tiles, groups);
-      groups = cdiv(n_tiles, tpg);
-      const size_t smem = smem_of(tpg);
-      if (smem > (size_t)smem_max) continue;
-      int got = 0;
-      err = occ(&got, smem);
-      if (err != cudaSuccess) return err;
-      if (got * n_sms < n_ug * groups) continue;
-      *p = Plan{got, groups, tpg, cs, w_smem, smem};
-      return cudaSuccess;
-    }
+  err = search(
+      n_ug, cdiv(B, kRows), n_sms, smem_max,
+      [&](int tpg, int w_smem) { return tc_smem(tpg, S, A, C, Hp, Ap, cs, w_smem); },
+      [](int w_smem) {
+        return w_smem ? reinterpret_cast<const void*>(decoder_seq_bwd_tc_kernel<true>)
+                      : reinterpret_cast<const void*>(decoder_seq_bwd_tc_kernel<false>);
+      },
+      p);
+  p->cs = cs;
+  return err;
+}
+
+// The forward's widths: Hp and Cp (H and C rounded up to 16), the unit
+// groups, and each CTA's slice of A for dp (as: A over the unit groups,
+// rounded up to a whole n-tile of 8).
+struct FWidths {
+  int Hp, Cp, n_ug, as;
+};
+
+__host__ __device__ inline FWidths fwd_widths(int A, int C, int H) {
+  FWidths w;
+  w.Hp = cdiv(H, kUnits) * kUnits;
+  w.Cp = cdiv(C, 16) * 16;
+  w.n_ug = w.Hp / kUnits;
+  w.as = cdiv(cdiv(A, w.n_ug), 8) * 8;
+  return w;
+}
+
+const void* fwd_kernel(bool w_smem, bool timed) {
+  if (timed)
+    return w_smem ? reinterpret_cast<const void*>(decoder_seq_fwd_tc_kernel<true, true>)
+                  : reinterpret_cast<const void*>(decoder_seq_fwd_tc_kernel<false, true>);
+  return w_smem ? reinterpret_cast<const void*>(decoder_seq_fwd_tc_kernel<true, false>)
+                : reinterpret_cast<const void*>(decoder_seq_fwd_tc_kernel<false, false>);
+}
+
+// The forward's plan: B10's search on the forward's shared memory, the
+// products' ring as the attention's stage; where a CTA has an SM to itself
+// the stage takes whatever shared memory is left. Refuses
+// (cudaErrorInvalidValue) a slice of A past kMaxAs columns, a C past the
+// row routine's, or rows the ring cannot stage; the rule in
+// attention_kernels.seq_fwd_route sends those shapes to the first design
+// before any launch.
+cudaError_t fwd_plan(int B, int S, int A, int C, int H, Plan* p) {
+  int n_sms = 0, smem_max = 0;
+  cudaError_t err = coop_device(&n_sms, &smem_max);
+  if (err != cudaSuccess) return err;
+  if (B < 1 || S < 1 || A < 1 || C < 1 || H < 1) return cudaErrorInvalidValue;
+  const FWidths w = fwd_widths(A, C, H);
+  if (w.as > kMaxAs || C > 8 * attn_row::kMaxG * kThreads ||
+      !attn_row::stage_fits(A, C, (int)kRingBytes))
+    return cudaErrorInvalidValue;
+  err = search(
+      w.n_ug, cdiv(B, kRows), n_sms, smem_max,
+      [&](int tpg, int w_smem) {
+        return fwd_smem(tpg, S, A, w.Hp, w.Cp, w.as, w_smem, (int)kRingBytes);
+      },
+      [](int w_smem) { return fwd_kernel(w_smem, false); }, p);
+  if (err != cudaSuccess) return err;
+  p->cs = w.as;
+  p->stage = (int)kRingBytes;
+  if (p->per_sm == 1) {
+    p->stage += (int)((size_t)smem_max - p->smem) / 16 * 16;
+    p->smem = fwd_smem(p->tiles_per_group, S, A, w.Hp, w.Cp, w.as, p->w_smem, p->stage);
   }
-  return cudaErrorCooperativeLaunchTooLarge;
+  return cudaSuccess;
 }
 
 cudaError_t launch(void* const* p, int T, int B, int S, int A, int C, int H, cudaStream_t st) {
@@ -1295,6 +1708,63 @@ cudaError_t dep_launch(void* const* p, int T, int B, int S, int A, cudaStream_t 
   return cudaGetLastError();
 }
 
+// p: ep, enc, mask, xpx, tmask, h0, v, wg, wx, wa (the weights as
+// attention_kernels.seq_fwd_weights lays them out), h_seq, alpha, ctx, the
+// exchanges hx, rx, cx, dpx, the counters, clk (the timed instance's).
+cudaError_t fwd_launch(void* const* p, int T, int B, int S, int A, int C, int H, bool timed,
+                       cudaStream_t st) {
+  Plan pl{};
+  cudaError_t err = fwd_plan(B, S, A, C, H, &pl);
+  if (err != cudaSuccess) return err;
+  const FWidths w = fwd_widths(A, C, H);
+  FArgs a{};
+  a.ep = static_cast<const bf16*>(p[0]);
+  a.enc = static_cast<const bf16*>(p[1]);
+  a.mask = static_cast<const float*>(p[2]);
+  a.xpx = static_cast<const bf16*>(p[3]);
+  a.tmask = static_cast<const float*>(p[4]);
+  a.h0 = static_cast<const bf16*>(p[5]);
+  a.v = static_cast<const bf16*>(p[6]);
+  a.wg = static_cast<const bf16*>(p[7]);
+  a.wx = static_cast<const bf16*>(p[8]);
+  a.wa = static_cast<const bf16*>(p[9]);
+  a.h_seq = static_cast<bf16*>(p[10]);
+  a.alpha = static_cast<float*>(p[11]);
+  a.ctx = static_cast<bf16*>(p[12]);
+  a.hx = static_cast<bf16*>(p[13]);
+  a.rx = static_cast<bf16*>(p[14]);
+  a.cx = static_cast<bf16*>(p[15]);
+  a.dpx = static_cast<float*>(p[16]);
+  a.bar = static_cast<unsigned*>(p[17]);
+  a.clk = static_cast<long long*>(p[18]);
+  a.T = T;
+  a.B = B;
+  a.S = S;
+  a.A = A;
+  a.C = C;
+  a.H = H;
+  a.Hp = w.Hp;
+  a.Cp = w.Cp;
+  a.as = w.as;
+  a.n_tiles = cdiv(B, kRows);
+  a.tiles_per_group = pl.tiles_per_group;
+  a.stage_bytes = pl.stage;
+  // the attention's rows by the bulk-copy engine where they are a multiple
+  // of 16 bytes (attention_kernels.seq_fwd_bulk), else by plain loads
+  a.bulk = (A % 8 == 0) && (C % 8 == 0);
+  if (a.bulk && ((reinterpret_cast<uintptr_t>(a.ep) | reinterpret_cast<uintptr_t>(a.enc)) & 15))
+    return cudaErrorMisalignedAddress;
+  if (timed && !a.clk) return cudaErrorInvalidValue;
+  const void* kernel = fwd_kernel(pl.w_smem, timed);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(w.n_ug, pl.groups), dim3(kThreads), args, pl.smem,
+                                    st);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace tcb
 
 }  // namespace
@@ -1328,6 +1798,40 @@ extern "C" int decoder_seq_ctas(int H) {
   if (coop_device(&n_sms, &smem_max) != cudaSuccess) return 0;
   const int hc = units_per_cta(H, n_sms);
   return hc ? (H + hc - 1) / hc : 0;
+}
+
+// The bf16 forward on tensor cores. p: ep [B,S,A], enc [B,S,C], mask [B,S]
+// f32, xpx [T,B,3H], tmask [T,B] f32, h0 [B,H], v [A]; the weights padded as
+// attention_kernels.seq_fwd_weights lays them out: wg [n_ug·48, Hp] (row
+// 48x + 16q + i: gate q's column of unit 16x + i of [w_u | w_r | w_c]), wx
+// [n_ug·48, Cp] (the same of wx_c), wa [n_ug·as, Hp] (row a: wa_dec's column
+// a); out h_seq [T,B,H], alpha [T,B,S] f32, ctx [T,B,C]; zeroed workspace:
+// the exchanges hx [2,B,Hp] bf16 with h0 in slot 0, rx [B,Hp] and cx
+// [B,Cp] bf16, dpx [B, n_ug·as] f32, the batch groups' counters [groups]
+// u32; clk [grid][4T + 3] int64 where timed (else unused). Hp is H and Cp
+// is C rounded up to 16, n_ug = Hp / 16, as from the plan.
+extern "C" int decoder_seq_fwd_tc_launch(void* const* p, int n_steps, int B, int S, int A, int C,
+                                         int H, int timed, void* stream) {
+  if (n_steps < 1) return cudaErrorInvalidValue;
+  return tcb::fwd_launch(p, n_steps, B, S, A, C, H, timed != 0, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 forward's plan at these widths on the current device: out[0..6]
+// = CTAs an SM, batch groups, 32-row sub-tiles a group, columns of A a
+// CTA, the weights' slices in shared memory (0/1), the attention's stage
+// bytes, the shared memory bytes a CTA.
+extern "C" int decoder_seq_fwd_tc_plan(int B, int S, int A, int C, int H, int* out) {
+  tcb::Plan pl{};
+  const cudaError_t err = tcb::fwd_plan(B, S, A, C, H, &pl);
+  if (err != cudaSuccess) return err;
+  out[0] = pl.per_sm;
+  out[1] = pl.groups;
+  out[2] = pl.tiles_per_group;
+  out[3] = pl.cs;
+  out[4] = pl.w_smem;
+  out[5] = pl.stage;
+  out[6] = (int)pl.smem;
+  return cudaSuccess;
 }
 
 // The bf16 backward on tensor cores. p: ep, enc, mask, g_seq, tmask, hp_seq,

@@ -7,7 +7,9 @@ per-step (scan) formulation:
 
   attn_fwd       replaces `_attn_fwd_kernel` / `_attn_fwd` (:170,257): one
                  decoder step's scores Σ_A tanh(ep+dp)·v, the masked softmax
-                 over S and ctx = α·enc, never materialising [B,S,A].
+                 over S and ctx = α·enc, never materialising [B,S,A]. In
+                 bf16 on staged rows of the valid positions (csrc/attn_row.cuh,
+                 by the bulk-copy engine or plain loads: `attn_fwd_path`).
   attn_bwd_step  replaces `_attn_bwd_kernel` / `_attn_bwd_step` (:190,285):
                  dα = dctx·enc, the softmax backward dsc, and
                  ddp = Σ_S dsc·(1-t²)·v from a recomputed tanh.
@@ -30,12 +32,15 @@ instead, one launch each a step:
 
 Those two are bound by their T dependent steps (four barriers a step),
 not by bytes or operations; csrc/decoder_seq.cu says what its design does
-about it. In bf16 the backward runs on the tensor cores on the GRU
-kernels' partition (16 hidden units by 32-row batch sub-tiles a CTA,
-plus a slice of C and the attention of some of its group's rows; the
-weights padded by `seq_bwd_weights`; the card's plan by
-`decoder_seq_bwd_plan`), writing dsc [T,B,S]; `decoder_seq_dep` then sums
-d(enc_proj) and dv off the recurrence, in the plain version's order. The
+about it. In bf16 both run on the tensor cores on the GRU kernels'
+partition (16 hidden units by 32-row batch sub-tiles a CTA, plus a slice
+of C (backward) or of A (forward) and the attention of some of its group's
+rows). The forward's weights are padded by `seq_fwd_weights`, its plan is
+`decoder_seq_fwd_plan`, and `seq_fwd_route` sends a shape the plan cannot
+place to the first design, before any launch. The backward's weights are
+padded by `seq_bwd_weights`, its plan is `decoder_seq_bwd_plan`; it writes
+dsc [T,B,S], and `decoder_seq_dep` then sums d(enc_proj) and dv off the
+recurrence, in the plain version's order. The
 per-step kernels read [B,S,A] and [B,S,C] once
 per call and compute little on each byte, so bytes bound them. The S axis
 is not padded: the TPU pads it to a multiple of 16 for its tiles
@@ -58,17 +63,36 @@ from .activation_ops import sigmoid
 from .lstm_kernels import pad_w_bwd
 from .rnn_ops import gru_cell
 
-# launches of the CUDA kernels in this process; chip_smoke.py reads them
+# the routes of attn_fwd and of the whole-sequence forward (see
+# attn_fwd_path and seq_fwd_route)
+ATTN_BULK, ATTN_LOADS, FIRST = "bulk", "loads", "first"
+SEQ_TC = "tc"
+
+# launches of the CUDA kernels in this process, in all and by route;
+# chip_smoke.py reads them
 attn_fwd_launches = 0
+attn_fwd_paths = {ATTN_BULK: 0, ATTN_LOADS: 0, FIRST: 0}
 attn_bwd_step_launches = 0
 attn_phase2_launches = 0
 decoder_seq_fwd_launches = 0
+decoder_seq_fwd_routes = {SEQ_TC: 0, FIRST: 0}
 decoder_seq_bwd_launches = 0
 decoder_seq_dep_launches = 0
 
-# the bf16 backward's partition (tcb:: in csrc/decoder_seq.cu): hidden units
-# and batch rows of a sub-tile a CTA, and the most columns of C a CTA takes
-SEQ_UNITS, SEQ_ROWS, SEQ_MAX_SLICE = 16, 32, 128
+# the bf16 kernels' partition (tcb:: in csrc/decoder_seq.cu): hidden units
+# and batch rows of a sub-tile a CTA, the most columns of C a backward CTA
+# takes and of A a forward CTA takes
+SEQ_UNITS, SEQ_ROWS, SEQ_MAX_SLICE, SEQ_MAX_AS = 16, 32, 128, 64
+# the forward's products' ring (3 chunks of 2 slots of 32 rows of 72 bf16),
+# its attention's stage at least; a sub-tile's state (5 floats a pair)
+SEQ_RING_BYTES, SEQ_FSTATE_BYTES = 3 * 2 * 32 * 72 * 2, 5 * 32 * 16 * 4
+# csrc/attn_row.cuh: the most ctx columns of its 256 threads (8 x 4
+# groups a thread), its least stage; B5's stage (two CTAs an SM)
+ROW_MAX_C, ROW_MIN_STAGE, ATTN_ROW_STAGE = 8 * 4 * 256, 8192, 96 * 1024
+# the card the rules are stated for: an H100's (or H200's) SMs and the
+# shared memory a block may opt in to. chip_smoke.py holds each rule to the
+# card's own plan.
+CARD_SMS, CARD_SMEM = 132, 232448
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 _NEG = -1e9
@@ -221,6 +245,125 @@ def decoder_seq_bwd_plain(ep, enc, mask, g_seq, tmask, hp_seq, u_seq, r_seq, c_s
             dv)
 
 
+# ------------------------------------------------------------- the routes --
+def _pad8(n):
+    return -(-n // 8) * 8
+
+
+def row_fixed_bytes(S, A):
+    """csrc/attn_row.cuh's fixed_bytes: the mbarriers and the list's length
+    (32 bytes), dp and v [pad8(A)] and the scores and the list [S], 4 bytes
+    each, rounded up to 16."""
+    return -(-(32 + 8 * _pad8(A) + 8 * S) // 16) * 16
+
+
+def row_stage_fits(A, C, stage_bytes):
+    """attn_row::stage_fits: either half of the stage holds one position's
+    row of ep and of enc (padded to 8 elements), and the stage the ctx
+    classes' sums."""
+    half = stage_bytes // 32 * 16
+    return stage_bytes >= ROW_MIN_STAGE and half >= 2 * _pad8(A) and half >= 2 * _pad8(C)
+
+
+def attn_row_chunks(n, scores, A, C, stage_bytes):
+    """The row routine's stage plan (attn_row::chunks) for n listed
+    positions (`scores` False: a fully masked row, whose ep is not read):
+    whole (the listed rows of ep and enc staged together) or streamed
+    through the stage's two halves; positions a chunk of ep (pa) and of enc
+    (pc), and the chunks of each (na, nc), ep's first."""
+    lda, ldc = _pad8(A), _pad8(C)
+    ea = n * lda * 2 if scores else 0
+    if ea + n * ldc * 2 <= stage_bytes:
+        whole, pa, pc = True, n, n
+    else:
+        half = stage_bytes // 32 * 16
+        whole, pa, pc = False, half // (lda * 2), half // (ldc * 2)
+    return dict(whole=whole, pa=pa, pc=pc, na=-(-n // pa) if scores else 0, nc=-(-n // pc))
+
+
+def row_path(A, C):
+    """How the row routine stages a row: rows of a multiple of 16 bytes in
+    bf16 (A and C multiples of 8) by the bulk-copy engine, other rows by
+    plain loads, zero-padded to a multiple of 8 elements."""
+    return ATTN_BULK if A % 8 == 0 and C % 8 == 0 else ATTN_LOADS
+
+
+def attn_fwd_path(S, A, C, dtype):
+    """attn_fwd's kernel for a shape, decided before any launch: in bf16
+    csrc/bahdanau_attn.cu's attn_fwd_row_kernel on `row_path`'s staging;
+    in f32, and in bf16 past the row routine's C (8192), its 96 KB stage (A
+    or C past 24576) or a block's shared memory (S and A together past
+    about 16700), the first design `attn_fwd_kernel`."""
+    if (dtype != torch.bfloat16 or C > ROW_MAX_C or not row_stage_fits(A, C, ATTN_ROW_STAGE)
+            or row_fixed_bytes(S, A) + ATTN_ROW_STAGE > CARD_SMEM):
+        return FIRST
+    return row_path(A, C)
+
+
+def seq_layout(B, A, C, H):
+    """The bf16 whole-sequence kernels' widths: H, A and C padded to whole
+    16s (Hp, Ap, Cp), the unit groups n_ug = Hp / 16, each CTA's slice of C
+    in the backward (cs: C over the unit groups, rounded up to a whole
+    n-tile of 8) and of A in the forward (as, the same of A), and the 32-row
+    sub-tiles of B."""
+    Hp, Ap, Cp = (-(-n // 16) * 16 for n in (H, A, C))
+    n_ug = Hp // SEQ_UNITS
+    slice_of = lambda n: -(-(-(-n // n_ug)) // 8) * 8  # noqa: E731
+    return {"Hp": Hp, "Ap": Ap, "Cp": Cp, "n_ug": n_ug, "cs": slice_of(C), "as": slice_of(A),
+            "n_tiles": -(-B // SEQ_ROWS)}
+
+
+def seq_fwd_smem(tiles, S, A, C, H, w_smem, stage):
+    """tcb::fwd_smem: the row routine's fixed part, the sub-tiles' state,
+    the weights' slices where they are in shared memory, the stage."""
+    lay = seq_layout(1, A, C, H)
+    w = ((48 + lay["as"]) * (lay["Hp"] + 8) + 48 * (lay["Cp"] + 8)) * 2 if w_smem else 0
+    return row_fixed_bytes(S, A) + tiles * SEQ_FSTATE_BYTES + w + stage
+
+
+def seq_fwd_route(B, S, A, C, H, dtype):
+    """decoder_seq_fwd's kernel for a shape, decided before any launch:
+    SEQ_TC (the bf16 forward on tensor cores) where its plan places the
+    shape on the card the rule is stated for (CARD_SMS, CARD_SMEM): a slice
+    of A of at most 64 columns (A at most 4·H, about), C within the row
+    routine's 8192, rows of A and C the ring stages (6912 at most), at most
+    one unit group an SM (H up to 2112), and one sub-tile's state beside the
+    ring within a block's shared memory with the weights read through L1.
+    FIRST (the first design) for f32 and every other shape."""
+    lay = seq_layout(B, A, C, H)
+    if (dtype != torch.bfloat16 or lay["as"] > SEQ_MAX_AS or C > ROW_MAX_C
+            or not row_stage_fits(A, C, SEQ_RING_BYTES) or lay["n_ug"] > CARD_SMS
+            or seq_fwd_smem(1, S, A, C, H, False, SEQ_RING_BYTES) > CARD_SMEM):
+        return FIRST
+    return SEQ_TC
+
+
+def seq_fwd_weights(wa_dec, wx_c, w_ur, w_c):
+    """The bf16 forward's weights, each row the K-contiguous B column of one
+    output, zero where a unit, a column or k is padding: wg [n_ug·48, Hp]
+    (row 48x + 16q + i: gate q's column of unit 16x + i, q over u and r of
+    w_ur and c of w_c), wx [n_ug·48, Cp] (the same of wx_c's gates), wa
+    [n_ug·as, Hp] (row a: wa_dec's column a)."""
+    H, A, C = w_c.shape[0], wa_dec.shape[1], wx_c.shape[0]
+    lay = seq_layout(1, A, C, H)
+    Hp, Cp, n_ug = lay["Hp"], lay["Cp"], lay["n_ug"]
+    new = lambda *shape: torch.zeros(*shape, dtype=w_c.dtype, device=w_c.device)  # noqa: E731
+    wg, wx, wa = new(3, Hp, Hp), new(3, Hp, Cp), new(n_ug * lay["as"], Hp)
+    wg[:2, :H, :H] = w_ur.reshape(H, 2, H).permute(1, 2, 0)
+    wg[2, :H, :H] = w_c.T
+    wx[:, :H, :C] = wx_c.reshape(C, 3, H).permute(1, 2, 0)
+    wa[:A, :H] = wa_dec.T
+    by_unit = lambda w: w.reshape(3, n_ug, SEQ_UNITS, -1).transpose(0, 1).reshape(  # noqa: E731
+        n_ug * 3 * SEQ_UNITS, -1).contiguous()
+    return by_unit(wg), by_unit(wx), wa
+
+
+def _aligned(t):
+    """t, or a copy where its data is not 16-byte aligned (the bulk-copy
+    engine's rows need it)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 # --------------------------------------------------------------- wrappers --
 def _lib():
     lib = cuda_build.load("bahdanau_attn")
@@ -229,7 +372,9 @@ def _lib():
         lib.attn_fwd_launch.argtypes = [i] + [ptr] * 7 + [i] * 4 + [ptr]
         lib.attn_bwd_step_launch.argtypes = [i] + [ptr] * 9 + [i] * 4 + [ptr]
         lib.attn_phase2_launch.argtypes = [i] + [ptr] * 8 + [i] * 4 + [ptr]
-        for fn in (lib.attn_fwd_launch, lib.attn_bwd_step_launch, lib.attn_phase2_launch):
+        lib.attn_fwd_row_launch.argtypes = [ptr] * 7 + [i] * 5 + [ptr]
+        for fn in (lib.attn_fwd_launch, lib.attn_bwd_step_launch, lib.attn_phase2_launch,
+                   lib.attn_fwd_row_launch):
             fn.restype = i
         lib.attn_error_string.argtypes = [i]
         lib.attn_error_string.restype = ctypes.c_char_p
@@ -262,8 +407,8 @@ def _raise(lib, name, err, shapes):
 
 def attn_fwd(ep, enc, dp, v, mask):
     """One decoder step's attention; see attn_fwd_plain for the contract.
-    CUDA tensors launch the sm_90a kernel; CPU tensors run the plain
-    version."""
+    CUDA tensors launch the sm_90a kernel `attn_fwd_path` names; CPU
+    tensors run the plain version."""
     global attn_fwd_launches
     B, S, A = ep.shape
     C = enc.shape[-1] if enc.dim() == 3 else -1
@@ -271,19 +416,26 @@ def attn_fwd(ep, enc, dp, v, mask):
                             "v": (v, (A,), None), "mask": (mask, (B, S), "any")})
     if ep.device.type == "cpu":
         return attn_fwd_plain(ep, enc, dp, v, mask)
+    path = attn_fwd_path(S, A, C, ep.dtype)
     ep, enc, dp, v = (t.contiguous() for t in (ep, enc, dp, v))
+    if path == ATTN_BULK:
+        ep, enc = _aligned(ep), _aligned(enc)
     mask = mask.to(torch.float32).contiguous()
     with torch.cuda.device(ep.device):
         lib = _lib()
         ctx = torch.empty(B, C, dtype=ep.dtype, device=ep.device)
         alpha = torch.empty(B, S, dtype=torch.float32, device=ep.device)
-        err = lib.attn_fwd_launch(
-            int(ep.dtype == torch.bfloat16), ep.data_ptr(), enc.data_ptr(), dp.data_ptr(),
-            v.data_ptr(), mask.data_ptr(), ctx.data_ptr(), alpha.data_ptr(), B, S, A, C,
-            torch.cuda.current_stream().cuda_stream)
+        ptrs = (ep.data_ptr(), enc.data_ptr(), dp.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                ctx.data_ptr(), alpha.data_ptr())
+        stream = torch.cuda.current_stream().cuda_stream
+        if path == FIRST:
+            err = lib.attn_fwd_launch(int(ep.dtype == torch.bfloat16), *ptrs, B, S, A, C, stream)
+        else:
+            err = lib.attn_fwd_row_launch(*ptrs, B, S, A, C, int(path == ATTN_BULK), stream)
     if err != 0:
-        _raise(lib, "attn_fwd", err, f"B={B} S={S} A={A} C={C} {ep.dtype}")
+        _raise(lib, "attn_fwd", err, f"{path} path, B={B} S={S} A={A} C={C} {ep.dtype}")
     attn_fwd_launches += 1
+    attn_fwd_paths[path] += 1
     return ctx, alpha
 
 
@@ -356,8 +508,11 @@ def _seq_lib():
         lib.decoder_seq_bwd_tc_launch.argtypes = [ctypes.POINTER(ptr)] + [i] * 6 + [ptr]
         lib.decoder_seq_dep_launch.argtypes = [ctypes.POINTER(ptr)] + [i] * 4 + [ptr]
         lib.decoder_seq_bwd_tc_plan.argtypes = [i] * 5 + [ptr]
+        lib.decoder_seq_fwd_tc_launch.argtypes = [ctypes.POINTER(ptr)] + [i] * 7 + [ptr]
+        lib.decoder_seq_fwd_tc_plan.argtypes = [i] * 5 + [ptr]
         for fn in (lib.decoder_seq_bwd_tc_launch, lib.decoder_seq_dep_launch,
-                   lib.decoder_seq_bwd_tc_plan):
+                   lib.decoder_seq_bwd_tc_plan, lib.decoder_seq_fwd_tc_launch,
+                   lib.decoder_seq_fwd_tc_plan):
             fn.restype = i
         lib.decoder_seq_ctas.argtypes = [i]
         lib.decoder_seq_ctas.restype = i
@@ -378,30 +533,22 @@ def _seq_dims(name, ep, enc, xs):
     return B, S, A, C, T, H
 
 
-def _seq_launch(name, fn, ins, outs, dims, dt, lead=()):
+def _seq_launch(name, fn, ins, outs, dims, dt, lead=(), tail=()):
     """One launch of a whole-sequence kernel: `lead` (the first design's io
     dtype flag), every pointer in order, then T, B, S, A, C, H as far as
-    `dims` goes; raises with the kernel's error."""
+    `dims` goes, then `tail` (the bf16 forward's timed flag); raises with
+    the kernel's error."""
     lib = _seq_lib()
     ptrs = (ctypes.c_void_p * (len(ins) + len(outs)))(*(t.data_ptr() for t in (*ins, *outs)))
-    err = getattr(lib, fn)(*lead, ptrs, *dims, torch.cuda.current_stream().cuda_stream)
+    err = getattr(lib, fn)(*lead, ptrs, *dims, *tail, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         shape = " ".join(f"{k}={v}" for k, v in zip("TBSACH", dims))
         raise RuntimeError(
             f"{name} kernel launch failed ({shape} {dt}; the first design takes H up to 16 "
             "units a CTA and its weights' slices within one SM's shared memory, the bf16 "
             f"backward a slice of C up to {SEQ_MAX_SLICE} columns a CTA and a shape "
-            f"decoder_seq_bwd_plan places): {lib.decoder_seq_error_string(err).decode()}")
-
-
-def seq_bwd_layout(B, A, C, H):
-    """The bf16 backward's widths: H and A padded to whole 16s (Hp, Ap), the
-    unit groups n_ug = Hp / 16, each CTA's slice of C (cs = C / n_ug rounded
-    up to a whole n-tile of 8), and the 32-row sub-tiles of B."""
-    Hp, Ap = -(-H // SEQ_UNITS) * SEQ_UNITS, -(-A // 16) * 16
-    n_ug = Hp // SEQ_UNITS
-    return dict(Hp=Hp, Ap=Ap, n_ug=n_ug, cs=-(-(-(-C // n_ug)) // 8) * 8,
-                n_tiles=-(-B // SEQ_ROWS))
+            "decoder_seq_bwd_plan places, the bf16 forward a shape seq_fwd_route sends it): "
+            f"{lib.decoder_seq_error_string(err).decode()}")
 
 
 def seq_bwd_weights(w_c, w_ur, wx_c, wa_dec):
@@ -411,7 +558,7 @@ def seq_bwd_weights(w_c, w_ur, wx_c, wa_dec):
     [n_ug·cs, 3Hp] (row c: wx_c's row c, its gates at q·Hp); zero where a
     unit, k or column is padding."""
     H, A, C = w_c.shape[0], wa_dec.shape[1], wx_c.shape[0]
-    lay = seq_bwd_layout(1, A, C, H)
+    lay = seq_layout(1, A, C, H)
     Hp, Ap = lay["Hp"], lay["Ap"]
     wu = pad_w_bwd(torch.cat([w_ur, w_c], -1))
     wad = torch.zeros(Hp, Ap, dtype=wa_dec.dtype, device=wa_dec.device)
@@ -436,10 +583,88 @@ def decoder_seq_bwd_plan(B, S, A, C, H):
                 w_smem=bool(out[4]))
 
 
+def decoder_seq_fwd_plan(B, S, A, C, H):
+    """How the current card takes the bf16 forward at these widths: CTAs an
+    SM, batch groups, 32-row sub-tiles a group, columns of A a CTA, whether
+    the weights' slices are in shared memory, the attention's stage and the
+    shared memory a CTA (bytes); raises for a shape it cannot place."""
+    lib = _seq_lib()
+    out = (ctypes.c_int * 7)()
+    err = lib.decoder_seq_fwd_tc_plan(B, S, A, C, H, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"decoder_seq_fwd: no plan for B={B} S={S} A={A} C={C} H={H}: "
+                           f"{lib.decoder_seq_error_string(err).decode()}")
+    return {"per_sm": out[0], "groups": out[1], "tiles_per_group": out[2], "as": out[3],
+            "w_smem": bool(out[4]), "stage": out[5], "smem": out[6]}
+
+
+def _decoder_seq_fwd_tc(args, dims, timed=False):
+    """The bf16 forward on the card (csrc/decoder_seq.cu
+    decoder_seq_fwd_tc_kernel). Returns (h_seq, alpha, ctx) and, where
+    `timed`, the timed instance's clocks [CTAs, 4T + 3] (int64)."""
+    T, B, S, A, C, H = dims
+    ep, enc, mask, xpx, tmask, h0, wa_dec, v, wx_c, w_ur, w_c = args
+    lay = seq_layout(B, A, C, H)
+    Hp, Cp, n_dp = lay["Hp"], lay["Cp"], lay["n_ug"] * lay["as"]
+    ins = [t.contiguous() for t in (ep, enc, mask, xpx, tmask, h0, v)]
+    ins[:2] = [_aligned(t) for t in ins[:2]]
+    ins += list(seq_fwd_weights(wa_dec, wx_c, w_ur, w_c))
+    with torch.cuda.device(ep.device):
+        new = lambda *shape, dtype=torch.bfloat16: torch.empty(*shape, dtype=dtype,  # noqa
+                                                               device=ep.device)
+        outs = [new(T, B, H), new(T, B, S, dtype=torch.float32), new(T, B, C)]
+        # zeroed: the h exchange [2,B,Hp] (h0 in slot 0), the r·h [B,Hp] and
+        # ctx [B,Cp] exchanges (their padding stays zero), the dp exchange
+        # [B, n_ug·as] f32 and the batch groups' counters
+        nh, nr, nc = 2 * B * Hp * 2, B * Hp * 2, B * Cp * 2
+        ws = torch.zeros(nh + nr + nc + 4 * B * n_dp + 4 * lay["n_tiles"], dtype=torch.uint8,
+                         device=ep.device)
+        hx = ws[:nh].view(torch.bfloat16).view(2, B, Hp)
+        hx[0, :, :H] = ins[5]
+        rx = ws[nh: nh + nr].view(torch.bfloat16)
+        cx = ws[nh + nr: nh + nr + nc].view(torch.bfloat16)
+        dpx = ws[nh + nr + nc: nh + nr + nc + 4 * B * n_dp].view(torch.float32)
+        bar = ws[nh + nr + nc + 4 * B * n_dp:]
+        if timed:
+            plan = decoder_seq_fwd_plan(B, S, A, C, H)
+            clk = torch.zeros(lay["n_ug"] * plan["groups"], 4 * T + 3, dtype=torch.int64,
+                              device=ep.device)
+        else:
+            clk = bar  # not read
+        _seq_launch("decoder_seq_fwd", "decoder_seq_fwd_tc_launch", ins,
+                    outs + [hx, rx, cx, dpx, bar, clk], dims, ep.dtype, tail=(int(timed),))
+    return (tuple(outs), clk) if timed else tuple(outs)
+
+
+def decoder_seq_fwd_phase_us(ep, enc, mask, xpx, tmask, h0, wa_dec, v, wx_c, w_ur, w_c):
+    """The bf16 forward's four phases on the card, by its timed instance:
+    the same kernel, each CTA's thread 0 recording its SM's clock as it
+    leaves each barrier, and the device's nanosecond clock at the start and
+    the end to convert. Returns µs a time step of each phase (from the
+    barrier before it to its own, the wait included), averaged over the
+    CTAs: "dp, h·w_ur", "attention", "ctx·wx_c, u, r", "candidate, cell";
+    and the SM clock in GHz. Counted as no launch; the executor never calls
+    it."""
+    T, H = xpx.shape[0], h0.shape[1]
+    B, S, A = ep.shape
+    C = enc.shape[2]
+    if seq_fwd_route(B, S, A, C, H, ep.dtype) != SEQ_TC:
+        raise ValueError(f"decoder_seq_fwd_phase_us: B={B} S={S} A={A} C={C} H={H} "
+                         f"{ep.dtype} is not on the tensor-core route")
+    _, clk = _decoder_seq_fwd_tc((ep, enc, mask, xpx, tmask, h0, wa_dec, v, wx_c, w_ur, w_c),
+                                 (T, B, S, A, C, H), timed=True)
+    c = clk.cpu().double()
+    ghz = (c[:, 4 * T + 1] - c[:, 1]) / (c[:, 4 * T + 2] - c[:, 0])  # cycles a ns
+    steps = (c[:, 2:4 * T + 2] - c[:, 1:4 * T + 1]).reshape(-1, T, 4).sum(1)
+    us = (steps / ghz[:, None] / 1e3 / T).mean(0).tolist()
+    names = ("dp, h·w_ur", "attention", "ctx·wx_c, u, r", "candidate, cell")
+    return {"us": dict(zip(names, us)), "ghz": float(ghz.mean())}
+
+
 def decoder_seq_fwd(ep, enc, mask, xpx, tmask, h0, wa_dec, v, wx_c, w_ur, w_c):
     """The whole-sequence decoder forward; see decoder_seq_fwd_plain for the
-    contract. CUDA tensors launch the sm_90a kernel (csrc/decoder_seq.cu);
-    CPU tensors run the plain version."""
+    contract. CUDA tensors launch the sm_90a kernel `seq_fwd_route` names
+    (csrc/decoder_seq.cu); CPU tensors run the plain version."""
     global decoder_seq_fwd_launches
     if xpx.dim() != 3 or xpx.shape[2] % 3:
         raise ValueError(f"decoder_seq_fwd: xpx must be [T,B,3H], got {tuple(xpx.shape)}")
@@ -450,18 +675,26 @@ def decoder_seq_fwd(ep, enc, mask, xpx, tmask, h0, wa_dec, v, wx_c, w_ur, w_c):
         "h0": (h0, (B, H), None), "wa_dec": (wa_dec, (H, A), None), "v": (v, (A,), None),
         "wx_c": (wx_c, (C, 3 * H), None), "w_ur": (w_ur, (H, 2 * H), None),
         "w_c": (w_c, (H, H), None)})
+    args = (ep, enc, mask, xpx, tmask, h0, wa_dec, v, wx_c, w_ur, w_c)
     if ep.device.type == "cpu":
-        return decoder_seq_fwd_plain(ep, enc, mask, xpx, tmask, h0, wa_dec, v, wx_c, w_ur, w_c)
+        return decoder_seq_fwd_plain(*args)
     dt = ep.dtype
-    ins = [t.contiguous() for t in (ep, enc, mask, xpx, tmask, h0, wa_dec, v, wx_c, w_ur, w_c)]
-    with torch.cuda.device(ep.device):
-        new = lambda *shape, dtype=dt: torch.empty(*shape, dtype=dtype, device=ep.device)  # noqa
-        outs = [new(T, B, H), new(T, B, S, dtype=torch.float32), new(T, B, C),
-                new(B, A, dtype=torch.float32), new(B, H)]
-        _seq_launch("decoder_seq_fwd", "decoder_seq_fwd_launch", ins, outs, (T, B, S, A, C, H), dt,
-                    lead=(int(dt == torch.bfloat16),))
+    route = seq_fwd_route(B, S, A, C, H, dt)
+    if route == SEQ_TC:
+        outs = _decoder_seq_fwd_tc(args, (T, B, S, A, C, H))
+    else:
+        ins = [t.contiguous() for t in args]
+        with torch.cuda.device(ep.device):
+            new = lambda *shape, dtype=dt: torch.empty(*shape, dtype=dtype,  # noqa
+                                                       device=ep.device)
+            outs = [new(T, B, H), new(T, B, S, dtype=torch.float32), new(T, B, C),
+                    new(B, A, dtype=torch.float32), new(B, H)]
+            _seq_launch("decoder_seq_fwd", "decoder_seq_fwd_launch", ins, outs,
+                        (T, B, S, A, C, H), dt, lead=(int(dt == torch.bfloat16),))
+        outs = tuple(outs[:3])
     decoder_seq_fwd_launches += 1
-    return tuple(outs[:3])
+    decoder_seq_fwd_routes[route] += 1
+    return outs
 
 
 def decoder_seq_bwd(ep, enc, mask, g_seq, tmask, hp_seq, u_seq, r_seq, c_seq, dp_seq, alpha_seq,
@@ -510,7 +743,7 @@ def _decoder_seq_bwd_tc(args, dims):
     global decoder_seq_bwd_launches
     T, B, S, A, C, H = dims
     ep = args[0]
-    lay = seq_bwd_layout(B, A, C, H)
+    lay = seq_layout(B, A, C, H)
     Hp, Ap = lay["Hp"], lay["Ap"]
     w_c, w_ur, wx_c, wa_dec = args[12:]
     ins = [t.contiguous() for t in args[:12]] + list(seq_bwd_weights(w_c, w_ur, wx_c, wa_dec))

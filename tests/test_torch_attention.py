@@ -3,6 +3,15 @@ port's plain versions (ops/attention_kernels.py) against the JAX
 package's Pallas kernels in interpret mode, and the decoder's autograd
 Function against jax.vjp of `fused_attention_decoder`.
 
+The bf16 forward's row routine (csrc/attn_row.cuh, B5's kernel and B9's
+phase 2) cannot run here: `_rows_attention` emulates its walk (the listed
+valid positions, `attn_row_chunks`' staging whole or through the two
+halves of the stage, ctx by position class) and is held to the plain
+version and the JAX `_attn_fwd` on a non-prefix mask, a fully masked row
+and an S past the 96 KB stage, and to the plain version on rows the
+routine copies by plain loads; `attn_fwd_path` is held as a function of
+the shape.
+
 Widths put the JAX side on its kernels (A and C multiples of 128, B a
 multiple of 8) with S = 10, which the JAX side pads to 16 (masked) and
 the port does not pad; the padded columns are dropped before comparing.
@@ -107,6 +116,162 @@ def test_attn_phase2_plain_matches_pallas(dtype):
     _close("dep", dep, np.asarray(j_dep, np.float32)[:, :S],
            dtype, scale=float(dsc.sum(0).max() * p["v"].float().abs().max()))
     _close("dv", dv, j_dv, "float32", scale=float(dsc.sum()))
+
+
+def _row_splits(C, threads=256):
+    """attn_row::attend's ctx position classes: a thread owns 8 columns;
+    where the columns' groups leave threads over, the positions go to the
+    classes i mod splits (at most 8), added in class order at the end."""
+    G = -(-C // 8)
+    return min(8, threads // G) if 2 * G <= threads else 1
+
+
+def _rows_attention(ep, enc, dp, v, mask, stage_bytes):
+    """csrc/attn_row.cuh's routine row by row, as it walks the stage: the
+    valid positions listed in order (all of them for a fully masked row,
+    whose scores are all -1e9), the listed rows of ep for the scores and
+    of enc for ctx staged in `attn_row_chunks`' chunks (each listed
+    position read once in each pass), the softmax over the listed scores,
+    ctx summed in f32 by position class (i mod _row_splits) and the classes
+    added in order, rounded once. dp [B, A] f32. Returns (ctx, alpha)."""
+    dt = ep.dtype
+    B, S, A = ep.shape
+    C = enc.shape[2]
+    splits = _row_splits(C)
+    ctx, alpha = torch.zeros(B, C), torch.zeros(B, S)
+    for b in range(B):
+        idx = [s for s in range(S) if mask[b, s] > 0]
+        scores = bool(idx)
+        idx = idx or list(range(S))
+        n = len(idx)
+        k = ak.attn_row_chunks(n, scores, A, C, stage_bytes)
+        assert k["pa"] >= 1 and k["pc"] >= 1
+        seen_a, seen_c, sc = [], [], torch.full((n,), -1e9)
+        for c in range(k["na"]):  # ep's chunks: the scores
+            i0, i1 = c * k["pa"], min(n, (c + 1) * k["pa"])
+            rows = ep[b, idx[i0:i1]].float()
+            sc[i0:i1] = (torch.tanh(rows + dp[b]) * v.float()).sum(-1)
+            seen_a += list(range(i0, i1))
+        if scores:
+            e = torch.exp(sc - sc.max())
+            al = e / e.sum()
+        else:
+            al = torch.full((n,), 1.0 / S)
+        alpha[b, idx] = al
+        w = al.to(dt).float()
+        acc = torch.zeros(splits, C)
+        for c in range(k["nc"]):  # enc's chunks: ctx, class by class
+            i0, i1 = c * k["pc"], min(n, (c + 1) * k["pc"])
+            for i in range(i0, i1):
+                acc[i % splits] += w[i] * enc[b, idx[i]].float()
+            seen_c += list(range(i0, i1))
+        assert seen_a == (list(range(n)) if scores else []) and seen_c == list(range(n))
+        tot = acc[0]
+        for cls in range(1, splits):
+            tot = tot + acc[cls]
+        ctx[b] = tot
+    return ctx.to(dt), alpha
+
+
+# S past the stage: at A = C = 128 the rows of 208 valid positions take
+# 106 KB, past the 96 KB stage, so the routine streams them
+_S_LONG = 208
+
+
+def _row_case(kind, dtype, seed=7):
+    """Rows for the row routine's cases, S a multiple of 16 (the JAX
+    kernel's tile: no padding, so a fully masked row is uniform over S on
+    both sides): "non-prefix" masks with holes; "fully masked", a row with
+    no valid position beside non-prefix ones; "past the stage", S = 208
+    with rows of 192 to 208 valid positions."""
+    rng = np.random.RandomState(seed)
+    S_ = _S_LONG if kind == "past the stage" else 16
+    f = lambda *shape, sc=1.0: (sc * rng.randn(*shape)).astype(np.float32)  # noqa: E731
+    if kind == "past the stage":
+        mask = (rng.rand(B, S_) < 0.98).astype(np.float32)
+        mask[0] = 1.0
+    else:
+        mask = (rng.rand(B, S_) < 0.6).astype(np.float32)
+        mask[:, 0], mask[0, 3] = 0.0, 0.0  # no row's mask a prefix
+        mask[0, 5] = 1.0
+        if kind == "fully masked":
+            mask[2] = 0.0
+    arrays = dict(ep=f(B, S_, A), enc=f(B, S_, C, sc=0.3), dp=f(B, A), v=f(A, sc=0.1))
+    tdt = getattr(torch, dtype)
+    port = {k: torch.tensor(a).to(tdt) for k, a in arrays.items()}
+    port["mask"] = torch.tensor(mask)
+    jdt = jnp.dtype(dtype)
+    jax_ = {k: jnp.asarray(port[k].float().numpy()).astype(jdt) for k in arrays}
+    jax_["mask"] = jnp.asarray(mask)
+    return port, jax_
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["non-prefix", "fully masked", "past the stage"])
+def test_row_walk_matches_plain_and_pallas(kind, dtype):
+    """The row routine's walk (`_rows_attention`: the listed positions,
+    the stage's chunks at attn_fwd_row_kernel's 96 KB, the ctx classes)
+    against attn_fwd_plain and the JAX `_attn_fwd` in interpret mode, with
+    the tolerances above."""
+    p, j = _row_case(kind, dtype)
+    ep, enc, dp, v, mask = (p[k] for k in ("ep", "enc", "dp", "v", "mask"))
+    S_ = ep.shape[1]
+    chunks = [ak.attn_row_chunks(int(m.sum()) or S_, bool(m.sum()), A, C, ak.ATTN_ROW_STAGE)
+              for m in mask]
+    if kind == "past the stage":
+        assert not any(k["whole"] for k in chunks) and all(k["nc"] > 1 for k in chunks)
+    else:
+        assert all(k["whole"] for k in chunks)
+    ctx, alpha = _rows_attention(ep, enc, dp.float(), v, mask, ak.ATTN_ROW_STAGE)
+    want = ak.attn_fwd_plain(ep, enc, dp, v, mask)
+    j_ctx, j_alpha = bk._attn_fwd(j["ep"], j["enc"], j["dp"], j["v"], j["mask"], True)
+    assert ctx.dtype == ep.dtype and alpha.dtype == torch.float32
+    for ref_ctx, ref_alpha in ((want[0].float().numpy(), want[1].numpy()), (j_ctx, j_alpha)):
+        _close("ctx", ctx, ref_ctx, dtype)
+        _close("alpha", alpha, ref_alpha, "float32")
+    if kind == "fully masked":
+        assert torch.all(alpha[2] == 1.0 / S_)
+    assert torch.all(alpha[mask == 0] == 0) or kind == "fully masked"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_row_walk_by_loads_matches_plain(dtype):
+    """Rows of A = 100 and C = 130 (200 and 260 bytes in bf16: no bulk
+    copy), a non-prefix mask and a fully masked row: the walk on zero-padded
+    rows against the plain version."""
+    rng = np.random.RandomState(11)
+    B_, S_, A_, C_ = 5, 23, 100, 130
+    dt = getattr(torch, dtype)
+    f = lambda *shape, sc=1.0: torch.tensor(sc * rng.randn(*shape), dtype=torch.float32).to(dt)  # noqa
+    mask = torch.tensor((rng.rand(B_, S_) < 0.5).astype(np.float32))
+    mask[1] = 0.0
+    mask[0, 0] = 0.0
+    ep, enc, dp, v = f(B_, S_, A_), f(B_, S_, C_, sc=0.3), f(B_, A_), f(A_, sc=0.1)
+    assert ak.attn_fwd_path(S_, A_, C_, torch.bfloat16) == ak.ATTN_LOADS
+    ctx, alpha = _rows_attention(ep, enc, dp.float(), v, mask, ak.ATTN_ROW_STAGE)
+    want = ak.attn_fwd_plain(ep, enc, dp, v, mask)
+    _close("ctx", ctx, want[0].float().numpy(), dtype)
+    _close("alpha", alpha, want[1].numpy(), "float32")
+
+
+def test_attn_fwd_path_is_a_function_of_the_shape():
+    """attn_fwd_path: bf16 rows of a multiple of 16 bytes by bulk copies,
+    others by plain loads; f32, C past the routine's 8192 and shapes past a
+    block's shared memory on the first design. The main path's rows (S=50,
+    A=512, C=1024) of 10-50 valid positions: whole up to 32, streamed past."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert ak.attn_fwd_path(50, 512, 1024, bf) == ak.ATTN_BULK
+    assert ak.attn_fwd_path(7, 100, 130, bf) == ak.attn_fwd_path(45, 300, 520, bf) == ak.ATTN_LOADS
+    assert ak.attn_fwd_path(300, 512, 1024, bf) == ak.ATTN_BULK
+    assert ak.attn_fwd_path(50, 512, 1024, f32) == ak.FIRST
+    assert ak.attn_fwd_path(50, 512, 8200, bf) == ak.FIRST
+    assert ak.attn_fwd_path(17000, 128, 128, bf) == ak.FIRST
+    whole = [n for n in range(1, 51) if ak.attn_row_chunks(n, True, 512, 1024,
+                                                          ak.ATTN_ROW_STAGE)["whole"]]
+    assert whole == list(range(1, 33))
+    ring = ak.attn_row_chunks(300, True, 512, 1024, ak.ATTN_ROW_STAGE)
+    assert (ring["pa"], ring["pc"], ring["na"], ring["nc"]) == (48, 24, 7, 13)
+    assert _row_splits(1024) == 2 and _row_splits(130) == 8 and _row_splits(2048) == 1
 
 
 def _decoder_args(dtype):
