@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --host-floor ROOT   (only the attention wrappers'
+                                               host floors of a checkout)
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without the final `ok` line:
@@ -48,15 +50,29 @@ exits non-zero without the final `ok` line:
               tolerances, kernel, plain and bound times (the bf16 GRU
               kernels' beside their times before the redesign), the GRU
               kernels' outputs the same bits in two runs. attn_fwd in bf16
-              runs on staged rows of the valid positions (attn_fwd_path):
-              also at ATTN_ROW_EDGE (a non-prefix mask, a fully masked
-              row, S=300 streamed through the ring), its first design held
-              and timed beside it; B5-B7 timed with the wrapper and on the
-              device (a CUDA graph's replay).
+              runs on staged rows of the valid positions (attn_fwd_path),
+              attn_bwd_step on a cluster of CTAs a row that splits the
+              row's listed positions (attn_bwd_path, attn_bwd_cluster),
+              attn_phase2 on a walk over the nonzero terms
+              (attn_phase2_route): each also at ATTN_ROW_EDGE (a non-prefix
+              mask, a fully masked row, S=300 streamed through the ring)
+              and attn_bwd_step at ATTN_BWD_EDGE (rows with dctx = 0, lists
+              that split unevenly over the ranks, a single valid position;
+              ddp and dsc exactly 0 where they are 0), each first design
+              held and timed beside it; B5 and B7 timed with the wrapper
+              and on the device (a CUDA graph's replay) at the step's own
+              inputs, B7 and B6 the same bits in two runs; B6 held and
+              timed over the step's 50 calls (one graph's replay of the
+              50, and from Python), its first design on the same 50, the
+              bound over live rows, the t = 0 and t = 49 calls on their
+              own with B6's phases by its timed instance
+              (attn_bwd_step_phase_us); B5's and B6's host floors (the
+              call on B=1, S=1).
   8. steps    3 timed training steps on the same batch with the launch
               counts set to 0 just before: finite, falling losses, median
               ms per step, target tokens/s, exact launches per step (every
-              attn_fwd on the bulk-copy path); then one more step under
+              attn_fwd and attn_bwd_step on the bulk-copy path, every
+              attn_phase2 on the walk); then one more step under
               torch.profiler.
   9. parity   the small training program (artifacts/nmt_train_small), card
               against CPU from the same state and feeds: losses and the
@@ -166,9 +182,10 @@ exits non-zero without the final `ok` line:
               backward's plan at each shape; the same bits in two runs of
               both; the bf16 forward's four phases by its timed instance
               and its first design held and timed beside it; the
-              backward's post-walk d(enc_proj)/dv pass (decoder_seq_dep)
-              against its plain version on the walk's own dsc; kernel,
-              plain and bound times.
+              backward's post-walk d(enc_proj)/dv pass (decoder_seq_dep, on
+              B7's walk with t newest first) against its plain version on
+              the walk's own dsc, the same bits in two runs, its time
+              beside the pass it replaced; kernel, plain and bound times.
   24. steps   3 timed steps with the launch counts set to 0 just before:
               finite, falling losses, exactly 1 decoder_seq_fwd (on the
               route seq_fwd_route gives the main shape), 1 decoder_seq_bwd,
@@ -522,6 +539,14 @@ ATTN_EDGE = [(3, 7, 100, 130, 4), (5, 45, 300, 520, 3)]
 # valid positions a row, past the 96 KB stage, streamed through its ring
 ATTN_ROW_EDGE = [("non-prefix", 6, 50, 512, 1024, 3), ("fully masked", 6, 50, 512, 1024, 3),
                  ("S=300", 4, 300, 512, 1024, 3)]
+# (what, B, S, A, C, T) for attn_bwd_step's row routine on its cluster at
+# the main path's widths (2 ranks a row): rows whose dctx is exactly 0
+# beside live ones (ddp and dsc held to exact zeros there); lists of odd
+# lengths (37, 25, 13, 1, 49 valid positions with holes) that do not split
+# evenly over the ranks; rows of a single valid position (α = 1 there, so
+# dsc = dα − dα = 0 and ddp = 0 exactly)
+ATTN_BWD_EDGE = [("dead rows", 6, 50, 512, 1024, 3), ("uneven", 5, 50, 512, 1024, 3),
+                 ("single position", 4, 50, 512, 1024, 3)]
 # the launches of one training step at T = S = 50
 STEP_LAUNCHES = {"gru_fwd": 2, "gru_bwd": 2, "attn_fwd": 50, "attn_bwd_step": 50,
                  "attn_phase2": 1}
@@ -617,10 +642,14 @@ def gru_bwd_bound(args):
 
 
 def attn_bound(kind, args):
-    """Valid source positions only (the mask's, or for phase 2 those with a
-    nonzero dsc at some step): ep and enc (phase 2: ep in, dep out) once
-    each, the small per-row tensors once; the f32 operations per valid
-    element, over the f32 peak (the kernels compute in f32 on CUDA cores)."""
+    """The least time for the call's work, over the valid source positions
+    only (the mask's; for attn_bwd_step those of its live rows, whose dctx
+    is not all zero; for phase 2 those with a nonzero dsc at some step):
+    ep and enc (phase 2: ep in, dep out) once each, the small per-row
+    tensors once (for attn_bwd_step dctx, ddp and dsc of every row, dp, the
+    mask and alpha of the live rows); the f32 operations per valid element
+    (tanh as one), over the f32 peak (the kernels compute in f32 on CUDA
+    cores)."""
     ep = args[0]
     B, S, A = ep.shape
     item = ep.element_size()
@@ -632,10 +661,17 @@ def attn_bound(kind, args):
         return (*bound_ms(nbytes, float(nz.sum()) * A * 9, F32_PEAK), nbytes)
     enc, mask = args[1], args[4]
     C = enc.shape[2]
-    valid = float((mask > 0).sum())
-    small = (2 * B * A + A + B * C) * item + 3 * B * S * 4
+    if kind == "attn_bwd_step":
+        live = (args[5] != 0).any(1) & (mask > 0).any(1)
+        n_live = float(live.sum())
+        valid = float((mask[live] > 0).sum())
+        small = (B * C + B * A + A) * item + B * S * 4 + n_live * (A * item + 2 * S * 4)
+        ops = valid * (5 * A + 2 * C)
+    else:
+        valid = float((mask > 0).sum())
+        small = (2 * B * A + A + B * C) * item + 3 * B * S * 4
+        ops = valid * (4 * A + 2 * C)
     nbytes = valid * (A + C) * item + small
-    ops = valid * ((4 * A + 2 * C) if kind == "attn_fwd" else (5 * A + 2 * C))
     return (*bound_ms(nbytes, ops, F32_PEAK), nbytes)
 
 
@@ -654,6 +690,61 @@ def attn_fwd_first(ak, ep, enc, dp, v, mask):
     check(err == 0, f"attn_fwd's first design at B={B} S={S} A={A} C={C}: "
           f"{lib.attn_error_string(err).decode()}")
     return ctx, alpha
+
+
+def attn_bwd_first(ak, ep, enc, dp, v, mask, dctx, alpha):
+    """attn_bwd_step's first-design kernel (attn_bwd_step_kernel) on these
+    inputs, whichever route attn_bwd_path names: in bf16 the kernel before
+    the cluster, held and timed beside it. Not counted."""
+    B, S, A = ep.shape
+    C = enc.shape[2]
+    ddp = torch.empty(B, A, dtype=ep.dtype, device=ep.device)
+    dsc = torch.empty(B, S, dtype=torch.float32, device=ep.device)
+    lib = ak._lib()
+    err = lib.attn_bwd_step_launch(
+        int(ep.dtype == torch.bfloat16), ep.data_ptr(), enc.data_ptr(), dp.data_ptr(),
+        v.data_ptr(), mask.data_ptr(), dctx.data_ptr(), alpha.data_ptr(), ddp.data_ptr(),
+        dsc.data_ptr(), B, S, A, C, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"attn_bwd_step's first design at B={B} S={S} A={A} C={C}: "
+          f"{lib.attn_error_string(err).decode()}")
+    return ddp, dsc
+
+
+def attn_phase2_first(ak, ep, dp_seq, dsc_seq, v):
+    """attn_phase2's first-design kernel (attn_phase2_kernel) on these
+    inputs, whichever route attn_phase2_route names: the kernel before the
+    walk over the nonzero terms, held and timed beside it. Not counted."""
+    B, S, A = ep.shape
+    T = dp_seq.shape[0]
+    dep = torch.empty(B, S, A, dtype=ep.dtype, device=ep.device)
+    dv = torch.empty(A, dtype=torch.float32, device=ep.device)
+    dv_part = torch.empty(B, A, dtype=torch.float32, device=ep.device)
+    done = torch.zeros(1, dtype=torch.int32, device=ep.device)
+    lib = ak._lib()
+    err = lib.attn_phase2_launch(
+        int(ep.dtype == torch.bfloat16), ep.data_ptr(), dp_seq.data_ptr(), dsc_seq.data_ptr(),
+        v.data_ptr(), dep.data_ptr(), dv.data_ptr(), dv_part.data_ptr(), done.data_ptr(), T, B,
+        S, A, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"attn_phase2's first design at T={T} B={B} S={S} A={A}: "
+          f"{lib.attn_error_string(err).decode()}")
+    return dep, dv
+
+
+def bwd_edge_mask(rng, kind, B, S):
+    """ATTN_BWD_EDGE's source masks on the card: ragged rows with holes (the
+    first position masked); for "uneven" rows of 37, 25, 13, 1 and 49 valid
+    positions; for "single position" rows 0 and 2 with one (at 7 and at
+    S - 1)."""
+    m = (rng.rand(B, S) < 0.7).astype(np.float32)
+    m[:, 0] = 0.0
+    if kind == "uneven":
+        for b, n in enumerate((37, 25, 13, 1, 49)[:B]):
+            m[b] = 0.0
+            m[b, np.sort(rng.choice(np.arange(1, S), n, replace=False))] = 1.0
+    if kind == "single position":
+        m[0], m[2] = 0.0, 0.0
+        m[0, 7], m[2, S - 1] = 1.0, 1.0
+    return torch.as_tensor(m).cuda()
 
 
 def row_mask(rng, kind, B, S):
@@ -780,7 +871,11 @@ EARLIER_MS = {"lstm_fwd": 11.0729, "lstm_bwd": 10.5066, "fused_conv_bn": 8.6320,
               "quant_matmul": 0.20372, "decoder_seq_bwd": 13.4923,
               # B9 a launch at the warm-up step's inputs, and B5 a call with
               # its wrapper at the per-step route's main path
-              "decoder_seq_fwd": 11.7467, "attn_fwd": 0.0739}
+              "decoder_seq_fwd": 11.7467, "attn_fwd": 0.0739,
+              # B6 a call on the device (the first recorded call of the
+              # step, t = 0), B7 a launch on the device, and B10's post-walk
+              # pass a launch with its wrapper, at the main paths' inputs
+              "attn_bwd_step": 0.04504, "attn_phase2": 0.49443, "decoder_seq_dep": 0.4456}
 # the small program's biases on the card against the CPU in bf16: their
 # gradients, sums over B·T cotangents that nearly cancel, are held to 0.1
 # of their largest (tests/test_torch_frontend.py), so the values held to
@@ -2536,14 +2631,17 @@ def nmt_seq_phases(ptt, exe, rng, smi, seed, first_phase):
         k_ms = cuda_ms(lambda: ak.decoder_seq_dep(*dep_args), 10)
         p_ms = cuda_ms(lambda: ak.decoder_seq_dep_plain(*dep_args), 2)
         b_ms, b_by, nbytes = seq_dep_bound(*dep_args[:3])
-        rows["decoder_seq_dep"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                                       library_ms=None)
+        d_ms = graph_ms(lambda: ak.decoder_seq_dep(*dep_args))
+        rows["decoder_seq_dep"] = dict(ms=k_ms, device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                       bound_by=b_by, library_ms=None,
+                                       kernel="attn_dep_kernel (t newest first) + attn_dv_kernel")
         again = ak.decoder_seq_dep(*dep_args)
         check(all(torch.equal(a, b) for a, b in zip(dgot, again)),
               "decoder_seq_dep gives other bits in a second run")
-        print(f"  decoder_seq_dep (the post-walk pass, on the walk's dsc): {'; '.join(parts)}; "
-              f"the same bits in two runs; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-              f"{b_ms:.5f} ms by {b_by} ({nbytes:.0f} B)")
+        print(f"  decoder_seq_dep (the post-walk pass on B7's walk, t newest first, on the walk's "
+              f"dsc): {'; '.join(parts)}; the same bits in two runs; kernel {k_ms:.4f} ms "
+              f"({EARLIER_MS['decoder_seq_dep']} ms before, decoder_dep_kernel), {d_ms:.4f} ms on "
+              f"the device, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} ({nbytes:.0f} B)")
         wb = NMT_BENCH
         main_shape = (wb["batch"], wb["max_len"], wb["max_len"], wb["emb"], 2 * wb["enc_hidden"],
                       wb["dec_hidden"], wb["dec_hidden"])
@@ -3276,14 +3374,39 @@ def quant_phases(ptt, exe, smi, seed, first_phase):
     return rows, {name: max_err[route] for name, route in names.items()}, launches
 
 
+def host_floors(root):
+    """The per-step attention wrappers' host floors of the package in
+    `root` (a checkout of this repository): attn_fwd and attn_bwd_step on
+    one row of one position at the main path's widths (A=512, C=1024,
+    bf16), whose device work is negligible; ms a call over 200 calls after
+    a warm-up, five times each, printed as one JSON line. Comparing two
+    checkouts takes one process each, in turns, on one card."""
+    sys.path.insert(0, os.path.abspath(root))
+    from paddle_tpu_torch.ops import attention_kernels as ak
+
+    f = lambda *shape: torch.randn(*shape, device="cuda").to(torch.bfloat16)  # noqa: E731
+    ep, enc, dp, v, dctx = f(1, 1, 512), f(1, 1, 1024), f(1, 512), f(512), f(1, 1024)
+    mask, alpha = torch.ones(1, 1, device="cuda"), torch.ones(1, 1, device="cuda")
+    calls = {"attn_fwd": lambda: ak.attn_fwd(ep, enc, dp, v, mask),
+             "attn_bwd_step": lambda: ak.attn_bwd_step(ep, enc, dp, v, mask, dctx, alpha)}
+    out = {name: [cuda_ms(call, 200) for _ in range(5)] for name, call in calls.items()}
+    print(json.dumps({"root": root, "host_floor_ms": out, "card": nvidia_smi_line()}))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--host-floor", metavar="ROOT",
+                    help="only measure the attention wrappers' host floors of the checkout in "
+                         "ROOT (see host_floors)")
     args = ap.parse_args()
 
     phase(1, "device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA GPU")
+    if args.host_floor:
+        host_floors(args.host_floor)
+        return
     sys.path.insert(0, ROOT)
     torch.manual_seed(args.seed)
     import paddle_tpu_torch as ptt
@@ -3490,7 +3613,7 @@ def main():
     loss_name = meta["loss_name"]
     gcalls, grestore = record_calls(rnn_kernels, {"gru_fwd": "all", "gru_bwd": "all"})
     acalls, arestore = record_calls(attention_kernels, {
-        "attn_fwd": "first", "attn_bwd_step": "last", "attn_phase2": "first"})
+        "attn_fwd": "first", "attn_bwd_step": "all", "attn_phase2": "first"})
     try:
         t0 = time.perf_counter()
         losses = [float(exe.run(main_p, tfeed, [loss_name], scope=tscope)[0])]
@@ -3614,19 +3737,30 @@ def main():
                 max_errs["gru_bwd"] = max(max_errs["gru_bwd"], *abs_errs)
     print("  gru_bwd: dx and dW the same bits in two runs at every edge shape (bf16)")
 
-    plain = {"attn_fwd": attention_kernels.attn_fwd_plain,
-             "attn_bwd_step": attention_kernels.attn_bwd_step_plain,
-             "attn_phase2": attention_kernels.attn_phase2_plain}
+    ak = attention_kernels
+    plain = {"attn_fwd": ak.attn_fwd_plain, "attn_bwd_step": ak.attn_bwd_step_plain,
+             "attn_phase2": ak.attn_phase2_plain}
+    first = {"attn_fwd": attn_fwd_first, "attn_bwd_step": attn_bwd_first,
+             "attn_phase2": attn_phase2_first}
 
-    def attn_check(name, ins, label, timed=False):
-        """Kernel against plain on `ins`, and an output left at zero must
-        fail the same bound (see TRAIN_TOL)."""
-        got = getattr(attention_kernels, name)(*ins)
-        want = plain[name](*ins)
-        torch.cuda.synchronize()
+    def attn_readings(name, ins, got, want):
+        """Each output's error beyond one ulp over its term scale, and what
+        an output left at zero would read (see TRAIN_TOL)."""
         scales = term_scales(name, ins, want)
         errs = [beyond_ulp(g, w, sc) for g, w, sc in zip(got, want, scales)]
         zero = [beyond_ulp(torch.zeros_like(w), w, sc) for w, sc in zip(want, scales)]
+        return errs, zero
+
+    def attn_check(name, ins, label, timed=False):
+        """Kernel against plain on `ins`, and an output left at zero must
+        fail the same bound (see TRAIN_TOL). Where `timed`, the kernel's
+        time with the wrapper and on the device, the plain version's and
+        the bound, and in bf16 the first design's beside (held too); the
+        readings are returned."""
+        got = getattr(ak, name)(*ins)
+        want = plain[name](*ins)
+        torch.cuda.synchronize()
+        errs, zero = attn_readings(name, ins, got, want)
         tol = TRAIN_TOL[torch.float32]
         dt = ins[0].dtype
         line = (f"  {name} {label} {str(dt)[6:]}: err beyond one ulp "
@@ -3634,36 +3768,28 @@ def main():
                 f"{', '.join(f'{z:.3e}' for z in zero)})")
         if dt == torch.bfloat16:
             line += f", {float((got[0] != want[0]).float().mean()):.4%} of {name}'s first output differing"
+        row = None
         if timed:
-            k_ms = cuda_ms(lambda: getattr(attention_kernels, name)(*ins), 20)
-            d_ms = graph_ms(lambda: getattr(attention_kernels, name)(*ins))
+            k_ms = cuda_ms(lambda: getattr(ak, name)(*ins), 20)
+            d_ms = graph_ms(lambda: getattr(ak, name)(*ins))
             p_ms = cuda_ms(lambda: plain[name](*ins), 3)
             b_ms, b_by, nbytes = attn_bound(name, ins)
             line += (f"; kernel {k_ms:.4f} ms with the wrapper, {d_ms:.4f} ms on the device (a "
                      f"CUDA graph's replay), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
                      f"({nbytes:.0f} B)")
+            row = dict(ms=k_ms, device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
             if dt == torch.bfloat16:
-                rows[name] = dict(ms=k_ms, device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                  bound_by=b_by)
-            if name == "attn_fwd" and dt == torch.bfloat16:
-                # the first design on the same inputs: the kernel before the
-                # staged rows, held and timed beside them
-                first = attn_fwd_first(attention_kernels, *ins)
-                f_err = [beyond_ulp(g, w, sc) for g, w, sc in zip(first, want, scales)]
-                check(max(f_err) <= TRAIN_TOL[torch.float32], "attn_fwd's first design disagrees")
-                f_ms = cuda_ms(lambda: attn_fwd_first(attention_kernels, *ins), 20)
-                f_dev = graph_ms(lambda: attn_fwd_first(attention_kernels, *ins))
-                # the wrapper's host floor: the same Python and launch on one
-                # row of one position, whose device work is negligible
-                tiny = (ins[0][:1, :1], ins[1][:1, :1], ins[2][:1], ins[3], ins[4][:1, :1])
-                h_ms = cuda_ms(lambda: attention_kernels.attn_fwd(*tiny), 50)
-                rows[name].update(earlier_ms=f_ms, earlier_device_ms=f_dev, host_floor_ms=h_ms)
-                line += (f"\n    the wrapper's host floor (the same call on B=1, S=1): {h_ms:.4f} ms "
-                         "a call")
-                line += (f"\n    the first design (attn_fwd_kernel, before the redesign; "
-                         f"{EARLIER_MS['attn_fwd']} ms in an earlier run) on the same inputs: err "
-                         f"beyond one ulp {', '.join(f'{e:.3e}' for e in f_err)}; {f_ms:.4f} ms "
-                         f"launched from Python, {f_dev:.4f} ms on the device; the staged rows "
+                # the first design on the same inputs, held and timed beside
+                f_got = first[name](ak, *ins)
+                f_err, _ = attn_readings(name, ins, f_got, want)
+                check(max(f_err) <= tol, f"{name}'s first design disagrees")
+                f_ms = cuda_ms(lambda: first[name](ak, *ins), 20)
+                f_dev = graph_ms(lambda: first[name](ak, *ins))
+                row.update(earlier_ms=f_ms, earlier_device_ms=f_dev)
+                line += (f"\n    the first design (before the redesign; {EARLIER_MS[name]} ms in "
+                         f"an earlier run) on the same inputs: err beyond one ulp "
+                         f"{', '.join(f'{e:.3e}' for e in f_err)}; {f_ms:.4f} ms launched from "
+                         f"Python, {f_dev:.4f} ms on the device; the new design "
                          f"{f_dev / d_ms:.2f}x faster on the device")
         print(line)
         check(all(torch.isfinite(t.float()).all() for t in got), f"non-finite {name} output")
@@ -3671,32 +3797,147 @@ def main():
         check(min(zero) > tol, f"{name} {label}: an output left at zero would pass its check")
         max_errs[name] = max(max_errs.get(name, 0.0),
                              *(rel_err(g, w)[0] for g, w in zip(got, want)))
+        return got, row
+
+    def host_floor(name, ins):
+        """The wrapper's host floor: the same Python and launch on one row
+        of one position, whose device work is negligible."""
+        ep_, enc_, dp_, v_, mask_ = ins[:5]
+        tiny = (ep_[:1, :1], enc_[:1, :1], dp_[:1], v_, mask_[:1, :1]) + (
+            (ins[5][:1], ins[6][:1, :1]) if name == "attn_bwd_step" else ())
+        return cuda_ms(lambda: getattr(ak, name)(*tiny), 50)
+
+    def dead_rows_zero(got, dctx, mask, label):
+        """ddp and dsc exactly 0 in the rows whose dctx is all zero or that
+        have no valid position; returns their count."""
+        dead = ~((dctx != 0).any(1) & (mask > 0).any(1))
+        check(bool((got[0][dead] == 0).all() and (got[1][dead] == 0).all()),
+              f"attn_bwd_step {label}: a dead row's ddp or dsc is not exactly 0")
+        return int(dead.sum())
 
     def seeded_attn(B_, S_, A_, C_, T_, dt, mask):
         """Normal inputs at these widths, on which no output's sum cancels."""
         f = lambda *shape, sc=1.0: (sc * torch.randn(*shape, device="cuda")).to(dt)  # noqa: E731
         ep, enc, dp, v = f(B_, S_, A_), f(B_, S_, C_, sc=0.3), f(B_, A_), f(A_, sc=0.1)
-        _, alpha = attention_kernels.attn_fwd_plain(ep, enc, dp, v, mask)
+        _, alpha = ak.attn_fwd_plain(ep, enc, dp, v, mask)
         dsc = 0.01 * torch.randn(T_, B_, S_, device="cuda") * mask
         return {"attn_fwd": (ep, enc, dp, v, mask),
                 "attn_bwd_step": (ep, enc, dp, v, mask, f(B_, C_, sc=0.1), alpha),
                 "attn_phase2": (ep, f(T_, B_, A_), dsc, v)}
 
-    for name in plain:
+    # B5 and B7 on the warm-up step's own inputs (B7 its one call; B5 its
+    # first), timed, their first designs beside; B5's host floor
+    for name in ("attn_fwd", "attn_phase2"):
         a, _ = acalls[name][0]
         B_, S_, A_ = a[0].shape
         for dt in (torch.bfloat16, torch.float32):
             ins = [t.to(dt) if t.dtype == torch.bfloat16 else t for t in a]
-            attn_check(name, ins, f"B={B_} S={S_} A={A_} (main path)", timed=True)
+            got, row = attn_check(name, ins, f"B={B_} S={S_} A={A_} (main path)", timed=True)
+            if dt == torch.bfloat16:
+                rows[name] = row
+                if name == "attn_fwd":
+                    row["host_floor_ms"] = host_floor(name, ins)
+                    print(f"    the wrapper's host floor (the same call on B=1, S=1): "
+                          f"{row['host_floor_ms']:.4f} ms a call")
+                else:
+                    again = ak.attn_phase2(*ins)
+                    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                          "attn_phase2 gives other bits in a second run")
+                    print(f"    attn_phase2 on its route {ak.attn_phase2_route(B_, S_, dt)}: dep "
+                          f"and dv the same bits in two runs")
+    # B6 over the step's 50 recorded calls, newest step first (t = 49 .. 0):
+    # each held against plain, dead rows exactly 0; the 50 timed together
+    # (a CUDA graph's replay on the device, and launched from Python), the
+    # first design on the same 50 inputs beside; the bound over live rows
+    bcalls = [c for c, _ in acalls["attn_bwd_step"]]
+    check(len(bcalls) == STEP_LAUNCHES["attn_bwd_step"],
+          f"the warm-up step ran {len(bcalls)} attn_bwd_step calls")
+    (B_, S_, A_), C_ = bcalls[0][0].shape, bcalls[0][1].shape[2]
+    paths0 = dict(ak.attn_bwd_step_paths)
+    outs, worst, n_dead = [], [0.0, 0.0], []
+    for ins in bcalls:
+        got = ak.attn_bwd_step(*ins)
+        want = plain["attn_bwd_step"](*ins)
+        torch.cuda.synchronize()
+        errs, zero = attn_readings("attn_bwd_step", ins, got, want)
+        check(max(errs) <= TRAIN_TOL[torch.float32] and min(zero) > TRAIN_TOL[torch.float32],
+              f"attn_bwd_step disagrees with plain on a step call ({errs}, zeros {zero})")
+        worst = [max(w, e) for w, e in zip(worst, errs)]
+        n_dead.append(dead_rows_zero(got, ins[5], ins[4], "(the step's call)"))
+        max_errs["attn_bwd_step"] = max(max_errs.get("attn_bwd_step", 0.0),
+                                        *(rel_err(g, w)[0] for g, w in zip(got, want)))
+        outs.append(got)
+    paths = {k: n - paths0[k] for k, n in ak.attn_bwd_step_paths.items()}
+    check(paths[ak.attn_bwd_path(S_, A_, C_, torch.bfloat16)] == len(bcalls) ==
+          paths[ak.ATTN_BULK], f"attn_bwd_step's step calls by path {paths}: not all on the "
+          "cluster's bulk path")
+    again = [ak.attn_bwd_step(*ins) for ins in bcalls]
+    check(all(torch.equal(x, y) for o, a2 in zip(outs, again) for x, y in zip(o, a2)),
+          "attn_bwd_step gives other bits in a second run")
+
+    def step50():
+        for ins in bcalls:
+            ak.attn_bwd_step(*ins)
+
+    def first50():
+        for ins in bcalls:
+            attn_bwd_first(ak, *ins)
+
+    k50, d50 = cuda_ms(step50, 5), graph_ms(step50, 10)
+    f50, fd50 = cuda_ms(first50, 5), graph_ms(first50, 10)
+    p50 = cuda_ms(lambda: [plain["attn_bwd_step"](*ins) for ins in bcalls], 1)
+    bounds = [attn_bound("attn_bwd_step", ins) for ins in bcalls]
+    b50 = sum(b[0] for b in bounds)  # the calls' least times, added
+    by50 = max(("bytes", "operations"), key=lambda k: sum(b[0] for b in bounds if b[1] == k))
+    f_worst = [0.0, 0.0]
+    for ins in bcalls:
+        f_err, _ = attn_readings("attn_bwd_step", ins, attn_bwd_first(ak, *ins),
+                                 plain["attn_bwd_step"](*ins))
+        f_worst = [max(w, e) for w, e in zip(f_worst, f_err)]
+    check(max(f_worst) <= TRAIN_TOL[torch.float32], "attn_bwd_step's first design disagrees")
+    n = len(bcalls)
+    print(f"  attn_bwd_step B={B_} S={S_} A={A_} C={C_} (the step's {n} calls, t = {n - 1} "
+          f"first) bf16: err beyond one ulp ddp {worst[0]:.3e}, dsc {worst[1]:.3e} at most "
+          f"(tol {TRAIN_TOL[torch.float32]:g}); dead rows a call {n_dead[0]} (t = {n - 1}) to "
+          f"{n_dead[-1]} (t = 0), {sum(n_dead)} of {n * B_}, their ddp and dsc exactly 0; by "
+          f"path {paths}, {ak.attn_bwd_cluster(S_)} ranks a row; the same bits in two runs")
+    print(f"    the {n} calls: {k50:.4f} ms launched from Python, {d50:.4f} ms on the device (a "
+          f"CUDA graph's replay of the {n}), plain {p50:.4f} ms, bound {b50:.5f} ms by {by50} "
+          f"(live rows only); the first design on the same inputs {f50:.4f} ms from Python, "
+          f"{fd50:.4f} ms on the device (err beyond one ulp {f_worst[0]:.3e}, {f_worst[1]:.3e}; "
+          f"{EARLIER_MS['attn_bwd_step']} ms a call on the device in an earlier run): the new "
+          f"design {fd50 / d50:.2f}x faster on the device")
+    row = dict(ms=k50 / n, device_ms=d50 / n, plain_ms=p50 / n, bound_ms=b50 / n, bound_by=by50,
+               earlier_ms=f50 / n, earlier_device_ms=fd50 / n, step_ms=k50, step_device_ms=d50,
+               step_bound_ms=b50, step_earlier_device_ms=fd50)
+    for i, t_ in ((n - 1, 0), (0, n - 1)):  # t = 0 (every row live) and t = 49 on their own
+        ins = bcalls[i]
+        t_dev = graph_ms(lambda: ak.attn_bwd_step(*ins))
+        t_first = graph_ms(lambda: attn_bwd_first(ak, *ins))
+        t_b = attn_bound("attn_bwd_step", ins)[0]
+        row[f"t{t_}_device_ms"] = t_dev
+        split = ak.attn_bwd_step_phase_us(*ins)
+        print(f"    t = {t_}: {t_dev:.4f} ms on the device, the first design {t_first:.4f}, bound "
+              f"{t_b:.5f} ms ({n_dead[i]} dead rows); its timed instance, µs a live CTA: "
+              f"{', '.join(f'{k} {u:.2f}' for k, u in split['us'].items())}; the last live CTA "
+              f"ends {split['live_end_us']:.2f} µs after the first CTA starts, a dead CTA lives "
+              f"{split['dead_us']:.2f} µs ({split['live_ctas']} live, {split['dead_ctas']} dead "
+              "CTAs)")
+    row["host_floor_ms"] = host_floor("attn_bwd_step", bcalls[0])
+    print(f"    the wrapper's host floor (the same call on B=1, S=1): {row['host_floor_ms']:.4f} "
+          "ms a call")
+    rows["attn_bwd_step"] = row
+    for i in (0, n - 1):  # f32 (the first design's route) at t = 49 and t = 0
+        ins = [t.float() if t.dtype == torch.bfloat16 else t for t in bcalls[i]]
+        attn_check("attn_bwd_step", ins, f"B={B_} S={S_} A={A_} (the step's call {i})")
+
     a_fwd, a_p2 = acalls["attn_fwd"][0][0], acalls["attn_phase2"][0][0]
     (B_, S_, A_), C_, T_ = a_fwd[0].shape, a_fwd[1].shape[2], a_p2[1].shape[0]
     valid = [int(n) for n in a_fwd[4].sum(1).tolist()]
-    whole = sum(attention_kernels.attn_row_chunks(n, True, A_, C_, attention_kernels.ATTN_ROW_STAGE)
-                ["whole"] for n in valid)
-    print(f"  attn_fwd's path at the main shape: "
-          f"{attention_kernels.attn_fwd_path(S_, A_, C_, torch.bfloat16)}; rows of "
-          f"{min(valid)}-{max(valid)} valid positions, {whole} of {B_} staged whole, the rest "
-          "streamed")
+    whole = sum(ak.attn_row_chunks(n, True, A_, C_, ak.ATTN_ROW_STAGE)["whole"] for n in valid)
+    print(f"  attn_fwd's path at the main shape: {ak.attn_fwd_path(S_, A_, C_, torch.bfloat16)}; "
+          f"rows of {min(valid)}-{max(valid)} valid positions, {whole} of {B_} staged whole, the "
+          "rest streamed")
     for dt in TRAIN_TOL:  # the main path's shapes and source mask, seeded values
         for name, ins in seeded_attn(B_, S_, A_, C_, T_, dt, a_fwd[4]).items():
             attn_check(name, ins, f"B={B_} S={S_} A={A_} C={C_} T={T_} (main shapes, seeded)")
@@ -3709,22 +3950,50 @@ def main():
     for what, B_, S_, A_, C_, T_ in ATTN_ROW_EDGE:
         mask = row_mask(rng, what, B_, S_)
         ns = [int(n) for n in mask.sum(1).tolist()]
-        plans = [attention_kernels.attn_row_chunks(n or S_, n > 0, A_, C_,
-                                                   attention_kernels.ATTN_ROW_STAGE) for n in ns]
+        plans = [ak.attn_row_chunks(n or S_, n > 0, A_, C_, ak.ATTN_ROW_STAGE) for n in ns]
         staged = ["whole" if k["whole"] else "in {na} + {nc} chunks".format(**k) for k in plans]
         print(f"  attn_fwd {what}: valid positions a row {ns}; staged {staged}")
+        ranks = ak.attn_bwd_cluster(S_)
+        bplans = [ak.attn_bwd_chunks(j1 - j0, A_, C_, ak.ATTN_BWD_STAGE)
+                  for n in ns for j0, j1 in ak.attn_bwd_ranges(n, ranks)]
+        print(f"  attn_bwd_step {what}: {ranks} ranks a row, their ranges staged "
+              f"{['whole' if k['whole'] else '{nc} + {na} chunks'.format(**k) for k in bplans]}")
         if what == "S=300":
             check(not any(k["whole"] for k in plans), "the S=300 edge does not take the ring")
+            check(not any(k["whole"] for k in bplans), "the S=300 edge does not take B6's ring")
         for dt in TRAIN_TOL:
             for name, ins in seeded_attn(B_, S_, A_, C_, T_, dt, mask).items():
-                attn_check(name, ins, f"B={B_} S={S_} A={A_} C={C_} T={T_} ({what})")
-            if what == "fully masked":
-                got = attention_kernels.attn_fwd(*seeded_attn(B_, S_, A_, C_, T_, dt, mask)["attn_fwd"])
-                check(bool(torch.all(got[1][1] == 1.0 / S_)), "a fully masked row's α is not 1/S")
-    a, _ = acalls["attn_phase2"][0]
-    dv1, dv2 = (attention_kernels.attn_phase2(*a)[1] for _ in range(2))
-    check(torch.equal(dv1, dv2), "attn_phase2's dv differs between two runs")
-    print("  attn_phase2: dv has the same bits in two runs")
+                got, _ = attn_check(name, ins, f"B={B_} S={S_} A={A_} C={C_} T={T_} ({what})")
+                if name == "attn_fwd" and what == "fully masked":
+                    check(bool(torch.all(got[1][1] == 1.0 / S_)), "a fully masked row's α is not 1/S")
+                if name == "attn_bwd_step" and what == "fully masked":
+                    check(dead_rows_zero(got, ins[5], mask, what) >= 1,
+                          "the fully masked row was not held to zeros")
+    for what, B_, S_, A_, C_, T_ in ATTN_BWD_EDGE:
+        mask = bwd_edge_mask(rng, what, B_, S_)
+        ns = [int(n) for n in mask.sum(1).tolist()]
+        ranks = ak.attn_bwd_cluster(S_)
+        print(f"  attn_bwd_step {what}: valid positions a row {ns}; ranges over {ranks} ranks "
+              f"{[ak.attn_bwd_ranges(n, ranks) for n in ns]}")
+        for dt in TRAIN_TOL:
+            ins = list(seeded_attn(B_, S_, A_, C_, T_, dt, mask)["attn_bwd_step"])
+            if what == "dead rows":
+                ins[5] = ins[5].clone()
+                ins[5][1::2] = 0
+            got, _ = attn_check("attn_bwd_step", ins, f"B={B_} S={S_} A={A_} C={C_} ({what})")
+            dead = dead_rows_zero(got, ins[5], mask, what)
+            if what == "dead rows":
+                check(dead == B_ // 2, f"{dead} dead rows, expected {B_ // 2}")
+            if what == "single position":
+                one = mask.sum(1) == 1
+                check(bool((got[0][one] == 0).all() and (got[1][one] == 0).all()),
+                      "a row of one valid position: ddp or dsc not exactly 0")
+            if dt == torch.bfloat16:
+                again = ak.attn_bwd_step(*ins)
+                check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                      f"attn_bwd_step {what}: other bits in a second run")
+    print("  attn_bwd_step: exact zeros in every dead row and row of one valid position; the "
+          "same bits in two runs at every ATTN_BWD_EDGE shape (bf16)")
 
     phase(8, "training at full width (bf16): 3 timed steps")
     counters = {"gru_fwd": (rnn_kernels, "gru_fwd_launches"),
@@ -3735,7 +4004,10 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
-    paths0 = dict(attention_kernels.attn_fwd_paths)
+    # each route counter, as it stands before the steps
+    routes0 = {k: dict(c) for k, c in (("attn_fwd", ak.attn_fwd_paths),
+                                        ("attn_bwd_step", ak.attn_bwd_step_paths),
+                                        ("attn_phase2", ak.attn_phase2_routes))}
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -3743,16 +4015,20 @@ def main():
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     train_launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
-    paths = {k: n - paths0[k] for k, n in attention_kernels.attn_fwd_paths.items()}
+    train_routes = {k: {r: n - routes0[k][r] for r, n in c.items()} for k, c in (
+        ("attn_fwd", ak.attn_fwd_paths), ("attn_bwd_step", ak.attn_bwd_step_paths),
+        ("attn_phase2", ak.attn_phase2_routes))}
     print(f"  losses (warm-up, then timed): {losses}")
     check(all(np.isfinite(losses)), "non-finite loss")
     check(losses[-1] < losses[0], "the loss did not fall over 4 steps on one batch")
-    print(f"  launches in 3 steps: {train_launches}; per step expected {STEP_LAUNCHES}; "
-          f"attn_fwd by path {paths}")
+    print(f"  launches in 3 steps: {train_launches}; per step expected {STEP_LAUNCHES}; by "
+          f"route {train_routes}")
     for k, n in STEP_LAUNCHES.items():
         check(train_launches[k] == 3 * n, f"{k} launched {train_launches[k]} times in 3 steps")
-    check(paths[attention_kernels.ATTN_BULK] == 3 * STEP_LAUNCHES["attn_fwd"],
-          f"attn_fwd's launches by path {paths}: not all on the staged rows' bulk path")
+    for k, route in (("attn_fwd", ak.ATTN_BULK), ("attn_bwd_step", ak.ATTN_BULK),
+                     ("attn_phase2", ak.WALK)):
+        check(train_routes[k][route] == 3 * STEP_LAUNCHES[k],
+              f"{k}'s launches by route {train_routes[k]}: not all on the {route} route")
     tmed = statistics.median(times)
     print(f"  steps ms: {[round(t, 3) for t in times]}; median {tmed:.3f} ms/step, "
           f"{trg_tokens / tmed * 1e3:.1f} target tokens/s (B={TB}, lengths 10-{TS}); "
@@ -3788,6 +4064,10 @@ def main():
     attention_routing_phase(ptt, args.seed + 31, 31)
 
     phase(32, "the kernels line, then the device line")
+    rows["attn_bwd_step"].update(launches_by_route=train_routes["attn_bwd_step"],
+                                 kernel="attn_bwd_row_kernel on csrc/attn_row.cuh's attend_bwd")
+    rows["attn_phase2"].update(launches_by_route=train_routes["attn_phase2"],
+                               kernel="attn_dep_kernel (t oldest first) + attn_dv_kernel")
     sources = {"gru_fwd": ("gru_fwd.cu", "paddle_tpu/ops/pallas_kernels.py:493"),
                "gru_bwd": ("gru_bwd.cu", "paddle_tpu/ops/pallas_kernels.py:608"),
                "attn_fwd": ("bahdanau_attn.cu", "paddle_tpu/ops/bahdanau_kernels.py:257"),
@@ -3801,7 +4081,8 @@ def main():
                "fused_conv_bn": ("fused_conv_bn.cu", "paddle_tpu/ops/fused_conv_ops.py:140"),
                "decoder_seq_fwd": ("decoder_seq.cu", "paddle_tpu/ops/bahdanau_kernels.py:399"),
                "decoder_seq_bwd": ("decoder_seq.cu", "paddle_tpu/ops/bahdanau_kernels.py:568"),
-               "decoder_seq_dep": ("decoder_seq.cu", "paddle_tpu/ops/bahdanau_kernels.py:568"),
+               # B10's post-walk pass runs B7's kernel, t newest first
+               "decoder_seq_dep": ("bahdanau_attn.cu", "paddle_tpu/ops/bahdanau_kernels.py:568"),
                "quant_matmul": ("quant_matmul.cu", "paddle_tpu/ops/quant_kernels.py:61"),
                # the kept mma.sync route, for shapes no tensor map
                # describes: no main path's call takes it (counted)

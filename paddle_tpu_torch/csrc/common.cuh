@@ -1,11 +1,12 @@
 // Helpers the port's kernels share: conversion between the io dtype (f32 or
-// bf16) and the f32 the math runs in, warp reductions, one warp's matrix
-// product on the tensor cores (bf16 mma.sync m16n8k16 with f32
-// accumulators, or the same fragments with f32 FMAs for f32 io), and
-// Hopper's pieces (wgmma, bf16 and s8, and its shared-memory descriptors, mbarriers,
-// tensor copies by TMA, bulk loads and stores, the tensor-map encoder). Every
-// kernel computes in f32 and rounds to the io dtype only where the TPU
-// kernel it replaces rounds.
+// bf16) and the f32 the math runs in, f32 ops that round one at a time,
+// warp reductions, the shared-memory opt-in, one warp's matrix product on
+// the tensor cores (bf16 mma.sync m16n8k16 with f32 accumulators, or the
+// same fragments with f32 FMAs for f32 io), and Hopper's pieces (wgmma,
+// bf16 and s8, and its shared-memory descriptors, mbarriers, tensor copies
+// by TMA, bulk loads and stores, the tensor-map encoder, the cluster
+// launch). Every kernel computes in f32 and rounds to the io dtype only
+// where the TPU kernel it replaces rounds.
 
 #pragma once
 
@@ -49,6 +50,12 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 __device__ __forceinline__ float sigmoid_f(float v) { return 1.f / (1.f + expf(-v)); }
+
+// f32 arithmetic written out so that nothing contracts into an FMA: a plain
+// version's ops round one at a time
+__device__ __forceinline__ float mul(float x, float y) { return __fmul_rn(x, y); }
+__device__ __forceinline__ float add(float x, float y) { return __fadd_rn(x, y); }
+__device__ __forceinline__ float sub(float x, float y) { return __fsub_rn(x, y); }
 
 __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
@@ -198,6 +205,53 @@ inline cudaError_t coop_device(int* n_sms, int* smem_max) {
   err = cudaDeviceGetAttribute(smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   return coop ? cudaSuccess : cudaErrorNotSupported;
+}
+
+// The dynamic shared memory a block of `kernel` may take on the current
+// device, in `bytes`: the device's opt-in maximum less the kernel's static
+// shared memory, the kernel's limit raised to it once a device rather than
+// at every launch (cache: the caller's zeroed int[64], one per kernel).
+inline cudaError_t smem_opt_in(const void* kernel, int (&cache)[64], int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!cache[dev]) {
+    int smem_max = 0;
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, kernel);
+    if (err != cudaSuccess) return err;
+    const int dyn = smem_max - (int)fa.sharedSizeBytes;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (err != cudaSuccess) return err;
+    cache[dev] = dyn;
+  }
+  *bytes = cache[dev];
+  return cudaSuccess;
+}
+
+// kernel<<<grid, kThreads, smem, st>>>(args...) in thread-block clusters of
+// `cluster` CTAs along x (grid a multiple of it): the CTAs of a cluster run
+// at once on neighbouring SMs and read each other's shared memory
+// (cooperative_groups::this_cluster(), map_shared_rank).
+template <typename... KArgs, typename... Args>
+inline cudaError_t launch_cluster(void (*kernel)(KArgs...), int grid, int cluster, size_t smem,
+                                  cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // The LSTM kernels' hidden units per CTA: the smallest power of two that

@@ -76,12 +76,12 @@
 //   are loaded, then its products issued back to back, then added in k
 //   order. The exchanges are double-buffered by step parity.
 // - d(enc_proj) and dv are off the recurrence (they feed nothing in the
-//   carry): after the walk, decoder_dep_kernel sums each dep[b,s,a] over t,
-//   newest first, with the plain version's term (dsc·(1-th²))·v and one
-//   rounding, and dv[a] in a fixed order (per row, then over the rows by
-//   decoder_dv_kernel): each element written once, the same bits on every
-//   run; no [B,S,A] buffer is read and written a step. It walks S and T in
-//   fixed tiles, so it takes any T and S the walk takes.
+//   carry): after the walk, csrc/bahdanau_attn.cu's attn_dep_kernel (B7's
+//   kernel, newest step first) sums each dep[b,s,a] over t with the plain
+//   version's term (dsc·(1-th²))·v and one rounding, skipping the terms
+//   with dsc = 0, and dv[a] in a fixed order: each element written once,
+//   the same bits on every run; no [B,S,A] buffer is read and written a
+//   step.
 // What still holds it back: the chain of each phase (the barrier's round
 // trip through L2, the staged rows, the products, the attention's reads
 // of enc and ep, the stores before the next release), four phases with a
@@ -707,9 +707,6 @@ constexpr size_t kStateBytes = (size_t)kFields * kPairs * sizeof(float);
 constexpr int kCtxTiles = 4;                    // dctx n-tiles a warp at most
 constexpr int kMaxSlice = 4 * kCtxTiles * 8;    // columns of C a CTA at most
 constexpr long long kSpinCycles = 20000000000LL;  // about 10 s: a barrier that never fills traps
-constexpr int kDepCols = 128;                   // A columns a block of the post-walk pass
-constexpr int kDepS = 16;                       // positions of S its registers hold at a time
-constexpr int kDepT = 32;                       // steps of dsc it stages at a time
 
 struct Args {
   const bf16 *ep, *enc;         // [B,S,A], [B,S,C]
@@ -777,12 +774,6 @@ __device__ __forceinline__ void prefetch(Pre& p, const Args& a, int s, int b0, i
     }
   }
 }
-
-// f32 arithmetic written out so that nothing contracts into an FMA: the
-// plain version's ops round one at a time
-__device__ __forceinline__ float mul(float x, float y) { return __fmul_rn(x, y); }
-__device__ __forceinline__ float add(float x, float y) { return __fadd_rn(x, y); }
-__device__ __forceinline__ float sub(float x, float y) { return __fsub_rn(x, y); }
 
 // The tensor-core kernels' shared pieces (the backward's and the bf16
 // forward's).
@@ -1165,69 +1156,6 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_seq_bwd_tc_kernel(Args a)
       }
     }
   }
-}
-
-// The post-walk pass: dep[b,s,a] = io(Σ_t (dsc·(1-th²))·v) over t from newest
-// to oldest, th = tanh(ep + dp_t), each element summed by one thread in the
-// plain version's order and rounded once; dv_part[b,a] = Σ th·dsc in a fixed
-// order (S in blocks of kDepS positions; in each, t newest first, then s).
-// grid (B, ceil(A / kDepCols)). The block walks its row's positions kDepS at
-// a time, their sums in registers, and the steps newest first in chunks of
-// kDepT, staging each chunk's dsc [kDepT][kDepS]: shared memory does not
-// grow with T or S.
-__global__ void __launch_bounds__(kDepCols)
-decoder_dep_kernel(const bf16* __restrict__ ep, const bf16* __restrict__ dp,
-                   const float* __restrict__ dsc, const bf16* __restrict__ v, bf16* __restrict__ dep,
-                   float* __restrict__ dv_part, int T, int B, int S, int A) {
-  __shared__ float dsc_s[kDepT][kDepS];
-  const int b = blockIdx.x, a = blockIdx.y * kDepCols + threadIdx.x;
-  const bool live = a < A;
-  const float vf = live ? to_f<bf16>(v[a]) : 0.f;
-  float dvp = 0.f;
-  for (int s0 = 0; s0 < S; s0 += kDepS) {
-    float e[kDepS], acc[kDepS];
-#pragma unroll
-    for (int i = 0; i < kDepS; ++i) {
-      acc[i] = 0.f;
-      e[i] = live && s0 + i < S ? to_f<bf16>(ep[((size_t)b * S + s0 + i) * A + a]) : 0.f;
-    }
-    for (int t1 = T; t1 > 0; t1 -= kDepT) {  // the chunk [t0, t1)
-      const int t0 = max(t1 - kDepT, 0);
-      __syncthreads();  // every thread is done with the last chunk
-      for (int i = threadIdx.x; i < kDepT * kDepS; i += kDepCols) {
-        const int tt = i / kDepS, si = i - tt * kDepS, t = t0 + tt, s = s0 + si;
-        dsc_s[tt][si] = t < t1 && s < S ? dsc[((size_t)t * B + b) * S + s] : 0.f;
-      }
-      __syncthreads();
-      if (!live) continue;
-      for (int t = t1 - 1; t >= t0; --t) {
-        const float dpt = to_f<bf16>(dp[((size_t)t * B + b) * A + a]);
-#pragma unroll
-        for (int i = 0; i < kDepS; ++i) {
-          const float d = dsc_s[t - t0][i];
-          if (d == 0.f) continue;  // a masked position, one past S, or a step that moved nothing
-          const float th = tanhf(add(e[i], dpt));
-          acc[i] = add(acc[i], mul(mul(d, sub(1.f, mul(th, th))), vf));
-          dvp = add(dvp, mul(th, d));
-        }
-      }
-    }
-    if (!live) continue;
-#pragma unroll
-    for (int i = 0; i < kDepS; ++i)
-      if (s0 + i < S) dep[((size_t)b * S + s0 + i) * A + a] = from_f<bf16>(acc[i]);
-  }
-  if (live) dv_part[(size_t)b * A + a] = dvp;
-}
-
-// dv[a] = Σ_b dv_part[b, a], b in order
-__global__ void __launch_bounds__(kThreads)
-decoder_dv_kernel(const float* __restrict__ dv_part, float* __restrict__ dv, int B, int A) {
-  const int a = blockIdx.x * kThreads + threadIdx.x;
-  if (a >= A) return;
-  float sum = 0.f;
-  for (int b = 0; b < B; ++b) sum = add(sum, dv_part[(size_t)b * A + a]);
-  dv[a] = sum;
 }
 
 // ---------------------------------------------- bf16 forward on tensor cores --
@@ -1691,23 +1619,6 @@ cudaError_t launch(void* const* p, int T, int B, int S, int A, int C, int H, cud
   return cudaGetLastError();
 }
 
-cudaError_t dep_launch(void* const* p, int T, int B, int S, int A, cudaStream_t st) {
-  if (T < 1 || B < 1 || S < 1 || A < 1) return cudaErrorInvalidValue;
-  const bf16* ep = static_cast<const bf16*>(p[0]);
-  const bf16* dp = static_cast<const bf16*>(p[1]);
-  const float* dsc = static_cast<const float*>(p[2]);
-  const bf16* v = static_cast<const bf16*>(p[3]);
-  bf16* dep = static_cast<bf16*>(p[4]);
-  float* dv = static_cast<float*>(p[5]);
-  float* dv_part = static_cast<float*>(p[6]);
-  decoder_dep_kernel<<<dim3(B, cdiv(A, kDepCols)), kDepCols, 0, st>>>(ep, dp, dsc, v, dep, dv_part,
-                                                                     T, B, S, A);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decoder_dv_kernel<<<cdiv(A, kThreads), kThreads, 0, st>>>(dv_part, dv, B, A);
-  return cudaGetLastError();
-}
-
 // p: ep, enc, mask, xpx, tmask, h0, v, wg, wx, wa (the weights as
 // attention_kernels.seq_fwd_weights lays them out), h_seq, alpha, ctx, the
 // exchanges hx, rx, cx, dpx, the counters, clk (the timed instance's).
@@ -1843,7 +1754,7 @@ extern "C" int decoder_seq_fwd_tc_plan(int B, int S, int A, int C, int H, int* o
 // dh0 [B,H], dsc [T,B,S] f32; zeroed workspace: the exchanges ex [2,B,3Hp]
 // and dex [2,B,Ap] bf16, the batch groups' counters [groups] u32. Hp is H
 // and Ap is A rounded up to 16, n_ug = Hp / 16, cs from the plan. dep and
-// dv come from decoder_seq_dep_launch on dsc after it.
+// dv come from bahdanau_attn.cu's attn_dep_launch on dsc after it.
 extern "C" int decoder_seq_bwd_tc_launch(void* const* p, int n_steps, int B, int S, int A, int C,
                                          int H, void* stream) {
   if (n_steps < 1) return cudaErrorInvalidValue;
@@ -1863,13 +1774,6 @@ extern "C" int decoder_seq_bwd_tc_plan(int B, int S, int A, int C, int H, int* o
   out[3] = pl.cs;
   out[4] = pl.w_smem;
   return cudaSuccess;
-}
-
-// The post-walk pass. p: ep [B,S,A], dp_seq [T,B,A] bf16, dsc [T,B,S] f32,
-// v [A] bf16; out dep [B,S,A] bf16, dv [A] f32; scratch dv_part [B,A] f32.
-extern "C" int decoder_seq_dep_launch(void* const* p, int n_steps, int B, int S, int A,
-                                      void* stream) {
-  return tcb::dep_launch(p, n_steps, B, S, A, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* decoder_seq_error_string(int err) {

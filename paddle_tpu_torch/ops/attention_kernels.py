@@ -12,10 +12,17 @@ per-step (scan) formulation:
                  by the bulk-copy engine or plain loads: `attn_fwd_path`).
   attn_bwd_step  replaces `_attn_bwd_kernel` / `_attn_bwd_step` (:190,285):
                  dα = dctx·enc, the softmax backward dsc, and
-                 ddp = Σ_S dsc·(1-t²)·v from a recomputed tanh.
+                 ddp = Σ_S dsc·(1-t²)·v from a recomputed tanh. In bf16
+                 on a cluster of CTAs a row that splits the row's listed
+                 positions (csrc/attn_row.cuh `attend_bwd`:
+                 `attn_bwd_path`, `attn_bwd_cluster`); a row whose dctx is
+                 all zero, or with no valid position, reads nothing.
   attn_phase2    replaces `_attn_phase2_kernel` / `_attn_phase2` (:217,315):
                  d(enc_proj) [B,S,A] summed in f32 over all T steps and
-                 written once, and dv [A] in f32.
+                 written once, and dv [A] in f32, on a walk over the
+                 terms with a nonzero dsc (`attn_phase2_route`); the
+                 whole-sequence backward's pass (`decoder_seq_dep`) runs
+                 the same kernel with t newest first.
 
 With FLAGS.fused_attention_seq_fwd and fused_attention_seq_bwd (off by
 default, as in the JAX package) the decoder runs whole-sequence kernels
@@ -53,7 +60,9 @@ its plain version. There is no fallback from one to the other.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -63,9 +72,11 @@ from .activation_ops import sigmoid
 from .lstm_kernels import pad_w_bwd
 from .rnn_ops import gru_cell
 
-# the routes of attn_fwd and of the whole-sequence forward (see
-# attn_fwd_path and seq_fwd_route)
+# the routes of attn_fwd and attn_bwd_step, of attn_phase2 and of the
+# whole-sequence forward (see attn_fwd_path, attn_bwd_path,
+# attn_phase2_route and seq_fwd_route)
 ATTN_BULK, ATTN_LOADS, FIRST = "bulk", "loads", "first"
+WALK = "walk"
 SEQ_TC = "tc"
 
 # launches of the CUDA kernels in this process, in all and by route;
@@ -73,7 +84,9 @@ SEQ_TC = "tc"
 attn_fwd_launches = 0
 attn_fwd_paths = {ATTN_BULK: 0, ATTN_LOADS: 0, FIRST: 0}
 attn_bwd_step_launches = 0
+attn_bwd_step_paths = {ATTN_BULK: 0, ATTN_LOADS: 0, FIRST: 0}
 attn_phase2_launches = 0
+attn_phase2_routes = {WALK: 0, FIRST: 0}
 decoder_seq_fwd_launches = 0
 decoder_seq_fwd_routes = {SEQ_TC: 0, FIRST: 0}
 decoder_seq_bwd_launches = 0
@@ -86,9 +99,15 @@ SEQ_UNITS, SEQ_ROWS, SEQ_MAX_SLICE, SEQ_MAX_AS = 16, 32, 128, 64
 # the forward's products' ring (3 chunks of 2 slots of 32 rows of 72 bf16),
 # its attention's stage at least; a sub-tile's state (5 floats a pair)
 SEQ_RING_BYTES, SEQ_FSTATE_BYTES = 3 * 2 * 32 * 72 * 2, 5 * 32 * 16 * 4
-# csrc/attn_row.cuh: the most ctx columns of its 256 threads (8 x 4
-# groups a thread), its least stage; B5's stage (two CTAs an SM)
-ROW_MAX_C, ROW_MIN_STAGE, ATTN_ROW_STAGE = 8 * 4 * 256, 8192, 96 * 1024
+# csrc/attn_row.cuh: the most ctx (or ddp) columns of its 256 threads (8
+# x 4 groups a thread), its least stage; B5's stage (two CTAs an SM) and
+# B6's (four CTAs an SM at A up to 2048); the most ranks of B6's cluster,
+# and the source positions a rank takes at most by attn_bwd_cluster's rule
+ROW_MAX_C, ROW_MIN_STAGE, ATTN_ROW_STAGE, ATTN_BWD_STAGE = 8 * 4 * 256, 8192, 96 * 1024, 45 * 1024
+ATTN_MAX_CLUSTER, ATTN_RANK_POSITIONS = 4, 32
+# B7's walk (attn_dep_kernel): source positions and columns of A a CTA, and
+# the most positions a row (its order of them in shared memory)
+DEP_POSITIONS, DEP_COLUMNS, DEP_MAX_S = 16, 256, 16384
 # the card the rules are stated for: an H100's (or H200's) SMs and the
 # shared memory a block may opt in to. chip_smoke.py holds each rule to the
 # card's own plan.
@@ -257,6 +276,14 @@ def row_fixed_bytes(S, A):
     return -(-(32 + 8 * _pad8(A) + 8 * S) // 16) * 16
 
 
+def row_bwd_fixed_bytes(S, A, C, ranks):
+    """attn_row::bwd_fixed_bytes on `ranks` ranks: row_fixed_bytes, then
+    dctx [pad8(C)], α [S], dα [S], the Σα·dα slots [ATTN_MAX_CLUSTER] and
+    rank 0's receive buffer [ranks - 1][pad8(A)] f32, rounded up to 16."""
+    words = _pad8(C) + 2 * S + ATTN_MAX_CLUSTER + (ranks - 1) * _pad8(A)
+    return row_fixed_bytes(S, A) + -(-(4 * words) // 16) * 16
+
+
 def row_stage_fits(A, C, stage_bytes):
     """attn_row::stage_fits: either half of the stage holds one position's
     row of ep and of enc (padded to 8 elements), and the stage the ctx
@@ -265,20 +292,56 @@ def row_stage_fits(A, C, stage_bytes):
     return stage_bytes >= ROW_MIN_STAGE and half >= 2 * _pad8(A) and half >= 2 * _pad8(C)
 
 
-def attn_row_chunks(n, scores, A, C, stage_bytes):
-    """The row routine's stage plan (attn_row::chunks) for n listed
-    positions (`scores` False: a fully masked row, whose ep is not read):
-    whole (the listed rows of ep and enc staged together) or streamed
-    through the stage's two halves; positions a chunk of ep (pa) and of enc
-    (pc), and the chunks of each (na, nc), ep's first."""
-    lda, ldc = _pad8(A), _pad8(C)
-    ea = n * lda * 2 if scores else 0
-    if ea + n * ldc * 2 <= stage_bytes:
-        whole, pa, pc = True, n, n
+def _row_chunks(n, first, ld0, ld1, stage_bytes):
+    """attn_row::chunks: the stage's plan for n listed positions read in two
+    passes, rows of ld0 then ld1 bf16 (`first` False: no pass 0): whole
+    (both passes' rows staged together) or streamed through the stage's two
+    halves; positions a chunk of each pass (p0, p1), and the chunks of each
+    (n0, n1), pass 0's first. An empty list has no chunk."""
+    if n < 1:
+        return dict(whole=False, p0=0, p1=0, n0=0, n1=0)
+    e0 = n * ld0 * 2 if first else 0
+    if e0 + n * ld1 * 2 <= stage_bytes:
+        whole, p0, p1 = True, n, n
     else:
         half = stage_bytes // 32 * 16
-        whole, pa, pc = False, half // (lda * 2), half // (ldc * 2)
-    return dict(whole=whole, pa=pa, pc=pc, na=-(-n // pa) if scores else 0, nc=-(-n // pc))
+        whole, p0, p1 = False, half // (ld0 * 2), half // (ld1 * 2)
+    return dict(whole=whole, p0=p0, p1=p1, n0=-(-n // p0) if first else 0, n1=-(-n // p1))
+
+
+def attn_row_chunks(n, scores, A, C, stage_bytes):
+    """The forward row routine's stage plan for n listed positions
+    (`scores` False: a fully masked row, whose ep is not read): ep's rows
+    for the scores, then enc's for ctx; positions a chunk of ep (pa) and of
+    enc (pc), and the chunks of each (na, nc)."""
+    k = _row_chunks(n, scores, _pad8(A), _pad8(C), stage_bytes)
+    return dict(whole=k["whole"], pa=k["p0"], pc=k["p1"], na=k["n0"], nc=k["n1"])
+
+
+def attn_bwd_chunks(n, A, C, stage_bytes):
+    """The backward row routine's stage plan for a rank's n listed
+    positions: enc's rows for dα, then ep's for ddp; positions a chunk of
+    enc (pc) and of ep (pa), and the chunks of each (nc, na)."""
+    k = _row_chunks(n, True, _pad8(C), _pad8(A), stage_bytes)
+    return dict(whole=k["whole"], pc=k["p0"], pa=k["p1"], nc=k["n0"], na=k["n1"])
+
+
+@functools.lru_cache(maxsize=None)
+def attn_bwd_cluster(S):
+    """The ranks of attn_bwd_step's cluster a row: one for every
+    ATTN_RANK_POSITIONS (32) source positions, at most ATTN_MAX_CLUSTER (4):
+    2 at the main path's S = 50, so a full row's 50 positions are split 25
+    and 25 over two CTAs (and 256 rows take 512 CTAs, one wave at four an
+    SM on a 132-SM card)."""
+    return min(ATTN_MAX_CLUSTER, -(-S // ATTN_RANK_POSITIONS))
+
+
+def attn_bwd_ranges(n, ranks):
+    """Each rank's contiguous range [j0, j1) of a row's n listed positions,
+    as attend_bwd cuts it: ceil(n / ranks) a rank, the last ranks' shorter
+    or empty."""
+    per = -(-n // ranks)
+    return [(min(n, q * per), min(n, (q + 1) * per)) for q in range(ranks)]
 
 
 def row_path(A, C):
@@ -288,6 +351,7 @@ def row_path(A, C):
     return ATTN_BULK if A % 8 == 0 and C % 8 == 0 else ATTN_LOADS
 
 
+@functools.lru_cache(maxsize=None)
 def attn_fwd_path(S, A, C, dtype):
     """attn_fwd's kernel for a shape, decided before any launch: in bf16
     csrc/bahdanau_attn.cu's attn_fwd_row_kernel on `row_path`'s staging;
@@ -298,6 +362,36 @@ def attn_fwd_path(S, A, C, dtype):
             or row_fixed_bytes(S, A) + ATTN_ROW_STAGE > CARD_SMEM):
         return FIRST
     return row_path(A, C)
+
+
+@functools.lru_cache(maxsize=None)
+def attn_bwd_path(S, A, C, dtype):
+    """attn_bwd_step's kernel for a shape, decided before any launch: in
+    bf16 csrc/bahdanau_attn.cu's attn_bwd_row_kernel on `row_path`'s
+    staging; in f32, and in bf16 past the row routine's A (8192, its ddp
+    columns), its 45 KB stage (A or C past 11520) or a block's shared memory
+    (S, A and C together), the first design `attn_bwd_step_kernel`."""
+    if (dtype != torch.bfloat16 or A > ROW_MAX_C or not row_stage_fits(A, C, ATTN_BWD_STAGE)
+            or row_bwd_fixed_bytes(S, A, C, attn_bwd_cluster(S)) + ATTN_BWD_STAGE > CARD_SMEM):
+        return FIRST
+    return row_path(A, C)
+
+
+def attn_phase2_route(B, S, dtype):
+    """attn_phase2's kernel for a shape, decided before any launch: WALK
+    (csrc/bahdanau_attn.cu's attn_dep_kernel at the io dtype's instance,
+    f32 or bf16) where its grid and its row's order fit: B up to 65535
+    rows, S up to DEP_MAX_S (16384) positions; else FIRST, the first design
+    `attn_phase2_kernel`."""
+    if dtype not in _IO_DTYPES or B > 65535 or S > DEP_MAX_S:
+        return FIRST
+    return WALK
+
+
+def dep_blocks(S):
+    """The walk's blocks of DEP_POSITIONS listed positions a row (its
+    dv_part rows a batch row)."""
+    return -(-S // DEP_POSITIONS)
 
 
 def seq_layout(B, A, C, H):
@@ -365,20 +459,44 @@ def _aligned(t):
 
 
 # --------------------------------------------------------------- wrappers --
+_LIB = None
+
+
 def _lib():
-    lib = cuda_build.load("bahdanau_attn")
-    if lib.attn_fwd_launch.argtypes is None:
+    """csrc/bahdanau_attn.cu's library, built and bound once a process."""
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load("bahdanau_attn")
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.attn_fwd_launch.argtypes = [i] + [ptr] * 7 + [i] * 4 + [ptr]
         lib.attn_bwd_step_launch.argtypes = [i] + [ptr] * 9 + [i] * 4 + [ptr]
         lib.attn_phase2_launch.argtypes = [i] + [ptr] * 8 + [i] * 4 + [ptr]
         lib.attn_fwd_row_launch.argtypes = [ptr] * 7 + [i] * 5 + [ptr]
+        lib.attn_bwd_row_launch.argtypes = [ptr] * 9 + [i] * 6 + [ptr, ptr]
+        lib.attn_dep_launch.argtypes = [i, i] + [ptr] * 7 + [i] * 4 + [ptr]
         for fn in (lib.attn_fwd_launch, lib.attn_bwd_step_launch, lib.attn_phase2_launch,
-                   lib.attn_fwd_row_launch):
+                   lib.attn_fwd_row_launch, lib.attn_bwd_row_launch, lib.attn_dep_launch):
             fn.restype = i
         lib.attn_error_string.argtypes = [i]
         lib.attn_error_string.restype = ctypes.c_char_p
-    return lib
+        _LIB = lib
+    return _LIB
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def _f32(mask):
+    """The mask as the kernels read it, f32 and contiguous: itself where it
+    already is (no conversion call a step)."""
+    return mask if mask.dtype == torch.float32 and mask.is_contiguous() else \
+        mask.to(torch.float32).contiguous()
+
+
+def _on(device):
+    """The context that makes `device` current for a launch: none where it
+    already is, which saves a per-step wrapper two device switches a call."""
+    return _CURRENT if device.index == torch.cuda.current_device() else torch.cuda.device(device)
 
 
 def _check(name, ep, others):
@@ -388,16 +506,17 @@ def _check(name, ep, others):
         raise ValueError(f"{name}: ep must be a non-empty [B,S,A], got {tuple(ep.shape)}")
     if ep.dtype not in _IO_DTYPES:
         raise TypeError(f"{name}: io dtype must be float32 or bfloat16, got {ep.dtype}")
+    dev = ep.device  # the per-step wrappers' host floor: no tuple or device made twice
     for arg, (t, shape, dtype) in others.items():
-        if tuple(t.shape) != tuple(shape):
+        if t.shape != shape:  # a torch.Size against the tuple
             raise ValueError(f"{name}: {arg} must be {list(shape)}, got {list(t.shape)}")
         want = dtype or ep.dtype
         if want != "any" and t.dtype != want:
             raise TypeError(f"{name}: {arg} is {t.dtype}, expected {want}")
-        if t.device != ep.device:
-            raise ValueError(f"{name}: {arg} is on {t.device}, ep on {ep.device}")
-    if ep.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {ep.device}")
+        if t.device != dev:
+            raise ValueError(f"{name}: {arg} is on {t.device}, ep on {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
 
 
 def _raise(lib, name, err, shapes):
@@ -420,9 +539,9 @@ def attn_fwd(ep, enc, dp, v, mask):
     ep, enc, dp, v = (t.contiguous() for t in (ep, enc, dp, v))
     if path == ATTN_BULK:
         ep, enc = _aligned(ep), _aligned(enc)
-    mask = mask.to(torch.float32).contiguous()
-    with torch.cuda.device(ep.device):
-        lib = _lib()
+    mask = _f32(mask)
+    lib = _lib()
+    with _on(ep.device):
         ctx = torch.empty(B, C, dtype=ep.dtype, device=ep.device)
         alpha = torch.empty(B, S, dtype=torch.float32, device=ep.device)
         ptrs = (ep.data_ptr(), enc.data_ptr(), dp.data_ptr(), v.data_ptr(), mask.data_ptr(),
@@ -440,7 +559,12 @@ def attn_fwd(ep, enc, dp, v, mask):
 
 
 def attn_bwd_step(ep, enc, dp, v, mask, dctx, alpha):
-    """One step's attention backward; see attn_bwd_step_plain."""
+    """One step's attention backward; see attn_bwd_step_plain. CUDA tensors
+    launch the sm_90a kernel `attn_bwd_path` names; in bf16 a row whose
+    dctx is all zero, or with no valid position, gets ddp = dsc = 0 without
+    reading ep or enc (the plain answer for finite inputs: a NaN in such a
+    row of ep or enc is not propagated). CPU tensors run the plain
+    version."""
     global attn_bwd_step_launches
     B, S, A = ep.shape
     C = enc.shape[-1] if enc.dim() == 3 else -1
@@ -450,26 +574,100 @@ def attn_bwd_step(ep, enc, dp, v, mask, dctx, alpha):
         "alpha": (alpha, (B, S), torch.float32)})
     if ep.device.type == "cpu":
         return attn_bwd_step_plain(ep, enc, dp, v, mask, dctx, alpha)
+    path = attn_bwd_path(S, A, C, ep.dtype)
     ep, enc, dp, v, dctx, alpha = (t.contiguous() for t in (ep, enc, dp, v, dctx, alpha))
-    mask = mask.to(torch.float32).contiguous()
-    with torch.cuda.device(ep.device):
-        lib = _lib()
+    if path == ATTN_BULK:
+        ep, enc = _aligned(ep), _aligned(enc)
+    mask = _f32(mask)
+    lib = _lib()
+    with _on(ep.device):
         ddp = torch.empty(B, A, dtype=ep.dtype, device=ep.device)
         dsc = torch.empty(B, S, dtype=torch.float32, device=ep.device)
-        err = lib.attn_bwd_step_launch(
-            int(ep.dtype == torch.bfloat16), ep.data_ptr(), enc.data_ptr(), dp.data_ptr(),
-            v.data_ptr(), mask.data_ptr(), dctx.data_ptr(), alpha.data_ptr(), ddp.data_ptr(),
-            dsc.data_ptr(), B, S, A, C, torch.cuda.current_stream().cuda_stream)
+        ptrs = (ep.data_ptr(), enc.data_ptr(), dp.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                dctx.data_ptr(), alpha.data_ptr(), ddp.data_ptr(), dsc.data_ptr())
+        stream = torch.cuda.current_stream().cuda_stream
+        if path == FIRST:
+            err = lib.attn_bwd_step_launch(int(ep.dtype == torch.bfloat16), *ptrs, B, S, A, C,
+                                           stream)
+        else:
+            err = lib.attn_bwd_row_launch(*ptrs, B, S, A, C, attn_bwd_cluster(S),
+                                          int(path == ATTN_BULK), None, stream)
     if err != 0:
-        _raise(lib, "attn_bwd_step", err, f"B={B} S={S} A={A} C={C} {ep.dtype}")
+        _raise(lib, "attn_bwd_step", err, f"{path} path, B={B} S={S} A={A} C={C} {ep.dtype}")
     attn_bwd_step_launches += 1
+    attn_bwd_step_paths[path] += 1
     return ddp, dsc
 
 
+def attn_bwd_step_phase_us(ep, enc, dp, v, mask, dctx, alpha):
+    """The bf16 attn_bwd_step kernel's phases on the card, from one launch
+    whose CTAs' thread 0 record the device's ns clock at its start and at
+    attend_bwd's points. Returns, over the live CTAs (a row with a nonzero
+    dctx and a valid position), the mean µs of each phase: "loads, the
+    list"; "enc staged, dα"; "Σα·dα exchange"; "ep staged, ddp"; "partials
+    to rank 0"; and the latest live CTA's end and the dead CTAs' mean
+    lifetime, from the first CTA's start; the live and dead CTAs. Counted
+    as no launch; the executor never calls it."""
+    B, S, A = ep.shape
+    C = enc.shape[2]
+    path = attn_bwd_path(S, A, C, ep.dtype)
+    if path == FIRST or A > ROW_MAX_C // 4:  # one group of 8 columns a thread
+        raise ValueError(f"attn_bwd_step_phase_us: S={S} A={A} C={C} {ep.dtype} is not on the "
+                         "row routine's one-group kernel")
+    ranks = attn_bwd_cluster(S)
+    ep, enc, dp, v, dctx, alpha = (t.contiguous() for t in (ep, enc, dp, v, dctx, alpha))
+    mask = _f32(mask)
+    lib = _lib()
+    with _on(ep.device):
+        ddp = torch.empty(B, A, dtype=ep.dtype, device=ep.device)
+        dsc = torch.empty(B, S, dtype=torch.float32, device=ep.device)
+        clk = torch.zeros(B * ranks, 8, dtype=torch.int64, device=ep.device)
+        err = lib.attn_bwd_row_launch(
+            ep.data_ptr(), enc.data_ptr(), dp.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            dctx.data_ptr(), alpha.data_ptr(), ddp.data_ptr(), dsc.data_ptr(), B, S, A, C, ranks,
+            int(path == ATTN_BULK), clk.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        _raise(lib, "attn_bwd_step (timed)", err, f"B={B} S={S} A={A} C={C}")
+    c = clk.cpu().double()
+    t0 = float(c[:, 0].min())
+    live = c[:, 5] > 0
+    names = ("loads, the list", "enc staged, dα", "Σα·dα exchange", "ep staged, ddp",
+             "partials to rank 0")
+    out = {"us": {n: float((c[live, i + 1] - c[live, i]).mean()) / 1e3 if live.any() else 0.0
+                  for i, n in enumerate(names)},
+           "live_end_us": float(c[live, 5].max() - t0) / 1e3 if live.any() else 0.0,
+           "dead_us": float((c[~live, 6] - c[~live, 0]).mean()) / 1e3 if (~live).any() else 0.0,
+           "live_ctas": int(live.sum()), "dead_ctas": int((~live).sum())}
+    return out
+
+
+def _dep(name, ep, dp_seq, dsc_seq, v, newest):
+    """The walk over the nonzero terms (attn_dep_kernel, then attn_dv_kernel)
+    on the card: returns (dep, dv)."""
+    T, B, A = dp_seq.shape
+    S = ep.shape[1]
+    ep, dp_seq, dsc_seq, v = (t.contiguous() for t in (ep, dp_seq, dsc_seq, v))
+    lib = _lib()
+    with _on(ep.device):
+        dep = torch.empty(B, S, A, dtype=ep.dtype, device=ep.device)
+        dv = torch.empty(A, dtype=torch.float32, device=ep.device)
+        dv_part = torch.empty(B * dep_blocks(S), A, dtype=torch.float32, device=ep.device)
+        err = lib.attn_dep_launch(
+            int(ep.dtype == torch.bfloat16), int(newest), ep.data_ptr(), dp_seq.data_ptr(),
+            dsc_seq.data_ptr(), v.data_ptr(), dep.data_ptr(), dv.data_ptr(), dv_part.data_ptr(),
+            T, B, S, A, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        _raise(lib, name, err, f"walk, T={T} B={B} S={S} A={A} {ep.dtype}")
+    return dep, dv
+
+
 def attn_phase2(ep, dp_seq, dsc_seq, v):
-    """d(enc_proj) and dv over all steps; see attn_phase2_plain. dv is
-    summed over the batch from per-block partials in a fixed order, without
-    float atomics, so two runs give the same bits."""
+    """d(enc_proj) and dv over all steps; see attn_phase2_plain. CUDA
+    tensors launch the kernel `attn_phase2_route` names: the walk sums each
+    dep element over t oldest first with the plain version's ops, skipping
+    the terms with dsc = 0 (which add nothing); both kernels sum dv from
+    partials in a fixed order, without float atomics, so two runs give the
+    same bits."""
     global attn_phase2_launches
     B, S, A = ep.shape
     T = dp_seq.shape[0] if dp_seq.dim() == 3 else -1
@@ -480,22 +678,28 @@ def attn_phase2(ep, dp_seq, dsc_seq, v):
         raise ValueError(f"attn_phase2: empty dp_seq {tuple(dp_seq.shape)}")
     if ep.device.type == "cpu":
         return attn_phase2_plain(ep, dp_seq, dsc_seq, v)
-    ep, dp_seq, dsc_seq, v = (t.contiguous() for t in (ep, dp_seq, dsc_seq, v))
-    with torch.cuda.device(ep.device):
+    route = attn_phase2_route(B, S, ep.dtype)
+    if route == WALK:
+        out = _dep("attn_phase2", ep, dp_seq, dsc_seq, v, newest=False)
+    else:
+        ep, dp_seq, dsc_seq, v = (t.contiguous() for t in (ep, dp_seq, dsc_seq, v))
         lib = _lib()
-        dep = torch.empty(B, S, A, dtype=ep.dtype, device=ep.device)
-        dv = torch.empty(A, dtype=torch.float32, device=ep.device)
-        dv_part = torch.empty(B, A, dtype=torch.float32, device=ep.device)
-        done = torch.zeros(1, dtype=torch.int32, device=ep.device)
-        err = lib.attn_phase2_launch(
-            int(ep.dtype == torch.bfloat16), ep.data_ptr(), dp_seq.data_ptr(),
-            dsc_seq.data_ptr(), v.data_ptr(), dep.data_ptr(), dv.data_ptr(),
-            dv_part.data_ptr(), done.data_ptr(), T, B, S, A,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        _raise(lib, "attn_phase2", err, f"T={T} B={B} S={S} A={A} {ep.dtype}")
+        with _on(ep.device):
+            dep = torch.empty(B, S, A, dtype=ep.dtype, device=ep.device)
+            dv = torch.empty(A, dtype=torch.float32, device=ep.device)
+            dv_part = torch.empty(B, A, dtype=torch.float32, device=ep.device)
+            done = torch.zeros(1, dtype=torch.int32, device=ep.device)
+            err = lib.attn_phase2_launch(
+                int(ep.dtype == torch.bfloat16), ep.data_ptr(), dp_seq.data_ptr(),
+                dsc_seq.data_ptr(), v.data_ptr(), dep.data_ptr(), dv.data_ptr(),
+                dv_part.data_ptr(), done.data_ptr(), T, B, S, A,
+                torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            _raise(lib, "attn_phase2", err, f"first design, T={T} B={B} S={S} A={A} {ep.dtype}")
+        out = dep, dv
     attn_phase2_launches += 1
-    return dep, dv
+    attn_phase2_routes[route] += 1
+    return out
 
 
 def _seq_lib():
@@ -506,11 +710,10 @@ def _seq_lib():
             fn.argtypes = [i, ctypes.POINTER(ptr)] + [i] * 6 + [ptr]
             fn.restype = i
         lib.decoder_seq_bwd_tc_launch.argtypes = [ctypes.POINTER(ptr)] + [i] * 6 + [ptr]
-        lib.decoder_seq_dep_launch.argtypes = [ctypes.POINTER(ptr)] + [i] * 4 + [ptr]
         lib.decoder_seq_bwd_tc_plan.argtypes = [i] * 5 + [ptr]
         lib.decoder_seq_fwd_tc_launch.argtypes = [ctypes.POINTER(ptr)] + [i] * 7 + [ptr]
         lib.decoder_seq_fwd_tc_plan.argtypes = [i] * 5 + [ptr]
-        for fn in (lib.decoder_seq_bwd_tc_launch, lib.decoder_seq_dep_launch,
+        for fn in (lib.decoder_seq_bwd_tc_launch,
                    lib.decoder_seq_bwd_tc_plan, lib.decoder_seq_fwd_tc_launch,
                    lib.decoder_seq_fwd_tc_plan):
             fn.restype = i
@@ -770,10 +973,11 @@ def _decoder_seq_bwd_tc(args, dims):
 
 def decoder_seq_dep(ep, dp_seq, dsc_seq, v):
     """The backward's d(enc_proj) and dv from the walk's dsc; see
-    decoder_seq_dep_plain. CUDA bf16 tensors launch csrc/decoder_seq.cu's
-    post-walk pass (each element summed by one thread in the plain
-    version's order, dv's rows in order: the same bits on every run); CPU
-    tensors run the plain version."""
+    decoder_seq_dep_plain. CUDA bf16 tensors launch B7's walk
+    (csrc/bahdanau_attn.cu attn_dep_kernel) with t newest first: each
+    element summed by one thread in the plain version's order, the terms
+    with dsc = 0 skipped, dv's partials added in a fixed order, the same
+    bits on every run; CPU tensors run the plain version."""
     global decoder_seq_dep_launches
     B, S, A = ep.shape if ep.dim() == 3 else (-1, -1, -1)
     T = dp_seq.shape[0] if dp_seq.dim() == 3 else -1
@@ -786,15 +990,11 @@ def decoder_seq_dep(ep, dp_seq, dsc_seq, v):
         return decoder_seq_dep_plain(ep, dp_seq, dsc_seq, v)
     if ep.dtype != torch.bfloat16:
         raise TypeError(f"decoder_seq_dep: the card's pass takes bf16, got {ep.dtype}")
-    ins = [t.contiguous() for t in (ep, dp_seq, dsc_seq, v)]
-    with torch.cuda.device(ep.device):
-        outs = [torch.empty(B, S, A, dtype=ep.dtype, device=ep.device),
-                torch.empty(A, dtype=torch.float32, device=ep.device),
-                torch.empty(B, A, dtype=torch.float32, device=ep.device)]
-        _seq_launch("decoder_seq_dep", "decoder_seq_dep_launch", ins, outs, (T, B, S, A),
-                    ep.dtype)
+    if attn_phase2_route(B, S, ep.dtype) != WALK:
+        raise ValueError(f"decoder_seq_dep: B={B} S={S} is past the walk's grid or order")
+    out = _dep("decoder_seq_dep", ep, dp_seq, dsc_seq, v, newest=True)
     decoder_seq_dep_launches += 1
-    return outs[0], outs[1]
+    return out
 
 
 def decoder_bwd_inputs(trg, h0, wa_dec, wx, wh, bias, h_seq, ctx_seq):

@@ -12,6 +12,26 @@ and an S past the 96 KB stage, and to the plain version on rows the
 routine copies by plain loads; `attn_fwd_path` is held as a function of
 the shape.
 
+The bf16 backward's row routine (B6, `attend_bwd` on a cluster of CTAs a
+row) is emulated by `_bwd_rows`: a dead row (dctx all zero, or no valid
+position) skipped with ddp = dsc = 0, the list (valid positions and
+masked ones with α ≠ 0), the ranks' contiguous ranges
+(`attn_bwd_ranges`), each range's stage plan (`attn_bwd_chunks`), the
+ranks' partial Σα·dα added in rank order, and each rank's partial ddp by
+position class, classes and then ranks added in order. It is held to
+`attn_bwd_step_plain` and the JAX `_attn_bwd_step` in interpret mode, f32
+and bf16, on rows with holes, a fully masked row, rows with dctx = 0 (ddp
+and dsc exactly 0 there), a single valid position and lists that do not
+split evenly over 2 or 3 ranks, and to the plain version past the stage.
+B7's walk over the nonzero terms (`attn_dep_kernel`, both orders over t)
+is emulated by `_dep_walk` (the live positions listed first, blocks of 16,
+chunks of 32 steps, only the steps with a nonzero dsc at a block position,
+a zero dsc skipped): every nonzero term is taken once, and its dep equals
+`attn_phase2_plain`'s (oldest first) and `decoder_seq_dep_plain`'s (newest
+first) bit for bit, f32 and bf16; its dv, in the kernel's fixed order, is
+within the f32 tolerance. `attn_bwd_path`, `attn_bwd_cluster` and
+`attn_phase2_route` are held as functions of the shape.
+
 Widths put the JAX side on its kernels (A and C multiples of 128, B a
 multiple of 8) with S = 10, which the JAX side pads to 16 (masked) and
 the port does not pad; the padded columns are dropped before comparing.
@@ -274,6 +294,292 @@ def test_attn_fwd_path_is_a_function_of_the_shape():
     assert _row_splits(1024) == 2 and _row_splits(130) == 8 and _row_splits(2048) == 1
 
 
+def _bwd_rows(ep, enc, dp, v, mask, dctx, alpha, ranks, stage_bytes):
+    """csrc/attn_row.cuh's attend_bwd row by row, as a cluster of `ranks`
+    CTAs walks it: a dead row (dctx all zero, or no valid position) gets
+    ddp = dsc = 0; else the list (positions with mask > 0, and masked ones
+    with α ≠ 0) is cut into the ranks' ranges, each range's rows of enc (dα,
+    f32) then ep staged in `attn_bwd_chunks`' chunks (each entry read once a
+    pass), the ranks' Σα·dα added in rank order, dsc for each range, and
+    Σ dsc·(1−t²) summed by position class (i mod splits of the range's
+    entries, a zero dsc skipped), classes then ranks added in order, times
+    v, rounded once. dp [B, A] f32. Returns (ddp, dsc)."""
+    dt = ep.dtype
+    B, S, A = ep.shape
+    splits = _row_splits(A)
+    ddp, dsc = torch.zeros(B, A), torch.zeros(B, S)
+    for b in range(B):
+        dc = dctx[b].float()
+        if not bool((dc != 0).any()) or not bool((mask[b] > 0).any()):
+            continue  # dead: zeros, nothing of ep or enc read
+        idx = [s for s in range(S) if mask[b, s] > 0 or alpha[b, s] != 0]
+        parts, partials, dscs = [], [], {}
+        ranges = ak.attn_bwd_ranges(len(idx), ranks)
+        assert [j for j0, j1 in ranges for j in range(j0, j1)] == list(range(len(idx)))
+        for j0, j1 in ranges:  # dα and each rank's Σα·dα
+            ent = idx[j0:j1]
+            k = ak.attn_bwd_chunks(len(ent), A, C if enc.shape[2] == C else enc.shape[2],
+                                   stage_bytes)
+            seen = []
+            dal = torch.zeros(len(ent))
+            for c in range(k["nc"]):
+                i0, i1 = c * k["pc"], min(len(ent), (c + 1) * k["pc"])
+                dal[i0:i1] = enc[b, ent[i0:i1]].float() @ dc
+                seen += list(range(i0, i1))
+            assert seen == list(range(len(ent)))
+            parts.append((ent, dal, k))
+            partials.append(float((alpha[b, ent] * dal).sum()) if ent else 0.0)
+        tot = torch.tensor(0.0)
+        for p in partials:  # rank order
+            tot = tot + torch.tensor(p, dtype=torch.float32)
+        rank_sums = []
+        for ent, dal, k in parts:
+            d = torch.where(mask[b, ent] > 0, alpha[b, ent] * (dal - tot), torch.zeros(()))
+            for s, x in zip(ent, d):
+                dscs[s] = x
+            acc = torch.zeros(splits, A)
+            seen = []
+            for c in range(k["na"]):
+                i0, i1 = c * k["pa"], min(len(ent), (c + 1) * k["pa"])
+                for i in range(i0, i1):
+                    seen.append(i)
+                    if d[i] == 0:
+                        continue
+                    th = torch.tanh(ep[b, ent[i]].float() + dp[b])
+                    acc[i % splits] += d[i] * (1.0 - th * th)
+            assert seen == list(range(len(ent)))
+            tot_r = acc[0]
+            for cls in range(1, splits):
+                tot_r = tot_r + acc[cls]
+            rank_sums.append(tot_r)
+        s_ = rank_sums[0]
+        for r in rank_sums[1:]:
+            s_ = s_ + r
+        ddp[b] = s_ * v.float()
+        for s, x in dscs.items():
+            dsc[b, s] = x
+    return ddp.to(dt), dsc
+
+
+def _bwd_case(dtype, seed=13):
+    """Rows of S = 16 (the JAX kernel's tile: no padding) at A = C = 128:
+    0 full; 1-2 and 5-7 with holes (no mask a prefix), lists of 11, 7, 9
+    and 5 valid positions, none even over 2 ranks or over 3 for most; 3 a
+    row with dctx = 0; 4 fully masked (α = 1/S from the forward); 6 one
+    valid position (α = 1 there, so dsc = dα − dα = 0 and ddp = 0). α from
+    the plain forward."""
+    rng = np.random.RandomState(seed)
+    S_ = 16
+    f = lambda *shape, sc=1.0: (sc * rng.randn(*shape)).astype(np.float32)  # noqa: E731
+    mask = np.ones((B, S_), np.float32)
+    for b, n in ((1, 11), (2, 7), (3, 10), (5, 9), (6, 1), (7, 5)):
+        mask[b] = 0.0
+        mask[b, np.sort(rng.choice(np.arange(1, S_), n, replace=False))] = 1.0
+    mask[4] = 0.0
+    arrays = dict(ep=f(B, S_, A), enc=f(B, S_, C, sc=0.3), dp=f(B, A), v=f(A, sc=0.1),
+                  dctx=f(B, C, sc=0.1))
+    arrays["dctx"][3] = 0.0
+    tdt = getattr(torch, dtype)
+    port = {k: torch.tensor(a).to(tdt) for k, a in arrays.items()}
+    port["mask"] = torch.tensor(mask)
+    port["alpha"] = ak.attn_fwd_plain(port["ep"], port["enc"], port["dp"], port["v"],
+                                      port["mask"])[1]
+    assert torch.all(port["alpha"][4] == 1.0 / S_)
+    jdt = jnp.dtype(dtype)
+    jax_ = {k: jnp.asarray(port[k].float().numpy()).astype(jdt) for k in arrays}
+    jax_["mask"] = jnp.asarray(mask)
+    jax_["alpha"] = jnp.asarray(port["alpha"].numpy())
+    return port, jax_
+
+
+def _bwd_close(got, want, p, dtype):
+    """ddp to _TOL of the largest sum of its terms' magnitudes (ddp is
+    v·Σ_S dsc·(1−t²) over a softmax gradient that sums to 0); dsc, f32, to
+    1e-5 of its largest element."""
+    terms = float(want[1].abs().sum(1).max() * p["v"].float().abs().max())
+    _close("ddp", got[0], np.asarray(want[0], np.float32), dtype, scale=terms)
+    _close("dsc", got[1], np.asarray(want[1], np.float32), "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_row_walk_matches_plain_and_pallas(dtype):
+    """B6's walk (`_bwd_rows`) on 1, 2 and 3 ranks (the rule's 1 at S = 16,
+    and lists that do not split evenly) against attn_bwd_step_plain and the
+    JAX `_attn_bwd_step` in interpret mode; the dead rows (dctx = 0, fully
+    masked) and the row of one valid position exactly 0 in ddp and dsc on
+    the walk's side and the plain version's."""
+    p, j = _bwd_case(dtype)
+    args = [p[k] for k in ("ep", "enc", "dp", "v", "mask", "dctx", "alpha")]
+    want = ak.attn_bwd_step_plain(*args)
+    j_ddp, j_dsc = bk._attn_bwd_step(*(j[k] for k in ("ep", "enc", "dp", "v", "mask", "dctx",
+                                                      "alpha")), True)
+    assert ak.attn_bwd_cluster(16) == 1
+    for ranks in (1, 2, 3):
+        got = _bwd_rows(*args[:2], p["dp"].float(), *args[3:], ranks, ak.ATTN_BWD_STAGE)
+        assert got[0].dtype == p["ep"].dtype and got[1].dtype == torch.float32
+        for ref in (want, (j_ddp, j_dsc)):
+            _bwd_close(got, [r.float() if torch.is_tensor(r) else torch.tensor(np.asarray(
+                r, np.float32)) for r in ref], p, dtype)
+        # dead rows, and one valid position (α = 1 there: dsc = dα − dα)
+        for rows in (got, want):
+            assert torch.all(rows[0][[3, 4, 6]] == 0) and torch.all(rows[1][[3, 4, 6]] == 0)
+
+
+def test_bwd_row_walk_past_the_stage_and_masked_alpha():
+    """S = 208 at A = C = 128 on one rank: 200-odd listed rows of enc and ep
+    (104 KB) pass the 45 KB stage and are streamed through its halves; a
+    masked position given α ≠ 0 is listed (its dα enters Σα·dα, its dsc is
+    0): the walk against the plain version, f32."""
+    rng = np.random.RandomState(17)
+    S_ = 208
+    ep, enc = torch.tensor(rng.randn(2, S_, A), dtype=torch.float32), \
+        torch.tensor(0.3 * rng.randn(2, S_, C), dtype=torch.float32)
+    dp, v = torch.tensor(rng.randn(2, A), dtype=torch.float32), \
+        torch.tensor(0.1 * rng.randn(A), dtype=torch.float32)
+    mask = torch.tensor((rng.rand(2, S_) < 0.98).astype(np.float32))
+    mask[0, 5] = 0.0
+    alpha = ak.attn_fwd_plain(ep, enc, dp, v, mask)[1]
+    alpha[0, 5] = 0.01  # a caller's α at a masked position
+    dctx = torch.tensor(0.1 * rng.randn(2, C), dtype=torch.float32)
+    n = int(((mask[0] > 0) | (alpha[0] != 0)).sum())
+    k = ak.attn_bwd_chunks(n, A, C, ak.ATTN_BWD_STAGE)
+    assert not k["whole"] and k["nc"] > 1 and k["na"] > 1
+    want = ak.attn_bwd_step_plain(ep, enc, dp, v, mask, dctx, alpha)
+    got = _bwd_rows(ep, enc, dp, v, mask, dctx, alpha, 1, ak.ATTN_BWD_STAGE)
+    _bwd_close(got, want, {"v": v}, "float32")
+    assert got[1][0, 5] == 0 and want[1][0, 5] == 0
+    # leaving the masked position out of the list moves every dsc of the row
+    off = _bwd_rows(ep, enc, dp, v, mask, dctx, alpha.masked_fill(mask == 0, 0.0), 1,
+                    ak.ATTN_BWD_STAGE)
+    assert float((off[1][0] - want[1][0]).abs().max()) > 1e-5 * float(want[1].abs().max())
+
+
+def test_bwd_path_and_cluster_are_functions_of_the_shape():
+    """attn_bwd_path: bf16 rows of a multiple of 16 bytes by bulk copies,
+    others by plain loads; f32, A past the routine's 8192 and shapes past a
+    block's shared memory on the first design. attn_bwd_cluster: a rank for
+    every 32 positions, at most 4 (2 at the main path's S = 50). The main
+    path's rows on 2 ranks: up to 25 listed positions a rank, staged whole
+    up to 15 (45 KB), streamed past it (enc's chunks of 11 positions, ep's
+    of 22); S = 300 on 4 ranks: 75 a rank, streamed."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert ak.attn_bwd_path(50, 512, 1024, bf) == ak.attn_bwd_path(300, 512, 1024, bf) \
+        == ak.ATTN_BULK
+    assert ak.attn_bwd_path(7, 100, 130, bf) == ak.attn_bwd_path(45, 300, 520, bf) \
+        == ak.ATTN_LOADS
+    assert ak.attn_bwd_path(50, 512, 1024, f32) == ak.FIRST
+    assert ak.attn_bwd_path(50, 8200, 1024, bf) == ak.FIRST
+    assert ak.attn_bwd_path(50, 512, 11528, bf) == ak.FIRST
+    assert ak.attn_bwd_path(17000, 128, 128, bf) == ak.FIRST
+    assert [ak.attn_bwd_cluster(S_) for S_ in (1, 7, 32, 33, 45, 50, 64, 65, 300)] == \
+        [1, 1, 1, 2, 2, 2, 2, 3, 4]
+    assert ak.attn_bwd_ranges(50, 2) == [(0, 25), (25, 50)]
+    assert ak.attn_bwd_ranges(37, 2) == [(0, 19), (19, 37)]
+    assert ak.attn_bwd_ranges(1, 2) == [(0, 1), (1, 1)]
+    assert ak.attn_bwd_ranges(5, 4) == [(0, 2), (2, 4), (4, 5), (5, 5)]
+    whole = [n for n in range(1, 26) if ak.attn_bwd_chunks(n, 512, 1024,
+                                                            ak.ATTN_BWD_STAGE)["whole"]]
+    assert whole == list(range(1, 16))
+    ring = ak.attn_bwd_chunks(25, 512, 1024, ak.ATTN_BWD_STAGE)
+    assert (ring["pc"], ring["pa"], ring["nc"], ring["na"]) == (11, 22, 3, 2)
+    ring = ak.attn_bwd_chunks(75, 512, 1024, ak.ATTN_BWD_STAGE)
+    assert (ring["whole"], ring["nc"], ring["na"]) == (False, 7, 4)
+    assert ak.attn_bwd_chunks(0, 512, 1024, ak.ATTN_BWD_STAGE)["nc"] == 0
+    # four CTAs an SM at the main path's widths: B6's 512 CTAs in one wave
+    assert 4 * (ak.row_bwd_fixed_bytes(50, 512, 1024, 2) + ak.ATTN_BWD_STAGE + 1024) <= 233472
+    assert ak.attn_phase2_route(256, 50, bf) == ak.attn_phase2_route(256, 50, f32) == ak.WALK
+    assert ak.attn_phase2_route(70000, 50, bf) == ak.attn_phase2_route(8, 20000, f32) == ak.FIRST
+    assert ak.dep_blocks(50) == 4 and ak.dep_blocks(16) == 1 and ak.dep_blocks(17) == 2
+
+
+def _dep_walk(ep, dp_seq, dsc_seq, v, newest, skip=True):
+    """B7's walk (attn_dep_kernel, then attn_dv_kernel): per row, its
+    positions with a nonzero dsc at some step listed first, then the rest;
+    blocks of DEP_POSITIONS of that order; per block the steps in chunks of
+    32 in the visiting order (newest first or oldest first), only those with
+    a nonzero dsc at one of the block's live positions, and at each a zero
+    dsc skipped (`skip`); each term (dsc·(1−th²))·v added in f32, op by op,
+    th from the tensor the plain versions take tanh of; dv: Σ th·dsc per
+    (row, block) in the walk's order, then the rows (row-major) in 8
+    contiguous ranges, each summed in order, the ranges in order. Returns
+    (dep [B,S,A] io dtype, dv [A] f32, the (t, b, s) terms taken)."""
+    T_, B_, A_ = dp_seq.shape
+    S_ = ep.shape[1]
+    epf, vf = ep.float(), v.float()
+    th_all = [torch.tanh(epf + dp_seq[t].float()[:, None, :]) for t in range(T_)]
+    nblk = ak.dep_blocks(S_)
+    dep = torch.zeros(B_, S_, A_)
+    part = torch.zeros(B_ * nblk, A_)
+    taken = 0
+    steps = list(range(T_ - 1, -1, -1)) if newest else list(range(T_))
+    for b in range(B_):
+        live = [s for s in range(S_) if bool((dsc_seq[:, b, s] != 0).any())]
+        order = live + [s for s in range(S_) if s not in live]
+        for blk in range(nblk):
+            pos = order[blk * ak.DEP_POSITIONS:(blk + 1) * ak.DEP_POSITIONS]
+            lp = [s for s in pos if s in live]
+            dvp = torch.zeros(A_)
+            for c0 in range(0, T_, 32):
+                chunk = [t for t in steps[c0:c0 + 32] if bool((dsc_seq[t, b, lp] != 0).any())]
+                for t in chunk:
+                    for s in lp:
+                        d = dsc_seq[t, b, s]
+                        if skip and d == 0:
+                            continue
+                        th = th_all[t][b, s]
+                        dep[b, s] = dep[b, s] + d * (1.0 - th * th) * vf
+                        dvp = dvp + th * d
+                        taken += int(d != 0)
+            part[b * nblk + blk] = dvp
+    rows = B_ * nblk
+    per = -(-rows // 8)
+    dv = torch.zeros(A_)
+    for r0 in range(0, 8 * per, per):
+        s_ = torch.zeros(A_)
+        for r in range(r0, min(rows, r0 + per)):
+            s_ = s_ + part[r]
+        dv = dv + s_
+    return dep.to(ep.dtype), dv, taken
+
+
+def _dep_case(dtype, seed=21):
+    """B7's inputs at S = 20 (two blocks of positions) and T = 40 (two chunks
+    of steps): dsc masked by ragged source lengths, a row with no nonzero
+    dsc, steps at which a row's dsc is 0 (a target step past its length)."""
+    rng = np.random.RandomState(seed)
+    S_, T_ = 20, 40
+    tdt = getattr(torch, dtype)
+    ep = torch.tensor(rng.randn(B, S_, A), dtype=torch.float32).to(tdt)
+    dp_seq = torch.tensor(rng.randn(T_, B, A), dtype=torch.float32).to(tdt)
+    v = torch.tensor(0.1 * rng.randn(A), dtype=torch.float32).to(tdt)
+    lens = rng.randint(1, S_ + 1, size=B)
+    lens[0] = S_
+    tlens = rng.randint(1, T_ + 1, size=B)
+    mask = (np.arange(S_)[None] < lens[:, None]) & (rng.rand(B, S_) < 0.8)
+    dsc = 0.01 * rng.randn(T_, B, S_) * mask[None] * (np.arange(T_)[:, None] < tlens[None])[..., None]
+    dsc[:, 2] = 0.0
+    return ep, dp_seq, torch.tensor(dsc, dtype=torch.float32), v
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dep_walk_gives_the_plain_dep_bit_for_bit(dtype):
+    """`_dep_walk` oldest first equals attn_phase2_plain's dep, newest first
+    decoder_seq_dep_plain's, bit for bit; it takes every nonzero term once;
+    its dv is within 1e-5 of Σ|dsc| of the plain dv."""
+    ep, dp_seq, dsc, v = _dep_case(dtype)
+    nonzero = int((dsc != 0).sum())
+    for newest, plain in ((False, ak.attn_phase2_plain), (True, ak.decoder_seq_dep_plain)):
+        dep, dv, taken = _dep_walk(ep, dp_seq, dsc, v, newest)
+        want = plain(ep, dp_seq, dsc, v)
+        assert taken == nonzero
+        assert dep.dtype == ep.dtype and torch.equal(dep, want[0])
+        assert float((dv - want[1]).abs().max()) <= 1e-5 * float(dsc.abs().sum())
+        assert torch.all(dep[2] == 0) and float(dep.float().abs().max()) > 0
+    if dtype == "float32":  # the order matters: oldest first is not newest first
+        assert not torch.equal(ak.attn_phase2_plain(ep, dp_seq, dsc, v)[0],
+                               ak.decoder_seq_dep_plain(ep, dp_seq, dsc, v)[0])
+
+
 def _decoder_args(dtype):
     args = _make_inputs(T=T)
     if dtype == "bfloat16":
@@ -353,7 +659,8 @@ def test_cpu_wrappers_run_plain_and_launch_nothing():
     assert (ak.attn_fwd_launches, ak.attn_bwd_step_launches, ak.attn_phase2_launches) == before
 
 
-@pytest.mark.parametrize("bad", ["dtype", "mixed_dtype", "enc_shape", "mask_shape", "alpha_dtype"])
+@pytest.mark.parametrize("bad", ["dtype", "mixed_dtype", "enc_shape", "mask_shape", "alpha_dtype",
+                                 "dctx_shape", "dsc_dtype"])
 def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     p, _ = _case("float32")
     ep, enc, dp, v, mask, dctx = (p[k] for k in ("ep", "enc", "dp", "v", "mask", "dctx"))
@@ -366,12 +673,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         enc = enc[:, :-1]
     elif bad == "mask_shape":
         mask = mask.T
-    else:
+    elif bad == "dctx_shape":
+        dctx = dctx[:, :-1]
+    elif bad == "alpha_dtype":
         alpha = alpha.bfloat16()
     with pytest.raises((TypeError, ValueError)):
-        if bad == "alpha_dtype":
+        if bad in ("alpha_dtype", "dctx_shape"):
             ak.attn_bwd_step(ep, enc, dp, v, mask, dctx, alpha)
+        elif bad == "dsc_dtype":
+            ak.attn_phase2(ep, p["dp_seq"], p["dsc_seq"].double(), v)
         else:
             ak.attn_fwd(ep, enc, dp, v, mask)
     with pytest.raises((TypeError, ValueError)):
         ak.attn_phase2(ep, p["dp_seq"][:, :-1], p["dsc_seq"], v)
+    with pytest.raises((TypeError, ValueError)):
+        ak.decoder_seq_dep(ep, p["dp_seq"], p["dsc_seq"][:, :, :-1], v)

@@ -1,6 +1,7 @@
 """The bf16 whole-sequence decoder kernels' partition on the CPU, where no
 kernel runs: the backward's (B10, csrc/decoder_seq.cu
-`decoder_seq_bwd_tc_kernel` and its post-walk pass `decoder_dep_kernel`)
+`decoder_seq_bwd_tc_kernel`, and its post-walk pass on B7's kernel,
+csrc/bahdanau_attn.cu `attn_dep_kernel`)
 layout, an emulation of its walk, and its d(enc_proj)/dv pass; the
 forward's (B9, `decoder_seq_fwd_tc_kernel`) the same, and the route rules.
 
@@ -25,7 +26,9 @@ forward's (B9, `decoder_seq_fwd_tc_kernel`) the same, and the route rules.
   there in bf16 with chip_smoke.py's bounds (see _EDGE_SHARE).
 - The post-walk pass's plain version, fed the walk's own dsc, gives
   `decoder_seq_bwd_plain`'s dep and dv bit for bit: the same terms summed
-  in the same order, newest step first.
+  in the same order, newest step first; so does the emulation of the
+  card's pass (B7's walk over the nonzero terms, newest first:
+  test_torch_attention._dep_walk) for dep, its dv within 1e-5 of Σ|dsc|.
 - The forward's partition (`_fwd_partition`, this file's copy of its
   indexing): every (row, unit) pair, every element of dp and every row's
   attention to one CTA. Its weights' layout (`seq_fwd_weights`). An
@@ -52,7 +55,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from paddle_tpu.ops import bahdanau_kernels as bk  # noqa: E402
 from paddle_tpu_torch.ops import attention_kernels as ak  # noqa: E402
-from test_torch_attention import _rows_attention  # noqa: E402
+from test_torch_attention import _dep_walk, _rows_attention  # noqa: E402
 from test_torch_seq2seq import (_assert_kernel_close, _jit, _seq_case,  # noqa: E402
                                 _to_jax)
 
@@ -312,6 +315,11 @@ def test_post_walk_pass_gives_the_plain_dep_and_dv_bit_for_bit(dtype):
     assert dep.dtype == ep.dtype and dv.dtype == torch.float32
     assert torch.equal(dep, out[4]) and torch.equal(dv, out[5])
     assert float(dep.float().abs().max()) > 0 and float(dv.abs().max()) > 0
+    # the card's pass, B7's walk newest first (test_torch_attention._dep_walk):
+    # every nonzero term once, dep bit for bit, dv in its fixed order
+    walk, walk_dv, taken = _dep_walk(ep, bwd[9], dsc, bwd[11], newest=True)
+    assert taken == int((dsc != 0).sum()) and torch.equal(walk, out[4])
+    assert float((walk_dv - out[5]).abs().max()) <= 1e-5 * float(dsc.abs().sum())
 
 
 # --------------------------------------------------- the bf16 forward (B9) --
