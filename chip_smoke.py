@@ -2,8 +2,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py [--seed N]
-    python3 chip_smoke.py --host-floor ROOT   (only the attention wrappers'
-                                               host floors of a checkout)
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without the final `ok` line:
@@ -53,8 +51,8 @@ exits non-zero without the final `ok` line:
               runs on staged rows of the valid positions (attn_fwd_path),
               attn_bwd_step on a cluster of CTAs a row that splits the
               row's listed positions (attn_bwd_path, attn_bwd_cluster),
-              attn_phase2 on a walk over the nonzero terms
-              (attn_phase2_route): each also at ATTN_ROW_EDGE (a non-prefix
+              attn_phase2 on a walk over the nonzero terms (in both io
+              dtypes): each also at ATTN_ROW_EDGE (a non-prefix
               mask, a fully masked row, S=300 streamed through the ring)
               and attn_bwd_step at ATTN_BWD_EDGE (rows with dctx = 0, lists
               that split unevenly over the ranks, a single valid position;
@@ -71,8 +69,8 @@ exits non-zero without the final `ok` line:
   8. steps    3 timed training steps on the same batch with the launch
               counts set to 0 just before: finite, falling losses, median
               ms per step, target tokens/s, exact launches per step (every
-              attn_fwd and attn_bwd_step on the bulk-copy path, every
-              attn_phase2 on the walk); then one more step under
+              attn_fwd and attn_bwd_step on the bulk-copy path); then one
+              more step under
               torch.profiler.
   9. parity   the small training program (artifacts/nmt_train_small), card
               against CPU from the same state and feeds: losses and the
@@ -712,8 +710,8 @@ def attn_bwd_first(ak, ep, enc, dp, v, mask, dctx, alpha):
 
 def attn_phase2_first(ak, ep, dp_seq, dsc_seq, v):
     """attn_phase2's first-design kernel (attn_phase2_kernel) on these
-    inputs, whichever route attn_phase2_route names: the kernel before the
-    walk over the nonzero terms, held and timed beside it. Not counted."""
+    inputs: the kernel before the walk over the nonzero terms, held and
+    timed beside it. No wrapper launches it; not counted."""
     B, S, A = ep.shape
     T = dp_seq.shape[0]
     dep = torch.empty(B, S, A, dtype=ep.dtype, device=ep.device)
@@ -3374,39 +3372,14 @@ def quant_phases(ptt, exe, smi, seed, first_phase):
     return rows, {name: max_err[route] for name, route in names.items()}, launches
 
 
-def host_floors(root):
-    """The per-step attention wrappers' host floors of the package in
-    `root` (a checkout of this repository): attn_fwd and attn_bwd_step on
-    one row of one position at the main path's widths (A=512, C=1024,
-    bf16), whose device work is negligible; ms a call over 200 calls after
-    a warm-up, five times each, printed as one JSON line. Comparing two
-    checkouts takes one process each, in turns, on one card."""
-    sys.path.insert(0, os.path.abspath(root))
-    from paddle_tpu_torch.ops import attention_kernels as ak
-
-    f = lambda *shape: torch.randn(*shape, device="cuda").to(torch.bfloat16)  # noqa: E731
-    ep, enc, dp, v, dctx = f(1, 1, 512), f(1, 1, 1024), f(1, 512), f(512), f(1, 1024)
-    mask, alpha = torch.ones(1, 1, device="cuda"), torch.ones(1, 1, device="cuda")
-    calls = {"attn_fwd": lambda: ak.attn_fwd(ep, enc, dp, v, mask),
-             "attn_bwd_step": lambda: ak.attn_bwd_step(ep, enc, dp, v, mask, dctx, alpha)}
-    out = {name: [cuda_ms(call, 200) for _ in range(5)] for name, call in calls.items()}
-    print(json.dumps({"root": root, "host_floor_ms": out, "card": nvidia_smi_line()}))
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--host-floor", metavar="ROOT",
-                    help="only measure the attention wrappers' host floors of the checkout in "
-                         "ROOT (see host_floors)")
     args = ap.parse_args()
 
     phase(1, "device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA GPU")
-    if args.host_floor:
-        host_floors(args.host_floor)
-        return
     sys.path.insert(0, ROOT)
     torch.manual_seed(args.seed)
     import paddle_tpu_torch as ptt
@@ -3843,8 +3816,7 @@ def main():
                     again = ak.attn_phase2(*ins)
                     check(all(torch.equal(x, y) for x, y in zip(got, again)),
                           "attn_phase2 gives other bits in a second run")
-                    print(f"    attn_phase2 on its route {ak.attn_phase2_route(B_, S_, dt)}: dep "
-                          f"and dv the same bits in two runs")
+                    print("    attn_phase2 on the walk: dep and dv the same bits in two runs")
     # B6 over the step's 50 recorded calls, newest step first (t = 49 .. 0):
     # each held against plain, dead rows exactly 0; the 50 timed together
     # (a CUDA graph's replay on the device, and launched from Python), the
@@ -4006,8 +3978,7 @@ def main():
         setattr(mod, attr, 0)
     # each route counter, as it stands before the steps
     routes0 = {k: dict(c) for k, c in (("attn_fwd", ak.attn_fwd_paths),
-                                        ("attn_bwd_step", ak.attn_bwd_step_paths),
-                                        ("attn_phase2", ak.attn_phase2_routes))}
+                                        ("attn_bwd_step", ak.attn_bwd_step_paths))}
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -4016,8 +3987,7 @@ def main():
         times.append((time.perf_counter() - t0) * 1e3)
     train_launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
     train_routes = {k: {r: n - routes0[k][r] for r, n in c.items()} for k, c in (
-        ("attn_fwd", ak.attn_fwd_paths), ("attn_bwd_step", ak.attn_bwd_step_paths),
-        ("attn_phase2", ak.attn_phase2_routes))}
+        ("attn_fwd", ak.attn_fwd_paths), ("attn_bwd_step", ak.attn_bwd_step_paths))}
     print(f"  losses (warm-up, then timed): {losses}")
     check(all(np.isfinite(losses)), "non-finite loss")
     check(losses[-1] < losses[0], "the loss did not fall over 4 steps on one batch")
@@ -4025,8 +3995,7 @@ def main():
           f"route {train_routes}")
     for k, n in STEP_LAUNCHES.items():
         check(train_launches[k] == 3 * n, f"{k} launched {train_launches[k]} times in 3 steps")
-    for k, route in (("attn_fwd", ak.ATTN_BULK), ("attn_bwd_step", ak.ATTN_BULK),
-                     ("attn_phase2", ak.WALK)):
+    for k, route in (("attn_fwd", ak.ATTN_BULK), ("attn_bwd_step", ak.ATTN_BULK)):
         check(train_routes[k][route] == 3 * STEP_LAUNCHES[k],
               f"{k}'s launches by route {train_routes[k]}: not all on the {route} route")
     tmed = statistics.median(times)
@@ -4066,8 +4035,7 @@ def main():
     phase(32, "the kernels line, then the device line")
     rows["attn_bwd_step"].update(launches_by_route=train_routes["attn_bwd_step"],
                                  kernel="attn_bwd_row_kernel on csrc/attn_row.cuh's attend_bwd")
-    rows["attn_phase2"].update(launches_by_route=train_routes["attn_phase2"],
-                               kernel="attn_dep_kernel (t oldest first) + attn_dv_kernel")
+    rows["attn_phase2"].update(kernel="attn_dep_kernel (t oldest first) + attn_dv_kernel")
     sources = {"gru_fwd": ("gru_fwd.cu", "paddle_tpu/ops/pallas_kernels.py:493"),
                "gru_bwd": ("gru_bwd.cu", "paddle_tpu/ops/pallas_kernels.py:608"),
                "attn_fwd": ("bahdanau_attn.cu", "paddle_tpu/ops/bahdanau_kernels.py:257"),

@@ -46,7 +46,9 @@
 // for its range, and sums a partial ddp over its positions (8 columns a
 // thread by position class, the classes added in order), which it pushes
 // into rank 0's receive buffer; rank 0 adds the ranks' partials in rank
-// order. Two cluster barriers a row, pushes rather than remote loads. A
+// order. Two cluster barriers a row, pushes rather than remote loads; the
+// first push waits on a relaxed cluster arrival made at entry, so no rank
+// writes into a CTA's shared memory before that CTA is known to run. A
 // fixed order throughout: the same bits on every run.
 //
 // Shared memory the caller lays out (`fixed_bytes`, `bwd_fixed_bytes`): two
@@ -404,10 +406,11 @@ __device__ void attend(const bf16* ep, const bf16* enc, const float* mask, int S
 // version's answers for finite inputs (nothing of ep or enc is read, so a
 // NaN there is not propagated). Otherwise the list holds the positions with
 // mask > 0 and any masked position whose α ≠ 0 (whose dα enters Σα·dα; its
-// dsc is 0): so Σα·dα over the list is the plain version's sum. clk, where
-// not null: the device's ns clock at 1 the list, 2 dα in, 3 the Σα·dα
-// exchange, 4 ddp's partial, 5 the end (6 a dead row's end), by thread 0.
-template <int kT, int kG>
+// dsc is 0): so Σα·dα over the list is the plain version's sum. kTimed
+// (the timed instance): thread 0 records the device's ns clock in clk at 1
+// the list, 2 dα in, 3 the Σα·dα exchange, 4 ddp's partial, 5 the end (6 a
+// dead row's end).
+template <int kT, int kG, bool kTimed>
 __device__ void attend_bwd(const bf16* ep, const bf16* enc, const float* mask, const float* alpha,
                            const float* dctx_s, bool live_dctx, int S, int A, int C, bool bulk,
                            const Bufs& r, unsigned (&ph)[2], bf16* ddp, float* dsc,
@@ -419,7 +422,8 @@ __device__ void attend_bwd(const bf16* ep, const bf16* enc, const float* mask, c
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int lda = pad8(A), ldc = pad8(C);
   auto stamp = [&](int i) {
-    if (clk && tid == 0) clk[i] = global_ns();
+    if constexpr (kTimed)
+      if (tid == 0) clk[i] = global_ns();
   };
   // flags: 2 a valid position, 1 a masked one with α ≠ 0, 0 unlisted; α
   // kept in shared memory: these loads go out with the caller's of dctx
@@ -442,6 +446,9 @@ __device__ void attend_bwd(const bf16* ep, const bf16* enc, const float* mask, c
     stamp(6);
     return;
   }
+  // this CTA runs: the others may push into its shared memory once their
+  // wait returns (no rank pushes before; the wait hides behind pass 0)
+  cluster_arrive_relaxed();
   if (warp == 0) {
     const int n = list_flagged(r.sc, S, r.idx);
     if (lane == 0) *r.count = n;
@@ -471,6 +478,7 @@ __device__ void attend_bwd(const bf16* ep, const bf16* enc, const float* mask, c
 
   auto softmax_bwd = [&] {  // every dα of the range is in
     stamp(2);
+    cluster_wait();  // every rank of the cluster runs
     if (warp == 0) {  // the range's Σα·dα, lanes in list order, then a warp sum
       float p = 0.f;
       for (int j = lane; j < nr; j += 32) p += r.al[idx[j]] * dal[j];

@@ -41,11 +41,11 @@
 //                  range, and sums a partial ddp by position class, pushed
 //                  into rank 0's; rank 0 adds the partials in rank order.
 //                  Its time is the chain of each live CTA (loads, staging,
-//                  two cluster barriers), not its bytes: a timed launch
+//                  two cluster barriers), not its bytes: a timed instance
 //                  (attention_kernels.attn_bwd_step_phase_us) splits it.
-//   attn_phase2    `attn_dep_kernel<T, newest>`, in both io dtypes
-//                  (attention_kernels.attn_phase2_route), and for the
-//                  whole-sequence backward's d(enc_proj)/dv pass
+//   attn_phase2    `attn_dep_kernel<T, newest>`, in both io dtypes and
+//                  for every shape up to 16384 source positions, and for
+//                  the whole-sequence backward's d(enc_proj)/dv pass
 //                  (decoder_seq_dep, newest step first): dep[b,s,a] =
 //                  io(Σ_t (dsc·(1−th²))·v) summed by one thread in the plain
 //                  version's order over t, each op rounded as the plain
@@ -70,11 +70,11 @@
 // In f32, and in bf16 past the row routines' C or shared memory, attn_fwd
 // and attn_bwd_step keep their first designs (`attn_fwd_kernel`,
 // `attn_bwd_step_kernel`: a warp per position over all S, f32 FMAs on
-// CUDA cores, plain loads); attn_phase2's first design
-// (`attn_phase2_kernel`: a thread per (row, a) over every (t, s)) takes
-// the shapes attn_phase2_route gives it, and all three are launched beside
-// the new designs by chip_smoke.py. Fusing the per-step kernels into the
-// decoder's step loop is later work.
+// CUDA cores, plain loads). attn_phase2's first design
+// (`attn_phase2_kernel`: a thread per (row, a) over every (t, s)) is no
+// wrapper's route: chip_smoke.py launches it, as the other two, beside the
+// new design. Fusing the per-step kernels into the decoder's step loop is
+// later work.
 
 #include "attn_row.cuh"
 #include "common.cuh"
@@ -269,11 +269,12 @@ attn_phase2_kernel(const T* __restrict__ ep, const T* __restrict__ dp_seq,
 // (45 KB + 11 KB at the main path's widths) of its 228 KB, at most 64
 // registers a thread), so the 512 CTAs of B = 256 rows on 2 ranks run in
 // one wave on 132 SMs. A rank's range of up to 15 positions is staged
-// whole; a longer one streams through the stage's halves. clk, where not
-// null: each CTA's 8 clock slots (attend_bwd's, and 0 at its start).
+// whole; a longer one streams through the stage's halves. kTimed (the
+// timed instance): clk holds each CTA's 8 clock slots (attend_bwd's, and 0
+// at its start); the untimed instance never reads it.
 constexpr int kBwdStage = 45 * 1024;
 
-template <int kG>
+template <int kG, bool kTimed>
 __global__ void __launch_bounds__(kThreads, kG == 1 ? 4 : 2)
 attn_bwd_row_kernel(const __nv_bfloat16* __restrict__ ep, const __nv_bfloat16* __restrict__ enc,
                     const __nv_bfloat16* __restrict__ dp, const __nv_bfloat16* __restrict__ v,
@@ -283,7 +284,7 @@ attn_bwd_row_kernel(const __nv_bfloat16* __restrict__ ep, const __nv_bfloat16* _
                     long long* __restrict__ clk) {
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  if (clk) {
+  if constexpr (kTimed) {
     clk += (size_t)blockIdx.x * 8;
     if (threadIdx.x == 0) clk[0] = global_ns();
   }
@@ -320,10 +321,10 @@ attn_bwd_row_kernel(const __nv_bfloat16* __restrict__ ep, const __nv_bfloat16* _
     fence_mbar_init();
   }
   unsigned ph[2] = {0u, 0u};
-  attn_row::attend_bwd<kThreads, kG>(ep + (size_t)b * S * A, enc + (size_t)b * S * C,
-                                     mask + (size_t)b * S, alpha + (size_t)b * S, dctx_s, live,
-                                     S, A, C, bulk != 0, r, ph, ddp + (size_t)b * A,
-                                     dsc + (size_t)b * S, clk);
+  attn_row::attend_bwd<kThreads, kG, kTimed>(
+      ep + (size_t)b * S * A, enc + (size_t)b * S * C, mask + (size_t)b * S,
+      alpha + (size_t)b * S, dctx_s, live, S, A, C, bulk != 0, r, ph, ddp + (size_t)b * A,
+      dsc + (size_t)b * S, clk);
 }
 
 // attn_dep_kernel's walk: a CTA's threads (two halves of kDepPairs), its
@@ -373,8 +374,10 @@ __device__ __forceinline__ void store2(T* p, bool pair, bool has0, bool has1, fl
   if (has1) p[1] = from_f<T>(x1);
 }
 
-// grid (ceil(A / kDepTile), ceil(S / kDepPos), B). dsc_seq [T,B,S] f32;
-// dv_part [B, gridDim.y, A] f32 out. smem: the row's order of positions
+// grid B·blocks·tiles along x (blocks = ceil(S / kDepPos), tiles =
+// ceil(A / kDepTile)), the tile fastest, then the block, then the row, so a
+// row's CTAs are neighbours. dsc_seq [T,B,S] f32; dv_part [B, blocks, A]
+// f32 out. smem: the row's order of positions
 // [S] and their flags [S] (ints). kNewest: t from T-1 down to 0
 // (decoder_seq_dep_plain's order), else up (attn_phase2_plain's). Thread
 // (h, p) owns columns a0, a0 + 1 (pair p) of positions h·kDepHalf + j of
@@ -395,7 +398,9 @@ attn_dep_kernel(const T* __restrict__ ep, const T* __restrict__ dp_seq,
   __shared__ int step_s[kDepSteps], full_s[kDepSteps], pos_s[kDepPos], n_live_s, nk_s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, T_ = n_steps;
   const int pi = tid % kDepPairs, h = tid / kDepPairs;
-  const int b = blockIdx.z, p0 = blockIdx.y * kDepPos, a0 = blockIdx.x * kDepTile + 2 * pi;
+  const int tiles = attn_row::cdiv(A, kDepTile), blocks = attn_row::cdiv(S, kDepPos);
+  const int tile = blockIdx.x % tiles, blk = blockIdx.x / tiles % blocks;
+  const int b = blockIdx.x / tiles / blocks, p0 = blk * kDepPos, a0 = tile * kDepTile + 2 * pi;
   const bool has0 = a0 < A, has1 = a0 + 1 < A, pr = pair != 0;
   // a position is live where some step's dsc is nonzero
   for (int s = tid; s < S; s += kDepThreads) {
@@ -502,7 +507,7 @@ attn_dep_kernel(const T* __restrict__ ep, const T* __restrict__ dp_seq,
   if (h == 1) dv_s[pi] = make_float2(dv0, dv1);
   __syncthreads();
   if (h == 1) return;
-  float* part = dv_part + ((size_t)b * gridDim.y + blockIdx.y) * A + a0;
+  float* part = dv_part + ((size_t)b * blocks + blk) * A + a0;
   if (has0) part[0] = add(dv0, dv_s[pi].x);
   if (has1) part[1] = add(dv1, dv_s[pi].y);
 }
@@ -590,8 +595,9 @@ cudaError_t dep_walk(const void* ep, const void* dp_seq, const float* dsc_seq, c
                         reinterpret_cast<uintptr_t>(dep);
   const int pair = A % 2 == 0 && mis % (2 * sizeof(T)) == 0;
   const int blocks = attn_row::cdiv(S, kDepPos);
-  attn_dep_kernel<T, kNewest><<<dim3(attn_row::cdiv(A, kDepTile), blocks, B), kDepThreads, smem,
-                                st>>>(
+  const long long grid = (long long)B * blocks * attn_row::cdiv(A, kDepTile);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  attn_dep_kernel<T, kNewest><<<(unsigned)grid, kDepThreads, smem, st>>>(
       static_cast<const T*>(ep), static_cast<const T*>(dp_seq), dsc_seq,
       static_cast<const T*>(v), static_cast<T*>(dep), dv_part, n_steps, B, S, A, pair);
   err = cudaGetLastError();
@@ -601,7 +607,7 @@ cudaError_t dep_walk(const void* ep, const void* dp_seq, const float* dsc_seq, c
   return cudaGetLastError();
 }
 
-template <int kG>
+template <int kG, bool kTimed>
 cudaError_t bwd_row(const void* ep, const void* enc, const void* dp, const void* v,
                     const void* mask, const void* dctx, const void* alpha, void* ddp, void* dsc,
                     int B, int S, int A, int C, int ranks, int bulk, long long* clk,
@@ -611,10 +617,11 @@ cudaError_t bwd_row(const void* ep, const void* enc, const void* dp, const void*
   static int opt_in[64];
   int smem_max = 0;
   cudaError_t err =
-      smem_opt_in(reinterpret_cast<const void*>(attn_bwd_row_kernel<kG>), opt_in, &smem_max);
+      smem_opt_in(reinterpret_cast<const void*>(attn_bwd_row_kernel<kG, kTimed>), opt_in,
+                  &smem_max);
   if (err != cudaSuccess) return err;
   if (smem > (size_t)smem_max) return cudaErrorInvalidValue;
-  err = launch_cluster(attn_bwd_row_kernel<kG>, B * ranks, ranks, smem, st,
+  err = launch_cluster(attn_bwd_row_kernel<kG, kTimed>, B * ranks, ranks, smem, st,
                        static_cast<const bf16*>(ep), static_cast<const bf16*>(enc),
                        static_cast<const bf16*>(dp), static_cast<const bf16*>(v),
                        static_cast<const float*>(mask), static_cast<const bf16*>(dctx),
@@ -710,25 +717,44 @@ extern "C" int attn_fwd_row_launch(const void* ep, const void* enc, const void* 
 // and ep, enc 16-byte aligned (cudaErrorMisalignedAddress otherwise); else
 // plain loads. cudaErrorInvalidValue where A passes the routine's 8 columns
 // x kMaxG groups a thread, or the stage or shared memory does not take the
-// row. clk: null, or [B·ranks, 8] int64 for the timed launch
-// (attention_kernels.attn_bwd_step_phase_us).
-extern "C" int attn_bwd_row_launch(const void* ep, const void* enc, const void* dp,
-                                   const void* v, const void* mask, const void* dctx,
-                                   const void* alpha, void* ddp, void* dsc, int B, int S, int A,
-                                   int C, int ranks, int bulk, void* clk, void* stream) {
+// row.
+static int bwd_row_check(const void* ep, const void* enc, int B, int S, int A, int C,
+                         int ranks, int bulk) {
   if (bad_shape(B, S, A, C) || ranks < 1 || ranks > attn_row::kMaxRanks ||
       A > 8 * attn_row::kMaxG * kThreads || !attn_row::stage_fits(A, C, kBwdStage))
     return cudaErrorInvalidValue;
   if (bulk && ((A | C) % 8 != 0 || (reinterpret_cast<uintptr_t>(ep) & 15) ||
                (reinterpret_cast<uintptr_t>(enc) & 15)))
     return cudaErrorMisalignedAddress;
+  return cudaSuccess;
+}
+
+extern "C" int attn_bwd_row_launch(const void* ep, const void* enc, const void* dp,
+                                   const void* v, const void* mask, const void* dctx,
+                                   const void* alpha, void* ddp, void* dsc, int B, int S, int A,
+                                   int C, int ranks, int bulk, void* stream) {
+  const int bad = bwd_row_check(ep, enc, B, S, A, C, ranks, bulk);
+  if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  long long* ck = static_cast<long long*>(clk);
   if (A <= 8 * kThreads)  // one group of 8 columns a thread
-    return bwd_row<1>(ep, enc, dp, v, mask, dctx, alpha, ddp, dsc, B, S, A, C, ranks, bulk, ck,
-                      st);
-  return bwd_row<attn_row::kMaxG>(ep, enc, dp, v, mask, dctx, alpha, ddp, dsc, B, S, A, C, ranks,
-                                  bulk, ck, st);
+    return bwd_row<1, false>(ep, enc, dp, v, mask, dctx, alpha, ddp, dsc, B, S, A, C, ranks, bulk,
+                             nullptr, st);
+  return bwd_row<attn_row::kMaxG, false>(ep, enc, dp, v, mask, dctx, alpha, ddp, dsc, B, S, A, C,
+                                         ranks, bulk, nullptr, st);
+}
+
+// The same kernel's timed instance, at A up to 8 columns a thread
+// (attention_kernels.attn_bwd_step_phase_us): clk [B·ranks, 8] int64.
+extern "C" int attn_bwd_row_timed_launch(const void* ep, const void* enc, const void* dp,
+                                         const void* v, const void* mask, const void* dctx,
+                                         const void* alpha, void* ddp, void* dsc, int B, int S,
+                                         int A, int C, int ranks, int bulk, void* clk,
+                                         void* stream) {
+  const int bad = bwd_row_check(ep, enc, B, S, A, C, ranks, bulk);
+  if (bad) return bad;
+  if (A > 8 * kThreads) return cudaErrorInvalidValue;
+  return bwd_row<1, true>(ep, enc, dp, v, mask, dctx, alpha, ddp, dsc, B, S, A, C, ranks, bulk,
+                          static_cast<long long*>(clk), static_cast<cudaStream_t>(stream));
 }
 
 // attn_phase2 on the walk over the nonzero terms (attn_dep_kernel, then
@@ -736,12 +762,12 @@ extern "C" int attn_bwd_row_launch(const void* ep, const void* enc, const void* 
 // dp_seq [T,B,A], v [A], dep [B,S,A] in the io dtype; dsc_seq [T,B,S] and dv
 // [A] f32; scratch dv_part [B·ceil(S/16), A] f32. newest: t summed from T-1
 // down (decoder_seq_dep_plain's order), else up (attn_phase2_plain's).
-// cudaErrorInvalidValue past B = 65535 rows or S = 16384 positions.
+// cudaErrorInvalidValue past S = 16384 positions (the row's order in shared
+// memory) or a grid of 2^31 CTAs.
 extern "C" int attn_dep_launch(int io_bf16, int newest, const void* ep, const void* dp_seq,
                                const void* dsc_seq, const void* v, void* dep, void* dv,
                                void* dv_part, int n_steps, int B, int S, int A, void* stream) {
-  if (n_steps < 1 || bad_shape(B, S, A, 1) || B > 65535 || S > kDepMaxS)
-    return cudaErrorInvalidValue;
+  if (n_steps < 1 || bad_shape(B, S, A, 1) || S > kDepMaxS) return cudaErrorInvalidValue;
   const float* ds = static_cast<const float*>(dsc_seq);
   float *dvp = static_cast<float*>(dv), *part = static_cast<float*>(dv_part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -545,6 +545,18 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// the two halves of a cluster barrier (cooperative_groups' cluster.sync()
+// is both), each executed by every thread of the cluster's CTAs. The relaxed
+// arrival orders no memory: it says that this CTA runs, so a CTA whose wait
+// has returned may write into its shared memory (map_shared_rank).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 constexpr long long kMbarSpinCycles = 20000000000LL;  // about 10 s: a copy that never lands traps
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {

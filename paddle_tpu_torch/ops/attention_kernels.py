@@ -20,9 +20,10 @@ per-step (scan) formulation:
   attn_phase2    replaces `_attn_phase2_kernel` / `_attn_phase2` (:217,315):
                  d(enc_proj) [B,S,A] summed in f32 over all T steps and
                  written once, and dv [A] in f32, on a walk over the
-                 terms with a nonzero dsc (`attn_phase2_route`); the
-                 whole-sequence backward's pass (`decoder_seq_dep`) runs
-                 the same kernel with t newest first.
+                 terms with a nonzero dsc, in both io dtypes, up to
+                 DEP_MAX_S source positions; the whole-sequence backward's
+                 pass (`decoder_seq_dep`) runs the same kernel with t
+                 newest first.
 
 With FLAGS.fused_attention_seq_fwd and fused_attention_seq_bwd (off by
 default, as in the JAX package) the decoder runs whole-sequence kernels
@@ -72,11 +73,9 @@ from .activation_ops import sigmoid
 from .lstm_kernels import pad_w_bwd
 from .rnn_ops import gru_cell
 
-# the routes of attn_fwd and attn_bwd_step, of attn_phase2 and of the
-# whole-sequence forward (see attn_fwd_path, attn_bwd_path,
-# attn_phase2_route and seq_fwd_route)
+# the routes of attn_fwd and attn_bwd_step and of the whole-sequence
+# forward (see attn_fwd_path, attn_bwd_path and seq_fwd_route)
 ATTN_BULK, ATTN_LOADS, FIRST = "bulk", "loads", "first"
-WALK = "walk"
 SEQ_TC = "tc"
 
 # launches of the CUDA kernels in this process, in all and by route;
@@ -86,7 +85,6 @@ attn_fwd_paths = {ATTN_BULK: 0, ATTN_LOADS: 0, FIRST: 0}
 attn_bwd_step_launches = 0
 attn_bwd_step_paths = {ATTN_BULK: 0, ATTN_LOADS: 0, FIRST: 0}
 attn_phase2_launches = 0
-attn_phase2_routes = {WALK: 0, FIRST: 0}
 decoder_seq_fwd_launches = 0
 decoder_seq_fwd_routes = {SEQ_TC: 0, FIRST: 0}
 decoder_seq_bwd_launches = 0
@@ -377,17 +375,6 @@ def attn_bwd_path(S, A, C, dtype):
     return row_path(A, C)
 
 
-def attn_phase2_route(B, S, dtype):
-    """attn_phase2's kernel for a shape, decided before any launch: WALK
-    (csrc/bahdanau_attn.cu's attn_dep_kernel at the io dtype's instance,
-    f32 or bf16) where its grid and its row's order fit: B up to 65535
-    rows, S up to DEP_MAX_S (16384) positions; else FIRST, the first design
-    `attn_phase2_kernel`."""
-    if dtype not in _IO_DTYPES or B > 65535 or S > DEP_MAX_S:
-        return FIRST
-    return WALK
-
-
 def dep_blocks(S):
     """The walk's blocks of DEP_POSITIONS listed positions a row (its
     dv_part rows a batch row)."""
@@ -472,10 +459,12 @@ def _lib():
         lib.attn_bwd_step_launch.argtypes = [i] + [ptr] * 9 + [i] * 4 + [ptr]
         lib.attn_phase2_launch.argtypes = [i] + [ptr] * 8 + [i] * 4 + [ptr]
         lib.attn_fwd_row_launch.argtypes = [ptr] * 7 + [i] * 5 + [ptr]
-        lib.attn_bwd_row_launch.argtypes = [ptr] * 9 + [i] * 6 + [ptr, ptr]
+        lib.attn_bwd_row_launch.argtypes = [ptr] * 9 + [i] * 6 + [ptr]
+        lib.attn_bwd_row_timed_launch.argtypes = [ptr] * 9 + [i] * 6 + [ptr, ptr]
         lib.attn_dep_launch.argtypes = [i, i] + [ptr] * 7 + [i] * 4 + [ptr]
         for fn in (lib.attn_fwd_launch, lib.attn_bwd_step_launch, lib.attn_phase2_launch,
-                   lib.attn_fwd_row_launch, lib.attn_bwd_row_launch, lib.attn_dep_launch):
+                   lib.attn_fwd_row_launch, lib.attn_bwd_row_launch,
+                   lib.attn_bwd_row_timed_launch, lib.attn_dep_launch):
             fn.restype = i
         lib.attn_error_string.argtypes = [i]
         lib.attn_error_string.restype = ctypes.c_char_p
@@ -591,7 +580,7 @@ def attn_bwd_step(ep, enc, dp, v, mask, dctx, alpha):
                                            stream)
         else:
             err = lib.attn_bwd_row_launch(*ptrs, B, S, A, C, attn_bwd_cluster(S),
-                                          int(path == ATTN_BULK), None, stream)
+                                          int(path == ATTN_BULK), stream)
     if err != 0:
         _raise(lib, "attn_bwd_step", err, f"{path} path, B={B} S={S} A={A} C={C} {ep.dtype}")
     attn_bwd_step_launches += 1
@@ -601,8 +590,8 @@ def attn_bwd_step(ep, enc, dp, v, mask, dctx, alpha):
 
 def attn_bwd_step_phase_us(ep, enc, dp, v, mask, dctx, alpha):
     """The bf16 attn_bwd_step kernel's phases on the card, from one launch
-    whose CTAs' thread 0 record the device's ns clock at its start and at
-    attend_bwd's points. Returns, over the live CTAs (a row with a nonzero
+    of its timed instance, whose CTAs' thread 0 record the device's ns clock
+    at its start and at attend_bwd's points. Returns, over the live CTAs (a row with a nonzero
     dctx and a valid position), the mean µs of each phase: "loads, the
     list"; "enc staged, dα"; "Σα·dα exchange"; "ep staged, ddp"; "partials
     to rank 0"; and the latest live CTA's end and the dead CTAs' mean
@@ -622,7 +611,7 @@ def attn_bwd_step_phase_us(ep, enc, dp, v, mask, dctx, alpha):
         ddp = torch.empty(B, A, dtype=ep.dtype, device=ep.device)
         dsc = torch.empty(B, S, dtype=torch.float32, device=ep.device)
         clk = torch.zeros(B * ranks, 8, dtype=torch.int64, device=ep.device)
-        err = lib.attn_bwd_row_launch(
+        err = lib.attn_bwd_row_timed_launch(
             ep.data_ptr(), enc.data_ptr(), dp.data_ptr(), v.data_ptr(), mask.data_ptr(),
             dctx.data_ptr(), alpha.data_ptr(), ddp.data_ptr(), dsc.data_ptr(), B, S, A, C, ranks,
             int(path == ATTN_BULK), clk.data_ptr(), torch.cuda.current_stream().cuda_stream)
@@ -643,9 +632,12 @@ def attn_bwd_step_phase_us(ep, enc, dp, v, mask, dctx, alpha):
 
 def _dep(name, ep, dp_seq, dsc_seq, v, newest):
     """The walk over the nonzero terms (attn_dep_kernel, then attn_dv_kernel)
-    on the card: returns (dep, dv)."""
+    on the card: returns (dep, dv). Raises past DEP_MAX_S source positions
+    (the row's order of them in shared memory)."""
     T, B, A = dp_seq.shape
     S = ep.shape[1]
+    if S > DEP_MAX_S:
+        raise ValueError(f"{name}: S={S} is past the walk's {DEP_MAX_S} source positions")
     ep, dp_seq, dsc_seq, v = (t.contiguous() for t in (ep, dp_seq, dsc_seq, v))
     lib = _lib()
     with _on(ep.device):
@@ -663,11 +655,11 @@ def _dep(name, ep, dp_seq, dsc_seq, v, newest):
 
 def attn_phase2(ep, dp_seq, dsc_seq, v):
     """d(enc_proj) and dv over all steps; see attn_phase2_plain. CUDA
-    tensors launch the kernel `attn_phase2_route` names: the walk sums each
-    dep element over t oldest first with the plain version's ops, skipping
-    the terms with dsc = 0 (which add nothing); both kernels sum dv from
-    partials in a fixed order, without float atomics, so two runs give the
-    same bits."""
+    tensors launch csrc/bahdanau_attn.cu's walk (attn_dep_kernel at the io
+    dtype's instance, S up to DEP_MAX_S): it sums each dep element over t
+    oldest first with the plain version's ops, skipping the terms with dsc
+    = 0 (which add nothing), and dv from partials in a fixed order, without
+    float atomics, so two runs give the same bits."""
     global attn_phase2_launches
     B, S, A = ep.shape
     T = dp_seq.shape[0] if dp_seq.dim() == 3 else -1
@@ -678,27 +670,8 @@ def attn_phase2(ep, dp_seq, dsc_seq, v):
         raise ValueError(f"attn_phase2: empty dp_seq {tuple(dp_seq.shape)}")
     if ep.device.type == "cpu":
         return attn_phase2_plain(ep, dp_seq, dsc_seq, v)
-    route = attn_phase2_route(B, S, ep.dtype)
-    if route == WALK:
-        out = _dep("attn_phase2", ep, dp_seq, dsc_seq, v, newest=False)
-    else:
-        ep, dp_seq, dsc_seq, v = (t.contiguous() for t in (ep, dp_seq, dsc_seq, v))
-        lib = _lib()
-        with _on(ep.device):
-            dep = torch.empty(B, S, A, dtype=ep.dtype, device=ep.device)
-            dv = torch.empty(A, dtype=torch.float32, device=ep.device)
-            dv_part = torch.empty(B, A, dtype=torch.float32, device=ep.device)
-            done = torch.zeros(1, dtype=torch.int32, device=ep.device)
-            err = lib.attn_phase2_launch(
-                int(ep.dtype == torch.bfloat16), ep.data_ptr(), dp_seq.data_ptr(),
-                dsc_seq.data_ptr(), v.data_ptr(), dep.data_ptr(), dv.data_ptr(),
-                dv_part.data_ptr(), done.data_ptr(), T, B, S, A,
-                torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            _raise(lib, "attn_phase2", err, f"first design, T={T} B={B} S={S} A={A} {ep.dtype}")
-        out = dep, dv
+    out = _dep("attn_phase2", ep, dp_seq, dsc_seq, v, newest=False)
     attn_phase2_launches += 1
-    attn_phase2_routes[route] += 1
     return out
 
 
@@ -990,8 +963,6 @@ def decoder_seq_dep(ep, dp_seq, dsc_seq, v):
         return decoder_seq_dep_plain(ep, dp_seq, dsc_seq, v)
     if ep.dtype != torch.bfloat16:
         raise TypeError(f"decoder_seq_dep: the card's pass takes bf16, got {ep.dtype}")
-    if attn_phase2_route(B, S, ep.dtype) != WALK:
-        raise ValueError(f"decoder_seq_dep: B={B} S={S} is past the walk's grid or order")
     out = _dep("decoder_seq_dep", ep, dp_seq, dsc_seq, v, newest=True)
     decoder_seq_dep_launches += 1
     return out

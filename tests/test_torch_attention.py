@@ -29,8 +29,8 @@ chunks of 32 steps, only the steps with a nonzero dsc at a block position,
 a zero dsc skipped): every nonzero term is taken once, and its dep equals
 `attn_phase2_plain`'s (oldest first) and `decoder_seq_dep_plain`'s (newest
 first) bit for bit, f32 and bf16; its dv, in the kernel's fixed order, is
-within the f32 tolerance. `attn_bwd_path`, `attn_bwd_cluster` and
-`attn_phase2_route` are held as functions of the shape.
+within the f32 tolerance. `attn_bwd_path`, `attn_bwd_cluster` and the
+walk's blocks a row (`dep_blocks`) are held as functions of the shape.
 
 Widths put the JAX side on its kernels (A and C multiples of 128, B a
 multiple of 8) with S = 10, which the JAX side pads to 16 (masked) and
@@ -487,8 +487,6 @@ def test_bwd_path_and_cluster_are_functions_of_the_shape():
     assert ak.attn_bwd_chunks(0, 512, 1024, ak.ATTN_BWD_STAGE)["nc"] == 0
     # four CTAs an SM at the main path's widths: B6's 512 CTAs in one wave
     assert 4 * (ak.row_bwd_fixed_bytes(50, 512, 1024, 2) + ak.ATTN_BWD_STAGE + 1024) <= 233472
-    assert ak.attn_phase2_route(256, 50, bf) == ak.attn_phase2_route(256, 50, f32) == ak.WALK
-    assert ak.attn_phase2_route(70000, 50, bf) == ak.attn_phase2_route(8, 20000, f32) == ak.FIRST
     assert ak.dep_blocks(50) == 4 and ak.dep_blocks(16) == 1 and ak.dep_blocks(17) == 2
 
 
