@@ -259,6 +259,7 @@ __device__ void add_classes(float (&acc)[kG][8], int width, float* part, Out out
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       tot[e] = acc[gg][e];
+#pragma unroll 1  // unrolled, this sum was the largest block of B9's code
       for (int c = 1; c < splits; ++c) tot[e] += part[(size_t)(c - 1) * ld + 8 * grp + e];
     }
     out(gg, grp, tot);
