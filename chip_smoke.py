@@ -237,7 +237,44 @@ exits non-zero without the final `ok` line:
               the transformer LM at a head dim of 32, which the flash
               kernels do not take, card against CPU (f32, then bf16), each
               attention call routed to the plain formula and counted.
-  32. the kernels JSON line, then the device JSON line last.
+  32. loop    bench.py's train_loop row (16 features, fc 256 tanh, fc 1,
+              square_error_cost, SGD(0.01), B=64, 60 steps from --seed)
+              through the port's Trainer in three modes: sync
+              (log_interval=1), async (log_interval=60) and async_traced
+              (obs.trace armed); pass 0 warms up, pass 1 is timed: steps/s,
+              host syncs and dispatches a step, the host-blocked fraction
+              (the hostSync timer over the wall). async must fence less often
+              than sync, the traced run's counters equal async's, its spans
+              lie on >= 2 threads and validate, the parameters are the same
+              bits in all three; the async pass again under
+              torch.cuda.set_sync_debug_mode('warn'), its reported syncs
+              counted; scan_window=8 raises NotImplementedError.
+  33. trainer bench.py's ResNet-50 (phase 18's program, B11 route) through
+              the port's Trainer: 512 (img, label) samples from --seed ->
+              data.batch -> DataFeeder -> DevicePrefetcher (depth 2), 2
+              passes of 4 batches with CheckpointConfig(epoch_interval=1,
+              step_interval=3, background=True), ms a step by pass; first
+              a batch pinned twice (the caching host allocator's growth,
+              then a cached block), two card steps from one state (the
+              same bits or not, the share that differs);
+              36 B11 launches a step; a fresh Trainer resumes from the
+              last pass's mid-pass checkpoint and must end on the
+              uninterrupted run's bits (within RESUME_REL_L2 if the two
+              steps differed); checkpoint snapshot and commit times; ms a
+              step at prefetch depth 2 and 0, and of the bare prefetched
+              Executor.run loop, in turns, beside phase 20's Executor.run
+              step; a batch's DataFeeder and pinning times;
+              a profiled pass: busy share, the
+              host-to-device copies' stream and their overlap with kernels.
+  34. infer   ResNet-50 inference (A6a) from phase 33's weights, bound by
+              name into bench.py run_infer's eval-mode NHWC program: saved,
+              loaded, 3 timed requests of B=128 in bf16 (ms, images/s, no
+              B11 launch, one more under torch.profiler), held to the
+              artifact run in f32; the graft
+              entry's NCHW program (B=8, f32) and a small eval program
+              (64x64, B=4, f32 and bf16), card against CPU.
+  35. the paths JSON line (phases 32-34's readings), the kernels JSON
+      line, then the device JSON line last.
 
 Weights are made with numpy from --seed at the shapes the program
 declares (normal / sqrt(fan_in)): for the inference artifact written as
@@ -253,6 +290,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import itertools
 import json
 import math
 import os
@@ -2035,9 +2073,10 @@ def bn_stats_gate(ptt, recorded):
             check(z > BN_STATS_TOL, f"{t}: a {k} left at zero would pass its check")
 
 
-def resnet_phases(ptt, exe, rng, smi, seed, first_phase):
+def resnet_phases(ptt, exe, rng, smi, seed, first_phase, summary):
     """Phases first_phase.. of the ResNet slice; returns the kernels' rows,
-    their largest errors and their launches on the training path."""
+    their largest errors and their launches on the training path, and puts
+    the timed steps' median ms in summary["step_ms"]."""
     from paddle_tpu_torch.core import registry
     from paddle_tpu_torch.ops import fused_conv_kernels as fk
 
@@ -2137,6 +2176,7 @@ def resnet_phases(ptt, exe, rng, smi, seed, first_phase):
         check(c == 3 * fused, f"{k} launched {c} times in 3 steps, not {3 * fused}")
     check(fk.fused_conv_bn_input_copies == 0, "B11 copied an input on the main path")
     med = statistics.median(times)
+    summary["step_ms"] = med
     flops = RESNET_FLOP_PER_IMAGE * batch
     print(f"  steps ms: {[round(t, 3) for t in times]}; median {med:.3f} ms/step, "
           f"{batch / med * 1e3:.1f} images/s (B={batch}, 224x224); "
@@ -3372,6 +3412,585 @@ def quant_phases(ptt, exe, smi, seed, first_phase):
     return rows, {name: max_err[route] for name, route in names.items()}, launches
 
 
+# ------------------------------------------------- the Trainer, and A6a --
+# bench.py's train_loop row (run_train_loop, bench.py:910-1070): 16
+# features, fc 256 tanh, fc 1, square_error_cost, mean, SGD(0.01); B=64, 60
+# steps a pass; pass 0 warms up, pass 1 is timed
+TRAIN_LOOP = dict(features=16, hidden=256, batch=64, steps=60, lr=0.01)
+# the ResNet Trainer run: bench.py's _build_resnet_train at RESNET_BENCH on
+# the B11 route, 2 passes of 4 batches of (img, label) samples
+RESNET_PASSES, RESNET_BATCHES = 2, 4
+# the timed passes (prefetch depth 2 against 0) walk the samples twice
+TIMED_BATCHES = 2 * RESNET_BATCHES
+# the mid-pass resume against the uninterrupted run, when two card steps
+# from one state do not give the same bits: the relative L2 norm of the
+# difference of every parameter (the two-step reading is printed beside)
+RESUME_REL_L2 = 1e-3
+# eval-mode ResNet-50 (A6a). bench.py's resnet_infer row (run_infer,
+# bench.py:754-838): NHWC 224x224x3, 1000 classes, B=128, bf16
+RESNET_INFER_BATCH = 128
+# __graft_entry__.entry's NCHW is_test ResNet-50 (__graft_entry__.py:117-145)
+GRAFT_BATCH = 8
+# card against CPU. f32 (the Executor turns cuDNN's TF32 off): the same f32
+# arithmetic in other orders over 53 layers, within INFER_F32_REL of the
+# largest logit (tests/test_torch_resnet_infer.py measured 7e-7 between the
+# packages on the CPU). bf16: cuDNN and oneDNN round each conv output to
+# bf16 after f32 sums in other orders, and a flip travels through the
+# residual stream (on the CPU the port and the JAX package differ in 42% of
+# 4000 logits by more than an ulp, as much as an f32 run rounded once):
+# every logit within INFER_BF16_REL of the largest and at most
+# INFER_BF16_SHARE of them beyond one bf16 ulp, beside a zero output's 1.0
+# and 1.0. The served B=128 bf16 logits against the same artifact run in
+# f32 on the card: INFER_BF16_REL.
+INFER_F32_REL = 1e-4
+INFER_BF16_REL, INFER_BF16_SHARE = 5e-2, 0.75
+RESNET_EVAL_SMALL = dict(hw=64, batch=4, class_dim=10)
+# the card the new phases run on, against the CPU
+CARD = "cuda"
+
+
+def build_train_loop(ptt, seed):
+    """bench.py's train_loop model through the port's front end; the
+    startup draws from `seed` (its random_seed)."""
+    ptt.reset_default_programs()
+    prog, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = seed
+    with ptt.program_guard(prog, startup):
+        x = ptt.layers.data("x", shape=[TRAIN_LOOP["features"]])
+        y = ptt.layers.data("y", shape=[1])
+        h = ptt.layers.fc(x, size=TRAIN_LOOP["hidden"], act="tanh")
+        pred = ptt.layers.fc(h, size=1)
+        loss = ptt.layers.mean(ptt.layers.square_error_cost(pred, y))
+        ptt.optimizer.SGD(learning_rate=TRAIN_LOOP["lr"]).minimize(loss)
+    return prog, startup, loss
+
+
+def train_loop_phase(ptt, smi, seed, n, work):
+    """Phase n: the train_loop row through the port's Trainer in three
+    modes; returns its readings."""
+    from paddle_tpu_torch import obs, profiler
+
+    phase(n, "bench.py's train_loop row through the port's Trainer (16 features, hidden 256, "
+          "B=64, 60 steps, SGD(0.01)): sync, async, async_traced")
+    B, steps = TRAIN_LOOP["batch"], TRAIN_LOOP["steps"]
+    rng = np.random.RandomState(seed)
+    xs = rng.randn(steps * B, TRAIN_LOOP["features"]).astype(np.float32)
+    ys = (xs @ rng.randn(TRAIN_LOOP["features"], 1)).astype(np.float32)
+
+    def reader():
+        for i in range(steps):
+            yield {"x": xs[i * B:(i + 1) * B], "y": ys[i * B:(i + 1) * B]}
+
+    trace_path = os.path.join(work, "train_loop.trace.json")
+    results, params, trace_doc = {}, {}, {}
+    old_timers = ptt.FLAGS.enable_timers
+    ptt.FLAGS.enable_timers = True
+    try:
+        for mode, interval in (("sync", 1), ("async", steps), ("async_traced", steps)):
+            prog, startup, loss = build_train_loop(ptt, seed + 11)
+            scope = ptt.Scope()
+            trainer = ptt.Trainer(loss, main_program=prog, startup_program=startup, scope=scope)
+            traced = mode == "async_traced"
+            if traced:
+                obs.trace.arm(out=trace_path)
+            trainer.train(reader, num_passes=1, log_interval=interval)  # pass 0 warms up
+            stats = profiler.global_stat_set()
+            stats.reset()
+            syncs0, disp0 = trainer.host_sync_count, trainer.host_dispatch_count
+            t0 = time.perf_counter()
+            trainer.train(reader, num_passes=1, log_interval=interval)
+            dt = time.perf_counter() - t0  # the pass ends in the accumulator's read
+            if traced:
+                obs.trace.disarm(export=True)
+                with open(trace_path) as f:
+                    trace_doc = json.load(f)
+            blocked = stats.stats.get("hostSync")
+            results[mode] = {
+                "steps_per_sec": steps / dt,
+                "host_syncs_per_step": (trainer.host_sync_count - syncs0) / steps,
+                "dispatches_per_step": (trainer.host_dispatch_count - disp0) / steps,
+                "host_blocked_fraction": (blocked.total if blocked else 0.0) / dt}
+            params[mode] = {p.name: scope.get(p.name).cpu() for p in prog.parameters()}
+            print(f"  {mode}: {results[mode]['steps_per_sec']:.1f} steps/s, "
+                  f"{results[mode]['host_syncs_per_step']:.4f} host syncs a step, "
+                  f"{results[mode]['dispatches_per_step']:.4f} dispatches a step, host-blocked "
+                  f"{100 * results[mode]['host_blocked_fraction']:.2f}% of the pass's wall time")
+        # hidden syncs: the async pass once more with torch counting every
+        # synchronizing call (set_sync_debug_mode), the trainer's own reads
+        # among them
+        import warnings
+
+        s0 = trainer.host_sync_count
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                trainer.train(reader, num_passes=1, log_interval=steps)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        msgs = [str(w.message).split("\n")[0] for w in caught]
+        print(f"  async pass under torch.cuda.set_sync_debug_mode('warn'): {len(msgs)} "
+              f"synchronizing calls reported over {steps} steps, beside the trainer's "
+              f"{trainer.host_sync_count - s0} counted syncs; first: {sorted(set(msgs))[:3]}")
+    finally:
+        ptt.FLAGS.enable_timers = old_timers
+    spans = [e for e in trace_doc.get("traceEvents", ()) if e.get("ph") == "X"]
+    threads = {e["tid"] for e in spans}
+    problems = obs.validate_chrome_trace(trace_doc)
+    print(f"  traced: {len(spans)} spans on {len(threads)} threads, validate_chrome_trace: "
+          f"{problems or 'no problems'}; tracing cost "
+          f"{100 * (1 - results['async_traced']['steps_per_sec'] / results['async']['steps_per_sec']):.2f}"
+          f"% of async's steps/s")
+    check(results["async"]["host_syncs_per_step"] < results["sync"]["host_syncs_per_step"],
+          f"async fences no less often than sync: {results}")
+    for k in ("host_syncs_per_step", "dispatches_per_step"):
+        check(results["async_traced"][k] == results["async"][k],
+              f"the traced run's {k} differs from async's")
+    check(len(threads) >= 2, f"spans on {len(threads)} threads, not >= 2")
+    check(not problems, f"the exported trace fails validation: {problems[:3]}")
+    for mode in ("async", "async_traced"):
+        for name, want in params["sync"].items():
+            check(torch.equal(params[mode][name], want),
+                  f"{mode}: parameter {name} differs from sync's")
+    print("  the parameters are the same bits in the three modes")
+    prog, startup, loss = build_train_loop(ptt, seed + 11)
+    trainer = ptt.Trainer(loss, main_program=prog, startup_program=startup, scope=ptt.Scope())
+    try:
+        trainer.train(reader, num_passes=1, scan_window=8)
+        fail("scan_window=8 did not raise")
+    except NotImplementedError as e:
+        print(f"  scan_window=8 raises NotImplementedError: {e}")
+    return results
+
+
+def bind_trained(eval_prog, train_prog, train_scope):
+    """{name: value} for every persistable of the eval program from the
+    training scope: by name (`_cbn_attrs` names each conv and BN pair alike
+    in the fused training graph and the unfused eval graph), and the
+    parameters whose automatic names differ (the classifier's fc) in the
+    order both programs create them, shapes checked."""
+    bound = {v.name: train_scope.get(v.name) for v in eval_prog.persistables()
+             if train_scope.has(v.name)}
+    left = [v for v in eval_prog.persistables() if v.name not in bound]
+    spare = [v for v in train_prog.parameters()
+             if v.name not in bound and train_scope.has(v.name)]
+    check(len(left) == len(spare), f"unbound eval parameters {[v.name for v in left]}, "
+          f"training parameters left {[v.name for v in spare]}")
+    for e, t in zip(left, spare):
+        check(tuple(e.shape) == tuple(t.shape), f"{e.name} {e.shape} against {t.name} {t.shape}")
+        bound[e.name] = train_scope.get(t.name)
+    return bound, len(left)
+
+
+def snapshot(scope, names):
+    return {n: scope.get(n).clone() for n in names}
+
+
+def diff_reading(got, want):
+    """(share of differing elements, relative L2 norm of the difference)
+    over every tensor of `want`."""
+    ndiff = total = 0
+    d2 = w2 = 0.0
+    for n, w in want.items():
+        g = got[n]
+        ndiff += int((g != w).sum())
+        total += w.numel()
+        d2 += float((g.double() - w.double()).square().sum())
+        w2 += float(w.double().square().sum())
+    return ndiff / total, math.sqrt(d2 / max(w2, 1e-300))
+
+
+def h2d_overlap(trace_path):
+    """From a torch.profiler Chrome trace: the streams of the host-to-device
+    copies and of the kernels, and the share of the copies' time that ran
+    while a kernel ran on another stream."""
+    with open(trace_path) as f:
+        evs = json.load(f)["traceEvents"]
+    kern = [e for e in evs if e.get("cat") == "kernel" and "dur" in e]
+    copies = [e for e in evs if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    by_stream = {}
+    for e in kern:
+        s = e.get("args", {}).get("stream")
+        by_stream[s] = by_stream.get(s, 0.0) + e["dur"]
+    compute = max(by_stream, key=by_stream.get) if by_stream else None
+    copy_streams = sorted({str(e.get("args", {}).get("stream")) for e in copies})
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream")) for e in kern)
+    total = over = 0.0
+    for c in copies:
+        s0, s1, cs = c["ts"], c["ts"] + c["dur"], c.get("args", {}).get("stream")
+        total += s1 - s0
+        cut = []
+        for k0, k1, ks in spans:
+            if k0 >= s1:
+                break
+            if k1 > s0 and ks != cs:
+                cut.append((max(k0, s0), min(k1, s1)))
+        end = s0
+        for a, b in sorted(cut):
+            if b > end:
+                over += b - max(a, end)
+                end = b
+    return dict(compute_stream=compute, copy_streams=copy_streams, copies=len(copies),
+                copy_ms=total / 1e3, overlapped=(over / total) if total else 0.0)
+
+
+def resnet_trainer_phase(ptt, smi, seed, n, work, step_ms):
+    """Phase n: ResNet-50 trained at full width through the port's Trainer,
+    checkpointed, resumed; returns (its readings, the trained scope and
+    program)."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.ops import fused_conv_kernels as fk
+
+    phase(n, "ResNet-50 through the port's Trainer at full width (bf16, B11 route): reader -> "
+          "batch -> DataFeeder -> DevicePrefetcher, checkpoints, determinism, mid-pass resume")
+    B = RESNET_BENCH["batch"]
+    hw, classes = RESNET_BENCH["hw"], RESNET_BENCH["class_dim"]
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 20)
+    imgs = rng.randn(RESNET_BATCHES * B, hw, hw, 3).astype(np.float32)
+    labels = rng.randint(0, classes, (RESNET_BATCHES * B, 1)).astype(np.int32)
+    samples = list(zip(imgs, labels))
+    reader = ptt.data.batch(lambda: iter(samples), B)
+    print(f"  {len(samples)} (img, label) samples made from --seed in "
+          f"{time.perf_counter() - t0:.2f} s ({imgs.nbytes / 2**20:.0f} MiB)")
+    out = {}
+    flags = _Flags(ptt.FLAGS, fused_conv_dot_max_n=RESNET_DOT_MAX_N, fused_conv_pallas=True,
+                   enable_timers=True)
+    with flags:
+        main_p, startup, loss = build_resnet_program(
+            ptt, **{k: RESNET_BENCH[k] for k in ("hw", "class_dim", "lr")})
+        startup.random_seed = seed + 21
+        feed_order = [main_p.global_block().var("img"), main_p.global_block().var("label")]
+        persist = [v.name for v in main_p.persistables()]
+        params = [p.name for p in main_p.parameters()]
+        feeder = ptt.data.DataFeeder(feed_order)
+        fused = [o.type for o in main_p.global_block().ops].count("fused_conv_bn")
+
+        # pinning one batch's images: the first call grows torch's caching
+        # host allocator (cudaHostAlloc), a second reuses the freed block
+        imgs0 = feeder.feed(next(iter(reader())))["img"]
+        pin_first = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            pinned = torch.as_tensor(imgs0).pin_memory()
+            pin_first.append((time.perf_counter() - t0) * 1e3)
+            del pinned
+        print(f"  pinning a batch's images ({imgs0.nbytes / 2**20:.1f} MiB): the process's first "
+              f"{pin_first[0]:.3f} ms (the caching host allocator grows), again "
+              f"{pin_first[1]:.3f} ms (a cached block)")
+        out.update(pin_first_ms=pin_first[0], pin_again_ms=pin_first[1])
+        del imgs0
+
+        # two card steps from one state
+        exe = ptt.Executor()
+        sc = ptt.Scope()
+        exe.run_startup(startup, scope=sc)
+        state0 = snapshot(sc, persist)
+        feed = feeder.feed(next(iter(reader())))
+        runs = []
+        for _ in range(2):
+            for k, v in state0.items():
+                sc.set(k, v.clone())
+            exe.run(main_p, feed, [loss.name], scope=sc)
+            runs.append(snapshot(sc, params))
+        share, rel = diff_reading(runs[1], runs[0])
+        deterministic = share == 0.0
+        print(f"  two card steps from one state: the parameters are "
+              f"{'the same bits' if deterministic else 'NOT the same bits'}; share of "
+              f"differing values {share:.3e}, relative L2 {rel:.3e} (no deterministic mode set)")
+        out.update(determinism_share=share, determinism_rel_l2=rel)
+        del sc, state0, runs
+
+        # the uninterrupted run, checkpointed
+        ck = os.path.join(work, "resnet_ckpt")
+        cfg = ptt.CheckpointConfig(ck, epoch_interval=1, step_interval=3, background=True)
+        sc_a = ptt.Scope()
+        trainer = ptt.Trainer(loss, main_program=main_p, startup_program=startup, scope=sc_a,
+                              checkpoint_config=cfg)
+        stats = profiler.global_stat_set()
+        stats.reset()
+        fk.fused_conv_bn_launches = 0
+        losses, marks = [], []
+
+        def on_event(e):
+            if isinstance(e, ptt.EndIteration):
+                losses.append(e.cost)
+            elif isinstance(e, (ptt.BeginPass, ptt.EndPass)):
+                marks.append(time.perf_counter())
+
+        t0 = time.perf_counter()
+        trainer.train(reader, RESNET_PASSES, feed_order=feed_order, prefetch_to_device=2,
+                      event_handler=on_event)
+        wall = time.perf_counter() - t0
+        steps = RESNET_PASSES * RESNET_BATCHES
+        losses = [float(c) for c in losses]
+        pass_ms = [(marks[2 * i + 1] - marks[2 * i]) * 1e3 / RESNET_BATCHES
+                   for i in range(RESNET_PASSES)]
+        print(f"  uninterrupted run: {steps} steps in {wall:.2f} s, ms a step by pass "
+              f"{[round(t, 3) for t in pass_ms]} (BeginPass to EndPass: the first pass's "
+              f"first pinned blocks, and the waits on the previous commit, included); losses "
+              f"{losses}")
+        check(all(np.isfinite(losses)), "non-finite loss in the Trainer run")
+        b11 = fk.fused_conv_bn_launches
+        check(b11 == fused * steps, f"B11 launched {b11} times in {steps} steps, not "
+              f"{fused * steps}")
+        print(f"  B11 launches: {b11} in {steps} steps, {b11 // steps} a step (the program's "
+              f"{fused} fused_conv_bn ops)")
+        snap, commit = stats.get("checkpointSnapshot"), stats.get("checkpointCommit")
+        print(f"  checkpoints: {snap.count} snapshots on the step loop, {1e3 * snap.avg:.3f} ms "
+              f"each; {commit.count} commits on the writer thread (host copy, npz, sha256), "
+              f"{commit.avg:.3f} s each, largest {commit.max:.3f} s; serials "
+              f"{ptt.io._complete_serials(ck)}")
+        out.update(b11_launches_per_step=b11 // steps, ckpt_snapshot_ms=1e3 * snap.avg,
+                   ckpt_commit_s=commit.avg, losses=losses, pass_ms=pass_ms)
+        full = snapshot(sc_a, persist)
+
+        # the mid-pass resume
+        serial = None
+        for s in ptt.io._complete_serials(ck):
+            with open(os.path.join(ptt.io._serial_dir(ck, s), "meta.json")) as f:
+                args = json.load(f)["trainer_args"]
+            if args.get("mid_pass") and args["pass_id"] == RESNET_PASSES - 1:
+                serial = s
+        check(serial is not None, "no mid-pass checkpoint in the last pass")
+        rdir = os.path.join(work, "resnet_resume")
+        shutil.copytree(ck, rdir)
+        for s in ptt.io._complete_serials(rdir):
+            if s > serial:
+                shutil.rmtree(ptt.io._serial_dir(rdir, s))
+        sc_r = ptt.Scope()
+        resumed = ptt.Trainer(loss, main_program=main_p, startup_program=startup, scope=sc_r,
+                              checkpoint_config=ptt.CheckpointConfig(rdir, step_interval=3))
+        resumed.init()
+        print(f"  resume from serial {serial}: pass {resumed.start_pass}, batch "
+              f"{resumed._resume_batch}, step {resumed.step}")
+        resumed.train(reader, RESNET_PASSES, feed_order=feed_order, prefetch_to_device=2)
+        check(resumed.step == steps, f"the resumed run ended at step {resumed.step}")
+        share, rel = diff_reading(snapshot(sc_r, persist), full)
+        print(f"  resumed against uninterrupted, every persistable: share of differing values "
+              f"{share:.3e}, relative L2 {rel:.3e}")
+        if deterministic:
+            check(share == 0.0, "the resumed run is not the same bits as the uninterrupted "
+                  "run, though two card steps from one state were")
+        else:
+            check(rel <= RESUME_REL_L2, f"the resumed run is {rel:.3e} apart (relative L2), "
+                  f"past {RESUME_REL_L2}")
+        out.update(resume_share=share, resume_rel_l2=rel)
+        del sc_r, resumed, full
+
+        # prefetch depth 2 against 0, in turns, a pass each, no checkpoints
+        sc_t = ptt.Scope()
+        timing = ptt.Trainer(loss, main_program=main_p, startup_program=startup, scope=sc_t)
+        timing.init()
+        for k, v in snapshot(sc_a, persist).items():
+            sc_t.set(k, v)
+        # in turns: the Trainer at prefetch depth 2 and 0, and the bare loop
+        # (the DevicePrefetcher feeding Executor.run, no Trainer) at depth 2;
+        # a pass walks the samples twice (TIMED_BATCHES steps), so the
+        # prefetcher's fill at a pass's start weighs less
+        timed = ptt.data.batch(lambda: itertools.chain(samples, samples), B)
+        ms = {2: [], 0: [], "bare": []}
+        for kind in (2, 0, "bare", "bare", 0, 2) * 3:
+            t0 = time.perf_counter()
+            if kind == "bare":
+                for feed in ptt.data.DevicePrefetcher(timed, feeder, depth=2):
+                    timing.exe.run(main_p, feed, [loss.name], scope=sc_t, return_numpy=False)
+                torch.cuda.synchronize()
+            else:
+                timing.train(timed, 1, feed_order=feed_order, prefetch_to_device=kind)
+            ms[kind].append((time.perf_counter() - t0) * 1e3 / TIMED_BATCHES)
+        m2, m0, mb = (statistics.median(ms[k]) for k in (2, 0, "bare"))
+        print(f"  ms a step, a pass of {TIMED_BATCHES} each, in turns (2, 0, bare, bare, 0, 2) "
+              f"x 3: the Trainer at prefetch depth 2 {[round(t, 3) for t in ms[2]]}, depth 0 "
+              f"{[round(t, 3) for t in ms[0]]}, the bare prefetched loop "
+              f"{[round(t, 3) for t in ms['bare']]}; medians {m2:.3f}, {m0:.3f}, {mb:.3f} "
+              f"({B / m2 * 1e3:.1f}, {B / m0 * 1e3:.1f}, {B / mb * 1e3:.1f} images/s); phase "
+              f"20's Executor.run step in this run {step_ms:.3f} ms, on {smi}")
+        # the producer's host work a batch, here on the main thread: the
+        # DataFeeder's stack of 128 samples, then the copy into pinned memory
+        batch = next(iter(reader()))
+        feed_ms, pin_ms = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fd = feeder.feed(batch)
+            t1 = time.perf_counter()
+            pinned = [torch.as_tensor(v).pin_memory() for v in fd.values()]
+            t2 = time.perf_counter()
+            feed_ms.append((t1 - t0) * 1e3)
+            pin_ms.append((t2 - t1) * 1e3)
+        print(f"  a batch's host work, median of 3: DataFeeder.feed {statistics.median(feed_ms):.3f}"
+              f" ms, the copy into pinned memory {statistics.median(pin_ms):.3f} ms "
+              f"({sum(p.nbytes for p in pinned) / 2**20:.1f} MiB)")
+        del pinned
+        out.update(feed_ms=statistics.median(feed_ms), pin_ms=statistics.median(pin_ms))
+        out.update(ms_depth2=m2, ms_depth0=m0, ms_bare_depth2=mb,
+                   images_per_s_depth2=B / m2 * 1e3, phase20_step_ms=step_ms)
+
+        # one pass at depth 2 under torch.profiler
+        from torch.profiler import ProfilerActivity, profile
+
+        prof_path = os.path.join(work, "resnet_trainer.trace.json")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            timing.train(timed, 1, feed_order=feed_order, prefetch_to_device=2)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        prof.export_chrome_trace(prof_path)
+        with open(prof_path) as f:
+            evs = [e for e in json.load(f)["traceEvents"]
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+        busy, end = 0.0, float("-inf")
+        for s0, s1 in sorted((e["ts"], e["ts"] + e["dur"]) for e in evs):
+            busy += max(0.0, s1 - max(s0, end))
+            end = max(end, s1)
+        ov = h2d_overlap(prof_path)
+        print(f"  profiled pass: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+              f"({100 * busy / wall_us:.1f}%); host-to-device copies: {ov['copies']}, "
+              f"{ov['copy_ms']:.3f} ms on stream(s) {ov['copy_streams']}, the kernels' main "
+              f"stream {ov['compute_stream']}; {100 * ov['overlapped']:.1f}% of the copies' "
+              f"time overlapped kernels on another stream")
+        out.update(busy_share=busy / wall_us, h2d_copy_streams=ov["copy_streams"],
+                   compute_stream=ov["compute_stream"], h2d_overlapped=ov["overlapped"])
+        del sc_t, timing, prof
+    return out, main_p, sc_a
+
+
+def resnet_eval_program(ptt, hw, class_dim, fmt):
+    """bench.py run_infer's eval-mode ResNet-50 (is_test) through the
+    port's front end. Returns (program, logits)."""
+    ptt.reset_default_programs()
+    prog, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(prog, startup):
+        shape = [hw, hw, 3] if fmt == "NHWC" else [3, hw, hw]
+        img = ptt.layers.data("img", shape=shape)
+        logits = ptt.models.resnet_imagenet(img, class_dim=class_dim, is_test=True,
+                                            data_format=fmt)
+    return prog, logits
+
+
+def logit_reading(got, want):
+    """(largest error over the largest logit, share beyond one bf16 ulp of
+    `want`)."""
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126))) - 7)
+    return (float(np.abs(got - want).max() / np.abs(want).max()),
+            float(np.mean(np.abs(got - want) > ulp)))
+
+
+def hold_logits(got, want, amp, what):
+    rel, share = logit_reading(got, want)
+    zero = logit_reading(torch.zeros_like(want), want)
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
+    if amp is None:
+        print(f"  {what}: f32 logits within {rel:.3e} of the largest (max {INFER_F32_REL}; a "
+              f"zero output reads {zero[0]:.1f})")
+        check(rel <= INFER_F32_REL, f"{what}: {rel:.3e} apart")
+    else:
+        print(f"  {what}: bf16 logits within {rel:.3e} of the largest (max {INFER_BF16_REL}), "
+              f"{share:.4f} of them beyond one bf16 ulp (max {INFER_BF16_SHARE}); a zero output "
+              f"reads {zero[0]:.1f} and {zero[1]:.1f}")
+        check(rel <= INFER_BF16_REL and share <= INFER_BF16_SHARE, f"{what}: {rel:.3e} apart, "
+              f"{share:.4f} beyond one ulp")
+
+
+def resnet_infer_phase(ptt, smi, seed, n, work, train_prog, train_scope):
+    """Phase n: ResNet-50 served from the Trainer's weights (A6a); returns
+    its readings."""
+    from paddle_tpu_torch.ops import fused_conv_kernels as fk
+
+    phase(n, "ResNet-50 inference (A6a) from the trained weights: the eval-mode NHWC artifact "
+          "(B=128, bf16) saved, loaded, served; the graft entry's NCHW program and a small one, "
+          "card against CPU")
+    hw, classes, B = RESNET_BENCH["hw"], RESNET_BENCH["class_dim"], RESNET_INFER_BATCH
+    eprog, logits = resnet_eval_program(ptt, hw, classes, "NHWC")
+    eprog.set_amp("bfloat16")
+    bound, by_order = bind_trained(eprog, train_prog, train_scope)
+    esc = ptt.Scope()
+    for k, v in bound.items():
+        esc.set(k, v)
+    art = os.path.join(work, "resnet_infer")
+    ptt.io.save_inference_model(art, ["img"], [logits], main_program=eprog, scope=esc)
+    lsc = ptt.Scope()
+    iprog, feeds, fetches = ptt.io.load_inference_model(art, scope=lsc)
+    iprog.set_amp("bfloat16")
+    for k, v in bound.items():
+        check(torch.equal(lsc.get(k), v), f"{k} did not round-trip through the artifact")
+    print(f"  {len(bound)} persistables bound from the trained scope ({by_order} by creation "
+          "order: the classifier's fc), saved, loaded, equal")
+    exe = ptt.Executor()
+    img = torch.as_tensor(np.random.RandomState(seed + 30).randn(B, hw, hw, 3)
+                          .astype(np.float32), device=CARD)
+    before = fk.fused_conv_bn_launches
+    (out,) = exe.run(iprog, {feeds[0]: img}, fetches, scope=lsc, return_numpy=False)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        (out,) = exe.run(iprog, {feeds[0]: img}, fetches, scope=lsc, return_numpy=False)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(fk.fused_conv_bn_launches == before, "the eval path launched B11")
+    check(tuple(out.shape) == (B, classes), f"logits of shape {tuple(out.shape)}")
+    med = statistics.median(times)
+    print(f"  3 requests of B={B} (bf16, the feed on the card): ms {[round(t, 3) for t in times]},"
+          f" median {med:.3f} ms, {B / med * 1e3:.1f} images/s; 0 B11 launches (cuDNN only) "
+          f"on {smi}")
+    breakdown(lambda: exe.run(iprog, {feeds[0]: img}, fetches, scope=lsc, return_numpy=False),
+              med, "request", kinds=RESNET_KERNEL_KINDS)
+    iprog.set_amp(None)
+    (ref,) = exe.run(iprog, {feeds[0]: img}, fetches, scope=lsc, return_numpy=False)
+    rel, _ = logit_reading(out, ref)
+    print(f"  the bf16 logits against the artifact run in f32 on the card: within {rel:.3e} of "
+          f"the largest (max {INFER_BF16_REL})")
+    check(rel <= INFER_BF16_REL, f"bf16 request {rel:.3e} from its f32 run")
+    readings = dict(ms=med, images_per_s=B / med * 1e3, bf16_vs_f32=rel)
+    del img, out, ref, lsc
+
+    # __graft_entry__.entry's NCHW is_test program, B=8, f32, card and CPU
+    gprog, glogits = resnet_eval_program(ptt, hw, classes, "NCHW")
+    gbound, _ = bind_trained(gprog, train_prog, train_scope)
+    x = np.random.RandomState(seed + 31).randn(GRAFT_BATCH, 3, hw, hw).astype(np.float32)
+    outs = {}
+    for dev in (CARD, "cpu"):
+        sc = ptt.Scope()
+        for k, v in gbound.items():
+            sc.set(k, v.to(dev))
+        (outs[dev],) = ptt.Executor(device=dev).run(gprog, {"img": x}, [glogits], scope=sc,
+                                                    return_numpy=False)
+    hold_logits(outs[CARD], outs["cpu"], None, f"the graft entry's NCHW program (B="
+                f"{GRAFT_BATCH}, 224x224), card against CPU")
+
+    # a small eval-mode program, card against CPU, seeded weights
+    s = RESNET_EVAL_SMALL
+    sprog, slogits = resnet_eval_program(ptt, s["hw"], s["class_dim"], "NHWC")
+    srng = np.random.RandomState(seed + 32)
+    state = {}
+    for v in sprog.persistables():
+        shape = tuple(v.shape)
+        if v.name.endswith(".mean"):
+            a = 0.1 * srng.randn(*shape)
+        elif v.name.endswith(".variance"):
+            a = 1 + 0.2 * srng.rand(*shape)
+        elif len(shape) == 1:
+            a = 1 + 0.1 * srng.randn(*shape) if v.name.endswith("_bn.w_0") else \
+                0.05 * srng.randn(*shape)
+        else:
+            fan_in = shape[0] if len(shape) == 2 else int(np.prod(shape[1:]))
+            a = srng.randn(*shape) / np.sqrt(fan_in)
+        state[v.name] = a.astype(np.float32)
+    x = srng.randn(s["batch"], s["hw"], s["hw"], 3).astype(np.float32)
+    for amp in (None, "bfloat16"):
+        sprog.set_amp(amp)
+        outs = {}
+        for dev in (CARD, "cpu"):
+            sc = ptt.Scope()
+            ptt.io.params_from_numpy(sc, state, dev)
+            (outs[dev],) = ptt.Executor(device=dev).run(sprog, {"img": x}, [slogits], scope=sc,
+                                                        return_numpy=False)
+        hold_logits(outs[CARD], outs["cpu"], amp, f"small eval program ({s['hw']}x{s['hw']}, "
+                    f"B={s['batch']}, {s['class_dim']} classes), card against CPU")
+    return readings
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4020,7 +4639,9 @@ def main():
     trows, terrs, tfm_launches = transformer_phases(ptt, exe, rng, smi, args.seed, 14)
     rows.update(trows)
     max_errs.update(terrs)
-    rrows, rerrs, resnet_launches = resnet_phases(ptt, exe, rng, smi, args.seed, 18)
+    resnet_summary = {}
+    rrows, rerrs, resnet_launches = resnet_phases(ptt, exe, rng, smi, args.seed, 18,
+                                                  resnet_summary)
     rows.update(rrows)
     max_errs.update(rerrs)
     srows, serrs, seq_launches = nmt_seq_phases(ptt, exe, rng, smi, args.seed, 22)
@@ -4031,8 +4652,18 @@ def main():
     rows.update(qrows)
     max_errs.update(qerrs)
     attention_routing_phase(ptt, args.seed + 31, 31)
+    work = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        paths = {"train_loop": train_loop_phase(ptt, smi, args.seed, 32, work)}
+        paths["resnet50_trainer"], rmain, rscope = resnet_trainer_phase(
+            ptt, smi, args.seed, 33, work, resnet_summary["step_ms"])
+        paths["resnet50_infer"] = resnet_infer_phase(ptt, smi, args.seed, 34, work, rmain,
+                                                     rscope)
+        del rscope
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
-    phase(32, "the kernels line, then the device line")
+    phase(35, "the paths line, the kernels line, then the device line")
     rows["attn_bwd_step"].update(launches_by_route=train_routes["attn_bwd_step"],
                                  kernel="attn_bwd_row_kernel on csrc/attn_row.cuh's attend_bwd")
     rows["attn_phase2"].update(kernel="attn_dep_kernel (t oldest first) + attn_dv_kernel")
@@ -4060,6 +4691,8 @@ def main():
     by_path.update({k: {"lstm_train": n} for k, n in lstm_launches.items()})
     by_path.update({k: {"transformer_train": n} for k, n in tfm_launches.items()})
     by_path.update({k: {"resnet50_train": n} for k, n in resnet_launches.items()})
+    by_path["fused_conv_bn"]["resnet50_trainer_per_step"] = \
+        paths["resnet50_trainer"]["b11_launches_per_step"]
     for k, c in seq_launches.items():
         by_path.setdefault(k, {})["nmt_train_seq"] = c
     by_path.update(q_launches)
@@ -4075,6 +4708,7 @@ def main():
         "launches_by_path": by_path[name], "max_abs_err": max_errs[name],
         "library_ms": None, **rows[name], "checked_against_plain": True,
     } for name, (src, rep) in sources.items()]
+    print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -23,20 +23,32 @@ trains programs built with its own layer DSL and optimizer front end:
     exe.run(startup, scope=scope)
     exe.run(main, feed, [loss], scope=scope)
 
-and quantizes a saved artifact to int8 for serving (`quant.calibrate`,
-`quant.convert`, `io.save_inference_model`).
+quantizes a saved artifact to int8 for serving (`quant.calibrate`,
+`quant.convert`, `io.save_inference_model`), and trains over a reader
+with events, on-device metric accumulation, prefetch to the card and
+checkpoints it resumes from:
+
+    trainer = ptt.Trainer(loss, main_program=main, startup_program=startup,
+                          checkpoint_config=ptt.CheckpointConfig(d, step_interval=100))
+    trainer.train(ptt.data.batch(reader, 64), num_passes=2, feed_order=[x, y],
+                  event_handler=handler)
 """
 
-from . import initializer, io, layers, models, ops, optimizer, quant, regularizer  # noqa: F401
+from . import (data, initializer, io, layers, models, obs, ops, optimizer, profiler,  # noqa: F401
+               quant, regularizer, resilience)
 from .core.backward import append_backward
-from .core.executor import Executor, Scope, global_scope
+from .core.executor import Executor, Scope, global_scope, reset_global_scope
 from .core.lod import LoDArray
 from .core.program import (Program, default_main_program, default_startup_program,
                            program_guard, reset_default_programs)
 from .flags import FLAGS
 from .param_attr import ParamAttr
+from .trainer import (BeginIteration, BeginPass, CheckpointConfig, EndIteration, EndPass,
+                      Trainer)
 
-__all__ = ["Executor", "FLAGS", "LoDArray", "ParamAttr", "Program", "Scope",
-           "append_backward", "default_main_program", "default_startup_program",
-           "global_scope", "initializer", "io", "layers", "models", "ops", "optimizer",
-           "program_guard", "quant", "regularizer", "reset_default_programs"]
+__all__ = ["BeginIteration", "BeginPass", "CheckpointConfig", "EndIteration", "EndPass",
+           "Executor", "FLAGS", "LoDArray", "ParamAttr", "Program", "Scope", "Trainer",
+           "append_backward", "data", "default_main_program", "default_startup_program",
+           "global_scope", "initializer", "io", "layers", "models", "obs", "ops",
+           "optimizer", "profiler", "program_guard", "quant", "regularizer",
+           "reset_default_programs", "reset_global_scope", "resilience"]

@@ -59,6 +59,53 @@ def global_scope() -> Scope:
     return _global_scope
 
 
+def reset_global_scope() -> None:
+    global _global_scope
+    _global_scope = Scope()
+
+
+def accum_fold(state, cost, metrics: Sequence, skip_nonfinite: bool):
+    """One on-device fold of a step's cost and metrics into the pass's
+    accumulator (paddle_tpu/core/executor.py:112), as torch operations on
+    the accumulator's device with no host read.
+
+    state: (n_good, cost_sum, [metric_sums...], n_bad), int32/float32
+    0-d tensors. skip_nonfinite (a StepGuard is armed) gates a non-finite
+    step's cost and metrics out of the sums; n_bad is what the guard reads
+    on its sync cadence."""
+    n, cost_sum, metric_sums, bad = state
+    c = torch.as_tensor(cost).reshape(()).to(torch.float32)
+    finite = torch.isfinite(c)
+    good = finite if skip_nonfinite else torch.ones((), dtype=torch.bool, device=c.device)
+    zero = torch.zeros((), dtype=torch.float32, device=c.device)
+    n = n + good.to(torch.int32)
+    cost_sum = cost_sum + torch.where(good, c, zero)
+    metric_sums = [m + torch.where(good, torch.as_tensor(v).reshape(()).to(torch.float32),
+                                   zero)
+                   for m, v in zip(metric_sums, metrics)]
+    bad = bad + (~finite).to(torch.int32)
+    return n, cost_sum, metric_sums, bad
+
+
+def _feed_signature(feed: Dict[str, Any]):
+    """(name, kind, ((shape, dtype), ...)) for each feed slot in name
+    order: equal signatures take the same shapes through the program
+    (paddle_tpu/core/executor.py:137). A dense slot (a numpy array or a
+    tensor) has one leaf; a LoDArray's are its data, seq_ids, lengths and
+    num_seqs."""
+    sig = []
+    for k in sorted(feed):
+        v = feed[k]
+        if isinstance(v, LoDArray):
+            kind, leaves = "lod", (v.data, v.seq_ids, v.lengths, v.num_seqs)
+        else:
+            kind, leaves = "dense", (v,)
+        sig.append((k, kind,
+                    tuple((tuple(l.shape), str(l.dtype).replace("torch.", ""))
+                          for l in leaves)))
+    return tuple(sig)
+
+
 def _detach(v):
     if isinstance(v, LoDArray):
         return v.with_data(v.data.detach())
@@ -112,7 +159,8 @@ class Executor:
 
     def _generator(self, seed: Optional[int]) -> torch.Generator:
         """The random ops' generator for one run: from `seed`, else a fresh
-        seed, as the JAX package draws one (executor.py `_draw_seed`)."""
+        seed, as the JAX package draws one (executor.py `_draw_seed`); the
+        caller passes the program's random_seed when it is set."""
         if seed is None:
             seed = int.from_bytes(os.urandom(4), "little")
         gen = torch.Generator(device=self.device)
@@ -148,7 +196,8 @@ class Executor:
         for k, v in (feed or {}).items():
             env[k] = self._to_device(k, v)
         env[AMP_KEY] = program.amp_dtype
-        env[registry.RNG_KEY] = self._generator(seed)
+        env[registry.RNG_KEY] = self._generator(seed if seed is not None
+                                                else program.random_seed or None)
 
         ops = program.global_block().ops
         env[registry.LIVE_KEY] = {n for op in ops for names in op.inputs.values()
@@ -175,6 +224,12 @@ class Executor:
         if return_numpy:
             fetches = [_to_numpy(f) for f in fetches]
         return fetches
+
+    def run_startup(self, program: Program, scope: Optional[Scope] = None,
+                    seed: Optional[int] = None):
+        """Run a startup (init) program (paddle_tpu/core/executor.py:474):
+        the same as run() here, where one device holds every value."""
+        return self.run(program, scope=scope, seed=seed)
 
     @staticmethod
     def _run_ops(ops, first: int, env) -> None:

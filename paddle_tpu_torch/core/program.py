@@ -131,6 +131,9 @@ class Program:
         self._version = 0
         # mixed-precision compute dtype (None = full f32); see amp.py
         self.amp_dtype: Optional[str] = None
+        # the random ops' seed for runs given none (0 = a fresh seed each
+        # run), as the JAX package's; not part of to_dict
+        self.random_seed: int = 0
 
     def set_amp(self, dtype: Optional[str] = "bfloat16") -> None:
         """Enable/disable bf16 activations for the program's runs."""

@@ -10,6 +10,14 @@ when either no longer matches. A training program is a directory holding
 `main.json` and `startup.json` (Program.to_dict of each) and `meta.json`
 (feed, loss and parameter names, the widths, the amp dtype). State — parameters and
 optimizer persistables alike — crosses as numpy arrays by name.
+
+A training checkpoint (`save_checkpoint`, paddle_tpu/io.py:604-880) is a
+numbered directory `checkpoint_<serial>/` under the checkpoint dir holding
+`params.npz` (every persistable) and, written last as its completion
+marker, `meta.json` (the serial, the trainer's position, the sha256 of each
+payload file): the JAX package's layout, so a checkpoint written by one
+package resumes in the other. A serial whose payload does not match its
+hashes is moved aside to `<dir>.corrupt` and the previous one is loaded.
 """
 
 from __future__ import annotations
@@ -17,8 +25,12 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
+import shutil
 import tempfile
-from typing import Dict, Iterable, List, Optional, Sequence
+import warnings
+import zipfile
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,18 +39,25 @@ from .core.executor import Scope, global_scope
 from .core.lod import LoDArray
 from .core.place import resolve_device
 from .core.program import Program, Variable, default_main_program
+from .resilience import faults
 
 PARAMS_FILE = "params.npz"
 PROGRAM_FILE = "program.json"
 META_FILE = "meta.json"
 MAIN_FILE = "main.json"
 STARTUP_FILE = "startup.json"
+CHECKPOINT_PREFIX = "checkpoint"
 
 # sidecars that change how the artifact must run; the port cannot honour
 # them yet, so it refuses the artifact rather than serve it wrongly
 _UNSUPPORTED_SIDECARS = ("sharding", "draft_model")
 # the suffix of a quantized weight's f32 scale var (quant/convert.py)
 SCALE_SUFFIX = "@quant_scale"
+
+
+class CheckpointCorruptError(RuntimeError):
+    """A checkpoint's payload does not match the integrity record in its
+    meta (or the payload is unreadable)."""
 
 
 class QuantMetaError(ValueError):
@@ -78,11 +97,38 @@ def quant_scales_digest(scope: Scope, param_names: Sequence[str]) -> str:
         and (scope.get(n).dtype == torch.int8 or n.endswith(SCALE_SUFFIX))})
 
 
+def _sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _write_json_atomic(path: str, obj) -> None:
+    """tmp + os.replace, so a preempted writer never leaves a torn JSON
+    file."""
+    d = os.path.dirname(os.path.abspath(path))
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump(obj, f)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
 def _host(value) -> np.ndarray:
     """A scope value as a numpy array (bf16 widens to f32, which numpy
-    has)."""
+    has); a numpy array (a host snapshot's value) passes through."""
     if isinstance(value, LoDArray):
         raise TypeError("cannot save a LoDArray variable")
+    if isinstance(value, np.ndarray):
+        return value
     t = value.detach()
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
@@ -110,8 +156,9 @@ def save_vars(dirname: str, var_names: Sequence[str], scope: Optional[Scope] = N
               filename: str = PARAMS_FILE) -> str:
     """The named scope values as one npz under `dirname`, written to a
     temporary file and renamed over the old one, so a failed save never
-    leaves a torn file. (The JAX package's fault-injection point here waits
-    for the port of `resilience`.)"""
+    leaves a torn file. The fault point `ckpt.write` fires before the
+    rename: "raise" leaves the previous file intact, "corrupt" publishes a
+    torn npz (what the loader's quarantine must survive)."""
     scope = scope or global_scope()
     os.makedirs(dirname, exist_ok=True)
     arrays = {n: _host(scope.get(n)) for n in var_names}
@@ -121,6 +168,9 @@ def save_vars(dirname: str, var_names: Sequence[str], scope: Optional[Scope] = N
     try:
         with open(tmp, "wb") as f:
             np.savez(f, **arrays)
+        if faults.fire("ckpt.write", path=path) == "corrupt":
+            with open(tmp, "r+b") as f:
+                f.truncate(max(os.path.getsize(tmp) // 2, 1))
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
@@ -320,3 +370,146 @@ def load_inference_model(dirname: str, scope: Optional[Scope] = None, device=Non
                 "modified after export; refusing to serve mismatched scales")
     params_from_numpy(scope, arrays, dev)
     return program, meta["feed_names"], meta["fetch_names"]
+
+
+# ------------------------------------------------------------ checkpoints --
+def _serial_dir(checkpoint_dir: str, serial: int) -> str:
+    return os.path.join(checkpoint_dir, f"{CHECKPOINT_PREFIX}_{serial}")
+
+
+def _complete_serials(checkpoint_dir: str) -> List[int]:
+    """Ascending serials whose completion marker (meta) is present;
+    quarantined `checkpoint_N.corrupt` dirs never match."""
+    if not os.path.isdir(checkpoint_dir):
+        return []
+    out = []
+    for name in os.listdir(checkpoint_dir):
+        m = re.fullmatch(rf"{CHECKPOINT_PREFIX}_(\d+)", name)
+        if m and os.path.exists(os.path.join(checkpoint_dir, name, META_FILE)):
+            out.append(int(m.group(1)))
+    return sorted(out)
+
+
+def get_latest_checkpoint_serial(checkpoint_dir: str, verify: bool = False) -> int:
+    """Largest complete checkpoint serial, or -1. verify=True returns the
+    newest serial whose payload matches its hashes (read-only: nothing is
+    quarantined; load_checkpoint does that when it falls back)."""
+    serials = _complete_serials(checkpoint_dir)
+    if not verify:
+        return serials[-1] if serials else -1
+    for serial in reversed(serials):
+        try:
+            verify_checkpoint(_serial_dir(checkpoint_dir, serial))
+            return serial
+        except CheckpointCorruptError:
+            continue
+    return -1
+
+
+def verify_checkpoint(dirname: str) -> None:
+    """Raise CheckpointCorruptError unless the directory's meta parses and
+    every payload file hashed into it (`integrity`) is present and
+    matches. A checkpoint without an integrity record passes (its
+    corruption still shows when it is read)."""
+    try:
+        with open(os.path.join(dirname, META_FILE)) as f:
+            meta = json.load(f)
+    except (OSError, ValueError) as e:
+        raise CheckpointCorruptError(f"{dirname}: unreadable meta ({e})") from e
+    integrity = meta.get("integrity")
+    if not isinstance(integrity, dict):
+        return
+    for fname, want in sorted(integrity.items()):
+        path = os.path.join(dirname, fname)
+        if not os.path.exists(path):
+            raise CheckpointCorruptError(f"{dirname}: payload {fname} missing")
+        got = _sha256_file(path)
+        if got != want:
+            raise CheckpointCorruptError(
+                f"{dirname}: payload {fname} sha256 {got[:12]}… does not match the "
+                f"recorded {str(want)[:12]}…")
+
+
+def _quarantine_dir(dirname: str) -> str:
+    """Move a corrupt checkpoint aside, out of the serial scan's sight."""
+    q = dirname + ".corrupt"
+    i = 1
+    while os.path.exists(q):
+        q = f"{dirname}.corrupt.{i}"
+        i += 1
+    os.replace(dirname, q)
+    return q
+
+
+def _sharded_not_ported():
+    return NotImplementedError(
+        "sharded checkpoints are not ported yet (ROADMAP.md, queue A, A10 · Parallel "
+        "and pipeline); use sharded=False")
+
+
+def save_checkpoint(checkpoint_dir: str, trainer_args: Optional[Dict[str, Any]] = None,
+                    main_program: Optional[Program] = None, scope: Optional[Scope] = None,
+                    max_num_checkpoints: int = 3, sharded: bool = False) -> int:
+    """Every persistable plus the trainer's position as a new numbered
+    checkpoint, keeping the newest `max_num_checkpoints`. Returns the new
+    serial. `scope` may hold tensors or a host snapshot's numpy arrays.
+    Serial allocation re-lists the directory, so one thread saves into a
+    directory at a time (the Trainer's writer thread)."""
+    if sharded:
+        raise _sharded_not_ported()
+    serial = get_latest_checkpoint_serial(checkpoint_dir) + 1
+    d = _serial_dir(checkpoint_dir, serial)
+    os.makedirs(d, exist_ok=True)
+    save_persistables(d, main_program, scope)
+    # meta last: its presence marks the checkpoint complete, and it
+    # carries the payload hashes load verifies
+    faults.fire("ckpt.meta", serial=serial)
+    _write_json_atomic(os.path.join(d, META_FILE),
+                       {"serial": serial, "trainer_args": trainer_args or {},
+                        "integrity": {PARAMS_FILE: _sha256_file(os.path.join(d, PARAMS_FILE))}})
+    # retention sweeps complete serials only
+    for s in _complete_serials(checkpoint_dir)[:-max_num_checkpoints]:
+        shutil.rmtree(_serial_dir(checkpoint_dir, s), ignore_errors=True)
+    return serial
+
+
+# errors that mean "this checkpoint is damaged, try the previous one"
+_RECOVERABLE_LOAD_ERRORS = (CheckpointCorruptError, OSError, ValueError, KeyError, EOFError,
+                            zipfile.BadZipFile)
+
+
+def load_checkpoint(checkpoint_dir: str, main_program: Optional[Program] = None,
+                    scope: Optional[Scope] = None, device=None) -> Dict[str, Any]:
+    """Restore the newest VALID checkpoint into `scope` on `device`
+    (default: the card); returns its trainer_args. A serial whose hashes
+    mismatch, or whose payload fails to read, is quarantined to
+    `<dir>.corrupt` and the previous serial is tried. A sharded checkpoint
+    (the JAX package's `sharded_meta.json`) raises."""
+    dev = resolve_device(device)
+    quarantined = 0
+    while True:
+        serial = get_latest_checkpoint_serial(checkpoint_dir)
+        if serial < 0:
+            extra = f" ({quarantined} corrupt serial(s) quarantined)" if quarantined else ""
+            raise FileNotFoundError(f"no valid checkpoint under {checkpoint_dir}{extra}")
+        d = _serial_dir(checkpoint_dir, serial)
+        if os.path.exists(os.path.join(d, "sharded_meta.json")):
+            raise _sharded_not_ported()
+        try:
+            verify_checkpoint(d)
+            arrays = _read_npz(os.path.join(d, PARAMS_FILE), None)
+            with open(os.path.join(d, META_FILE)) as f:
+                args = json.load(f)["trainer_args"]
+        except _RECOVERABLE_LOAD_ERRORS as e:
+            quarantined += 1
+            q = _quarantine_dir(d)
+            warnings.warn(f"checkpoint {d} is corrupt ({type(e).__name__}: {e}); "
+                          f"quarantined to {q}, falling back to the previous serial",
+                          stacklevel=2)
+            continue
+        params_from_numpy(scope or global_scope(), arrays, dev)
+        return args
+
+
+def clean_checkpoint(checkpoint_dir: str) -> None:
+    shutil.rmtree(checkpoint_dir, ignore_errors=True)

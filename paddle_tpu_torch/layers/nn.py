@@ -2,10 +2,10 @@
 programs use: data (:73), fc (:96), embedding (:146), conv2d (:198),
 pool2d (:278), batch_norm (:348), the fused conv + BN protocol's
 RawConvBN (:376), fused_conv_bn (:394), bn_stats (:451) and bn_apply
-(:477), layer_norm (:492), softmax_with_cross_entropy (:537), mean
-(:602), relu (:610) and elementwise_add (:622). Each builds its
-parameters through LayerHelper and appends ops to the default program;
-shapes use -1 for the batch dimension."""
+(:477), layer_norm (:492), softmax_with_cross_entropy (:537),
+square_error_cost (:554), mean (:602), relu (:610) and elementwise_add
+(:622). Each builds its parameters through LayerHelper and appends ops to
+the default program; shapes use -1 for the batch dimension."""
 
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from .helper import LayerHelper
 
 __all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm", "RawConvBN",
            "fused_conv_bn", "bn_stats", "bn_apply", "layer_norm", "softmax_with_cross_entropy",
-           "mean", "relu", "elementwise_add"]
+           "square_error_cost", "mean", "relu", "elementwise_add"]
 
 
 def data(name: str, shape: Sequence[int], dtype=np.float32, lod_level: int = 0,
@@ -261,6 +261,15 @@ def softmax_with_cross_entropy(logits, label, soft_label: bool = False):
                      outputs={"Softmax": [softmax_out], "Loss": [loss]},
                      attrs={"soft_label": soft_label})
     return loss
+
+
+def square_error_cost(input, label) -> Variable:
+    """(input - label)², elementwise."""
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_tmp_variable(input.dtype, input.shape)
+    helper.append_op(type="square_error_cost", inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def mean(x):

@@ -1,7 +1,7 @@
 """Convolution, pooling, normalisation and loss op kernels: `conv2d`,
-`pool2d`, `batch_norm`, `layer_norm` and `softmax_with_cross_entropy`
-(paddle_tpu/ops/nn_ops.py:30, 106, 146, 191-207, 247-272), on torch
-tensors.
+`pool2d`, `batch_norm`, `layer_norm`, `softmax_with_cross_entropy` and
+`square_error_cost` (paddle_tpu/ops/nn_ops.py:30, 106, 146, 191-207,
+247-272, 276), on torch tensors.
 
 The convolution goes to F.conv2d (cuDNN on the card), as the JAX package
 leaves it to XLA. An NHWC tensor reaches it as a channels-last NCHW view
@@ -159,6 +159,13 @@ def softmax_with_cross_entropy_kernel(ctx):
     if ctx.output_read("Softmax"):
         ctx.set_output("Softmax", wrap(logp.exp()))
     ctx.set_output("Loss", wrap(loss))
+
+
+@register_op("square_error_cost")
+def square_error_cost_kernel(ctx):
+    """(X - Y)², elementwise (squared_l2_distance_op.cc)."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    ctx.set_output("Out", torch.square(x - y))
 
 
 @register_op("layer_norm")

@@ -24,7 +24,11 @@ def test_import_pulls_in_no_jax_and_no_paddle_tpu():
         "assert {'paddle_tpu_torch.models.text', 'paddle_tpu_torch.models.transformer',\n"
         "        'paddle_tpu_torch.ops.flash_kernels', 'paddle_tpu_torch.layers.attention',\n"
         "        'paddle_tpu_torch.models.image', 'paddle_tpu_torch.ops.fused_conv_kernels',\n"
-        "        'paddle_tpu_torch.ops.fused_conv_ops'}"
+        "        'paddle_tpu_torch.ops.fused_conv_ops', 'paddle_tpu_torch.trainer',\n"
+        "        'paddle_tpu_torch.data.reader', 'paddle_tpu_torch.data.feeder',\n"
+        "        'paddle_tpu_torch.obs.trace', 'paddle_tpu_torch.obs.metrics',\n"
+        "        'paddle_tpu_torch.profiler', 'paddle_tpu_torch.resilience.faults',\n"
+        "        'paddle_tpu_torch.resilience.guard'}"
         " <= set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
@@ -66,6 +70,11 @@ def test_entry_points_need_a_gpu_unless_told_cpu(tmp_path, monkeypatch):
         ptt.Executor()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ptt.io.load_inference_model(str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ptt.Trainer(ptt.Program().global_block().create_var("loss", ()),
+                    main_program=ptt.Program(), startup_program=ptt.Program())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ptt.data.DevicePrefetcher(lambda: iter(()))
     assert ptt.Executor(device="cpu").device.type == "cpu"
 
 
