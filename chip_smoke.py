@@ -239,16 +239,20 @@ exits non-zero without the final `ok` line:
               attention call routed to the plain formula and counted.
   32. loop    bench.py's train_loop row (16 features, fc 256 tanh, fc 1,
               square_error_cost, SGD(0.01), B=64, 60 steps from --seed)
-              through the port's Trainer in three modes: sync
-              (log_interval=1), async (log_interval=60) and async_traced
-              (obs.trace armed); pass 0 warms up, pass 1 is timed: steps/s,
-              host syncs and dispatches a step, the host-blocked fraction
-              (the hostSync timer over the wall). async must fence less often
-              than sync, the traced run's counters equal async's, its spans
-              lie on >= 2 threads and validate, the parameters are the same
-              bits in all three; the async pass again under
-              torch.cuda.set_sync_debug_mode('warn'), its reported syncs
-              counted; scan_window=8 raises NotImplementedError.
+              through the port's Trainer in four modes: sync
+              (log_interval=1), async (log_interval=60), scan (async with
+              scan_window=8: one step captured as a CUDA graph, replayed)
+              and async_traced (obs.trace armed); pass 0 warms up (and
+              captures), pass 1 is timed: steps/s, host syncs and dispatches
+              a step, the host-blocked fraction (the hostSync timer over the
+              wall), scan's captures and replays. bench.py's assertions
+              (bench.py:1020-1041): async fences less often than sync; scan
+              dispatches less often than async, fences no more often than
+              async nor than once a window; the parameters are the same
+              bits in all four; and the traced run's counters equal
+              async's, its spans lie on >= 2 threads and validate; the
+              async pass again under torch.cuda.set_sync_debug_mode('warn'),
+              its reported syncs counted.
   33. trainer bench.py's ResNet-50 (phase 18's program, B11 route) through
               the port's Trainer: 512 (img, label) samples from --seed ->
               data.batch -> DataFeeder -> DevicePrefetcher (depth 2), 2
@@ -273,7 +277,31 @@ exits non-zero without the final `ok` line:
               artifact run in f32; the graft
               entry's NCHW program (B=8, f32) and a small eval program
               (64x64, B=4, f32 and bf16), card against CPU.
-  35. the paths JSON line (phases 32-34's readings), the kernels JSON
+  35. window  the LSTM classifier (phase 10's program, B=128, T=100, bf16)
+              through the port's Trainer from one saved state, in turns:
+              the per-step async loop over 10 batches (its parameters also
+              taken at step 8), scan_window=4 over 8 batches (the first step
+              eager, the second captured, then replays), scan_window=4 over
+              10 (a ragged tail of 2 on the same graph), the per-step loop
+              and the ragged window again (the same bits as their first
+              turns), then one profiled pass of each: ms a step, dispatches,
+              host syncs, peak memory (allocated and reserved), the
+              capture's seconds and its graph's pool, the busy share and the
+              multi-tensor copies' device time; B1 and B2 launches a step
+              (2 + 2) by the wrappers' counters in every run, and by the
+              window's profile, which must agree; the windows' parameters
+              the per-step loop's bits (the first that differs named).
+  36. window  the same for the NMT step on the per-step attention route
+              (phase 22's program with the seq flags off, B=256, S=T=50,
+              bf16, fixed-length LoDArrays: one feed signature, one
+              capture): B3, B4 (2 + 2), B5, B6 (50 + 50) and B7 (1).
+  37. window  the same for ResNet-50 (phase 18's program, B=128, B11 route):
+              B11 36 a step.
+  38. random  a small program drawing gaussian_random in its main program
+              (random_seed set): scan_window=4 against the per-step loop,
+              the same costs and parameters; then one window of phase 35's
+              captured step under torch.cuda.set_sync_debug_mode('error').
+  39. the paths JSON line (phases 32-38's readings), the kernels JSON
       line, then the device JSON line last.
 
 Weights are made with numpy from --seed at the shapes the program
@@ -3417,6 +3445,7 @@ def quant_phases(ptt, exe, smi, seed, first_phase):
 # features, fc 256 tanh, fc 1, square_error_cost, mean, SGD(0.01); B=64, 60
 # steps a pass; pass 0 warms up, pass 1 is timed
 TRAIN_LOOP = dict(features=16, hidden=256, batch=64, steps=60, lr=0.01)
+TRAIN_LOOP_SCAN = 8  # bench.py's BENCH_SCAN_WINDOW
 # the ResNet Trainer run: bench.py's _build_resnet_train at RESNET_BENCH on
 # the B11 route, 2 passes of 4 batches of (img, label) samples
 RESNET_PASSES, RESNET_BATCHES = 2, 4
@@ -3471,7 +3500,7 @@ def train_loop_phase(ptt, smi, seed, n, work):
     from paddle_tpu_torch import obs, profiler
 
     phase(n, "bench.py's train_loop row through the port's Trainer (16 features, hidden 256, "
-          "B=64, 60 steps, SGD(0.01)): sync, async, async_traced")
+          "B=64, 60 steps, SGD(0.01)): sync, async, scan (scan_window=8), async_traced")
     B, steps = TRAIN_LOOP["batch"], TRAIN_LOOP["steps"]
     rng = np.random.RandomState(seed)
     xs = rng.randn(steps * B, TRAIN_LOOP["features"]).astype(np.float32)
@@ -3486,19 +3515,23 @@ def train_loop_phase(ptt, smi, seed, n, work):
     old_timers = ptt.FLAGS.enable_timers
     ptt.FLAGS.enable_timers = True
     try:
-        for mode, interval in (("sync", 1), ("async", steps), ("async_traced", steps)):
+        for mode, interval, window in (("sync", 1, 0), ("async", steps, 0),
+                                       ("scan", steps, TRAIN_LOOP_SCAN),
+                                       ("async_traced", steps, 0)):
             prog, startup, loss = build_train_loop(ptt, seed + 11)
             scope = ptt.Scope()
             trainer = ptt.Trainer(loss, main_program=prog, startup_program=startup, scope=scope)
             traced = mode == "async_traced"
             if traced:
                 obs.trace.arm(out=trace_path)
-            trainer.train(reader, num_passes=1, log_interval=interval)  # pass 0 warms up
+            # pass 0 warms up (and captures the scan column's step)
+            trainer.train(reader, num_passes=1, log_interval=interval, scan_window=window)
             stats = profiler.global_stat_set()
             stats.reset()
             syncs0, disp0 = trainer.host_sync_count, trainer.host_dispatch_count
+            cache0 = dict(trainer.exe.cache_stats)
             t0 = time.perf_counter()
-            trainer.train(reader, num_passes=1, log_interval=interval)
+            trainer.train(reader, num_passes=1, log_interval=interval, scan_window=window)
             dt = time.perf_counter() - t0  # the pass ends in the accumulator's read
             if traced:
                 obs.trace.disarm(export=True)
@@ -3510,11 +3543,22 @@ def train_loop_phase(ptt, smi, seed, n, work):
                 "host_syncs_per_step": (trainer.host_sync_count - syncs0) / steps,
                 "dispatches_per_step": (trainer.host_dispatch_count - disp0) / steps,
                 "host_blocked_fraction": (blocked.total if blocked else 0.0) / dt}
+            if window:
+                cs = trainer.exe.cache_stats
+                results[mode].update(
+                    scan_window=window, captures=cs["captures"],
+                    replays_timed_pass=cs["replays"] - cache0["replays"],
+                    eager_steps_timed_pass=cs["eager_steps"] - cache0["eager_steps"])
             params[mode] = {p.name: scope.get(p.name).cpu() for p in prog.parameters()}
+            extra = (f"; {results[mode]['captures']} capture (pass 0), "
+                     f"{results[mode]['replays_timed_pass']} replays and "
+                     f"{results[mode]['eager_steps_timed_pass']} eager steps in the timed pass"
+                     if window else "")
             print(f"  {mode}: {results[mode]['steps_per_sec']:.1f} steps/s, "
                   f"{results[mode]['host_syncs_per_step']:.4f} host syncs a step, "
                   f"{results[mode]['dispatches_per_step']:.4f} dispatches a step, host-blocked "
-                  f"{100 * results[mode]['host_blocked_fraction']:.2f}% of the pass's wall time")
+                  f"{100 * results[mode]['host_blocked_fraction']:.2f}% of the pass's "
+                  f"wall time{extra}")
         # hidden syncs: the async pass once more with torch counting every
         # synchronizing call (set_sync_debug_mode), the trainer's own reads
         # among them
@@ -3541,25 +3585,28 @@ def train_loop_phase(ptt, smi, seed, n, work):
           f"{problems or 'no problems'}; tracing cost "
           f"{100 * (1 - results['async_traced']['steps_per_sec'] / results['async']['steps_per_sec']):.2f}"
           f"% of async's steps/s")
+    # bench.py's train_loop assertions (bench.py:1020-1041)
     check(results["async"]["host_syncs_per_step"] < results["sync"]["host_syncs_per_step"],
           f"async fences no less often than sync: {results}")
+    check(results["scan"]["dispatches_per_step"] < results["async"]["dispatches_per_step"],
+          f"scan dispatches no less often than async: {results}")
+    check(results["scan"]["host_syncs_per_step"] <= results["async"]["host_syncs_per_step"],
+          f"scan fences more often than async: {results}")
+    check(results["scan"]["host_syncs_per_step"] <= 1.0 / TRAIN_LOOP_SCAN,
+          f"scan fences more often than once a window: {results}")
+    check(results["scan"]["replays_timed_pass"] == steps
+          and results["scan"]["eager_steps_timed_pass"] == 0,
+          f"the timed scan pass did not replay every step: {results['scan']}")
     for k in ("host_syncs_per_step", "dispatches_per_step"):
         check(results["async_traced"][k] == results["async"][k],
               f"the traced run's {k} differs from async's")
     check(len(threads) >= 2, f"spans on {len(threads)} threads, not >= 2")
     check(not problems, f"the exported trace fails validation: {problems[:3]}")
-    for mode in ("async", "async_traced"):
+    for mode in ("async", "scan", "async_traced"):
         for name, want in params["sync"].items():
             check(torch.equal(params[mode][name], want),
                   f"{mode}: parameter {name} differs from sync's")
-    print("  the parameters are the same bits in the three modes")
-    prog, startup, loss = build_train_loop(ptt, seed + 11)
-    trainer = ptt.Trainer(loss, main_program=prog, startup_program=startup, scope=ptt.Scope())
-    try:
-        trainer.train(reader, num_passes=1, scan_window=8)
-        fail("scan_window=8 did not raise")
-    except NotImplementedError as e:
-        print(f"  scan_window=8 raises NotImplementedError: {e}")
+    print("  the parameters are the same bits in the four modes")
     return results
 
 
@@ -3989,6 +4036,333 @@ def resnet_infer_phase(ptt, smi, seed, n, work, train_prog, train_scope):
         hold_logits(outs[CARD], outs["cpu"], amp, f"small eval program ({s['hw']}x{s['hw']}, "
                     f"B={s['batch']}, {s['class_dim']} classes), card against CPU")
     return readings
+
+# the Trainer's scan window at full width (phases 35-37): the per-step async
+# loop over WINDOW_RAGGED batches (its parameters also taken at step
+# WINDOW_EVEN), scan_window=WINDOW_K over WINDOW_EVEN batches (two windows;
+# the first warms up and captures), then over WINDOW_RAGGED (a ragged tail
+# of 2, the same graph), the per-step loop again; then one profiled pass of
+# each. Every run starts from one saved state and feeds the same batches.
+WINDOW_K, WINDOW_EVEN, WINDOW_RAGGED = 4, 8, 10
+# {path: {wrapper counter: (the kernel's name in a profile, launches a step)}}
+WINDOW_KERNELS = {
+    "lstm": {"lstm_fwd_launches": ("lstm_fwd_tc_kernel", 2),
+             "lstm_bwd_launches": ("lstm_bwd_tc_kernel", 2)},
+    "nmt": {"gru_fwd_launches": ("gru_fwd_tc_kernel", 2),
+            "gru_bwd_launches": ("gru_bwd_tc_kernel", 2),
+            "attn_fwd_launches": ("attn_fwd_row_kernel", 50),
+            "attn_bwd_step_launches": ("attn_bwd_row_kernel", 50),
+            "attn_phase2_launches": ("attn_dep_kernel", 1)},
+    "resnet50": {"fused_conv_bn_launches": ("fused_conv_bn_tc_kernel", 36)},
+}
+# the small program with a random op in its main program (phase 38)
+RANDOM_PROG = dict(batch=16, features=16, hidden=32, steps=8, seed=5, noise=0.1)
+
+
+def first_differing(got, want):
+    """The first name (in want's order) whose tensors are not the same
+    bits, or None."""
+    return next((n for n, w in want.items() if not torch.equal(got[n], w)), None)
+
+
+def profile_pass(run, kernel_names):
+    """One call of `run` under torch.profiler: (wall ms, device busy ms,
+    {kernel name: launches recorded}, device ms of the multi-tensor copies,
+    device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end, copies = 0.0, float("-inf"), 0.0
+    for s, e, name in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+        if "multi_tensor_apply" in name:
+            copies += e - s
+    counts = {k: sum(1 for _, _, name in spans if k in name) for k in kernel_names}
+    return wall_us / 1e3, busy / 1e3, counts, copies / 1e3, len(spans)
+
+
+def graph_pool_gib(g):
+    """The memory the caching allocator holds for a CUDA graph's private
+    pool (its segments), or None where the snapshot does not say."""
+    pool = tuple(g.pool())
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) == pool) / 2**30
+
+
+def window_path_phase(ptt, smi, n, path, what, build, batches, flags):
+    """Phase n: `path` at full width through the port's Trainer, per-step
+    against scan_window=WINDOW_K (module constants above); returns its
+    readings and, for the sync check, (executor, program, loss, scope)."""
+    from paddle_tpu_torch.core import graph
+
+    phase(n, f"{what} through the port's Trainer: the per-step async loop against "
+             f"scan_window={WINDOW_K} (a CUDA graph of the step, replayed), "
+             f"{WINDOW_EVEN} and {WINDOW_RAGGED} batches")
+    kernels = WINDOW_KERNELS[path]
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    with _Flags(ptt.FLAGS, **flags):
+        main_p, startup, loss = build()
+        exe = ptt.Executor()
+        scope0 = ptt.Scope()
+        exe.run(startup, scope=scope0)
+        state = {k: scope0.get(k).clone() for k in scope0.keys()}
+        del scope0
+        pnames = [p.name for p in main_p.parameters()]
+        last = {}
+
+        def run(window, nb, snap_at=None):
+            scope = ptt.Scope()
+            tr = ptt.Trainer(loss, main_program=main_p, startup_program=startup, scope=scope,
+                             executor=exe)
+            tr.init()
+            for k, v in state.items():
+                scope.set(k, v.clone())
+            snap = {}
+
+            def handler(e):
+                if snap_at and isinstance(e, ptt.EndIteration) and e.step == snap_at:
+                    snap.update({p: scope.get(p).clone() for p in pnames})
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before, cs0 = graph.counter_state(), dict(exe.cache_stats)
+            t0 = time.perf_counter()
+            tr.train(lambda: iter(batches[:nb]), 1, event_handler=handler, log_interval=nb,
+                     scan_window=window)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / nb
+            moved = graph.counter_delta(before, graph.counter_state())
+            reading = dict(
+                ms_per_step=ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30,
+                launches_per_step={k: moved.get((m, k), 0) / nb for m, names in
+                                   graph.LAUNCH_COUNTERS for k in names if k in kernels},
+                dispatches=tr.host_dispatch_count, host_syncs=tr.host_sync_count,
+                **{k: exe.cache_stats[k] - cs0[k] for k in ("captures", "replays",
+                                                             "eager_steps")})
+            last.update(scope=scope)
+            return reading, {p: scope.get(p).clone() for p in pnames}, snap
+
+        p1, p1_params, p1_snap = run(0, WINDOW_RAGGED, snap_at=WINDOW_EVEN)
+        a, a_params, _ = run(WINDOW_K, WINDOW_EVEN)
+        sg = next(iter(exe._windows.values()))
+        a["capture_s"] = sg.capture_s
+        a["graph_pool_gib"] = graph_pool_gib(sg.graph)
+        b, b_params, _ = run(WINDOW_K, WINDOW_RAGGED)
+        p2, p2_params, _ = run(0, WINDOW_RAGGED)
+        b2, b2_params, _ = run(WINDOW_K, WINDOW_RAGGED)
+        names = [v for v, _ in kernels.values()]
+        prof_p = profile_pass(lambda: run(0, WINDOW_RAGGED), names)
+        prof_w = profile_pass(lambda: run(WINDOW_K, WINDOW_RAGGED), names)
+    out = {"per_step": p1, "per_step_again": p2, "window_even": a, "window_ragged": b,
+           "window_ragged_again": b2, "graphs_held": len(exe._windows),
+           "per_step_ms": statistics.mean([p1["ms_per_step"], p2["ms_per_step"]]),
+           "window_ms": statistics.mean([b["ms_per_step"], b2["ms_per_step"]])}
+    for label, r in (("per-step", p1), (f"window {WINDOW_K} x {WINDOW_EVEN // WINDOW_K}", a),
+                     (f"window {WINDOW_K}, ragged tail", b), ("per-step again", p2),
+                     ("the ragged window again", b2)):
+        cap = (f", {r['captures']} capture in {r['capture_s']:.3f} s, its graph's pool "
+               f"{r['graph_pool_gib'] if r['graph_pool_gib'] is None else round(r['graph_pool_gib'], 3)}"
+               f" GiB" if r["captures"] else "")
+        print(f"  {label}: {r['ms_per_step']:.3f} ms a step, {r['dispatches']} dispatches, "
+              f"{r['host_syncs']} host syncs, {r['eager_steps']} eager steps, {r['replays']} "
+              f"replays{cap}; peak {r['peak_gib']:.2f} GiB allocated, "
+              f"{r['peak_reserved_gib']:.2f} GiB reserved; launches a step "
+              f"{r['launches_per_step']} on {smi}")
+    for label, (wall, busy, counts, copies, nev), steps in (
+            ("per-step", prof_p, WINDOW_RAGGED), ("window", prof_w, WINDOW_RAGGED)):
+        out[f"profiled_{label}"] = dict(wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
+                                        kernel_launches_per_step={k: c / steps for k, c in
+                                                                  counts.items()},
+                                        copies_ms=copies, device_events=nev)
+        print(f"  profiled {label} pass: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+              f"({100 * busy / wall:.1f}%), {nev} device events, the multi-tensor copies "
+              f"{copies:.3f} ms ({100 * copies / max(busy, 1e-9):.2f}% of busy); kernels a "
+              f"step {out[f'profiled_{label}']['kernel_launches_per_step']}")
+    print(f"  graphs held: {out['graphs_held']}; captures over the phase "
+          f"{exe.cache_stats['captures']}; ms a step, the mean of the two turns: per-step "
+          f"{out['per_step_ms']:.3f}, window {out['window_ms']:.3f} "
+          f"({out['per_step_ms'] / out['window_ms']:.2f}x) on {smi}")
+    for counter, (kname, want) in kernels.items():
+        for label, r in (("per-step", p1), ("window", a), ("ragged window", b),
+                         ("the ragged window again", b2)):
+            check(r["launches_per_step"][counter] == want,
+                  f"{path} {label}: {counter} {r['launches_per_step'][counter]} a step, not {want}")
+        seen = out["profiled_window"]["kernel_launches_per_step"][kname]
+        check(seen == b["launches_per_step"][counter],
+              f"{path}: the window's profile shows {seen} {kname} a step, its counters "
+              f"{b['launches_per_step'][counter]}")
+    check(a["captures"] == 1 and a["eager_steps"] == 1 and a["replays"] == WINDOW_EVEN - 1,
+          f"{path}: the first window run did not warm up once, capture once and replay: {a}")
+    for r in (b, b2):
+        check(r["captures"] == 0 and r["replays"] == WINDOW_RAGGED,
+              f"{path}: a ragged run captured again or ran eagerly: {r}")
+    d = first_differing(a_params, p1_snap)
+    check(d is None, f"{path}: scan_window={WINDOW_K} over {WINDOW_EVEN} batches: parameter "
+                     f"{d} differs from the per-step loop's at step {WINDOW_EVEN}")
+    d = first_differing(b_params, p1_params)
+    check(d is None, f"{path}: the ragged window run: parameter {d} differs from the "
+                     f"per-step loop's")
+    d = first_differing(b2_params, b_params)
+    check(d is None, f"{path}: the two ragged window runs differ first at {d}")
+    d = first_differing(p2_params, p1_params)
+    out["per_step_runs_same_bits"] = d is None
+    print(f"  the windows end on the per-step loop's bits ({len(pnames)} parameters); the two "
+          f"per-step runs {'the same bits' if d is None else f'differ first at {d}'}")
+    return out, (exe, main_p, loss, last["scope"], batches)
+
+
+def window_sync_check(ptt, ctx):
+    """One window (an already captured step) under
+    torch.cuda.set_sync_debug_mode('error'): any synchronizing call raises."""
+    exe, main_p, loss, scope, batches = ctx
+    win = next(iter(ptt.data.DevicePrefetcher(lambda: iter(batches[:WINDOW_K]), depth=1,
+                                              window=WINDOW_K)))
+    cs0 = dict(exe.cache_stats)
+    # the Trainer's key: its accumulator carried
+    z = lambda dt: torch.zeros((), dtype=dt, device=CARD)  # noqa: E731
+    acc = (z(torch.int32), z(torch.float32), [], z(torch.int32))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ys, _ = exe.run_window(main_p, win.feed, [loss], scope=scope, acc_state=acc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(exe.cache_stats["replays"] - cs0["replays"] == WINDOW_K
+          and exe.cache_stats["captures"] == cs0["captures"],
+          f"the sync-checked window did not replay the captured step {WINDOW_K} times")
+    check(bool(torch.isfinite(ys[0]).all()), "the sync-checked window's costs are not finite")
+    print(f"  one window of {WINDOW_K} replays under torch.cuda.set_sync_debug_mode('error'): "
+          f"no synchronizing call; costs {[round(float(c), 4) for c in ys[0].float().cpu()]}")
+
+
+def build_random_program(ptt):
+    """A small regression program whose main program draws: tanh(fc(x) +
+    gaussian_random noise), fc to 1, squared error, SGD; random_seed set on
+    both programs."""
+    from paddle_tpu_torch.layers.helper import LayerHelper
+
+    rp = RANDOM_PROG
+    ptt.reset_default_programs()
+    prog, startup = ptt.Program(), ptt.Program()
+    prog.random_seed = startup.random_seed = rp["seed"]
+    with ptt.program_guard(prog, startup):
+        x = ptt.layers.data("x", shape=[rp["batch"], rp["features"]], append_batch_size=False)
+        y = ptt.layers.data("y", shape=[rp["batch"], 1], append_batch_size=False)
+        h = ptt.layers.fc(x, size=rp["hidden"])
+        helper = LayerHelper("noise")
+        noise = helper.create_tmp_variable(np.float32, (rp["batch"], rp["hidden"]))
+        helper.append_op(type="gaussian_random", outputs={"Out": [noise]},
+                         attrs={"shape": [rp["batch"], rp["hidden"]], "mean": 0.0,
+                                "std": rp["noise"], "dtype": "float32"})
+        h = helper.append_activation(ptt.layers.elementwise_add(h, noise), "tanh")
+        pred = ptt.layers.fc(h, size=1)
+        loss = ptt.layers.mean(ptt.layers.square_error_cost(pred, y))
+        ptt.optimizer.SGD(learning_rate=0.05).minimize(loss)
+    return prog, startup, loss
+
+
+def random_window_phase(ptt, smi, seed, n, sync_ctx):
+    """Phase n: a program with a random op in its main program, its window
+    against its per-step loop on the card (random_seed set); then one
+    window under the sync debug mode."""
+    phase(n, "a program drawing gaussian_random in its main program: scan_window=4 against "
+             "the per-step loop on the card; one full-width window under "
+             "set_sync_debug_mode('error')")
+    rp = RANDOM_PROG
+    rng = np.random.RandomState(seed + 60)
+    data = [{"x": rng.randn(rp["batch"], rp["features"]).astype(np.float32),
+             "y": rng.randn(rp["batch"], 1).astype(np.float32)} for _ in range(rp["steps"])]
+    params, costs = {}, {}
+    for mode, window in (("per_step", 0), ("window", 4)):
+        prog, startup, loss = build_random_program(ptt)
+        scope = ptt.Scope()
+        tr = ptt.Trainer(loss, main_program=prog, startup_program=startup, scope=scope)
+        events = []
+        tr.train(lambda: iter(data), 1, event_handler=events.append,
+                 log_interval=rp["steps"], scan_window=window)
+        params[mode] = {p.name: scope.get(p.name).cpu() for p in prog.parameters()}
+        costs[mode] = [float(e.cost) for e in events if isinstance(e, ptt.EndIteration)]
+    d = first_differing(params["window"], params["per_step"])
+    check(d is None, f"the random program's window: parameter {d} differs from the per-step "
+                     "loop's")
+    check(costs["window"] == costs["per_step"], f"the random program's costs differ: {costs}")
+    print(f"  {rp['steps']} steps with gaussian_random noise (std {rp['noise']}): the window's "
+          f"costs and {len(params['window'])} parameters are the per-step loop's bits; costs "
+          f"{[round(c, 5) for c in costs['window']]}")
+    window_sync_check(ptt, sync_ctx)
+    return {"random_op_window_same_bits": True}
+
+
+def window_phases(ptt, smi, seed, first_phase):
+    """Phases first_phase..+3: the LSTM, NMT (per-step attention route) and
+    ResNet-50 windows at full width, then the random op program and the
+    sync check; returns the paths' readings."""
+    n = first_phase
+    rng = np.random.RandomState(seed + 40)
+    lb = LSTM_BENCH
+    lstm_batches = []
+    for _ in range(WINDOW_RAGGED):
+        seqs = [rng.randint(0, lb["vocab"], (lb["seqlen"],)).astype(np.int32)
+                for _ in range(lb["batch"])]
+        lstm_batches.append({
+            "words": ptt.LoDArray.from_sequences(seqs, capacity=lb["batch"] * lb["seqlen"],
+                                                 max_seqs=lb["batch"]),
+            "label": rng.randint(0, 2, (lb["batch"], 1)).astype(np.int32)})
+
+    def build_lstm():
+        main_p, startup, loss = build_lstm_program(ptt, lb["vocab"], lb["emb"], lb["hidden"],
+                                                   lb["seqlen"])
+        main_p.set_amp("bfloat16")
+        return main_p, startup, loss
+
+    out = {}
+    out["lstm_window"], sync_ctx = window_path_phase(
+        ptt, smi, n, "lstm", f"the LSTM classifier (B={lb['batch']}, T={lb['seqlen']}, "
+        f"H={lb['hidden']}, bf16)", build_lstm, lstm_batches, {})
+    nb = NMT_BENCH
+    pack = lambda seqs: ptt.LoDArray.from_sequences(  # noqa: E731
+        seqs, capacity=nb["batch"] * nb["max_len"], max_seqs=nb["batch"])
+    nmt_batches = []
+    for _ in range(WINDOW_RAGGED):
+        srcs = [rng.randint(2, nb["vocab"], (nb["max_len"],)).astype(np.int32)
+                for _ in range(nb["batch"])]
+        trgs = [rng.randint(2, nb["vocab"], (nb["max_len"],)).astype(np.int32)
+                for _ in range(nb["batch"])]
+        nmt_batches.append({"src": pack(srcs), "trg_in": pack(trgs), "label": pack(trgs)})
+
+    def build_nmt():
+        main_p, startup, loss = build_nmt_program(ptt, nb["vocab"], nb["emb"],
+                                                  nb["enc_hidden"], nb["dec_hidden"],
+                                                  nb["max_len"])
+        main_p.set_amp("bfloat16")
+        return main_p, startup, loss
+
+    out["nmt_window"], _ = window_path_phase(
+        ptt, smi, n + 1, "nmt", f"the NMT step on the per-step attention route (B={nb['batch']}, "
+        f"S=T={nb['max_len']}, bf16)", build_nmt, nmt_batches,
+        dict(fused_attention_seq_fwd=False, fused_attention_seq_bwd=False))
+    del nmt_batches
+    rb = RESNET_BENCH
+    resnet_batches = [resnet_feed(rng, rb["hw"], rb["class_dim"], rb["batch"])
+                      for _ in range(WINDOW_RAGGED)]
+    out["resnet50_window"], _ = window_path_phase(
+        ptt, smi, n + 2, "resnet50", f"ResNet-50 (B={rb['batch']}, {rb['hw']}x{rb['hw']}, bf16, "
+        "B11 route)", lambda: build_resnet_program(ptt, rb["hw"], rb["class_dim"], rb["lr"]),
+        resnet_batches, dict(fused_conv_dot_max_n=RESNET_DOT_MAX_N, fused_conv_pallas=True))
+    del resnet_batches
+    out.update(random_window_phase(ptt, smi, seed, n + 3, sync_ctx))
+    return out
 
 
 def main():
@@ -4662,8 +5036,9 @@ def main():
         del rscope
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    paths.update(window_phases(ptt, smi, args.seed, 35))
 
-    phase(35, "the paths line, the kernels line, then the device line")
+    phase(39, "the paths line, the kernels line, then the device line")
     rows["attn_bwd_step"].update(launches_by_route=train_routes["attn_bwd_step"],
                                  kernel="attn_bwd_row_kernel on csrc/attn_row.cuh's attend_bwd")
     rows["attn_phase2"].update(kernel="attn_dep_kernel (t oldest first) + attn_dv_kernel")
@@ -4695,6 +5070,11 @@ def main():
         paths["resnet50_trainer"]["b11_launches_per_step"]
     for k, c in seq_launches.items():
         by_path.setdefault(k, {})["nmt_train_seq"] = c
+    # through the windows (phases 35-37), by the wrappers' counters
+    for path, kernels in WINDOW_KERNELS.items():
+        launches = paths[f"{path}_window"]["window_ragged"]["launches_per_step"]
+        for counter in kernels:
+            by_path[counter[:-len("_launches")]][f"{path}_train_window"] = launches[counter]
     by_path.update(q_launches)
     # B3's row: the request's launch (B=128), and the training step's (B=256)
     rows["gru_fwd"] = dict(main_row, train_ms=gru_fwd_train_ms)

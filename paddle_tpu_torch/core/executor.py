@@ -97,7 +97,7 @@ def _feed_signature(feed: Dict[str, Any]):
     for k in sorted(feed):
         v = feed[k]
         if isinstance(v, LoDArray):
-            kind, leaves = "lod", (v.data, v.seq_ids, v.lengths, v.num_seqs)
+            kind, leaves = "lod", v.leaves()
         else:
             kind, leaves = "dense", (v,)
         sig.append((k, kind,
@@ -135,10 +135,19 @@ class Executor:
     """`Executor(device).run(program, feed, fetch_list, scope)`.
 
     `device=None` is the card; the CPU runs only when named (core/place.py).
+    `run_window` runs a window of training steps (the Trainer's
+    scan_window); its captured steps are held in `_windows`, counted in
+    `cache_stats`.
     """
+
+    # the Trainer's scan_window runs here (paddle_tpu/trainer.py:703)
+    scan_window_supported = True
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
+        self._windows: Dict[tuple, Any] = {}  # run_window's steps by key
+        self.cache_stats = {"hits": 0, "misses": 0, "captures": 0, "replays": 0,
+                            "eager_steps": 0}
         if self.device.type == "cuda":
             # bf16 GEMMs must reduce in f32, as the JAX package's
             # preferred_element_type=f32 does (ops/math_ops.dot); cuBLAS
@@ -195,10 +204,23 @@ class Executor:
                 env[name] = val
         for k, v in (feed or {}).items():
             env[k] = self._to_device(k, v)
-        env[AMP_KEY] = program.amp_dtype
-        env[registry.RNG_KEY] = self._generator(seed if seed is not None
-                                                else program.random_seed or None)
+        gen = self._generator(seed if seed is not None else program.random_seed or None)
+        self._execute(program, env, fetch_names, persist, gen)
+        for name in persist:
+            if name in env:
+                scope.set(name, _detach(env[name]))
+        fetches = [_detach(env[n]) for n in fetch_names]
+        if return_numpy:
+            fetches = [_to_numpy(f) for f in fetches]
+        return fetches
 
+    def _execute(self, program: Program, env: Dict[str, Any], fetch_names, persist,
+                 gen: torch.Generator) -> None:
+        """The block's ops on `env` (the persistables and the feeds), with
+        `gen` for the random ops: a block with an `autodiff` op trains, one
+        without runs under inference_mode (the module docstring)."""
+        env[AMP_KEY] = program.amp_dtype
+        env[registry.RNG_KEY] = gen
         ops = program.global_block().ops
         env[registry.LIVE_KEY] = {n for op in ops for names in op.inputs.values()
                                   for n in names} | set(fetch_names) | set(persist)
@@ -217,13 +239,22 @@ class Executor:
                 self._run_autodiff(ops[k], env, leaves)
             with torch.no_grad():
                 self._run_ops(ops[k + 1:], k + 1, env)
-        for name in persist:
-            if name in env:
-                scope.set(name, _detach(env[name]))
-        fetches = [_detach(env[n]) for n in fetch_names]
-        if return_numpy:
-            fetches = [_to_numpy(f) for f in fetches]
-        return fetches
+
+    def run_window(self, program: Program, feed: Dict[str, Any],
+                   fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,
+                   acc_state=None, skip_nonfinite: bool = False):
+        """K training steps, the feeds stacked on a leading window axis
+        (`data.feeder.FeedWindow`), in one host dispatch: on the card one
+        captured step replayed K times (core/graph.py), on the CPU K eager
+        steps on the same buffers. `acc_state`, when given, is the
+        `accum_fold` accumulator, folded inside each step (fetch_list[0] is
+        the cost). Returns (ys, acc_out): ys aligned with fetch_list, each
+        with a leading axis of K, still on the device; the scope holds the
+        window's persistable buffers after it."""
+        from . import graph
+
+        return graph.run_window(self, program, feed, fetch_list, scope or global_scope(),
+                                acc_state, skip_nonfinite)
 
     def run_startup(self, program: Program, scope: Optional[Scope] = None,
                     seed: Optional[int] = None):

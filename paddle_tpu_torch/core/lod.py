@@ -133,6 +133,11 @@ class LoDArray:
         data[flat_idx.reshape(-1)] = batched_bm.reshape((B * T,) + tuple(batched.shape[2:]))
         return LoDArray(data[:-1], like.seq_ids, like.lengths, like.num_seqs)
 
+    def leaves(self) -> tuple:
+        """(data, seq_ids, lengths, num_seqs): the tensors a feed signature,
+        a copy or a stack takes one by one."""
+        return (self.data, self.seq_ids, self.lengths, self.num_seqs)
+
     def with_data(self, data) -> "LoDArray":
         return LoDArray(data, self.seq_ids, self.lengths, self.num_seqs)
 

@@ -96,8 +96,9 @@ define_flag("sync_every", 0,
             "log_period, except a StepGuard-armed run keeps the per-step "
             "check unless a cadence is set explicitly")
 define_flag("scan_window", 0,
-            "trainer: fuse K training steps into one captured program; not "
-            "ported yet (ROADMAP.md, queue A, A6c): any K > 0 raises")
+            "trainer: run K training steps a host dispatch (Executor.run_window: "
+            "on the card one step captured as a CUDA graph and replayed K times); "
+            "0 = the per-step loop")
 define_flag("prefetch_to_device", 2,
             "trainer: default DevicePrefetcher queue depth: batch N+1's "
             "host-to-device copy overlaps batch N's compute. 0 disables; "

@@ -3,8 +3,8 @@ programs use: data (:73), fc (:96), embedding (:146), conv2d (:198),
 pool2d (:278), batch_norm (:348), the fused conv + BN protocol's
 RawConvBN (:376), fused_conv_bn (:394), bn_stats (:451) and bn_apply
 (:477), layer_norm (:492), softmax_with_cross_entropy (:537),
-square_error_cost (:554), mean (:602), relu (:610) and elementwise_add
-(:622). Each builds its parameters through LayerHelper and appends ops to
+square_error_cost (:554), accuracy (:565), mean (:602), softmax (:606),
+relu (:610) and elementwise_add (:622). Each builds its parameters through LayerHelper and appends ops to
 the default program; shapes use -1 for the batch dimension."""
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from .helper import LayerHelper
 
 __all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm", "RawConvBN",
            "fused_conv_bn", "bn_stats", "bn_apply", "layer_norm", "softmax_with_cross_entropy",
-           "square_error_cost", "mean", "relu", "elementwise_add"]
+           "square_error_cost", "accuracy", "mean", "softmax", "relu", "elementwise_add"]
 
 
 def data(name: str, shape: Sequence[int], dtype=np.float32, lod_level: int = 0,
@@ -272,10 +272,31 @@ def square_error_cost(input, label) -> Variable:
     return out
 
 
+def accuracy(input, label, k: int = 1) -> Variable:
+    """The top-k accuracy of `input`'s rows against `label`: a `top_k` op,
+    then an `accuracy` op."""
+    helper = LayerHelper("accuracy")
+    vals = helper.create_tmp_variable(input.dtype, input.shape[:-1] + (k,))
+    idxs = helper.create_tmp_variable(np.int32, input.shape[:-1] + (k,))
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [vals], "Indices": [idxs]}, attrs={"k": k})
+    acc = helper.create_tmp_variable(np.float32, ())
+    helper.append_op(type="accuracy", inputs={"Indices": [idxs], "Label": [label]},
+                     outputs={"Accuracy": [acc]})
+    return acc
+
+
 def mean(x):
     helper = LayerHelper("mean")
     out = helper.create_tmp_variable(x.dtype, (), x.lod_level)
     helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]}, attrs={})
+    return out
+
+
+def softmax(x):
+    helper = LayerHelper("softmax")
+    out = helper.create_tmp_variable(x.dtype, x.shape, x.lod_level)
+    helper.append_op(type="softmax", inputs={"X": [x]}, outputs={"Out": [out]}, attrs={})
     return out
 
 

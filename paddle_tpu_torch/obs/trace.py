@@ -16,6 +16,10 @@
   records as args; a thread hand-off copies it explicitly
   (`get_context()` on the producer, `set_context(**ctx)` on the consumer),
   which is how step ids flow prefetch -> step -> hostSync -> checkpoint.
+  Under the Trainer's scan_window the context is the window's (`window`,
+  its first batch, and `k`) and one forwardBackward span covers the
+  window's k steps; the prefetcher stacks each window in a
+  `prefetch.window` span.
 - Export is Chrome trace-event JSON ("X" complete events, "i" instants,
   "C" counter tracks, "M" thread names) for Perfetto / chrome://tracing.
   `tracing(profile_dir=...)` brackets the capture inside

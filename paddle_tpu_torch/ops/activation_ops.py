@@ -1,7 +1,7 @@
 """Activation op kernels (paddle_tpu/ops/activation_ops.py), cut to the
-activations the ported paths name: the `tanh` op, `fc`'s `gelu`, and the
-gate, cell and candidate activations `rnn_ops._act` looks up in
-`_ACTIVATIONS`."""
+activations the ported paths name: the `tanh` op, `fc`'s `gelu`, the gate,
+cell and candidate activations `rnn_ops._act` looks up in `_ACTIVATIONS`,
+and the `softmax` op over the last axis (:114)."""
 
 from __future__ import annotations
 
@@ -54,6 +54,7 @@ _ACTIVATIONS = {
     "sigmoid": lambda x, a: sigmoid(x),
     "tanh": lambda x, a: torch.tanh(x),
     "gelu": lambda x, a: gelu(x),
+    "softmax": lambda x, a: softmax(x),
 }
 
 

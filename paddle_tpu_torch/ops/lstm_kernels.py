@@ -29,6 +29,7 @@ tensors to the plain version. There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -109,16 +110,26 @@ def packed_columns(H: int):
     return col.reshape(-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _pack_index(H: int, device: torch.device):
+    """The packed rows that hold a column of W, and those columns, on
+    `device`: made once, so that pack_w copies nothing from the host and
+    waits for nothing on the card (a step that packs W can be captured in a
+    CUDA graph)."""
+    cols = packed_columns(H)
+    rows = torch.nonzero(cols >= 0).squeeze(1)
+    return rows.to(device), cols[rows].to(device)
+
+
 def pack_w(w):
     """W [H, 4H] in the bf16 forward's layout: [groups, 64, Hp] with
     packed[g, n, k] = W[k, packed_columns(H)[64·g + n]], zero where the
     unit or k is padding (Hp = padded_units(H))."""
     H = w.shape[0]
     Hp = padded_units(H)
-    cols = packed_columns(H).to(w.device)
-    valid = cols >= 0
-    out = torch.zeros(cols.numel(), Hp, dtype=w.dtype, device=w.device)
-    out[valid, :H] = w.t()[cols[valid]]
+    rows, cols = _pack_index(H, w.device)
+    out = torch.zeros(4 * Hp, Hp, dtype=w.dtype, device=w.device)
+    out[rows, :H] = w.t()[cols]
     return out.reshape(-1, 4 * UNITS_PER_CTA, Hp)
 
 

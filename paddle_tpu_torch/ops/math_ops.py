@@ -1,7 +1,7 @@
-"""Math op kernels: mul, matmul, elementwise_add, mean, lookup_table, scale, sign,
-clip_by_global_norm and the startup program's fill_constant,
+"""Math op kernels: mul, matmul, elementwise_add, mean, top_k, lookup_table,
+scale, sign, clip_by_global_norm and the startup program's fill_constant,
 uniform_random and gaussian_random (paddle_tpu/ops/math_ops.py:35,67,108,118,
-274,207,228,245,306,335,346), on torch tensors.
+264,274,207,228,245,306,335,346), on torch tensors.
 The matrix products go to torch.matmul, as the JAX package leaves them to
 XLA. The random ops draw from the run's torch.Generator: the same
 distributions as the JAX package's, not the same numbers."""
@@ -79,6 +79,16 @@ def elementwise_add_kernel(ctx):
     yd = _broadcast_y(xd, yd, ctx.attr("axis", -1))
     xd, yd = amp.harmonize(ctx, xd, yd)
     ctx.set_output("Out", _like(x, xd + yd))
+
+
+@register_op("top_k")
+def top_k_kernel(ctx):
+    """The k largest values along the last axis and their int32 indices,
+    largest first (top_k_op.cc; `accuracy`'s first op)."""
+    x = _data(ctx.input("X"))
+    vals, idxs = torch.topk(x, ctx.attr("k", 1), dim=-1, largest=True, sorted=True)
+    ctx.set_output("Out", vals)
+    ctx.set_output("Indices", idxs.to(torch.int32))
 
 
 @register_op("lookup_table")

@@ -1,7 +1,7 @@
-"""Convolution, pooling, normalisation and loss op kernels: `conv2d`,
-`pool2d`, `batch_norm`, `layer_norm`, `softmax_with_cross_entropy` and
-`square_error_cost` (paddle_tpu/ops/nn_ops.py:30, 106, 146, 191-207,
-247-272, 276), on torch tensors.
+"""Convolution, pooling, normalisation, loss and metric op kernels:
+`conv2d`, `pool2d`, `batch_norm`, `layer_norm`, `softmax_with_cross_entropy`,
+`square_error_cost` and `accuracy` (paddle_tpu/ops/nn_ops.py:30, 106, 146,
+191-207, 247-272, 276, 296), on torch tensors.
 
 The convolution goes to F.conv2d (cuDNN on the card), as the JAX package
 leaves it to XLA. An NHWC tensor reaches it as a channels-last NCHW view
@@ -166,6 +166,21 @@ def square_error_cost_kernel(ctx):
     """(X - Y)², elementwise (squared_l2_distance_op.cc)."""
     x, y = ctx.input("X"), ctx.input("Y")
     ctx.set_output("Out", torch.square(x - y))
+
+
+@register_op("accuracy")
+def accuracy_kernel(ctx):
+    """The share of rows whose label is among their top-k indices
+    (accuracy_op.cc), as an f32 scalar; `Correct` and `Total` as int32
+    counts where the op names them."""
+    indices, label = ctx.input("Indices"), ctx.input("Label")
+    correct = (indices == label.to(indices.dtype)).any(dim=-1)
+    ctx.set_output("Accuracy", correct.to(torch.float32).mean())
+    if ctx.has_output("Correct"):
+        ctx.set_output("Correct", correct.sum(dtype=torch.int32))
+    if ctx.has_output("Total"):
+        ctx.set_output("Total", torch.full((), indices.shape[0], dtype=torch.int32,
+                                           device=indices.device))
 
 
 @register_op("layer_norm")

@@ -56,10 +56,12 @@ define_flag("fault_spec", "",
 KNOWN_POINTS = {
     "ckpt.write",       # io.save_vars, before the rename publishes the npz
     "ckpt.meta",        # io.save_checkpoint, before the completion marker
-    "executor.step",    # trainer batch loop, before the step's run;
+    "executor.step",    # trainer batch loop, before the step's run (a
+                        # window's steps one hit each, before its run);
                         # action=corrupt NaN-poisons the batch's first
-                        # floating feed slot (deterministic non-finite
-                        # injection for StepGuard tests)
+                        # floating feed slot, in a window that step's slot
+                        # only (deterministic non-finite injection for
+                        # StepGuard tests)
 }
 # (the JAX package's reader.next and serving.predict points wait for the
 # port's RetryReader and serving: arming them raises here)

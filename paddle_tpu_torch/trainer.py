@@ -1,8 +1,9 @@
 """Training loop: pass and batch loops, events, testing, checkpoint
-cadence (paddle_tpu/trainer.py:78-1228, the per-step loop).
+cadence (paddle_tpu/trainer.py:78-1228).
 
 One Trainer drives a (main, startup) program pair over a reader. Each step
-is one `Executor.run` of the main program; the test program is
+is one `Executor.run` of the main program, or with `scan_window=K` one
+step of an `Executor.run_window` over K batches; the test program is
 `main.clone(for_test=True)`. Checkpoints hold every persistable (optimizer
 state included) and the reader's position, so a preempted run resumes
 mid-pass, from this package's checkpoints or the JAX package's.
@@ -16,22 +17,32 @@ The step loop keeps the card ahead of the host:
   compute stream, then a wait on that copy alone;
 - batches arrive through a `DevicePrefetcher` (pinned memory, a side
   stream of its own) by default;
-- a checkpoint snapshot takes the scope's tensors by reference and hands
-  them to one background writer thread, which copies them to the host on
-  its own side stream and commits npz + sha256 + atomic rename. Taking
-  them by reference is safe because the port's update ops replace
-  tensors rather than writing into them (ops/optimizer_ops.py:1-8,
-  ops/nn_ops.py `update_running`): a later step leaves the named step's
-  values untouched. The loop waits only if the previous commit is still
-  in flight;
+- a checkpoint snapshot hands the scope's tensors to one background
+  writer thread, which copies them to the host on its own side stream and
+  commits npz + sha256 + atomic rename; the loop waits only if the
+  previous commit is still in flight. The per-step loop's snapshot takes
+  the tensors by reference: the port's update ops replace tensors rather
+  than writing into them (ops/optimizer_ops.py:1-8, ops/nn_ops.py
+  `update_running`), so a later step leaves the named step's values
+  untouched. A window leaves its own buffers in the scope and the next
+  window writes them again (core/graph.py), so under scan_window the
+  snapshot copies them on the card first, ordered before the next window;
 - EndIteration carries a lazy cost between syncs: a handler that reads
   it pays the sync, a handler that does not pays nothing.
 
+With `scan_window=K` (`_scan_pass`, paddle_tpu/trainer.py:943-1080) the
+prefetcher stacks up to K batches of one feed signature and one
+`Executor.run_window` runs them: on the card one training step captured as
+a CUDA graph and replayed for each, the accumulator folded inside. Host
+syncs fall on window edges on the sync_every cadence, checkpoints on the
+window edges that cross their interval; a StepGuard in cool-down runs
+windows of 1; stop() and SIGTERM finish the window in flight; with
+show_param_stats_period set the per-step loop runs, with a warning.
+
 `host_sync_count` counts every device-to-host wait the loop pays and
-`host_dispatch_count` every `Executor.run` it issues, as the JAX package
-counts them. The JAX package's `scan_window` (K steps under one
-`lax.scan`) becomes a CUDA-graph capture of K steps, which is not ported
-yet (ROADMAP.md, queue A, A6c); nor are sharded checkpoints (A10).
+`host_dispatch_count` every `Executor.run` or `run_window` it issues, as
+the JAX package counts them. Sharded checkpoints are not ported yet
+(ROADMAP.md, queue A, A10).
 """
 
 from __future__ import annotations
@@ -63,9 +74,6 @@ from .resilience.guard import StepGuard
 
 __all__ = ["BeginPass", "EndPass", "BeginIteration", "EndIteration", "CheckpointConfig",
            "Trainer"]
-
-_SCAN_WINDOW_ITEM = ("scan_window is not ported yet: its CUDA-graph capture of K steps is "
-                     "ROADMAP.md, queue A, A6c; use scan_window=0")
 
 
 # -- events (python/paddle/v2/event.py) -------------------------------------
@@ -138,14 +146,17 @@ class _LazyScalar:
     comparison, numpy coercion) is a host sync, so the loop hands these
     to event handlers instead of reading eagerly."""
 
-    __slots__ = ("_value", "_host", "_on_sync", "_reader")
+    __slots__ = ("_value", "_host", "_on_sync", "_reader", "_index")
 
     def __init__(self, value, on_sync: Optional[Callable] = None,
-                 reader: Optional[_HostReader] = None):
+                 reader: Optional[_HostReader] = None, index: Optional[int] = None):
         self._value = value
         self._host: Optional[float] = None
         self._on_sync = on_sync
         self._reader = reader
+        # row `index` of a window's stacked fetch, taken when read: slicing
+        # at construction would launch a device op a step
+        self._index = index
 
     def materialize(self) -> float:
         if self._host is None:
@@ -155,7 +166,7 @@ class _LazyScalar:
                 (v,) = self._reader.read([self._value])
             else:
                 v = _numpy(torch.as_tensor(self._value).detach().cpu())
-            self._host = float(v)
+            self._host = float(v if self._index is None else v[self._index])
             self._value = None  # drop the device reference once read
         return self._host
 
@@ -241,6 +252,12 @@ class _PassStats:
         self.steps += 1
         self.state = accum_fold(self.state, cost, list(metrics), self.skip_nonfinite)
 
+    def absorb_window(self, new_state, k: int) -> None:
+        """A window folded k steps into the accumulator inside its steps:
+        adopt the returned state. No dispatch, no sync."""
+        self.state = new_state
+        self.steps += int(k)
+
     def pending(self) -> int:
         return self.steps - self.synced_steps
 
@@ -296,6 +313,21 @@ def _poison_feed(feed: Dict[str, Any]) -> Dict[str, Any]:
             return out
         if _is_float(v):
             out[k] = v * np.float32(np.nan) if isinstance(v, np.ndarray) else v * float("nan")
+            return out
+    return out
+
+
+def _poison_window_slot(feed: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """_poison_feed for a window: NaN-poison step i of the first feed slot
+    (in name order) holding floating values, and no other step."""
+    out = dict(feed)
+    for k in sorted(out):
+        v = out[k]
+        t = v.data if isinstance(v, LoDArray) else v
+        if _is_float(t):
+            t = t.clone()
+            t[i] = t[i] * float("nan")
+            out[k] = v.with_data(t) if isinstance(v, LoDArray) else t
             return out
     return out
 
@@ -412,6 +444,7 @@ class Trainer:
         # syncs, lazy-cost reads) and every Executor.run of the step loop
         self.host_sync_count = 0
         self.host_dispatch_count = 0
+        self._snapshot_copies = False
         self._register_obs_gauges()
 
     def _register_obs_gauges(self) -> None:
@@ -453,11 +486,11 @@ class Trainer:
             self._ckpt_writer.commits, self._ckpt_writer.failures,
             g.get("skipped", 0), g.get("rollbacks", 0), obs_trace.dropped_total())
 
-    def _maybe_log_stats(self) -> None:
-        """The stats line, where the step counter is at a multiple of
+    def _maybe_log_stats(self, k: int = 1) -> None:
+        """The stats line, where the last k steps crossed a multiple of
         FLAGS.stats_period (host-side ints only)."""
         sp = FLAGS.stats_period
-        if sp and (self.step // sp) > ((self.step - 1) // sp):
+        if sp and (self.step // sp) > ((self.step - k) // sp):
             self._log_stats()
 
     # -- lifecycle ---------------------------------------------------------
@@ -522,9 +555,6 @@ class Trainer:
         SIGINT finish the current batch, write an emergency mid-pass
         checkpoint (when checkpoint_config is set), drain the writer and
         raise PreemptedError. Resume rides `init()`."""
-        k = scan_window if scan_window is not None else FLAGS.scan_window
-        if int(k) > 0:
-            raise NotImplementedError(_SCAN_WINDOW_ITEM)
         if not self._initialized:
             self.init()
         self._stop = False
@@ -542,7 +572,7 @@ class Trainer:
                     pass
         try:
             return self._train(reader, num_passes, feed_order, event_handler, fetch_metrics,
-                               test_reader, prefetch_to_device, log_interval)
+                               test_reader, prefetch_to_device, log_interval, scan_window)
         finally:
             for s, h in installed.items():
                 signal.signal(s, h)
@@ -553,8 +583,14 @@ class Trainer:
         vals = self._reader.read([cost_dev, *metric_devs])
         return float(vals[0]), [float(v) for v in vals[1:]]
 
+    def _resolve_scan_window(self, scan_window: Optional[int]) -> int:
+        """The window's K: an explicit `scan_window`, then
+        FLAGS.scan_window; 0 is the per-step loop."""
+        k = scan_window if scan_window is not None else FLAGS.scan_window
+        return max(0, int(k))
+
     def _train(self, reader, num_passes, feed_order, event_handler, fetch_metrics, test_reader,
-               prefetch_to_device, log_interval) -> Dict[str, float]:
+               prefetch_to_device, log_interval, scan_window=None) -> Dict[str, float]:
         handler = event_handler or (lambda e: None)
         feeder = DataFeeder(feed_order) if feed_order is not None else None
         metric_items = sorted((fetch_metrics or {}).items())
@@ -565,6 +601,19 @@ class Trainer:
         if prefetch_to_device is None:
             prefetch_to_device = FLAGS.prefetch_to_device
         sync_every = self._resolve_sync_every(log_interval)
+        scan_k = self._resolve_scan_window(scan_window)
+        log = logging.getLogger("paddle_tpu_torch.trainer")
+        if scan_k and not getattr(self.exe, "scan_window_supported", False):
+            log.warning("scan_window=%d requested but %s does not run step windows: the "
+                        "per-step loop runs", scan_k, type(self.exe).__name__)
+            scan_k = 0
+        if scan_k and FLAGS.show_param_stats_period:
+            log.warning("scan_window disabled: show_param_stats_period needs per-step "
+                        "gradient fetches the window does not surface")
+            scan_k = 0
+        # a window leaves its buffers in the scope, written again by the next
+        # window: a checkpoint snapshot copies them
+        self._snapshot_copies = bool(scan_k)
 
         for pass_id in range(self.start_pass, num_passes):
             handler(BeginPass(pass_id))
@@ -573,9 +622,14 @@ class Trainer:
                              on_sync=self._count_sync)
             skip_until = self._resume_batch
             self._resume_batch = 0  # only the resumed pass skips
-            last_batch_id, interrupted_mid_pass = self._step_pass(
-                pass_id, reader, feeder, acc, fetch_list, metric_names, handler, guard,
-                sync_every, skip_until, prefetch_to_device)
+            if scan_k:
+                last_batch_id, interrupted_mid_pass = self._scan_pass(
+                    pass_id, reader, feeder, scan_k, acc, fetch_list, metric_names, handler,
+                    guard, sync_every, skip_until, prefetch_to_device)
+            else:
+                last_batch_id, interrupted_mid_pass = self._step_pass(
+                    pass_id, reader, feeder, acc, fetch_list, metric_names, handler, guard,
+                    sync_every, skip_until, prefetch_to_device)
             # pass end: read whatever the cadence has not yet
             with profiler.timer("hostSync"):
                 n_good, n_bad = acc.sync()
@@ -724,6 +778,126 @@ class Trainer:
                 self._save_checkpoint(pass_id, batch_id=batch_id)
         return last_batch_id, interrupted_mid_pass
 
+    def _scan_pass(self, pass_id, reader, feeder, scan_k: int, acc: _PassStats, fetch_list,
+                   metric_names, handler, guard: Optional[StepGuard], sync_every: int,
+                   skip_until: int, prefetch_to_device: int):
+        """One pass of the windowed loop (paddle_tpu/trainer.py:943-1053):
+        the DevicePrefetcher stacks up to K batches of one signature, and
+        one `Executor.run_window` runs them. The accumulator is folded
+        inside the window's steps, so cost, metrics and the non-finite
+        count reach the host only at window-edge syncs on the sync_every
+        cadence. Checkpoints fall on window edges; a StepGuard in cool-down
+        runs windows of 1; stop() and SIGTERM finish the window in
+        flight. Returns (last_batch_id, interrupted_mid_pass)."""
+        src = reader
+        if skip_until:
+            # a mid-pass resume: drop the trained batches before windowing,
+            # so windows start at the resume point
+            def src():
+                for i, b in enumerate(reader()):
+                    if i >= skip_until:
+                        yield b
+        # depth counts windows: at least the configured batches, and one
+        # window, in flight
+        depth = max(1, -(-max(1, prefetch_to_device) // scan_k)) + 1
+        windows = iter(DevicePrefetcher(src, feeder, depth=depth, device=self.device,
+                                        window=scan_k))
+        next_batch = skip_until
+        last_batch_id = skip_until - 1
+        interrupted_mid_pass = False
+        for win in windows:
+            if self._stop:
+                interrupted_mid_pass = True
+                break
+            k = win.k
+            bids = list(range(next_batch, next_batch + k))
+            next_batch += k
+            self._maybe_log_stats(k)
+            if obs_trace._armed:
+                # the window's correlation ids: one forwardBackward span
+                # covers steps step+1..step+k
+                obs_trace.set_context(pass_id=pass_id, window=bids[0], batch=bids[0],
+                                      step=self.step + 1, k=k)
+            for b in bids:
+                handler(BeginIteration(pass_id, b))
+            feed = win.feed
+            for i in range(k):
+                if faults.fire("executor.step", step=self.step + i) == "corrupt":
+                    feed = _poison_window_slot(feed, i)
+            dirty = False
+            if guard is not None and guard.in_cooldown():
+                # step-granular recovery: the window's steps as windows of 1,
+                # the guard observing each
+                for i in range(k):
+                    if not self._scan_one(pass_id, bids[i], win.slice(i), acc, fetch_list,
+                                          metric_names, handler, guard):
+                        dirty = True
+                last_batch_id = bids[-1]
+            else:
+                with profiler.timer("forwardBackward"):
+                    ys, acc_out = self.exe.run_window(
+                        self.main_program, feed=feed, fetch_list=fetch_list, scope=self.scope,
+                        acc_state=acc.state, skip_nonfinite=acc.skip_nonfinite)
+                self.host_dispatch_count += 1
+                acc.absorb_window(acc_out, k)
+                for i in range(k):
+                    self.step += 1
+                    handler(EndIteration(
+                        pass_id, bids[i], self.step,
+                        _LazyScalar(ys[0], self._count_sync, self._reader, index=i),
+                        {m: _LazyScalar(v, self._count_sync, self._reader, index=i)
+                         for m, v in zip(metric_names, ys[1:])}))
+                last_batch_id = bids[-1]
+                if acc.pending() >= sync_every:
+                    with profiler.timer("hostSync"):
+                        n_good, n_bad = acc.sync()
+                    if guard is not None and not guard.observe_window(n_good, n_bad,
+                                                                       scope=self.scope):
+                        dirty = True  # a rollback discards the whole window
+                        if guard.wants_rollback():
+                            self._rollback(guard)
+            cc = self.checkpoint_config
+            if dirty or not (cc and cc.step_interval):
+                continue
+            # the cadence on window edges: one save where any step of the
+            # window crossed a multiple of step_interval
+            if (self.step // cc.step_interval) > ((self.step - k) // cc.step_interval):
+                if guard is not None and acc.pending():
+                    with profiler.timer("hostSync"):
+                        n_good, n_bad = acc.sync()
+                    if not guard.observe_window(n_good, n_bad, scope=self.scope):
+                        if guard.wants_rollback():
+                            self._rollback(guard)
+                        continue  # a dirty window: no checkpoint either
+                self._save_checkpoint(pass_id, batch_id=last_batch_id)
+        return last_batch_id, interrupted_mid_pass
+
+    def _scan_one(self, pass_id, batch_id, feed, acc: _PassStats, fetch_list, metric_names,
+                  handler, guard: StepGuard) -> bool:
+        """The StepGuard's cool-down: one step as a window of 1, the
+        accumulator read and the guard observing after it. Returns whether
+        the step was clean (a dirty one suppresses the window's checkpoint,
+        as in the per-step loop)."""
+        with profiler.timer("forwardBackward"):
+            ys, acc_out = self.exe.run_window(
+                self.main_program, feed=feed, fetch_list=fetch_list, scope=self.scope,
+                acc_state=acc.state, skip_nonfinite=acc.skip_nonfinite)
+        self.host_dispatch_count += 1
+        acc.absorb_window(acc_out, 1)
+        self.step += 1
+        with profiler.timer("hostSync"):
+            n_good, n_bad = acc.sync()
+        handler(EndIteration(
+            pass_id, batch_id, self.step,
+            _LazyScalar(ys[0], self._count_sync, self._reader, index=0),
+            {m: _LazyScalar(v, self._count_sync, self._reader, index=0)
+             for m, v in zip(metric_names, ys[1:])}))
+        if not guard.observe_window(n_good, n_bad, scope=self.scope):
+            if guard.wants_rollback():
+                self._rollback(guard)
+            return False
+        return True
+
     # -- testing (paddle/trainer/Tester.cpp; v2 trainer.test) --------------
     def test(self, reader: Callable, feed_order: Optional[Sequence[Variable]] = None,
              fetch_metrics: Optional[Dict[str, Variable]] = None) -> Dict[str, float]:
@@ -780,6 +954,10 @@ class Trainer:
             names = sorted(v.name for v in self.main_program.persistables()
                            if self.scope.has(v.name))
             refs = [self.scope.get(n) for n in names]
+            if self._snapshot_copies:
+                # the window's buffers: copied on the card before the next
+                # window writes them again
+                refs = [r.clone() for r in refs]
             after = (torch.cuda.current_stream(self.device).record_event()
                      if self.device.type == "cuda" else None)
         program, max_keep, reader = self.main_program, cc.max_num_checkpoints, \

@@ -442,10 +442,6 @@ def test_sigterm_writes_the_emergency_checkpoint(tmp_path):
 
 
 def test_not_ported_paths_raise(tmp_path, monkeypatch):
-    t, _, feeds, metrics = _port_trainer("regression")
-    reader, _ = _reader("regression")
-    with pytest.raises(NotImplementedError, match="A6c"):
-        t.train(reader, 1, feed_order=feeds, scan_window=8)
     with pytest.raises(NotImplementedError, match="A10"):
         ptt.CheckpointConfig(str(tmp_path), sharded=True)
     with pytest.raises(NotImplementedError, match="A10"):
