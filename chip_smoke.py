@@ -301,7 +301,36 @@ exits non-zero without the final `ok` line:
               (random_seed set): scan_window=4 against the per-step loop,
               the same costs and parameters; then one window of phase 35's
               captured step under torch.cuda.set_sync_debug_mode('error').
-  39. the paths JSON line (phases 32-38's readings), the kernels JSON
+  39. serve   phase 28's int8 transformer artifact (kept on disk, not
+              quantized again) behind the port's HTTP server in bf16:
+              ServingEngine(quantize='int8') with batch buckets 1-8, a
+              MicroBatcher(max_batch_size=8), make_server on 127.0.0.1; 4
+              client threads post 12 /predict requests of 1, 2, 3, 5 and 8
+              rows x 1024 tokens (npz replies); B12 and B8-forward launches
+              a request by the wrappers' counters (49 and 8), p50/p99
+              latency, rows/s, the coalesced engine calls and bucket
+              signatures, /healthz, /stats and /metrics (each line parsed),
+              one 8-row request under torch.profiler; every answer the same
+              bits as engine.predict(bucketed=False) on the card.
+  40. gen     bench.py's serving_gen (K=4, T=32, 8 slots, 48 requests,
+              hidden 3072, f32, thresholds from RandomState(7)) built by
+              the port's front end: batch mode through engine.predict in
+              FIFO groups of 8, then continuous mode through
+              ContinuousScheduler.submit, every request the same ids,
+              scores and lengths; the pool step captured once at warmup,
+              replayed a step, one host sync a step (and POOL_SYNC_STEPS
+              steps alone under set_sync_debug_mode('warn')); effective
+              tokens/s, first-token p50/p99, occupancy, the replay's host
+              and device ms and device events, the capture's seconds and
+              pool; one streamed /generate against the batch answer.
+  41. prefix  bench.py's serving_gen_v3 target (K=2, T=32, 8 slots, 48
+              requests, prefix 3 x 4096, context memory 256) on its
+              shared-prefix trace, no draft: the prefix cache off, fp, then
+              int8; fp hits the uncached bits, int8 hits within 0.05;
+              first-token latency of hits against misses, hit rates.
+  42. tiny    tests/test_gen_serving.py's tiny decoder (f32): continuous
+              answers card against CPU (ids exact, scores within 1e-5).
+  43. the paths JSON line (phases 32-42's readings), the kernels JSON
       line, then the device JSON line last.
 
 Weights are made with numpy from --seed at the shapes the program
@@ -317,17 +346,23 @@ Nothing is downloaded and nothing of the JAX package is needed.
 from __future__ import annotations
 
 import argparse
+import atexit
 import concurrent.futures
+import io
 import itertools
 import json
 import math
 import os
+import queue
+import re
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -3064,10 +3099,11 @@ def flip_bound_check(qk, op, scope_get, xs, outs, amp):
     return float((codes[0] != codes[1]).double().mean()), excess
 
 
-def quant_phases(ptt, exe, smi, seed, first_phase):
+def quant_phases(ptt, exe, smi, seed, first_phase, keep):
     """Phases first_phase.. of the int8 serving slice; returns B12's rows
     (the wgmma route, the kept mma.sync route), each route's largest error,
-    and each route's launches on the transformer and MLP paths."""
+    and each route's launches on the transformer and MLP paths. The int8
+    transformer artifact is moved to `keep` for the serving phase (39)."""
     from paddle_tpu_torch.ops import flash_kernels as fk
     from paddle_tpu_torch.ops import flash_ops
     from paddle_tpu_torch.ops import quant_kernels as qk
@@ -3315,7 +3351,7 @@ def quant_phases(ptt, exe, smi, seed, first_phase):
                   fmed, "fp request", kinds=QTFM_KERNEL_KINDS)
         del fscope
         shutil.rmtree(fp_dir)
-        shutil.rmtree(q_dir)
+        shutil.move(q_dir, keep)  # served by phase 39, not quantized again
         torch.cuda.empty_cache()
 
         n += 1
@@ -3435,7 +3471,7 @@ def quant_phases(ptt, exe, smi, seed, first_phase):
         shutil.rmtree(work, ignore_errors=True)
     names = {"quant_matmul": qk.WGMMA, "quant_matmul_mma": qk.MMA_SYNC}
     rows = {"quant_matmul": totals["transformer request"], "quant_matmul_mma": kept_row}
-    launches = {name: {"transformer_int8_serve": tfm_routes[route],
+    launches = {name: {"transformer_int8_executor": tfm_routes[route],
                        "mlp_int8_serve": mlp_routes[route]} for name, route in names.items()}
     return rows, {name: max_err[route] for name, route in names.items()}, launches
 
@@ -4365,6 +4401,674 @@ def window_phases(ptt, smi, seed, first_phase):
     return out
 
 
+# ---------------------------------------- serving (A4b, A8a): phases 39-42 --
+# phase 39: phase 28's int8 transformer artifact behind the HTTP server: 4
+# clients post 12 /predict requests of these rows in turn, 1024 tokens each
+SERVE_ROWS = (1, 2, 3, 5, 8)
+SERVE_REQUESTS = 12
+SERVE_CLIENTS = 4
+SERVE_MAX_BATCH = 8  # MicroBatcher(max_batch_size=8), buckets 1, 2, 4, 8
+HTTP_TIMEOUT = 600  # seconds, every client's bound
+# phase 40: bench.py run_serving_gen (bench.py:1108-1188) at its widths
+SGEN = dict(beams=4, max_len=32, slots=8, requests=48, hidden=3072)
+SGEN_BONUS, SGEN_BETA = 10.0, 1.0  # the chain's control logits
+POOL_SYNC_STEPS = 10  # pool steps run under torch.cuda.set_sync_debug_mode('warn')
+# phase 41: bench.py run_serving_gen_v3's target (bench.py:1280-1400), no
+# draft: ctx 16 -> 3 x fc 4096 tanh -> fc 256 tanh (the prefix), K=2
+SGEN3 = dict(beams=2, max_len=32, slots=8, requests=48, prefix_hidden=4096, ctx_mem=256,
+             ctx=16)
+SGEN3_CACHE_MB = 8.0
+# an int8 cache hit's scores against the fp answer: the bound
+# tests/test_gen_v3.py:162 holds
+INT8_HIT_SCORE_BOUND = 0.05
+# phase 42: tests/test_gen_serving.py:47-71's decoder, f32, card against
+# CPU: ids exact; scores within 1e-5, f32 GEMMs summed in other orders
+TGEN = dict(V=12, E=8, H=16, K=3, T=6)
+TGEN_SCORE_TOL = 1e-5
+
+
+# B12 where a tile's last output chunks store nothing (N % 256 != 0, M %
+# 128 != 0, one k-stage): the float64 plain version's bits in each of
+# QMM_CHUNK_REPS runs. A chunk whose store was skipped committed no bulk
+# group, so the next chunk's staging could overwrite a buffer still being
+# stored (ROADMAP.md C5, fixed in csrc/quant_matmul.cu).
+QMM_CHUNK_EDGE = [(m, k, n) for m in (80, 128) for k in (64, 256) for n in (24, 64, 128, 1000)]
+QMM_CHUNK_REPS = 20
+
+
+def qmm_chunk_check(qk, seed):
+    """B12 on the wgmma route at QMM_CHUNK_EDGE, each QMM_CHUNK_REPS times
+    against the plain version (launches not counted)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    bad = []
+    for M, K, N in QMM_CHUNK_EDGE:
+        a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device="cuda", generator=gen)
+        b = torch.randint(-127, 128, (K, N), dtype=torch.int8, device="cuda", generator=gen)
+        want = qk.quant_matmul_plain(a, b)
+        runs = [qmm_on(qk, qk.WGMMA, a, b) for _ in range(QMM_CHUNK_REPS)]
+        torch.cuda.synchronize()
+        wrong = sum(not torch.equal(r, want) for r in runs)
+        if wrong:
+            bad.append(((M, K, N), wrong))
+    print(f"  B12 (wgmma route) at the {len(QMM_CHUNK_EDGE)} shapes whose tiles end in chunks "
+          f"that store nothing, {QMM_CHUNK_REPS} runs each against plain: "
+          f"{'every run the same bits' if not bad else f'runs that differ {bad}'}")
+    check(not bad, f"B12 differs from its plain version (runs that differ by shape): {bad}")
+
+
+def post_json(url, payload, timeout=HTTP_TIMEOUT):
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=timeout)
+
+
+def get_json(url):
+    with urllib.request.urlopen(url, timeout=HTTP_TIMEOUT) as r:
+        return json.load(r)
+
+
+def parse_exposition(text):
+    """The samples of a Prometheus text exposition; fails on a line that is
+    neither a comment nor `name{labels} value`."""
+    samples = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.fullmatch(r"([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)", line)
+        check(m is not None, f"/metrics line does not parse: {line!r}")
+        samples[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+    return samples
+
+
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def int8_serve_phase(ptt, smi, seed, n, q_dir):
+    """Phase 39: phase 28's int8 artifact served over HTTP; returns the
+    path's readings."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.ops import flash_kernels as fk
+    from paddle_tpu_torch.ops import quant_kernels as qk
+
+    phase(n, "the int8 transformer LM (phase 28's artifact, not quantized again) served over "
+          f"HTTP in bf16: ServingEngine(quantize='int8'), MicroBatcher(max_batch_size="
+          f"{SERVE_MAX_BATCH}), make_server on 127.0.0.1; {SERVE_CLIENTS} clients post "
+          f"{SERVE_REQUESTS} /predict requests of {SERVE_ROWS} rows x {QTFM['seqlen']} tokens")
+    qmm_chunk_check(qk, seed + 39)
+    reg = serving.ModelRegistry()
+    t0 = time.perf_counter()
+    eng, batcher = reg.add("lm", model_dir=q_dir, quantize="int8",
+                           policy=serving.BucketPolicy(max_batch_size=SERVE_MAX_BATCH),
+                           max_batch_size=SERVE_MAX_BATCH, max_wait_ms=50.0, max_queue=64,
+                           timeout_ms=HTTP_TIMEOUT * 1e3)
+    eng.program.set_amp("bfloat16")
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warmed = eng.warmup()
+    torch.cuda.synchronize()
+    print(f"  loaded (the quant sidecar checked) in {load_s:.2f} s; warmup ran the {warmed} "
+          f"batch buckets {eng.policy.batch_buckets} in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.RandomState(seed + 39)
+    rows = [SERVE_ROWS[i % len(SERVE_ROWS)] for i in range(SERVE_REQUESTS)]
+    reqs = [rng.randint(0, QTFM["vocab"], (r, QTFM["seqlen"])).astype(np.int32) for r in rows]
+    fetch = eng.fetch_names[0]
+    srv = serving.make_server(reg)
+    srv.serve_background()
+    url = f"http://127.0.0.1:{srv.port}/predict/lm"
+
+    def request(x):
+        with post_json(url, {"inputs": {"toks": x.tolist()}, "format": "npz"}) as r:
+            return np.load(io.BytesIO(r.read()))[fetch]
+
+    results, lat, errs = {}, {}, []
+    todo = queue.Queue()
+    for i in range(len(reqs)):
+        todo.put(i)
+
+    def client():
+        while True:
+            try:
+                i = todo.get_nowait()
+            except queue.Empty:
+                return
+            t = time.perf_counter()
+            try:
+                results[i] = request(reqs[i])
+                lat[i] = time.perf_counter() - t
+            except Exception as e:  # reported below
+                errs.append(f"request {i}: {type(e).__name__}: {e}")
+
+    try:
+        qk.quant_matmul_launches = fk.flash_fwd_launches = 0
+        calls0, coalesced0 = eng.dispatches_total, batcher._batch_hist.count
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client) for _ in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=HTTP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "a client is still waiting")
+        check(not errs, f"requests failed: {errs}")
+        calls = eng.dispatches_total - calls0
+        launches = (qk.quant_matmul_launches, fk.flash_fwd_launches)
+        check(launches == (QTFM_SITES * calls, QTFM["layers"] * calls),
+              f"{calls} engine calls launched quant_matmul and flash_fwd {launches} times")
+        check(calls < SERVE_REQUESTS, f"the batcher coalesced nothing: {calls} engine calls")
+        check(eng.compiled_programs() <= len(eng.policy.batch_buckets),
+              f"{eng.compiled_programs()} bucket signatures ran")
+        check(batcher._batch_hist.count - coalesced0 == calls, "batch histogram")
+        buckets = eng.compiled_programs()
+        served_rows = sum(rows)
+        ms = [lat[i] * 1e3 for i in range(len(reqs))]
+        print(f"  {SERVE_REQUESTS} requests ({served_rows} rows) in {wall:.3f} s: "
+              f"{served_rows / wall:.2f} rows/s; latency p50 {pct(ms, 50):.1f} ms, p99 "
+              f"{pct(ms, 99):.1f} ms (the npz reply of [n, {QTFM['seqlen']}, {QTFM['vocab']}] f32 "
+              f"logits included); {calls} engine calls (coalesced), {buckets} bucket signatures "
+              f"(of {len(eng.policy.batch_buckets)}); launches quant_matmul {launches[0]} = "
+              f"{QTFM_SITES} x {calls}, flash_fwd {launches[1]} = {QTFM['layers']} x {calls}")
+        qk.quant_matmul_launches = fk.flash_fwd_launches = 0
+        request(reqs[0])
+        per_request = (qk.quant_matmul_launches, fk.flash_fwd_launches)
+        check(per_request == (QTFM_SITES, QTFM["layers"]),
+              f"one request launched quant_matmul and flash_fwd {per_request} times")
+        print(f"  one request alone: quant_matmul {per_request[0]}, flash_fwd {per_request[1]} "
+              f"launches (the wrappers' counters)")
+        health = get_json(url.replace("/predict/lm", "/healthz"))
+        check(health["status"] == "ok" and health["versions"]["lm"] == eng.fingerprint,
+              f"/healthz {health['status']} {health['versions']}")
+        stats = get_json(url.replace("/predict/lm", "/stats"))["lm"]
+        check(stats["quant"]["mode"] == "int8", "/stats quant block")
+        with urllib.request.urlopen(url.replace("/predict/lm", "/metrics"),
+                                    timeout=HTTP_TIMEOUT) as r:
+            samples = parse_exposition(r.read().decode())
+        check(samples.get("ptserving_dispatches_total") == eng.dispatches_total
+              and "ptserving_engine_run_seconds_count" in samples,
+              "/metrics lacks the engine's families")
+        print(f"  /healthz {health['status']} (load: {health['load']['dispatches_total']} "
+              f"dispatches, {health['load']['syncs_total']} syncs), /stats hit rate "
+              f"{stats['hit_rate']:.3f}, /metrics {len(samples)} samples, each line parsed")
+        big = [i for i, r in enumerate(rows) if r == SERVE_MAX_BATCH]
+        busy, _ = breakdown(lambda: request(reqs[big[0]]), statistics.median(ms[i] for i in big),
+                            f"served request ({SERVE_MAX_BATCH} rows over HTTP)",
+                            kinds=QTFM_KERNEL_KINDS)
+    finally:
+        srv.shutdown()
+        reg.stop()
+        srv.server_close()
+    # every answer against the engine's exact-shape path on the card, bits:
+    # each op of the int8 LM is row-independent, B12's int8 products exact
+    differ = []
+    for i, x in enumerate(reqs):
+        want = eng.predict({"toks": x}, bucketed=False)[0]
+        check(results[i].shape == want.shape == (rows[i], QTFM["seqlen"], QTFM["vocab"]),
+              f"request {i}: logits {results[i].shape}")
+        if not np.array_equal(results[i], want):
+            differ.append((i, float(np.abs(results[i] - want).max())))
+    check(all(np.isfinite(r).all() for r in results.values()), "non-finite logits")
+    print(f"  every answer against predict(bucketed=False) on the card: "
+          f"{'the same bits' if not differ else f'differ {differ}'}")
+    check(not differ, f"served logits differ from the exact-shape path: {differ}")
+    del results
+    return {"requests": SERVE_REQUESTS, "rows": served_rows, "wall_s": wall,
+            "rows_per_s": served_rows / wall, "latency_ms_p50": pct(ms, 50),
+            "latency_ms_p99": pct(ms, 99), "engine_calls": calls,
+            "bucket_signatures": buckets,
+            "quant_matmul_launches_per_request": per_request[0],
+            "flash_fwd_launches_per_request": per_request[1],
+            "busy_us_profiled_request": busy, "bits_equal_exact_shape": not differ,
+            "device": smi}
+
+
+def chain_ctl(V, K):
+    """bench.py's handcrafted control logits: token v chains to v+1 at the
+    bonus, EOS at beta * (v - thr), K staggered tracks."""
+    w = np.full((V + 1, V), -30.0, np.float32)
+    w[:, 0] = -60.0
+    for v in range(2, V - 1):
+        for j in range(K):
+            w[v, min(v + 1 + j, V - 1)] = SGEN_BONUS - j
+        w[v, 1] = SGEN_BETA * v
+    for j in range(K):
+        w[0, 2 + j] = SGEN_BONUS - j
+    w[V - 1, 1] = SGEN_BONUS + 5.0
+    w[V, :] = 0.0
+    w[V, 1] = -SGEN_BETA
+    return w
+
+
+def build_serving_gen(ptt, beams, max_len, hidden):
+    """bench.py run_serving_gen's decoder through the port's front end:
+    (main, startup, outputs, V)."""
+    V = max_len + 8
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        thr = ptt.layers.data("thr", shape=[-1, 1], append_batch_size=False)
+        gen = ptt.layers.BeamSearchDecoder(beam_size=beams, max_len=max_len, bos_id=0, eos_id=1)
+        with gen.step():
+            prev = gen.prev_ids()
+            thr_m = gen.memory(init=thr)
+            emb = ptt.layers.embedding(prev, size=[V, V], param_attr="sg_emb")
+            ctl = ptt.layers.fc(ptt.layers.concat([emb, thr_m], axis=1), size=V,
+                                param_attr="sg_ctl", bias_attr=False)
+            bal = ptt.layers.fc(
+                ptt.layers.fc(ptt.layers.fc(emb, size=hidden, act="tanh", param_attr="sg_b1",
+                                            bias_attr=False),
+                              size=hidden, act="tanh", param_attr="sg_bm", bias_attr=False),
+                size=V, param_attr="sg_b2", bias_attr=False)
+            gen.update_memory(thr_m, thr_m)
+            gen.output_logits(ptt.layers.elementwise_add(ctl, ptt.layers.scale(bal, 1e-30)))
+        outs = gen()
+    return main, startup, outs, V
+
+
+def drain(h, t0):
+    """A handle's events: (outputs of row 0, first-token seconds from t0)."""
+    first = out = None
+    for ev in h.events(timeout=HTTP_TIMEOUT):
+        if ev["event"] == "token" and first is None:
+            first = time.perf_counter() - t0
+        check(ev["event"] != "error", f"generation failed: {ev}")
+        if ev["event"] == "done":
+            o = ev["outputs"]
+            out = (o["ids"][0], o["scores"][0], o["lengths"][0])
+    return out, first
+
+
+def same_outputs(a, b):
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def serving_gen_phase(ptt, smi, seed, n, work):
+    """Phase 40: bench.py's serving_gen, batch mode against continuous
+    mode; returns the path's readings."""
+    from paddle_tpu_torch import serving
+
+    K, T, S, N, Hd = (SGEN[k] for k in ("beams", "max_len", "slots", "requests", "hidden"))
+    phase(n, f"bench.py's serving_gen at its widths (K={K}, T={T}, {S} slots, {N} requests, "
+          f"hidden {Hd}, f32): batch mode through engine.predict in FIFO groups of {S}, then "
+          "continuous mode through ContinuousScheduler.submit, the pool step a CUDA graph")
+    main, startup, outs, V = build_serving_gen(ptt, K, T, Hd)
+    scope = ptt.Scope()
+    ptt.Executor().run(startup, scope=scope, seed=seed + 40)
+    ptt.io.params_from_numpy(scope, {"sg_emb": np.eye(V, dtype=np.float32),
+                                     "sg_ctl": chain_ctl(V, K)}, "cuda")
+    d = os.path.join(work, "serving_gen")
+    ptt.io.save_inference_model(d, ["thr"], list(outs), main_program=main, scope=scope)
+    rng = np.random.RandomState(7)
+    lens = np.clip(np.round(np.exp(rng.normal(np.log(T * 0.4), 0.45, size=N))), 4, T - 4)
+    thrs = (lens - (SGEN_BONUS / SGEN_BETA + 1.0)).astype(np.float32)[:, None]
+    reg = serving.ModelRegistry()
+    engine = serving.ServingEngine(d, policy=serving.BucketPolicy(max_batch_size=S),
+                                   model_name="serving_gen", metrics=reg.metrics)
+    reg.add("serving_gen", engine=engine,
+            scheduler_kw=dict(max_slots=S, max_queue=N + 8, timeout_ms=HTTP_TIMEOUT * 1e3))
+    sched = engine.scheduler()
+    pool_warm0 = time.perf_counter()
+    engine.warmup()
+    warm_s = time.perf_counter() - pool_warm0
+    pool = sched._pool
+    check(pool is not None and pool.captures == 1, "warmup did not capture the pool step")
+    pool_gib = graph_pool_gib(pool.graph)
+    print(f"  warmup (the 4 batch buckets, then the pool sized from the generation sidecar, "
+          f"its step run once and captured) {warm_s:.2f} s; the capture {pool.capture_s:.3f} s, "
+          f"its graph's pool "
+          f"{'not measured' if pool_gib is None else f'{pool_gib * 2**30:.0f} bytes'}")
+
+    def batch_mode():
+        res, first = [], []
+        t0 = time.perf_counter()
+        for i in range(0, N, S):
+            out = engine.predict({"thr": thrs[i:i + S]})
+            done = time.perf_counter() - t0
+            for r in range(len(thrs[i:i + S])):
+                res.append((out[0][r], out[1][r], out[2][r]))
+                first.append(done)  # no streaming: a token shows when its batch drains
+        return time.perf_counter() - t0, res, first
+
+    def continuous():
+        t0 = time.perf_counter()
+        hs = [sched.submit({"thr": thrs[i:i + 1]}, timeout_ms=HTTP_TIMEOUT * 1e3)
+              for i in range(N)]
+        res, first = zip(*(drain(h, t0) for h in hs))
+        return time.perf_counter() - t0, list(res), list(first)
+
+    import warnings
+
+    batch_mode()  # untimed: every bucket and the pool warm
+    sched.generate({"thr": thrs[:1]}, timeout_ms=HTTP_TIMEOUT * 1e3)
+    steps0, occ0, syncs0 = sched.steps_total, sched._occupancy_steps, sched.syncs_total
+    replays0, prefixes0 = pool.replays, sched.prefixes_total
+    bt, bout, bft = batch_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ct, cout, cft = continuous()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    steps = sched.steps_total - steps0
+    occupancy = (sched._occupancy_steps - occ0) / (steps * S)
+    same = [same_outputs(b, c) for b, c in zip(bout, cout)]
+    print(f"  continuous against batch mode, all {N} requests: "
+          f"{sum(same)} of {N} equal in ids, scores and lengths (the pool and the batch bucket "
+          f"run S*K = {S * K} rows)")
+    check(all(same), f"continuous answers differ from batch mode at requests "
+                     f"{[i for i, s in enumerate(same) if not s]}")
+    check(pool.captures == 1 and pool.replays - replays0 == steps,
+          f"{pool.captures} captures, {pool.replays - replays0} replays over {steps} pool steps")
+    check(sched.syncs_total - syncs0 == steps, "host syncs a pool step != 1")
+    flagged = len(caught)
+    true_toks = int(sum(int(o[2][0]) for o in bout))
+    print(f"  continuous run: {steps} pool steps, each a replay of the one capture and one "
+          f"counted host sync; torch's sync debug mode reported {flagged} synchronizing calls "
+          f"over the run's {steps} steps and {sched.prefixes_total - prefixes0} admissions")
+    # the pool step's own syncs, counted alone: POOL_SYNC_STEPS steps
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(POOL_SYNC_STEPS):
+                with engine._lock, torch.no_grad():
+                    pool.step()
+                    sched._packed.to("cpu", copy=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(len(caught) == POOL_SYNC_STEPS,
+          f"{len(caught)} synchronizing calls in {POOL_SYNC_STEPS} pool steps: "
+          f"{sorted({str(w.message).splitlines()[0] for w in caught})[:3]}")
+    print(f"  {POOL_SYNC_STEPS} pool steps alone under set_sync_debug_mode('warn'): "
+          f"{len(caught)} synchronizing calls, the packed readback's")
+    host_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        pool.graph.replay()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    launch_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        pool.graph.replay()
+        launch_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    dev_ms = cuda_ms(pool.graph.replay, 50)
+    _, busy_ms, _, _, events = profile_pass(pool.graph.replay, ())
+    eff_b, eff_c = true_toks / bt, true_toks / ct
+    res = {"requests": N, "true_tokens": true_toks,
+           "batch": {"effective_tok_per_s": eff_b, "wall_s": bt,
+                     "first_token_s_p50": pct(bft, 50), "first_token_s_p99": pct(bft, 99)},
+           "continuous": {"effective_tok_per_s": eff_c, "wall_s": ct,
+                          "first_token_s_p50": pct(cft, 50), "first_token_s_p99": pct(cft, 99),
+                          "slot_occupancy": occupancy, "pool_steps": steps,
+                          "sync_debug_calls": flagged},
+           "speedup_vs_batch_mode": eff_c / eff_b, "bits_equal_batch_mode": all(same),
+           "pool_step": {"captures": pool.captures, "capture_s": pool.capture_s,
+                         "graph_pool_bytes": None if pool_gib is None else pool_gib * 2**30,
+                         "replay_ms_host": statistics.median(host_ms),
+                         "replay_launch_ms_host": statistics.median(launch_ms),
+                         "replay_ms_device": dev_ms, "device_events_a_replay": events,
+                         "busy_ms_profiled_replay": busy_ms, "host_syncs_a_step": 1},
+           "device": smi}
+    print(f"  effective tokens/s: batch {eff_b:.1f} ({bt:.3f} s), continuous {eff_c:.1f} "
+          f"({ct:.3f} s), {eff_c / eff_b:.3f}x; first token p50/p99: batch "
+          f"{pct(bft, 50) * 1e3:.1f}/{pct(bft, 99) * 1e3:.1f} ms, continuous "
+          f"{pct(cft, 50) * 1e3:.1f}/{pct(cft, 99) * 1e3:.1f} ms; slot occupancy "
+          f"{occupancy:.3f} ({true_toks} true tokens, mean length {lens.mean():.2f})")
+    print(f"  the pool step: replay {statistics.median(host_ms):.4f} ms on the host with its "
+          f"synchronize ({statistics.median(launch_ms):.4f} ms to launch), {dev_ms:.4f} ms on "
+          f"the device (CUDA events, 50 replays); {events} device events in one profiled replay "
+          f"(busy {busy_ms:.4f} ms)")
+    # one streamed /generate over HTTP against the batch-mode answer
+    srv = serving.make_server(reg)
+    srv.serve_background()
+    try:
+        with post_json(f"http://127.0.0.1:{srv.port}/generate/serving_gen",
+                       {"inputs": {"thr": thrs[:1].tolist()}, "stream": True,
+                        "timeout_ms": HTTP_TIMEOUT * 1e3}) as r:
+            check(r.headers["Content-Type"] == "application/x-ndjson", "not NDJSON")
+            events_ = [json.loads(line) for line in r]
+    finally:
+        srv.shutdown()
+        reg.stop()
+        srv.server_close()
+    toks = [e for e in events_ if e["event"] == "token"]
+    done = events_[-1]
+    check(done["event"] == "done" and len(toks) == len(events_) - 1 and toks, "stream events")
+    got = tuple(np.asarray(done["outputs"][k], dt)[0] for k, dt in
+                (("ids", np.int32), ("scores", np.float32), ("lengths", np.int32)))
+    check(same_outputs(got, bout[0]), "the streamed done event differs from batch mode")
+    check([e["step"] for e in toks] == list(range(len(toks))), "token steps")
+    print(f"  POST /generate with stream: {len(toks)} NDJSON token events, then a done event "
+          "equal to the batch-mode answer")
+    res["stream_token_events"] = len(toks)
+    return res
+
+
+def shared_prefix_groups(n_req):
+    """The prefix group (or None) of the first n_req events of bench.py
+    run_serving_gen_v3's trace: fleetctl.traces.generate_trace of
+    TraceSpec(duration_s=30, seed=17, base_rps=4, diurnal_amplitude=0.3,
+    flash_crowds=(), shared_prefix_fraction=0.6, prefix_groups=3), its
+    draws made in its order (paddle_tpu/fleetctl/traces.py:181-246)."""
+    import random
+
+    duration, base, amp, period, groups = 30.0, 4.0, 0.3, 40.0, 3
+    rnd = random.Random(17)
+    peak = base * (1.0 + amp)
+    out, t = [], 0.0
+    while len(out) < n_req:
+        t += rnd.expovariate(peak)
+        check(t < duration, f"the trace has fewer than {n_req} events")
+        if rnd.random() * peak > base * (1.0 + amp * math.sin(2.0 * math.pi * t / period)):
+            continue
+        rnd.random()  # the model pick: one model
+        rnd.paretovariate(1.6)  # service_ms
+        out.append(rnd.randrange(groups) if rnd.random() < 0.6 else None)
+    return out
+
+
+def build_serving_gen_v3(ptt, beams, max_len, prefix_hidden, ctx_mem, ctx):
+    """bench.py run_serving_gen_v3's target model through the port's front
+    end: (main, startup, outputs, V)."""
+    V = max_len + 8
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        c = ptt.layers.data("ctx", shape=[-1, ctx], append_batch_size=False)
+        thr = ptt.layers.fc(c, size=1, param_attr="v3_thr", bias_attr=False)
+        h = c
+        for name in ("v3_p1", "v3_p2", "v3_p3"):
+            h = ptt.layers.fc(h, size=prefix_hidden, act="tanh", param_attr=name,
+                              bias_attr=False)
+        hctx = ptt.layers.fc(h, size=ctx_mem, act="tanh", param_attr="v3_hc", bias_attr=False)
+        gen = ptt.layers.BeamSearchDecoder(beam_size=beams, max_len=max_len, bos_id=0, eos_id=1)
+        with gen.step():
+            prev = gen.prev_ids()
+            thr_m = gen.memory(init=thr)
+            hctx_m = gen.memory(init=hctx)
+            emb = ptt.layers.embedding(prev, size=[V, V], param_attr="v3_emb")
+            ctl = ptt.layers.fc(ptt.layers.concat([emb, thr_m], axis=1), size=V,
+                                param_attr="v3_ctl", bias_attr=False)
+            side = ptt.layers.fc(hctx_m, size=V, param_attr="v3_ho", bias_attr=False)
+            gen.update_memory(thr_m, thr_m)
+            gen.update_memory(hctx_m, hctx_m)
+            gen.output_logits(ptt.layers.elementwise_add(ctl, ptt.layers.scale(side, 1e-30)))
+        outs = gen()
+    return main, startup, outs, V
+
+
+def prefix_cache_phase(ptt, smi, seed, n, work):
+    """Phase 41: serving_gen_v3's target on its shared-prefix trace, the
+    prefix cache off, fp, then int8; returns the path's readings."""
+    from paddle_tpu_torch import serving
+
+    K, T, S, N, P, Hc, C = (SGEN3[k] for k in ("beams", "max_len", "slots", "requests",
+                                                 "prefix_hidden", "ctx_mem", "ctx"))
+    phase(n, f"bench.py's serving_gen_v3 target (K={K}, T={T}, {S} slots, {N} requests, prefix "
+          f"hidden {P}, context memory {Hc}, f32) on its shared-prefix trace, no draft: the "
+          f"prefix cache off, then prefix_cache_mb={SGEN3_CACHE_MB:g} in fp, then int8")
+    main, startup, outs, V = build_serving_gen_v3(ptt, K, T, P, Hc, C)
+    scope = ptt.Scope()
+    ptt.Executor().run(startup, scope=scope, seed=seed + 41)
+    wrng = np.random.RandomState(5)
+    thr_w = np.zeros((C, 1), np.float32)
+    thr_w[0, 0] = 1.0  # thr = ctx[:, 0]
+    weights = {"v3_thr": thr_w, "v3_emb": np.eye(V, dtype=np.float32), "v3_ctl": chain_ctl(V, K)}
+    for name, shp in (("v3_p1", (C, P)), ("v3_p2", (P, P)), ("v3_p3", (P, P)),
+                      ("v3_hc", (P, Hc)), ("v3_ho", (Hc, V))):
+        weights[name] = (0.05 * wrng.standard_normal(shp)).astype(np.float32)
+    ptt.io.params_from_numpy(scope, weights, "cuda")
+    d = os.path.join(work, "serving_gen_v3")
+    ptt.io.save_inference_model(d, ["ctx"], list(outs), main_program=main, scope=scope)
+    groups = shared_prefix_groups(N)
+    rng = np.random.RandomState(7)
+    group_ctx = {}
+    for g in range(3):
+        row = rng.normal(0.0, 1.0, C).astype(np.float32)
+        row[0] = (8.0 + 7.0 * g) - (SGEN_BONUS / SGEN_BETA + 1.5)  # half-integer margins
+        group_ctx[g] = row
+    ctxs, hit_class, seen = [], [], set()
+    for g in groups:
+        if g is None:
+            L = float(np.clip(np.round(np.exp(rng.normal(np.log(T * 0.4), 0.45))), 6, T - 6))
+            row = rng.normal(0.0, 1.0, C).astype(np.float32)
+            row[0] = L - (SGEN_BONUS / SGEN_BETA + 1.5)
+            hit_class.append(False)
+        else:
+            row = group_ctx[g]
+            hit_class.append(g in seen)
+            seen.add(g)
+        ctxs.append(row)
+    ctxs = np.stack(ctxs)
+    hits = [i for i, h in enumerate(hit_class) if h]
+    misses = [i for i, h in enumerate(hit_class) if not h]
+    check(len(hits) >= 8, f"degenerate trace: {len(hits)} hits")
+    warm = rng.normal(0.0, 1.0, (1, C)).astype(np.float32)
+    warm[0, 0] = 12.0 - (SGEN_BONUS / SGEN_BETA + 1.5)  # not in the trace
+    engine = serving.ServingEngine(d, policy=serving.BucketPolicy(max_batch_size=S),
+                                   model_name="serving_gen_v3")
+    passes = {}
+    for label, mb, quant in (("uncached", 0.0, None), ("fp", SGEN3_CACHE_MB, None),
+                             ("int8", SGEN3_CACHE_MB, "int8")):
+        sched = serving.ContinuousScheduler(
+            engine, max_slots=S, max_queue=N + 8, timeout_ms=HTTP_TIMEOUT * 1e3,
+            prefix_cache_mb=mb, prefix_cache_quant=quant).start()
+        try:
+            sched.warmup()
+            sched.generate({"ctx": warm}, timeout_ms=HTTP_TIMEOUT * 1e3)
+            outs_, firsts = [], []
+            for i in range(N):  # closed loop: one request in flight
+                t0 = time.perf_counter()
+                out, first = drain(sched.submit({"ctx": ctxs[i:i + 1]},
+                                                timeout_ms=HTTP_TIMEOUT * 1e3), t0)
+                outs_.append(out)
+                firsts.append(first)
+            stats = sched.stats()
+        finally:
+            sched.stop()
+        passes[label] = (outs_, firsts, stats)
+    un, fp, q8 = passes["uncached"][0], passes["fp"][0], passes["int8"][0]
+    fp_same = [same_outputs(a, b) for a, b in zip(un, fp)]
+    check(all(fp_same), f"fp cache hits differ from the uncached answers at "
+                        f"{[i for i, s in enumerate(fp_same) if not s]}")
+    q_shape = all(np.array_equal(a[0], c[0]) and np.array_equal(a[2], c[2]) for a, c in zip(un, q8))
+    q_delta = max(float(np.abs(a[1] - c[1]).max()) for a, c in zip(un, q8))
+    check(q_shape and q_delta < INT8_HIT_SCORE_BOUND,
+          f"int8 entries: ids/lengths equal {q_shape}, score drift {q_delta}")
+    res = {"requests": N, "hits": len(hits), "device": smi}
+    for label, (_, firsts, stats) in passes.items():
+        pc = stats.get("prefix_cache", {})
+        r = {"first_token_s_p50": pct(firsts, 50), "first_token_s_p99": pct(firsts, 99),
+             "hit_first_token_s_p50": pct([firsts[i] for i in hits], 50),
+             "hit_first_token_s_p99": pct([firsts[i] for i in hits], 99),
+             "miss_first_token_s_p50": pct([firsts[i] for i in misses], 50),
+             "miss_first_token_s_p99": pct([firsts[i] for i in misses], 99),
+             "prefix_runs": stats["prefixes_total"], "pool_steps": stats["steps_total"],
+             "captures": stats["pool_step"]["captures"]}
+        if pc:
+            r.update(hit_rate=pc["hit_rate"], cache_bytes=pc["bytes"],
+                     cache_entries=pc["entries"])
+        res[label] = r
+        print(f"  {label}: first token p50/p99 {r['first_token_s_p50'] * 1e3:.2f}/"
+              f"{r['first_token_s_p99'] * 1e3:.2f} ms; the {len(hits)} hit requests "
+              f"{r['hit_first_token_s_p50'] * 1e3:.2f}/{r['hit_first_token_s_p99'] * 1e3:.2f} "
+              f"ms, the {len(misses)} others {r['miss_first_token_s_p50'] * 1e3:.2f}/"
+              f"{r['miss_first_token_s_p99'] * 1e3:.2f} ms; {r['prefix_runs']} prefix runs"
+              + (f"; hit rate {pc['hit_rate']:.3f}, {pc['entries']} entries, {pc['bytes']} "
+                 "bytes" if pc else ""))
+    check(res["fp"]["prefix_runs"] < res["uncached"]["prefix_runs"], "the fp cache never hit")
+    res.update(fp_bits_equal_uncached=True, int8_score_delta_max=q_delta)
+    print(f"  fp hits: every answer the uncached pass's bits; int8 hits: ids and lengths equal, "
+          f"scores within {q_delta:.3g} of the uncached (bound {INT8_HIT_SCORE_BOUND})")
+    return res
+
+
+def tiny_gen_phase(ptt, seed, n, work):
+    """Phase 42: the tiny decoder, continuous answers card against CPU."""
+    from paddle_tpu_torch import serving
+
+    V, E, Hh, K, T = (TGEN[k] for k in ("V", "E", "H", "K", "T"))
+    phase(n, f"the tiny generation model (V={V}, E={E}, H={Hh}, K={K}, T={T}, f32), "
+          "continuous answers: card against CPU")
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        h0 = ptt.layers.data("h0", shape=[-1, Hh], append_batch_size=False)
+        gen = ptt.layers.BeamSearchDecoder(beam_size=K, max_len=T, bos_id=0, eos_id=1)
+        with gen.step():
+            prev = gen.prev_ids()
+            h_prev = gen.memory(init=h0)
+            emb = ptt.layers.embedding(prev, size=[V, E], param_attr="g_emb")
+            h = ptt.layers.fc(ptt.layers.concat([emb, h_prev], axis=1), size=Hh, act="tanh",
+                              param_attr="g_w", bias_attr=ptt.ParamAttr(name="g_b"))
+            gen.update_memory(h_prev, h)
+            gen.output_logits(ptt.layers.fc(h, size=V, param_attr="g_wo",
+                                            bias_attr=ptt.ParamAttr(name="g_bo")))
+        outs = gen()
+    scope = ptt.Scope()
+    ptt.Executor(device="cpu").run(startup, scope=scope, seed=seed + 42)
+    d = os.path.join(work, "tiny_gen")
+    ptt.io.save_inference_model(d, ["h0"], list(outs), main_program=main, scope=scope)
+    rng = np.random.RandomState(seed + 42)
+    feeds = [{"h0": rng.standard_normal((r, Hh)).astype(np.float32)} for r in (1, 2, 3, 5)]
+    got, batch = {}, None
+    for dev in ("cpu", "cuda"):
+        eng = serving.ServingEngine(d, policy=serving.BucketPolicy(max_batch_size=8),
+                                    model_name=f"tiny_{dev}", device=dev)
+        sched = eng.scheduler(max_slots=4)
+        try:
+            eng.warmup()
+            got[dev] = [sched.generate(f, timeout_ms=HTTP_TIMEOUT * 1e3) for f in feeds]
+            if dev == "cuda":
+                batch = [eng.predict(f) for f in feeds]
+                captures = sched.stats()["pool_step"]["captures"]
+        finally:
+            sched.stop()
+    err = 0.0
+    for a, b in zip(got["cpu"], got["cuda"]):
+        check(np.array_equal(a["ids"], b["ids"]) and np.array_equal(a["lengths"], b["lengths"]),
+              "card and CPU ids differ")
+        err = max(err, float(np.abs(a["scores"] - b["scores"]).max()))
+    check(err <= TGEN_SCORE_TOL, f"card and CPU scores {err:.3g} apart")
+    same = [np.array_equal(g["ids"], w[0]) and np.array_equal(g["scores"], w[1])
+            for g, w in zip(got["cuda"], batch)]
+    apart = [(f["h0"].shape[0], bool(np.array_equal(g["ids"], w[0])),
+              float(np.abs(g["scores"] - w[1]).max()))
+             for f, g, w, s_ in zip(feeds, got["cuda"], batch, same) if not s_]
+    print(f"  rows {[f['h0'].shape[0] for f in feeds]}: ids and lengths equal, scores at most "
+          f"{err:.3g} apart (tol {TGEN_SCORE_TOL:g}); the card's pool captured {captures} time; "
+          f"card continuous (a pool of 4 slots: 12 rows) against card batch mode (each "
+          f"request's batch bucket, 8 for the 5-row one: 24 rows): the same bits for {sum(same)} of {len(same)} requests"
+          + (f"; where the shapes differ, (rows, ids equal, max |score diff|) {apart}"
+             if apart else ""))
+    return {"score_err_max": err, "continuous_equal_batch_on_card": same,
+            "differing_shapes": apart}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5022,7 +5726,10 @@ def main():
     rows.update(srows)
     max_errs.update(serrs)
     tf32_phase(ptt, smi, 26)
-    qrows, qerrs, q_launches = quant_phases(ptt, exe, smi, args.seed, 27)
+    serve_work = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    atexit.register(shutil.rmtree, serve_work, True)
+    q_keep = os.path.join(serve_work, "tfm_int8")
+    qrows, qerrs, q_launches = quant_phases(ptt, exe, smi, args.seed, 27, q_keep)
     rows.update(qrows)
     max_errs.update(qerrs)
     attention_routing_phase(ptt, args.seed + 31, 31)
@@ -5037,8 +5744,15 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths.update(window_phases(ptt, smi, args.seed, 35))
+    torch.cuda.empty_cache()
+    paths["transformer_int8_serve"] = int8_serve_phase(ptt, smi, args.seed, 39, q_keep)
+    shutil.rmtree(q_keep)
+    torch.cuda.empty_cache()
+    paths["serving_gen"] = serving_gen_phase(ptt, smi, args.seed, 40, serve_work)
+    paths["serving_gen_prefix"] = prefix_cache_phase(ptt, smi, args.seed, 41, serve_work)
+    paths["serving_gen_tiny"] = tiny_gen_phase(ptt, args.seed, 42, serve_work)
 
-    phase(39, "the paths line, the kernels line, then the device line")
+    phase(43, "the paths line, the kernels line, then the device line")
     rows["attn_bwd_step"].update(launches_by_route=train_routes["attn_bwd_step"],
                                  kernel="attn_bwd_row_kernel on csrc/attn_row.cuh's attend_bwd")
     rows["attn_phase2"].update(kernel="attn_dep_kernel (t oldest first) + attn_dv_kernel")
@@ -5076,6 +5790,11 @@ def main():
         for counter in kernels:
             by_path[counter[:-len("_launches")]][f"{path}_train_window"] = launches[counter]
     by_path.update(q_launches)
+    # the HTTP-served int8 LM (phase 39): launches a request
+    by_path["quant_matmul"]["transformer_int8_serve"] = \
+        paths["transformer_int8_serve"]["quant_matmul_launches_per_request"]
+    by_path["flash_fwd"]["transformer_int8_serve"] = \
+        paths["transformer_int8_serve"]["flash_fwd_launches_per_request"]
     # B3's row: the request's launch (B=128), and the training step's (B=256)
     rows["gru_fwd"] = dict(main_row, train_ms=gru_fwd_train_ms)
     max_errs["gru_fwd"] = max(max_err, max_errs["gru_fwd"])

@@ -32,10 +32,18 @@ checkpoints it resumes from:
                           checkpoint_config=ptt.CheckpointConfig(d, step_interval=100))
     trainer.train(ptt.data.batch(reader, 64), num_passes=2, feed_order=[x, y],
                   event_handler=handler)
+
+and serves saved artifacts over HTTP, with continuous batching for
+generation models (`layers.BeamSearchDecoder`):
+
+    reg = ptt.serving.ModelRegistry()
+    reg.add("default", model_dir=d, scheduler_kw={"max_slots": 8})
+    server = ptt.serving.make_server(reg)
+    server.serve_background()          # POST /predict, /generate
 """
 
-from . import (data, initializer, io, layers, models, obs, ops, optimizer, profiler,  # noqa: F401
-               quant, regularizer, resilience)
+from . import (data, fleetctl, initializer, io, layers, models, obs, ops,  # noqa: F401
+               optimizer, profiler, quant, regularizer, resilience, serving)
 from .core.backward import append_backward
 from .core.executor import Executor, Scope, global_scope, reset_global_scope
 from .core.lod import LoDArray
@@ -49,6 +57,6 @@ from .trainer import (BeginIteration, BeginPass, CheckpointConfig, EndIteration,
 __all__ = ["BeginIteration", "BeginPass", "CheckpointConfig", "EndIteration", "EndPass",
            "Executor", "FLAGS", "LoDArray", "ParamAttr", "Program", "Scope", "Trainer",
            "append_backward", "data", "default_main_program", "default_startup_program",
-           "global_scope", "initializer", "io", "layers", "models", "obs", "ops",
+           "fleetctl", "global_scope", "initializer", "io", "layers", "models", "obs", "ops",
            "optimizer", "profiler", "program_guard", "quant", "regularizer",
-           "reset_default_programs", "reset_global_scope", "resilience"]
+           "reset_default_programs", "reset_global_scope", "resilience", "serving"]

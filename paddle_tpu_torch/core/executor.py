@@ -131,6 +131,31 @@ def _grad_leaf(name, value):
     return leaf.requires_grad_(True)
 
 
+class BlockRunner:
+    """Runs a block's ops on an env (paddle_tpu/core/executor.py
+    `_BlockRunner.run_ops`, :152-181): the Executor's walk over block 0, and
+    the one a control-flow kernel takes over its sub-block (`ctx.executor`).
+    The env carries what the caller sets: the amp dtype (`@AMP@`), the random
+    ops' generator (`@RNG@`) and the values the ops close over. It reads
+    nothing back to the host, so a captured step may call it
+    (serving/scheduler.py). A failing op is named with its block, as the
+    JAX runner names it."""
+
+    def __init__(self, program: Program):
+        self.program = program
+
+    def run_ops(self, ops, env: Dict[str, Any], block, first: int = 0):
+        for i, op in enumerate(ops, first):
+            kernel = registry.get_kernel(op.type)
+            try:
+                kernel(registry.OpContext(op, env, executor=self))
+            except Exception as e:
+                raise RuntimeError(
+                    f"{e}\n  while executing op #{i} {op.type!r} (block {block.idx}) "
+                    f"inputs={op.inputs} outputs={op.outputs}") from e
+        return env
+
+
 class Executor:
     """`Executor(device).run(program, feed, fetch_list, scope)`.
 
@@ -221,13 +246,15 @@ class Executor:
         without runs under inference_mode (the module docstring)."""
         env[AMP_KEY] = program.amp_dtype
         env[registry.RNG_KEY] = gen
-        ops = program.global_block().ops
+        block = program.global_block()
+        ops = block.ops
         env[registry.LIVE_KEY] = {n for op in ops for names in op.inputs.values()
                                   for n in names} | set(fetch_names) | set(persist)
+        runner = BlockRunner(program)
         at = [i for i, op in enumerate(ops) if op.type == "autodiff"]
         if not at:
             with torch.inference_mode():
-                self._run_ops(ops, 0, env)
+                runner.run_ops(ops, env, block)
         elif len(at) > 1:
             raise NotImplementedError(
                 f"{len(at)} autodiff ops in one block: the port runs one")
@@ -235,10 +262,10 @@ class Executor:
             k = at[0]
             leaves = self._grad_leaves(program, ops[k], env)
             with torch.enable_grad():
-                self._run_ops(ops[:k], 0, env)
+                runner.run_ops(ops[:k], env, block)
                 self._run_autodiff(ops[k], env, leaves)
             with torch.no_grad():
-                self._run_ops(ops[k + 1:], k + 1, env)
+                runner.run_ops(ops[k + 1:], env, block, first=k + 1)
 
     def run_window(self, program: Program, feed: Dict[str, Any],
                    fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,
@@ -261,17 +288,6 @@ class Executor:
         """Run a startup (init) program (paddle_tpu/core/executor.py:474):
         the same as run() here, where one device holds every value."""
         return self.run(program, scope=scope, seed=seed)
-
-    @staticmethod
-    def _run_ops(ops, first: int, env) -> None:
-        for i, op in enumerate(ops, first):
-            kernel = registry.get_kernel(op.type)
-            try:
-                kernel(registry.OpContext(op, env))
-            except Exception as e:
-                raise RuntimeError(
-                    f"{e}\n  while executing op #{i} {op.type!r} "
-                    f"inputs={op.inputs} outputs={op.outputs}") from e
 
     @staticmethod
     def _grad_leaves(program: Program, op, env) -> Dict[str, torch.Tensor]:

@@ -143,32 +143,101 @@ def _route_flags() -> tuple:
             FLAGS.bn_bf16_stats)
 
 
-class _StepGraph:
+class CapturedStep:
+    """A step body (`_body`, a subclass's) on fixed buffers: on the card run
+    eagerly once on its own stream (`_on_stream`), then captured as a CUDA
+    graph (`_capture`) and replayed (`replay`); on the CPU the caller runs
+    `_body` itself. `_StepGraph` here and the generation pool step
+    (serving/scheduler.py) are its two steps."""
+
+    what = "the step"  # named in a failed capture's error
+
+    def __init__(self, device: torch.device, gen: Optional[torch.Generator] = None):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.gen = gen
+        self.graph = None
+        self.delta: Dict[Tuple[str, str], Any] = {}  # the counters a step moves
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self.capture_s = 0.0
+
+    def _body(self) -> None:
+        raise NotImplementedError
+
+    def replay(self) -> None:
+        counter_add(self.delta)
+        self.graph.replay()
+
+    def _on_stream(self, fn) -> None:
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            fn()
+        cur.wait_stream(self.stream)
+
+    def _capture(self) -> None:
+        """Capture one step. Capturing runs nothing, so the counters it
+        moved are taken back and kept as the step's delta, added at every
+        replay."""
+        before = counter_state()
+        t0 = time.perf_counter()
+        try:
+            graph = self._record()
+        except Exception as e:
+            counter_add(counter_delta(counter_state(), before))
+            raise RuntimeError(f"capturing {self.what} as a CUDA graph failed: {e}") from e
+        self.delta = counter_delta(before, counter_state())
+        counter_add(self.delta, -1)
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def _record(self):
+        """`_body` captured on the capture stream, the generator registered:
+        the graph. Other threads' CUDA calls (the prefetcher's copies, the
+        checkpoint writer's reads) stay legal meanwhile: the capture's error
+        mode is this thread's."""
+        graph = torch.cuda.CUDAGraph()
+        if self.gen is not None:
+            graph.register_generator_state(self.gen)
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self._body()
+            except BaseException:
+                try:  # end the broken capture; the op's error is the one raised
+                    graph.capture_end()
+                except Exception:
+                    pass
+                raise
+            graph.capture_end()
+        cur.wait_stream(self.stream)
+        return graph
+
+
+class _StepGraph(CapturedStep):
     """One training step of `program` on static buffers: eager on the CPU
     and for the first step on the card, then captured and replayed (the
     module docstring)."""
 
+    what = "the training step"
+
     def __init__(self, exe, program: Program, fetch_names: Sequence[str], skip_nonfinite: bool,
                  with_acc: bool):
+        super().__init__(exe.device, torch.Generator(device=exe.device))
         self.exe = exe
         self.program = program
         self.fetch_names = list(fetch_names)
         self.persist = [v.name for v in program.persistables()]
         self.skip_nonfinite = skip_nonfinite
         self.with_acc = with_acc
-        self.device = exe.device
-        self.cuda = self.device.type == "cuda"
         self.bufs: Dict[str, torch.Tensor] = {}  # the persistables
         self.feed: Optional[Dict[str, Any]] = None  # one step's feed
         self.outs: Optional[List[torch.Tensor]] = None  # the fetches' leaves
         self.lod_fetches: List[bool] = []
         self.acc: List[torch.Tensor] = []  # the accumulator, flat
-        self.gen = torch.Generator(device=self.device)
-        self.graph = None
         self.warm = False
-        self.delta: Dict[Tuple[str, str], Any] = {}  # the counters a step moves
-        self.stream = torch.cuda.Stream(self.device) if self.cuda else None
-        self.capture_s = 0.0
 
     # -- buffers ------------------------------------------------------------
     def bind(self, scope, step_feed: Dict[str, Any], acc_state) -> None:
@@ -278,57 +347,9 @@ class _StepGraph:
             return
         if self.graph is None:
             self._capture()
-        counter_add(self.delta)
-        self.graph.replay()
+            self.exe.cache_stats["captures"] += 1
+        self.replay()
         self.exe.cache_stats["replays"] += 1
-
-    def _on_stream(self, fn) -> None:
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            fn()
-        cur.wait_stream(self.stream)
-
-    def _capture(self) -> None:
-        """Capture one step. Capturing runs nothing, so the counters it
-        moved are taken back and kept as the step's delta, added at every
-        replay."""
-        before = counter_state()
-        t0 = time.perf_counter()
-        try:
-            graph = self._record()
-        except Exception as e:
-            counter_add(counter_delta(counter_state(), before))
-            raise RuntimeError(f"capturing the training step as a CUDA graph failed: {e}") \
-                from e
-        self.delta = counter_delta(before, counter_state())
-        counter_add(self.delta, -1)
-        self.graph = graph
-        self.capture_s = time.perf_counter() - t0
-        self.exe.cache_stats["captures"] += 1
-
-    def _record(self):
-        """`_body` captured on the capture stream, the generator registered:
-        the graph. Other threads' CUDA calls (the prefetcher's copies, the
-        checkpoint writer's reads) stay legal meanwhile: the capture's error
-        mode is this thread's."""
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.gen)
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                self._body()
-            except BaseException:
-                try:  # end the broken capture; the op's error is the one raised
-                    graph.capture_end()
-                except Exception:
-                    pass
-                raise
-            graph.capture_end()
-        cur.wait_stream(self.stream)
-        return graph
 
 
 def _window_key(program: Program, skip_nonfinite: bool, with_acc: bool, step_feed,

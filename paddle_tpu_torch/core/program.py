@@ -1,7 +1,8 @@
 """Program IR: Program → Block → Operator / Variable.
 
 The port's copy of paddle_tpu/core/program.py, cut to what a saved
-program and the layer DSL need: the three-level structure, `set_amp`,
+program and the layer DSL need: the three-level structure with sub-blocks
+(`block_guard`), `set_amp`,
 `version`/`bump_version`, `clone(for_test)`,
 parameters with their regularizer, clip and trainable flag, the default
 programs and `program_guard`, `unique_name` with the JAX package's counter
@@ -128,6 +129,7 @@ class Program:
 
     def __init__(self):
         self.blocks: List[Block] = [Block(self, 0)]
+        self._current_block_idx = 0
         self._version = 0
         # mixed-precision compute dtype (None = full f32); see amp.py
         self.amp_dtype: Optional[str] = None
@@ -143,8 +145,26 @@ class Program:
         return self.blocks[0]
 
     def current_block(self) -> Block:
-        # the port builds no sub-blocks: layers append to the global block
-        return self.blocks[0]
+        return self.blocks[self._current_block_idx]
+
+    def create_block(self) -> Block:
+        b = Block(self, len(self.blocks), parent_idx=self._current_block_idx)
+        self.blocks.append(b)
+        self._current_block_idx = b.idx
+        return b
+
+    def rollback(self) -> None:
+        self._current_block_idx = self.current_block().parent_idx
+
+    @contextlib.contextmanager
+    def block_guard(self):
+        """Layers built inside append to a new sub-block (a generation
+        step's body, layers/generation.py)."""
+        b = self.create_block()
+        try:
+            yield b
+        finally:
+            self.rollback()
 
     def parameters(self) -> List[Variable]:
         return [v for v in self.global_block().vars.values() if v.is_parameter]

@@ -22,11 +22,14 @@ LIVE_KEY = "@LIVE@"
 
 
 class OpContext:
-    """Execution context handed to a kernel: op descriptor + value env."""
+    """Execution context handed to a kernel: op descriptor + value env, and
+    the runner walking the op's block (`executor`), through which a
+    control-flow kernel runs its sub-block (ops/generation_ops.py)."""
 
-    def __init__(self, op, env: Dict[str, Any]):
+    def __init__(self, op, env: Dict[str, Any], executor=None):
         self.op = op
         self.env = env
+        self.executor = executor
 
     def input(self, slot: str, idx: int = 0):
         names = self.op.inputs.get(slot, [])

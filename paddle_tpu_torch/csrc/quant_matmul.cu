@@ -342,8 +342,13 @@ quant_matmul_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_cons
       }
       fence_async_smem();
       bar_sync(1 + wg, 128);
-      if (leader && m0 + 64 * wg < M && n0 + cc * kOutCols < N) {
-        tma_store(&tcm, buf, n0 + cc * kOutCols, m0 + 64 * wg);
+      if (leader) {
+        if (m0 + 64 * wg < M && n0 + cc * kOutCols < N)
+          tma_store(&tcm, buf, n0 + cc * kOutCols, m0 + 64 * wg);
+        // a group every chunk, empty where no store was issued: the
+        // bulk_wait_read<1> above then always means "the store two chunks
+        // back has read this buffer" (with the commit inside the branch, a
+        // skipped chunk let the next write overwrite a buffer still read)
         bulk_commit();
       }
     }

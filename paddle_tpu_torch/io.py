@@ -4,7 +4,9 @@ An inference artifact (what `save_inference_model` here and in the JAX
 package writes) is a directory holding `program.json` (Program.to_dict),
 `params.npz` (one array per parameter name) and `meta.json` (feed, fetch and
 parameter names, feed specs, the program's fingerprint, and optional
-sidecars). A quantized artifact's `quant` sidecar pins its int8 payloads
+sidecars). A generation artifact's `generation` sidecar records its beam
+geometry and decode-state specs, so a serving scheduler sizes its slot pool
+without running a request. A quantized artifact's `quant` sidecar pins its int8 payloads
 and scales to the program: `load_inference_model` raises QuantMetaError
 when either no longer matches. A training program is a directory holding
 `main.json` and `startup.json` (Program.to_dict of each) and `meta.json`
@@ -49,8 +51,14 @@ STARTUP_FILE = "startup.json"
 CHECKPOINT_PREFIX = "checkpoint"
 
 # sidecars that change how the artifact must run; the port cannot honour
-# them yet, so it refuses the artifact rather than serve it wrongly
-_UNSUPPORTED_SIDECARS = ("sharding", "draft_model")
+# them yet, so it refuses the artifact rather than serve it wrongly. (The
+# `draft_model` sidecar names a speculative-decoding companion the serving
+# scheduler may use: it is read, kept as `program._draft_meta` and unused
+# until ROADMAP.md A8b.)
+_UNSUPPORTED_SIDECARS = ("sharding",)
+# the DecodeState wire-schema version (paddle_tpu/io.py:76): part of the
+# generation sidecar's identity
+GENERATION_SCHEMA_VERSION = 1
 # the suffix of a quantized weight's f32 scale var (quant/convert.py)
 SCALE_SUFFIX = "@quant_scale"
 
@@ -71,6 +79,60 @@ def program_fingerprint(program: Program) -> str:
     `program_fingerprint`: the same dict gives the same hash there)."""
     blob = json.dumps(program.to_dict(), sort_keys=True)
     return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def generation_state_fingerprint(gen: Dict[str, Any]) -> str:
+    """Layout identity of the decode state a generation artifact boots
+    (paddle_tpu/io.py:79): beam geometry and the dtypes and trailing shapes
+    of each state and per-example tensor, hashed over canonical JSON; not
+    the program's fingerprint, so retrained weights keep it."""
+    layout = {
+        "schema_version": int(gen.get("schema_version", GENERATION_SCHEMA_VERSION)),
+        "beam_size": int(gen["beam_size"]),
+        "max_len": int(gen["max_len"]),
+        "bos_id": int(gen["bos_id"]),
+        "eos_id": int(gen["eos_id"]),
+        "length_normalize": bool(gen.get("length_normalize", False)),
+        "state": [[s["name"], s["dtype"], s["shape"]] for s in gen.get("state", [])],
+        "per_example": [[s["name"], s["dtype"], s["shape"]]
+                        for s in gen.get("per_example", [])],
+    }
+    blob = json.dumps(layout, sort_keys=True, separators=(",", ":"))
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def _generation_meta(pruned: Program) -> Optional[dict]:
+    """The generation sidecar (paddle_tpu/io.py:494): the beam_search_group
+    op's geometry and each boot and per-example tensor's dtype and trailing
+    shape (the batch axis is the slot axis when serving), or None."""
+    block = pruned.global_block()
+    op = next((o for o in block.ops if o.type == "beam_search_group"), None)
+    if op is None:
+        return None
+
+    def vspec(name):
+        try:
+            v = block.var(name)
+        except KeyError:
+            return {"name": name, "dtype": "float32", "shape": None}
+        trailing = [int(d) for d in v.shape[1:]]
+        return {"name": name, "dtype": np.dtype(v.dtype).name,
+                "shape": trailing if all(d > 0 for d in trailing) else None}
+
+    gen = {
+        "beam_size": int(op.attrs.get("beam_size", 4)),
+        "max_len": int(op.attrs.get("max_len", 32)),
+        "bos_id": int(op.attrs.get("bos_id", 0)),
+        "eos_id": int(op.attrs.get("eos_id", 1)),
+        "length_normalize": bool(op.attrs.get("length_normalize", False)),
+        "state": [vspec(n) for n in op.inputs.get("Boot", [])],
+        "per_example": [vspec(n) for n in op.inputs.get("PerExample", [])],
+        "outputs": {"ids": op.outputs["Ids"][0], "scores": op.outputs["Scores"][0],
+                    "lengths": op.outputs["Lengths"][0]},
+    }
+    gen["schema_version"] = GENERATION_SCHEMA_VERSION
+    gen["state_fingerprint"] = generation_state_fingerprint(gen)
+    return gen
 
 
 def _scales_digest(arrays: Dict[str, np.ndarray]) -> str:
@@ -283,7 +345,8 @@ def save_inference_model(dirname: str, feeded_var_names: Sequence[str], target_v
                          scope: Optional[Scope] = None) -> None:
     """The pruned program and its persistables in `dirname`, in the JAX
     package's artifact format. meta.json carries the feed specs, the
-    program's fingerprint and, for a program quant.convert rewrote, the
+    program's fingerprint, for a generation program the `generation`
+    sidecar and, for a program quant.convert rewrote, the
     `quant` sidecar with the fingerprint and scales digest of what is
     saved. It leaves out the JAX exporter's `tuning` record, which names a
     TPU table (its loader reads an absent one as None)."""
@@ -305,6 +368,9 @@ def save_inference_model(dirname: str, feeded_var_names: Sequence[str], target_v
     meta = {"feed_names": list(feeded_var_names), "fetch_names": target_names,
             "param_names": param_names, "feed_specs": feed_specs,
             "program_fingerprint": fingerprint}
+    generation = _generation_meta(pruned)
+    if generation:
+        meta["generation"] = generation
     qmeta = getattr(program, "_quant_meta", None)
     if qmeta:
         meta["quant"] = dict(qmeta, program_fingerprint=fingerprint,
@@ -353,6 +419,15 @@ def load_inference_model(dirname: str, scope: Optional[Scope] = None, device=Non
         program = Program.from_dict(json.load(f))
     arrays = _read_npz(os.path.join(dirname, PARAMS_FILE), meta["param_names"])
     program._serving_meta = meta.get("feed_specs") or None
+    program._program_fingerprint = meta.get("program_fingerprint") or None
+    gen = meta.get("generation") or None
+    if gen is not None and not gen.get("state_fingerprint"):
+        # an artifact older than the schema identity: backfilled, as the
+        # JAX loader does
+        gen.setdefault("schema_version", GENERATION_SCHEMA_VERSION)
+        gen["state_fingerprint"] = generation_state_fingerprint(gen)
+    program._generation_meta = gen
+    program._draft_meta = meta.get("draft_model") or None
     program._quant_meta = meta.get("quant") or None
     if program._quant_meta:
         q = program._quant_meta

@@ -3,6 +3,7 @@ functions that append ops to the default program."""
 
 from .attention import *  # noqa: F401,F403
 from .attention import __all__ as _attn_all
+from .generation import BeamSearchDecoder  # noqa: F401
 from .misc import *  # noqa: F401,F403
 from .misc import __all__ as _misc_all
 from .nn import *  # noqa: F401,F403
@@ -10,4 +11,5 @@ from .nn import __all__ as _nn_all
 from .sequence import *  # noqa: F401,F403
 from .sequence import __all__ as _seq_all
 
-__all__ = list(_nn_all) + list(_seq_all) + list(_misc_all) + list(_attn_all)
+__all__ = (list(_nn_all) + list(_seq_all) + list(_misc_all) + list(_attn_all)
+           + ["BeamSearchDecoder"])

@@ -4,8 +4,9 @@ pool2d (:278), batch_norm (:348), the fused conv + BN protocol's
 RawConvBN (:376), fused_conv_bn (:394), bn_stats (:451) and bn_apply
 (:477), layer_norm (:492), softmax_with_cross_entropy (:537),
 square_error_cost (:554), accuracy (:565), mean (:602), softmax (:606),
-relu (:610) and elementwise_add (:622). Each builds its parameters through LayerHelper and appends ops to
-the default program; shapes use -1 for the batch dimension."""
+relu (:610), elementwise_add (:622), scale (:638) and concat (:680). Each
+builds its parameters through LayerHelper and appends ops to the default
+program; shapes use -1 for the batch dimension."""
 
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from .helper import LayerHelper
 
 __all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm", "RawConvBN",
            "fused_conv_bn", "bn_stats", "bn_apply", "layer_norm", "softmax_with_cross_entropy",
-           "square_error_cost", "accuracy", "mean", "softmax", "relu", "elementwise_add"]
+           "square_error_cost", "accuracy", "mean", "softmax", "relu", "elementwise_add",
+           "scale", "concat"]
 
 
 def data(name: str, shape: Sequence[int], dtype=np.float32, lod_level: int = 0,
@@ -313,4 +315,28 @@ def elementwise_add(x, y, axis=-1):
     out = helper.create_tmp_variable(x.dtype, x.shape, x.lod_level)
     helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
                      outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def scale(x, scale=1.0, bias=0.0):
+    """x * scale + bias."""
+    helper = LayerHelper("scale")
+    out = helper.create_tmp_variable(x.dtype, x.shape, x.lod_level)
+    helper.append_op(type="scale", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"scale": scale, "bias": bias})
+    return out
+
+
+def concat(input, axis=0):
+    """The inputs joined along `axis` (-1 there when any input's is)."""
+    helper = LayerHelper("concat")
+    shape = list(input[0].shape)
+    ax = axis if axis >= 0 else len(shape) + axis
+    if all(v.shape[ax] != -1 for v in input):
+        shape[ax] = sum(v.shape[ax] for v in input)
+    else:
+        shape[ax] = -1
+    out = helper.create_tmp_variable(input[0].dtype, tuple(shape))
+    helper.append_op(type="concat", inputs={"X": list(input)}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
     return out

@@ -183,6 +183,11 @@ class MetricsRegistry:
             if help:
                 self._help.setdefault(name, help)
 
+    def counter_value(self, name: str,
+                      labels: Optional[Dict[str, Any]] = None) -> float:
+        with self._lock:
+            return self._counters.get(name, {}).get(_label_key(labels), 0.0)
+
     def gauge(self, name: str, fn: Callable[[], Any],
               help: str = "") -> None:
         """Gauges are callables evaluated at scrape time — the

@@ -16,6 +16,10 @@
   records as args; a thread hand-off copies it explicitly
   (`get_context()` on the producer, `set_context(**ctx)` on the consumer),
   which is how step ids flow prefetch -> step -> hostSync -> checkpoint.
+  The serving stack mints request ids with `new_request_id` and records
+  each on its queue, admission, pool-step and stream spans, so one key
+  joins them across threads; `context(request_id=..)` scopes an id over a
+  block and restores the previous one.
   Under the Trainer's scan_window the context is the window's (`window`,
   its first batch, and `k`) and one forwardBackward span covers the
   window's k steps; the prefetcher stacks each window in a
@@ -35,6 +39,7 @@ from __future__ import annotations
 import atexit
 import collections
 import contextlib
+import itertools
 import json
 import os
 import threading
@@ -47,11 +52,13 @@ __all__ = [
     "Trace",
     "arm",
     "armed",
+    "context",
     "counter",
     "disarm",
     "dropped_total",
     "get_context",
     "instant",
+    "new_request_id",
     "set_context",
     "span",
     "tracing",
@@ -73,6 +80,7 @@ define_flag("trace_ring", 65536,
 _armed = False
 _trace: Optional["Trace"] = None
 _lock = threading.Lock()
+_req_ids = itertools.count(1)
 _dropped_closed = 0  # drops accumulated by finished captures
 
 
@@ -375,6 +383,40 @@ def get_context() -> Dict[str, Any]:
     if tr is None:
         return {}
     return dict(tr.buf().ctx)
+
+
+@contextlib.contextmanager
+def context(**ids: Any):
+    """Scoped set_context: sets ids on entry, restores the previous values
+    on exit (worker loops that serve many requests)."""
+    if not _armed:
+        yield
+        return
+    tr = _trace
+    if tr is None:
+        yield
+        return
+    ctx = tr.buf().ctx
+    saved = {k: ctx.get(k, _MISSING) for k in ids}
+    set_context(**ids)
+    try:
+        yield
+    finally:
+        buf_ctx = tr.buf().ctx
+        for k, v in saved.items():
+            if v is _MISSING:
+                buf_ctx.pop(k, None)
+            else:
+                buf_ctx[k] = v
+
+
+_MISSING = object()
+
+
+def new_request_id(prefix: str = "req") -> str:
+    """Process-unique request id ("req-17"): assigned at admission so every
+    span a request touches, across threads, carries one key."""
+    return f"{prefix}-{next(_req_ids)}"
 
 
 # -- schema ------------------------------------------------------------------

@@ -5,6 +5,7 @@ from . import (  # noqa: F401
     attention_ops,
     flash_ops,
     fused_conv_ops,
+    generation_ops,
     math_ops,
     misc_ops,
     nn_ops,

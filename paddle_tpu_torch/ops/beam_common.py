@@ -12,7 +12,7 @@ def init_scores(B: int, K: int, dtype=torch.float32, device="cpu"):
     """[B, K] scores with only beam 0 live at t=0, so the first expansion
     isn't K duplicates of the same hypothesis."""
     row = torch.full((K,), NEG_INF, dtype=torch.float32, device=device)
-    row[0] = 0.0
+    row[:1].fill_(0.0)  # a fill, not a copy from the host: legal under graph capture
     return row.expand(B, K).to(dtype)
 
 
@@ -21,7 +21,7 @@ def freeze_finished(logp, finished, eos: int):
     continuation is NEG_INF."""
     V = logp.shape[-1]
     eos_only = torch.full((V,), NEG_INF, dtype=logp.dtype, device=logp.device)
-    eos_only[eos] = 0.0
+    eos_only[eos:eos + 1].fill_(0.0)  # a fill, not a copy from the host
     return torch.where(finished[..., None], eos_only, logp)
 
 

@@ -1,7 +1,8 @@
 """Math op kernels: mul, matmul, elementwise_add, mean, top_k, lookup_table,
-scale, sign, clip_by_global_norm and the startup program's fill_constant,
-uniform_random and gaussian_random (paddle_tpu/ops/math_ops.py:35,67,108,118,
-264,274,207,228,245,306,335,346), on torch tensors.
+scale, sign, clip_by_global_norm, concat and the startup program's
+fill_constant, uniform_random and gaussian_random
+(paddle_tpu/ops/math_ops.py:35,67,108,118,264,274,207,228,245,168,306,335,
+346), on torch tensors.
 The matrix products go to torch.matmul, as the JAX package leaves them to
 XLA. The random ops draw from the run's torch.Generator: the same
 distributions as the JAX package's, not the same numbers."""
@@ -114,6 +115,14 @@ def scale_kernel(ctx):
     multiplier)."""
     x = ctx.input("X")
     ctx.set_output("Out", _like(x, _data(x) * ctx.attr("scale", 1.0) + ctx.attr("bias", 0.0)))
+
+
+@register_op("concat")
+def concat_kernel(ctx):
+    """Along `axis`, dtypes promoted as jnp.concatenate promotes them (a
+    generation step joins an f32 embedding and its memory)."""
+    xs = [_data(x) for x in ctx.inputs("X")]
+    ctx.set_output("Out", torch.cat(xs, dim=ctx.attr("axis", 0)))
 
 
 @register_op("sign")

@@ -7,18 +7,20 @@
 - `guard`: StepGuard, skip non-finite steps, roll back to the last
   checkpoint after K consecutive, reduced-LR cool-down;
 - preemption: SIGTERM/SIGINT -> finish the batch -> emergency checkpoint
-  -> PreemptedError, in Trainer.train.
+  -> PreemptedError, in Trainer.train;
+- `breaker`: the serving stack's per-model CircuitBreaker.
 
-The JAX package's `breaker` and `retry` wait for the port's serving and
-operations surfaces (ROADMAP.md, queue A, A12).
+The JAX package's `retry` waits for the port's operations surface
+(ROADMAP.md, queue A, A12).
 """
 
+from . import breaker  # noqa: F401
 from . import faults  # noqa: F401
 from . import guard  # noqa: F401
 from .faults import InjectedFault  # noqa: F401
 from .guard import NonFiniteError, StepGuard  # noqa: F401
 
-__all__ = ["InjectedFault", "NonFiniteError", "PREEMPT_EXIT_CODE", "PreemptedError",
+__all__ = ["InjectedFault", "breaker", "NonFiniteError", "PREEMPT_EXIT_CODE", "PreemptedError",
            "StepGuard", "faults", "guard"]
 
 # BSD sysexits EX_TEMPFAIL: "transient failure, retry the job", what a

@@ -1,0 +1,151 @@
+"""Per-model serving circuit breaker (paddle_tpu/resilience/breaker.py, the
+port's own copy: the same states, thresholds and accounting).
+
+Reference lineage: the Go master fences a misbehaving trainer by
+re-dispatching its tasks elsewhere; a serving stack has no "elsewhere"
+per process, so the standard containment is the circuit breaker: a
+model whose engine keeps throwing (bad artifact, OOMing bucket, a
+poisoned tuned table) must fail FAST with 503 instead of letting every
+request ride the queue into a guaranteed error — queue time spent on a
+doomed call is latency stolen from healthy models on the same host.
+
+State machine (the canonical three states):
+- CLOSED: traffic flows; `failure_threshold` CONSECUTIVE engine
+  failures (one coalesced batch = one outcome) trip it OPEN.
+- OPEN: `admit()` is False — the batcher rejects at submit time with
+  CircuitOpenError (HTTP 503 + Retry-After). After `reset_timeout_s`
+  the next admit() transitions to HALF_OPEN.
+- HALF_OPEN: up to `half_open_max` probe requests pass; one success
+  closes the circuit, one failure re-opens it (and restarts the
+  timeout).
+
+The clock is injectable (`clock=`) so tests step time instead of
+sleeping. State is surfaced in /healthz (per-model state string) and
+/metrics (0=closed 1=half_open 2=open gauge) by the serving layer.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Dict
+
+__all__ = ["CircuitBreaker", "CircuitOpenError",
+           "CLOSED", "OPEN", "HALF_OPEN"]
+
+CLOSED = "closed"
+OPEN = "open"
+HALF_OPEN = "half_open"
+
+STATE_CODES = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}  # /metrics gauge values
+
+
+class CircuitOpenError(RuntimeError):
+    """The model's circuit is open: request rejected without queueing."""
+
+
+class CircuitBreaker:
+    def __init__(
+        self,
+        failure_threshold: int = 5,
+        reset_timeout_s: float = 30.0,
+        half_open_max: int = 1,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        if failure_threshold < 1:
+            raise ValueError("failure_threshold must be >= 1")
+        self.failure_threshold = failure_threshold
+        self.reset_timeout_s = reset_timeout_s
+        self.half_open_max = half_open_max
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._state = CLOSED
+        self._consecutive = 0
+        self._opened_at = 0.0
+        self._probes = 0  # admissions granted while HALF_OPEN
+        self.opens = 0
+        self.failures = 0
+        self.successes = 0
+
+    # -- state ----------------------------------------------------------
+    def _state_locked(self) -> str:
+        if (self._state == OPEN
+                and self._clock() - self._opened_at >= self.reset_timeout_s):
+            self._state = HALF_OPEN
+            self._probes = 0
+        return self._state
+
+    def state(self) -> str:
+        with self._lock:
+            return self._state_locked()
+
+    def admit(self) -> bool:
+        """May a new request proceed? HALF_OPEN admissions are counted
+        against the probe budget."""
+        with self._lock:
+            s = self._state_locked()
+            if s == CLOSED:
+                return True
+            if s == HALF_OPEN and self._probes < self.half_open_max:
+                self._probes += 1
+                return True
+            return False
+
+    def would_admit(self) -> bool:
+        """admit() without consuming a HALF_OPEN probe slot: for
+        CANDIDATE scans (the router's per-class JSQ pick walks every
+        replica) where only the winner actually dispatches. A scan
+        that burned the probe budget of a half-open loser would leave
+        its breaker refusing traffic with no probe ever sent — the
+        outcome-recording caller must still pair the real dispatch
+        with admit()."""
+        with self._lock:
+            s = self._state_locked()
+            if s == CLOSED:
+                return True
+            return s == HALF_OPEN and self._probes < self.half_open_max
+
+    # -- outcomes (one coalesced engine call = one outcome) -------------
+    def record_success(self) -> None:
+        with self._lock:
+            self.successes += 1
+            self._consecutive = 0
+            if self._state == HALF_OPEN:
+                self._state = CLOSED
+                self._probes = 0
+
+    def record_failure(self) -> None:
+        with self._lock:
+            self.failures += 1
+            self._consecutive += 1
+            s = self._state_locked()
+            if s == HALF_OPEN or (s == CLOSED
+                                  and self._consecutive >= self.failure_threshold):
+                self._state = OPEN
+                self._opened_at = self._clock()
+                self._probes = 0
+                self.opens += 1
+
+    def trip(self) -> None:
+        """Force OPEN immediately, bypassing the consecutive-failure
+        threshold: for callers with out-of-band proof the backend is
+        gone (the router watching a replica PROCESS exit, a supervisor
+        reaping a SIGKILLed worker). Waiting out `failure_threshold`
+        doomed requests would just burn client deadlines."""
+        with self._lock:
+            if self._state != OPEN:
+                self.opens += 1
+            self._state = OPEN
+            self._opened_at = self._clock()
+            self._probes = 0
+
+    # -- accounting -----------------------------------------------------
+    def stats(self) -> Dict[str, object]:
+        with self._lock:
+            return {
+                "state": self._state_locked(),
+                "consecutive_failures": self._consecutive,
+                "opens": self.opens,
+                "failures": self.failures,
+                "successes": self.successes,
+            }

@@ -62,9 +62,11 @@ KNOWN_POINTS = {
                         # floating feed slot, in a window that step's slot
                         # only (deterministic non-finite injection for
                         # StepGuard tests)
+    "serving.predict",  # serving.ServingEngine.predict inside the lock, and
+                        # every generation pool step
 }
-# (the JAX package's reader.next and serving.predict points wait for the
-# port's RetryReader and serving: arming them raises here)
+# (the JAX package's reader.next point waits for the port's RetryReader:
+# arming it raises here)
 
 _ACTIONS = ("raise", "kill", "corrupt")
 

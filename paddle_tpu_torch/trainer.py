@@ -351,6 +351,8 @@ class _CheckpointWriter:
     def _loop(self):
         while True:
             fn = self._q.get()
+            if fn is None:  # stop(): the thread ends with its train() call
+                return
             try:
                 fn()
                 self.commits += 1
@@ -386,6 +388,17 @@ class _CheckpointWriter:
         if self._exc is not None:
             exc, self._exc = self._exc, None
             raise RuntimeError("background checkpoint write failed") from exc
+
+    def stop(self) -> None:
+        """End the thread once no commit is in flight (a failed commit stays
+        for the next drain); the next submit starts a new one. A Trainer's
+        writer lives for one train() call, not for the process."""
+        if self._thread is None:
+            return
+        self._idle.wait()
+        self._q.put(None)
+        self._thread.join()
+        self._thread = None
 
 
 class CheckpointConfig:
@@ -574,6 +587,7 @@ class Trainer:
             return self._train(reader, num_passes, feed_order, event_handler, fetch_metrics,
                                test_reader, prefetch_to_device, log_interval, scan_window)
         finally:
+            self._ckpt_writer.stop()
             for s, h in installed.items():
                 signal.signal(s, h)
 

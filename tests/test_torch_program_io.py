@@ -1,7 +1,7 @@
 """Programs and artifacts passing from the JAX package to the PyTorch port:
 the `Program.to_dict` schema, parameters carried bit for bit, the
-committed full-width NMT artifact, and sidecars the port refuses
-(`sharding`, `draft_model`). A `quant` sidecar is no longer refused: the
+committed full-width NMT artifact, the sidecar the port refuses (`sharding`)
+and the one it keeps unused (`draft_model`). A `quant` sidecar is no longer refused: the
 port checks it at load (its program fingerprint and scales digest) and
 raises QuantMetaError on a stale program or tampered scales
 (tests/test_torch_quant.py).
@@ -131,6 +131,9 @@ def test_committed_artifact_is_a_fresh_jax_export(tmp_path, name):
 
 @pytest.mark.parametrize("sidecar", ["sharding", "draft_model"])
 def test_unsupported_sidecar_raises(small_artifact, tmp_path, sidecar):
+    """A sharding sidecar is refused at load. A draft-model sidecar loads and
+    is kept; asking the serving scheduler for a draft raises until
+    speculative decoding is ported (ROADMAP.md A8b)."""
     for f in ("program.json", "params.npz"):
         with open(os.path.join(small_artifact, f), "rb") as src, \
                 open(os.path.join(tmp_path, f), "wb") as dst:
@@ -139,8 +142,16 @@ def test_unsupported_sidecar_raises(small_artifact, tmp_path, sidecar):
     meta[sidecar] = {"dir": "x"}
     with open(os.path.join(tmp_path, "meta.json"), "w") as f:
         json.dump(meta, f)
-    with pytest.raises(NotImplementedError, match=sidecar):
-        ptt.io.load_inference_model(str(tmp_path), scope=ptt.Scope(), device="cpu")
+    if sidecar == "sharding":
+        with pytest.raises(NotImplementedError, match=sidecar):
+            ptt.io.load_inference_model(str(tmp_path), scope=ptt.Scope(), device="cpu")
+        return
+    program, _, _ = ptt.io.load_inference_model(str(tmp_path), scope=ptt.Scope(), device="cpu")
+    assert program._draft_meta == {"dir": "x"}
+    engine = ptt.serving.ServingEngine(str(tmp_path), device="cpu")
+    assert engine.draft_meta == {"dir": "x"}
+    with pytest.raises(NotImplementedError, match="draft_model.*A8b"):
+        ptt.serving.ContinuousScheduler(engine, draft_model="x")
 
 
 def test_missing_param_raises(small_artifact, tmp_path):
