@@ -301,7 +301,45 @@ exits non-zero without the final `ok` line:
               (random_seed set): scan_window=4 against the per-step loop,
               the same costs and parameters; then one window of phase 35's
               captured step under torch.cuda.set_sync_debug_mode('error').
-  39. serve   phase 28's int8 transformer artifact (kept on disk, not
+  39. window  the same for the transformer LM (phase 14's program, dim
+              2048, 8 layers, T=1024, B=8, bf16): B8's three flash kernels
+              8 + 8 + 8 a step, their TMA tensor maps encoded on the host at
+              capture; its batches are dense token tensors with no LoD, so
+              the ragged run is only the window's ragged tail (10 batches in
+              windows of 4).
+  40. window  the same for the NMT step on the whole-sequence decoder
+              (phase 22's program with the seq flags on, B=256, S=T=50,
+              bf16; ragged lengths 10-50 in one capacity): B3, B4 (2 + 2), B9
+              and B10 (1 + 1, cooperative launches), B10's post-walk pass on
+              B7's attn_dep_kernel (counted) and attn_dv_kernel (in the
+              profile) 1 each, no per-step attention launch.
+  41. sent    understand_sentiment's stacked_lstm_net at full width (vocab
+              30000, emb 128, hid 512, 3 layers; B=128 ragged reviews of
+              16-128 tokens from --seed, max_len 128; bf16, Adam(0.002)),
+              built by the port's front end: startup, a warm-up step
+              recording B1's and B2's inputs, then the per-layer build and
+              the stacked_lstm op from one state (parameters bound by role),
+              two steps each in f32 (held to rtol 1e-5, atol 1e-6) and bf16
+              (printed).
+  42. kernels lstm_fwd and lstm_bwd against their plain versions on the
+              warm-up step's own ragged inputs of each layer (bf16 and f32),
+              then on seeded inputs at its shapes with ragged lengths; the
+              layer-1 times: kernel, plain, bound and cuDNN's.
+  43. steps   3 timed sentiment steps with the launch counts set to 0 just
+              before: finite losses, one below the first, exactly 3 lstm_fwd and 3
+              lstm_bwd launches a step by the counters and by the profile,
+              median ms a step, valid tokens/s, peak memory, busy share, and
+              B1's and B2's device time against the rest of the step.
+  44. window  the sentiment step through the Trainer, as phases 35-37, with
+              ragged reviews: B1 and B2 3 + 3 a step.
+  45. book    tests/book/'s understand_sentiment (hid 32, 2 layers, max_len
+              128), word2vec and recommender_system (its is_sparse tables on
+              SelectedRows gradients and lazy Adam) in f32: 3 steps card
+              against CPU from one state, then each trained on the card by
+              its reference test's recipe to its threshold, on the loaders'
+              synthetic data (tests/fixtures/data holds too few samples for
+              a batch); B1 and B2 (their f32 kernels) 2 + 2 a sentiment step.
+  46. serve   phase 28's int8 transformer artifact (kept on disk, not
               quantized again) behind the port's HTTP server in bf16:
               ServingEngine(quantize='int8') with batch buckets 1-8, a
               MicroBatcher(max_batch_size=8), make_server on 127.0.0.1; 4
@@ -312,7 +350,7 @@ exits non-zero without the final `ok` line:
               signatures, /healthz, /stats and /metrics (each line parsed),
               one 8-row request under torch.profiler; every answer the same
               bits as engine.predict(bucketed=False) on the card.
-  40. gen     bench.py's serving_gen (K=4, T=32, 8 slots, 48 requests,
+  47. gen     bench.py's serving_gen (K=4, T=32, 8 slots, 48 requests,
               hidden 3072, f32, thresholds from RandomState(7)) built by
               the port's front end: batch mode through engine.predict in
               FIFO groups of 8, then continuous mode through
@@ -323,14 +361,14 @@ exits non-zero without the final `ok` line:
               tokens/s, first-token p50/p99, occupancy, the replay's host
               and device ms and device events, the capture's seconds and
               pool; one streamed /generate against the batch answer.
-  41. prefix  bench.py's serving_gen_v3 target (K=2, T=32, 8 slots, 48
+  48. prefix  bench.py's serving_gen_v3 target (K=2, T=32, 8 slots, 48
               requests, prefix 3 x 4096, context memory 256) on its
               shared-prefix trace, no draft: the prefix cache off, fp, then
               int8; fp hits the uncached bits, int8 hits within 0.05;
               first-token latency of hits against misses, hit rates.
-  42. tiny    tests/test_gen_serving.py's tiny decoder (f32): continuous
+  49. tiny    tests/test_gen_serving.py's tiny decoder (f32): continuous
               answers card against CPU (ids exact, scores within 1e-5).
-  43. the paths JSON line (phases 32-42's readings), the kernels JSON
+  50. the paths JSON line (phases 32-49's readings), the kernels JSON
       line, then the device JSON line last.
 
 Weights are made with numpy from --seed at the shapes the program
@@ -348,6 +386,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import concurrent.futures
+import gc
 import io
 import itertools
 import json
@@ -3351,7 +3390,7 @@ def quant_phases(ptt, exe, smi, seed, first_phase, keep):
                   fmed, "fp request", kinds=QTFM_KERNEL_KINDS)
         del fscope
         shutil.rmtree(fp_dir)
-        shutil.move(q_dir, keep)  # served by phase 39, not quantized again
+        shutil.move(q_dir, keep)  # served by phase 46, not quantized again
         torch.cuda.empty_cache()
 
         n += 1
@@ -4090,7 +4129,24 @@ WINDOW_KERNELS = {
             "attn_bwd_step_launches": ("attn_bwd_row_kernel", 50),
             "attn_phase2_launches": ("attn_dep_kernel", 1)},
     "resnet50": {"fused_conv_bn_launches": ("fused_conv_bn_tc_kernel", 36)},
+    "transformer": {"flash_fwd_launches": ("flash_fwd_tc_kernel", 8),
+                    "flash_bwd_dkv_launches": ("flash_bwd_dkv_tc_kernel", 8),
+                    "flash_bwd_dq_launches": ("flash_bwd_dq_tc_kernel", 8)},
+    # B10's post-walk pass runs B7's two kernels under one counter;
+    # attn_dv_kernel is counted in the profile (SEQ_WINDOW_PROFILE_ONLY)
+    "nmt_seq": {"gru_fwd_launches": ("gru_fwd_tc_kernel", 2),
+                "gru_bwd_launches": ("gru_bwd_tc_kernel", 2),
+                "decoder_seq_fwd_launches": ("decoder_seq_fwd_tc_kernel", 1),
+                "decoder_seq_bwd_launches": ("decoder_seq_bwd_tc_kernel", 1),
+                "decoder_seq_dep_launches": ("attn_dep_kernel", 1),
+                "attn_fwd_launches": ("attn_fwd_row_kernel", 0),
+                "attn_bwd_step_launches": ("attn_bwd_row_kernel", 0)},
+    "sentiment": {"lstm_fwd_launches": ("lstm_fwd_tc_kernel", 3),
+                  "lstm_bwd_launches": ("lstm_bwd_tc_kernel", 3)},
 }
+# kernels a window's profile must show a step that no counter of their own
+# counts: {path: {name: launches a step}}
+WINDOW_PROFILE_ONLY = {"nmt_seq": {"attn_dv_kernel": 1}}
 # the small program with a random op in its main program (phase 38)
 RANDOM_PROG = dict(batch=16, features=16, hidden=32, steps=8, seed=5, noise=0.1)
 
@@ -4169,6 +4225,8 @@ def window_path_phase(ptt, smi, n, path, what, build, batches, flags):
                     snap.update({p: scope.get(p).clone() for p in pnames})
 
             torch.cuda.synchronize()
+            # the blocks the last run cached: a capture allocates its own pool
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             before, cs0 = graph.counter_state(), dict(exe.cache_stats)
             t0 = time.perf_counter()
@@ -4196,7 +4254,7 @@ def window_path_phase(ptt, smi, n, path, what, build, batches, flags):
         b, b_params, _ = run(WINDOW_K, WINDOW_RAGGED)
         p2, p2_params, _ = run(0, WINDOW_RAGGED)
         b2, b2_params, _ = run(WINDOW_K, WINDOW_RAGGED)
-        names = [v for v, _ in kernels.values()]
+        names = [v for v, _ in kernels.values()] + list(WINDOW_PROFILE_ONLY.get(path, {}))
         prof_p = profile_pass(lambda: run(0, WINDOW_RAGGED), names)
         prof_w = profile_pass(lambda: run(WINDOW_K, WINDOW_RAGGED), names)
     out = {"per_step": p1, "per_step_again": p2, "window_even": a, "window_ragged": b,
@@ -4237,6 +4295,11 @@ def window_path_phase(ptt, smi, n, path, what, build, batches, flags):
         check(seen == b["launches_per_step"][counter],
               f"{path}: the window's profile shows {seen} {kname} a step, its counters "
               f"{b['launches_per_step'][counter]}")
+    for kname, want in WINDOW_PROFILE_ONLY.get(path, {}).items():
+        for label in ("per-step", "window"):
+            seen = out[f"profiled_{label}"]["kernel_launches_per_step"][kname]
+            check(seen == want, f"{path}: the {label} profile shows {seen} {kname} a step, "
+                                f"not {want}")
     check(a["captures"] == 1 and a["eager_steps"] == 1 and a["replays"] == WINDOW_EVEN - 1,
           f"{path}: the first window run did not warm up once, capture once and replay: {a}")
     for r in (b, b2):
@@ -4341,9 +4404,10 @@ def random_window_phase(ptt, smi, seed, n, sync_ctx):
 
 
 def window_phases(ptt, smi, seed, first_phase):
-    """Phases first_phase..+3: the LSTM, NMT (per-step attention route) and
+    """Phases first_phase..+5: the LSTM, NMT (per-step attention route) and
     ResNet-50 windows at full width, then the random op program and the
-    sync check; returns the paths' readings."""
+    sync check, then the transformer's and the NMT seq route's windows;
+    returns the paths' readings."""
     n = first_phase
     rng = np.random.RandomState(seed + 40)
     lb = LSTM_BENCH
@@ -4384,36 +4448,528 @@ def window_phases(ptt, smi, seed, first_phase):
         main_p.set_amp("bfloat16")
         return main_p, startup, loss
 
-    out["nmt_window"], _ = window_path_phase(
+    out["nmt_window"] = window_path_phase(
         ptt, smi, n + 1, "nmt", f"the NMT step on the per-step attention route (B={nb['batch']}, "
         f"S=T={nb['max_len']}, bf16)", build_nmt, nmt_batches,
-        dict(fused_attention_seq_fwd=False, fused_attention_seq_bwd=False))
+        dict(fused_attention_seq_fwd=False, fused_attention_seq_bwd=False))[0]
     del nmt_batches
     rb = RESNET_BENCH
     resnet_batches = [resnet_feed(rng, rb["hw"], rb["class_dim"], rb["batch"])
                       for _ in range(WINDOW_RAGGED)]
-    out["resnet50_window"], _ = window_path_phase(
+    out["resnet50_window"] = window_path_phase(
         ptt, smi, n + 2, "resnet50", f"ResNet-50 (B={rb['batch']}, {rb['hw']}x{rb['hw']}, bf16, "
         "B11 route)", lambda: build_resnet_program(ptt, rb["hw"], rb["class_dim"], rb["lr"]),
-        resnet_batches, dict(fused_conv_dot_max_n=RESNET_DOT_MAX_N, fused_conv_pallas=True))
+        resnet_batches, dict(fused_conv_dot_max_n=RESNET_DOT_MAX_N, fused_conv_pallas=True))[0]
     del resnet_batches
     out.update(random_window_phase(ptt, smi, seed, n + 3, sync_ctx))
+    del sync_ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    tb = TFM_BENCH
+    tfm_batches = [transformer_feed(rng, tb["vocab"], tb["seqlen"], tb["batch"])
+                   for _ in range(WINDOW_RAGGED)]
+
+    def build_tfm():
+        main_p, startup, loss = build_transformer_program(ptt, **tb)
+        main_p.set_amp("bfloat16")
+        return main_p, startup, loss
+
+    out["transformer_window"] = window_path_phase(
+        ptt, smi, n + 4, "transformer", f"the transformer LM (dim {tb['dim']}, {tb['layers']} "
+        f"layers, T={tb['seqlen']}, B={tb['batch']}, bf16; dense token batches with no LoD, "
+        "so its ragged run is only the window's ragged tail)", build_tfm, tfm_batches, {})[0]
+    del tfm_batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq_batches = [train_feed(ptt, rng, nb["batch"], nb["max_len"], nb["vocab"], min_len=10)
+                   for _ in range(WINDOW_RAGGED)]
+    out["nmt_seq_window"] = window_path_phase(
+        ptt, smi, n + 5, "nmt_seq", f"the NMT step on the whole-sequence decoder (B={nb['batch']}, "
+        f"S=T={nb['max_len']}, ragged lengths 10-{nb['max_len']} in one capacity, bf16)",
+        build_nmt, seq_batches, SEQ_FLAGS)[0]
+    del seq_batches
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
-# ---------------------------------------- serving (A4b, A8a): phases 39-42 --
-# phase 39: phase 28's int8 transformer artifact behind the HTTP server: 4
+# --------------------------------- the book's text models (A1b): phases 41-45 --
+# understand_sentiment's stacked_lstm_net (paddle_tpu/models/text.py:41) at
+# the JAX package's in-kernel widths (experiments/exp_stacked_book.py: vocab
+# 30000, emb 128, hid 512, 3 layers, T=128, B=128), bf16, Adam(0.002) as
+# the book trains it; ragged reviews of 16-128 tokens from --seed
+SENT_BENCH = dict(vocab=30000, emb=128, hidden=512, stacked=3, max_len=128, batch=128,
+                  min_len=16)
+SENT_LR = 0.002
+# the stacked op against the per-layer build from one state: in f32 the
+# same arithmetic in another order, held to the bound tests/
+# test_stacked_lstm.py:65 holds the JAX package's stacked op to (rtol 1e-5,
+# atol 1e-6); in bf16 the per-layer build rounds each half of the
+# inter-layer fc before their sum and the op rounds the sum once (printed
+# beside that bound, not held)
+SENT_FORMS_TOL = dict(rtol=1e-5, atol=1e-6)
+# the launches of one step: one lstm_fwd and one lstm_bwd a layer
+SENT_STEP_LAUNCHES = {"lstm_fwd": 3, "lstm_bwd": 3}
+SENT_KERNEL_KINDS = {"B1 (lstm_fwd)": ("lstm_fwd",),
+                     "B2 (lstm_bwd, its dW)": ("lstm_bwd", "dw_product"),
+                     "matrix products": ("nvjet", "gemm", "cutlass"),
+                     "elementwise": ("elementwise", "copy", "fill"),
+                     "reductions and scatters": ("reduce", "scatter", "softmax", "index")}
+# tests/book/'s three text programs at their widths, f32, by their
+# reference tests' recipes (optimizer, batch, steps or passes, threshold)
+BOOK_SENT = dict(vocab=5147, emb=32, hidden=32, stacked=2, max_len=128, batch=16, lr=0.002,
+                 steps=50, last=10, acc=0.8)
+BOOK_W2V = dict(n=5, emb=32, batch=64, lr=1e-2, passes=4, drop=0.8, perplexity=0.9)
+BOOK_REC = dict(emb=16, batch=32, lr=5e-3, passes=3, drop=0.6)
+# card against CPU, 3 steps from one state (f32): costs within 1e-5
+# relative, parameters within 1e-5 of their largest or 1% of the learning
+# rate a step (tests/test_torch_book.py's bounds: Adam divides a gradient
+# near 0 by its own magnitude)
+BOOK_LOSS_TOL = 1e-5
+BOOK_PARAM_TOL = 1e-5
+BOOK_ADAM_SHARE = 1e-2
+
+
+def build_sentiment_program(ptt, vocab, emb, hidden, stacked, max_len, stacked_op=False,
+                            lr=SENT_LR, **_):
+    """The book's stacked_lstm_net through the port's front end, in the
+    per-layer build or (stacked_op) as the one stacked_lstm op. Returns
+    (main, startup, loss, accuracy)."""
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        words = ptt.layers.data("words", shape=[-1], dtype=np.int32, lod_level=1,
+                                append_batch_size=False)
+        label = ptt.layers.data("label", shape=[1], dtype=np.int32)
+        logits = ptt.models.stacked_lstm_net(words, vocab_size=vocab, emb_dim=emb,
+                                             hid_dim=hidden, stacked_num=stacked,
+                                             max_len=max_len, use_stacked_op=stacked_op)
+        loss = ptt.layers.mean(ptt.layers.softmax_with_cross_entropy(logits, label))
+        acc = ptt.layers.accuracy(logits, label)
+        ptt.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, loss, acc
+
+
+def stack_roles(prog, stacked):
+    """A stacked_lstm_net build's parameters in one order of roles: the
+    embedding, fc1's W and b; each layer's LSTM W and b and, after the
+    first, its inter-layer fc's W_fc, W_lstm and b; the output fc's two Ws
+    and b."""
+    ps = [p.name for p in prog.parameters()]
+    if not any(p.endswith(".wa0") for p in ps):  # the per-layer build: creation order
+        stack, rest = ps[3:5], ps[5:]
+        for i in range(stacked - 1):
+            stack += rest[5 * i:5 * i + 5]
+        return ps[:3] + stack + rest[5 * (stacked - 1):]
+    get = lambda suffix: next(p for p in ps if p.endswith(suffix))  # noqa: E731
+    stack = [get(".w0"), get(".b0")]
+    for i in range(stacked - 1):
+        stack += [get(f".wa{i}"), get(f".wb{i}"), get(f".fb{i}"), get(f".w{i + 1}"),
+                  get(f".b{i + 1}")]
+    rest = [p for p in ps if p not in stack]
+    return rest[:3] + stack + rest[3:]
+
+
+def sentiment_feed(ptt, rng, batch, max_len, vocab, min_len, **_):
+    """`batch` reviews of min_len..max_len tokens (the first of max_len) in
+    one capacity of batch·max_len, and binary labels."""
+    lens = rng.randint(min_len, max_len + 1, size=batch)
+    lens[0] = max_len
+    seqs = [rng.randint(0, vocab, (n,)).astype(np.int32) for n in lens]
+    return {"words": ptt.LoDArray.from_sequences(seqs, capacity=batch * max_len,
+                                                 max_seqs=batch),
+            "label": rng.randint(0, 2, (batch, 1)).astype(np.int32)}
+
+
+def sentiment_forms(ptt, state, feed, seed):
+    """The per-layer build and the stacked op from one state (mapped by
+    role), two Adam steps each on `feed`, in f32 and bf16: returns
+    {amp: (per-layer losses, stacked-op losses)}."""
+    sb = SENT_BENCH
+    out = {}
+    for amp in (None, "bfloat16"):
+        losses = {}
+        for stacked in (False, True):
+            main_p, startup, loss, _ = build_sentiment_program(ptt, **sb, stacked_op=stacked)
+            main_p.set_amp(amp)
+            names = dict(zip(stack_roles(main_p, sb["stacked"]), state["roles"]))
+            scope = ptt.Scope()
+            exe = ptt.Executor()
+            exe.run(startup, scope=scope, seed=seed)  # the optimizer's state
+            for name, role in names.items():
+                scope.set(name, state[role].clone())
+            losses[stacked] = [float(exe.run(main_p, feed, [loss.name], scope=scope)[0])
+                               for _ in range(2)]
+        out[amp] = (losses[False], losses[True])
+    return out
+
+
+def sentiment_phases(ptt, smi, seed, first_phase):
+    """Phases first_phase..+3: understand_sentiment's stacked_lstm_net at
+    full width in bf16: startup and a warm-up step in both builds, B1 and
+    B2 against plain, three timed steps, then its window. Returns
+    (the paths' readings, the LSTM kernels' largest errors)."""
+    from paddle_tpu_torch.ops import lstm_kernels as lk
+
+    sb = SENT_BENCH
+    n = first_phase
+    phase(n, f"understand_sentiment's stacked_lstm_net at full width (vocab {sb['vocab']}, emb "
+             f"{sb['emb']}, hid {sb['hidden']}, {sb['stacked']} layers, B={sb['batch']} ragged "
+             f"reviews of {sb['min_len']}-{sb['max_len']} tokens, bf16, Adam({SENT_LR})), built "
+             "by the port's front end: startup, a warm-up step, and the stacked_lstm op against "
+             "the per-layer build")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(seed + 70)
+    main_p, startup, loss, acc = build_sentiment_program(ptt, **sb)
+    main_p.set_amp("bfloat16")
+    ops = [o.type for o in main_p.global_block().ops]
+    print(f"  main program: {len(ops)} ops ({ops.count('dynamic_lstm')} dynamic_lstm, "
+          f"{ops.count('sum')} sum, {ops.count('sequence_pool')} sequence_pool (max), "
+          f"{ops.count('adam')} adam)")
+    exe = ptt.Executor()
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope, seed=seed)
+    state = {p.name: scope.get(p.name).clone() for p in main_p.parameters()}
+    state["roles"] = stack_roles(main_p, sb["stacked"])
+    n_values = sum(scope.get(p.name).numel() for p in main_p.parameters())
+    print(f"  startup: {len(main_p.parameters())} parameters with {n_values} values")
+    feed = sentiment_feed(ptt, rng, **sb)
+    tokens = int(feed["words"].lengths.sum())
+    calls, restore = record_calls(lk, {"lstm_fwd": "all", "lstm_bwd": "all"})
+    try:
+        t0 = time.perf_counter()
+        losses = [float(exe.run(main_p, feed, [loss.name], scope=scope)[0])]
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    print(f"  warm-up step: loss {losses[0]:.6f}, {time.perf_counter() - t0:.3f} s; {tokens} "
+          f"valid tokens of {sb['batch'] * sb['max_len']}; recorded {len(calls['lstm_fwd'])} "
+          f"lstm_fwd and {len(calls['lstm_bwd'])} lstm_bwd calls")
+    check(len(calls["lstm_fwd"]) == 3 and len(calls["lstm_bwd"]) == 3,
+          "the warm-up step did not run 3 lstm_fwd and 3 lstm_bwd")
+    forms = sentiment_forms(ptt, state, feed, seed)
+    reading = {"tokens_per_step": tokens, "forms": {}}
+    for amp, (per, one) in forms.items():
+        diff = max(abs(a - b) / abs(a) for a, b in zip(per, one))
+        reading["forms"][amp or "float32"] = dict(per_layer=per, stacked_op=one, rel_diff=diff)
+        print(f"  {amp or 'f32'}: losses of 2 steps, per-layer build {per}, stacked_lstm op "
+              f"{one}: {diff:.3e} apart relative (tests/test_stacked_lstm.py:65 holds the JAX "
+              f"op to rtol {SENT_FORMS_TOL['rtol']:g}, atol {SENT_FORMS_TOL['atol']:g}"
+              f"{', held here' if amp is None else '; not held in bf16'})")
+        check(all(np.isfinite(per + one)), "a form's loss is not finite")
+        if amp is None:
+            check(np.allclose(one, per, **SENT_FORMS_TOL),
+                  "the stacked_lstm op and the per-layer build differ in f32")
+
+    n += 1
+    phase(n, "B1 and B2 against plain on the sentiment step (its own ragged inputs of each "
+             "layer, then seeded inputs at its shapes)")
+    max_errs = {}
+    for i, ((a, _), (ba, bk)) in enumerate(zip(calls["lstm_fwd"], calls["lstm_bwd"][::-1])):
+        x, mask, w = a
+        label = f"sentiment layer {i + 1} T={x.shape[0]} B={x.shape[1]} H={w.shape[0]}"
+        for dt in (torch.bfloat16, torch.float32):
+            fx, fw = x.to(dt), w.to(dt)
+            lstm_check(lk, "lstm_fwd", (fx, mask, fw), False, label, max_errs, hold_share=False)
+            bargs = tuple(t.to(dt) if t.is_floating_point() else t for t in ba)
+            lstm_check(lk, "lstm_bwd", bargs, False, label, max_errs, hold_share=False)
+            if i == 0 and dt == torch.bfloat16:
+                k_ms = cuda_ms(lambda: lk.lstm_fwd(fx, mask, fw), 10)
+                p_ms = cuda_ms(lambda: lk.lstm_fwd_plain(fx, mask, fw), 2)
+                b_ms, b_by, _ = lstm_fwd_bound(fx, mask, fw)
+                bk_ms = cuda_ms(lambda: lk.lstm_bwd(*bargs), 10)
+                bp_ms = cuda_ms(lambda: lk.lstm_bwd_plain(*bargs), 2)
+                bb_ms, bb_by, _ = lstm_bwd_bound(bargs)
+                lib = cudnn_lstm_ms(fx, mask, fw)
+                print(f"    lstm_fwd at the sentiment step's layer 1: kernel {k_ms:.4f} ms, plain "
+                      f"{p_ms:.4f}, bound {b_ms:.5f} by {b_by}, cuDNN forward {lib['fwd_ms']:.4f}")
+                print(f"    lstm_bwd there: kernel {bk_ms:.4f} ms, plain {bp_ms:.4f}, bound "
+                      f"{bb_ms:.5f} by {bb_by}, cuDNN backward {lib['bwd_ms']:.4f}")
+                reading["lstm_fwd"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                           library_ms=lib["fwd_ms"])
+                reading["lstm_bwd"] = dict(ms=bk_ms, plain_ms=bp_ms, bound_ms=bb_ms,
+                                           bound_by=bb_by, library_ms=lib["bwd_ms"])
+    T_, B_, H_ = sb["max_len"], sb["batch"], sb["hidden"]
+    lens = torch.as_tensor(rng.randint(sb["min_len"], T_ + 1, size=B_))
+    lens[0] = T_
+    smask = (torch.arange(T_)[:, None] < lens[None, :]).cuda()
+    for dt in LSTM_TOL:
+        x = torch.as_tensor(rng.standard_normal((T_, B_, 4 * H_)), dtype=dt).cuda()
+        w = torch.as_tensor(rng.standard_normal((H_, 4 * H_)) / np.sqrt(H_), dtype=dt).cuda()
+        tag = f"T={T_} B={B_} H={H_} (seeded, lengths {sb['min_len']}-{T_})"
+        _, want, _ = lstm_check(lk, "lstm_fwd", (x, smask, w), False, tag, max_errs)
+        gp, cp, hp = lk.lstm_bwd_inputs(x, w, want[0], want[1], False)
+        dh, dhT, dcT = ((0.1 * torch.randn(*s_, device="cuda")).to(dt)
+                        for s_ in ((T_, B_, H_), (B_, H_), (B_, H_)))
+        lstm_check(lk, "lstm_bwd", (gp, cp, hp, dh, smask, w, dhT, dcT), False, tag, max_errs)
+
+    n += 1
+    phase(n, "the sentiment step at full width (bf16): 3 timed steps")
+    torch.cuda.reset_peak_memory_stats()
+    lk.lstm_fwd_launches = lk.lstm_bwd_launches = 0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main_p, feed, [loss.name], scope=scope)[0]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {"lstm_fwd": lk.lstm_fwd_launches, "lstm_bwd": lk.lstm_bwd_launches}
+    print(f"  losses (warm-up, then timed): {losses}; launches in 3 steps {launches}")
+    check(all(np.isfinite(losses)), "non-finite loss")
+    # Adam's first steps move every weight by about the learning rate, and
+    # the max-pooled 2048 + 512 features into the classifier overshoot on
+    # one batch: the loss must fall below the first within the 4 steps,
+    # not at the last
+    check(min(losses[1:]) < losses[0], "the loss did not fall within 4 steps on one batch")
+    for k, c in SENT_STEP_LAUNCHES.items():
+        check(launches[k] == 3 * c, f"{k} launched {launches[k]} times in 3 steps, not {3 * c}")
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  steps ms {[round(t, 3) for t in times]}; median {med:.3f} ms/step, "
+          f"{tokens / med * 1e3:.1f} valid tokens/s; peak device memory {peak:.2f} GiB on {smi}")
+    run = lambda: exe.run(main_p, feed, [loss.name], scope=scope)  # noqa: E731
+    wall, busy, counts, _, nev = profile_pass(
+        run, ["lstm_fwd_tc_kernel", "lstm_bwd_tc_kernel", "dw_product_kernel"])
+    print(f"  profiled step: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}%), {nev} device events; kernels {counts}")
+    check(counts["lstm_fwd_tc_kernel"] == 3 and counts["lstm_bwd_tc_kernel"] == 3,
+          f"the profiled step shows {counts}, not 3 lstm_fwd_tc_kernel and 3 lstm_bwd_tc_kernel")
+    busy_bd, kinds = breakdown(run, med, "step", SENT_KERNEL_KINDS)
+    lstm_us = sum(us for k, us in kinds.items() if k.startswith(("B1", "B2")))
+    if busy_bd:
+        print(f"  B1 and B2: {lstm_us / 1e3:.3f} ms of the step's {busy_bd / 1e3:.3f} ms device "
+              f"time ({100 * lstm_us / busy_bd:.1f}%), the rest {(busy_bd - lstm_us) / 1e3:.3f} ms")
+    reading.update(losses=losses, ms_per_step=med, steps_ms=times, tokens_per_s=tokens / med * 1e3,
+                   peak_gib=peak, launches_per_step={k: v / 3 for k, v in launches.items()},
+                   profiled=dict(wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
+                                 kernels_per_step=counts, device_events=nev),
+                   device_ms_by_kind={k: us / 1e3 for k, us in kinds.items()})
+    del scope, state, calls
+    gc.collect()
+
+    batches = [sentiment_feed(ptt, rng, **sb) for _ in range(WINDOW_RAGGED)]
+
+    def build():
+        main_w, startup_w, loss_w, _ = build_sentiment_program(ptt, **sb)
+        main_w.set_amp("bfloat16")
+        return main_w, startup_w, loss_w
+
+    window = window_path_phase(
+        ptt, smi, n + 1, "sentiment", f"the sentiment step (B={sb['batch']}, ragged reviews of "
+        f"{sb['min_len']}-{sb['max_len']} tokens in one capacity, {sb['stacked']} layers of "
+        f"H={sb['hidden']}, bf16)", build, batches, {})[0]
+    return {"sentiment": reading, "sentiment_window": window}, max_errs
+
+
+def book_programs(ptt):
+    """tests/book/'s three text programs at their widths: {name: (build,
+    learning rate)}, each build returning (main, startup, loss, accuracy
+    or None, the feed variables)."""
+    from paddle_tpu_torch.data.datasets import imikolov, movielens
+
+    bs, bw, br = BOOK_SENT, BOOK_W2V, BOOK_REC
+
+    def sentiment():
+        main, startup, loss, acc = build_sentiment_program(ptt, **bs)
+        block = main.global_block()
+        return main, startup, loss, acc, [block.var("words"), block.var("label")]
+
+    def word2vec():
+        ptt.reset_default_programs()
+        main, startup = ptt.Program(), ptt.Program()
+        with ptt.program_guard(main, startup):
+            words = [ptt.layers.data(f"w{i}", shape=[1], dtype=np.int32)
+                     for i in range(bw["n"] - 1)]
+            nxt = ptt.layers.data("next", shape=[1], dtype=np.int32)
+            logits = ptt.models.word2vec_net(words, len(imikolov.build_dict()),
+                                             emb_dim=bw["emb"])
+            loss = ptt.layers.mean(ptt.layers.softmax_with_cross_entropy(logits, nxt))
+            ptt.optimizer.Adam(learning_rate=bw["lr"]).minimize(loss)
+        return main, startup, loss, None, None
+
+    def recommender():
+        ml, e = movielens, br["emb"]
+        ptt.reset_default_programs()
+        main, startup = ptt.Program(), ptt.Program()
+        with ptt.program_guard(main, startup):
+            d = lambda name: ptt.layers.data(name, shape=[1], dtype=np.int32)  # noqa: E731
+            seq = lambda name: ptt.layers.data(name, shape=[-1], dtype=np.int32,  # noqa: E731
+                                               lod_level=1, append_batch_size=False)
+            uid, gender, age, job, mid = d("uid"), d("gender"), d("age"), d("job"), d("mid")
+            cats, title = seq("cats"), seq("title")
+            emb = ptt.layers.embedding
+            feats = [emb(uid, size=[ml.max_user_id() + 1, e], is_sparse=True),
+                     emb(gender, size=[2, e // 2]), emb(age, size=[len(ml.age_table), e // 2]),
+                     emb(job, size=[ml.max_job_id() + 1, e // 2])]
+            usr = ptt.layers.fc(ptt.layers.concat(
+                [ptt.layers.reshape(f, (-1, f.shape[-1])) for f in feats], axis=1),
+                size=32, act="tanh")
+            mov = ptt.layers.fc(ptt.layers.concat([
+                ptt.layers.reshape(emb(mid, size=[ml.max_movie_id() + 1, e], is_sparse=True),
+                                   (-1, e)),
+                ptt.layers.sequence_pool(emb(cats, size=[len(ml.movie_categories()), e // 2]),
+                                         "sum"),
+                ptt.layers.sequence_pool(emb(title, size=[len(ml.get_movie_title_dict()), e],
+                                             is_sparse=True), "average")], axis=1),
+                size=32, act="tanh")
+            score = ptt.layers.data("score", shape=[1])
+            sim = ptt.layers.cos_sim(usr, mov, scale=5.0)
+            loss = ptt.layers.mean(ptt.layers.square_error_cost(sim, score))
+            ptt.optimizer.Adam(learning_rate=br["lr"]).minimize(loss)
+        return main, startup, loss, None, None
+
+    return {"understand_sentiment": (sentiment, bs["lr"]), "word2vec": (word2vec, bw["lr"]),
+            "recommender_system": (recommender, br["lr"])}
+
+
+def book_batches(ptt, name, feed_vars):
+    """A pass's feeds of the book program `name`, by its reference test's
+    reader (shuffle seeds, batch size, drop_last), as a generator."""
+    from paddle_tpu_torch.data import batch, shuffle
+    from paddle_tpu_torch.data.datasets import imdb, imikolov, movielens
+    from paddle_tpu_torch.data.feeder import DataFeeder
+
+    if name == "understand_sentiment":
+        feeder = DataFeeder(feed_vars, bucket=2048, max_seqs=BOOK_SENT["batch"])
+        for data in batch(shuffle(imdb.train(), 1000, seed=0), BOOK_SENT["batch"],
+                          drop_last=True)():
+            yield feeder.feed(data)
+    elif name == "word2vec":
+        n = BOOK_W2V["n"]
+        for data in batch(imikolov.train(imikolov.build_dict(), n), BOOK_W2V["batch"],
+                          drop_last=True)():
+            arr = np.array(data, np.int32)
+            feed = {f"w{i}": arr[:, i:i + 1] for i in range(n - 1)}
+            feed["next"] = arr[:, n - 1:]
+            yield feed
+    else:
+        for data in batch(shuffle(movielens.train(), 512, seed=0), BOOK_REC["batch"],
+                          drop_last=True)():
+            k = len(data)
+            col = lambda i: np.array([[d[i]] for d in data], np.int32)  # noqa: E731
+            lod = lambda i: ptt.LoDArray.from_sequences(  # noqa: E731
+                [np.array(d[i], np.int32) for d in data], bucket=256, max_seqs=k)
+            yield {"uid": col(0), "gender": col(1), "age": col(2), "job": col(3),
+                   "mid": col(4), "cats": lod(5), "title": lod(6),
+                   "score": np.array([[d[7]] for d in data], np.float32)}
+
+
+def book_text_phase(ptt, smi, seed, n, work):
+    """Phase n: tests/book/'s understand_sentiment (hid 32, max_len 128),
+    word2vec and recommender_system in f32: 3 steps card against CPU from
+    one state, then each trained on the card by its reference test's
+    recipe to its threshold, on the loaders' synthetic data."""
+    from paddle_tpu_torch.data.datasets import imikolov
+    from paddle_tpu_torch.ops import lstm_kernels as lk
+
+    phase(n, "the book's text programs at tests/book/'s widths (f32): understand_sentiment "
+             "(hid 32, 2 layers, max_len 128), word2vec and recommender_system: 3 steps card "
+             "against CPU from one state, then trained on the card to their reference tests' "
+             "thresholds")
+    # the reference tests train on the loaders' synthetic data: the fixtures
+    # (tests/fixtures/data) hold 4 reviews, 2 sentences and 3 ratings, too
+    # few for one batch of any recipe
+    home = os.environ.get("PADDLE_TPU_DATA_HOME")
+    os.environ["PADDLE_TPU_DATA_HOME"] = os.path.join(work, "no_data")
+    out = {}
+    try:
+        for name, (build, lr) in book_programs(ptt).items():
+            main_p, startup, loss, acc, feed_vars = build()
+            feeds = list(itertools.islice(book_batches(ptt, name, feed_vars), 3))
+            cscope = ptt.Scope()
+            ptt.Executor(device="cpu").run(startup, scope=cscope, seed=seed)
+            persist = [v.name for v in main_p.persistables()]
+            state = ptt.io.state_to_numpy(cscope, persist)
+            res = {}
+            for dev in ("cpu", CARD):
+                sc = ptt.Scope()
+                ptt.io.params_from_numpy(sc, state, dev)
+                dexe = ptt.Executor(device=dev)
+                ls = [float(dexe.run(main_p, f, [loss.name], scope=sc)[0]) for f in feeds]
+                res[dev] = (ls, ptt.io.state_to_numpy(sc, [p.name for p in main_p.parameters()]))
+            (cl, cs), (gl, gs) = res["cpu"], res[CARD]
+            lerr = max(abs(a - b) / abs(a) for a, b in zip(cl, gl))
+            perr = max(float(np.abs(gs[p] - w).max()) / max(
+                BOOK_PARAM_TOL * float(np.abs(w).max()), BOOK_ADAM_SHARE * 3 * lr)
+                for p, w in cs.items())
+            print(f"  {name}: 3 steps, losses cpu {cl} card {gl}, rel {lerr:.3e} (tol "
+                  f"{BOOK_LOSS_TOL:g}); parameters at {perr:.3f} of their bound")
+            check(lerr <= BOOK_LOSS_TOL and perr <= 1.0, f"{name}: card and CPU differ")
+
+            exe = ptt.Executor()
+            scope = ptt.Scope()
+            exe.run(startup, scope=scope, seed=seed)
+            lk.lstm_fwd_launches = lk.lstm_bwd_launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            fetch = [loss.name] + ([acc.name] if acc is not None else [])
+            t0 = time.perf_counter()
+            costs, accs = [], []
+            if name == "understand_sentiment":
+                while len(costs) < BOOK_SENT["steps"]:
+                    for feed in book_batches(ptt, name, feed_vars):
+                        c, a = exe.run(main_p, feed, fetch, scope=scope)
+                        costs.append(float(c))
+                        accs.append(float(a))
+                        if len(costs) == BOOK_SENT["steps"]:
+                            break
+                metric = float(np.mean(accs[-BOOK_SENT["last"]:]))
+                met = bool(metric > BOOK_SENT["acc"])
+                want = f"accuracy over the last {BOOK_SENT['last']} steps above {BOOK_SENT['acc']}"
+            else:
+                passes = BOOK_W2V["passes"] if name == "word2vec" else BOOK_REC["passes"]
+                for _ in range(passes):
+                    for feed in book_batches(ptt, name, feed_vars):
+                        costs.append(float(exe.run(main_p, feed, fetch, scope=scope)[0]))
+                if name == "word2vec":
+                    bound = np.log(len(imikolov.build_dict())) * BOOK_W2V["perplexity"]
+                    metric = costs[-1]
+                    met = bool(costs[-1] < costs[0] * BOOK_W2V["drop"] and costs[-1] < bound)
+                    want = (f"the last cost below {BOOK_W2V['drop']} of the first "
+                            f"({costs[0]:.4f}) and below {bound:.4f}")
+                else:
+                    k = max(1, len(costs) // 5)
+                    metric = float(np.mean(costs[-k:]) / np.mean(costs[:k]))
+                    met = bool(metric < BOOK_REC["drop"])
+                    want = (f"the last fifth's mean cost below {BOOK_REC['drop']} of the "
+                            f"first fifth's")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            steps = len(costs)
+            launches = {"lstm_fwd": lk.lstm_fwd_launches / steps,
+                        "lstm_bwd": lk.lstm_bwd_launches / steps}
+            print(f"  {name} on the card: {steps} steps in {secs:.2f} s "
+                  f"({secs / steps * 1e3:.3f} ms a step, host-bound eager steps), reading "
+                  f"{metric:.4f}: {want}; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+                  + (f"; B1, B2 launches a step {launches}" if acc is not None else ""))
+            check(met, f"{name} did not reach its threshold on the card: {metric}")
+            if name == "understand_sentiment":
+                check(launches == {"lstm_fwd": 2, "lstm_bwd": 2},
+                      f"the book's sentiment step launched {launches}, not 2 + 2")
+            out[name] = dict(card_vs_cpu=dict(loss_rel=lerr, param_share_of_bound=perr),
+                             steps=steps, seconds=secs, reading=metric, threshold_met=met,
+                             **({"launches_per_step": launches} if acc is not None else {}))
+    finally:
+        if home is None:
+            os.environ.pop("PADDLE_TPU_DATA_HOME")
+        else:
+            os.environ["PADDLE_TPU_DATA_HOME"] = home
+    return out
+
+
+# ---------------------------------------- serving (A4b, A8a): phases 46-49 --
+# phase 46: phase 28's int8 transformer artifact behind the HTTP server: 4
 # clients post 12 /predict requests of these rows in turn, 1024 tokens each
 SERVE_ROWS = (1, 2, 3, 5, 8)
 SERVE_REQUESTS = 12
 SERVE_CLIENTS = 4
 SERVE_MAX_BATCH = 8  # MicroBatcher(max_batch_size=8), buckets 1, 2, 4, 8
 HTTP_TIMEOUT = 600  # seconds, every client's bound
-# phase 40: bench.py run_serving_gen (bench.py:1108-1188) at its widths
+# phase 47: bench.py run_serving_gen (bench.py:1108-1188) at its widths
 SGEN = dict(beams=4, max_len=32, slots=8, requests=48, hidden=3072)
 SGEN_BONUS, SGEN_BETA = 10.0, 1.0  # the chain's control logits
 POOL_SYNC_STEPS = 10  # pool steps run under torch.cuda.set_sync_debug_mode('warn')
-# phase 41: bench.py run_serving_gen_v3's target (bench.py:1280-1400), no
+# phase 48: bench.py run_serving_gen_v3's target (bench.py:1280-1400), no
 # draft: ctx 16 -> 3 x fc 4096 tanh -> fc 256 tanh (the prefix), K=2
 SGEN3 = dict(beams=2, max_len=32, slots=8, requests=48, prefix_hidden=4096, ctx_mem=256,
              ctx=16)
@@ -4421,7 +4977,7 @@ SGEN3_CACHE_MB = 8.0
 # an int8 cache hit's scores against the fp answer: the bound
 # tests/test_gen_v3.py:162 holds
 INT8_HIT_SCORE_BOUND = 0.05
-# phase 42: tests/test_gen_serving.py:47-71's decoder, f32, card against
+# phase 49: tests/test_gen_serving.py:47-71's decoder, f32, card against
 # CPU: ids exact; scores within 1e-5, f32 GEMMs summed in other orders
 TGEN = dict(V=12, E=8, H=16, K=3, T=6)
 TGEN_SCORE_TOL = 1e-5
@@ -5744,15 +6300,21 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths.update(window_phases(ptt, smi, args.seed, 35))
+    sent_paths, sent_errs = sentiment_phases(ptt, smi, args.seed, 41)
+    paths.update(sent_paths)
+    for k, e in sent_errs.items():
+        max_errs[k] = max(max_errs[k], e)
+    paths["book_text"] = book_text_phase(ptt, smi, args.seed, 45, serve_work)
+    gc.collect()
     torch.cuda.empty_cache()
-    paths["transformer_int8_serve"] = int8_serve_phase(ptt, smi, args.seed, 39, q_keep)
+    paths["transformer_int8_serve"] = int8_serve_phase(ptt, smi, args.seed, 46, q_keep)
     shutil.rmtree(q_keep)
     torch.cuda.empty_cache()
-    paths["serving_gen"] = serving_gen_phase(ptt, smi, args.seed, 40, serve_work)
-    paths["serving_gen_prefix"] = prefix_cache_phase(ptt, smi, args.seed, 41, serve_work)
-    paths["serving_gen_tiny"] = tiny_gen_phase(ptt, args.seed, 42, serve_work)
+    paths["serving_gen"] = serving_gen_phase(ptt, smi, args.seed, 47, serve_work)
+    paths["serving_gen_prefix"] = prefix_cache_phase(ptt, smi, args.seed, 48, serve_work)
+    paths["serving_gen_tiny"] = tiny_gen_phase(ptt, args.seed, 49, serve_work)
 
-    phase(43, "the paths line, the kernels line, then the device line")
+    phase(50, "the paths line, the kernels line, then the device line")
     rows["attn_bwd_step"].update(launches_by_route=train_routes["attn_bwd_step"],
                                  kernel="attn_bwd_row_kernel on csrc/attn_row.cuh's attend_bwd")
     rows["attn_phase2"].update(kernel="attn_dep_kernel (t oldest first) + attn_dv_kernel")
@@ -5784,13 +6346,18 @@ def main():
         paths["resnet50_trainer"]["b11_launches_per_step"]
     for k, c in seq_launches.items():
         by_path.setdefault(k, {})["nmt_train_seq"] = c
-    # through the windows (phases 35-37), by the wrappers' counters
+    # understand_sentiment at full width (phase 43) and the book's (phase 45)
+    for k in ("lstm_fwd", "lstm_bwd"):
+        by_path[k]["sentiment_train"] = paths["sentiment"]["launches_per_step"][k]
+        by_path[k]["book_sentiment_train_f32"] = \
+            paths["book_text"]["understand_sentiment"]["launches_per_step"][k]
+    # through the windows (phases 35-37, 39-40 and 44), by the wrappers' counters
     for path, kernels in WINDOW_KERNELS.items():
         launches = paths[f"{path}_window"]["window_ragged"]["launches_per_step"]
         for counter in kernels:
             by_path[counter[:-len("_launches")]][f"{path}_train_window"] = launches[counter]
     by_path.update(q_launches)
-    # the HTTP-served int8 LM (phase 39): launches a request
+    # the HTTP-served int8 LM (phase 46): launches a request
     by_path["quant_matmul"]["transformer_int8_serve"] = \
         paths["transformer_int8_serve"]["quant_matmul_launches_per_request"]
     by_path["flash_fwd"]["transformer_int8_serve"] = \

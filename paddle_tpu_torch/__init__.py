@@ -42,21 +42,22 @@ generation models (`layers.BeamSearchDecoder`):
     server.serve_background()          # POST /predict, /generate
 """
 
-from . import (data, fleetctl, initializer, io, layers, models, obs, ops,  # noqa: F401
-               optimizer, profiler, quant, regularizer, resilience, serving)
+from . import (data, evaluator, fleetctl, initializer, io, layers, models, obs,  # noqa: F401
+               ops, optimizer, profiler, quant, regularizer, resilience, serving)
 from .core.backward import append_backward
 from .core.executor import Executor, Scope, global_scope, reset_global_scope
 from .core.lod import LoDArray
 from .core.program import (Program, default_main_program, default_startup_program,
                            program_guard, reset_default_programs)
 from .flags import FLAGS
+from .gradient_checker import check_gradient
 from .param_attr import ParamAttr
 from .trainer import (BeginIteration, BeginPass, CheckpointConfig, EndIteration, EndPass,
                       Trainer)
 
 __all__ = ["BeginIteration", "BeginPass", "CheckpointConfig", "EndIteration", "EndPass",
            "Executor", "FLAGS", "LoDArray", "ParamAttr", "Program", "Scope", "Trainer",
-           "append_backward", "data", "default_main_program", "default_startup_program",
-           "fleetctl", "global_scope", "initializer", "io", "layers", "models", "obs", "ops",
+           "append_backward", "check_gradient", "data", "default_main_program",
+           "default_startup_program", "evaluator", "fleetctl", "global_scope", "initializer", "io", "layers", "models", "obs", "ops",
            "optimizer", "profiler", "program_guard", "quant", "regularizer",
            "reset_default_programs", "reset_global_scope", "resilience", "serving"]

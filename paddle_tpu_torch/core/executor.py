@@ -15,7 +15,9 @@ writes `P@GRAD` for every parameter; the ops after it (the optimizer
 updates) run under `torch.no_grad()`. The JAX package instead wraps the
 forward slice in `jax.grad` (`_run_autodiff`, executor.py:187-228); the
 forward is not run a second time here. A block without `autodiff` runs
-under `torch.inference_mode()`.
+under `torch.inference_mode()`. A parameter marked `sparse_update` (an
+`is_sparse` embedding) is no leaf: its lookup sites gather leaves of their
+own rows, and its gradient is a `SelectedRows` (core/sparse.py).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from . import registry
 from .lod import LoDArray
 from .place import resolve_device
 from .program import Program, Variable, grad_var_name
+from .sparse import SparseGradTape
 
 
 class Scope:
@@ -260,10 +263,12 @@ class Executor:
                 f"{len(at)} autodiff ops in one block: the port runs one")
         else:
             k = at[0]
-            leaves = self._grad_leaves(program, ops[k], env)
+            leaves, tape = self._grad_leaves(program, ops[k], env)
+            if tape is not None:
+                env[registry.SPARSE_KEY] = tape
             with torch.enable_grad():
                 runner.run_ops(ops[:k], env, block)
-                self._run_autodiff(ops[k], env, leaves)
+                self._run_autodiff(ops[k], env, leaves, env.pop(registry.SPARSE_KEY, None))
             with torch.no_grad():
                 runner.run_ops(ops[k + 1:], env, block, first=k + 1)
 
@@ -290,34 +295,48 @@ class Executor:
         return self.run(program, scope=scope, seed=seed)
 
     @staticmethod
-    def _grad_leaves(program: Program, op, env) -> Dict[str, torch.Tensor]:
-        """Replace each parameter the autodiff op names with a leaf that
-        requires grad, before the forward ops read it."""
+    def _grad_leaves(program: Program, op, env):
+        """Replace each dense parameter the autodiff op names with a leaf
+        that requires grad, before the forward ops read it. Returns the
+        leaves and, where sparse_update parameters are among them, the tape
+        their lookup sites record on (else None)."""
         block = program.global_block()
         sparse = [p for p in op.attrs["params"]
                   if p in block.vars and block.vars[p].sparse_update]
-        if sparse:
-            raise NotImplementedError(
-                f"parameters {sparse} take SelectedRows gradients "
-                "(is_sparse embeddings), which are not ported yet "
-                "(ROADMAP.md, queue A, A7 core/sparse.py)")
         leaves = {}
         for p in op.attrs["params"]:
             if p not in env:
                 raise KeyError(f"autodiff: parameter {p!r} is not in the scope; "
                                "run the startup program first")
-            leaves[p] = env[p] = _grad_leaf(p, env[p])
-        return leaves
+            if p not in sparse:
+                leaves[p] = env[p] = _grad_leaf(p, env[p])
+        if not sparse:
+            return leaves, None
+        # a sparse table read by any other op would get no gradient from it
+        for o in block.ops:
+            if o.type in ("lookup_table", "autodiff") or o.attrs.get("is_optimizer_op"):
+                continue
+            used = sorted({n for ns in o.inputs.values() for n in ns} & set(sparse))
+            if used:
+                raise ValueError(
+                    f"sparse_update parameters {used} consumed by op {o.type!r}: "
+                    "SelectedRows gradients support lookup_table uses only; build the "
+                    "embedding with is_sparse=False for a tied or shared weight")
+        return leaves, SparseGradTape(sparse)
 
     @staticmethod
-    def _run_autodiff(op, env, leaves) -> None:
+    def _run_autodiff(op, env, leaves, tape=None) -> None:
         loss_name = op.inputs["Loss"][0]
         loss = env[loss_name]
         if loss.numel() != 1:
             raise ValueError(f"loss {loss_name!r} must be scalar for "
                              f"append_backward; got shape {tuple(loss.shape)}")
-        names = list(op.attrs["params"])
-        grads = torch.autograd.grad(loss.reshape(()), [leaves[p] for p in names],
+        names = [p for p in op.attrs["params"] if p in leaves]
+        sites = tape.leaves() if tape is not None else []
+        grads = torch.autograd.grad(loss.reshape(()), [leaves[p] for p in names] + sites,
                                     allow_unused=True)
         for p, g in zip(names, grads):
             env[grad_var_name(p)] = torch.zeros_like(leaves[p]) if g is None else g
+        if tape is not None:
+            for p, g in tape.gradients(grads[len(names):]).items():
+                env[grad_var_name(p)] = g

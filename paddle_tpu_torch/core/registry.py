@@ -16,6 +16,9 @@ _KERNELS: Dict[str, Callable] = {}
 
 # env key of the run's torch.Generator, which the random ops draw from
 RNG_KEY = "@RNG@"
+# env key of a training run's SparseGradTape (core/sparse.py), present
+# while its forward ops run when is_sparse tables take gradients
+SPARSE_KEY = "@SPARSE_TAPE@"
 # env key of the names a run reads after they are written (a later op's
 # input, a fetch or a persistable); absent, every output counts as read
 LIVE_KEY = "@LIVE@"

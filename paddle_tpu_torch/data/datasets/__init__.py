@@ -1,5 +1,7 @@
-"""Dataset loaders (paddle_tpu/data/datasets), cut to the book models' first
-programs: `uci_housing` (fit_a_line) and `mnist` (recognize_digits).
+"""Dataset loaders (paddle_tpu/data/datasets), cut to the book models the
+port runs: `uci_housing` (fit_a_line), `mnist` (recognize_digits), `imdb`
+(understand_sentiment), `imikolov` (word2vec) and `movielens`
+(recommender_system).
 
 Each serves the reference's sample schema and reader API. A loader reads
 the real files where they lie under `data_home()` (the environment's

@@ -77,6 +77,12 @@ define_flag("fused_attention_seq_fwd", False,
 define_flag("fused_attention_seq_bwd", False,
             "the same for the decoder's backward: one whole-sequence kernel "
             "instead of a per-step kernel in a loop and the phase-2 kernel")
+define_flag("stacked_lstm_single_scan", False,
+            "run the N-layer stacked_lstm op as one all-layers masked loop "
+            "(stacked_lstm_book_scan). Off by default, as in the JAX package: "
+            "the book's [4H, 4H] inter-layer concat-fc runs T sequential [B, 4H] "
+            "products in the loop, where the default layer-by-layer formulation "
+            "runs it as one [T*B, 4H] batched product between the LSTM kernels")
 define_flag("bn_bf16_stats", True,
             "batch-norm statistics (batch_norm, bn_stats, fused_conv_bn's "
             "routes other than the kernel) square the activation in its io "

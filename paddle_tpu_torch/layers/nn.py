@@ -4,7 +4,8 @@ pool2d (:278), batch_norm (:348), the fused conv + BN protocol's
 RawConvBN (:376), fused_conv_bn (:394), bn_stats (:451) and bn_apply
 (:477), layer_norm (:492), softmax_with_cross_entropy (:537),
 square_error_cost (:554), accuracy (:565), mean (:602), softmax (:606),
-relu (:610), elementwise_add (:622), scale (:638) and concat (:680). Each
+relu (:610), elementwise_add (:622), scale (:638), concat (:680) and
+reshape (:696). Each
 builds its parameters through LayerHelper and appends ops to the default
 program; shapes use -1 for the batch dimension."""
 
@@ -22,7 +23,7 @@ from .helper import LayerHelper
 __all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm", "RawConvBN",
            "fused_conv_bn", "bn_stats", "bn_apply", "layer_norm", "softmax_with_cross_entropy",
            "square_error_cost", "accuracy", "mean", "softmax", "relu", "elementwise_add",
-           "scale", "concat"]
+           "scale", "concat", "reshape"]
 
 
 def data(name: str, shape: Sequence[int], dtype=np.float32, lod_level: int = 0,
@@ -38,21 +39,27 @@ def data(name: str, shape: Sequence[int], dtype=np.float32, lod_level: int = 0,
 
 def fc(input, size: int, act: Optional[str] = None, num_flatten_dims: int = 1,
        param_attr=None, bias_attr=None, name=None) -> Variable:
-    """input @ W (+ b), then `act`. One input: the port has no `sum` op
-    for the JAX package's several-input form yet."""
-    if isinstance(input, (list, tuple)):
-        if len(input) != 1:
-            raise NotImplementedError("fc over several inputs needs the `sum` op, which "
-                                      "is not ported to the PyTorch port yet")
-        input = input[0]
-        param_attr = param_attr[0] if isinstance(param_attr, (list, tuple)) else param_attr
+    """input @ W (+ b), then `act`. Several inputs are each multiplied by
+    their own W and summed (MixedLayer semantics); `param_attr` may be a
+    list, one for each input."""
     helper = LayerHelper("fc", name=name)
-    in_dim = int(np.prod(input.shape[num_flatten_dims:]))
-    w = helper.create_parameter(param_attr, shape=(in_dim, size), dtype=input.dtype)
-    pre_bias = helper.create_tmp_variable(
-        input.dtype, input.shape[:num_flatten_dims] + (size,), input.lod_level)
-    helper.append_op(type="mul", inputs={"X": [input], "Y": [w]}, outputs={"Out": [pre_bias]},
-                     attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    mul_outs = []
+    for i, inp in enumerate(inputs):
+        in_dim = int(np.prod(inp.shape[num_flatten_dims:]))
+        w = helper.create_parameter(
+            param_attr[i] if isinstance(param_attr, (list, tuple)) else param_attr,
+            shape=(in_dim, size), dtype=inp.dtype)
+        out = helper.create_tmp_variable(inp.dtype, inp.shape[:num_flatten_dims] + (size,),
+                                         inp.lod_level)
+        helper.append_op(type="mul", inputs={"X": [inp], "Y": [w]}, outputs={"Out": [out]},
+                         attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
+        mul_outs.append(out)
+    if len(mul_outs) == 1:
+        pre_bias = mul_outs[0]
+    else:
+        pre_bias = helper.create_tmp_variable(inputs[0].dtype, mul_outs[0].shape)
+        helper.append_op(type="sum", inputs={"X": mul_outs}, outputs={"Out": [pre_bias]})
     if bias_attr is False:
         return helper.append_activation(pre_bias, act)
     b = helper.create_parameter(bias_attr, shape=(size,), is_bias=True)
@@ -65,8 +72,8 @@ def fc(input, size: int, act: Optional[str] = None, num_flatten_dims: int = 1,
 def embedding(input, size: Sequence[int], is_sparse: bool = False,
               padding_idx: Optional[int] = None, param_attr=None, dtype=np.float32,
               name=None) -> Variable:
-    """Table lookup. is_sparse=True marks the table for SelectedRows
-    gradients, which the executor refuses until they are ported."""
+    """Table lookup. is_sparse=True gives the table row-wise SelectedRows
+    gradients (core/sparse.py) and lazy optimizer updates."""
     helper = LayerHelper("embedding", name=name)
     w = helper.create_parameter(param_attr, shape=tuple(size), dtype=dtype,
                                 default_initializer=NormalInitializer(0.0, 0.01))
@@ -339,4 +346,13 @@ def concat(input, axis=0):
     out = helper.create_tmp_variable(input[0].dtype, tuple(shape))
     helper.append_op(type="concat", inputs={"X": list(input)}, outputs={"Out": [out]},
                      attrs={"axis": axis})
+    return out
+
+
+def reshape(x, shape):
+    """x's data to `shape` (-1 for one inferred axis), a dense variable."""
+    helper = LayerHelper("reshape")
+    out = helper.create_tmp_variable(x.dtype, tuple(shape), x.lod_level)
+    helper.append_op(type="reshape", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape)})
     return out

@@ -1,7 +1,7 @@
 """Sequence layer DSL (paddle_tpu/layers/sequence.py), cut to the layers
 the ported programs use: dynamic_lstm (:41), stacked_lstm2 (:89),
-dynamic_gru (:199), sequence_pool (:252), sequence_concat (:286) and
-sequence_first_step (:298). All take lod_level=1 variables, a LoDArray at
+stacked_lstm (:140), dynamic_gru (:199), simple_rnn (:233), sequence_pool
+(:252), sequence_concat (:286) and sequence_first_step (:298). All take lod_level=1 variables, a LoDArray at
 run time."""
 
 from __future__ import annotations
@@ -12,8 +12,8 @@ from ..initializer import XavierInitializer
 from ..param_attr import ParamAttr
 from .helper import LayerHelper
 
-__all__ = ["dynamic_lstm", "stacked_lstm2", "dynamic_gru", "sequence_pool", "sequence_concat",
-           "sequence_first_step"]
+__all__ = ["dynamic_lstm", "stacked_lstm2", "stacked_lstm", "dynamic_gru", "simple_rnn",
+           "sequence_pool", "sequence_concat", "sequence_first_step"]
 
 
 def dynamic_lstm(input, size: int, use_peepholes: bool = False, is_reverse: bool = False,
@@ -70,6 +70,46 @@ def stacked_lstm2(input, size: int, param_attr=None, bias_attr=None,
     return out
 
 
+def stacked_lstm(input, size: int, stacked_num: int, param_attr=None, bias_attr=None,
+                 max_len: Optional[int] = None, name=None):
+    """`stacked_num` LSTM layers with the book's inter-layer structure
+    (understand_sentiment's stacked_lstm_net: layer i's input is
+    fc([fc_prev, lstm_prev])) in one op. `size` is 4*hidden and `input` the
+    layer-1 [*, 4H] projection. Returns (fc_out, hidden): the last
+    inter-layer fc sequence and the last layer's hidden sequence, which the
+    book max-pools both. `max_len` as dynamic_lstm's."""
+    if stacked_num < 2:
+        raise ValueError(f"stacked_num must be >= 2, got {stacked_num}")
+    helper = LayerHelper("stacked_lstm", name=name)
+    hidden = size // 4
+    xav = XavierInitializer()
+
+    def mk(suffix, shape):
+        return helper.create_parameter(ParamAttr.derive(param_attr, helper.name, suffix), shape,
+                                       default_initializer=xav)
+
+    # the per-layer build's creation order: w0, then wa_i, wb_i, w_{i+1}
+    ws = [mk("w0", (hidden, 4 * hidden))]
+    was, wbs = [], []
+    for i in range(stacked_num - 1):
+        was.append(mk(f"wa{i}", (4 * hidden, 4 * hidden)))
+        wbs.append(mk(f"wb{i}", (hidden, 4 * hidden)))
+        ws.append(mk(f"w{i + 1}", (hidden, 4 * hidden)))
+    inputs = {"Input": [input], "Weights": ws, "WAs": was, "WBs": wbs}
+    if bias_attr is not False:
+        def mkb(suffix):
+            return helper.create_parameter(ParamAttr.derive(bias_attr, helper.name, suffix),
+                                           (4 * hidden,), is_bias=True)
+
+        inputs["Biases"] = [mkb(f"b{i}") for i in range(stacked_num)]
+        inputs["FcBiases"] = [mkb(f"fb{i}") for i in range(stacked_num - 1)]
+    fc_out = helper.create_tmp_variable(input.dtype, (-1, 4 * hidden), lod_level=1)
+    out = helper.create_tmp_variable(input.dtype, (-1, hidden), lod_level=1)
+    helper.append_op(type="stacked_lstm", inputs=inputs,
+                     outputs={"FcOut": [fc_out], "Hidden": [out]}, attrs={"max_len": max_len})
+    return fc_out, out
+
+
 def dynamic_gru(input, size: int, is_reverse: bool = False, gate_activation: str = "sigmoid",
                 candidate_activation: str = "tanh", param_attr=None, bias_attr=None,
                 max_len: Optional[int] = None, name=None):
@@ -90,12 +130,25 @@ def dynamic_gru(input, size: int, is_reverse: bool = False, gate_activation: str
     return out
 
 
+def simple_rnn(input, size: int, activation: str = "tanh", param_attr=None, bias_attr=None,
+               max_len: Optional[int] = None, name=None):
+    """h_t = act(x_t + h_{t-1} W (+ b)) over [*, size] inputs (Gen-1
+    RecurrentLayer); `max_len` as dynamic_lstm's."""
+    helper = LayerHelper("simple_rnn", name=name)
+    w = helper.create_parameter(param_attr, (size, size),
+                                default_initializer=XavierInitializer())
+    inputs = {"Input": [input], "Weight": [w]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(bias_attr, (size,), is_bias=True)]
+    out = helper.create_tmp_variable(input.dtype, (-1, size), lod_level=1)
+    helper.append_op(type="simple_rnn", inputs=inputs, outputs={"Hidden": [out]},
+                     attrs={"activation": activation, "max_len": max_len})
+    return out
+
+
 def sequence_pool(input, pool_type: str = "sum", name=None):
-    """Per-sequence pooling to a dense [num_seqs, D]; the port runs the
-    `sum`, `first` and `last` modes."""
-    if pool_type.lower() not in ("sum", "first", "last"):
-        raise NotImplementedError(f"sequence_pool mode {pool_type!r} is not ported to the "
-                                  "PyTorch port yet")
+    """Per-sequence pooling to a dense [num_seqs, D]: average, sum, sqrt,
+    max, min, last or first."""
     helper = LayerHelper("sequence_pool", name=name)
     out = helper.create_tmp_variable(input.dtype, (-1,) + tuple(input.shape[1:]))
     helper.append_op(type="sequence_pool", inputs={"X": [input]}, outputs={"Out": [out]},

@@ -1,8 +1,8 @@
-"""Math op kernels: mul, matmul, elementwise_add, mean, top_k, lookup_table,
-scale, sign, clip_by_global_norm, concat and the startup program's
-fill_constant, uniform_random and gaussian_random
-(paddle_tpu/ops/math_ops.py:35,67,108,118,264,274,207,228,245,168,306,335,
-346), on torch tensors.
+"""Math op kernels: mul, matmul, elementwise_add, mean, sum, reshape,
+top_k, lookup_table, scale, sign, clip_by_global_norm, concat and the
+startup program's fill_constant, uniform_random and gaussian_random
+(paddle_tpu/ops/math_ops.py:35,67,108,118,128,155,264,274,207,228,245,168,
+306,335,346), on torch tensors.
 The matrix products go to torch.matmul, as the JAX package leaves them to
 XLA. The random ops draw from the run's torch.Generator: the same
 distributions as the JAX package's, not the same numbers."""
@@ -16,7 +16,7 @@ import torch
 
 from .. import amp
 from ..core.lod import LoDArray
-from ..core.registry import register_op
+from ..core.registry import SPARSE_KEY, register_op
 
 
 def _data(x):
@@ -95,13 +95,24 @@ def top_k_kernel(ctx):
 @register_op("lookup_table")
 def lookup_table_kernel(ctx):
     """Embedding gather. Like the JAX kernel it emits the table's dtype
-    (f32); the `mul` after it casts down under amp."""
+    (f32); the `mul` after it casts down under amp. A table that takes
+    SelectedRows gradients (is_sparse) is gathered through the run's tape
+    (core/sparse.py)."""
     w = ctx.input("W")
     ids = ctx.input("Ids")
     ids_data = _data(ids)
     if ids_data.dim() > 1 and ids_data.shape[-1] == 1:
         ids_data = ids_data[..., 0]
-    out = w[ids_data.long()]
+    tape = ctx.env.get(SPARSE_KEY)
+    wname = ctx.op.inputs["W"][0]
+    if tape is not None and wname in tape.params:
+        rows = ids_data.long()
+        if isinstance(ids, LoDArray):
+            # padding tokens must not touch row 0: point them past the table
+            rows = torch.where(ids.seq_ids >= 0, rows, w.shape[0])
+        out = tape.gather(wname, w, rows)
+    else:
+        out = w[ids_data.long()]
     pad = ctx.attr("padding_idx")
     if pad is not None:
         out = torch.where((ids_data == pad)[..., None], torch.zeros((), dtype=out.dtype,
@@ -151,6 +162,23 @@ def mean_kernel(ctx):
     if x.is_floating_point() and x.dtype != torch.float32:
         x = x.float()
     ctx.set_output("Out", x.mean())
+
+
+@register_op("sum")
+def sum_kernel(ctx):
+    """Adds its N inputs (sum_op.cc; the several-input fc's join), in
+    input order; the output keeps the first input's LoD."""
+    xs = ctx.inputs("X")
+    out = _data(xs[0])
+    for x in xs[1:]:
+        out = out + _data(x)
+    ctx.set_output("Out", _like(xs[0], out))
+
+
+@register_op("reshape")
+def reshape_kernel(ctx):
+    """The data (a LoDArray's too) to `shape`, as a dense tensor."""
+    ctx.set_output("Out", _data(ctx.input("X")).reshape(list(ctx.attr("shape"))))
 
 
 def _torch_dtype(name):

@@ -1,6 +1,9 @@
-"""Optimizer update op kernels: the dense branches of `sgd`, `momentum`
-and `adam` (paddle_tpu/ops/optimizer_ops.py:34-45, 48-70, 139-171) with
-`_write`/`_lr` (:20-31).
+"""Optimizer update op kernels: `sgd`, `momentum` and `adam`
+(paddle_tpu/ops/optimizer_ops.py:34-45, 48-70, 139-171) with
+`_write`/`_lr` (:20-31), dense and on SelectedRows gradients (is_sparse
+embeddings): sgd adds the rows' steps, momentum and adam update only the
+touched rows of the parameter and its moments (lazy), their duplicates
+summed first, while Beta1Pow/Beta2Pow still advance every step.
 
 Each op replaces the parameter and its state persistables in the env; the
 executor writes them back to the Scope after the run. The update makes new
@@ -9,9 +12,8 @@ of the NMT model is 0.86 GB, so a second copy for one op costs little."""
 
 from __future__ import annotations
 
-import torch
-
 from ..core.registry import register_op
+from ..core.sparse import SelectedRows
 
 
 def _write(ctx, slot_in, value):
@@ -26,27 +28,34 @@ def _lr(ctx):
     return ctx.input("LearningRate").reshape(())
 
 
-def _dense_grad(ctx, op):
-    g = ctx.input("Grad")
-    if not isinstance(g, torch.Tensor):
-        raise NotImplementedError(
-            f"{op}: a {type(g).__name__} gradient (SelectedRows, from an "
-            "is_sparse embedding) is not ported yet (ROADMAP.md, queue A, A7)")
-    return g
-
-
 @register_op("sgd")
 def sgd_kernel(ctx):
-    """Reference: sgd_op.cc — p -= lr * g."""
-    _write(ctx, "Param", ctx.input("Param") - _lr(ctx) * _dense_grad(ctx, "sgd"))
+    """Reference: sgd_op.cc — p -= lr * g; a SelectedRows gradient adds its
+    rows' steps (duplicates add, padding rows dropped)."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    if isinstance(g, SelectedRows):
+        rows, vals = g.dedup()
+        _write(ctx, "Param", p.index_add(0, rows, (-_lr(ctx) * vals).to(p.dtype)))
+        return
+    _write(ctx, "Param", p - _lr(ctx) * g)
 
 
 @register_op("momentum")
 def momentum_kernel(ctx):
     """Reference: momentum_op.cc — v = mu·v + g; p -= lr·v, or with
-    use_nesterov p -= (g + mu·v)·lr."""
-    p, g, v = ctx.input("Param"), _dense_grad(ctx, "momentum"), ctx.input("Velocity")
+    use_nesterov p -= (g + mu·v)·lr; lazy on a SelectedRows gradient."""
+    p, g, v = ctx.input("Param"), ctx.input("Grad"), ctx.input("Velocity")
     mu, lr = ctx.attr("mu", 0.9), _lr(ctx)
+    if isinstance(g, SelectedRows):
+        rows, vals = g.dedup()
+        v_rows = mu * v[rows] + vals
+        if ctx.attr("use_nesterov", False):
+            step = -(vals + mu * v_rows) * lr
+        else:
+            step = -lr * v_rows
+        _write(ctx, "Velocity", v.index_copy(0, rows, v_rows))
+        _write(ctx, "Param", p.index_add(0, rows, step))
+        return
     v_new = mu * v + g
     if ctx.attr("use_nesterov", False):
         p_new = p - (g + mu * v_new) * lr
@@ -58,19 +67,27 @@ def momentum_kernel(ctx):
 
 @register_op("adam")
 def adam_kernel(ctx):
-    """Reference: adam_op.cc — bias-corrected via Beta1Pow/Beta2Pow state."""
-    p, g = ctx.input("Param"), _dense_grad(ctx, "adam")
+    """Reference: adam_op.cc — bias-corrected via Beta1Pow/Beta2Pow state;
+    lazy on a SelectedRows gradient (its SelectedRows branch)."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
     m1, m2 = ctx.input("Moment1"), ctx.input("Moment2")
     b1p, b2p = ctx.input("Beta1Pow"), ctx.input("Beta2Pow")
     b1 = ctx.attr("beta1", 0.9)
     b2 = ctx.attr("beta2", 0.999)
     eps = ctx.attr("epsilon", 1e-8)
-    m1n = b1 * m1 + (1 - b1) * g
-    m2n = b2 * m2 + (1 - b2) * g.square()
     lr_t = _lr(ctx) * (1 - b2p).sqrt() / (1 - b1p)
-    p_new = p - lr_t * m1n / (m2n.sqrt() + eps)
-    _write(ctx, "Moment1", m1n)
-    _write(ctx, "Moment2", m2n)
+    if isinstance(g, SelectedRows):
+        rows, vals = g.dedup()
+        m1r = b1 * m1[rows] + (1 - b1) * vals
+        m2r = b2 * m2[rows] + (1 - b2) * vals.square()
+        _write(ctx, "Moment1", m1.index_copy(0, rows, m1r))
+        _write(ctx, "Moment2", m2.index_copy(0, rows, m2r))
+        _write(ctx, "Param", p.index_add(0, rows, -lr_t * m1r / (m2r.sqrt() + eps)))
+    else:
+        m1n = b1 * m1 + (1 - b1) * g
+        m2n = b2 * m2 + (1 - b2) * g.square()
+        _write(ctx, "Moment1", m1n)
+        _write(ctx, "Moment2", m2n)
+        _write(ctx, "Param", p - lr_t * m1n / (m2n.sqrt() + eps))
     _write(ctx, "Beta1Pow", b1p * b1)
     _write(ctx, "Beta2Pow", b2p * b2)
-    _write(ctx, "Param", p_new)

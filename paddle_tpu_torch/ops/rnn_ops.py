@@ -1,7 +1,8 @@
 """Recurrent op kernels: `dynamic_gru` (paddle_tpu/ops/rnn_ops.py:398-430)
-with `gru_scan` (:126) and `gru_cell` (:103); `dynamic_lstm` (:352-395)
-and `stacked_lstm2` (:203-228) with `lstm_scan` (:39) and
-`stacked_lstm2_scan` (:162). Packed gate layouts: GRU 3H [u(update),
+with `gru_scan` (:126) and `gru_cell` (:103); `dynamic_lstm` (:352-395),
+`stacked_lstm2` (:203-228) and `stacked_lstm` (:284-349) with `lstm_scan`
+(:39), `stacked_lstm2_scan` (:162) and `stacked_lstm_book_scan` (:232);
+`simple_rnn` (:432), a masked loop with no kernel. Packed gate layouts: GRU 3H [u(update),
 r(reset), c(candidate)], LSTM 4H [i, f, g(candidate), o]. With the fused
 flag on, the ops train through the hand-written kernels' autograd
 Functions (rnn_kernels.gru_fused, lstm_kernels.lstm_fused) for the
@@ -150,6 +151,87 @@ def stacked_lstm2_kernel(ctx):
     ctx.set_output("Hidden", LoDArray.from_batch(h2_seq, mask, x))
 
 
+def stacked_lstm_book_scan(x_tbh, mask, ws, bs, was, wbs, fbs):
+    """N stacked LSTM layers in one masked loop with the book's
+    inter-layer structure: layer i's gate input fc_i = [fc_{i-1} | h_{i-1}]
+    @ [WA_i; WB_i] (+ bias), the concat-fc over [fc_prev, lstm_prev], one
+    product accumulated in f32 and rounded once (the JAX scan's two f32
+    products summed), computed inside the step. Standard gates, forward. Returns (fc_n_seq,
+    h_n_seq): the book pools both streams."""
+    T, B, H4 = x_tbh.shape
+    H = H4 // 4
+    n = len(ws)
+    dt = x_tbh.dtype
+    cast = lambda ts: [None if t is None else t.to(dt) for t in ts]  # noqa: E731
+    ws, bs, fbs = cast(ws), cast(bs), cast(fbs)
+    wabs = [torch.cat([wa, wb]).to(dt) for wa, wb in zip(was, wbs)]
+
+    def cell(x_t, h_prev, c_prev, w, b, m):
+        gates = x_t + dot(h_prev, w)
+        if b is not None:
+            gates = gates + b
+        i, f, g, o = torch.chunk(gates, 4, dim=-1)
+        c = sigmoid(f) * c_prev + sigmoid(i) * torch.tanh(g)
+        h = sigmoid(o) * torch.tanh(c)
+        return m * h + (1 - m) * h_prev, m * c + (1 - m) * c_prev
+
+    z = torch.zeros(B, H, dtype=dt, device=x_tbh.device)
+    states = [(z, z)] * n
+    fc_seq = torch.empty(T, B, H4, dtype=dt, device=x_tbh.device)
+    h_seq = torch.empty(T, B, H, dtype=dt, device=x_tbh.device)
+    for t in range(T):
+        m = mask[t][:, None].to(dt)
+        fc = x_tbh[t]
+        for i in range(n):
+            if i > 0:
+                fc = dot(torch.cat([fc, states[i - 1][0]], -1), wabs[i - 1])
+                if fbs[i - 1] is not None:
+                    fc = fc + fbs[i - 1]
+            states[i] = cell(fc, *states[i], ws[i], bs[i], m)
+        fc_seq[t] = fc
+        h_seq[t] = states[-1][0]
+    return fc_seq, h_seq
+
+
+@register_op("stacked_lstm")
+def stacked_lstm_kernel(ctx):
+    """N-layer book-structure stacked LSTM as one op. By default layer by
+    layer: one lstm_kernels.lstm_fused a layer under the fused flag (else
+    lstm_scan), the inter-layer concat-fc one batched product
+    [fc_prev | h_prev] @ [WA; WB] over the whole [T, B, ·] sequence,
+    accumulated in f32 and rounded once, as the JAX op sums its two f32
+    products before rounding. Under FLAGS.stacked_lstm_single_scan, the
+    all-layers loop stacked_lstm_book_scan.
+
+    Inputs: Input (the layer-1 [*, 4H] projection), Weights (n of [H, 4H]),
+    WAs (n-1 of [4H, 4H]: the fc_prev half of the inter-layer fc), WBs (n-1
+    of [H, 4H]: the lstm_prev half), Biases (n of [4H]) and FcBiases (n-1
+    of [4H]), both optional. Outputs: FcOut and Hidden."""
+    x: LoDArray = ctx.input("Input")
+    ws, was, wbs = ctx.inputs("Weights"), ctx.inputs("WAs"), ctx.inputs("WBs")
+    n = len(ws)
+    bs = ctx.inputs("Biases") if ctx.has_input("Biases") else [None] * n
+    fbs = ctx.inputs("FcBiases") if ctx.has_input("FcBiases") else [None] * (n - 1)
+    max_len = ctx.attr("max_len") or x.capacity
+    x_tb, mask = x.to_batch(max_len=max_len)
+    dt = x_tb.dtype
+    if FLAGS.stacked_lstm_single_scan:
+        fc_seq, h_seq = stacked_lstm_book_scan(x_tb, mask, ws, bs, was, wbs, fbs)
+    else:
+        fc_seq, h_seq = x_tb, None
+        for i in range(n):
+            if i > 0:
+                fc_seq = dot(torch.cat([fc_seq, h_seq], -1), torch.cat([was[i - 1], wbs[i - 1]]))
+                if fbs[i - 1] is not None:
+                    fc_seq = fc_seq + fbs[i - 1].to(dt)
+            if FLAGS.use_fused_rnn:
+                h_seq, _ = lstm_kernels.lstm_fused(fc_seq, mask, ws[i], bias=bs[i])
+            else:
+                h_seq, _ = lstm_scan(fc_seq, mask, ws[i], bs[i])
+    ctx.set_output("FcOut", LoDArray.from_batch(fc_seq, mask, x))
+    ctx.set_output("Hidden", LoDArray.from_batch(h_seq, mask, x))
+
+
 @register_op("dynamic_lstm")
 def dynamic_lstm_kernel(ctx):
     """Input is the pre-projected [*, 4H] LoDArray. Peepholes, non-default
@@ -197,3 +279,30 @@ def dynamic_gru_kernel(ctx):
     ctx.set_output("Hidden", LoDArray.from_batch(h_seq, mask, x))
     if ctx.has_output("LastH"):
         ctx.set_output("LastH", h_T)
+
+
+@register_op("simple_rnn")
+def simple_rnn_kernel(ctx):
+    """Gen-1 RecurrentLayer.cpp: h_t = act(x_t + h_{t-1} @ W (+ b)), a
+    masked loop in the io dtype."""
+    x: LoDArray = ctx.input("Input")
+    w = ctx.input("Weight")  # [H, H]
+    b = ctx.input("Bias") if ctx.has_input("Bias") else None
+    act = _act(ctx.attr("activation", "tanh"))
+    max_len = ctx.attr("max_len") or x.capacity
+    x_tb, mask = x.to_batch(max_len=max_len)
+    T, B, H = x_tb.shape[0], x_tb.shape[1], w.shape[0]
+    dt = x_tb.dtype
+    h = torch.zeros(B, H, dtype=dt, device=x_tb.device)
+    h_seq = torch.empty(T, B, H, dtype=dt, device=x_tb.device)
+    for t in range(T):
+        hn = x_tb[t] + dot(h, w)
+        if b is not None:
+            hn = hn + b
+        hn = act(hn)
+        m = mask[t][:, None].to(dt)
+        h = m * hn + (1 - m) * h
+        h_seq[t] = h
+    ctx.set_output("Hidden", LoDArray.from_batch(h_seq, mask, x))
+    if ctx.has_output("LastH"):
+        ctx.set_output("LastH", h)

@@ -1,6 +1,6 @@
 """Sequence (LoD) op kernels: sequence_concat, sequence_first_step and
 sequence_pool (paddle_tpu/ops/sequence_ops.py:52,111,121), with
-`segment_reduce` (:25) cut to the sum, first and last modes."""
+`segment_reduce` (:25) in every mode of the JAX package's."""
 
 from __future__ import annotations
 
@@ -11,23 +11,38 @@ from ..core.registry import register_op
 
 
 def segment_reduce(x: LoDArray, mode: str):
-    """[capacity, ...] → [max_seqs, ...] per-sequence reduction. Only the
-    modes the ported ops use are here (`sum`, `first`, `last`); an absent
-    sequence reads slot 0 under `first`, the slot before its offset under
-    `last` (the padded-flat layout's clamp) and sums to 0 under `sum`."""
-    if mode == "sum":
-        # padding slots go to a dump segment past the last sequence
+    """[capacity, ...] → [max_seqs, ...] per-sequence reduction, padding
+    slots reduced into a dump segment past the last sequence. An absent
+    sequence sums to 0 under `sum`, `average` and `sqrt` (its count taken
+    as 1), reads -inf under `max` and +inf under `min` (sequence_pool
+    zeroes it), slot 0 under `first` and the slot before its offset under
+    `last` (the padded-flat layout's clamp). `max` and `min` split a
+    segment's gradient evenly among the elements tied at its extremum, as
+    jax.ops.segment_max's does."""
+    if mode in ("sum", "average", "sqrt", "max", "min"):
         ids = torch.where(x.seq_ids >= 0, x.seq_ids, x.max_seqs).long()
-        out = torch.zeros((x.max_seqs + 1,) + tuple(x.data.shape[1:]),
-                          dtype=x.data.dtype, device=x.device)
-        return out.index_add(0, ids, x.data)[:-1]
+        shape = (x.max_seqs + 1,) + tuple(x.data.shape[1:])
+        if mode in ("max", "min"):
+            fill = float("-inf") if mode == "max" else float("inf")
+            out = torch.full(shape, fill, dtype=x.data.dtype, device=x.device)
+            idx = ids.reshape((-1,) + (1,) * (x.data.dim() - 1)).expand_as(x.data)
+            return out.scatter_reduce(0, idx, x.data, "amax" if mode == "max" else "amin",
+                                      include_self=False)[:-1]
+        out = torch.zeros(shape, dtype=x.data.dtype, device=x.device)
+        s = out.index_add(0, ids, x.data)[:-1]
+        if mode == "sum":
+            return s
+        cnt = x.lengths.clamp(min=1).to(s.dtype)
+        if mode == "sqrt":
+            cnt = cnt.sqrt()
+        return s / cnt.reshape((-1,) + (1,) * (s.dim() - 1))
     if mode == "first":
         idx = x.offsets[:-1].long().clamp(0, x.capacity - 1)
         return x.data[idx]
     if mode == "last":
         idx = (x.offsets[1:].long() - 1).clamp(0, x.capacity - 1)
         return x.data[idx]
-    raise NotImplementedError(f"segment_reduce mode {mode!r} is not ported yet")
+    raise NotImplementedError(f"sequence_pool mode {mode!r}")
 
 
 @register_op("sequence_concat")

@@ -396,9 +396,7 @@ def test_what_is_not_ported_refuses_to_build():
     with ptt.program_guard(ptt.Program(), ptt.Program()):
         x = ptt.layers.data("x", shape=[-1, 4], lod_level=1, append_batch_size=False)
         with pytest.raises(NotImplementedError):
-            ptt.layers.sequence_pool(x, "max")
-        with pytest.raises(NotImplementedError):
-            ptt.layers.fc([x, x], size=3)
+            ptt.layers.data("s", shape=[10], sparse_format="binary")
         with pytest.raises(NotImplementedError):
             ptt.models.lstm_benchmark_net(x, 10, sharded_embedding_axis="mp")
     with pytest.raises(NotImplementedError):

@@ -170,16 +170,20 @@ def test_missing_param_raises(small_artifact, tmp_path):
 
 
 def test_autodiff_op_raises_not_implemented():
-    """autodiff runs (tests/test_torch_train.py), except over a parameter
-    that takes SelectedRows gradients, which the port does not have yet."""
+    """autodiff runs (tests/test_torch_train.py); a parameter that takes
+    SelectedRows gradients (an is_sparse table) may be read by lookup_table
+    ops only, as in the JAX package: any other reader raises before the
+    run."""
     prog = ptt.Program()
     blk = prog.global_block()
     blk.create_var("emb", (4, 2), persistable=True, is_parameter=True, sparse_update=True)
-    blk.ops.append(ptt.core.program.Operator("autodiff", {"Loss": ["emb"]}, {},
+    blk.create_var("loss", ())
+    blk.ops.append(ptt.core.program.Operator("mean", {"X": ["emb"]}, {"Out": ["loss"]}, {}))
+    blk.ops.append(ptt.core.program.Operator("autodiff", {"Loss": ["loss"]}, {},
                                              {"params": ["emb"]}))
     scope = ptt.Scope()
     scope.set("emb", torch.zeros(4, 2))
-    with pytest.raises(NotImplementedError, match="SelectedRows"):
+    with pytest.raises(ValueError, match="SelectedRows gradients support lookup_table"):
         ptt.Executor(device="cpu").run(prog, {}, [], scope=scope)
 
 
