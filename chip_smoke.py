@@ -4,7 +4,10 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each printing its own lines; any failure raises and the script
-exits non-zero without the final `ok` line:
+exits non-zero without the final `ok` line. Each step or request "under
+torch.profiler" is captured after a pad of spin kernels and counted from
+the end of the pad (profiled_spans), since the profiler can lose events
+at the start of a capture:
 
   1. device   the card's name, torch/CUDA versions, nvidia-smi's name and
               power limit; TF32 as torch leaves it (the port's Executor
@@ -339,7 +342,43 @@ exits non-zero without the final `ok` line:
               its reference test's recipe to its threshold, on the loaders'
               synthetic data (tests/fixtures/data holds too few samples for
               a batch); B1 and B2 (their f32 kernels) 2 + 2 a sentiment step.
-  46. serve   phase 28's int8 transformer artifact (kept on disk, not
+  46. srl     label_semantic_roles at the reference book's widths
+              (tests/book/test_label_semantic_roles.py's db_lstm: eight
+              feature embeddings of 32, fc 512 tanh, a bi-GRU of H=512, the
+              emission fc, linear_chain_crf; B=128 ragged conll05
+              sentences, bf16, Adam(0.01)) built by the port's front end:
+              startup and a warm-up step recording B3's and B4's calls;
+              both against gru_fwd_plain and gru_bwd_plain on the step's
+              own inputs, forward and reversed, bf16 and f32, kernel,
+              plain and bound times; the f32 kernels also at the book's
+              H=32 (seeded, T=20, B=16).
+  47. steps   3 timed SRL steps with the launch counts set to 0 just
+              before: finite losses, exactly 2 gru_fwd and 2 gru_bwd a step
+              by the counters and by the profile, median ms a step, valid
+              tokens/s, busy share, peak memory; the CRF alone (forward and
+              its gradient, an eager loop over T <= 19, on the step's own
+              inputs) against the step's host and device time; then
+              crf_decoding on the for-test clone, its tags against the
+              CPU's Viterbi on the card's emissions exactly, and the clone
+              run on the CPU from the card's state (its share of equal
+              tags printed).
+  48. images  resnet_cifar10(32) and vgg(16) at B=128, 3x32x32, Adam(1e-3),
+              bf16: 3 timed steps each, images/s, busy share, peak memory;
+              vgg's train-mode dropout keeping a share within 4 sigma of
+              0.5 of its nonzero inputs on the card; then vgg through the
+              Trainer, per-step against scan_window=4 from one state and
+              one seed (program.random_seed: the generator registered with
+              the graph draws each step's masks), the same bits.
+  49. book    tests/book/'s image_classification (resnet_cifar10(20) and
+              vgg(11), B=32, 3 passes x 25 steps over _augment's crops and
+              flips of the synthetic cifar) and label_semantic_roles (word
+              dim 16, H=32, B=16, 320 steps, chunk F1 over 4 test batches)
+              in f32: 3 steps card against CPU from one state (vgg's two
+              dropouts fed one host mask through dropout_apply, patched in
+              this script only), then each trained on the card to its
+              reference test's threshold; B3 and B4 (their f32 kernels)
+              2 + 2 an SRL step.
+  50. serve   phase 28's int8 transformer artifact (kept on disk, not
               quantized again) behind the port's HTTP server in bf16:
               ServingEngine(quantize='int8') with batch buckets 1-8, a
               MicroBatcher(max_batch_size=8), make_server on 127.0.0.1; 4
@@ -350,7 +389,7 @@ exits non-zero without the final `ok` line:
               signatures, /healthz, /stats and /metrics (each line parsed),
               one 8-row request under torch.profiler; every answer the same
               bits as engine.predict(bucketed=False) on the card.
-  47. gen     bench.py's serving_gen (K=4, T=32, 8 slots, 48 requests,
+  51. gen     bench.py's serving_gen (K=4, T=32, 8 slots, 48 requests,
               hidden 3072, f32, thresholds from RandomState(7)) built by
               the port's front end: batch mode through engine.predict in
               FIFO groups of 8, then continuous mode through
@@ -361,14 +400,14 @@ exits non-zero without the final `ok` line:
               tokens/s, first-token p50/p99, occupancy, the replay's host
               and device ms and device events, the capture's seconds and
               pool; one streamed /generate against the batch answer.
-  48. prefix  bench.py's serving_gen_v3 target (K=2, T=32, 8 slots, 48
+  52. prefix  bench.py's serving_gen_v3 target (K=2, T=32, 8 slots, 48
               requests, prefix 3 x 4096, context memory 256) on its
               shared-prefix trace, no draft: the prefix cache off, fp, then
               int8; fp hits the uncached bits, int8 hits within 0.05;
               first-token latency of hits against misses, hit rates.
-  49. tiny    tests/test_gen_serving.py's tiny decoder (f32): continuous
+  53. tiny    tests/test_gen_serving.py's tiny decoder (f32): continuous
               answers card against CPU (ids exact, scores within 1e-5).
-  50. the paths JSON line (phases 32-49's readings), the kernels JSON
+  54. the paths JSON line (phases 32-53's readings), the kernels JSON
       line, then the device JSON line last.
 
 Weights are made with numpy from --seed at the shapes the program
@@ -602,22 +641,51 @@ def gru_tc_plans(rnn_kernels, name):
             check(not plan["w_smem"], f"{name} at H={H_}: W's slice still in shared memory")
 
 
-def breakdown(run, median_ms, what="request", kinds=None):
-    """One call of `run` under torch.profiler: device busy time, as a
-    share of the profiled wall time (which the profiler's own host cost
-    inflates) and of the unprofiled median, and device time by kernel
-    name, largest first; with `kinds` ({kind: name substrings}), also by
-    the first kind whose substring a kernel's name holds. Returns (device
-    busy µs, µs by kind), or (None, {}) where nothing was recorded."""
+# torch.profiler can lose a run of device events at the start of a
+# capture (on the H100, from a few to over a hundred of a step's first
+# events), which can take a kernel the step launched out of its count. So a
+# capture opens with PROFILE_PAD spin kernels of about 10 us each, waits
+# for them, and keeps only the events after the last of them recorded
+PROFILE_PAD = 1024
+PROFILE_PAD_CYCLES = 20000
+PROFILE_TRIES = 3
+
+
+def profiled_spans(run):
+    """One call of `run` under torch.profiler, after the pad: (its wall
+    µs, its device events as (start µs, end µs, name) sorted by start).
+    Where not one of the pad's kernels was recorded, the loss may have
+    reached the run's own events, and the capture is taken again (at most
+    PROFILE_TRIES times)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(PROFILE_PAD_CYCLES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        pads = [i for i, (_, _, name) in enumerate(spans) if "spin_kernel" in name]
+        if pads:
+            return wall_us, spans[pads[-1] + 1:]
+        print(f"  profiler: none of the {PROFILE_PAD} pad kernels recorded "
+              f"({len(spans)} device events); capturing again")
+    check(False, f"torch.profiler recorded none of the pad kernels in {PROFILE_TRIES} captures")
+
+
+def breakdown(run, median_ms, what="request", kinds=None):
+    """One call of `run` under torch.profiler (profiled_spans): device
+    busy time, as a share of the profiled wall time (which the profiler's
+    own host cost inflates) and of the unprofiled median, and device time
+    by kernel name, largest first; with `kinds` ({kind: name substrings}), also by
+    the first kind whose substring a kernel's name holds. Returns (device
+    busy µs, µs by kind), or (None, {}) where nothing was recorded."""
+    wall_us, spans = profiled_spans(run)
     if not spans:
         print("  profiler: no device events recorded; breakdown not measured")
         return None, {}
@@ -2096,17 +2164,26 @@ def resnet_compare(state, cpu, card, amp):
     return worst
 
 
-def record_ops(registry, types):
+def record_ops(registry, types, outputs=False):
     """Wrap the registered kernels of `types` so each call records (its
-    operator, its inputs by name, detached). Returns (calls, restore)."""
+    operator, its inputs by name, detached; LoDArrays whole), and with
+    `outputs` its outputs in the same dict after the call. Returns (calls,
+    restore)."""
     calls, orig = {t: [] for t in types}, {}
+
+    def detached(v):
+        return v.with_data(v.data.detach()) if hasattr(v, "with_data") else v.detach()
+
     for t in types:
         fn = orig[t] = registry._KERNELS[t]
 
         def spy(ctx, _fn=fn, _t=t):
-            names = [n for slot in ctx.op.inputs.values() for n in slot]
-            calls[_t].append((ctx.op, {n: ctx.env[n].detach() for n in names}))
-            return _fn(ctx)
+            vals = {n: detached(ctx.env[n]) for slot in ctx.op.inputs.values() for n in slot}
+            calls[_t].append((ctx.op, vals))
+            _fn(ctx)
+            if outputs:
+                vals.update({n: detached(ctx.env[n]) for slot in ctx.op.outputs.values()
+                             for n in slot if n in ctx.env})
 
         registry._KERNELS[t] = spy
     return calls, lambda: registry._KERNELS.update(orig)
@@ -3390,7 +3467,7 @@ def quant_phases(ptt, exe, smi, seed, first_phase, keep):
                   fmed, "fp request", kinds=QTFM_KERNEL_KINDS)
         del fscope
         shutil.rmtree(fp_dir)
-        shutil.move(q_dir, keep)  # served by phase 46, not quantized again
+        shutil.move(q_dir, keep)  # served by phase 50, not quantized again
         torch.cuda.empty_cache()
 
         n += 1
@@ -4143,6 +4220,7 @@ WINDOW_KERNELS = {
                 "attn_bwd_step_launches": ("attn_bwd_row_kernel", 0)},
     "sentiment": {"lstm_fwd_launches": ("lstm_fwd_tc_kernel", 3),
                   "lstm_bwd_launches": ("lstm_bwd_tc_kernel", 3)},
+    "vgg": {},  # no hand-written kernel: cuDNN's convs, the dropout draws
 }
 # kernels a window's profile must show a step that no counter of their own
 # counts: {path: {name: launches a step}}
@@ -4158,18 +4236,10 @@ def first_differing(got, want):
 
 
 def profile_pass(run, kernel_names):
-    """One call of `run` under torch.profiler: (wall ms, device busy ms,
-    {kernel name: launches recorded}, device ms of the multi-tensor copies,
-    device events)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    """One call of `run` under torch.profiler (profiled_spans): (wall ms,
+    device busy ms, {kernel name: launches recorded}, device ms of the
+    multi-tensor copies, device events)."""
+    wall_us, spans = profiled_spans(run)
     busy, end, copies = 0.0, float("-inf"), 0.0
     for s, e, name in spans:
         busy += max(0.0, e - max(s, end))
@@ -4957,19 +5027,620 @@ def book_text_phase(ptt, smi, seed, n, work):
     return out
 
 
-# ---------------------------------------- serving (A4b, A8a): phases 46-49 --
-# phase 46: phase 28's int8 transformer artifact behind the HTTP server: 4
+# ------------------------------------ the rest of the book (A1b): phases 46-49 --
+# label_semantic_roles (tests/book/test_label_semantic_roles.py's db_lstm) at
+# the reference book's widths, bf16 (phases 46-47), and at the book test's
+# in f32 (phase 49): B ragged conll05 sentences of 6-19 words, max_len 20
+SRL_BENCH = dict(word_dim=32, hidden=512, batch=128, lr=0.01, max_len=20)
+SRL_BOOK = dict(word_dim=16, hidden=32, batch=16, lr=0.01, max_len=20, steps=320, drop=0.5,
+                f1=0.7, test_batches=4)
+SRL_FEATS = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2", "pred", "mark")
+SRL_STEP_LAUNCHES = {"gru_fwd": 2, "gru_bwd": 2}
+# B3 and B4 in f32 at the book test's H=32, seeded: (T, B, H)
+SRL_F32_SHAPE = (20, 16, 32)
+# image_classification at the reference book's widths (phase 48), bf16, and
+# tests/book/test_image_classification.py's recipe in f32 (phase 49)
+IMG_BENCH = dict(batch=128, lr=1e-3, resnet=32, vgg=16)
+IMG_BOOK = dict(batch=32, lr=1e-3, resnet=20, vgg=11, passes=3, steps=25, drop=0.9, acc=0.2)
+# vgg's dropout probability; its keep share is held within 4 sigma
+DROPOUT_P = 0.5
+# the book's programs card against CPU, 3 steps from one state (f32): the
+# first loss within 1e-5 relative; the first step's gradients (Adam's
+# first moments) within 1e-4 relative L2; label_semantic_roles's later
+# losses and parameters as phase 45's. The image programs' gradient is
+# ill-conditioned (BN's backward cancels: on the CPU resnet_cifar10(20)'s
+# f32 gradient at B=32 lies 9.3e-4 from its float64 one, and moves 1.5e-3
+# when the images move by one part in 1e7), and Adam moves an element
+# whose gradient lies near 0 by about lr either way: so their later
+# losses, gradients and updates (relative L2) are held within
+# BOOK_NUDGE_FACTOR times the CPU's own distance under that nudge, and
+# never tighter than the fixed bounds (updates 5e-2)
+BOOK_GRAD_REL_L2 = 1e-4
+BOOK_UPDATE_REL_L2 = 5e-2
+BOOK_NUDGE = 1e-7
+BOOK_NUDGE_FACTOR = 4.0
+
+
+def build_srl_program(ptt, word_dim, hidden, lr, max_len, **_):
+    """The book's db_lstm + CRF through the port's front end: (main,
+    startup, loss, the decoded tags, the emission, the feed variables)."""
+    from paddle_tpu_torch.data.datasets import conll05
+
+    word_dict, verb_dict, label_dict = conll05.get_dict()
+    L = ptt.layers
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = 5
+    with ptt.program_guard(main, startup):
+        feats = [L.data(name, [-1], np.int32, lod_level=1, append_batch_size=False)
+                 for name in SRL_FEATS]
+        label = L.data("label", [-1], np.int32, lod_level=1, append_batch_size=False)
+        embs = [L.embedding(w, size=[len(word_dict), word_dim], param_attr="srl_word_emb")
+                for w in feats[:6]]
+        embs.append(L.embedding(feats[6], size=[len(verb_dict), word_dim]))
+        embs.append(L.embedding(feats[7], size=[2, word_dim]))
+        h0 = L.fc(embs, size=hidden, act="tanh")
+        fwd = L.dynamic_gru(L.fc(h0, size=3 * hidden, bias_attr=False), size=hidden,
+                            max_len=max_len)
+        bwd = L.dynamic_gru(L.fc(h0, size=3 * hidden, bias_attr=False), size=hidden,
+                            is_reverse=True, max_len=max_len)
+        emission = L.fc(L.sequence_concat([fwd, bwd]), size=len(label_dict))
+        loss = L.mean(L.linear_chain_crf(emission, label, param_attr="srl_crf_w",
+                                         max_len=max_len))
+        decoded = L.crf_decoding(emission, param_attr="srl_crf_w", max_len=max_len)
+        ptt.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, loss, decoded, emission, feats + [label]
+
+
+def srl_feeds(ptt, feed_vars, batch, n, split="train"):
+    """The first n batches of conll05's `split` (passes repeated as the
+    book's reader does): [(feed, the samples)]."""
+    from paddle_tpu_torch.data import batch as rbatch
+    from paddle_tpu_torch.data.datasets import conll05
+    from paddle_tpu_torch.data.feeder import DataFeeder
+
+    feeder = DataFeeder(feed_vars, bucket=512, max_seqs=batch)
+    out = []
+    while len(out) < n:
+        for data in rbatch(getattr(conll05, split)(), batch, drop_last=True)():
+            out.append((feeder.feed(data), data))
+            if len(out) == n:
+                break
+    return out
+
+
+def gru_pair_check(rk, fwd_calls, bwd_calls, what, max_errs, timed):
+    """B3 and B4 against gru_fwd_plain and gru_bwd_plain on recorded calls,
+    in bf16 and f32 (phase 7's bounds), their outputs the same bits in two
+    runs; where `timed`, the bf16 kernel's, the plain version's and the
+    bound's times on the first call of each. Returns those readings."""
+    rows = {}
+    for i, (a, k) in enumerate(fwd_calls):
+        rev = k.get("reverse", False)
+        for dt in (torch.bfloat16, torch.float32):
+            x, mask, w = a[0].to(dt), a[1], a[2].to(dt)
+            got = rk.gru_fwd(x, mask, w, reverse=rev)
+            want = rk.gru_fwd_plain(x, mask, w, reverse=rev)
+            torch.cuda.synchronize()
+            err, differing = kernel_error(got, want, dt)
+            same_bits(rk.gru_fwd(x, mask, w, reverse=rev), got, "gru_fwd")
+            line = (f"  gru_fwd T={x.shape[0]} B={x.shape[1]} H={w.shape[0]} {str(dt)[6:]} "
+                    f"{'rev' if rev else 'fwd'} ({what}): max_abs_err={err:.3e} (tol {TOL[dt]:g}), "
+                    f"h_seq differing {differing:.4%}, the same bits in two runs")
+            if timed and i == 0 and dt == torch.bfloat16:
+                k_ms = cuda_ms(lambda: rk.gru_fwd(x, mask, w), 10)
+                p_ms = cuda_ms(lambda: rk.gru_fwd_plain(x, mask, w), 2)
+                b_ms, b_by, _, _ = bound(x, mask, w, *got)
+                line += (f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
+                         f"by {b_by}")
+                rows["gru_fwd"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+            print(line)
+            max_errs["gru_fwd"] = max(max_errs.get("gru_fwd", 0.0), err)
+    for i, (a, k) in enumerate(bwd_calls):
+        rev = k.get("reverse", False)
+        for dt in (torch.bfloat16, torch.float32):
+            ins = [t.to(dt) if t.is_floating_point() else t for t in a]
+            got = rk.gru_bwd(*ins, reverse=rev)
+            want = rk.gru_bwd_plain(*ins, reverse=rev)
+            torch.cuda.synchronize()
+            scales = term_scales("gru_bwd", ins, want)
+            abs_errs, errs = zip(*(rel_err(g, w_, sc) for g, w_, sc in zip(got, want, scales)))
+            differing = float((got[0] != want[0]).float().mean())
+            same_bits(rk.gru_bwd(*ins, reverse=rev), got, "gru_bwd")
+            T_, B_, H_ = ins[2].shape
+            line = (f"  gru_bwd T={T_} B={B_} H={H_} {str(dt)[6:]} {'rev' if rev else 'fwd'} "
+                    f"({what}): rel err dx {errs[0]:.3e} dW {errs[1]:.3e} (tol {TRAIN_TOL[dt]:g}), "
+                    f"dx differing {differing:.4%}, the same bits in two runs")
+            check(all(torch.isfinite(t.float()).all() for t in got), "non-finite gru_bwd output")
+            check(max(errs) <= TRAIN_TOL[dt], f"gru_bwd disagrees with its plain version ({what})")
+            check(dt != torch.bfloat16 or differing <= BF16_MAX_DIFFERING_DX,
+                  f"gru_bwd's dx differs in {differing:.4%} (max {BF16_MAX_DIFFERING_DX:.0%})")
+            if timed and i == 0 and dt == torch.bfloat16:
+                k_ms = cuda_ms(lambda: rk.gru_bwd(*ins, reverse=rev), 10)
+                p_ms = cuda_ms(lambda: rk.gru_bwd_plain(*ins, reverse=rev), 2)
+                b_ms, b_by, _ = gru_bwd_bound(ins)
+                line += (f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
+                         f"by {b_by}")
+                rows["gru_bwd"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+            print(line)
+            max_errs["gru_bwd"] = max(max_errs.get("gru_bwd", 0.0), *abs_errs)
+    return rows
+
+
+def srl_phases(ptt, smi, seed, first_phase):
+    """Phases first_phase..+1: label_semantic_roles at the reference book's
+    widths in bf16: startup, a warm-up step, B3 and B4 against plain on its
+    inputs; then 3 timed steps, the CRF's share, and the for-test clone's
+    decoding. Returns (the path's readings, the GRU kernels' largest
+    errors)."""
+    from paddle_tpu_torch.core import registry as treg
+    from paddle_tpu_torch.ops import crf_ops
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+
+    sb = SRL_BENCH
+    n = first_phase
+    phase(n, f"label_semantic_roles at the reference book's widths (word_dim {sb['word_dim']}, "
+             f"hidden {sb['hidden']}, B={sb['batch']} ragged conll05 sentences, bf16, "
+             f"Adam({sb['lr']})), built by the port's front end: startup, a warm-up step, then "
+             "B3 and B4 against plain on its own inputs")
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_p, startup, loss, decoded, emission, feed_vars = build_srl_program(ptt, **sb)
+    main_p.set_amp("bfloat16")
+    test_p = main_p.clone(for_test=True)
+    ops = [o.type for o in main_p.global_block().ops]
+    print(f"  main program: {len(ops)} ops ({ops.count('lookup_table')} lookup_table, "
+          f"{ops.count('dynamic_gru')} dynamic_gru, {ops.count('linear_chain_crf')} "
+          f"linear_chain_crf, {ops.count('crf_decoding')} crf_decoding, {ops.count('adam')} "
+          f"adam); the for-test clone {len(test_p.global_block().ops)} ops")
+    exe = ptt.Executor()
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope, seed=seed)
+    n_values = sum(scope.get(p.name).numel() for p in main_p.parameters())
+    feed, data = srl_feeds(ptt, feed_vars, sb["batch"], 1)[0]
+    tokens = sum(len(d[0]) for d in data)
+    calls, restore = record_calls(rk, {"gru_fwd": "all", "gru_bwd": "all"})
+    crf_calls, crf_restore = record_ops(treg, ("linear_chain_crf",))
+    try:
+        t0 = time.perf_counter()
+        losses = [float(exe.run(main_p, feed, [loss.name], scope=scope)[0])]
+        torch.cuda.synchronize()
+    finally:
+        restore()
+        crf_restore()
+    print(f"  startup: {len(main_p.parameters())} parameters with {n_values} values; warm-up "
+          f"step: loss {losses[0]:.6f}, {time.perf_counter() - t0:.3f} s; {tokens} valid tokens "
+          f"of {sb['batch']} sentences; recorded {len(calls['gru_fwd'])} gru_fwd and "
+          f"{len(calls['gru_bwd'])} gru_bwd calls")
+    check(len(calls["gru_fwd"]) == 2 and len(calls["gru_bwd"]) == 2,
+          "the warm-up step did not run 2 gru_fwd and 2 gru_bwd")
+    check(sorted(k.get("reverse", False) for _, k in calls["gru_fwd"]) == [False, True],
+          "the SRL step's GRUs are not one forward and one reversed")
+    print_plan(rk, "gru_fwd", sb["batch"], sb["hidden"], "the SRL step")
+    max_errs = {}
+    rows = gru_pair_check(rk, calls["gru_fwd"], calls["gru_bwd"], "the SRL step's", max_errs,
+                          timed=True)
+    T_, B_, H_ = SRL_F32_SHAPE
+    rng = np.random.RandomState(seed + 80)
+    fwd_seeded, bwd_seeded = [], []
+    for rev in (False, True):
+        mask = gru_edge_mask(rng, T_, B_, False)
+        x = torch.as_tensor(rng.standard_normal((T_, B_, 3 * H_)), dtype=torch.float32).cuda()
+        w = torch.as_tensor(rng.standard_normal((H_, 3 * H_)) / np.sqrt(H_),
+                            dtype=torch.float32).cuda()
+        fwd_seeded.append(((x, mask, w), {"reverse": rev}))
+        h_seq, _ = rk.gru_fwd_plain(x, mask, w, rev)
+        h_prev, ur, c, rh = rk.gru_bwd_inputs(x, w, h_seq, rev)
+        dh = 0.1 * torch.randn(T_, B_, H_, device=x.device)
+        dhT = 0.1 * torch.randn(B_, H_, device=x.device)
+        bwd_seeded.append(((ur, c, h_prev, rh, dh, mask, w, dhT), {"reverse": rev}))
+    gru_pair_check(rk, fwd_seeded, bwd_seeded, f"the book's H={H_}, seeded", max_errs,
+                   timed=False)
+
+    n += 1
+    phase(n, "the SRL step at full width (bf16): 3 timed steps, the CRF's share, then "
+             "crf_decoding on the for-test clone")
+    torch.cuda.reset_peak_memory_stats()
+    rk.gru_fwd_launches = rk.gru_bwd_launches = 0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main_p, feed, [loss.name], scope=scope)[0]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {"gru_fwd": rk.gru_fwd_launches, "gru_bwd": rk.gru_bwd_launches}
+    print(f"  losses (warm-up, then timed): {losses}; launches in 3 steps {launches}")
+    check(all(np.isfinite(losses)), "non-finite SRL loss")
+    for k, c in SRL_STEP_LAUNCHES.items():
+        check(launches[k] == 3 * c, f"{k} launched {launches[k]} times in 3 steps, not {3 * c}")
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  steps ms {[round(t, 3) for t in times]}; median {med:.3f} ms/step, "
+          f"{tokens / med * 1e3:.1f} valid tokens/s; peak device memory {peak:.2f} GiB on {smi}")
+    run = lambda: exe.run(main_p, feed, [loss.name], scope=scope)  # noqa: E731
+    wall, busy, counts, _, nev = profile_pass(run, ["gru_fwd_tc_kernel", "gru_bwd_tc_kernel"])
+    print(f"  profiled step: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}%), {nev} device events; kernels {counts}")
+    check(counts == {"gru_fwd_tc_kernel": 2, "gru_bwd_tc_kernel": 2},
+          f"the profiled SRL step shows {counts}, not 2 gru_fwd_tc_kernel and 2 gru_bwd_tc_kernel")
+    # the CRF alone, forward and its gradient, on the step's own inputs
+    op, ins = crf_calls["linear_chain_crf"][0]
+    em, lbl = ins[op.inputs["Emission"][0]], ins[op.inputs["Label"][0]]
+    trans = ins[op.inputs["Transition"][0]]
+
+    def crf_step():
+        e = em.data.detach().requires_grad_(True)
+        t = trans.detach().requires_grad_(True)
+        nll = crf_ops.crf_nll(em.with_data(e), lbl, t, max_len=op.attrs["max_len"])
+        torch.autograd.grad(nll.mean(), [e, t])
+
+    crf_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        crf_step()
+    torch.cuda.synchronize()
+    crf_ms = (time.perf_counter() - t0) * 1e3 / 5
+    cwall, cbusy, _, _, cnev = profile_pass(crf_step, [])
+    print(f"  the CRF alone (linear_chain_crf and its gradient, T={op.attrs['max_len']}, an "
+          f"eager loop): {crf_ms:.3f} ms of host time ({100 * crf_ms / med:.1f}% of the "
+          f"step's {med:.3f}), {cbusy:.3f} ms of device time ({100 * cbusy / busy:.1f}% of the "
+          f"step's {busy:.3f}), {cnev} device events (the step's {nev})")
+    em_out, dec = exe.run(test_p, feed, [emission.name, decoded.name], scope=scope,
+                          return_numpy=False)
+    tags, mask = crf_ops.crf_viterbi(em_out.to("cpu"), scope.get("srl_crf_w").cpu(),
+                                     max_len=sb["max_len"])
+    want = ptt.LoDArray.from_batch(tags[..., None], mask, em_out.to("cpu")).data
+    check(torch.equal(dec.data.cpu(), want),
+          "crf_decoding on the card differs from the CPU's Viterbi on the card's emissions")
+    cscope = ptt.Scope()
+    ptt.io.params_from_numpy(cscope, ptt.io.state_to_numpy(
+        scope, [v.name for v in test_p.persistables() if scope.has(v.name)]), "cpu")
+    (cdec,) = ptt.Executor(device="cpu").run(test_p, feed, [decoded.name], scope=cscope,
+                                             return_numpy=False)
+    valid = cdec.token_mask
+    agree = float((cdec.data[valid] == dec.data.cpu()[valid]).float().mean())
+    print(f"  crf_decoding on the for-test clone: the card's {int(valid.sum())} tags equal the "
+          f"CPU's Viterbi on the card's emissions; the clone run on the CPU from the card's "
+          f"state (bf16 GEMMs summed in other orders) gives the same tag for {agree:.4%}")
+    reading = dict(tokens_per_step=tokens, losses=losses, ms_per_step=med, steps_ms=times,
+                   tokens_per_s=tokens / med * 1e3, peak_gib=peak,
+                   launches_per_step={k: v / 3 for k, v in launches.items()},
+                   profiled=dict(wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
+                                 kernels_per_step=counts, device_events=nev),
+                   crf=dict(host_ms=crf_ms, host_share=crf_ms / med, device_ms=cbusy,
+                            device_share=cbusy / busy, device_events=cnev),
+                   decode_cpu_agree=agree, kernels=rows)
+    del scope, calls, crf_calls
+    gc.collect()
+    return reading, max_errs
+
+
+def image_program(ptt, model, depth, lr):
+    """tests/book/test_image_classification.py's program around
+    models.<model>(depth): (main, startup, loss, accuracy)."""
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        img = ptt.layers.data("img", shape=[3, 32, 32])
+        label = ptt.layers.data("label", shape=[1], dtype=np.int32)
+        logits = getattr(ptt.models, model)(img, class_dim=10, depth=depth)
+        loss = ptt.layers.mean(ptt.layers.softmax_with_cross_entropy(logits, label))
+        acc = ptt.layers.accuracy(ptt.layers.softmax(logits), label)
+        ptt.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, loss, acc
+
+
+def image_feed(rng, batch):
+    return {"img": rng.rand(batch, 3, 32, 32).astype(np.float32),
+            "label": rng.randint(0, 10, (batch, 1)).astype(np.int32)}
+
+
+def image_phase(ptt, smi, seed, n):
+    """Phase n: resnet_cifar10(32) and vgg(16) at B=128 in bf16, 3 timed
+    steps each; vgg's dropout keep share; then vgg's window against its
+    per-step loop (phase n + 1's lines, window_path_phase)."""
+    from paddle_tpu_torch.core import registry as treg
+
+    ib = IMG_BENCH
+    phase(n, f"image_classification at the reference book's widths: resnet_cifar10({ib['resnet']}) "
+             f"and vgg({ib['vgg']}) at B={ib['batch']}, 3x32x32, Adam({ib['lr']}), bf16: 3 timed "
+             "steps each, then vgg's dropout on the card")
+    rng = np.random.RandomState(seed + 90)
+    feed = image_feed(rng, ib["batch"])
+    out = {}
+    for model in ("resnet_cifar10", "vgg"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        main_p, startup, loss, _ = image_program(ptt, model, ib["resnet" if model != "vgg"
+                                                             else "vgg"], ib["lr"])
+        main_p.set_amp("bfloat16")
+        exe, scope = ptt.Executor(), ptt.Scope()
+        exe.run(startup, scope=scope, seed=seed)
+        n_values = sum(scope.get(p.name).numel() for p in main_p.parameters())
+        drops, restore = record_ops(treg, ("dropout",) if model == "vgg" else (), outputs=True)
+        try:
+            t0 = time.perf_counter()
+            losses = [float(exe.run(main_p, feed, [loss.name], scope=scope)[0])]
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            losses.append(float(exe.run(main_p, feed, [loss.name], scope=scope)[0]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(all(np.isfinite(losses)), f"{model}: non-finite loss")
+        med = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        wall, busy, _, _, nev = profile_pass(
+            lambda: exe.run(main_p, feed, [loss.name], scope=scope), [])
+        print(f"  {model}: {len(main_p.parameters())} parameters with {n_values} values; warm-up "
+              f"{warm_s:.3f} s; losses {losses}; steps ms {[round(t, 3) for t in times]}, median "
+              f"{med:.3f} ms, {ib['batch'] / med * 1e3:.1f} images/s; profiled step wall "
+              f"{wall:.3f} ms, busy {busy:.3f} ms ({100 * busy / wall:.1f}%), {nev} device "
+              f"events; peak {peak:.2f} GiB on {smi}")
+        out[model] = dict(losses=losses, ms_per_step=med, steps_ms=times,
+                          images_per_s=ib["batch"] / med * 1e3, peak_gib=peak,
+                          profiled=dict(wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
+                                        device_events=nev))
+        if model == "vgg":
+            drops = drops["dropout"]
+            check(len(drops) == 2, f"vgg's step ran {len(drops)} dropout ops, not 2")
+            kept, nonzero = 0, 0
+            for op, vals in drops:  # the warm-up step's own draws
+                x, y = vals[op.inputs["X"][0]], vals[op.outputs["Out"][0]]
+                live = x != 0
+                kept += int((y != 0)[live].sum())
+                nonzero += int(live.sum())
+            share = kept / nonzero
+            sigma = math.sqrt(DROPOUT_P * (1 - DROPOUT_P) / nonzero)
+            print(f"  vgg's dropout on the card: kept {kept} of {nonzero} nonzero inputs "
+                  f"({share:.5f}; 1 - p = {1 - DROPOUT_P}, sigma {sigma:.5f})")
+            check(abs(share - (1 - DROPOUT_P)) <= 4 * sigma,
+                  f"vgg's dropout kept {share:.5f}, beyond 4 sigma of {1 - DROPOUT_P}")
+            out[model]["dropout_keep_share"] = share
+        del scope, exe
+    return out
+
+
+def vgg_window_phase(ptt, smi, seed, n):
+    """Phase n (its second half): vgg(16) at B=128 through the Trainer,
+    per-step against scan_window=4, from one state and one seed."""
+    ib = IMG_BENCH
+    rng = np.random.RandomState(seed + 91)
+    batches = [image_feed(rng, ib["batch"]) for _ in range(WINDOW_RAGGED)]
+
+    def build():
+        main_w, startup_w, loss_w, _ = image_program(ptt, "vgg", ib["vgg"], ib["lr"])
+        main_w.set_amp("bfloat16")
+        main_w.random_seed = seed + 7  # each step's masks: the same draws in both loops
+        return main_w, startup_w, loss_w
+
+    return window_path_phase(ptt, smi, n, "vgg", f"vgg({ib['vgg']}) at B={ib['batch']} (bf16, "
+                             "two train-mode dropouts drawn from the step's generator)", build,
+                             batches, {})[0]
+
+
+def _one_mask_dropout(treg, nn_ops, masks):
+    """The port's dropout kernel replaced by one applying a host mask a
+    dropout op (by its output's name; drawn from a seeded RandomState on
+    first use) through dropout_apply: CPU and CUDA generators draw
+    different streams. Returns the restore."""
+    orig = treg._KERNELS["dropout"]
+
+    def kernel(ctx):
+        x = ctx.input("X")
+        name = ctx.op.outputs["Out"][0]
+        if name not in masks:
+            masks[name] = np.random.RandomState(len(masks) + 1).rand(*x.shape) >= DROPOUT_P
+        ctx.set_output("Out", nn_ops.dropout_apply(x, torch.as_tensor(masks[name],
+                                                                       device=x.device)))
+
+    treg._KERNELS["dropout"] = kernel
+    return lambda: treg._KERNELS.update({"dropout": orig})
+
+
+def book_card_vs_cpu(ptt, main_p, startup, loss, feeds, seed, lr, nudge):
+    """3 steps card against CPU from one state (f32): losses, the first
+    step's gradients (Adam's first moments) and the parameters. With
+    `nudge` (the image programs: BN's backward cancels, so their gradient
+    is ill-conditioned) the CPU also runs the images moved by one part in
+    1e7 (BOOK_NUDGE), and the card is held to the CPU within
+    BOOK_NUDGE_FACTOR times that run's distance from the CPU's (and never
+    closer than the fixed bounds). Returns (ok, the readings)."""
+    cscope = ptt.Scope()
+    ptt.Executor(device="cpu").run(startup, scope=cscope, seed=seed)
+    persist = [v.name for v in main_p.persistables() if cscope.has(v.name)]
+    state = ptt.io.state_to_numpy(cscope, persist)
+    rng = np.random.RandomState(seed + 5)
+    nudged = [dict(f, img=(f["img"] * (1 + BOOK_NUDGE * rng.standard_normal(f["img"].shape)))
+                   .astype(np.float32)) for f in feeds] if nudge else None
+    res = {}
+    for run, dev, fs in (("cpu", "cpu", feeds), ("nudged", "cpu", nudged), ("card", CARD, feeds)):
+        if fs is None:
+            continue
+        sc = ptt.Scope()
+        ptt.io.params_from_numpy(sc, state, dev)
+        dexe = ptt.Executor(device=dev)
+        ls, grads = [], None
+        for i, f in enumerate(fs):
+            ls.append(float(dexe.run(main_p, f, [loss.name], scope=sc)[0]))
+            if i == 0:
+                grads = ptt.io.state_to_numpy(sc, [p for p in persist if ".moment1." in p])
+        res[run] = (ls, grads, ptt.io.state_to_numpy(sc, [p.name for p in main_p.parameters()]))
+    rel = lambda a, b: float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))  # noqa: E731
+
+    def apart(run):
+        (cl, cg, cp), (ol, og, op_) = res["cpu"], res[run]
+        return (abs(ol[0] - cl[0]) / abs(cl[0]),
+                max(abs(a - b) / abs(b) for a, b in zip(ol[1:], cl[1:])),
+                max(rel(og[k], v) for k, v in cg.items()),
+                max(rel(op_[k] - state[k], v - state[k]) for k, v in cp.items()),
+                max(float(np.abs(op_[k] - w).max()) / max(BOOK_PARAM_TOL * float(np.abs(w).max()),
+                                                          BOOK_ADAM_SHARE * 3 * lr)
+                    for k, w in cp.items()))
+
+    card = apart("card")
+    names = ("first loss", "later losses", "first gradients", "updates", "parameters")
+    if nudge:
+        noise = apart("nudged")
+        tol = (BOOK_LOSS_TOL, max(BOOK_LOSS_TOL, BOOK_NUDGE_FACTOR * noise[1]),
+               max(BOOK_GRAD_REL_L2, BOOK_NUDGE_FACTOR * noise[2]),
+               max(BOOK_UPDATE_REL_L2, BOOK_NUDGE_FACTOR * noise[3]), None)
+        print(f"    the CPU with the images nudged by {BOOK_NUDGE:g}: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in zip(names[:4], noise)))
+    else:
+        noise = None
+        tol = (BOOK_LOSS_TOL, BOOK_LOSS_TOL, BOOK_GRAD_REL_L2, None, 1.0)
+    print(f"    3 steps card against CPU: losses cpu {res['cpu'][0]} card {res['card'][0]}; "
+          + ", ".join(f"{k} {v:.3e} (tol {t:.3g})" for k, v, t in zip(names, card, tol)
+                      if t is not None))
+    return (all(t is None or v <= t for v, t in zip(card, tol)),
+            dict(zip(names, card), tolerances=dict(zip(names, tol)),
+                 nudged_cpu=None if noise is None else dict(zip(names, noise))))
+
+
+def book_image_srl_phase(ptt, smi, seed, n, work):
+    """Phase n: tests/book/'s image_classification (resnet_cifar10(20) and
+    vgg(11)) and label_semantic_roles in f32: 3 steps card against CPU
+    from one state, then each trained on the card to its reference test's
+    threshold."""
+    from paddle_tpu_torch.core import registry as treg
+    from paddle_tpu_torch.data import batch, map_readers, shuffle
+    from paddle_tpu_torch.data import image as pimg
+    from paddle_tpu_torch.data.datasets import cifar
+    from paddle_tpu_torch.evaluator import ChunkEvaluator
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+
+    ib, sb = IMG_BOOK, SRL_BOOK
+    phase(n, f"the book's image_classification (resnet_cifar10({ib['resnet']}), vgg({ib['vgg']}), "
+             f"B={ib['batch']}, {ib['passes']} passes x {ib['steps']} steps with _augment) and "
+             f"label_semantic_roles (word_dim {sb['word_dim']}, H={sb['hidden']}, B={sb['batch']}, "
+             f"{sb['steps']} steps) in f32: 3 steps card against CPU from one state, then trained "
+             "on the card to their reference tests' thresholds")
+    home = os.environ.get("PADDLE_TPU_DATA_HOME")
+    os.environ["PADDLE_TPU_DATA_HOME"] = os.path.join(work, "no_data")  # synthetic cifar
+    counter = [0]
+
+    def augment(sample):  # tests/book/test_image_classification.py's _augment
+        im, label = sample
+        counter[0] += 1
+        hwc = np.asarray(im, np.float32).reshape(3, 32, 32).transpose(1, 2, 0)
+        return pimg.simple_transform(hwc, resize_size=36, crop_size=32, is_train=True,
+                                     rng=np.random.RandomState(counter[0])), label
+
+    def image_batches():
+        reader = batch(map_readers(augment, shuffle(cifar.train10(), 256, seed=0)),
+                       ib["batch"], drop_last=True)
+        for _ in range(ib["passes"]):
+            for step, data in enumerate(reader()):
+                if step >= ib["steps"]:
+                    break
+                yield {"img": np.stack([d[0] for d in data]).reshape(-1, 3, 32, 32),
+                       "label": np.array([[d[1]] for d in data], np.int32)}
+
+    out = {}
+    try:
+        for model in ("resnet_cifar10", "vgg"):
+            main_p, startup, loss, acc = image_program(ptt, model, ib["resnet" if model != "vgg"
+                                                                   else "vgg"], ib["lr"])
+            print(f"  {model}({ib['resnet' if model != 'vgg' else 'vgg']}):")
+            counter[0] = 0
+            feeds = list(itertools.islice(image_batches(), 3))
+            restore = _one_mask_dropout(treg, nn_ops, {})
+            try:
+                ok, cvc = book_card_vs_cpu(ptt, main_p, startup, loss, feeds, seed, ib["lr"],
+                                           nudge=True)
+            finally:
+                restore()
+            check(ok, f"{model}: card and CPU differ")
+            exe, scope = ptt.Executor(), ptt.Scope()
+            exe.run(startup, scope=scope, seed=seed)
+            counter[0] = 0
+            losses, accs = [], []
+            t0 = time.perf_counter()
+            for f in image_batches():
+                c, a = exe.run(main_p, f, [loss.name, acc.name], scope=scope)
+                losses.append(float(c))
+                accs.append(float(a))
+            secs = time.perf_counter() - t0
+            k = max(1, len(accs) // 4)
+            first, last, acc_last = (float(np.mean(losses[:k])), float(np.mean(losses[-k:])),
+                                     float(np.mean(accs[-k:])))
+            met = bool(last < first * ib["drop"] and acc_last > ib["acc"])
+            print(f"    on the card: {len(losses)} steps in {secs:.2f} s "
+                  f"({secs / len(losses) * 1e3:.3f} ms a step with the host's augmentation); mean loss of the first and last "
+                  f"{k} {first:.4f} -> {last:.4f} (below {ib['drop']} of the first), accuracy of "
+                  f"the last {k} {acc_last:.4f} (above {ib['acc']})")
+            check(met, f"{model} did not reach the book's thresholds on the card")
+            out[model] = dict(card_vs_cpu=cvc, steps=len(losses), seconds=secs,
+                              first_loss=first, last_loss=last, last_acc=acc_last,
+                              threshold_met=met)
+            del scope, exe
+
+        print(f"  label_semantic_roles (word_dim {sb['word_dim']}, H={sb['hidden']}):")
+        main_p, startup, loss, decoded, _, feed_vars = build_srl_program(ptt, **sb)
+        test_p = main_p.clone(for_test=True)
+        train = srl_feeds(ptt, feed_vars, sb["batch"], sb["steps"])
+        ok, cvc = book_card_vs_cpu(ptt, main_p, startup, loss, [f for f, _ in train[:3]], seed,
+                                   sb["lr"], nudge=False)
+        check(ok, "label_semantic_roles: card and CPU differ")
+        exe, scope = ptt.Executor(), ptt.Scope()
+        exe.run(startup, scope=scope, seed=seed)
+        rk.gru_fwd_launches = rk.gru_bwd_launches = 0
+        t0 = time.perf_counter()
+        costs = [float(exe.run(main_p, f, [loss.name], scope=scope)[0]) for f, _ in train]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {"gru_fwd": rk.gru_fwd_launches / len(costs),
+                    "gru_bwd": rk.gru_bwd_launches / len(costs)}
+        chunk = ChunkEvaluator(num_chunk_types=4, chunk_scheme="iob")
+        for f, data in srl_feeds(ptt, feed_vars, sb["batch"], sb["test_batches"], "test"):
+            (dec,) = exe.run(test_p, f, [decoded.name], scope=scope, return_numpy=False)
+            pred = dec.data.cpu().numpy()[:, 0]
+            offs = np.concatenate([[0], np.cumsum(dec.lengths.cpu().numpy())])
+            chunk.update([pred[offs[i]:offs[i + 1]] for i in range(len(data))],
+                         [np.asarray(row[-1]) for row in data])
+        precision, recall, f1 = chunk.eval()
+        first, last = float(np.mean(costs[:5])), float(np.mean(costs[-5:]))
+        met = bool(last < sb["drop"] * first and f1 > sb["f1"])
+        print(f"    on the card: {len(costs)} steps in {secs:.2f} s "
+              f"({secs / len(costs) * 1e3:.3f} ms a step, host-bound eager steps); mean cost of the first and last 5 {first:.4f} "
+              f"-> {last:.4f} (below {sb['drop']} of the first); chunk F1 {f1:.4f} (p "
+              f"{precision:.4f}, r {recall:.4f}; above {sb['f1']}); B3, B4 launches a step "
+              f"{launches}")
+        check(met, f"label_semantic_roles did not reach the book's thresholds: {last}, {f1}")
+        check(launches == {"gru_fwd": 2, "gru_bwd": 2},
+              f"the book's SRL step launched {launches}, not 2 + 2")
+        out["label_semantic_roles"] = dict(card_vs_cpu=cvc, steps=len(costs), seconds=secs,
+                                           first_cost=first, last_cost=last, chunk_f1=f1,
+                                           threshold_met=met, launches_per_step=launches)
+    finally:
+        if home is None:
+            os.environ.pop("PADDLE_TPU_DATA_HOME")
+        else:
+            os.environ["PADDLE_TPU_DATA_HOME"] = home
+    return out
+
+
+# ---------------------------------------- serving (A4b, A8a): phases 50-53 --
+# phase 50: phase 28's int8 transformer artifact behind the HTTP server: 4
 # clients post 12 /predict requests of these rows in turn, 1024 tokens each
 SERVE_ROWS = (1, 2, 3, 5, 8)
 SERVE_REQUESTS = 12
 SERVE_CLIENTS = 4
 SERVE_MAX_BATCH = 8  # MicroBatcher(max_batch_size=8), buckets 1, 2, 4, 8
 HTTP_TIMEOUT = 600  # seconds, every client's bound
-# phase 47: bench.py run_serving_gen (bench.py:1108-1188) at its widths
+# phase 51: bench.py run_serving_gen (bench.py:1108-1188) at its widths
 SGEN = dict(beams=4, max_len=32, slots=8, requests=48, hidden=3072)
 SGEN_BONUS, SGEN_BETA = 10.0, 1.0  # the chain's control logits
 POOL_SYNC_STEPS = 10  # pool steps run under torch.cuda.set_sync_debug_mode('warn')
-# phase 48: bench.py run_serving_gen_v3's target (bench.py:1280-1400), no
+# phase 52: bench.py run_serving_gen_v3's target (bench.py:1280-1400), no
 # draft: ctx 16 -> 3 x fc 4096 tanh -> fc 256 tanh (the prefix), K=2
 SGEN3 = dict(beams=2, max_len=32, slots=8, requests=48, prefix_hidden=4096, ctx_mem=256,
              ctx=16)
@@ -4977,7 +5648,7 @@ SGEN3_CACHE_MB = 8.0
 # an int8 cache hit's scores against the fp answer: the bound
 # tests/test_gen_v3.py:162 holds
 INT8_HIT_SCORE_BOUND = 0.05
-# phase 49: tests/test_gen_serving.py:47-71's decoder, f32, card against
+# phase 53: tests/test_gen_serving.py:47-71's decoder, f32, card against
 # CPU: ids exact; scores within 1e-5, f32 GEMMs summed in other orders
 TGEN = dict(V=12, E=8, H=16, K=3, T=6)
 TGEN_SCORE_TOL = 1e-5
@@ -5239,7 +5910,7 @@ def same_outputs(a, b):
 
 
 def serving_gen_phase(ptt, smi, seed, n, work):
-    """Phase 40: bench.py's serving_gen, batch mode against continuous
+    """Phase 51: bench.py's serving_gen, batch mode against continuous
     mode; returns the path's readings."""
     from paddle_tpu_torch import serving
 
@@ -5458,7 +6129,7 @@ def build_serving_gen_v3(ptt, beams, max_len, prefix_hidden, ctx_mem, ctx):
 
 
 def prefix_cache_phase(ptt, smi, seed, n, work):
-    """Phase 41: serving_gen_v3's target on its shared-prefix trace, the
+    """Phase 52: serving_gen_v3's target on its shared-prefix trace, the
     prefix cache off, fp, then int8; returns the path's readings."""
     from paddle_tpu_torch import serving
 
@@ -5564,7 +6235,7 @@ def prefix_cache_phase(ptt, smi, seed, n, work):
 
 
 def tiny_gen_phase(ptt, seed, n, work):
-    """Phase 42: the tiny decoder, continuous answers card against CPU."""
+    """Phase 53: the tiny decoder, continuous answers card against CPU."""
     from paddle_tpu_torch import serving
 
     V, E, Hh, K, T = (TGEN[k] for k in ("V", "E", "H", "K", "T"))
@@ -6305,16 +6976,22 @@ def main():
     for k, e in sent_errs.items():
         max_errs[k] = max(max_errs[k], e)
     paths["book_text"] = book_text_phase(ptt, smi, args.seed, 45, serve_work)
+    paths["srl"], srl_errs = srl_phases(ptt, smi, args.seed, 46)
+    for k, e in srl_errs.items():
+        max_errs[k] = max(max_errs[k], e)
+    paths["images"] = image_phase(ptt, smi, args.seed, 48)
+    paths["vgg_window"] = vgg_window_phase(ptt, smi, args.seed, 48)
+    paths["book_image_srl"] = book_image_srl_phase(ptt, smi, args.seed, 49, serve_work)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["transformer_int8_serve"] = int8_serve_phase(ptt, smi, args.seed, 46, q_keep)
+    paths["transformer_int8_serve"] = int8_serve_phase(ptt, smi, args.seed, 50, q_keep)
     shutil.rmtree(q_keep)
     torch.cuda.empty_cache()
-    paths["serving_gen"] = serving_gen_phase(ptt, smi, args.seed, 47, serve_work)
-    paths["serving_gen_prefix"] = prefix_cache_phase(ptt, smi, args.seed, 48, serve_work)
-    paths["serving_gen_tiny"] = tiny_gen_phase(ptt, args.seed, 49, serve_work)
+    paths["serving_gen"] = serving_gen_phase(ptt, smi, args.seed, 51, serve_work)
+    paths["serving_gen_prefix"] = prefix_cache_phase(ptt, smi, args.seed, 52, serve_work)
+    paths["serving_gen_tiny"] = tiny_gen_phase(ptt, args.seed, 53, serve_work)
 
-    phase(50, "the paths line, the kernels line, then the device line")
+    phase(54, "the paths line, the kernels line, then the device line")
     rows["attn_bwd_step"].update(launches_by_route=train_routes["attn_bwd_step"],
                                  kernel="attn_bwd_row_kernel on csrc/attn_row.cuh's attend_bwd")
     rows["attn_phase2"].update(kernel="attn_dep_kernel (t oldest first) + attn_dv_kernel")
@@ -6351,19 +7028,26 @@ def main():
         by_path[k]["sentiment_train"] = paths["sentiment"]["launches_per_step"][k]
         by_path[k]["book_sentiment_train_f32"] = \
             paths["book_text"]["understand_sentiment"]["launches_per_step"][k]
+    # label_semantic_roles at full width (phase 47) and the book's (phase 49)
+    for k in ("gru_fwd", "gru_bwd"):
+        by_path[k]["srl_train"] = paths["srl"]["launches_per_step"][k]
+        by_path[k]["book_srl_train_f32"] = \
+            paths["book_image_srl"]["label_semantic_roles"]["launches_per_step"][k]
     # through the windows (phases 35-37, 39-40 and 44), by the wrappers' counters
     for path, kernels in WINDOW_KERNELS.items():
         launches = paths[f"{path}_window"]["window_ragged"]["launches_per_step"]
         for counter in kernels:
             by_path[counter[:-len("_launches")]][f"{path}_train_window"] = launches[counter]
     by_path.update(q_launches)
-    # the HTTP-served int8 LM (phase 46): launches a request
+    # the HTTP-served int8 LM (phase 50): launches a request
     by_path["quant_matmul"]["transformer_int8_serve"] = \
         paths["transformer_int8_serve"]["quant_matmul_launches_per_request"]
     by_path["flash_fwd"]["transformer_int8_serve"] = \
         paths["transformer_int8_serve"]["flash_fwd_launches_per_request"]
     # B3's row: the request's launch (B=128), and the training step's (B=256)
-    rows["gru_fwd"] = dict(main_row, train_ms=gru_fwd_train_ms)
+    rows["gru_fwd"] = dict(main_row, train_ms=gru_fwd_train_ms,
+                           srl_step=paths["srl"]["kernels"]["gru_fwd"])
+    rows["gru_bwd"]["srl_step"] = paths["srl"]["kernels"]["gru_bwd"]
     max_errs["gru_fwd"] = max(max_err, max_errs["gru_fwd"])
     kernels = [{
         "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",

@@ -3,6 +3,8 @@ functions that append ops to the default program."""
 
 from .attention import *  # noqa: F401,F403
 from .attention import __all__ as _attn_all
+from .crf import *  # noqa: F401,F403
+from .crf import __all__ as _crf_all
 from .generation import BeamSearchDecoder  # noqa: F401
 from .misc import *  # noqa: F401,F403
 from .misc import __all__ as _misc_all
@@ -12,4 +14,4 @@ from .sequence import *  # noqa: F401,F403
 from .sequence import __all__ as _seq_all
 
 __all__ = (list(_nn_all) + list(_seq_all) + list(_misc_all) + list(_attn_all)
-           + ["BeamSearchDecoder"])
+           + list(_crf_all) + ["BeamSearchDecoder"])

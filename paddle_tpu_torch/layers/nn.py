@@ -2,10 +2,10 @@
 programs use: data (:73), fc (:96), embedding (:146), conv2d (:198),
 pool2d (:278), batch_norm (:348), the fused conv + BN protocol's
 RawConvBN (:376), fused_conv_bn (:394), bn_stats (:451) and bn_apply
-(:477), layer_norm (:492), softmax_with_cross_entropy (:537),
-square_error_cost (:554), accuracy (:565), mean (:602), softmax (:606),
-relu (:610), elementwise_add (:622), scale (:638), concat (:680) and
-reshape (:696). Each
+(:477), layer_norm (:492), dropout (:512), softmax_with_cross_entropy
+(:537), square_error_cost (:554), accuracy (:565), mean (:602), softmax (:606),
+relu (:610), elementwise_add (:622), scale (:638), concat (:680),
+reshape (:696) and lrn (:779). Each
 builds its parameters through LayerHelper and appends ops to the default
 program; shapes use -1 for the batch dimension."""
 
@@ -21,9 +21,9 @@ from ..param_attr import ParamAttr
 from .helper import LayerHelper
 
 __all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm", "RawConvBN",
-           "fused_conv_bn", "bn_stats", "bn_apply", "layer_norm", "softmax_with_cross_entropy",
-           "square_error_cost", "accuracy", "mean", "softmax", "relu", "elementwise_add",
-           "scale", "concat", "reshape"]
+           "fused_conv_bn", "bn_stats", "bn_apply", "layer_norm", "dropout",
+           "softmax_with_cross_entropy", "square_error_cost", "accuracy", "mean", "softmax",
+           "relu", "elementwise_add", "scale", "concat", "reshape", "lrn"]
 
 
 def data(name: str, shape: Sequence[int], dtype=np.float32, lod_level: int = 0,
@@ -259,6 +259,16 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5, n
     return out
 
 
+def dropout(x, dropout_prob: float, is_test: bool = False, name=None) -> Variable:
+    """v0.11's dropout (ops/nn_ops.py): x · Bernoulli(1 − p) mask in
+    training, x · (1 − p) with is_test; a LoD input keeps its LoD."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_tmp_variable(x.dtype, x.shape, x.lod_level)
+    helper.append_op(type="dropout", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test})
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label: bool = False):
     helper = LayerHelper("softmax_with_cross_entropy")
     softmax_out = helper.create_tmp_variable(logits.dtype, logits.shape,
@@ -355,4 +365,13 @@ def reshape(x, shape):
     out = helper.create_tmp_variable(x.dtype, tuple(shape), x.lod_level)
     helper.append_op(type="reshape", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"shape": list(shape)})
+    return out
+
+
+def lrn(input, n=5, k=2.0, alpha=1e-4, beta=0.75):
+    """Local response normalisation across NCHW channels (ops/nn_ops.py)."""
+    helper = LayerHelper("lrn")
+    out = helper.create_tmp_variable(input.dtype, input.shape, input.lod_level)
+    helper.append_op(type="lrn", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
     return out

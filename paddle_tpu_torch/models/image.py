@@ -1,7 +1,10 @@
-"""Image-classification models (paddle_tpu/models/image.py), cut to
-ResNet-50/101/152 (`resnet_imagenet`, :126) and its blocks (:16-111),
-benchmark/paddle/image/resnet.py's layout. The other zoo nets (VGG,
-AlexNet, GoogLeNet, SmallNet, the CIFAR ResNet) are not ported yet.
+"""Image-classification models (paddle_tpu/models/image.py): ResNet-50/101/
+152 (`resnet_imagenet`, :126) and its blocks (:16-111),
+benchmark/paddle/image/resnet.py's layout; the book's CIFAR ResNet
+(`_basicblock` :115, `resnet_cifar10` :148); VGG with BN (:162, two
+train-mode dropouts); AlexNet (:184, on `lrn`); GoogLeNet (:206-239);
+SmallNet (:243) and LeNet (:258). Each takes an NCHW image Variable (or
+NHWC where it says so) and returns logits.
 
 Under NHWC training with FLAGS.use_fused_conv (the default) each
 bottleneck builds through the fused conv + BN protocol (fused_conv_bn,
@@ -16,7 +19,8 @@ from .. import layers
 from ..flags import FLAGS
 from ..param_attr import ParamAttr
 
-__all__ = ["conv_bn_layer", "resnet_imagenet"]
+__all__ = ["alexnet", "conv_bn_layer", "googlenet", "lenet", "resnet_cifar10",
+           "resnet_imagenet", "smallnet", "vgg"]
 
 
 def _cbn_attrs(name):
@@ -109,3 +113,117 @@ def resnet_imagenet(input, class_dim=1000, depth=50, is_test=False, data_format=
                                name=f"res{stage + 2}{suffix}")
     pool = layers.pool2d(pool, pool_type="avg", global_pooling=True, data_format=data_format)
     return layers.fc(pool, size=class_dim)
+
+
+def _basicblock(input, ch_out, stride, is_test, data_format="NCHW"):
+    short = _shortcut(input, ch_out, stride, is_test, data_format)
+    conv1 = conv_bn_layer(input, ch_out, 3, stride, 1, is_test=is_test, data_format=data_format)
+    conv2 = conv_bn_layer(conv1, ch_out, 3, 1, 1, act=None, is_test=is_test,
+                          data_format=data_format)
+    return layers.relu(layers.elementwise_add(conv2, short))
+
+
+def resnet_cifar10(input, class_dim=10, depth=32, is_test=False):
+    """The book's CIFAR ResNet: a 3x3 conv + BN of 16 channels, three
+    stages of (depth − 2) / 6 basic blocks of 16, 32 and 64 channels, a
+    global average pool and an fc."""
+    if (depth - 2) % 6:
+        raise ValueError(f"resnet_cifar10: depth {depth} is not 6n + 2")
+    n = (depth - 2) // 6
+    conv = conv_bn_layer(input, 16, 3, 1, 1, is_test=is_test)
+    for stage, ch in enumerate([16, 32, 64]):
+        for i in range(n):
+            conv = _basicblock(conv, ch, 2 if i == 0 and stage > 0 else 1, is_test)
+    pool = layers.pool2d(conv, pool_type="avg", global_pooling=True)
+    return layers.fc(pool, size=class_dim)
+
+
+def vgg(input, class_dim=1000, depth=16, is_test=False):
+    """VGG-11/13/16/19 with BN (benchmark/paddle/image/vgg.py): five blocks
+    of 3x3 conv + BN, each closed by a 2x2 max pool, then two fc 4096 + ReLU
+    each followed by dropout 0.5, and the classifier."""
+    cfg = {11: [1, 1, 2, 2, 2], 13: [2, 2, 2, 2, 2], 16: [2, 2, 3, 3, 3],
+           19: [2, 2, 4, 4, 4]}[depth]
+    tmp = input
+    for convs, channels in zip(cfg, [64, 128, 256, 512, 512]):
+        for _ in range(convs):
+            tmp = conv_bn_layer(tmp, channels, 3, 1, 1, is_test=is_test)
+        tmp = layers.pool2d(tmp, pool_size=2, pool_stride=2)
+    for _ in range(2):
+        tmp = layers.fc(tmp, size=4096, act="relu")
+        tmp = layers.dropout(tmp, 0.5, is_test=is_test)
+    return layers.fc(tmp, size=class_dim)
+
+
+def alexnet(input, class_dim=1000, is_test=False):
+    """benchmark/paddle/image/alexnet.py: conv-lrn-pool twice, three convs,
+    a pool, two fc 4096 with dropout, the classifier."""
+    t = layers.conv2d(input, 64, 11, stride=4, padding=2, act="relu")
+    t = layers.pool2d(layers.lrn(t), pool_size=3, pool_stride=2)
+    t = layers.conv2d(t, 192, 5, padding=2, act="relu")
+    t = layers.pool2d(layers.lrn(t), pool_size=3, pool_stride=2)
+    t = layers.conv2d(t, 384, 3, padding=1, act="relu")
+    t = layers.conv2d(t, 256, 3, padding=1, act="relu")
+    t = layers.conv2d(t, 256, 3, padding=1, act="relu")
+    t = layers.pool2d(t, pool_size=3, pool_stride=2)
+    for _ in range(2):
+        t = layers.fc(t, size=4096, act="relu")
+        t = layers.dropout(t, 0.5, is_test=is_test)
+    return layers.fc(t, size=class_dim)
+
+
+def _inception(input, c1, c3r, c3, c5r, c5, proj):
+    b1 = layers.conv2d(input, c1, 1, act="relu")
+    b3 = layers.conv2d(input, c3r, 1, act="relu")
+    b3 = layers.conv2d(b3, c3, 3, padding=1, act="relu")
+    b5 = layers.conv2d(input, c5r, 1, act="relu")
+    b5 = layers.conv2d(b5, c5, 5, padding=2, act="relu")
+    bp = layers.pool2d(input, pool_size=3, pool_stride=1, pool_padding=1)
+    bp = layers.conv2d(bp, proj, 1, act="relu")
+    return layers.concat([b1, b3, b5, bp], axis=1)
+
+
+def googlenet(input, class_dim=1000, is_test=False):
+    """benchmark/paddle/image/googlenet.py: Inception v1 without its two
+    auxiliary heads, a dropout of 0.4 before the classifier."""
+    t = layers.conv2d(input, 64, 7, stride=2, padding=3, act="relu")
+    t = layers.pool2d(t, pool_size=3, pool_stride=2, pool_padding=1)
+    t = layers.conv2d(t, 64, 1, act="relu")
+    t = layers.conv2d(t, 192, 3, padding=1, act="relu")
+    t = layers.pool2d(t, pool_size=3, pool_stride=2, pool_padding=1)
+    t = _inception(t, 64, 96, 128, 16, 32, 32)
+    t = _inception(t, 128, 128, 192, 32, 96, 64)
+    t = layers.pool2d(t, pool_size=3, pool_stride=2, pool_padding=1)
+    t = _inception(t, 192, 96, 208, 16, 48, 64)
+    t = _inception(t, 160, 112, 224, 24, 64, 64)
+    t = _inception(t, 128, 128, 256, 24, 64, 64)
+    t = _inception(t, 112, 144, 288, 32, 64, 64)
+    t = _inception(t, 256, 160, 320, 32, 128, 128)
+    t = layers.pool2d(t, pool_size=3, pool_stride=2, pool_padding=1)
+    t = _inception(t, 256, 160, 320, 32, 128, 128)
+    t = _inception(t, 384, 192, 384, 48, 128, 128)
+    t = layers.pool2d(t, pool_type="avg", global_pooling=True)
+    t = layers.dropout(t, 0.4, is_test=is_test)
+    return layers.fc(t, size=class_dim)
+
+
+def smallnet(input, class_dim=10, is_test=False):
+    """benchmark/paddle/image/smallnet_mnist_cifar.py, caffe's
+    cifar10_quick."""
+    t = layers.conv2d(input, 32, 5, padding=2, act="relu")
+    t = layers.pool2d(t, pool_size=3, pool_stride=2)
+    t = layers.conv2d(t, 32, 5, padding=2, act="relu")
+    t = layers.pool2d(t, pool_size=3, pool_stride=2, pool_type="avg")
+    t = layers.conv2d(t, 64, 5, padding=2, act="relu")
+    t = layers.pool2d(t, pool_size=3, pool_stride=2, pool_type="avg")
+    t = layers.fc(t, size=64, act="relu")
+    return layers.fc(t, size=class_dim)
+
+
+def lenet(input, class_dim=10, is_test=False):
+    """The book's recognize_digits conv net."""
+    t = layers.conv2d(input, 20, 5, act="relu")
+    t = layers.pool2d(t, pool_size=2, pool_stride=2)
+    t = layers.conv2d(t, 50, 5, act="relu")
+    t = layers.pool2d(t, pool_size=2, pool_stride=2)
+    return layers.fc(t, size=class_dim)

@@ -1,7 +1,8 @@
 """Convolution, pooling, normalisation, loss and metric op kernels:
-`conv2d`, `pool2d`, `batch_norm`, `layer_norm`, `softmax_with_cross_entropy`,
-`square_error_cost` and `accuracy` (paddle_tpu/ops/nn_ops.py:30, 106, 146,
-191-207, 247-272, 276, 296), on torch tensors.
+`conv2d`, `pool2d`, `batch_norm`, `layer_norm`, `dropout`,
+`softmax_with_cross_entropy`, `square_error_cost`, `accuracy` and `lrn`
+(paddle_tpu/ops/nn_ops.py:30, 106, 146, 191-207, 210-226, 247-272, 276,
+296, 310-324), on torch tensors.
 
 The convolution goes to F.conv2d (cuDNN on the card), as the JAX package
 leaves it to XLA. An NHWC tensor reaches it as a channels-last NCHW view
@@ -200,3 +201,44 @@ def layer_norm_kernel(ctx):
     if ctx.has_input("Bias"):
         out = out + ctx.input("Bias")
     ctx.set_output("Y", out.to(x.dtype))
+
+
+def dropout_apply(x, mask):
+    """Train-mode dropout with a given 0/1 `mask` of x's shape: x · mask in
+    x's dtype, no rescale. Its gradient is the mask."""
+    return x * mask.to(x.dtype)
+
+
+@register_op("dropout")
+def dropout_kernel(ctx):
+    """v0.11's dropout (dropout_op.cc), not torch's: in train mode
+    x · mask with mask ~ Bernoulli(1 − p) and no 1/(1 − p) rescale; in test
+    mode x · (1 − p), the factor rounded to x's dtype first as the JAX op's
+    weakly typed scalar is. The mask is drawn from the run's generator (a
+    window's is registered with its graph, core/graph.py), over every slot
+    of a LoD input's data, padding included; the LoD is kept."""
+    x = ctx.input("X")
+    p = ctx.attr("dropout_prob", 0.5)
+    data = x.data if isinstance(x, LoDArray) else x
+    if ctx.attr("is_test", False):
+        out = data * torch.tensor(1.0 - p, dtype=data.dtype, device=data.device)
+    else:
+        gen = ctx.generator()
+        mask = torch.rand(data.shape, generator=gen, device=gen.device) < 1.0 - p
+        out = dropout_apply(data, mask)
+    ctx.set_output("Out", x.with_data(out) if isinstance(x, LoDArray) else out)
+
+
+@register_op("lrn")
+def lrn_kernel(ctx):
+    """Local response normalisation across the channels of NCHW x:
+    x / (k + alpha · Σ_window x²)^beta over a window of n channels centred
+    on each (zero past the edges). As the JAX op: no alpha/n scaling, the
+    window's squares summed in channel order, in x's dtype."""
+    x = ctx.input("X")
+    n = ctx.attr("n", 5)
+    half = n // 2
+    sq = F.pad(x.square(), (0, 0, 0, 0, half, half))
+    windows = sum(sq[:, i:i + x.shape[1]] for i in range(n))
+    k, alpha, beta = ctx.attr("k", 2.0), ctx.attr("alpha", 1e-4), ctx.attr("beta", 0.75)
+    ctx.set_output("Out", x / torch.pow(k + alpha * windows, beta))

@@ -456,7 +456,7 @@ def test_understand_sentiment(one_thread, synthetic_data):
     assert np.mean(accs[-10:]) > 0.8, f"final acc {np.mean(accs[-10:])}"
 
 
-def test_word2vec(synthetic_data):
+def test_word2vec(one_thread, synthetic_data):
     """The reference recipe: Adam(1e-2), B=64, 4 passes; the last cost
     below 0.8 of the first and below 0.9·log(dict size)."""
     prog, startup, cost, _, _ = _build(ptt, _word2vec)

@@ -610,7 +610,7 @@ def test_http_generate_errors(http_gen):
 
 
 def test_chip_smoke_replays_the_v3_trace():
-    """chip_smoke.py's phase 48 rebuilds bench.py run_serving_gen_v3's
+    """chip_smoke.py's phase 52 rebuilds bench.py run_serving_gen_v3's
     shared-prefix trace without the JAX package: the same prefix group for
     each of its 48 requests as fleetctl.traces.generate_trace gives."""
     import importlib.util

@@ -314,9 +314,11 @@ def test_model_refuses_what_is_not_ported():
         toks = ptt.layers.data("toks", shape=[8], dtype=np.int32)
         with pytest.raises(NotImplementedError, match="mp_axis"):
             ptt.models.transformer_lm(toks, vocab_size=16, dim=16, num_heads=2, mp_axis="mp")
-        with pytest.raises(NotImplementedError, match="dropout"):
-            ptt.models.transformer_lm(toks, vocab_size=16, dim=16, num_heads=2,
-                                      dropout_prob=0.1)
+        # train-mode dropout is ported: two dropout ops a block
+        ptt.models.transformer_lm(toks, vocab_size=16, dim=16, num_heads=2, num_layers=2,
+                                  dropout_prob=0.1)
+        ops = [o.type for o in ptt.default_main_program().global_block().ops]
+        assert ops.count("dropout") == 4
 
 
 # -------------------------------------------------------------- training --
