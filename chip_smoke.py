@@ -400,14 +400,42 @@ at the start of a capture:
               tokens/s, first-token p50/p99, occupancy, the replay's host
               and device ms and device events, the capture's seconds and
               pool; one streamed /generate against the batch answer.
-  52. prefix  bench.py's serving_gen_v3 target (K=2, T=32, 8 slots, 48
-              requests, prefix 3 x 4096, context memory 256) on its
-              shared-prefix trace, no draft: the prefix cache off, fp, then
-              int8; fp hits the uncached bits, int8 hits within 0.05;
-              first-token latency of hits against misses, hit rates.
+  52. v3      bench.py's serving_gen_v3 (K=2, T=32, 8 slots, 48 requests of
+              its shared-prefix trace from the port's fleetctl.traces,
+              prefix 3 x 4096, context memory 256, its chain-control draft,
+              draft_k 4): three passes over one engine, v2 mode (no cache,
+              no draft), the fp prefix cache with the draft, the int8 cache
+              with the draft, each closed loop then open loop; the fp pass
+              v2 mode's bits in both loops, int8 ids and lengths equal with
+              scores within 0.5; propose and verify each captured once at
+              warmup and replayed every round, one host sync a round;
+              tokens accepted a slot a round, effective tokens/s,
+              first-token p50/p99 (hits against misses), hit rates.
   53. tiny    tests/test_gen_serving.py's tiny decoder (f32): continuous
               answers card against CPU (ids exact, scores within 1e-5).
-  54. the paths JSON line (phases 32-53's readings), the kernels JSON
+  54. disagg  `python -m paddle_tpu_torch serve --disaggregate
+              --prefill_replicas 1 --decode_replicas 1` over phase 52's
+              target (a router and two replica processes sharing the
+              card): the trace's 48 requests buffered, then streamed by 8
+              clients, each the bits of an in-process scheduler on the card;
+              then with --handoff_quant int8 (ids equal, scores within
+              0.05, fewer bytes a handoff); pt_handoff_* bytes and seconds
+              from the router's /metrics, first-token p50/p99, tokens/s;
+              SIGTERM exits 0.
+  55. fleet   `python -m paddle_tpu_torch serve --replicas 2 --standby 1
+              --quant int8` over bench.py's serving_quant MLP (int8 by
+              quant.convert), 16 closed-loop clients of 8-row requests,
+              every answer the bits of an in-process engine on the card; one
+              replica SIGKILLed under load: no non-retryable error, the
+              breaker-trip and admission times, requests/s before the kill
+              and after the standby's admission, B12's launches a request
+              by a replica's own /stats counters; `fleetctl status`, then
+              `fleetctl rollout` to a second artifact under the same load
+              with no failed request; SIGTERM exits 0. Each spawned process
+              writes its output under LOG_DIR (the output directory that
+              a run on the card hands back), whose tails are printed if
+              the phase fails.
+  56. the paths JSON line (phases 32-55's readings), the kernels JSON
       line, then the device JSON line last.
 
 Weights are made with numpy from --seed at the shapes the program
@@ -434,12 +462,14 @@ import os
 import queue
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -5628,7 +5658,7 @@ def book_image_srl_phase(ptt, smi, seed, n, work):
     return out
 
 
-# ---------------------------------------- serving (A4b, A8a): phases 50-53 --
+# ------------------------------- serving (A4b, A8a, A8b, A8c): phases 50-55 --
 # phase 50: phase 28's int8 transformer artifact behind the HTTP server: 4
 # clients post 12 /predict requests of these rows in turn, 1024 tokens each
 SERVE_ROWS = (1, 2, 3, 5, 8)
@@ -5640,14 +5670,25 @@ HTTP_TIMEOUT = 600  # seconds, every client's bound
 SGEN = dict(beams=4, max_len=32, slots=8, requests=48, hidden=3072)
 SGEN_BONUS, SGEN_BETA = 10.0, 1.0  # the chain's control logits
 POOL_SYNC_STEPS = 10  # pool steps run under torch.cuda.set_sync_debug_mode('warn')
-# phase 52: bench.py run_serving_gen_v3's target (bench.py:1280-1400), no
-# draft: ctx 16 -> 3 x fc 4096 tanh -> fc 256 tanh (the prefix), K=2
+# phase 52: bench.py run_serving_gen_v3 (bench.py:1280-1530): its target
+# (ctx 16 -> 3 x fc 4096 tanh -> fc 256 tanh, the prefix; K=2) and its
+# draft (the chain control alone), draft_k 4, on its shared-prefix trace
 SGEN3 = dict(beams=2, max_len=32, slots=8, requests=48, prefix_hidden=4096, ctx_mem=256,
-             ctx=16)
+             ctx=16, draft_k=4)
+SGEN3_TRACE = dict(duration_s=30.0, seed=17, base_rps=4.0, diurnal_amplitude=0.3,
+                   flash_crowds=(), shared_prefix_fraction=0.6, prefix_groups=3)
 SGEN3_CACHE_MB = 8.0
-# an int8 cache hit's scores against the fp answer: the bound
-# tests/test_gen_v3.py:162 holds
+# the int8 cache pass's scores against v2 mode's: the bound
+# tests/test_gen_v3.py:162 holds (bench.py:1530 asserts only 0.5)
 INT8_HIT_SCORE_BOUND = 0.05
+# phase 54: the disaggregated fleet's streamed requests come from this many
+# clients; int8 handoffs hold the ids, their scores within this
+DISAGG_CLIENTS = 8
+DISAGG_INT8_SCORE_TOL = 0.05
+SERVE_START_S = 300  # seconds for a spawned fleet to come up
+# phase 55: the replica fleet under a SIGKILL (seconds of load before the
+# kill and after the standby's admission)
+FLEET = dict(clients=16, before_s=3.0, after_s=3.0)
 # phase 53: tests/test_gen_serving.py:47-71's decoder, f32, card against
 # CPU: ids exact; scores within 1e-5, f32 GEMMs summed in other orders
 TGEN = dict(V=12, E=8, H=16, K=3, T=6)
@@ -6075,29 +6116,6 @@ def serving_gen_phase(ptt, smi, seed, n, work):
     return res
 
 
-def shared_prefix_groups(n_req):
-    """The prefix group (or None) of the first n_req events of bench.py
-    run_serving_gen_v3's trace: fleetctl.traces.generate_trace of
-    TraceSpec(duration_s=30, seed=17, base_rps=4, diurnal_amplitude=0.3,
-    flash_crowds=(), shared_prefix_fraction=0.6, prefix_groups=3), its
-    draws made in its order (paddle_tpu/fleetctl/traces.py:181-246)."""
-    import random
-
-    duration, base, amp, period, groups = 30.0, 4.0, 0.3, 40.0, 3
-    rnd = random.Random(17)
-    peak = base * (1.0 + amp)
-    out, t = [], 0.0
-    while len(out) < n_req:
-        t += rnd.expovariate(peak)
-        check(t < duration, f"the trace has fewer than {n_req} events")
-        if rnd.random() * peak > base * (1.0 + amp * math.sin(2.0 * math.pi * t / period)):
-            continue
-        rnd.random()  # the model pick: one model
-        rnd.paretovariate(1.6)  # service_ms
-        out.append(rnd.randrange(groups) if rnd.random() < 0.6 else None)
-    return out
-
-
 def build_serving_gen_v3(ptt, beams, max_len, prefix_hidden, ctx_mem, ctx):
     """bench.py run_serving_gen_v3's target model through the port's front
     end: (main, startup, outputs, V)."""
@@ -6128,16 +6146,42 @@ def build_serving_gen_v3(ptt, beams, max_len, prefix_hidden, ctx_mem, ctx):
     return main, startup, outs, V
 
 
-def prefix_cache_phase(ptt, smi, seed, n, work):
-    """Phase 52: serving_gen_v3's target on its shared-prefix trace, the
-    prefix cache off, fp, then int8; returns the path's readings."""
-    from paddle_tpu_torch import serving
+def sgen3_events(n_req):
+    """The first n_req events of bench.py run_serving_gen_v3's trace
+    (bench.py:1424-1432), from the port's fleetctl.traces."""
+    from paddle_tpu_torch.fleetctl.traces import TraceSpec, generate_trace, trace_digest
 
-    K, T, S, N, P, Hc, C = (SGEN3[k] for k in ("beams", "max_len", "slots", "requests",
-                                                 "prefix_hidden", "ctx_mem", "ctx"))
-    phase(n, f"bench.py's serving_gen_v3 target (K={K}, T={T}, {S} slots, {N} requests, prefix "
-          f"hidden {P}, context memory {Hc}, f32) on its shared-prefix trace, no draft: the "
-          f"prefix cache off, then prefix_cache_mb={SGEN3_CACHE_MB:g} in fp, then int8")
+    events = generate_trace(TraceSpec(**SGEN3_TRACE))
+    check(len(events) >= n_req, f"the trace has {len(events)} events, fewer than {n_req}")
+    return events[:n_req], trace_digest(events[:n_req])
+
+
+def build_serving_gen_v3_draft(ptt, max_len, ctx):
+    """bench.py run_serving_gen_v3's draft (bench.py:1397-1418): the same
+    chain control with no prefix MLP, K=2; (main, startup, outputs)."""
+    V = max_len + 8
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        c = ptt.layers.data("ctx", shape=[-1, ctx], append_batch_size=False)
+        thr = ptt.layers.fc(c, size=1, param_attr="dg_thr", bias_attr=False)
+        gen = ptt.layers.BeamSearchDecoder(beam_size=2, max_len=max_len, bos_id=0, eos_id=1)
+        with gen.step():
+            prev = gen.prev_ids()
+            thr_m = gen.memory(init=thr)
+            emb = ptt.layers.embedding(prev, size=[V, V], param_attr="dg_emb")
+            gen.update_memory(thr_m, thr_m)
+            gen.output_logits(ptt.layers.fc(ptt.layers.concat([emb, thr_m], axis=1), size=V,
+                                            param_attr="dg_ctl", bias_attr=False))
+        outs = gen()
+    return main, startup, outs
+
+
+def serving_gen_v3_setup(ptt, seed, work):
+    """The target and draft artifacts (bench.py's weights) and the trace's
+    requests: a dict the v3 and disaggregated phases share."""
+    K, T, N, P, Hc, C = (SGEN3[k] for k in ("beams", "max_len", "requests", "prefix_hidden",
+                                             "ctx_mem", "ctx"))
     main, startup, outs, V = build_serving_gen_v3(ptt, K, T, P, Hc, C)
     scope = ptt.Scope()
     ptt.Executor().run(startup, scope=scope, seed=seed + 41)
@@ -6151,15 +6195,23 @@ def prefix_cache_phase(ptt, smi, seed, n, work):
     ptt.io.params_from_numpy(scope, weights, "cuda")
     d = os.path.join(work, "serving_gen_v3")
     ptt.io.save_inference_model(d, ["ctx"], list(outs), main_program=main, scope=scope)
-    groups = shared_prefix_groups(N)
+    dmain, dstartup, douts = build_serving_gen_v3_draft(ptt, T, C)
+    dscope = ptt.Scope()
+    ptt.Executor().run(dstartup, scope=dscope, seed=seed + 43)
+    ptt.io.params_from_numpy(dscope, {"dg_thr": thr_w, "dg_emb": np.eye(V, dtype=np.float32),
+                                      "dg_ctl": chain_ctl(V, 2)}, "cuda")
+    draft = os.path.join(work, "serving_gen_v3_draft")
+    ptt.io.save_inference_model(draft, ["ctx"], list(douts), main_program=dmain, scope=dscope)
+    events, digest = sgen3_events(N)
     rng = np.random.RandomState(7)
     group_ctx = {}
-    for g in range(3):
+    for g in range(SGEN3_TRACE["prefix_groups"]):
         row = rng.normal(0.0, 1.0, C).astype(np.float32)
         row[0] = (8.0 + 7.0 * g) - (SGEN_BONUS / SGEN_BETA + 1.5)  # half-integer margins
         group_ctx[g] = row
     ctxs, hit_class, seen = [], [], set()
-    for g in groups:
+    for ev in events:
+        g = ev.get("prefix_group")
         if g is None:
             L = float(np.clip(np.round(np.exp(rng.normal(np.log(T * 0.4), 0.45))), 6, T - 6))
             row = rng.normal(0.0, 1.0, C).astype(np.float32)
@@ -6170,67 +6222,142 @@ def prefix_cache_phase(ptt, smi, seed, n, work):
             hit_class.append(g in seen)
             seen.add(g)
         ctxs.append(row)
-    ctxs = np.stack(ctxs)
     hits = [i for i, h in enumerate(hit_class) if h]
-    misses = [i for i, h in enumerate(hit_class) if not h]
     check(len(hits) >= 8, f"degenerate trace: {len(hits)} hits")
     warm = rng.normal(0.0, 1.0, (1, C)).astype(np.float32)
     warm[0, 0] = 12.0 - (SGEN_BONUS / SGEN_BETA + 1.5)  # not in the trace
-    engine = serving.ServingEngine(d, policy=serving.BucketPolicy(max_batch_size=S),
+    return {"dir": d, "draft": draft, "ctxs": np.stack(ctxs), "hits": hits,
+            "misses": [i for i, h in enumerate(hit_class) if not h], "warm": warm,
+            "digest": digest}
+
+
+def serving_gen_v3_phase(ptt, smi, n, v3):
+    """Phase 52: bench.py's serving_gen_v3, its three passes over one
+    engine; returns the path's readings."""
+    from paddle_tpu_torch import serving
+
+    K, T, S, N, P, Hc, D = (SGEN3[k] for k in ("beams", "max_len", "slots", "requests",
+                                                 "prefix_hidden", "ctx_mem", "draft_k"))
+    phase(n, f"bench.py's serving_gen_v3 (K={K}, T={T}, {S} slots, {N} requests of its "
+          f"shared-prefix trace, prefix hidden {P}, context memory {Hc}, draft_k {D}, f32): v2 "
+          f"mode, then the fp prefix cache with the draft, then the int8 cache with the draft; "
+          f"each closed loop, then open loop")
+    ctxs, hits, misses = v3["ctxs"], v3["hits"], v3["misses"]
+    engine = serving.ServingEngine(v3["dir"], policy=serving.BucketPolicy(max_batch_size=S),
                                    model_name="serving_gen_v3")
-    passes = {}
-    for label, mb, quant in (("uncached", 0.0, None), ("fp", SGEN3_CACHE_MB, None),
-                             ("int8", SGEN3_CACHE_MB, "int8")):
+
+    def run_pass(mb, quant, draft):
         sched = serving.ContinuousScheduler(
             engine, max_slots=S, max_queue=N + 8, timeout_ms=HTTP_TIMEOUT * 1e3,
-            prefix_cache_mb=mb, prefix_cache_quant=quant).start()
+            prefix_cache_mb=mb, prefix_cache_quant=quant, draft_model=draft, draft_k=D).start()
         try:
             sched.warmup()
-            sched.generate({"ctx": warm}, timeout_ms=HTTP_TIMEOUT * 1e3)
-            outs_, firsts = [], []
+            sched.generate({"ctx": v3["warm"]}, timeout_ms=HTTP_TIMEOUT * 1e3)
+            closed, firsts = [], []
             for i in range(N):  # closed loop: one request in flight
                 t0 = time.perf_counter()
                 out, first = drain(sched.submit({"ctx": ctxs[i:i + 1]},
                                                 timeout_ms=HTTP_TIMEOUT * 1e3), t0)
-                outs_.append(out)
+                closed.append(out)
                 firsts.append(first)
-            stats = sched.stats()
+            t0 = time.perf_counter()  # open loop: every request at once
+            hs = [sched.submit({"ctx": ctxs[i:i + 1]}, timeout_ms=HTTP_TIMEOUT * 1e3)
+                  for i in range(N)]
+            opened = [drain(h, t0)[0] for h in hs]
+            wall = time.perf_counter() - t0
+            # the target's cached state a key, dequantized: the logits barely
+            # read the context memory, so the answers alone cannot hold it
+            entries = {} if not mb else {
+                key: tuple(x.cpu() for part in sched._cached_rows(
+                    pay["t"], sched._mem_specs, sched._pe_specs) for x in part)
+                for key, (pay, _) in sched._pcache._entries.items()}
+            return closed, opened, firsts, wall, sched.stats(), sched.syncs_total, entries
         finally:
             sched.stop()
-        passes[label] = (outs_, firsts, stats)
-    un, fp, q8 = passes["uncached"][0], passes["fp"][0], passes["int8"][0]
-    fp_same = [same_outputs(a, b) for a, b in zip(un, fp)]
-    check(all(fp_same), f"fp cache hits differ from the uncached answers at "
-                        f"{[i for i, s in enumerate(fp_same) if not s]}")
-    q_shape = all(np.array_equal(a[0], c[0]) and np.array_equal(a[2], c[2]) for a, c in zip(un, q8))
-    q_delta = max(float(np.abs(a[1] - c[1]).max()) for a, c in zip(un, q8))
+
+    passes = {"v2_mode": run_pass(0.0, None, None),
+              "fp_cached": run_pass(SGEN3_CACHE_MB, None, v3["draft"]),
+              "int8_cached": run_pass(SGEN3_CACHE_MB, "int8", v3["draft"])}
+    a, b, c = passes["v2_mode"], passes["fp_cached"], passes["int8_cached"]
+    for loop, i in (("closed", 0), ("open", 1)):
+        same = [same_outputs(x, y) for x, y in zip(a[i], b[i])]
+        check(all(same), f"fp_cached with the draft differs from v2 mode ({loop} loop) at "
+                         f"{[j for j, s in enumerate(same) if not s]}")
+    q_shape = all(np.array_equal(x[0], y[0]) and np.array_equal(x[2], y[2])
+                  for x, y in zip(a[0] + a[1], c[0] + c[1]))
+    q_delta = max(float(np.abs(x[1] - y[1]).max()) for x, y in zip(a[0] + a[1], c[0] + c[1]))
     check(q_shape and q_delta < INT8_HIT_SCORE_BOUND,
-          f"int8 entries: ids/lengths equal {q_shape}, score drift {q_delta}")
-    res = {"requests": N, "hits": len(hits), "device": smi}
-    for label, (_, firsts, stats) in passes.items():
-        pc = stats.get("prefix_cache", {})
+          f"int8_cached: ids/lengths equal {q_shape}, score drift {q_delta}")
+    # every int8 entry within half a step (absmax/127 of the row's tensor)
+    # of the fp entry of the same key
+    fp_ent, q_ent = b[6], c[6]
+    check(fp_ent and sorted(fp_ent) == sorted(q_ent),
+          f"the cached passes hold {len(fp_ent)} and {len(q_ent)} entries, not the same keys")
+    q_steps = 0.0
+    for key, rows in fp_ent.items():
+        for j, (w, g) in enumerate(zip(rows, q_ent[key])):
+            step = max(float(w.float().abs().max()), 1e-30) / 127.0
+            err = float((g.float() - w.float()).abs().max()) / step
+            check(err <= 0.5 + 1e-4, f"int8_cached: entry state {j} off by {err} steps")
+            q_steps = max(q_steps, err)
+    true_toks = int(sum(int(o[2][0]) for o in a[0]))
+    res = {"requests": N, "hits": len(hits), "trace_digest": v3["digest"], "draft_k": D,
+           "true_tokens": true_toks, "device": smi}
+    for label, (closed, opened, firsts, wall, st, syncs, _) in passes.items():
         r = {"first_token_s_p50": pct(firsts, 50), "first_token_s_p99": pct(firsts, 99),
              "hit_first_token_s_p50": pct([firsts[i] for i in hits], 50),
              "hit_first_token_s_p99": pct([firsts[i] for i in hits], 99),
              "miss_first_token_s_p50": pct([firsts[i] for i in misses], 50),
              "miss_first_token_s_p99": pct([firsts[i] for i in misses], 99),
-             "prefix_runs": stats["prefixes_total"], "pool_steps": stats["steps_total"],
-             "captures": stats["pool_step"]["captures"]}
+             "open_loop_wall_s": wall, "effective_tok_per_s": true_toks / wall,
+             "prefix_runs": st["prefixes_total"], "host_syncs": syncs,
+             "pool_step": st["pool_step"]}
+        pc = st.get("prefix_cache")
         if pc:
-            r.update(hit_rate=pc["hit_rate"], cache_bytes=pc["bytes"],
+            # a cached pass must hit: fewer prefix runs than v2 mode's
+            check(pc["hits"] > 0 and st["prefixes_total"] < passes["v2_mode"][4]["prefixes_total"],
+                  f"{label}: the prefix cache never hit ({pc['hits']} hits, "
+                  f"{st['prefixes_total']} prefix runs against v2 mode's "
+                  f"{passes['v2_mode'][4]['prefixes_total']})")
+            r.update(hit_rate=pc["hit_rate"], hits=pc["hits"], cache_bytes=pc["bytes"],
                      cache_entries=pc["entries"])
+        spec = st.get("speculative")
+        if spec:
+            rounds = spec["verify_rounds_total"]
+            for step in ("propose_step", "verify_step"):
+                check(spec[step]["captures"] == 1 and spec[step]["replays"] == rounds,
+                      f"{label}: the {step} captured {spec[step]['captures']} times, replayed "
+                      f"{spec[step]['replays']} times over {rounds} rounds")
+            check(syncs == rounds, f"{label}: {syncs} host syncs over {rounds} rounds")
+            slot_rounds = spec["proposed_total"] / D
+            r.update(verify_rounds=rounds,
+                     tokens_per_slot_round=spec["accepted_total"] / slot_rounds,
+                     accept_rate=spec["accept_rate"], propose_step=spec["propose_step"],
+                     verify_step=spec["verify_step"])
+        else:
+            check(st["pool_step"]["captures"] == 1 and syncs == st["steps_total"],
+                  f"{label}: pool captures {st['pool_step']['captures']}, {syncs} host syncs "
+                  f"over {st['steps_total']} steps")
         res[label] = r
         print(f"  {label}: first token p50/p99 {r['first_token_s_p50'] * 1e3:.2f}/"
-              f"{r['first_token_s_p99'] * 1e3:.2f} ms; the {len(hits)} hit requests "
+              f"{r['first_token_s_p99'] * 1e3:.2f} ms (the {len(hits)} hit requests "
               f"{r['hit_first_token_s_p50'] * 1e3:.2f}/{r['hit_first_token_s_p99'] * 1e3:.2f} "
               f"ms, the {len(misses)} others {r['miss_first_token_s_p50'] * 1e3:.2f}/"
-              f"{r['miss_first_token_s_p99'] * 1e3:.2f} ms; {r['prefix_runs']} prefix runs"
+              f"{r['miss_first_token_s_p99'] * 1e3:.2f} ms); open loop {wall:.3f} s, "
+              f"{r['effective_tok_per_s']:.1f} effective tokens/s; {r['prefix_runs']} prefix "
+              f"runs, {syncs} host syncs"
+              + (f"; {r['verify_rounds']} rounds, {r['tokens_per_slot_round']:.3f} tokens "
+                 f"accepted a slot a round (of {D} proposed), accept rate "
+                 f"{r['accept_rate']:.3f}; propose and verify each captured once and replayed "
+                 f"every round" if spec else "")
               + (f"; hit rate {pc['hit_rate']:.3f}, {pc['entries']} entries, {pc['bytes']} "
                  "bytes" if pc else ""))
-    check(res["fp"]["prefix_runs"] < res["uncached"]["prefix_runs"], "the fp cache never hit")
-    res.update(fp_bits_equal_uncached=True, int8_score_delta_max=q_delta)
-    print(f"  fp hits: every answer the uncached pass's bits; int8 hits: ids and lengths equal, "
-          f"scores within {q_delta:.3g} of the uncached (bound {INT8_HIT_SCORE_BOUND})")
+    res.update(fp_bits_equal_v2_mode=True, int8_score_delta_max=q_delta,
+               int8_entry_err_steps_max=q_steps)
+    print(f"  fp_cached: every answer v2 mode's bits (closed and open loop); int8_cached: ids "
+          f"and lengths equal, scores within {q_delta:.3g} (bound {INT8_HIT_SCORE_BOUND}); "
+          f"its {len(q_ent)} entries within {q_steps:.4f} of a step of the fp entries (bound "
+          f"0.5)")
     return res
 
 
@@ -6294,6 +6421,462 @@ def tiny_gen_phase(ptt, seed, n, work):
              if apart else ""))
     return {"score_err_max": err, "continuous_equal_batch_on_card": same,
             "differing_shapes": apart}
+
+
+LOG_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke_logs")
+
+
+class ServeProcess:
+    """`python -m paddle_tpu_torch serve ...` in a process group of its own
+    (the router and its replicas), its output in LOG_DIR/<name>.log and its
+    replicas' in LOG_DIR/<name>_replicas/; `url` from its `routing ... on`
+    line."""
+
+    def __init__(self, args, name):
+        os.makedirs(LOG_DIR, exist_ok=True)
+        self.name = name
+        self.log_path = os.path.join(LOG_DIR, f"{name}.log")
+        self.replica_logs = os.path.join(LOG_DIR, f"{name}_replicas")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch", "serve", *args, "--port", "0",
+             "--replica_log_dir", self.replica_logs],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)
+        self.url = None
+        self._seen = threading.Event()
+        threading.Thread(target=self._drain, daemon=True).start()
+
+    def _drain(self):
+        with open(self.log_path, "w") as log:
+            for line in self.proc.stdout:
+                log.write(line)
+                log.flush()
+                if self.url is None and line.startswith("routing "):
+                    self.url = line.split(" on ")[-1].strip()
+                    self._seen.set()
+        self._seen.set()
+
+    def wait_url(self, timeout):
+        self._seen.wait(timeout)
+        check(self.url is not None, f"{self.name}: no `routing ... on` line within {timeout} s "
+                                    f"(exit {self.proc.poll()})")
+        return self.url
+
+    def tails(self, n=25):
+        out = []
+        paths = [self.log_path] + sorted(
+            os.path.join(self.replica_logs, f) for f in (
+                os.listdir(self.replica_logs) if os.path.isdir(self.replica_logs) else ()))
+        for path in paths:
+            with open(path, errors="replace") as f:
+                lines = f.readlines()[-n:]
+            out.append(f"---- {os.path.relpath(path, ROOT)} (last {len(lines)} lines)\n"
+                       + "".join(lines))
+        return "\n".join(out)
+
+    def terminate(self, timeout=180):
+        """SIGTERM to the router; its exit code."""
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            return None
+
+    def close(self):
+        """Every process of the group killed, the router reaped."""
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            pass
+
+
+def with_logs(sp, fn):
+    """fn(), printing the serve processes' log tails if it fails."""
+    try:
+        return fn()
+    except BaseException:
+        print(sp.tails(), flush=True)
+        raise
+
+
+def wait_for(pred, timeout, what, poll=0.02):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            if pred():
+                return time.monotonic()
+        except (OSError, ValueError, KeyError):
+            pass
+        time.sleep(poll)
+    fail(f"timed out after {timeout} s waiting for {what}")
+
+
+def gen_outputs(o):
+    return (np.asarray(o["ids"], np.int32)[0], np.asarray(o["scores"], np.float32)[0],
+            np.asarray(o["lengths"], np.int32)[0])
+
+
+def handoff_rows_check(label, payloads, ref, schema):
+    """Phase 54: the prefill replica's /prefill payloads against the
+    in-process scheduler's prefill() rows of the same requests: each payload
+    byte for byte the packing of those rows, and unpacked, fp rows bit for
+    bit and int8 rows within half a step of each row's scale (absmax/127).
+    Returns the largest int8 error in steps (0 for fp)."""
+    from paddle_tpu_torch.serving.disagg.handoff import pack_handoff, unpack_handoff
+
+    quant = "int8" if label == "int8" else None
+    worst, moving = 0.0, False
+    for i, (data, (boots, pes)) in enumerate(zip(payloads, ref)):
+        header, got_b, got_p = unpack_handoff(data)
+        want = pack_handoff(boots, pes, schema, header["model"], request_id=header["request_id"],
+                            quant=quant)
+        check(data == want, f"{label}: request {i}'s /prefill payload ({len(data)} bytes) is not "
+                            f"the in-process rows packed ({len(want)} bytes)")
+        for j, (g, w) in enumerate(zip(got_b + got_p, boots + pes)):
+            check(g.dtype == w.dtype and g.shape == w.shape,
+                  f"{label}: request {i} state {j}: {g.dtype}{tuple(g.shape)} unpacked, "
+                  f"{w.dtype}{tuple(w.shape)} in process")
+            if quant and w.is_floating_point():
+                x = w.float().reshape(w.shape[0], -1)
+                step = x.abs().amax(dim=1).clamp(min=1e-30) / 127.0
+                err = float(((g.float().reshape_as(x) - x).abs() / step[:, None]).max())
+                # half a step, and the f32 roundings of x/scale and q*scale
+                check(err <= 0.5 + 1e-4, f"int8: request {i} state {j} off by {err} steps")
+                worst = max(worst, err)
+            else:
+                check(torch.equal(g.contiguous().view(torch.uint8),
+                                  w.contiguous().view(torch.uint8)),
+                      f"{label}: request {i} state {j} differs from the in-process rows")
+            moving = moving or (w.is_floating_point() and w.numel() > 1
+                                and bool((w != w.reshape(-1)[0]).any()))
+    check(moving, f"{label}: no handoff state varies within a row; the check would see nothing")
+    return worst
+
+
+def disagg_phase(ptt, smi, n, v3):
+    """Phase 54: the v3 target behind `serve --disaggregate`, fp then int8
+    handoffs; returns the path's readings."""
+    from paddle_tpu_torch import serving
+
+    N, clients = SGEN3["requests"], DISAGG_CLIENTS
+    phase(n, f"disaggregated serving: `python -m paddle_tpu_torch serve --disaggregate "
+          f"--prefill_replicas 1 --decode_replicas 1` over phase 52's target (its prefix the "
+          f"heavy part), two processes sharing the card; the trace's {N} requests buffered, "
+          f"then streamed by {clients} clients, against an in-process scheduler on the card; "
+          "then the same with --handoff_quant int8; each prefill replica's /prefill payloads "
+          "against the in-process rows")
+    from paddle_tpu_torch.serving.disagg.handoff import payload_schema
+
+    ctxs = v3["ctxs"]
+    eng = serving.ServingEngine(v3["dir"], policy=serving.BucketPolicy(max_batch_size=8),
+                                model_name="disagg_oracle")
+    sched = eng.scheduler()
+    try:
+        want = [tuple(a[0] for a in (o["ids"], o["scores"], o["lengths"])) for o in (
+            sched.generate({"ctx": ctxs[i:i + 1]}, timeout_ms=HTTP_TIMEOUT * 1e3)
+            for i in range(N))]
+        # the handoff state (threshold and context memory) the decode
+        # replica must receive: the target's logits barely read the memory
+        ref_rows = [sched.prefill({"ctx": ctxs[i:i + 1]}) for i in range(N)]
+        schema = payload_schema(eng.generation_meta)
+    finally:
+        sched.stop()
+    del eng, sched
+    runs = {}
+    for label, extra in (("fp", []), ("int8", ["--handoff_quant", "int8"])):
+        sp = ServeProcess(["--model_dir", v3["dir"], "--disaggregate", "--prefill_replicas", "1",
+                           "--decode_replicas", "1", "--max_batch_size", "8",
+                           "--probe_interval_ms", "200", *extra], f"disagg_{label}")
+
+        def run(sp=sp, label=label):
+            t_spawn = time.perf_counter()
+            url = sp.wait_url(SERVE_START_S)
+            wait_for(lambda: sum(r["up"] for r in get_json(url + "/healthz")["replicas"]
+                                 .values()) == 2, SERVE_START_S, "both replicas up")
+            start_s = time.perf_counter() - t_spawn
+            phases_ = sorted(r["phase"] for r in get_json(url + "/healthz")["replicas"].values())
+            check(phases_ == ["decode", "prefill"], f"replica phases {phases_}")
+            buffered = []
+            for i in range(N):
+                with post_json(url + "/generate", {"inputs": {"ctx": ctxs[i:i + 1].tolist()},
+                                                   "timeout_ms": HTTP_TIMEOUT * 1e3}) as r:
+                    buffered.append(gen_outputs(json.load(r)["outputs"]))
+            todo = queue.Queue()
+            for i in range(N):
+                todo.put(i)
+            streamed, firsts, errors = [None] * N, [None] * N, []
+
+            def client():
+                while True:
+                    try:
+                        i = todo.get_nowait()
+                    except queue.Empty:
+                        return
+                    t0 = time.perf_counter()
+                    try:
+                        with post_json(url + "/generate",
+                                       {"inputs": {"ctx": ctxs[i:i + 1].tolist()},
+                                        "stream": True, "timeout_ms": HTTP_TIMEOUT * 1e3}) as r:
+                            for line in r:
+                                ev = json.loads(line)
+                                if ev["event"] == "token" and firsts[i] is None:
+                                    firsts[i] = time.perf_counter() - t0
+                                elif ev["event"] == "done":
+                                    streamed[i] = gen_outputs(ev["outputs"])
+                                elif ev["event"] == "error":
+                                    errors.append((i, ev))
+                    except Exception as e:  # recorded; the phase fails below
+                        errors.append((i, repr(e)))
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client) for _ in range(clients)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(HTTP_TIMEOUT)
+            wall = time.perf_counter() - t0
+            check(not errors and all(s is not None for s in streamed),
+                  f"{label}: streamed requests failed: {errors[:3]}")
+            pf_url = next(r["url"] for r in get_json(url + "/healthz")["replicas"].values()
+                          if r["phase"] == "prefill")
+            body = {"handoff_quant": "int8"} if label == "int8" else {}
+            payloads = []
+            for i in range(N):
+                with post_json(pf_url + "/prefill",
+                               {"inputs": {"ctx": ctxs[i:i + 1].tolist()}, **body}) as r:
+                    payloads.append(r.read())
+            with urllib.request.urlopen(url + "/metrics", timeout=HTTP_TIMEOUT) as r:
+                m = parse_exposition(r.read().decode())
+            fleet = get_json(url + "/admin/fleet")
+            rc = sp.terminate()
+            check(rc == 0, f"{label}: SIGTERM exit code {rc}")
+            return {"buffered": buffered, "streamed": streamed, "firsts": firsts, "wall": wall,
+                    "handoffs": m["pt_handoff_total"], "bytes": m["pt_handoff_bytes_total"],
+                    "seconds_sum": m["pt_handoff_seconds_sum"],
+                    "seconds_count": m["pt_handoff_seconds_count"],
+                    "reprefills": m.get("pt_disagg_reprefills_total", 0.0),
+                    "phases": sorted(fleet["fleet"]["phases"]), "start_s": start_s,
+                    "payloads": payloads}
+
+        try:
+            runs[label] = with_logs(sp, run)
+        finally:
+            sp.close()
+    fp, q8 = runs["fp"], runs["int8"]
+    handoff_rows_check("fp", fp["payloads"], ref_rows, schema)
+    q_steps = handoff_rows_check("int8", q8["payloads"], ref_rows, schema)
+    for loop in ("buffered", "streamed"):
+        same = [same_outputs(g, w) for g, w in zip(fp[loop], want)]
+        check(all(same), f"disaggregated ({loop}) differs from the in-process scheduler at "
+                         f"{[i for i, s in enumerate(same) if not s]}")
+    q_ids = all(np.array_equal(g[0], w[0]) and np.array_equal(g[2], w[2])
+                for g, w in zip(q8["buffered"] + q8["streamed"], want + want))
+    q_delta = max(float(np.abs(g[1] - w[1]).max())
+                  for g, w in zip(q8["buffered"] + q8["streamed"], want + want))
+    check(q_ids and q_delta <= DISAGG_INT8_SCORE_TOL,
+          f"int8 handoffs: ids and lengths equal {q_ids}, scores {q_delta:.3g} apart")
+    per_fp, per_q8 = fp["bytes"] / fp["handoffs"], q8["bytes"] / q8["handoffs"]
+    check(fp["handoffs"] == q8["handoffs"] == 2 * N and per_q8 < per_fp,
+          f"handoffs {fp['handoffs']}, {q8['handoffs']}; bytes a handoff {per_fp}, {per_q8}")
+    true_toks = int(sum(int(w[2][0]) for w in want))
+    res = {"requests": N, "clients": clients, "device": smi, "true_tokens": true_toks,
+           "fp_bits_equal_in_process": True, "int8_score_delta_max": q_delta,
+           "payloads_equal_in_process_rows": True, "int8_state_err_steps_max": q_steps}
+    for label, r in runs.items():
+        res[label] = {"handoffs": r["handoffs"], "handoff_bytes_total": r["bytes"],
+                      "handoff_bytes_each": r["bytes"] / r["handoffs"],
+                      "handoff_s_mean": r["seconds_sum"] / r["seconds_count"],
+                      "reprefills": r["reprefills"], "phases": r["phases"],
+                      "first_token_s_p50": pct(r["firsts"], 50),
+                      "first_token_s_p99": pct(r["firsts"], 99),
+                      "streamed_wall_s": r["wall"], "decode_tok_per_s": true_toks / r["wall"],
+                      "fleet_start_s": r["start_s"], "sigterm_exit": 0}
+        x = res[label]
+        print(f"  {label} handoffs: {x['handoffs']:.0f}, {x['handoff_bytes_each']:.0f} bytes "
+              f"and {x['handoff_s_mean'] * 1e3:.3f} ms each (pt_handoff_* on the router's "
+              f"/metrics); streamed first token p50/p99 {x['first_token_s_p50'] * 1e3:.2f}/"
+              f"{x['first_token_s_p99'] * 1e3:.2f} ms, {x['decode_tok_per_s']:.1f} tokens/s "
+              f"({N} requests by {clients} clients in {x['streamed_wall_s']:.3f} s); the fleet "
+              f"up in {x['fleet_start_s']:.1f} s; SIGTERM exit 0")
+    print(f"  fp: every buffered and streamed answer the in-process scheduler's bits; int8: "
+          f"ids and lengths equal, scores within {q_delta:.3g} (tol {DISAGG_INT8_SCORE_TOL}), "
+          f"{per_q8:.0f} bytes a handoff against {per_fp:.0f}; the prefill replica's {N} "
+          f"payloads each the in-process rows packed, byte for byte, fp rows bit for bit, int8 "
+          f"rows within {q_steps:.4f} of a step of each row's scale (bound 0.5)")
+    return res
+
+
+def mlp_artifacts(ptt, seed, work):
+    """Two int8 serving_quant MLP artifacts (bench.py:2106-2140), quantized by
+    the port's quant.convert from seeds `seed` and `seed + 1`."""
+    dirs = []
+    for k in range(2):
+        fp_dir = os.path.join(work, f"fleet_mlp_fp_{k}")
+        q_dir = os.path.join(work, f"fleet_mlp_int8_{k}")
+        save_fp_artifact(ptt, lambda: build_qmlp(ptt, QMLP["in_dim"], QMLP["hidden"],
+                                                 QMLP["out_dim"]), "x", fp_dir, seed + k, "cuda")
+        quantize_artifact(ptt, fp_dir, q_dir, mlp_samples(), "cuda", None)
+        dirs.append(q_dir)
+    return dirs
+
+
+def fleet_phase(ptt, smi, seed, n, work):
+    """Phase 55: the int8 MLP behind `serve --replicas 2 --standby 1 --quant
+    int8`, a replica SIGKILLed under load, fleetctl status and a rollout;
+    returns the path's readings."""
+    from paddle_tpu_torch import serving
+
+    C, R = FLEET["clients"], QMLP["batch"]
+    phase(n, f"the replica fleet: `python -m paddle_tpu_torch serve --replicas 2 --standby 1 "
+          f"--quant int8` over bench.py's serving_quant MLP ({QMLP['in_dim']}-"
+          f"{QMLP['hidden']}-{QMLP['hidden']}-{QMLP['out_dim']}, int8 by quant.convert), {C} "
+          f"closed-loop clients of {R}-row requests; one replica SIGKILLed under load; then "
+          "`fleetctl status` and a `fleetctl rollout` to a second artifact under the same load")
+    q1, q2 = mlp_artifacts(ptt, seed + 50, work)
+    fps = {json.load(open(os.path.join(q, "meta.json")))["program_fingerprint"]: k
+           for k, q in enumerate((q1, q2))}
+    rng = np.random.RandomState(seed + 52)
+    feeds = [rng.standard_normal((R, QMLP["in_dim"])).astype(np.float32) for _ in range(C)]
+    want = []
+    for q in (q1, q2):
+        eng = serving.ServingEngine(q, quantize="int8", model_name="fleet_oracle",
+                                    policy=serving.BucketPolicy(max_batch_size=R))
+        want.append([eng.predict({"x": f})[0] for f in feeds])
+    sp = ServeProcess(["--model_dir", q1, "--replicas", "2", "--standby", "1", "--quant", "int8",
+                       "--max_batch_size", str(R), "--probe_interval_ms", "100"], "fleet")
+
+    def run():
+        url = sp.wait_url(SERVE_START_S)
+        wait_for(lambda: get_json(url + "/admin/fleet")["fleet"]["warm_ready"] == 1,
+                 SERVE_START_S, "the standby warm")
+        reps = get_json(url + "/healthz")["replicas"]
+        check(len(reps) == 2, f"replicas {sorted(reps)}")
+        stats0 = {name: get_json(r["url"] + "/stats")["default"] for name, r in reps.items()}
+        done, errors, retryable = [], [], [0]
+        stop = threading.Event()
+        # the artifact each answer may come from: before the rollout only
+        # the first
+        allowed = {"set": {0}}
+
+        def client(c):
+            feed = {"inputs": {"x": feeds[c].tolist()}, "timeout_ms": 60000}
+            while not stop.is_set():
+                try:
+                    with post_json(url + "/predict", feed, timeout=120) as r:
+                        (out,) = json.load(r)["outputs"].values()  # the one fetch
+                    out = np.asarray(out, np.float32)
+                except urllib.error.HTTPError as e:
+                    (retryable.__setitem__(0, retryable[0] + 1) if e.code == 503
+                     else errors.append(f"HTTP {e.code}"))
+                    e.close()
+                    continue
+                except Exception as e:
+                    errors.append(repr(e))
+                    continue
+                which = [k for k in (0, 1) if np.array_equal(out, want[k][c])]
+                if not which or not set(which) & allowed["set"]:
+                    errors.append(f"client {c}: an answer of no allowed artifact {which}")
+                done.append((time.monotonic(), which[0] if which else -1))
+
+        threads = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(C)]
+        t_start = time.monotonic()
+        for t in threads:
+            t.start()
+        time.sleep(FLEET["before_s"])
+        name = sorted(reps)[0]
+        pid = get_json(reps[name]["url"] + "/healthz")["pid"]
+        t_kill = time.monotonic()
+        os.kill(pid, signal.SIGKILL)
+        t_trip = wait_for(lambda: name not in get_json(url + "/healthz")["replicas"] or
+                          get_json(url + "/healthz")["replicas"][name]["breaker"] != "closed",
+                          60, "the killed replica's breaker")
+        t_admit = wait_for(lambda: get_json(url + "/admin/fleet")["fleet"]["replaced_total"]
+                           == 1 and len(get_json(url + "/healthz")["replicas"]) == 2,
+                           60, "the standby's admission")
+        time.sleep(FLEET["after_s"])
+        t_after = time.monotonic()
+        survivor = next(k for k in sorted(reps) if k != name)
+        stats1 = get_json(reps[survivor]["url"] + "/stats")["default"]
+        d_launch = (stats1["kernel_launches"]["quant_matmul_launches"]
+                    - stats0[survivor]["kernel_launches"]["quant_matmul_launches"])
+        d_req = stats1["dispatches_total"] - stats0[survivor]["dispatches_total"]
+        kill_errors = list(errors)
+        status = subprocess.run([sys.executable, "-m", "paddle_tpu_torch", "fleetctl", "status",
+                                 "--router", url], cwd=ROOT, capture_output=True, text=True,
+                                timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
+        check(status.returncode == 0, f"fleetctl status: {status.stderr[-2000:]}")
+        status_doc = json.loads(status.stdout)
+        n_before_rollout = len(done)
+        allowed["set"] = {0, 1}
+        t_roll = time.monotonic()
+        roll = subprocess.run([sys.executable, "-m", "paddle_tpu_torch", "fleetctl", "rollout",
+                               "--router", url, "--model_dir", q2], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=ROOT))
+        roll_s = time.monotonic() - t_roll
+        check(roll.returncode == 0, f"fleetctl rollout: {roll.stderr[-2000:]}")
+        report = json.loads(roll.stdout)
+        allowed["set"] = {1}
+        n_flip = len(done)
+        time.sleep(1.0)
+        stop.set()
+        for t in threads:
+            t.join(120)
+        versions = {r["versions"]["default"] for r in
+                    get_json(url + "/healthz")["replicas"].values()}
+        rc = sp.terminate()
+        return dict(t_start=t_start, t_kill=t_kill, t_trip=t_trip, t_admit=t_admit,
+                    t_after=t_after, done=list(done), errors=list(errors),
+                    kill_errors=kill_errors, retryable=retryable[0], d_launch=d_launch,
+                    d_req=d_req, status=status_doc, report=report, roll_s=roll_s,
+                    n_before_rollout=n_before_rollout, n_flip=n_flip, versions=versions, rc=rc)
+
+    try:
+        r = with_logs(sp, run)
+    finally:
+        sp.close()
+    check(not r["errors"], f"failed requests: {r['errors'][:5]}")
+    check(r["rc"] == 0, f"SIGTERM exit code {r['rc']}")
+    check(r["report"]["status"] == "ok" and fps.get(r["report"]["fingerprint"]) == 1,
+          f"rollout report {r['report']}")
+    check(r["versions"] == {r["report"]["fingerprint"]}, f"versions after the rollout "
+                                                         f"{r['versions']}")
+    check(r["status"]["fleet"]["replaced_total"] == 1, f"status {r['status']['fleet']}")
+    per_req = r["d_launch"] / max(r["d_req"], 1)
+    check(r["d_req"] > 0 and per_req == QMLP_SITES,
+          f"B12 launches a request on a replica: {r['d_launch']} over {r['d_req']}")
+    times = [t for t, _ in r["done"]]
+
+    def rate(a, b):
+        return sum(a <= t < b for t in times) / (b - a)
+
+    before = rate(r["t_start"] + 0.5, r["t_kill"])
+    after = rate(r["t_admit"], r["t_after"])
+    res = {"clients": C, "rows_a_request": R, "requests": len(times),
+           "retryable_503": r["retryable"], "non_retryable_errors": 0,
+           "breaker_trip_s": r["t_trip"] - r["t_kill"], "admission_s": r["t_admit"] - r["t_kill"],
+           "req_per_s_before_kill": before, "req_per_s_after_recovery": after,
+           "b12_launches_a_request": per_req, "rollout_s": r["roll_s"],
+           "rollout_requests": r["n_flip"] - r["n_before_rollout"],
+           "rollout": {k: r["report"].get(k) for k in ("status", "fingerprint", "old", "new")},
+           "device": smi}
+    print(f"  {len(times)} requests by {C} clients, {r['retryable']} retryable 503s, no "
+          f"non-retryable error; the killed replica out of rotation {res['breaker_trip_s']:.3f} s "
+          f"after SIGKILL, the standby admitted after {res['admission_s']:.3f} s; "
+          f"{before:.1f} requests/s before the kill, {after:.1f} after recovery "
+          f"({R} rows each)")
+    print(f"  B12 launches a request by the surviving replica's /stats counters: {per_req:g} "
+          f"({r['d_launch']} over {r['d_req']} requests); fleetctl status exit 0; fleetctl "
+          f"rollout ok in {r['roll_s']:.2f} s with {res['rollout_requests']} requests served "
+          f"meanwhile, none failed, every replica then on {r['report']['fingerprint']}; SIGTERM "
+          "exit 0")
+    return res
 
 
 def main():
@@ -6988,10 +7571,15 @@ def main():
     shutil.rmtree(q_keep)
     torch.cuda.empty_cache()
     paths["serving_gen"] = serving_gen_phase(ptt, smi, args.seed, 51, serve_work)
-    paths["serving_gen_prefix"] = prefix_cache_phase(ptt, smi, args.seed, 52, serve_work)
+    v3 = serving_gen_v3_setup(ptt, args.seed, serve_work)
+    paths["serving_gen_v3"] = serving_gen_v3_phase(ptt, smi, 52, v3)
     paths["serving_gen_tiny"] = tiny_gen_phase(ptt, args.seed, 53, serve_work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["serving_disagg"] = disagg_phase(ptt, smi, 54, v3)
+    paths["serving_fleet"] = fleet_phase(ptt, smi, args.seed, 55, serve_work)
 
-    phase(54, "the paths line, the kernels line, then the device line")
+    phase(56, "the paths line, the kernels line, then the device line")
     rows["attn_bwd_step"].update(launches_by_route=train_routes["attn_bwd_step"],
                                  kernel="attn_bwd_row_kernel on csrc/attn_row.cuh's attend_bwd")
     rows["attn_phase2"].update(kernel="attn_dep_kernel (t oldest first) + attn_dv_kernel")
@@ -7044,6 +7632,9 @@ def main():
         paths["transformer_int8_serve"]["quant_matmul_launches_per_request"]
     by_path["flash_fwd"]["transformer_int8_serve"] = \
         paths["transformer_int8_serve"]["flash_fwd_launches_per_request"]
+    # the replica fleet (phase 55): a replica's own counters, a request
+    by_path["quant_matmul"]["serving_fleet_replica"] = \
+        paths["serving_fleet"]["b12_launches_a_request"]
     # B3's row: the request's launch (B=128), and the training step's (B=256)
     rows["gru_fwd"] = dict(main_row, train_ms=gru_fwd_train_ms,
                            srl_step=paths["srl"]["kernels"]["gru_fwd"])

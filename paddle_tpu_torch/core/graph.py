@@ -156,6 +156,7 @@ class CapturedStep:
         self.device = device
         self.cuda = device.type == "cuda"
         self.gen = gen
+        self.extra_gens: Tuple[torch.Generator, ...] = ()  # registered with the graph too
         self.graph = None
         self.delta: Dict[Tuple[str, str], Any] = {}  # the counters a step moves
         self.stream = torch.cuda.Stream(device) if self.cuda else None
@@ -197,8 +198,9 @@ class CapturedStep:
         checkpoint writer's reads) stay legal meanwhile: the capture's error
         mode is this thread's."""
         graph = torch.cuda.CUDAGraph()
-        if self.gen is not None:
-            graph.register_generator_state(self.gen)
+        for gen in (self.gen, *self.extra_gens):
+            if gen is not None:
+                graph.register_generator_state(gen)
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):

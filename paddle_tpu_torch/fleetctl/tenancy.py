@@ -1,6 +1,5 @@
 """Multi-tenant SLO classes: the policy vocabulary of the fleet
-(paddle_tpu/fleetctl/tenancy.py, the port's own copy of what serving reads;
-the rest of fleetctl waits for ROADMAP.md A8c).
+(paddle_tpu/fleetctl/tenancy.py).
 
 Reference lineage: the Go master dispatches task shards to whichever
 trainer asks; every task is equal. A serving fleet carrying many
@@ -30,7 +29,7 @@ correlation id travels (serving/server.py REQUEST_ID_HEADER).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 __all__ = ["INTERACTIVE", "BATCH", "SLO_CLASSES", "SLO_HEADER",
            "SLOPolicy", "resolve_class"]
@@ -81,9 +80,9 @@ def resolve_class(model_class: Optional[str],
 class SLOPolicy:
     """model name -> SLO class, plus per-class latency targets.
 
-    Built from a plain dict; models not named default to INTERACTIVE (the
-    safe direction: an unnamed model is protected, never silently
-    sheddable)."""
+    Built from `--slo model=class` CLI specs or a plain dict; models not
+    named default to INTERACTIVE (the safe direction: an unnamed model is
+    protected, never silently sheddable)."""
 
     def __init__(self, classes: Optional[Dict[str, str]] = None,
                  targets_ms: Optional[Dict[str, float]] = None):
@@ -94,6 +93,17 @@ class SLOPolicy:
             for c, v in targets_ms.items():
                 self.targets_ms[_check_class(c)] = float(v)
 
+    @classmethod
+    def from_specs(cls, specs: Iterable[str]) -> "SLOPolicy":
+        """Parse `model=class` fragments (the CLI's --slo values)."""
+        classes = {}
+        for spec in specs:
+            model, eq, c = spec.partition("=")
+            if not eq or not model:
+                raise ValueError(f"--slo needs model=class, got {spec!r}")
+            classes[model] = c
+        return cls(classes=classes)
+
     def class_of(self, model: str) -> str:
         return self._classes.get(model, INTERACTIVE)
 
@@ -102,3 +112,6 @@ class SLOPolicy:
 
     def models(self) -> Dict[str, str]:
         return dict(self._classes)
+
+    def describe(self) -> Dict[str, object]:
+        return {"models": self.models(), "targets_ms": dict(self.targets_ms)}

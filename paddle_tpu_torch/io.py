@@ -52,9 +52,8 @@ CHECKPOINT_PREFIX = "checkpoint"
 
 # sidecars that change how the artifact must run; the port cannot honour
 # them yet, so it refuses the artifact rather than serve it wrongly. (The
-# `draft_model` sidecar names a speculative-decoding companion the serving
-# scheduler may use: it is read, kept as `program._draft_meta` and unused
-# until ROADMAP.md A8b.)
+# `draft_model` sidecar names the speculative-decoding draft the serving
+# scheduler drafts with: kept as `program._draft_meta`.)
 _UNSUPPORTED_SIDECARS = ("sharding",)
 # the DecodeState wire-schema version (paddle_tpu/io.py:76): part of the
 # generation sidecar's identity
@@ -342,13 +341,16 @@ def _prune_for_inference(program: Program, feed_names: Sequence[str],
 
 def save_inference_model(dirname: str, feeded_var_names: Sequence[str], target_vars: Sequence,
                          main_program: Optional[Program] = None,
-                         scope: Optional[Scope] = None) -> None:
+                         scope: Optional[Scope] = None,
+                         draft_model: Optional[str] = None) -> None:
     """The pruned program and its persistables in `dirname`, in the JAX
     package's artifact format. meta.json carries the feed specs, the
     program's fingerprint, for a generation program the `generation`
-    sidecar and, for a program quant.convert rewrote, the
-    `quant` sidecar with the fingerprint and scales digest of what is
-    saved. It leaves out the JAX exporter's `tuning` record, which names a
+    sidecar, for a program quant.convert rewrote the `quant` sidecar with
+    the fingerprint and scales digest of what is saved, and with
+    `draft_model` the `draft_model` sidecar: the directory (a relative one
+    resolves against `dirname` at load) of the small generation model the
+    serving scheduler drafts with by default. It leaves out the JAX exporter's `tuning` record, which names a
     TPU table (its loader reads an absent one as None)."""
     program = main_program or default_main_program()
     scope = scope or global_scope()
@@ -375,6 +377,8 @@ def save_inference_model(dirname: str, feeded_var_names: Sequence[str], target_v
     if qmeta:
         meta["quant"] = dict(qmeta, program_fingerprint=fingerprint,
                              scales_digest=quant_scales_digest(scope, param_names))
+    if draft_model:
+        meta["draft_model"] = {"dir": draft_model}
     with open(os.path.join(dirname, PROGRAM_FILE), "w") as f:
         json.dump(pruned.to_dict(), f)
     with open(os.path.join(dirname, META_FILE), "w") as f:

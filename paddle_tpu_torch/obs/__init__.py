@@ -10,9 +10,10 @@ process-wide registry behind one Prometheus text renderer.
 """
 
 from . import metrics  # noqa: F401
+from . import promparse  # noqa: F401
 from . import trace  # noqa: F401
 from .metrics import MetricsRegistry, registry  # noqa: F401
 from .trace import Trace, span, tracing, validate_chrome_trace  # noqa: F401
 
-__all__ = ["MetricsRegistry", "Trace", "metrics", "registry", "span", "trace",
+__all__ = ["MetricsRegistry", "Trace", "metrics", "promparse", "registry", "span", "trace",
            "tracing", "validate_chrome_trace"]

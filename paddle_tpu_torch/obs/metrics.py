@@ -212,6 +212,28 @@ class MetricsRegistry:
             if fn not in self._collectors:
                 self._collectors.append(fn)
 
+    def remove_collector(self, fn: _Collector) -> None:
+        """Detach a render-time collector (a closed Router takes its fleet
+        families with it)."""
+        with self._lock:
+            if fn in self._collectors:
+                self._collectors.remove(fn)
+
+    def remove_series(self, name: str, labels: Optional[Dict[str, Any]] = None) -> bool:
+        """Drop ONE labeled series of a counter family (the family stays
+        while any series remains): a replica scaled down or rolled away takes
+        its `{replica="..."}` series with it. True when the series existed."""
+        key = _label_key(labels)
+        with self._lock:
+            fam = self._counters.get(name)
+            if fam is None or key not in fam:
+                return False
+            del fam[key]
+            if not fam:
+                del self._counters[name]
+                self._help.pop(name, None)
+            return True
+
     # -- export ---------------------------------------------------------
     def render(self) -> str:
         lines: List[str] = []

@@ -148,8 +148,8 @@ def greedy_step(runner, block, spec: GenSpec, env: Dict[str, Any], mems, tok):
     """ONE greedy (single-hypothesis) decode step over a [B] batch: the
     step sub-block with K = 1 and no beam bookkeeping. `mems` are [B, ...],
     `tok` is [B] int32; `env` as for `beam_step`. Returns (new_mems,
-    new_tok), new_tok the argmax of the step's logits. (Its consumer, the
-    speculative draft, waits for ROADMAP.md A8b.)"""
+    new_tok), new_tok the argmax of the step's logits: the speculative
+    draft's proposal (serving/scheduler.py `_ProposeStep`)."""
     env[spec.prev_inner] = tok
     for name, m in zip(spec.mem_inner, mems):
         env[name] = m

@@ -20,9 +20,17 @@ Layers, bottom-up:
               /metrics).
 - `metrics`   MetricSet: the namespaced view over the process-wide registry
               (obs/metrics.py) that /metrics renders.
+- `router`    the scale-out front end: join-shortest-queue routing over N
+              replica processes with per-replica breakers, health probes,
+              retry and failover, streaming pass-through, warm standbys
+              (WarmPool) and the supervised Fleet.
+- `disagg`    disaggregated serving: prefill and decode replica classes,
+              the PTHO1 handoff payload and the dispatcher between them.
 
-The router, disaggregated serving and the fleet wait for ROADMAP.md A8c,
-speculative decoding for A8b, and the `serve` command for A12.
+CLI: `python -m paddle_tpu_torch serve --model_dir <artifact>` (with
+`--replicas N` a router over a replica fleet, with `--disaggregate` the
+phase-split fleet); `python -m paddle_tpu_torch route --replica URL ...`
+fronts replicas already running.
 """
 
 from ..resilience.breaker import CircuitBreaker, CircuitOpenError  # noqa: F401
@@ -32,8 +40,18 @@ from .metrics import Histogram, MetricSet  # noqa: F401
 from .prefix_cache import PrefixCache, prefix_row_key  # noqa: F401
 from .scheduler import ContinuousScheduler, GenerationAborted, GenHandle  # noqa: F401
 from .server import REQUEST_ID_HEADER, ModelRegistry, ServingServer, make_server  # noqa: F401
+from .router import (Fleet, NoReplicaError, ReplicaProcess, Router, RouterServer,  # noqa: F401
+                     WarmPool, make_router_server, replica_spawner)
 
 __all__ = [
+    "Fleet",
+    "NoReplicaError",
+    "ReplicaProcess",
+    "Router",
+    "RouterServer",
+    "WarmPool",
+    "make_router_server",
+    "replica_spawner",
     "REQUEST_ID_HEADER",
     "BucketPolicy",
     "ServingEngine",

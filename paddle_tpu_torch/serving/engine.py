@@ -161,7 +161,7 @@ class ServingEngine:
                     spec = {"dtype": "float32", "shape": []}
             self.feed_specs[n] = spec
         # the generation sidecar sizes the scheduler's slot pool; the
-        # draft sidecar is kept and unused (speculative decoding, A8b)
+        # draft sidecar names the scheduler's default speculative draft
         self.generation_meta = getattr(self.program, "_generation_meta", None)
         self.draft_meta = getattr(self.program, "_draft_meta", None)
         gen_op = find_generation_op(self.program)

@@ -17,7 +17,7 @@ from ..obs import metrics as _obs_metrics
 from ..obs.metrics import DEFAULT_LATENCY_BUCKETS, Histogram, _sanitize  # noqa: F401
 
 __all__ = ["Histogram", "MetricSet", "DEFAULT_LATENCY_BUCKETS", "FIRST_TOKEN_BUCKETS",
-           "TOKEN_INTERVAL_BUCKETS"]
+           "TOKEN_INTERVAL_BUCKETS", "VERIFY_ROUND_BUCKETS", "HANDOFF_BUCKETS"]
 
 # generation-serving latency grids (continuous batching): the first token
 # is queue wait + prefix run + one pool step (ms to seconds); the
@@ -29,6 +29,18 @@ FIRST_TOKEN_BUCKETS = (
 TOKEN_INTERVAL_BUCKETS = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
     0.5, 1.0,
+)
+# one speculative round (the draft's propose, the target's verify, one
+# host fence) moves up to draft_k tokens a slot: between the two grids above
+VERIFY_ROUND_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5,
+)
+# a disaggregated handoff (prefill done to decode admitted): serialize, one
+# router hop, validate, enqueue; sub-ms on loopback, seconds across hosts
+HANDOFF_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+    0.5, 1.0, 2.5, 5.0,
 )
 
 

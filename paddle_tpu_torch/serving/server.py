@@ -25,14 +25,23 @@ Endpoints:
   GET  /healthz            {"status", "models", "circuits", "load" (queue
                            depth and age, slots, per-class and per-model
                            breakdowns, dispatch and sync counters),
-                           "versions" (each model's program fingerprint)}
+                           "versions" (each model's program fingerprint),
+                           "pid" (the serving process: an operator's or a
+                           chaos test's handle on a replica)}
   GET  /stats              each model's engine, bucket and scheduler
-                           accounting
+                           accounting, and the process's kernel launch
+                           counts ("kernel_launches")
   GET  /metrics            the unified Prometheus exposition of the
                            process-wide registry (obs/metrics.py)
-
-The disaggregated-serving routes `/prefill` and `/admit` wait for ROADMAP.md
-A8c: a request to either gets a 404 that says so.
+  POST /prefill[/<model>]  disaggregated serving's prefill phase: the
+                           /generate body (and "handoff_quant": "int8"
+                           optionally); the reply is the request's boot state
+                           as a PTHO1 handoff payload
+                           (application/octet-stream, serving/disagg)
+  POST /admit[/<model>]    the decode phase: the body is the bytes /prefill
+       ?stream=1&timeout_ms=N  returned; the reply is /generate's, buffered
+                           or streamed. A payload whose decode-state schema
+                           differs from this replica's is a 409
 
 Status mapping: 400 malformed request, 404 unknown model or route, 503
 load shed, open circuit breaker or a generation pool aborted mid-step (with
@@ -48,11 +57,13 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional, Tuple
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
@@ -141,11 +152,17 @@ class ModelRegistry:
                                   drain_timeout_s=max(0.0, deadline - time.monotonic()))
 
     def stats(self) -> Dict[str, dict]:
+        """Each model's engine, bucket and scheduler accounting, with the
+        process's kernel launch counts (shared by its models)."""
+        from ..core.graph import counter_state
+
+        launches = {n: v for (_, n), v in counter_state().items()}
         out = {}
         for n, (e, b) in self._models.items():
             s = e.stats()
             if b.breaker is not None:
                 s["circuit"] = b.breaker.stats()
+            s["kernel_launches"] = launches
             out[n] = s
         return out
 
@@ -242,7 +259,8 @@ class _Handler(BaseHTTPRequestHandler):
             degraded = [n for n, s in circuits.items() if s != "closed"]
             self._send(200, {"status": "degraded" if degraded else "ok",
                              "models": reg.names(), "circuits": circuits,
-                             "load": reg.load(), "versions": reg.versions()})
+                             "load": reg.load(), "versions": reg.versions(),
+                             "pid": os.getpid()})
         elif self.path == "/metrics":
             self._send(200, reg.metrics.render().encode(),
                        content_type="text/plain; version=0.0.4")
@@ -252,10 +270,11 @@ class _Handler(BaseHTTPRequestHandler):
             self._error(404, f"no route {self.path!r}")
 
     def do_POST(self):
-        for route in ("/prefill", "/admit"):
-            if self.path == route or self.path.startswith(route + "/"):
-                self._error(404, f"no route {self.path!r}: disaggregated serving is not "
-                                 "ported yet (ROADMAP.md, queue A, A8c)")
+        # the disaggregated phases: /admit's body is raw bytes, not JSON, so
+        # neither rides the predict/generate loop below
+        for route, handler in (("/prefill", self._prefill_route), ("/admit", self._admit_route)):
+            if self.path.split("?", 1)[0] == route or self.path.startswith(route + "/"):
+                handler()
                 return
         for route, handler in (("/predict", self._predict), ("/generate", self._generate)):
             if self.path == route:
@@ -362,6 +381,11 @@ class _Handler(BaseHTTPRequestHandler):
         except (ShedError, CircuitOpenError) as e:
             self._error(503, str(e))
             return
+        self._stream_handle(name, handle, timeout_ms, sched)
+
+    def _stream_handle(self, name, handle, timeout_ms, sched) -> None:
+        """Chunked NDJSON of one GenHandle's events: the tail of /generate's
+        and /admit's streams."""
         self.send_response(200)
         self.send_header("Content-Type", "application/x-ndjson")
         self.send_header("Transfer-Encoding", "chunked")
@@ -384,6 +408,125 @@ class _Handler(BaseHTTPRequestHandler):
             self._write_chunk(b"")
         except (BrokenPipeError, ConnectionResetError):
             pass  # the client went away; the scheduler finishes the slot
+
+    # -- the disaggregated phases (serving/disagg) -----------------------
+    def _gen_target(self, route: str):
+        """A /prefill or /admit path as (name, engine, scheduler, query
+        options), or None once the error is sent: both serve generation
+        models only."""
+        u = urlparse(self.path)
+        name = "default"
+        if u.path.startswith(route + "/"):
+            name = u.path[len(route) + 1:] or "default"
+        reg = self.server.registry
+        try:
+            engine, _ = reg.get(name)
+        except KeyError:
+            self._error(404, f"unknown model {name!r}; have {reg.names()}")
+            return None
+        if engine.generation_spec() is None:
+            self._error(400, f"model {name!r} is not a generation model (no beam_search_group "
+                             f"op); {route} serves disaggregated generation only")
+            return None
+        try:
+            sched = engine.scheduler()
+        except ValueError as e:
+            self._error(400, str(e))
+            return None
+        opts = {k: v[-1] for k, v in parse_qs(u.query).items()}
+        return name, engine, sched, opts
+
+    def _prefill_route(self):
+        """POST /prefill[/<model>]: only the prefix phase; the reply is the
+        request's boot state as a handoff payload for a decode replica's
+        /admit."""
+        from .disagg.handoff import HandoffError, pack_handoff, payload_schema
+
+        got = self._gen_target("/prefill")
+        if got is None:
+            return
+        name, engine, sched, _ = got
+        rid = self._request_id("pf")
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            req = json.loads(self.rfile.read(length) or b"{}")
+            feed = engine.coerce_feed(req["inputs"])
+            quant = req.get("handoff_quant")
+        except (ValueError, KeyError, TypeError) as e:
+            self._error(400, f"bad request: {e}")
+            return
+        try:
+            with obs_trace.span("http.prefill", cat="http", model=name, request_id=rid):
+                boots, pes = sched.prefill(feed, request_id=rid)
+                payload = pack_handoff(boots, pes, payload_schema(engine.generation_meta), name,
+                                       request_id=rid, quant=quant)
+        except (ShedError, CircuitOpenError) as e:
+            self._error(503, str(e))
+            return
+        except HandoffError as e:
+            self._error(400, str(e))
+            return
+        except Exception as e:
+            self._error(500, f"{type(e).__name__}: {e}")
+            return
+        self._send(200, payload, content_type="application/octet-stream",
+                   extra_headers=((REQUEST_ID_HEADER, rid),))
+
+    def _admit_route(self):
+        """POST /admit[/<model>]?stream=1&timeout_ms=N: a handoff payload
+        into the decode pool. A payload of another decode-state schema (a
+        mixed-version fleet) is a 409: not retryable on a sibling of the same
+        version; the fix is a rollout."""
+        from .disagg.handoff import (HandoffError, HandoffSchemaError, unpack_handoff,
+                                     validate_handoff)
+
+        got = self._gen_target("/admit")
+        if got is None:
+            return
+        name, engine, sched, opts = got
+        rid = self._request_id("adm")
+        length = int(self.headers.get("Content-Length", 0))
+        payload = self.rfile.read(length)
+        try:
+            with obs_trace.span("http.admit", cat="http", model=name, request_id=rid,
+                                bytes=len(payload)):
+                header, boots, pes = unpack_handoff(payload)
+                validate_handoff(header, engine.generation_meta)
+        except HandoffSchemaError as e:
+            self._error(409, str(e), kind="HandoffSchemaError")
+            return
+        except HandoffError as e:
+            self._error(400, str(e))
+            return
+        reg = self.server.registry
+        slo = resolve_class(reg.slo_policy.class_of(name), self.headers.get(SLO_HEADER))
+        timeout_ms = int(opts["timeout_ms"]) if "timeout_ms" in opts else None
+        try:
+            handle = sched.submit_handoff(boots, pes, timeout_ms=timeout_ms, request_id=rid,
+                                          slo=slo)
+        except (ShedError, CircuitOpenError) as e:
+            self._error(503, str(e))
+            return
+        except ValueError as e:
+            self._error(400, str(e))
+            return
+        if opts.get("stream") in ("1", "true"):
+            self._stream_handle(name, handle, timeout_ms, sched)
+            return
+        budget = timeout_ms / 1e3 if timeout_ms is not None else sched.timeout_s
+        try:
+            outputs = handle.result(timeout=budget + max(1.0, budget))
+        except (ShedError, CircuitOpenError) as e:
+            self._error(503, str(e))
+            return
+        except DeadlineError as e:
+            self._error(504, str(e))
+            return
+        except Exception as e:
+            self._error(500, f"{type(e).__name__}: {e}")
+            return
+        self._send(200, {"model": name, "outputs": self._outputs_json(outputs)},
+                   extra_headers=((REQUEST_ID_HEADER, rid),))
 
     def _write_chunk(self, data: bytes) -> None:
         self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")

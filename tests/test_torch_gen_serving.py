@@ -372,14 +372,17 @@ def test_generate_trips_the_shared_breaker(gen_dir):
 
 
 def test_left_out_surfaces_raise(gen_dir, dense_dir):
+    """What the scheduler refuses: a draft that is not there, draft_k < 1,
+    a handoff whose arrays disagree on rows, an unknown cache quant, and a
+    feed-forward model."""
     eng = _engine(gen_dir, "left_out")
-    with pytest.raises(NotImplementedError, match="A8b"):
-        ContinuousScheduler(eng, draft_model="draft")
+    with pytest.raises(FileNotFoundError):
+        ContinuousScheduler(eng, draft_model="no_such_draft")
+    with pytest.raises(ValueError, match="draft_k"):
+        ContinuousScheduler(eng, draft_model=gen_dir, draft_k=0)
     sched = ContinuousScheduler(eng)
-    with pytest.raises(NotImplementedError, match="A8c"):
-        sched.prefill({"h0": np.zeros((1, H), np.float32)})
-    with pytest.raises(NotImplementedError, match="A8c"):
-        sched.submit_handoff((), ())
+    with pytest.raises(ValueError, match="row axis"):
+        sched.submit_handoff((np.zeros((1, H), np.float32),), (np.zeros((2, 1), np.float32),))
     with pytest.raises(ValueError, match="prefix_cache_quant"):
         ContinuousScheduler(eng, prefix_cache_mb=1.0, prefix_cache_quant="int4")
     ff = _engine(dense_dir, "ff")
@@ -600,8 +603,9 @@ def test_http_generate_errors(http_gen):
             ("/generate/dense", {"inputs": {"x": [[0, 0, 0, 0]]}}, 400, "not a generation"),
             ("/generate/nope", {"inputs": {"h0": [[0.0] * H]}}, 404, "unknown model"),
             ("/generate", {"not_inputs": 1}, 400, "bad request"),
-            ("/prefill", {"inputs": {"h0": [[0.0] * H]}}, 404, "A8c"),
-            ("/admit/default", {}, 404, "A8c")):
+            ("/prefill/nope", {"inputs": {"h0": [[0.0] * H]}}, 404, "unknown model"),
+            ("/prefill/dense", {"inputs": {"x": [[0, 0, 0, 0]]}}, 400, "not a generation"),
+            ("/admit/default", {}, 400, "bad magic")):
         with pytest.raises(urllib.error.HTTPError) as ei:
             _post(url + path, body)
         assert ei.value.code == code, path
@@ -610,21 +614,23 @@ def test_http_generate_errors(http_gen):
 
 
 def test_chip_smoke_replays_the_v3_trace():
-    """chip_smoke.py's phase 52 rebuilds bench.py run_serving_gen_v3's
-    shared-prefix trace without the JAX package: the same prefix group for
-    each of its 48 requests as fleetctl.traces.generate_trace gives."""
+    """chip_smoke.py's phase 52 replays bench.py run_serving_gen_v3's
+    shared-prefix trace through the port's fleetctl.traces: the same events
+    (and digest) for its 48 requests as the JAX package's generate_trace."""
     import importlib.util
     import os
 
-    from paddle_tpu.fleetctl.traces import TraceSpec, generate_trace
+    from paddle_tpu.fleetctl.traces import TraceSpec, generate_trace, trace_digest
 
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "chip_smoke.py")
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    n = cs.SGEN3["requests"]
     events = generate_trace(TraceSpec(duration_s=30.0, seed=17, base_rps=4.0,
                                       diurnal_amplitude=0.3, flash_crowds=(),
-                                      shared_prefix_fraction=0.6, prefix_groups=3))
-    n = cs.SGEN3["requests"]
-    assert cs.shared_prefix_groups(n) == [ev.get("prefix_group") for ev in events[:n]]
+                                      shared_prefix_fraction=0.6, prefix_groups=3))[:n]
+    got, digest = cs.sgen3_events(n)
+    assert got == events and digest == trace_digest(events)
+    assert sum(ev.get("prefix_group") is not None for ev in got) >= 8

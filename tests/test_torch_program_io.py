@@ -132,8 +132,9 @@ def test_committed_artifact_is_a_fresh_jax_export(tmp_path, name):
 @pytest.mark.parametrize("sidecar", ["sharding", "draft_model"])
 def test_unsupported_sidecar_raises(small_artifact, tmp_path, sidecar):
     """A sharding sidecar is refused at load. A draft-model sidecar loads and
-    is kept; asking the serving scheduler for a draft raises until
-    speculative decoding is ported (ROADMAP.md A8b)."""
+    is kept (the serving scheduler drafts with it:
+    tests/test_torch_spec_decode.py); a feed-forward artifact has no
+    scheduler to draft for."""
     for f in ("program.json", "params.npz"):
         with open(os.path.join(small_artifact, f), "rb") as src, \
                 open(os.path.join(tmp_path, f), "wb") as dst:
@@ -150,7 +151,7 @@ def test_unsupported_sidecar_raises(small_artifact, tmp_path, sidecar):
     assert program._draft_meta == {"dir": "x"}
     engine = ptt.serving.ServingEngine(str(tmp_path), device="cpu")
     assert engine.draft_meta == {"dir": "x"}
-    with pytest.raises(NotImplementedError, match="draft_model.*A8b"):
+    with pytest.raises(ValueError, match="no beam_search_group op"):
         ptt.serving.ContinuousScheduler(engine, draft_model="x")
 
 
