@@ -435,7 +435,44 @@ at the start of a capture:
               writes its output under LOG_DIR (the output directory that
               a run on the card hands back), whose tails are printed if
               the phase fails.
-  56. the paths JSON line (phases 32-55's readings), the kernels JSON
+  56. remat   bench.py's transformer row (phase 14's program) under
+              memory_optimize: no remat, then `full`, `dots` and
+              `dots_no_batch`, each from the same startup state, a warm-up
+              and 3 timed steps: ms a step, tokens/s, peak memory, flash
+              launches a step (16 flash_fwd under each policy: the
+              recompute runs the forward again), the losses and every
+              parameter the plain step's bits (torch.equal; the plain step
+              run twice to show it is the same bits run to run); `full` and
+              `dots` below the plain step's peak.
+  57. window  the same row through run_window (scan_window=4) under
+              `full`: losses and parameters the per-step remat loop's bits,
+              one capture and 3 replays, 16 flash_fwd a step, its peak and
+              the graph's pool beside the window's without remat. Then two
+              BatchNorm programs under each policy, 2 steps each from one
+              startup state: resnet_cifar10(32) (conv2d + batch_norm) at
+              B=128 and ResNet-50 on the B11 route (fused_conv_bn, bn_stats,
+              bn_apply) at 64x64, B=16, both bf16: the plain step run twice,
+              each policy's losses and whole scope (the running statistics,
+              parameters and optimizer state) the plain step's bits, the
+              running statistics moved, B11's launches a step doubled (its
+              forward recomputed).
+  58. ops     every op the slice adds (the activations, the elementwise
+              family, the reductions on each axis, the shape ops, cast,
+              the norm clips, increment, argmax, the comparisons and
+              logical ops, cross_entropy with hard and soft labels,
+              softmax_with_cross_entropy with soft labels, huber_loss,
+              sequence_conv) on [128 x 1024] inputs, dense and ragged, card
+              against CPU, outputs and input gradients, f32 and bf16 amp;
+              truncated_gaussian_random held to its law; conv2d_transpose
+              at B=128, 256 -> 128 channels, 16x16 -> 32x32, 4x4, stride 2,
+              in f32 (TF32 off) and bf16 against float64 on the card.
+  59. nets    networks.py at the sentiment phase's widths (f32): the
+              book's convolution_net (two sequence_conv_pool, 512
+              filters), bidirectional_lstm and bidirectional_gru
+              classifiers at hidden 512, 3 steps card against CPU, B1-B4
+              launches a step; img_conv_group and glu forward card against
+              CPU.
+  60. the paths JSON line (phases 32-59's readings), the kernels JSON
       line, then the device JSON line last.
 
 Weights are made with numpy from --seed at the shapes the program
@@ -6879,6 +6916,661 @@ def fleet_phase(ptt, smi, seed, n, work):
     return res
 
 
+# ------------ memory_optimize, the general ops and networks.py: phases 56-59 --
+# bench.py's transformer row (TFM_BENCH) under each remat policy
+# (memory_optimize, core/remat.py), each from the same startup state; None
+# is the plain step. Every policy recomputes each checkpointed segment's
+# forward in the backward, the flash forward included (a hand kernel is no
+# aten product, so no policy keeps its output): 16 flash_fwd a step.
+REMAT_RUNS = (None, "full", "dots", "dots_no_batch")
+REMAT_FLASH = {None: TFM_STEP_LAUNCHES,
+               **{p: {"flash_fwd": 16, "flash_bwd_dkv": 8, "flash_bwd_dq": 8}
+                  for p in REMAT_RUNS[1:]}}
+# the transformer's window without remat (PERF.md's table of windows):
+# peak allocated and the graph's pool, GiB, on an H100 80GB HBM3 at 700 W
+TFM_WINDOW_NO_REMAT_GIB = (41.16, 17.678)
+# the op sweep: [128 x 1024] inputs, dense and ragged (8 sequences of 1..31
+# rows of 1024); each op's outputs and input gradients card against CPU,
+# within OPS_TOL of each output's largest |value| (at least 1): f32 1e-5;
+# bf16 2e-2, a bf16 ulp at that scale (the CPU's and the card's
+# transcendentals may round a bf16 result one ulp apart)
+OPS_ROWS, OPS_WIDTH = 128, 1024
+OPS_TOL = {None: 1e-5, "bfloat16": 2e-2}
+# conv2d_transpose at the slice's shape, held to float64 on the card: f32
+# with TF32 off within 1e-5 of the output's largest |value| (TF32 would
+# miss it by orders), bf16 operands within 2e-2
+CONVT = dict(batch=128, cin=256, cout=128, hw=16, k=4, stride=2, pad=1)
+CONVT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# networks.py at the sentiment phase's widths (SENT_BENCH: B=128, T <= 128,
+# emb 128), f32: the book's convolution_net (two sequence_conv_pool, filter
+# sizes 3 and 4, 512 filters each), and bidirectional_lstm and
+# bidirectional_gru classifiers at hidden 512; B1-B4 launches a step
+NET_FILTERS = 512
+NET_HIDDEN = 512
+NET_LR = 0.002
+NET_LAUNCHES = {"bidirectional_lstm": {"lstm_fwd": 2, "lstm_bwd": 2},
+                "bidirectional_gru": {"gru_fwd": 2, "gru_bwd": 2}}
+# BatchNorm programs under each remat policy (phase 57's second half):
+# resnet_cifar10(32) at IMG_BENCH's B=128, and ResNet-50 on the B11 route
+# (every 1x1 conv the hand kernel) at 64x64, B=16, 10 classes; 2 steps
+REMAT_BN_RESNET50 = dict(hw=64, class_dim=10, batch=16, lr=0.1)
+REMAT_BN_STEPS = 2
+
+
+def host_state(scope, names):
+    """The named scope tensors copied to the host."""
+    return {n: scope.get(n).detach().to("cpu", copy=True) for n in names}
+
+
+def remat_phases(ptt, smi, seed, first_phase):
+    """Phases first_phase.. : bench.py's transformer row under each remat
+    policy, then through scan_window under `full`; returns its readings and
+    the flash launches a step by policy."""
+    from paddle_tpu_torch.core import graph
+    from paddle_tpu_torch.ops import flash_kernels as fk
+    from paddle_tpu_torch.ops import flash_ops
+
+    n = first_phase
+    phase(n, "memory_optimize on bench.py's transformer row (dim 2048, 8 layers, B=8, T=1024, "
+             "bf16): no remat, full, dots, dots_no_batch, each 3 timed steps from one state")
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_p, startup, loss = build_transformer_program(ptt, **TFM_BENCH)
+    main_p.set_amp("bfloat16")
+    exe = ptt.Executor()
+    names = [p.name for p in main_p.parameters()]
+
+    def fresh_scope():
+        # the startup's draws are the same bits from the same seed
+        sc = ptt.Scope()
+        exe.run(startup, scope=sc, seed=seed)
+        return sc
+    feed = transformer_feed(np.random.RandomState(0), TFM_BENCH["vocab"], TFM_BENCH["seqlen"],
+                            TFM_BENCH["batch"])
+    tokens = TFM_BENCH["batch"] * TFM_BENCH["seqlen"]
+    fwd = [o for o in main_p.global_block().ops]
+    fwd = fwd[:[o.type for o in fwd].index("autodiff")]
+    out, ref = {"policies": {}}, None
+
+    def run(policy, steps=3):
+        main_p.remat_policy = policy
+        sc = fresh_scope()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [float(exe.run(main_p, feed, [loss.name], scope=sc)[0])]
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        for k in TFM_STEP_LAUNCHES:
+            setattr(fk, f"{k}_launches", 0)
+        flash_ops.plain_routes = 0
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(exe.run(main_p, feed, [loss.name], scope=sc)[0]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(times)
+        r = dict(losses=losses, warm_up_s=warm_s, steps_ms=times, ms_per_step=med,
+                 tokens_per_s=tokens / med * 1e3,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 launches_per_step={k: getattr(fk, f"{k}_launches") / steps
+                                    for k in TFM_STEP_LAUNCHES},
+                 plain_routes=flash_ops.plain_routes)
+        return r, host_state(sc, names)
+
+    for i, policy in enumerate(REMAT_RUNS):
+        r, st = run(policy)
+        label = policy or "no remat"
+        if policy:
+            from paddle_tpu_torch.core import remat
+            r["segments"] = len(remat.segments(fwd))
+        print(f"  {label}: warm-up {r['warm_up_s']:.2f} s; steps ms "
+              f"{[round(t, 3) for t in r['steps_ms']]}, median {r['ms_per_step']:.3f} ms a step, "
+              f"{r['tokens_per_s']:.1f} tokens/s; peak {r['peak_gib']:.2f} GiB allocated; "
+              f"flash launches a step {r['launches_per_step']} (expected "
+              f"{REMAT_FLASH[policy]}), plain routes {r['plain_routes']}"
+              + (f"; {r['segments']} segments of the {len(fwd)} forward ops" if policy else "")
+              + f" on {smi}")
+        check(all(np.isfinite(r["losses"])), f"{label}: non-finite loss")
+        check(r["plain_routes"] == 0, f"{label}: attention routed to the plain formula")
+        for k, c in REMAT_FLASH[policy].items():
+            check(r["launches_per_step"][k] == c,
+                  f"{label}: {k} {r['launches_per_step'][k]} a step, not {c}")
+        if ref is None:
+            ref = (r["losses"], st)
+            again, st2 = run(None)
+            d = next((k for k in names if not torch.equal(st2[k], st[k])), None)
+            check(again["losses"] == r["losses"] and d is None,
+                  f"two plain runs differ (losses {again['losses']} and {r['losses']}, state "
+                  f"first at {d}): the step is not deterministic run to run")
+            print(f"  no remat again: the same losses and parameter bits ({len(names)} "
+                  f"parameters), peak {again['peak_gib']:.2f} GiB")
+            del st2
+        else:
+            d = next((k for k in names if not torch.equal(st[k], ref[1][k])), None)
+            check(r["losses"] == ref[0], f"{label}: losses {r['losses']} are not the plain "
+                                         f"step's {ref[0]}")
+            check(d is None, f"{label}: the parameters after {len(r['losses'])} steps differ "
+                             f"from the plain step's first at {d}")
+            print(f"  {label}: the plain step's losses and parameter bits ({len(names)} "
+                  f"parameters, torch.equal)")
+        del st
+        out["policies"][label] = r
+    plain = out["policies"]["no remat"]["peak_gib"]
+    for p in ("full", "dots"):
+        check(out["policies"][p]["peak_gib"] < plain,
+              f"{p}: peak {out['policies'][p]['peak_gib']:.2f} GiB is not below the plain "
+              f"step's {plain:.2f}")
+
+    n += 1
+    phase(n, "the same row through scan_window under full: 4 steps, one captured step "
+             "replayed, against 4 per-step remat steps from one state; then BatchNorm "
+             "programs under each policy")
+    main_p.remat_policy = "full"
+    win = {k: np.stack([v] * 4) for k, v in feed.items()}
+    sc = fresh_scope()
+    per_step = [float(exe.run(main_p, feed, [loss.name], scope=sc)[0]) for _ in range(4)]
+    want = host_state(sc, names)
+    del sc
+    wexe = ptt.Executor()
+    sc = fresh_scope()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = graph.counter_state()
+    t0 = time.perf_counter()
+    (ys,), _ = wexe.run_window(main_p, win, [loss.name], scope=sc)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    moved = graph.counter_delta(before, graph.counter_state())
+    sg = next(iter(wexe._windows.values()))
+    pool = graph_pool_gib(sg.graph)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wl = [float(v) for v in ys.cpu()]
+    got = host_state(sc, names)
+    d = next((k for k in names if not torch.equal(got[k], want[k])), None)
+    launches = {k: moved.get(("paddle_tpu_torch.ops.flash_kernels", f"{k}_launches"), 0) / 4
+                for k in TFM_STEP_LAUNCHES}
+    out["window_full"] = dict(losses=wl, per_step_losses=per_step, ms_per_step=wall / 4,
+                              peak_gib=peak, graph_pool_gib=pool,
+                              stats=dict(wexe.cache_stats), capture_s=sg.capture_s,
+                              launches_per_step=launches)
+    print(f"  window losses {wl}, per-step {per_step}; {wall / 4:.3f} ms a step over the 4 "
+          f"(its warm-up and capture included); cache {wexe.cache_stats}; capture "
+          f"{sg.capture_s:.3f} s; flash launches a step {launches}")
+    print(f"  peak {peak:.2f} GiB allocated + the graph's pool "
+          f"{pool if pool is None else round(pool, 3)} GiB, against "
+          f"{TFM_WINDOW_NO_REMAT_GIB[0]} + {TFM_WINDOW_NO_REMAT_GIB[1]} GiB without remat "
+          f"(PERF.md) on {smi}")
+    check(wl == per_step, f"the full window's losses {wl} are not the per-step loop's {per_step}")
+    check(d is None, f"the full window's parameters differ from the per-step loop's first at "
+                     f"{d}")
+    check(wexe.cache_stats["captures"] == 1 and wexe.cache_stats["replays"] == 3,
+          f"the window did not capture once and replay: {wexe.cache_stats}")
+    for k, c in REMAT_FLASH["full"].items():
+        check(launches[k] == c, f"the full window: {k} {launches[k]} a step, not {c}")
+    print(f"  the window ends on the per-step loop's bits ({len(names)} parameters)")
+    del sc, wexe, sg, want, got
+    main_p.remat_policy = None
+    del main_p, startup, exe
+    out["batch_norm"] = remat_bn_check(ptt, smi, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  phases {first_phase}-{n}: {out['seconds']:.1f} s")
+    return out, {k: {p or "none": out["policies"][p or "no remat"]["launches_per_step"][k]
+                     for p in REMAT_RUNS} for k in TFM_STEP_LAUNCHES}
+
+
+def remat_bn_check(ptt, smi, seed):
+    """Phase 57's second half: each BatchNorm program's plain step twice,
+    then under each policy, all from one startup state. A BN op writes its
+    new running statistics under its Mean and Variance inputs' names; each
+    policy must hand them back from the segment that computes them: the
+    losses and the whole scope the plain step's bits, the statistics moved
+    from their startup values. B11 launches twice a step under remat."""
+    from paddle_tpu_torch.ops import fused_conv_kernels as fck
+
+    ib, rb = IMG_BENCH, REMAT_BN_RESNET50
+    rng = np.random.RandomState(seed + 57)
+    cases = (("resnet_cifar10", lambda: image_program(ptt, "resnet_cifar10", ib["resnet"],
+                                                      ib["lr"])[:3],
+              image_feed(rng, ib["batch"]), {}),
+             ("resnet50_b11", lambda: build_resnet_program(ptt, rb["hw"], rb["class_dim"],
+                                                           rb["lr"]),
+              resnet_feed(rng, rb["hw"], rb["class_dim"], rb["batch"]),
+              dict(fused_conv_dot_max_n=RESNET_DOT_MAX_N, fused_conv_pallas=True)))
+    out = {}
+    for name, build, feed, flags in cases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        main_p, startup, loss = build()
+        main_p.set_amp("bfloat16")
+        ops = main_p.global_block().ops
+        names = [v.name for v in main_p.persistables()]
+        stats = sorted({n for op in ops for slot in ("Mean", "Variance")
+                        for n in op.inputs.get(slot, ()) if op.type != "bn_apply"})
+        exe = ptt.Executor()
+
+        def run(policy):
+            main_p.remat_policy = policy
+            sc = ptt.Scope()
+            exe.run(startup, scope=sc, seed=seed)
+            init = host_state(sc, stats)
+            fck.fused_conv_bn_launches = 0
+            with _Flags(ptt.FLAGS, **flags):
+                losses = [float(exe.run(main_p, feed, [loss.name], scope=sc)[0])
+                          for _ in range(REMAT_BN_STEPS)]
+            return (losses, host_state(sc, names), init,
+                    fck.fused_conv_bn_launches / REMAT_BN_STEPS)
+
+        ref = run(None)
+        r = {"stats": len(stats), "losses": {"none": ref[0]}, "b11_launches_per_step":
+             {"none": ref[3]}}
+        moved = [k for k in stats if not torch.equal(ref[1][k], ref[2][k])]
+        check(all(np.isfinite(ref[0])), f"{name}: non-finite loss")
+        check(not flags or ref[3] > 0, f"{name}: B11 never launched")
+        check(len(moved) == len(stats), f"{name}: {len(stats) - len(moved)} of {len(stats)} "
+                                        "running statistics kept their startup values")
+        for policy in REMAT_RUNS:
+            got = run(policy)
+            label = policy or "no remat again"
+            d = next((k for k in names if not torch.equal(got[1][k], ref[1][k])), None)
+            check(got[0] == ref[0] and d is None,
+                  f"{name} under {label}: losses {got[0]} against the plain step's {ref[0]}, "
+                  f"the scope first differs at {d}")
+            r["losses"][policy or "none_again"] = got[0]
+            r["b11_launches_per_step"][policy or "none_again"] = got[3]
+            want = ref[3] * (2 if policy else 1)
+            check(got[3] == want, f"{name} under {label}: B11 {got[3]} a step, not {want}")
+        main_p.remat_policy = None
+        r["seconds"] = time.perf_counter() - t0
+        out[name] = r
+        print(f"  {name} (bf16, {len(names)} persistables, {len(stats)} running statistics): "
+              f"under no remat twice, full, dots and dots_no_batch the plain step's losses "
+              f"{ref[0]} and scope bits (torch.equal), every running statistic moved; B11 "
+              f"launches a step {r['b11_launches_per_step']}; {r['seconds']:.1f} s on {smi}")
+        del exe, ref
+    return out
+
+
+def _op_inputs(rng, spec):
+    """numpy inputs of the sweep: spec maps a slot to a shape, ("lod",
+    width) or a ready array."""
+    out = {}
+    for slot, s in spec.items():
+        if isinstance(s, np.ndarray):
+            out[slot] = s
+        elif isinstance(s, tuple) and s and s[0] == "lod":
+            lens = rng.randint(1, OPS_ROWS // 8 + 1, 8)
+            seqs = [rng.standard_normal((int(m), s[1])).astype(np.float32) for m in lens]
+            if len(s) > 2:  # positive values (a log, a square root)
+                seqs = [np.abs(q) + 0.25 for q in seqs]
+            out[slot] = ("lod", seqs)
+        else:
+            out[slot] = rng.standard_normal(s).astype(np.float32)
+    return out
+
+
+# the slots that carry activations: under amp they hold bf16 (an op under
+# amp reads the bf16 output of a product), the others stay f32 (masters,
+# labels, probabilities)
+AMP_SLOTS = ("X", "Logits", "Input")
+
+
+def run_op(ptt, dev, op_type, inputs, attrs, amp, n_out, out_slot, grad, cot_seed):
+    """One op on `dev` through the port's registry: its outputs and the
+    gradients of Σ out·cot for its float inputs (`grad`), as numpy."""
+    from paddle_tpu_torch.core import registry as treg
+    from paddle_tpu_torch.core.program import Operator
+
+    env, leaves = {"@AMP@": amp, "@RNG@": torch.Generator(device=dev).manual_seed(0)}, []
+    slots = {}
+    for slot, v in inputs.items():
+        name = f"{slot}_0"
+        slots[slot] = [name]
+        low = amp is not None and slot in AMP_SLOTS
+        if isinstance(v, tuple):
+            t = ptt.LoDArray.from_sequences(v[1], capacity=OPS_ROWS, max_seqs=8).to(dev)
+            if low:
+                t = t.with_data(t.data.to(torch.bfloat16))
+            if grad:
+                t = t.with_data(t.data.clone().requires_grad_(True))
+                leaves.append(t.data)
+        else:
+            t = torch.as_tensor(v, device=dev)
+            if low and t.is_floating_point():
+                t = t.to(torch.bfloat16)
+            if grad and t.is_floating_point():
+                t = t.clone().requires_grad_(True)
+                leaves.append(t)
+        env[name] = t
+    outs = {out_slot: [f"out{i}" for i in range(n_out)]}
+    with torch.enable_grad():
+        treg.get_kernel(op_type)(treg.OpContext(Operator(op_type, slots, outs, dict(attrs)),
+                                                env))
+        vals = [env[f"out{i}"] for i in range(n_out)]
+        vals = [v.data if isinstance(v, ptt.LoDArray) else v for v in vals]
+        grads = []
+        if grad:
+            rng = np.random.RandomState(cot_seed)
+            loss = sum((v.float() * torch.as_tensor(
+                rng.standard_normal(tuple(v.shape)).astype(np.float32), device=dev)).sum()
+                for v in vals if v.is_floating_point() and v.requires_grad)
+            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+    host = lambda t: None if t is None else (t.detach().float() if t.is_floating_point()  # noqa: E731
+                                             else t.detach()).cpu().numpy()
+    return [host(v) for v in vals], [host(g) for g in grads], [str(v.dtype) for v in vals]
+
+
+def op_sweep_cases():
+    """(op, inputs spec, attrs, outputs, output slot, differentiable, amp
+    cast, label) for every op of the sweep."""
+    R, W = OPS_ROWS, OPS_WIDTH
+    acts = ["logsigmoid", "exp", "exponential", "tanh_shrink", "softshrink", "sqrt", "abs",
+            "ceil", "floor", "round", "reciprocal", "log", "square", "softplus", "softsign",
+            "brelu", "leaky_relu", "soft_relu", "softrelu", "elu", "relu6", "pow", "stanh",
+            "hard_shrink", "thresholded_relu", "hard_sigmoid", "swish", "softmax_activation"]
+    rng = np.random.RandomState(3)
+    pos = (np.abs(rng.standard_normal((R, W))) + 0.25).astype(np.float32)
+    kinked = {"ceil", "floor", "round"}  # their gradient is 0 almost everywhere
+    cases = []
+    for a in acts:
+        positive = a in {"sqrt", "log", "reciprocal", "pow"}
+        attrs = {"factor": 2.5} if a == "pow" else {}
+        cases.append((a, {"X": pos if positive else (R, W)}, attrs, 1, "Out", a not in kinked,
+                      "dense"))
+        cases.append((a, {"X": ("lod", W, True) if positive else ("lod", W)}, attrs, 1, "Out",
+                      a not in kinked, "lod"))
+    for op in ("elementwise_sub", "elementwise_mul", "elementwise_div", "elementwise_max",
+               "elementwise_min", "elementwise_pow"):
+        y = pos if op in ("elementwise_div", "elementwise_pow") else (R, W)
+        x = pos if op == "elementwise_pow" else (R, W)
+        cases.append((op, {"X": x, "Y": y}, {}, 1, "Out", True, "dense"))
+        cases.append((op, {"X": ("lod", W) if op != "elementwise_pow" else x,
+                           "Y": (pos[0] if op in ("elementwise_div", "elementwise_pow")
+                                 else (W,))}, {"axis": -1}, 1, "Out", True, "lod / broadcast"))
+    for op in ("reduce_sum", "reduce_mean", "reduce_max", "reduce_min"):
+        for dim in (0, 1):
+            for keep in (False, True):
+                cases.append((op, {"X": (R, W)}, {"dim": dim, "keep_dim": keep}, 1, "Out",
+                              True, f"dim {dim}{' keep' if keep else ''}"))
+        cases.append((op, {"X": (R, W)}, {"reduce_all": True}, 1, "Out", True, "all"))
+    cases += [
+        ("transpose", {"X": (R, W)}, {"axis": [1, 0]}, 1, "Out", True, "dense"),
+        ("split", {"X": (R, W)}, {"num": 4, "axis": 1}, 4, "Out", True, "num 4"),
+        ("split", {"X": (R, W)}, {"sections": [W // 4, W - W // 4], "axis": 1}, 2, "Out", True,
+         "sections"),
+        ("expand", {"X": (R, W // 4)}, {"expand_times": [2, 4]}, 1, "Out", True, "dense"),
+        ("slice", {"X": (R, W)}, {"axes": [0, 1], "starts": [3, W // 10], "ends": [R - 8, -W // 10]},
+         1, "Out", True, "dense"),
+        ("clip", {"X": (R, W)}, {"min": -0.5, "max": 0.7}, 1, "Out", True, "dense"),
+        ("clip", {"X": ("lod", W)}, {"min": -0.5, "max": 0.7}, 1, "Out", True, "lod"),
+        ("cast", {"X": (R, W)}, {"dtype": "int32"}, 1, "Out", False, "to int32"),
+        ("cast", {"X": (R, W)}, {"dtype": "bfloat16"}, 1, "Out", True, "to bfloat16"),
+        ("clip_by_norm", {"X": (R, W)}, {"max_norm": 1.0}, 1, "Out", True, "dense"),
+        ("squared_l2_norm", {"X": (R, W)}, {}, 1, "Out", True, "dense"),
+        ("assign", {"X": (R, W)}, {}, 1, "Out", True, "dense"),
+        ("increment", {"X": (R, W)}, {"step": 0.5}, 1, "Out", True, "dense"),
+        ("increment", {"X": np.arange(4, dtype=np.int32)}, {"step": 1.0}, 1, "Out", False,
+         "int counter"),
+        ("argmax", {"X": (R, W)}, {"axis": 1}, 1, "Out", False, "dense"),
+        ("huber_loss", {"X": (R, 1), "Y": (R, 1)}, {"delta": 0.5}, 1, "Out", True, "dense"),
+        ("sequence_conv", {"X": ("lod", W), "Filter": (3 * W, 256), "Bias": (256,)},
+         {"context_length": 3, "context_start": -1}, 1, "Out", True, "lod"),
+    ]
+    p = rng.rand(R, W).astype(np.float32) + 0.05
+    p /= p.sum(-1, keepdims=True)
+    soft = rng.rand(R, W).astype(np.float32)
+    soft /= soft.sum(-1, keepdims=True)
+    cases += [
+        ("cross_entropy", {"X": p, "Label": rng.randint(0, W, (R, 1)).astype(np.int32)},
+         {}, 1, "Y", True, "hard label"),
+        ("cross_entropy", {"X": p, "Label": soft}, {"soft_label": True}, 1, "Y", True,
+         "soft label"),
+        ("softmax_with_cross_entropy", {"Logits": (R, W), "Label": soft}, {"soft_label": True},
+         1, "Loss", True, "soft label"),
+    ]
+    cmp_x = rng.randint(-2, 3, (R, W)).astype(np.float32)
+    cmp_y = rng.randint(-2, 3, (R, W)).astype(np.float32)
+    for op in ("less_than", "less_equal", "greater_than", "greater_equal", "equal", "not_equal"):
+        cases.append((op, {"X": cmp_x, "Y": cmp_y}, {}, 1, "Out", False, "dense"))
+    cases.append(("logical_and", {"X": cmp_x > 0, "Y": cmp_y > 0}, {}, 1, "Out", False,
+                  "dense"))
+    cases.append(("logical_not", {"X": cmp_x > 0}, {}, 1, "Out", False, "dense"))
+    return cases
+
+
+def op_sweep_phase(ptt, smi, seed, n):
+    """Phase n: every op the slice adds, card against CPU; then
+    conv2d_transpose at the slice's shape against float64 on the card."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.core import registry as treg
+    from paddle_tpu_torch.core.program import Operator
+
+    phase(n, f"the general ops, card against CPU: [{OPS_ROWS} x {OPS_WIDTH}] inputs, dense "
+             "and ragged, forward and the gradients of the differentiable ones, f32 and bf16 "
+             "amp; then conv2d_transpose at B=128, 256 -> 128 channels, 16x16 -> 32x32")
+    ptt.Executor()  # the card's settings: no TF32 in cuDNN, f32 GEMM reductions
+    t_start = time.perf_counter()
+    cases = op_sweep_cases()
+    ops_seen, worst, n_runs = set(), {None: 0.0, "bfloat16": 0.0}, 0
+    for i, (op, spec, attrs, n_out, slot, grad, label) in enumerate(cases):
+        ops_seen.add(op)
+        rng = np.random.RandomState(seed + i)
+        ins = _op_inputs(rng, spec)
+        for amp in (None, "bfloat16"):
+            res = {}
+            for dev in ("cpu", CARD):
+                res[dev] = run_op(ptt, dev, op, ins, attrs, amp, n_out, slot, grad, seed + i)
+            (co, cg, cdt), (go, gg, gdt) = res["cpu"], res[CARD]
+            check(cdt == gdt, f"{op} ({label}, {amp or 'f32'}): dtypes {gdt} on the card, {cdt} "
+                              f"on the CPU")
+            tol = OPS_TOL["bfloat16" if amp or any("bfloat16" in d for d in gdt) else None]
+            for what, cs, gs in (("output", co, go), ("gradient", cg, gg)):
+                for c, g in zip(cs, gs):
+                    if c is None:
+                        check(g is None, f"{op}: a gradient on the card only")
+                        continue
+                    if not np.issubdtype(c.dtype, np.floating):
+                        check(np.array_equal(c, g), f"{op} ({label}, {amp or 'f32'}): the "
+                                                    f"{what} differs card against CPU")
+                        continue
+                    finite = np.isfinite(c)  # a ragged input's zero padding: log(0)
+                    check(np.array_equal(finite, np.isfinite(g)),
+                          f"{op} ({label}, {amp or 'f32'}): the {what}'s non-finite values "
+                          f"differ card against CPU")
+                    c, g = c[finite], g[finite]
+                    scale = max(1.0, float(np.abs(c).max()) if c.size else 1.0)
+                    err = float(np.abs(g - c).max()) / scale if c.size else 0.0
+                    worst[amp] = max(worst[amp], err)
+                    check(err <= tol, f"{op} ({label}, {amp or 'f32'}): {what} {err:.3e} of its "
+                                      f"scale apart, card against CPU (tol {tol:g})")
+            n_runs += 1
+    # truncated_gaussian_random draws from each device's own generator:
+    # held to its law on the card
+    env = {"@RNG@": torch.Generator(device=CARD).manual_seed(seed)}
+    treg.get_kernel("truncated_gaussian_random")(treg.OpContext(Operator(
+        "truncated_gaussian_random", {}, {"Out": ["o"]},
+        {"shape": [OPS_ROWS, OPS_WIDTH], "mean": 1.0, "std": 0.5, "dtype": "float32"}), env))
+    o = env["o"].float().cpu().numpy()
+    ops_seen.add("truncated_gaussian_random")
+    print(f"  truncated_gaussian_random on the card: [{OPS_ROWS}, {OPS_WIDTH}] in "
+          f"[{o.min():.4f}, {o.max():.4f}], mean {o.mean():.5f}, std {o.std():.5f} (the law's "
+          f"1.0 and {0.5 * 0.8796:.5f})")
+    check(o.min() >= 0.0 and o.max() <= 2.0 and abs(o.mean() - 1.0) < 0.005
+          and abs(o.std() - 0.5 * 0.8796) < 0.005, "truncated_gaussian_random off its law")
+    print(f"  {len(ops_seen)} op types, {n_runs} runs: the largest error card against CPU, "
+          f"over its output's scale, f32 {worst[None]:.3e} (tol {OPS_TOL[None]:g}), bf16 amp "
+          f"{worst['bfloat16']:.3e} (tol {OPS_TOL['bfloat16']:g})")
+
+    c = CONVT
+    rng = np.random.RandomState(seed + 99)
+    x = torch.as_tensor(rng.standard_normal((c["batch"], c["cin"], c["hw"], c["hw"]))
+                        .astype(np.float32), device=CARD)
+    w = torch.as_tensor((rng.standard_normal((c["cin"], c["cout"], c["k"], c["k"]))
+                         / np.sqrt(c["cin"] * c["k"] ** 2)).astype(np.float32), device=CARD)
+    b = torch.as_tensor(rng.standard_normal(c["cout"]).astype(np.float32), device=CARD)
+    out = {"ops": len(ops_seen), "runs": n_runs, "worst_f32": worst[None],
+           "worst_bf16": worst["bfloat16"]}
+    for dt, amp in ((torch.float32, None), (torch.bfloat16, "bfloat16")):
+        xi = x.to(dt).requires_grad_(True)
+        wi = w.clone().requires_grad_(True)
+
+        def once():
+            env = {"@AMP@": amp, "x": xi, "w": wi, "b": b}
+            treg.get_kernel("conv2d_transpose")(treg.OpContext(Operator(
+                "conv2d_transpose", {"Input": ["x"], "Filter": ["w"], "Bias": ["b"]},
+                {"Output": ["y"]}, {"strides": c["stride"], "paddings": c["pad"]}), env))
+            return env["y"]
+
+        with torch.enable_grad():
+            got = once()
+            ggrads = torch.autograd.grad(got, [xi, wi], torch.ones_like(got))
+        with torch.no_grad():
+            ms = cuda_ms(once, 20)
+        x64 = xi.detach().double().requires_grad_(True)
+        w64 = w.to(dt).double().requires_grad_(True)
+        with torch.enable_grad():
+            want = (F.conv_transpose2d(x64, w64, stride=c["stride"], padding=c["pad"])
+                    + b.double().reshape(1, -1, 1, 1))
+            wgrads = torch.autograd.grad(want, [x64, w64], torch.ones_like(want))
+        errs = [float((g.detach().double() - r.detach()).abs().max())
+                / max(1.0, float(r.detach().abs().max()))
+                for g, r in zip((got,) + tuple(ggrads), (want,) + tuple(wgrads))]
+        label = "f32 (TF32 off)" if dt == torch.float32 else "bf16 amp"
+        out[f"conv2d_transpose_{'f32' if amp is None else 'bf16'}"] = dict(
+            ms=ms, shape=list(got.shape), errors=dict(zip(("output", "dx", "dw"), errs)))
+        print(f"  conv2d_transpose {label}: output {list(got.shape)} {got.dtype}; errors "
+              f"against float64 over their scales: output {errs[0]:.3e}, dx {errs[1]:.3e}, "
+              f"dw {errs[2]:.3e} (tol {CONVT_TOL[dt]:g}); forward {ms:.4f} ms on {smi}")
+        check(list(got.shape) == [c["batch"], c["cout"], 2 * c["hw"], 2 * c["hw"]],
+              f"conv2d_transpose: output {list(got.shape)}")
+        check(max(errs) <= CONVT_TOL[dt], f"conv2d_transpose {label}: {max(errs):.3e} from "
+                                          f"float64")
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  phase {n}: {out['seconds']:.1f} s")
+    return out
+
+
+def build_text_cnn(ptt, vocab, emb, filters, lr):
+    """tests/book's convolution_net: two sequence_conv_pool over the
+    embedded words (filter sizes 3 and 4), an fc softmax over both,
+    cross_entropy, Adam."""
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        words = ptt.layers.data("words", shape=[-1], dtype=np.int32, lod_level=1,
+                                append_batch_size=False)
+        label = ptt.layers.data("label", shape=[1], dtype=np.int32)
+        e = ptt.layers.embedding(words, size=[vocab, emb])
+        c3 = ptt.networks.sequence_conv_pool(e, num_filters=filters, filter_size=3, act="tanh",
+                                             pool_type="sqrt")
+        c4 = ptt.networks.sequence_conv_pool(e, num_filters=filters, filter_size=4, act="tanh",
+                                             pool_type="sqrt")
+        pred = ptt.layers.fc([c3, c4], size=2, act="softmax")
+        loss = ptt.layers.mean(ptt.layers.cross_entropy(pred, label))
+        ptt.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, loss
+
+
+def build_bi_rnn(ptt, vocab, emb, hidden, lr, kind, max_len):
+    """An embedding, networks.bidirectional_lstm or _gru over `max_len`
+    steps, max-pooled, an fc softmax, cross_entropy, Adam."""
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        words = ptt.layers.data("words", shape=[-1], dtype=np.int32, lod_level=1,
+                                append_batch_size=False)
+        label = ptt.layers.data("label", shape=[1], dtype=np.int32)
+        e = ptt.layers.embedding(words, size=[vocab, emb])
+        h = getattr(ptt.networks, kind)(e, size=hidden, max_len=max_len)
+        pred = ptt.layers.fc(ptt.layers.sequence_pool(h, "max"), size=2, act="softmax")
+        loss = ptt.layers.mean(ptt.layers.cross_entropy(pred, label))
+        ptt.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, loss
+
+
+def networks_phase(ptt, smi, seed, n):
+    """Phase n: networks.py's text builders trained 3 steps card against
+    CPU (f32) at the sentiment phase's widths, B1-B4 counted; img_conv_group
+    and glu forward card against CPU."""
+    from paddle_tpu_torch.core import graph
+
+    sb = SENT_BENCH
+    phase(n, f"networks.py at the sentiment phase's widths (B={sb['batch']}, T <= "
+             f"{sb['max_len']}, emb {sb['emb']}, f32): convolution_net (2 sequence_conv_pool, "
+             f"{NET_FILTERS} filters), bidirectional_lstm and bidirectional_gru (hidden "
+             f"{NET_HIDDEN}), 3 steps card against CPU; img_conv_group and glu forward")
+    t_start = time.perf_counter()
+    rng = np.random.RandomState(seed + 59)
+    feeds = [sentiment_feed(ptt, rng, **sb) for _ in range(3)]
+    tokens = sum(int(f["words"].lengths.sum()) for f in feeds)
+    out = {}
+    for name, build in (("convolution_net", lambda: build_text_cnn(
+            ptt, sb["vocab"], sb["emb"], NET_FILTERS, NET_LR)),
+            ("bidirectional_lstm", lambda: build_bi_rnn(
+                ptt, sb["vocab"], sb["emb"], NET_HIDDEN, NET_LR, "bidirectional_lstm",
+                sb["max_len"])),
+            ("bidirectional_gru", lambda: build_bi_rnn(
+                ptt, sb["vocab"], sb["emb"], NET_HIDDEN, NET_LR, "bidirectional_gru",
+                sb["max_len"]))):
+        main_p, startup, loss = build()
+        before = graph.counter_state()
+        t0 = time.perf_counter()
+        ok, reading = book_card_vs_cpu(ptt, main_p, startup, loss, feeds, seed, NET_LR, False)
+        moved = graph.counter_delta(before, graph.counter_state())
+        launches = {k: moved.get((m, f"{k}_launches"), 0) / 3 for m, names in
+                    graph.LAUNCH_COUNTERS for k in ("lstm_fwd", "lstm_bwd", "gru_fwd",
+                                                    "gru_bwd") if f"{k}_launches" in names}
+        reading.update(launches_per_step=launches, seconds=time.perf_counter() - t0)
+        out[name] = reading
+        print(f"  {name}: {tokens} tokens over the 3 steps; B1-B4 launches a step on the card "
+              f"{launches}; {reading['seconds']:.1f} s for both devices")
+        check(ok, f"{name}: card and CPU differ beyond the bounds")
+        want = NET_LAUNCHES.get(name, {})
+        for k, c in launches.items():
+            check(c == want.get(k, 0), f"{name}: {k} {c} a step, not {want.get(k, 0)}")
+
+    rng = np.random.RandomState(seed + 60)
+    img = rng.standard_normal((128, 3, 32, 32)).astype(np.float32)
+    xg = rng.standard_normal((128, 1024)).astype(np.float32)
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        group = ptt.networks.img_conv_group(ptt.layers.data("img", shape=[3, 32, 32]),
+                                            conv_num_filter=[64, 64], conv_with_batchnorm=True,
+                                            conv_batchnorm_drop_rate=0.0)
+        g = ptt.networks.glu(ptt.layers.data("x", shape=[1024]))
+    cs = ptt.Scope()
+    ptt.Executor(device="cpu").run(startup, scope=cs, seed=seed)
+    state = ptt.io.state_to_numpy(cs, [v.name for v in main.persistables()])
+    res = {}
+    for dev in ("cpu", CARD):
+        sc = ptt.Scope()
+        ptt.io.params_from_numpy(sc, state, dev)
+        res[dev] = ptt.Executor(device=dev).run(main, {"img": img, "x": xg}, [group, g],
+                                                scope=sc)
+    errs = [float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+            for a, b in zip(res[CARD], res["cpu"])]
+    out["img_conv_group"] = dict(shape=list(res[CARD][0].shape), error=errs[0])
+    out["glu"] = dict(shape=list(res[CARD][1].shape), error=errs[1])
+    print(f"  img_conv_group [64, 64] with batch_norm: {list(res[CARD][0].shape)}, card against "
+          f"CPU {errs[0]:.3e} of its scale; glu: {list(res[CARD][1].shape)}, {errs[1]:.3e} "
+          f"(tol {OPS_TOL[None]:g})")
+    check(list(res[CARD][0].shape) == [128, 64, 16, 16] and list(res[CARD][1].shape) == [128, 512],
+          "img_conv_group or glu: wrong shape")
+    check(max(errs) <= OPS_TOL[None], "img_conv_group or glu: card and CPU differ")
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  phase {n}: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7578,8 +8270,13 @@ def main():
     torch.cuda.empty_cache()
     paths["serving_disagg"] = disagg_phase(ptt, smi, 54, v3)
     paths["serving_fleet"] = fleet_phase(ptt, smi, args.seed, 55, serve_work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["transformer_remat"], remat_launches = remat_phases(ptt, smi, args.seed, 56)
+    paths["general_ops"] = op_sweep_phase(ptt, smi, args.seed, 58)
+    paths["networks"] = networks_phase(ptt, smi, args.seed, 59)
 
-    phase(56, "the paths line, the kernels line, then the device line")
+    phase(60, "the paths line, the kernels line, then the device line")
     rows["attn_bwd_step"].update(launches_by_route=train_routes["attn_bwd_step"],
                                  kernel="attn_bwd_row_kernel on csrc/attn_row.cuh's attend_bwd")
     rows["attn_phase2"].update(kernel="attn_dep_kernel (t oldest first) + attn_dv_kernel")
@@ -7635,6 +8332,23 @@ def main():
     # the replica fleet (phase 55): a replica's own counters, a request
     by_path["quant_matmul"]["serving_fleet_replica"] = \
         paths["serving_fleet"]["b12_launches_a_request"]
+    # the transformer step under each remat policy (phase 56) and its full
+    # window (phase 57)
+    for k, by_policy in remat_launches.items():
+        for policy, c in by_policy.items():
+            if policy != "none":
+                by_path[k][f"transformer_train_remat_{policy}"] = c
+        by_path[k]["transformer_train_remat_full_window"] = \
+            paths["transformer_remat"]["window_full"]["launches_per_step"][k]
+    # ResNet-50 at 64x64 on the B11 route under each policy (phase 57)
+    for policy, c in paths["transformer_remat"]["batch_norm"]["resnet50_b11"][
+            "b11_launches_per_step"].items():
+        if policy not in ("none", "none_again"):
+            by_path["fused_conv_bn"][f"resnet50_64px_train_remat_{policy}"] = c
+    # networks.py's bidirectional classifiers in f32 (phase 59)
+    for net, kernels in NET_LAUNCHES.items():
+        for k in kernels:
+            by_path[k][f"networks_{net}_f32"] = paths["networks"][net]["launches_per_step"][k]
     # B3's row: the request's launch (B=128), and the training step's (B=256)
     rows["gru_fwd"] = dict(main_row, train_ms=gru_fwd_train_ms,
                            srl_step=paths["srl"]["kernels"]["gru_fwd"])

@@ -42,10 +42,11 @@ generation models (`layers.BeamSearchDecoder`):
     server.serve_background()          # POST /predict, /generate
 """
 
-from . import (data, evaluator, fleetctl, initializer, io, layers, models, obs,  # noqa: F401
-               ops, optimizer, profiler, quant, regularizer, resilience, serving)
+from . import (data, evaluator, fleetctl, initializer, io, layers, models,  # noqa: F401
+               networks, obs, ops, optimizer, profiler, quant, regularizer, resilience,
+               serving)
 from .core.backward import append_backward
-from .core.executor import Executor, Scope, global_scope, reset_global_scope
+from .core.executor import Executor, Scope, global_scope, memory_optimize, reset_global_scope
 from .core.lod import LoDArray
 from .core.program import (Program, default_main_program, default_startup_program,
                            program_guard, reset_default_programs)
@@ -58,6 +59,6 @@ from .trainer import (BeginIteration, BeginPass, CheckpointConfig, EndIteration,
 __all__ = ["BeginIteration", "BeginPass", "CheckpointConfig", "EndIteration", "EndPass",
            "Executor", "FLAGS", "LoDArray", "ParamAttr", "Program", "Scope", "Trainer",
            "append_backward", "check_gradient", "data", "default_main_program",
-           "default_startup_program", "evaluator", "fleetctl", "global_scope", "initializer", "io", "layers", "models", "obs", "ops",
+           "default_startup_program", "evaluator", "fleetctl", "global_scope", "initializer", "io", "layers", "memory_optimize", "models", "networks", "obs", "ops",
            "optimizer", "profiler", "program_guard", "quant", "regularizer",
            "reset_default_programs", "reset_global_scope", "resilience", "serving"]

@@ -17,7 +17,9 @@ forward slice in `jax.grad` (`_run_autodiff`, executor.py:187-228); the
 forward is not run a second time here. A block without `autodiff` runs
 under `torch.inference_mode()`. A parameter marked `sparse_update` (an
 `is_sparse` embedding) is no leaf: its lookup sites gather leaves of their
-own rows, and its gradient is a `SelectedRows` (core/sparse.py).
+own rows, and its gradient is a `SelectedRows` (core/sparse.py). Under
+`memory_optimize(program, policy)` the forward runs as checkpointed
+segments that the backward recomputes (core/remat.py).
 """
 
 from __future__ import annotations
@@ -32,8 +34,25 @@ from ..amp import AMP_KEY
 from . import registry
 from .lod import LoDArray
 from .place import resolve_device
-from .program import Program, Variable, grad_var_name
+from .program import Program, Variable, default_main_program, grad_var_name
+from .remat import REMAT_POLICIES, run_forward
 from .sparse import SparseGradTape
+
+# the policies memory_optimize takes (paddle_tpu/core/executor.py:38): what
+# each keeps of the forward is core/remat.py's
+_REMAT_POLICIES = REMAT_POLICIES
+
+
+def memory_optimize(program: Optional[Program] = None, policy: str = "dots") -> None:
+    """Rematerialize the program's forward in its backward pass under
+    `policy` (paddle_tpu/core/executor.py:45): "full" keeps nothing of the
+    forward, "dots" the products' and convolutions' outputs,
+    "dots_no_batch" the products' without batch dimensions."""
+    program = program or default_main_program()
+    if policy not in _REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; choose from "
+                         f"{sorted(_REMAT_POLICIES)}")
+    program.remat_policy = policy
 
 
 class Scope:
@@ -267,7 +286,13 @@ class Executor:
             if tape is not None:
                 env[registry.SPARSE_KEY] = tape
             with torch.enable_grad():
-                runner.run_ops(ops[:k], env, block)
+                if program.remat_policy:
+                    read_after = {n for op in ops[k:] for names in op.inputs.values()
+                                  for n in names} | set(fetch_names) | set(persist)
+                    run_forward(runner, ops[:k], env, block, program.remat_policy,
+                                read_after)
+                else:
+                    runner.run_ops(ops[:k], env, block)
                 self._run_autodiff(ops[k], env, leaves, env.pop(registry.SPARSE_KEY, None))
             with torch.no_grad():
                 runner.run_ops(ops[k + 1:], env, block, first=k + 1)

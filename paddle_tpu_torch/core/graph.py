@@ -9,7 +9,7 @@ replays it once a step of the window. The capture stays the size of one
 step, and a short window (the pass's ragged tail) replays the same graph.
 
 - **Key.** As the JAX cache key: the program (its identity, version, amp
-  dtype and the flags that pick its kernels' routes), `skip_nonfinite`,
+  dtype, remat policy and the flags that pick its kernels' routes), `skip_nonfinite`,
   whether an accumulator is carried, the feed signature of ONE step, the
   fetch names and the persistable names. A new key captures anew.
   `Executor.cache_stats` counts hits, misses, captures, replays and the
@@ -356,9 +356,9 @@ class _StepGraph(CapturedStep):
 
 def _window_key(program: Program, skip_nonfinite: bool, with_acc: bool, step_feed,
                 fetch_names, persist_names) -> tuple:
-    return (id(program), program.version, program.amp_dtype, _route_flags(),
-            bool(skip_nonfinite), with_acc, _feed_signature(step_feed), tuple(fetch_names),
-            tuple(persist_names))
+    return (id(program), program.version, program.amp_dtype, program.remat_policy,
+            _route_flags(), bool(skip_nonfinite), with_acc, _feed_signature(step_feed),
+            tuple(fetch_names), tuple(persist_names))
 
 
 def run_window(exe, program: Program, feed: Dict[str, Any], fetch_list, scope, acc_state,

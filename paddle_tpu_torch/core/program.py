@@ -136,6 +136,10 @@ class Program:
         # the random ops' seed for runs given none (0 = a fresh seed each
         # run), as the JAX package's; not part of to_dict
         self.random_seed: int = 0
+        # the backward's rematerialization policy (core/executor.py
+        # memory_optimize; None: the forward's values are kept); not part of
+        # to_dict, as the JAX package's
+        self.remat_policy: Optional[str] = None
 
     def set_amp(self, dtype: Optional[str] = "bfloat16") -> None:
         """Enable/disable bf16 activations for the program's runs."""

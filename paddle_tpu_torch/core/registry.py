@@ -10,9 +10,13 @@ key.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Union
 
 _KERNELS: Dict[str, Callable] = {}
+# op type -> whether an op of it takes an effect that must happen once a
+# step (a draw from the run's generator, a site recorded on the tape):
+# True, or a predicate on (op, env)
+_RUNS_ONCE: Dict[str, Union[bool, Callable]] = {}
 
 # env key of the run's torch.Generator, which the random ops draw from
 RNG_KEY = "@RNG@"
@@ -22,6 +26,9 @@ SPARSE_KEY = "@SPARSE_TAPE@"
 # env key of the names a run reads after they are written (a later op's
 # input, a fetch or a persistable); absent, every output counts as read
 LIVE_KEY = "@LIVE@"
+# env key present while a rematerialized segment's ops run (core/remat.py):
+# its recompute would take a once-only effect a second time
+REMAT_KEY = "@REMAT@"
 
 
 class OpContext:
@@ -63,21 +70,51 @@ class OpContext:
     def attr(self, name: str, default=None):
         return self.op.attrs.get(name, default)
 
+    def once(self) -> None:
+        """Called by a kernel before an effect that must happen once a step
+        (a draw, a tape record). Inside a rematerialized segment, which the
+        backward runs again, it raises: the op's registration must declare
+        `runs_once`, so that the segmenter runs it between segments."""
+        if REMAT_KEY in self.env:
+            raise RuntimeError(
+                f"op {self.op.type!r} takes a once-only effect inside a rematerialized "
+                f"segment, whose recompute would take it again: register it with "
+                f"register_op({self.op.type!r}, runs_once=...)")
+
     def generator(self):
-        """The run's random generator, on the executor's device."""
+        """The run's random generator, on the executor's device: a draw
+        (`once`)."""
+        self.once()
         return self.env[RNG_KEY]
 
+    def device(self):
+        """The executor's device (the generator's), for an op that makes a
+        tensor from nothing."""
+        return self.env[RNG_KEY].device
 
-def register_op(type_name: str) -> Callable:
-    """Decorator: @register_op("mul") def mul_kernel(ctx): ..."""
+
+def register_op(type_name: str, runs_once: Union[bool, Callable] = False) -> Callable:
+    """Decorator: @register_op("mul") def mul_kernel(ctx): ...
+    `runs_once`: True, or a predicate runs_once(op, env), for an op whose
+    kernel takes an effect that must happen once a step (it calls
+    `ctx.once()`, as `ctx.generator()` does)."""
 
     def deco(fn):
         if type_name in _KERNELS:
             raise ValueError(f"op {type_name!r} already registered")
         _KERNELS[type_name] = fn
+        if runs_once:
+            _RUNS_ONCE[type_name] = runs_once
         return fn
 
     return deco
+
+
+def runs_once(op, env) -> bool:
+    """Whether `op`, about to run on `env`, takes a once-only effect (its
+    registration's `runs_once`)."""
+    rule = _RUNS_ONCE.get(op.type, False)
+    return rule if isinstance(rule, bool) else bool(rule(op, env))
 
 
 def get_kernel(type_name: str) -> Callable:

@@ -1,13 +1,16 @@
-"""Layer DSL (paddle_tpu/layers/nn.py), cut to the layers the ported
-programs use: data (:73), fc (:96), embedding (:146), conv2d (:198),
-pool2d (:278), batch_norm (:348), the fused conv + BN protocol's
-RawConvBN (:376), fused_conv_bn (:394), bn_stats (:451) and bn_apply
-(:477), layer_norm (:492), dropout (:512), softmax_with_cross_entropy
-(:537), square_error_cost (:554), accuracy (:565), mean (:602), softmax (:606),
-relu (:610), elementwise_add (:622), scale (:638), concat (:680),
-reshape (:696) and lrn (:779). Each
-builds its parameters through LayerHelper and appends ops to the default
-program; shapes use -1 for the batch dimension."""
+"""Layer DSL (paddle_tpu/layers/nn.py): data (:73), fc (:96), embedding
+(:146), conv2d (:198), conv2d_transpose (:250), pool2d (:278), batch_norm
+(:348), the fused conv + BN protocol's RawConvBN (:376), fused_conv_bn
+(:394), bn_stats (:451) and bn_apply (:477), layer_norm (:492), dropout
+(:512), cross_entropy (:525), softmax_with_cross_entropy (:537),
+square_error_cost (:554), accuracy (:565), mean, softmax, relu, sigmoid,
+tanh (:602-618), the elementwise layers (:622-634), scale (:638), cast
+(:642), fill_constant (:652), increment (:669), concat (:680), reshape,
+transpose, matmul, clip (:696-709), reduce_sum, reduce_mean (:725-733),
+split (:741), expand (:754), topk (:758), argmax (:769), lrn (:779), the
+comparisons (:808) and logical_and, logical_not (:833). Each builds its
+parameters through LayerHelper and appends ops to the default program;
+shapes use -1 for the batch dimension."""
 
 from __future__ import annotations
 
@@ -20,10 +23,15 @@ from ..initializer import ConstantInitializer, NormalInitializer
 from ..param_attr import ParamAttr
 from .helper import LayerHelper
 
-__all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm", "RawConvBN",
-           "fused_conv_bn", "bn_stats", "bn_apply", "layer_norm", "dropout",
-           "softmax_with_cross_entropy", "square_error_cost", "accuracy", "mean", "softmax",
-           "relu", "elementwise_add", "scale", "concat", "reshape", "lrn"]
+__all__ = ["data", "fc", "embedding", "conv2d", "conv2d_transpose", "pool2d", "batch_norm",
+           "RawConvBN", "fused_conv_bn", "bn_stats", "bn_apply", "layer_norm", "dropout",
+           "cross_entropy", "softmax_with_cross_entropy", "square_error_cost", "accuracy",
+           "mean", "softmax", "relu", "sigmoid", "tanh", "elementwise_add", "elementwise_sub",
+           "elementwise_mul", "elementwise_div", "scale", "cast", "fill_constant", "increment",
+           "concat", "reshape", "transpose", "matmul", "clip", "reduce_sum", "reduce_mean",
+           "split", "expand", "topk", "argmax", "lrn", "less_than", "less_equal",
+           "greater_than", "greater_equal", "equal", "not_equal", "logical_and",
+           "logical_not"]
 
 
 def data(name: str, shape: Sequence[int], dtype=np.float32, lod_level: int = 0,
@@ -119,6 +127,29 @@ def conv2d(input, num_filters: int, filter_size, stride=1, padding=0, dilation=1
     helper.append_op(type="conv2d", inputs=inputs, outputs={"Output": [out]},
                      attrs={"strides": stride, "paddings": padding, "dilations": dilation,
                             "groups": groups, "data_format": data_format})
+    return helper.append_activation(out, act)
+
+
+def conv2d_transpose(input, num_filters: int, filter_size, stride=1, padding=0,
+                     param_attr=None, bias_attr=None, act: Optional[str] = None,
+                     name=None) -> Variable:
+    """The transpose of conv2d (NCHW): its Filter [in_c, num_filters, kh,
+    kw] Xavier-initialised, the output (H - 1)·stride - 2·padding + kh
+    high."""
+    helper = LayerHelper("conv2d_transpose", name=name)
+    in_c = input.shape[1]
+    fh, fw = _pair(filter_size)
+    w = helper.create_parameter(param_attr, (in_c, num_filters, fh, fw))
+    s, p = _pair(stride), _pair(padding)
+    inputs = {"Input": [input], "Filter": [w]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(bias_attr, (num_filters,), is_bias=True)]
+    out_hw = tuple(-1 if input.shape[2 + i] == -1
+                   else (input.shape[2 + i] - 1) * s[i] - 2 * p[i] + (fh, fw)[i]
+                   for i in range(2))
+    out = helper.create_tmp_variable(input.dtype, (-1, num_filters) + out_hw)
+    helper.append_op(type="conv2d_transpose", inputs=inputs, outputs={"Output": [out]},
+                     attrs={"strides": stride, "paddings": padding})
     return helper.append_activation(out, act)
 
 
@@ -269,6 +300,15 @@ def dropout(x, dropout_prob: float, is_test: bool = False, name=None) -> Variabl
     return out
 
 
+def cross_entropy(input, label, soft_label: bool = False) -> Variable:
+    """-log(input[label]) of probability rows, [N, 1]."""
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_tmp_variable(input.dtype, (input.shape[0], 1))
+    helper.append_op(type="cross_entropy", inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]}, attrs={"soft_label": soft_label})
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label: bool = False):
     helper = LayerHelper("softmax_with_cross_entropy")
     softmax_out = helper.create_tmp_variable(logits.dtype, logits.shape,
@@ -326,13 +366,46 @@ def relu(x):
     return out
 
 
+def _unary(op_type, x, attrs=None, out_shape=None):
+    helper = LayerHelper(op_type)
+    out = helper.create_tmp_variable(x.dtype, x.shape if out_shape is None else out_shape,
+                                     x.lod_level)
+    helper.append_op(type=op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs=attrs or {})
+    return out
+
+
+def _binary(op_type, x, y, attrs=None):
+    helper = LayerHelper(op_type)
+    out = helper.create_tmp_variable(x.dtype, x.shape, x.lod_level)
+    helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+                     attrs=attrs or {})
+    return out
+
+
+def sigmoid(x):
+    return _unary("sigmoid", x)
+
+
+def tanh(x):
+    return _unary("tanh", x)
+
+
 def elementwise_add(x, y, axis=-1):
     """x + y, y broadcast onto a contiguous run of x's axes from `axis`."""
-    helper = LayerHelper("elementwise_add")
-    out = helper.create_tmp_variable(x.dtype, x.shape, x.lod_level)
-    helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
-                     outputs={"Out": [out]}, attrs={"axis": axis})
-    return out
+    return _binary("elementwise_add", x, y, {"axis": axis})
+
+
+def elementwise_sub(x, y, axis=-1):
+    return _binary("elementwise_sub", x, y, {"axis": axis})
+
+
+def elementwise_mul(x, y, axis=-1):
+    return _binary("elementwise_mul", x, y, {"axis": axis})
+
+
+def elementwise_div(x, y, axis=-1):
+    return _binary("elementwise_div", x, y, {"axis": axis})
 
 
 def scale(x, scale=1.0, bias=0.0):
@@ -342,6 +415,30 @@ def scale(x, scale=1.0, bias=0.0):
     helper.append_op(type="scale", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"scale": scale, "bias": bias})
     return out
+
+
+def cast(x, dtype):
+    """x's values as `dtype` (a numpy dtype or its name)."""
+    helper = LayerHelper("cast")
+    out = helper.create_tmp_variable(np.dtype(dtype), x.shape, x.lod_level)
+    helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"dtype": np.dtype(dtype).name})
+    return out
+
+
+def fill_constant(shape, dtype, value):
+    """A `shape` tensor of `value` (fill_constant_op.cc)."""
+    helper = LayerHelper("fill_constant")
+    out = helper.create_tmp_variable(np.dtype(dtype), tuple(shape))
+    helper.append_op(type="fill_constant", inputs={}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": np.dtype(dtype).name,
+                            "value": value})
+    return out
+
+
+def increment(x, value=1.0):
+    """x + value, in x's dtype (increment_op.cc)."""
+    return _unary("increment", x, {"step": value})
 
 
 def concat(input, axis=0):
@@ -368,10 +465,132 @@ def reshape(x, shape):
     return out
 
 
+def transpose(x, perm):
+    return _unary("transpose", x, {"axis": list(perm)},
+                  out_shape=tuple(x.shape[i] for i in perm))
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False):
+    return _binary("matmul", x, y, {"transpose_X": transpose_x, "transpose_Y": transpose_y})
+
+
+def clip(x, min, max):  # noqa: A002 (fluid's layers.clip signature)
+    return _unary("clip", x, {"min": float(min), "max": float(max)})
+
+
+def _reduced_shape(shape, dim, keep_dim):
+    if dim is None:
+        return (1,) * len(shape) if keep_dim else ()
+    dims = {d % len(shape) for d in ((dim,) if isinstance(dim, int) else dim)}
+    if keep_dim:
+        return tuple(1 if i in dims else s for i, s in enumerate(shape))
+    return tuple(s for i, s in enumerate(shape) if i not in dims)
+
+
+def reduce_sum(x, dim=None, keep_dim=False):
+    """Over `dim` (an int or a list), every axis when None."""
+    return _unary("reduce_sum", x, {"dim": dim, "keep_dim": keep_dim, "reduce_all": dim is None},
+                  out_shape=_reduced_shape(x.shape, dim, keep_dim))
+
+
+def reduce_mean(x, dim=None, keep_dim=False):
+    return _unary("reduce_mean", x,
+                  {"dim": dim, "keep_dim": keep_dim, "reduce_all": dim is None},
+                  out_shape=_reduced_shape(x.shape, dim, keep_dim))
+
+
+def split(x, num_or_sections, dim=0):
+    """Into `num_or_sections` equal parts, or parts of those sizes."""
+    helper = LayerHelper("split")
+    if isinstance(num_or_sections, int):
+        n, attrs = num_or_sections, {"num": num_or_sections, "axis": dim}
+    else:
+        n = len(num_or_sections)
+        attrs = {"sections": list(num_or_sections), "axis": dim}
+    outs = [helper.create_tmp_variable(x.dtype, x.shape) for _ in range(n)]
+    helper.append_op(type="split", inputs={"X": [x]}, outputs={"Out": outs}, attrs=attrs)
+    return outs
+
+
+def expand(x, expand_times):
+    """x tiled `expand_times` along each axis."""
+    return _unary("expand", x, {"expand_times": list(expand_times)})
+
+
+def topk(input, k=1):
+    """The k largest values of each row and their int32 indices."""
+    helper = LayerHelper("top_k")
+    vals = helper.create_tmp_variable(input.dtype, input.shape[:-1] + (k,))
+    idxs = helper.create_tmp_variable(np.int32, input.shape[:-1] + (k,))
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [vals], "Indices": [idxs]}, attrs={"k": k})
+    return vals, idxs
+
+
+def argmax(x, axis=-1):
+    helper = LayerHelper("argmax")
+    out = helper.create_tmp_variable(np.int32, x.shape[:-1])
+    helper.append_op(type="argmax", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
 def lrn(input, n=5, k=2.0, alpha=1e-4, beta=0.75):
     """Local response normalisation across NCHW channels (ops/nn_ops.py)."""
     helper = LayerHelper("lrn")
     out = helper.create_tmp_variable(input.dtype, input.shape, input.lod_level)
     helper.append_op(type="lrn", inputs={"X": [input]}, outputs={"Out": [out]},
                      attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def _broadcast_static_shape(a, b):
+    """numpy's broadcast of two static shapes, -1 an unknown extent."""
+    a, b = tuple(a), tuple(b)
+    n = max(len(a), len(b))
+    a, b = (1,) * (n - len(a)) + a, (1,) * (n - len(b)) + b
+    return tuple((-1 if max(x, y) in (-1, 1) else max(x, y)) if -1 in (x, y) else max(x, y)
+                 for x, y in zip(a, b))
+
+
+def _compare_layer(op_type, x, y):
+    helper = LayerHelper(op_type)
+    out = helper.create_tmp_variable(np.bool_, _broadcast_static_shape(x.shape, y.shape),
+                                     x.lod_level)
+    helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]})
+    return out
+
+
+def less_than(x, y):
+    return _compare_layer("less_than", x, y)
+
+
+def less_equal(x, y):
+    return _compare_layer("less_equal", x, y)
+
+
+def greater_than(x, y):
+    return _compare_layer("greater_than", x, y)
+
+
+def greater_equal(x, y):
+    return _compare_layer("greater_equal", x, y)
+
+
+def equal(x, y):
+    return _compare_layer("equal", x, y)
+
+
+def not_equal(x, y):
+    return _compare_layer("not_equal", x, y)
+
+
+def logical_and(x, y):
+    return _compare_layer("logical_and", x, y)
+
+
+def logical_not(x):
+    helper = LayerHelper("logical_not")
+    out = helper.create_tmp_variable(np.bool_, x.shape, x.lod_level)
+    helper.append_op(type="logical_not", inputs={"X": [x]}, outputs={"Out": [out]})
     return out

@@ -1,8 +1,9 @@
 """Sequence layer DSL (paddle_tpu/layers/sequence.py), cut to the layers
 the ported programs use: dynamic_lstm (:41), stacked_lstm2 (:89),
 stacked_lstm (:140), dynamic_gru (:199), simple_rnn (:233), sequence_pool
-(:252), sequence_concat (:286) and sequence_first_step (:298). All take lod_level=1 variables, a LoDArray at
-run time."""
+(:252), sequence_concat (:286), sequence_first_step (:298) and
+sequence_conv (:394). All take lod_level=1 variables, a LoDArray at run
+time."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from ..param_attr import ParamAttr
 from .helper import LayerHelper
 
 __all__ = ["dynamic_lstm", "stacked_lstm2", "stacked_lstm", "dynamic_gru", "simple_rnn",
-           "sequence_pool", "sequence_concat", "sequence_first_step"]
+           "sequence_pool", "sequence_concat", "sequence_first_step", "sequence_conv"]
 
 
 def dynamic_lstm(input, size: int, use_peepholes: bool = False, is_reverse: bool = False,
@@ -173,3 +174,29 @@ def sequence_first_step(input, name=None):
     out = helper.create_tmp_variable(input.dtype, (-1,) + tuple(input.shape[1:]))
     helper.append_op(type="sequence_first_step", inputs={"X": [input]}, outputs={"Out": [out]})
     return out
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1, context_start=None,
+                  padding=True, param_attr=None, bias_attr=None, act=None, name=None):
+    """A context-window convolution over each sequence (sequence_conv_op,
+    ContextProjection + fc): windows of `filter_size` tokens from
+    `context_start` (default -filter_size // 2), zero outside the
+    sequence; the Filter [filter_size·D, num_filters]."""
+    if filter_stride != 1:
+        raise ValueError("sequence_conv: the reference supports stride 1 only")
+    if padding is not True:
+        raise NotImplementedError(
+            "sequence_conv: only zero-clipped boundary windows (padding=True) are "
+            "implemented; the reference's trainable padding rows are not")
+    helper = LayerHelper("sequence_conv", name=name)
+    d = input.shape[-1]
+    w = helper.create_parameter(param_attr, (filter_size * d, num_filters))
+    inputs = {"X": [input], "Filter": [w]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(bias_attr, (num_filters,), is_bias=True)]
+    out = helper.create_tmp_variable(input.dtype, (-1, num_filters), lod_level=1)
+    helper.append_op(type="sequence_conv", inputs=inputs, outputs={"Out": [out]},
+                     attrs={"context_length": filter_size,
+                            "context_start": (-(filter_size // 2) if context_start is None
+                                              else context_start)})
+    return helper.append_activation(out, act)

@@ -1,8 +1,9 @@
-"""Math op kernels: mul, matmul, elementwise_add, mean, sum, reshape,
-top_k, lookup_table, scale, sign, clip_by_global_norm, concat and the
-startup program's fill_constant, uniform_random and gaussian_random
-(paddle_tpu/ops/math_ops.py:35,67,108,118,128,155,264,274,207,228,245,168,
-306,335,346), on torch tensors.
+"""Math op kernels (paddle_tpu/ops/math_ops.py), every op of that module:
+the products (`mul`, `matmul`), the elementwise family (:94-112), the
+reductions (:118-152), the shape ops (`reshape`, `transpose`, `concat`,
+`split`, `expand`, `slice`), `scale`, `clip`, `cast`, `sign`, the norm
+clips, `squared_l2_norm`, `top_k`, `lookup_table`, `fill_constant`,
+`assign`, `increment`, `argmax` and the random ops, on torch tensors.
 The matrix products go to torch.matmul, as the JAX package leaves them to
 XLA. The random ops draw from the run's torch.Generator: the same
 distributions as the JAX package's, not the same numbers."""
@@ -17,6 +18,7 @@ import torch
 from .. import amp
 from ..core.lod import LoDArray
 from ..core.registry import SPARSE_KEY, register_op
+from .activation_ops import rounded
 
 
 def _data(x):
@@ -73,13 +75,147 @@ def _broadcast_y(x, y, axis):
     return y.reshape((1,) * axis + tuple(y.shape) + (1,) * (x.dim() - axis - y.dim()))
 
 
-@register_op("elementwise_add")
-def elementwise_add_kernel(ctx):
-    x, y = ctx.input("X"), ctx.input("Y")
-    xd, yd = _data(x), _data(y)
-    yd = _broadcast_y(xd, yd, ctx.attr("axis", -1))
-    xd, yd = amp.harmonize(ctx, xd, yd)
-    ctx.set_output("Out", _like(x, xd + yd))
+def _make_elementwise(name, fn):
+    """X fn Y, Y broadcast from `axis`; under amp an f32 operand meeting an
+    amp-dtype one is cast down (amp.harmonize). X's LoD is kept."""
+    def kernel(ctx):
+        x, y = ctx.input("X"), ctx.input("Y")
+        xd, yd = _data(x), _data(y)
+        yd = _broadcast_y(xd, yd, ctx.attr("axis", -1))
+        xd, yd = amp.harmonize(ctx, xd, yd)
+        ctx.set_output("Out", _like(x, fn(xd, yd)))
+
+    register_op(name)(kernel)
+
+
+_make_elementwise("elementwise_add", torch.add)
+_make_elementwise("elementwise_sub", torch.sub)
+_make_elementwise("elementwise_mul", torch.mul)
+_make_elementwise("elementwise_div", torch.true_divide)
+_make_elementwise("elementwise_max", torch.maximum)
+_make_elementwise("elementwise_min", torch.minimum)
+_make_elementwise("elementwise_pow", torch.pow)
+
+
+def _sum_dtype(x, out):
+    """jnp.sum's dtype: an integer or bool input sums to int32 (x64 off),
+    where torch.sum gives int64."""
+    return out if x.is_floating_point() else out.to(torch.int32)
+
+
+def _make_reduce(name, fn):
+    """Over `dim` (an int or a list; default 0), every axis with
+    `reduce_all`; `keep_dim` keeps the reduced axes as 1."""
+    def kernel(ctx):
+        x = _data(ctx.input("X"))
+        dim = ctx.attr("dim", 0)
+        if ctx.attr("reduce_all", False) or dim is None:
+            dim = tuple(range(x.dim()))
+        elif isinstance(dim, (list, tuple)):
+            dim = tuple(dim)
+        ctx.set_output("Out", fn(x, dim, bool(ctx.attr("keep_dim", False))))
+
+    register_op(name)(kernel)
+
+
+def _mean(x, dim, keep):
+    """jnp.mean: an integer input's mean is f32."""
+    return (x if x.is_floating_point() else x.float()).mean(dim, keepdim=keep)
+
+
+_make_reduce("reduce_sum", lambda x, d, k: _sum_dtype(x, x.sum(d, keepdim=k)))
+_make_reduce("reduce_mean", _mean)
+_make_reduce("reduce_max", lambda x, d, k: torch.amax(x, d, keepdim=k))
+_make_reduce("reduce_min", lambda x, d, k: torch.amin(x, d, keepdim=k))
+
+
+@register_op("transpose")
+def transpose_kernel(ctx):
+    ctx.set_output("Out", _data(ctx.input("X")).permute(list(ctx.attr("axis"))))
+
+
+@register_op("split")
+def split_kernel(ctx):
+    """Into `sections` (their sizes) or `num` equal parts along `axis`."""
+    x = _data(ctx.input("X"))
+    axis = ctx.attr("axis", 0)
+    sections = ctx.attr("sections")
+    if sections:
+        parts = torch.split(x, list(sections), dim=axis)
+    else:
+        num = ctx.attr("num", 0)
+        if x.shape[axis] % num:
+            raise ValueError(f"split: axis {axis} of size {x.shape[axis]} does not divide "
+                             f"into {num} equal parts")
+        parts = torch.split(x, x.shape[axis] // num, dim=axis)
+    for i, p in enumerate(parts):
+        ctx.set_output("Out", p, idx=i)
+
+
+@register_op("expand")
+def expand_kernel(ctx):
+    """jnp.tile by `expand_times`."""
+    ctx.set_output("Out", torch.tile(_data(ctx.input("X")), tuple(ctx.attr("expand_times"))))
+
+
+@register_op("slice")
+def slice_kernel(ctx):
+    """x[starts:ends] on `axes`, ends past the axis clamped as in numpy."""
+    x = _data(ctx.input("X"))
+    idx = [slice(None)] * x.dim()
+    for ax, s, e in zip(ctx.attr("axes"), ctx.attr("starts"), ctx.attr("ends")):
+        idx[ax] = slice(s, e)
+    ctx.set_output("Out", x[tuple(idx)])
+
+
+@register_op("clip")
+def clip_kernel(ctx):
+    x = ctx.input("X")
+    ctx.set_output("Out", _like(x, torch.clamp(_data(x), ctx.attr("min"), ctx.attr("max"))))
+
+
+@register_op("cast")
+def cast_kernel(ctx):
+    """To `dtype` (a numpy name, or bfloat16); the LoD is kept."""
+    x = ctx.input("X")
+    ctx.set_output("Out", _like(x, _data(x).to(_torch_dtype(ctx.attr("dtype")))))
+
+
+@register_op("clip_by_norm")
+def clip_by_norm_kernel(ctx):
+    """x · min(max_norm / max(‖x‖₂, 1e-12), 1), the norm in x's dtype
+    (clip_by_norm_op.cc)."""
+    x = _data(ctx.input("X"))
+    norm = torch.sqrt(torch.square(x).sum())
+    scale = torch.clamp(ctx.attr("max_norm") / torch.clamp(norm, min=1e-12), max=1.0)
+    ctx.set_output("Out", x * scale)
+
+
+@register_op("squared_l2_norm")
+def squared_l2_norm_kernel(ctx):
+    ctx.set_output("Out", torch.square(_data(ctx.input("X"))).sum())
+
+
+@register_op("assign")
+def assign_kernel(ctx):
+    ctx.set_output("Out", ctx.input("X"))
+
+
+@register_op("increment")
+def increment_kernel(ctx):
+    """x + step, the step cast to x's dtype: an int counter stays an int."""
+    x = ctx.input("X")
+    d = _data(x)
+    step = ctx.attr("step", 1.0)
+    step = rounded(step, d.dtype) if d.is_floating_point() else int(step)
+    ctx.set_output("Out", _like(x, d + step))
+
+
+@register_op("argmax")
+def argmax_kernel(ctx):
+    """Along `axis`, the first of tied maxima, as int32."""
+    x = _data(ctx.input("X"))
+    ctx.set_output("Out", torch.argmax(x, dim=ctx.attr("axis", -1)).to(torch.int32))
 
 
 @register_op("top_k")
@@ -92,7 +228,13 @@ def top_k_kernel(ctx):
     ctx.set_output("Indices", idxs.to(torch.int32))
 
 
-@register_op("lookup_table")
+def _tape_lookup(op, env) -> bool:
+    """A lookup of an is_sparse table, which records a site on the tape."""
+    tape = env.get(SPARSE_KEY)
+    return tape is not None and op.inputs["W"][0] in tape.params
+
+
+@register_op("lookup_table", runs_once=_tape_lookup)
 def lookup_table_kernel(ctx):
     """Embedding gather. Like the JAX kernel it emits the table's dtype
     (f32); the `mul` after it casts down under amp. A table that takes
@@ -103,9 +245,10 @@ def lookup_table_kernel(ctx):
     ids_data = _data(ids)
     if ids_data.dim() > 1 and ids_data.shape[-1] == 1:
         ids_data = ids_data[..., 0]
-    tape = ctx.env.get(SPARSE_KEY)
-    wname = ctx.op.inputs["W"][0]
-    if tape is not None and wname in tape.params:
+    if _tape_lookup(ctx.op, ctx.env):
+        ctx.once()
+        wname = ctx.op.inputs["W"][0]
+        tape = ctx.env[SPARSE_KEY]
         rows = ids_data.long()
         if isinstance(ids, LoDArray):
             # padding tokens must not touch row 0: point them past the table
@@ -182,6 +325,8 @@ def reshape_kernel(ctx):
 
 
 def _torch_dtype(name):
+    if str(name) == "bfloat16":  # no numpy dtype without ml_dtypes
+        return torch.bfloat16
     return torch.from_numpy(np.zeros((), np.dtype(name))).dtype
 
 
@@ -194,21 +339,29 @@ def _random_out(ctx, sample):
 
 @register_op("fill_constant")
 def fill_constant_kernel(ctx):
-    dev = ctx.generator().device
+    dev = ctx.device()
     ctx.set_output("Out", torch.full(tuple(ctx.attr("shape")), ctx.attr("value", 0.0),
                                      dtype=_torch_dtype(ctx.attr("dtype", "float32")),
                                      device=dev))
 
 
-@register_op("uniform_random")
+@register_op("uniform_random", runs_once=True)
 def uniform_random_kernel(ctx):
     lo, hi = ctx.attr("min", -1.0), ctx.attr("max", 1.0)
     _random_out(ctx, lambda shape, gen: torch.empty(
         shape, device=gen.device).uniform_(lo, hi, generator=gen))
 
 
-@register_op("gaussian_random")
+@register_op("gaussian_random", runs_once=True)
 def gaussian_random_kernel(ctx):
     mean, std = ctx.attr("mean", 0.0), ctx.attr("std", 1.0)
     _random_out(ctx, lambda shape, gen: torch.empty(
         shape, device=gen.device).normal_(mean, std, generator=gen))
+
+
+@register_op("truncated_gaussian_random", runs_once=True)
+def truncated_gaussian_random_kernel(ctx):
+    """mean + std · z, z a standard normal truncated to [-2, 2]."""
+    mean, std = ctx.attr("mean", 0.0), ctx.attr("std", 1.0)
+    _random_out(ctx, lambda shape, gen: mean + std * torch.nn.init.trunc_normal_(
+        torch.empty(shape, device=gen.device), 0.0, 1.0, -2.0, 2.0, generator=gen))

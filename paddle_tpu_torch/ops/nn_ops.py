@@ -1,11 +1,12 @@
 """Convolution, pooling, normalisation, loss and metric op kernels:
-`conv2d`, `pool2d`, `batch_norm`, `layer_norm`, `dropout`,
-`softmax_with_cross_entropy`, `square_error_cost`, `accuracy` and `lrn`
-(paddle_tpu/ops/nn_ops.py:30, 106, 146, 191-207, 210-226, 247-272, 276,
-296, 310-324), on torch tensors.
+`conv2d`, `conv2d_transpose`, `pool2d`, `batch_norm`, `layer_norm`,
+`dropout`, `cross_entropy`, `softmax_with_cross_entropy`,
+`square_error_cost`, `huber_loss`, `accuracy` and `lrn`
+(paddle_tpu/ops/nn_ops.py:30, 74, 106, 146, 191-207, 210-226, 230, 247,
+276, 285, 296, 310-324), on torch tensors.
 
-The convolution goes to F.conv2d (cuDNN on the card), as the JAX package
-leaves it to XLA. An NHWC tensor reaches it as a channels-last NCHW view
+The convolutions go to F.conv2d and F.conv_transpose2d (cuDNN on the
+card), as the JAX package leaves them to XLA. An NHWC tensor reaches it as a channels-last NCHW view
 (`permute(0, 3, 1, 2)`, no copy), so cuDNN runs its NHWC kernels and the
 output comes back NHWC without a transpose; the filter stays OIHW.
 """
@@ -55,6 +56,21 @@ def conv2d_kernel(ctx):
     if ctx.has_input("Bias"):
         shape = (1, -1, 1, 1) if ctx.attr("data_format", "NCHW") == "NCHW" else (1, 1, 1, -1)
         out = out + ctx.input("Bias").reshape(shape).to(out.dtype)
+    ctx.set_output("Output", out)
+
+
+@register_op("conv2d_transpose")
+def conv2d_transpose_kernel(ctx):
+    """The fractionally strided convolution of the JAX op (NCHW, strides
+    and symmetric paddings): its Filter is [in_c, out_c, kh, kw], the
+    layout F.conv_transpose2d takes. Under amp bf16 operands and a bf16
+    output, f32 accumulation inside cuDNN; in f32 no TF32, as conv2d."""
+    x, w = ctx.input("Input"), ctx.input("Filter")
+    xc, wc = amp.cast_inputs(ctx, x, w)
+    out = F.conv_transpose2d(xc, wc.to(xc.dtype), stride=_pair(ctx.attr("strides", (1, 1))),
+                             padding=_pair(ctx.attr("paddings", (0, 0))))
+    if ctx.has_input("Bias"):
+        out = out + ctx.input("Bias").reshape(1, -1, 1, 1).to(out.dtype)
     ctx.set_output("Output", out)
 
 
@@ -136,24 +152,41 @@ def batch_norm_kernel(ctx):
     ctx.set_output("Y", out.to(x.dtype))
 
 
+@register_op("cross_entropy")
+def cross_entropy_kernel(ctx):
+    """-log(X[label] + 1e-8) of a probability distribution X [N, D], an int
+    Label [N, 1]; with `soft_label` a distribution Label [N, D] and
+    -Σ label·log(X + 1e-8) (cross_entropy_op.cc). In X's dtype."""
+    x, label = ctx.input("X"), ctx.input("Label")
+    eps = 1e-8
+    if ctx.attr("soft_label", False):
+        out = -(label * torch.log(x + eps)).sum(-1, keepdim=True)
+    else:
+        lbl = label[..., 0] if label.dim() == x.dim() else label
+        out = -torch.log(torch.gather(x, -1, lbl[..., None].long()) + eps)
+    ctx.set_output("Y", out)
+
+
 @register_op("softmax_with_cross_entropy")
 def softmax_with_cross_entropy_kernel(ctx):
-    """Log-softmax in f32 even under amp (loss numerics). Ragged (LoDArray)
-    logits give a per-token LoD loss [capacity, 1] with the padding slots
-    zeroed. Softmax is set only where the run reads it: the training
-    program does not, and at [B·T, V] it is the step's largest tensor."""
+    """Log-softmax in f32 even under amp (loss numerics); an int Label picks
+    each row's term, a `soft_label` distribution weighs them all. Ragged
+    (LoDArray) logits give a per-token LoD loss [capacity, 1] with the
+    padding slots zeroed. Softmax is set only where the run reads it: the
+    training program does not, and at [B·T, V] it is the step's largest
+    tensor."""
     logits_in = ctx.input("Logits")
     label_in = ctx.input("Label")
     ragged = isinstance(logits_in, LoDArray)
     logits = logits_in.data if ragged else logits_in
     label = label_in.data if isinstance(label_in, LoDArray) else label_in
-    if ctx.attr("soft_label", False):
-        raise NotImplementedError("softmax_with_cross_entropy: soft labels are not "
-                                  "ported yet")
     logp = torch.log_softmax(logits.float(), dim=-1)
-    lbl = label[..., 0] if label.dim() == logits.dim() else label
-    lbl = lbl.long().clamp(0, logits.shape[-1] - 1)
-    loss = -torch.gather(logp, -1, lbl[..., None])
+    if ctx.attr("soft_label", False):
+        loss = -(label * logp).sum(-1, keepdim=True)
+    else:
+        lbl = label[..., 0] if label.dim() == logits.dim() else label
+        lbl = lbl.long().clamp(0, logits.shape[-1] - 1)
+        loss = -torch.gather(logp, -1, lbl[..., None])
     wrap = logits_in.with_data if ragged else (lambda t: t)
     if ragged:
         loss = torch.where(logits_in.token_mask[:, None], loss, torch.zeros((), device=loss.device))
@@ -167,6 +200,16 @@ def square_error_cost_kernel(ctx):
     """(X - Y)², elementwise (squared_l2_distance_op.cc)."""
     x, y = ctx.input("X"), ctx.input("Y")
     ctx.set_output("Out", torch.square(x - y))
+
+
+@register_op("huber_loss")
+def huber_loss_kernel(ctx):
+    """r = Y - X; ½r² where |r| <= delta, else delta·(|r| - ½delta)."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    d = ctx.attr("delta", 1.0)
+    r = y - x
+    a = torch.abs(r)
+    ctx.set_output("Out", torch.where(a <= d, 0.5 * r * r, d * (a - 0.5 * d)))
 
 
 @register_op("accuracy")
@@ -209,7 +252,7 @@ def dropout_apply(x, mask):
     return x * mask.to(x.dtype)
 
 
-@register_op("dropout")
+@register_op("dropout", runs_once=lambda op, env: not op.attrs.get("is_test", False))
 def dropout_kernel(ctx):
     """v0.11's dropout (dropout_op.cc), not torch's: in train mode
     x · mask with mask ~ Bernoulli(1 − p) and no 1/(1 − p) rescale; in test

@@ -1,6 +1,7 @@
-"""Sequence (LoD) op kernels: sequence_concat, sequence_first_step and
-sequence_pool (paddle_tpu/ops/sequence_ops.py:52,111,121), with
-`segment_reduce` (:25) in every mode of the JAX package's."""
+"""Sequence (LoD) op kernels: sequence_concat, sequence_first_step,
+sequence_pool and sequence_conv (paddle_tpu/ops/sequence_ops.py:52, 111,
+121, 291), with `segment_reduce` (:25) in every mode of the JAX
+package's."""
 
 from __future__ import annotations
 
@@ -66,3 +67,34 @@ def sequence_pool_kernel(ctx):
     valid = valid.reshape((-1,) + (1,) * (out.dim() - 1))
     ctx.set_output("Out", torch.where(valid, out, torch.zeros((), dtype=out.dtype,
                                                               device=out.device)))
+
+
+@register_op("sequence_conv")
+def sequence_conv_kernel(ctx):
+    """Context-window convolution over a ragged batch (sequence_conv_op.cc,
+    ContextProjection): out[t] = concat_{i<L} x[t + start + i] @ Filter,
+    a window position outside t's sequence read as zero; then Bias, and
+    the padding slots zeroed. As the JAX op, the product promotes its
+    operands (x's dtype and the f32 Filter) and emits f32."""
+    x = ctx.input("X")
+    w = ctx.input("Filter")
+    w = w.data if isinstance(w, LoDArray) else w
+    length = ctx.attr("context_length")
+    start = ctx.attr("context_start", -(length // 2))
+    cap = x.capacity
+    pos = torch.arange(cap, device=x.device)
+    zero = torch.zeros((), dtype=x.data.dtype, device=x.device)
+    cols = []
+    for i in range(length):
+        at = pos + (start + i)
+        src = at.clamp(0, cap - 1)
+        same = (at >= 0) & (at < cap) & (x.seq_ids[src] == x.seq_ids)
+        cols.append(torch.where(same[:, None], x.data[src], zero))
+    feat = torch.cat(cols, dim=-1)  # [cap, L*D]
+    dt = torch.promote_types(feat.dtype, w.dtype)
+    out = torch.matmul(feat.to(dt), w.to(dt)).float()
+    if ctx.has_input("Bias"):
+        b = ctx.input("Bias")
+        out = out + (b.data if isinstance(b, LoDArray) else b).reshape(1, -1)
+    out = torch.where(x.token_mask[:, None], out, torch.zeros((), device=out.device))
+    ctx.set_output("Out", x.with_data(out))

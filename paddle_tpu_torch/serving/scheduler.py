@@ -1187,19 +1187,21 @@ class ContinuousScheduler:
             self._partial = None
 
     def _abort_inflight_locked(self, exc: Exception) -> None:
-        seen = set()
+        """Frees every slot, then fails the requests that held them: a
+        client woken by its failure finds the pool already recovered."""
+        reqs = {}
         for slot in range(self.max_slots):
             entry = self._slot_req[slot]
-            if entry is not None and id(entry[0]) not in seen:
-                seen.add(id(entry[0]))
-                entry[0].fail(exc)
+            if entry is not None:
+                reqs.setdefault(id(entry[0]), entry[0])
             self._slot_req[slot] = None
             if self._active[slot]:
                 self._set_active(slot, False)
         if self._partial is not None:
-            if id(self._partial) not in seen:
-                self._partial.fail(exc)
+            reqs.setdefault(id(self._partial), self._partial)
             self._partial = None
+        for req in reqs.values():
+            req.fail(exc)
 
     # -- accounting -----------------------------------------------------
     def occupancy(self) -> float:

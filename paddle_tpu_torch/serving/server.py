@@ -55,6 +55,7 @@ when given, minted otherwise, and echoed on the reply.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -156,14 +157,19 @@ class ModelRegistry:
         process's kernel launch counts (shared by its models)."""
         from ..core.graph import counter_state
 
-        launches = {n: v for (_, n), v in counter_state().items()}
-        out = {}
-        for n, (e, b) in self._models.items():
-            s = e.stats()
-            if b.breaker is not None:
-                s["circuit"] = b.breaker.stats()
-            s["kernel_launches"] = launches
-            out[n] = s
+        # one snapshot: every engine's lock held while the counts are read,
+        # so no request is counted as dispatched without its launches
+        with contextlib.ExitStack() as locks:
+            for n in sorted(self._models):
+                locks.enter_context(self._models[n][0]._lock)
+            launches = {n: v for (_, n), v in counter_state().items()}
+            out = {}
+            for n, (e, b) in self._models.items():
+                s = e.stats()
+                if b.breaker is not None:
+                    s["circuit"] = b.breaker.stats()
+                s["kernel_launches"] = launches
+                out[n] = s
         return out
 
     def circuits(self) -> Dict[str, str]:

@@ -332,8 +332,18 @@ def test_fault_mid_pool_aborts_inflight_and_recovers(gen_dir):
         sched.generate(feed, timeout_ms=60000)
         faults.reset()
         faults.arm("serving.predict", p=1.0, times=1)
+        # the worker admits nothing until both requests are queued, so the
+        # round that faults holds both
+        gate, admit = threading.Event(), sched._admit_ready
+
+        def gated_admit():
+            gate.wait()
+            admit()
+
+        sched._admit_ready = gated_admit
         h1 = sched.submit(feed, timeout_ms=60000)
         h2 = sched.submit(feed, timeout_ms=60000)
+        gate.set()
         for h in (h1, h2):
             with pytest.raises(GenerationAborted):
                 h.result(timeout=WAIT)

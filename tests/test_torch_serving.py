@@ -25,10 +25,12 @@ import pytest
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 from paddle_tpu import serving as jserving
+from paddle_tpu_torch.obs.metrics import MetricsRegistry
 from paddle_tpu_torch.resilience import faults
 from paddle_tpu_torch.serving import (REQUEST_ID_HEADER, BucketPolicy, CircuitBreaker,
                                       CircuitOpenError, DeadlineError, MicroBatcher,
                                       ModelRegistry, ServingEngine, ShedError, make_server)
+from paddle_tpu_torch.serving.metrics import MetricSet
 
 TOL = 1e-5
 BUCKET_TOL = dict(rtol=1e-6, atol=1e-6)
@@ -174,7 +176,10 @@ def test_batcher_coalesces_queued_requests(dense_dir):
     call."""
     eng = _engine(dense_dir, "coal")
     oracle = _engine(dense_dir, "coal_oracle")
-    b = MicroBatcher(eng, max_wait_ms=10, max_queue=16)
+    # its own registry: the process-wide one's batch_rows histogram also
+    # counts every other batcher this process has run
+    b = MicroBatcher(eng, max_wait_ms=10, max_queue=16,
+                     metrics=MetricSet(registry=MetricsRegistry()))
     rng = np.random.RandomState(5)
     reqs = [rng.randn(1, 4).astype(np.float32) for _ in range(6)]
     futs = [b.submit({"x": r}) for r in reqs]
@@ -291,6 +296,36 @@ def _post(url, payload, headers=None):
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json", **(headers or {})})
     return urllib.request.urlopen(req, timeout=60)
+
+
+def test_stats_reads_launches_and_dispatches_in_one_snapshot(port_dense_dir, monkeypatch):
+    """/stats reads the process's kernel launch counts and each engine's
+    dispatches with every engine's lock held: a request that runs while
+    the counts are read is in neither, not in the dispatches alone (which
+    would make launches a request read low)."""
+    from paddle_tpu_torch.core import graph
+
+    reg = ModelRegistry()
+    eng, _ = reg.add("default", model_dir=port_dense_dir, device="cpu")
+    feed = {"x": np.ones((2, 4), np.float32)}
+    eng.predict(feed)
+    seen, runs = {}, []
+    read = graph.counter_state
+
+    def racing_read():
+        # a request arrives while the counts are read
+        seen["dispatches"] = eng.dispatches_total
+        t = threading.Thread(target=eng.predict, args=(feed,))
+        t.start()
+        t.join(0.5)
+        runs.append(t)
+        return read()
+
+    monkeypatch.setattr(graph, "counter_state", racing_read)
+    s = reg.stats()["default"]
+    assert s["dispatches_total"] == seen["dispatches"] == 1
+    runs[0].join(30)
+    assert eng.dispatches_total == 2
 
 
 def test_http_predict_healthz_stats_metrics(http_stack, dense_dir):
