@@ -472,7 +472,27 @@ at the start of a capture:
               classifiers at hidden 512, 3 steps card against CPU, B1-B4
               launches a step; img_conv_group and glu forward card against
               CPU.
-  60. the paths JSON line (phases 32-59's readings), the kernels JSON
+  60. rg_lstm the v1 rnn.py classifier at bench.py's lstm widths (vocab
+              30000, emb 128, hidden 512, B=128, T=100, bf16, Adam +
+              L2Decay + global-norm clip): two RecurrentGroups whose step
+              is an LSTM cell built from layers, trained through the
+              port's Trainer: the per-step loop timed (and one step under
+              torch.profiler), the fused path (lstm_benchmark_net, B1/B2)
+              timed beside it, then scan_window=4: one eager step, one
+              capture, three replays, the per-step loop's bits.
+  61. control a NestedRecurrentGroup over 64 documents of up to 8
+              sentences of up to 32 words (hidden 512, f32, 2 SGD steps)
+              card against CPU; a While card against CPU, and a While and
+              a cond inside a captured window raising
+              ControlFlowCaptureError; a cond training step in which only
+              the taken branch's weights move.
+  62. optim   every new optimizer, schedule and clip, ModelAverage,
+              ParamAttr(learning_rate), the per-parameter clips,
+              StaticPruningHook and the SelectedRows branches, 5 steps of
+              a small program each, card against CPU in f32.
+  63. seqops  the 10 sequence op types the slice adds, card against CPU:
+              outputs (layouts exact) and input gradients, f32.
+  64. the paths JSON line (phases 32-63's readings), the kernels JSON
       line, then the device JSON line last.
 
 Weights are made with numpy from --seed at the shapes the program
@@ -4317,6 +4337,22 @@ def profile_pass(run, kernel_names):
     return wall_us / 1e3, busy / 1e3, counts, copies / 1e3, len(spans)
 
 
+def profile_whole(run, kernel_names, want):
+    """profile_pass, taken again (at most PROFILE_TRIES times) while a
+    kernel of `want` ({name: launches the pass makes}) shows fewer: the
+    profiler now and then drops an event of a pass of some 40000 (one
+    flash_bwd_dkv_tc_kernel of 80 on an H100). A kernel the pass does not
+    launch stays short in every try, and its check fails."""
+    for _ in range(PROFILE_TRIES):
+        res = profile_pass(run, kernel_names)
+        short = {k: (res[2][k], n) for k, n in want.items() if res[2][k] < n}
+        if not short:
+            return res
+        print(f"  profiler: (recorded, launched) {short} in a pass of {res[4]} device events; "
+              "profiling again")
+    return res
+
+
 def graph_pool_gib(g):
     """The memory the caching allocator holds for a CUDA graph's private
     pool (its segments), or None where the snapshot does not say."""
@@ -4392,8 +4428,11 @@ def window_path_phase(ptt, smi, n, path, what, build, batches, flags):
         p2, p2_params, _ = run(0, WINDOW_RAGGED)
         b2, b2_params, _ = run(WINDOW_K, WINDOW_RAGGED)
         names = [v for v, _ in kernels.values()] + list(WINDOW_PROFILE_ONLY.get(path, {}))
-        prof_p = profile_pass(lambda: run(0, WINDOW_RAGGED), names)
-        prof_w = profile_pass(lambda: run(WINDOW_K, WINDOW_RAGGED), names)
+        want = {kname: b["launches_per_step"][counter] * WINDOW_RAGGED
+                for counter, (kname, _) in kernels.items()}
+        want.update({k: c * WINDOW_RAGGED for k, c in WINDOW_PROFILE_ONLY.get(path, {}).items()})
+        prof_p = profile_whole(lambda: run(0, WINDOW_RAGGED), names, want)
+        prof_w = profile_whole(lambda: run(WINDOW_K, WINDOW_RAGGED), names, want)
     out = {"per_step": p1, "per_step_again": p2, "window_even": a, "window_ragged": b,
            "window_ragged_again": b2, "graphs_held": len(exe._windows),
            "per_step_ms": statistics.mean([p1["ms_per_step"], p2["ms_per_step"]]),
@@ -7571,6 +7610,687 @@ def networks_phase(ptt, smi, seed, n):
     return out
 
 
+# --------------------------------------------- recurrence and control flow --
+# bench.py's lstm row (bench.py:266-290) as the reference's
+# benchmark/paddle/rnn/rnn.py wrote it in v1: two stacked recurrences, each
+# a recurrent_group whose step is an LSTM cell built from layers (fc on
+# [x_t, h], the gates through sigmoid and tanh, memories h and c), the
+# last step, fc to 2 classes; bf16, Adam(2e-3), L2Decay(8e-4),
+# GradientClipByGlobalNorm(25). The fused path (lstm_benchmark_net, B1/B2)
+# at the same widths is timed beside it, for the record
+RG_LSTM = dict(vocab=30000, emb=128, hidden=512, seqlen=100, batch=128)
+RG_STEPS = 4  # the per-step loop's steps, and the window's K
+# phase 61: the nested group over documents of sentences (card against CPU,
+# f32): up to 8 sentences of up to 32 tokens, hidden 512
+NESTED_DOCS = dict(docs=64, max_sents=8, max_words=32, vocab=30000, emb=128, hidden=512,
+                   lr=0.5, steps=2)
+# card against CPU in f32: losses within 1e-5 relative, every persistable
+# within 1e-5 of its largest |value|, at least SURF_FLOOR, or, for an
+# adaptive optimizer, 1% of its learning rate a step (a near-zero
+# gradient's rounding, divided by its own magnitude). The floor: a bias
+# that starts at 0 and whose gradient nearly cancels over the batch (a
+# classifier's, Σ(p - y) / B) holds the f32 sums' order noise of about
+# lr·ε·√B a step: 1.1e-8 beside a value of 9.6e-4 on the nested group's
+# classifier bias, on an H100 (PERF.md, the recurrence slice's findings)
+SURF_TOL, SURF_FLOOR, SURF_LR_SHARE, SURF_STEPS = 1e-5, 1e-2, 1e-2, 5
+SURF_VOCAB = 20
+# phase 63: the sequence ops at [SEQ_OPS_CAP x SEQ_OPS_W] over 64 sequences
+SEQ_OPS_CAP, SEQ_OPS_W, SEQ_OPS_SEQS = 4096, 128, 64
+
+
+def rg_lstm_cell(ptt, rnn, x_t, hidden):
+    """One LSTM step written with layers, as v1's lstmemory_group: the
+    gates from fc([x_t, h]), then c = σ(f)·c + σ(i)·tanh(g), h = σ(o)·tanh(c)."""
+    L = ptt.layers
+    h_prev = rnn.memory(shape=[hidden])
+    c_prev = rnn.memory(shape=[hidden])
+    gi, gf, go, gg = L.split(L.fc(L.concat([x_t, h_prev], axis=1), size=4 * hidden), 4, dim=1)
+    c = L.elementwise_add(L.elementwise_mul(L.sigmoid(gf), c_prev),
+                          L.elementwise_mul(L.sigmoid(gi), L.tanh(gg)))
+    # split's outputs declare the input's [-1, 4H] (the JAX front end's
+    # shapes): h is declared [-1, H] again for the next layer's fc
+    h = L.reshape(L.elementwise_mul(L.sigmoid(go), L.tanh(c)), [-1, hidden])
+    rnn.update_memory(h_prev, h)
+    rnn.update_memory(c_prev, c)
+    rnn.step_output(h)
+
+
+def build_rg_lstm(ptt, vocab, emb, hidden, seqlen, **_):
+    """The rg_lstm classifier through the port's front end: (main,
+    startup, loss)."""
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        words = ptt.layers.data("words", shape=[-1], dtype=np.int32, lod_level=1,
+                                append_batch_size=False)
+        label = ptt.layers.data("label", shape=[1], dtype=np.int32)
+        seq = ptt.layers.embedding(words, size=[vocab, emb])
+        for _ in range(2):
+            rnn = ptt.layers.RecurrentGroup(max_len=seqlen)
+            with rnn.step():
+                rg_lstm_cell(ptt, rnn, rnn.step_input(seq), hidden)
+            seq = rnn()
+        logits = ptt.layers.fc(ptt.layers.sequence_last_step(seq), size=2)
+        loss = ptt.layers.mean(ptt.layers.softmax_with_cross_entropy(logits, label))
+        ptt.optimizer.Adam(learning_rate=LSTM_LR, regularization=ptt.regularizer.L2Decay(LSTM_L2),
+                           grad_clip=ptt.optimizer.GradientClipByGlobalNorm(LSTM_CLIP)
+                           ).minimize(loss)
+    main.set_amp("bfloat16")
+    return main, startup, loss
+
+
+def rg_batches(ptt, rng, vocab, seqlen, batch, n, **_):
+    """`n` batches of `batch` sequences of `seqlen` tokens (bench.py's
+    lstm feed) and binary labels."""
+    return [{"words": ptt.LoDArray.from_sequences(
+        [rng.randint(0, vocab, (seqlen,)).astype(np.int32) for _ in range(batch)],
+        capacity=batch * seqlen, max_seqs=batch),
+        "label": rng.randint(0, 2, (batch, 1)).astype(np.int32)} for _ in range(n)]
+
+
+def trainer_run(ptt, exe, main_p, startup, loss, state, batches, window):
+    """One pass over `batches` through a fresh Trainer from `state`: (ms a
+    step, the parameters after, the executor's cache stats moved, the
+    costs)."""
+    scope = ptt.Scope()
+    tr = ptt.Trainer(loss, main_program=main_p, startup_program=startup, scope=scope,
+                     executor=exe)
+    tr.init()
+    for k, v in state.items():
+        scope.set(k, v.clone())
+    costs = []
+    cs0 = dict(exe.cache_stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train(lambda: iter(batches), 1, log_interval=len(batches), scan_window=window,
+             event_handler=lambda e: costs.append(e.cost) if isinstance(
+                 e, ptt.EndIteration) else None)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    moved = {k: exe.cache_stats[k] - cs0[k] for k in ("captures", "replays", "eager_steps")}
+    return ms, {p.name: scope.get(p.name).clone() for p in main_p.parameters()}, moved, \
+        [float(c) for c in costs]
+
+
+def rg_lstm_phase(ptt, smi, seed, n):
+    """Phase n: the rg_lstm classifier at bench.py's lstm widths through the
+    port's Trainer: the per-step loop, the fused path at the same widths
+    beside it, then scan_window=RG_STEPS on the per-step loop's bits."""
+    from paddle_tpu_torch.core import graph
+
+    w = RG_LSTM
+    phase(n, f"rg_lstm: the v1 rnn.py classifier with two recurrent_groups of layer-built LSTM "
+             f"cells at bench.py's lstm widths (vocab {w['vocab']}, emb {w['emb']}, hidden "
+             f"{w['hidden']}, B={w['batch']}, T={w['seqlen']}, bf16, Adam + L2Decay + global-norm "
+             f"clip) through the port's Trainer; the fused path beside it; then "
+             f"scan_window={RG_STEPS}")
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(seed + 600)
+    batches = rg_batches(ptt, rng, n=RG_STEPS, **w)
+    tokens = w["batch"] * w["seqlen"]
+    main_p, startup, loss = build_rg_lstm(ptt, **w)
+    ops = [o.type for o in main_p.global_block().ops]
+    step_ops = len(main_p.blocks[1].ops)
+    exe = ptt.Executor()
+    scope0 = ptt.Scope()
+    exe.run(startup, scope=scope0, seed=seed)
+    state = {k: scope0.get(k).clone() for k in scope0.keys()}
+    del scope0
+    print(f"  main program: {len(ops)} ops ({ops.count('recurrent_group')} recurrent_group, "
+          f"{step_ops} ops in a step's sub-block, so {2 * w['seqlen'] * step_ops} step ops a "
+          f"forward); {sum(v.numel() for v in state.values())} state values")
+    before = graph.counter_state()
+    warm_ms, _, _, warm_costs = trainer_run(ptt, exe, main_p, startup, loss, state,
+                                            batches[:1], 0)
+    p_ms, p_params, p_moved, p_costs = trainer_run(ptt, exe, main_p, startup, loss, state,
+                                                   batches, 0)
+    hand = graph.counter_delta(before, graph.counter_state())
+    print(f"  warm-up pass of 1 step {warm_ms:.1f} ms; per-step loop: {p_ms:.3f} ms a step, "
+          f"{tokens / p_ms * 1e3:.1f} tokens/s, costs {p_costs}; hand kernels launched "
+          f"{hand or 'none'} on {smi}")
+    check(all(np.isfinite(p_costs)) and p_costs[0] == warm_costs[0],
+          "rg_lstm: a non-finite cost, or the first step's cost differs between two runs")
+    check(p_moved["eager_steps"] == 0 and p_moved["captures"] == 0,
+          f"rg_lstm: the per-step loop ran a window: {p_moved}")
+    check(not hand, f"rg_lstm: a hand kernel ran in the layer-built path: {hand}")
+    # the fused path (B1/B2) at the same widths, timed in this call
+    f_main, f_startup, f_loss = build_lstm_program(ptt, **LSTM_BENCH)
+    f_main.set_amp("bfloat16")
+    fscope = ptt.Scope()
+    exe.run(f_startup, scope=fscope, seed=seed)
+    from paddle_tpu_torch.ops import lstm_kernels as lk
+    exe.run(f_main, batches[0], [f_loss.name], scope=fscope)  # warm-up
+    torch.cuda.synchronize()
+    lk.lstm_fwd_launches = lk.lstm_bwd_launches = 0
+    f_times = []
+    for b in batches:
+        t0 = time.perf_counter()
+        exe.run(f_main, b, [f_loss.name], scope=fscope)
+        torch.cuda.synchronize()
+        f_times.append((time.perf_counter() - t0) * 1e3)
+    fused_launches = {"lstm_fwd": lk.lstm_fwd_launches / len(batches),
+                      "lstm_bwd": lk.lstm_bwd_launches / len(batches)}
+    f_ms = statistics.median(f_times)
+    print(f"  the fused path (lstm_benchmark_net, B1/B2) at the same widths: "
+          f"{[round(t, 3) for t in f_times]} ms, median {f_ms:.3f} ms a step; launches a step "
+          f"{fused_launches}; the group path {p_ms / f_ms:.2f}x its time, on {smi}")
+    check(fused_launches == {"lstm_fwd": 2, "lstm_bwd": 2},
+          f"the fused path: launches a step {fused_launches}")
+    del fscope
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the window: one eager step, one capture, replays
+    w_ms, w_params, w_moved, w_costs = trainer_run(ptt, exe, main_p, startup, loss, state,
+                                                   batches, RG_STEPS)
+    sg = next(sg for sg in exe._windows.values() if sg.program is main_p)
+    p2_ms, _, _, _ = trainer_run(ptt, exe, main_p, startup, loss, state, batches, 0)
+    w2_ms, w2_params, w2_moved, _ = trainer_run(ptt, exe, main_p, startup, loss, state, batches,
+                                                RG_STEPS)
+    print(f"  scan_window={RG_STEPS}: {w_ms:.3f} ms a step ({w_moved}, capture "
+          f"{sg.capture_s:.3f} s); the per-step loop again {p2_ms:.3f} ms; the window again "
+          f"{w2_ms:.3f} ms ({w2_moved}); costs {w_costs}")
+    check(w_moved == {"captures": 1, "replays": RG_STEPS - 1, "eager_steps": 1},
+          f"rg_lstm window: not one eager step, one capture and {RG_STEPS - 1} replays: {w_moved}")
+    check(w2_moved == {"captures": 0, "replays": RG_STEPS, "eager_steps": 0},
+          f"rg_lstm window again: {w2_moved}")
+    for label, got in (("window", w_params), ("window again", w2_params)):
+        d = first_differing(got, p_params)
+        check(d is None, f"rg_lstm {label}: parameter {d} differs from the per-step loop's")
+    check(w_costs == p_costs, f"rg_lstm window costs {w_costs} != per-step {p_costs}")
+    # under torch.profiler last: a profile may leave the launches slower after it
+    prof_scope = ptt.Scope()
+    for k, v in state.items():
+        prof_scope.set(k, v.clone())
+    run = lambda: exe.run(main_p, batches[0], [loss.name], scope=prof_scope)  # noqa: E731
+    run()
+    wall, busy, _, _, nev = profile_pass(run, [])
+    print(f"  profiled per-step step: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}%), {nev} device events")
+    del run, prof_scope
+    wwall, wbusy, _, _, wnev = profile_pass(lambda: trainer_run(
+        ptt, exe, main_p, startup, loss, state, batches, RG_STEPS), [])
+    print(f"  profiled window pass of {RG_STEPS} steps: wall {wwall:.3f} ms, device busy "
+          f"{wbusy:.3f} ms ({100 * wbusy / wwall:.1f}%), {wnev} device events")
+    per_step = statistics.mean([p_ms, p2_ms])
+    out = dict(ms_per_step=per_step, per_step_runs_ms=[p_ms, p2_ms], window_ms=w2_ms,
+               first_window_ms=w_ms, capture_s=sg.capture_s, fused_ms=f_ms,
+               fused_steps_ms=f_times, fused_launches_per_step=fused_launches,
+               tokens_per_step=tokens, costs=p_costs, step_ops=step_ops,
+               profiled_per_step=dict(wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
+                                      device_events=nev),
+               profiled_window=dict(wall_ms=wwall, busy_ms=wbusy, busy_share=wbusy / wwall,
+                                    device_events=wnev, steps=RG_STEPS),
+               window_same_bits=True)
+    print(f"  rg_lstm at B={w['batch']}, T={w['seqlen']}, H={w['hidden']} bf16: per-step "
+          f"{per_step:.3f} ms a step, window {w2_ms:.3f} ms ({per_step / w2_ms:.2f}x), the fused "
+          f"path {f_ms:.3f} ms ({per_step / f_ms:.2f}x faster than per-step); the window's "
+          f"steps are the per-step loop's bits; on {smi}")
+    exe._windows.clear()
+    del sg
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  phase {n}: {out['seconds']:.1f} s")
+    return out
+
+
+def build_nested_docs(ptt, vocab, emb, hidden, max_sents, max_words, lr, **_):
+    """A hierarchical classifier: each sentence's words embedded and
+    mean-pooled inside a NestedRecurrentGroup whose memory carries a
+    document state over the sentences (h = tanh(fc([mean, h]))), the last
+    state to 2 classes; SGD. (main, startup, loss, the group's output)."""
+    L = ptt.layers
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        words = L.data("words", shape=[-1], dtype=np.int32, lod_level=2,
+                       append_batch_size=False)
+        label = L.data("label", shape=[1], dtype=np.int32)
+        e = L.embedding(words, size=[vocab, emb])
+        rnn = L.NestedRecurrentGroup(max_subseqs=max_sents, max_sublen=max_words)
+        with rnn.step():
+            sub, sub_mask = rnn.step_input(e)
+            h_prev = rnn.memory(shape=[hidden])
+            mk = L.cast(sub_mask, np.float32)
+            summed = L.reduce_sum(L.elementwise_mul(sub, mk, axis=0), dim=1)
+            mean = L.elementwise_div(summed, L.clip(L.reduce_sum(mk, dim=1), 1.0, 1e9), axis=0)
+            h = L.fc(L.concat([mean, h_prev], axis=1), size=hidden, act="tanh")
+            rnn.update_memory(h_prev, h)
+            rnn.step_output(h)
+        out = rnn()
+        logits = L.fc(L.sequence_last_step(out), size=2)
+        loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+        ptt.optimizer.SGD(learning_rate=lr).minimize(loss)
+    return main, startup, loss, out
+
+
+def nested_docs_feed(ptt, rng, docs, max_sents, max_words, vocab, **_):
+    """`docs` documents of 1..max_sents + 2 sentences of 1..max_words + 4
+    words: some cut by max_subseqs and max_sublen."""
+    nested = [[rng.randint(0, vocab, (rng.randint(1, max_words + 5),)).astype(np.int32)
+               for _ in range(rng.randint(1, max_sents + 3))] for _ in range(docs)]
+    cap = sum(len(s) for d in nested for s in d)
+    return {"words": ptt.LoDArray.from_nested_sequences(nested, capacity=cap, max_seqs=docs),
+            "label": rng.randint(0, 2, (docs, 1)).astype(np.int32)}
+
+
+def build_while_program(ptt, train):
+    """A While over feeds n and x: i counts to n, s sums 0..n-1 (int32),
+    v <- v/2 + w with w = fc(x) a parameter the block closes over.
+    (main, startup, (s, v)); with `train`, a regression loss beside it that
+    no While output reaches, SGD: (main, startup, (loss,))."""
+    L = ptt.layers
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        nv = L.data("n", shape=[1], dtype=np.int32, append_batch_size=False)
+        x = L.data("x", shape=[64])
+        w = L.fc(x, size=64, bias_attr=False)
+        i = L.fill_constant([1], np.int32, 0)
+        s = L.fill_constant([1], np.int32, 0)
+        v = L.fill_constant([1, 64], np.float32, 0.25)
+        c = L.less_than(i, nv)
+        loop = L.While(cond=c)
+        with loop.block():
+            i2 = L.increment(i)
+            loop.update(i, i2)
+            loop.update(s, L.elementwise_add(s, i))
+            loop.update(v, L.elementwise_add(L.scale(v, scale=0.5), w))
+            loop.update(c, L.less_than(i2, nv))
+        _, s_fin, v_fin, _ = loop()
+        if not train:
+            return main, startup, (s_fin, v_fin)
+        y = L.data("y", shape=[1])
+        loss = L.mean(L.square_error_cost(L.fc(x, size=1), y))
+        ptt.optimizer.SGD(learning_rate=0.01).minimize(loss)
+    return main, startup, (loss,)
+
+
+def card_vs_cpu(ptt, main_p, startup, fetches, feeds, seed, lr_share=0.0):
+    """`main_p` from one CPU startup state on the CPU and the card over
+    `feeds` (f32): (the largest relative difference of the first fetch
+    over the steps, the largest difference of a persistable over its
+    scale's bound, both devices' first fetches, both devices' state). The
+    bound: SURF_TOL of the largest |value| (at least SURF_FLOOR), or
+    `lr_share` where larger."""
+    cs = ptt.Scope()
+    ptt.Executor(device="cpu").run(startup, scope=cs, seed=seed)
+    persist = [v.name for v in main_p.persistables() if cs.has(v.name)]
+    state = ptt.io.state_to_numpy(cs, persist)
+    res = {}
+    for dev in ("cpu", CARD):
+        sc = ptt.Scope()
+        ptt.io.params_from_numpy(sc, state, dev)
+        exe = ptt.Executor(device=dev)
+        firsts = [exe.run(main_p, f, fetches, scope=sc)[0] for f in feeds]
+        res[dev] = (firsts, ptt.io.state_to_numpy(sc, persist))
+    (cf, cst), (gf, gst) = res["cpu"], res[CARD]
+    fetch_err = max(float(np.abs(np.asarray(g, np.float64) - c).max())
+                    / max(1e-30, float(np.abs(c).max())) for c, g in zip(cf, gf))
+    errs = {k: float(np.abs(gst[k] - v).max()) / max(SURF_TOL * max(float(np.abs(v).max()),
+                                                                     SURF_FLOOR), lr_share)
+            for k, v in cst.items() if v.size}
+    worst = max(errs, key=errs.get)
+    v = cst[worst]
+    print(f"    the worst persistable: {worst} {tuple(v.shape)}, |card - cpu| "
+          f"{float(np.abs(gst[worst] - v).max()):.3e}, max |value| {float(np.abs(v).max()):.3e}, "
+          f"max |update| {float(np.abs(v - state[worst]).max()):.3e}")
+    return fetch_err, errs[worst], cf, gf, cst, gst
+
+
+def _capture_error(exc):
+    """The ControlFlowCaptureError in an exception's chain, or None."""
+    from paddle_tpu_torch.ops.control_flow_ops import ControlFlowCaptureError
+
+    while exc is not None and not isinstance(exc, ControlFlowCaptureError):
+        exc = exc.__cause__
+    return exc
+
+
+def control_flow_phase(ptt, smi, seed, n):
+    """Phase n: a NestedRecurrentGroup over documents card against CPU, a
+    While card against CPU and inside a captured window (a named error),
+    and a cond training step in which only the taken branch moves."""
+    d = NESTED_DOCS
+    L = ptt.layers
+    phase(n, f"nested recurrence, While and cond: a NestedRecurrentGroup over {d['docs']} "
+             f"documents of up to {d['max_sents']} sentences of up to {d['max_words']} words "
+             f"(hidden {d['hidden']}, f32, {d['steps']} SGD steps) card against CPU; While "
+             f"card against CPU and in a captured window; a cond training step")
+    t_start = time.perf_counter()
+    rng = np.random.RandomState(seed + 610)
+    main_p, startup, loss, out_v = build_nested_docs(ptt, **d)
+    feeds = [nested_docs_feed(ptt, rng, **d) for _ in range(d["steps"])]
+    t0 = time.perf_counter()
+    lerr, serr, cl, gl, _, _ = card_vs_cpu(ptt, main_p, startup, [loss.name, out_v.name], feeds,
+                                           seed)
+    subs = [int((f["words"].sub_seq_ids.max() + 1)) for f in feeds]
+    print(f"  nested group: {subs} sentences over the {d['steps']} batches ({d['docs']} "
+          f"documents each); losses cpu {[float(c) for c in cl]} card {[float(g) for g in gl]}: "
+          f"{lerr:.3e} apart relative (tol {SURF_TOL:g}); every persistable within "
+          f"{serr:.3f} of its bound; {time.perf_counter() - t0:.1f} s for both devices")
+    check(lerr <= SURF_TOL and serr <= 1.0, "the nested group: card and CPU differ")
+    out = dict(nested=dict(loss_rel=lerr, state_over_bound=serr, sentences=subs))
+
+    # While: sum(0..n-1) in int32 and a float loop closing over a parameter
+    wmain, wstart, (s_fin, v_fin) = build_while_program(ptt, train=False)
+    xv = np.random.RandomState(seed + 611).rand(1, 64).astype(np.float32)
+    wfeeds = [{"n": np.array([k], np.int32), "x": xv} for k in (0, 1, 40)]
+    werr, _, wc, wg, _, _ = card_vs_cpu(ptt, wmain, wstart, [v_fin.name], wfeeds, seed)
+    cscope = ptt.Scope()
+    ptt.Executor(device=CARD).run(wstart, scope=cscope, seed=seed)
+    sums = [int(ptt.Executor(device=CARD).run(wmain, f, [s_fin.name], scope=cscope)[0][0])
+            for f in wfeeds]
+    print(f"  While on the card: sum(0..n-1) for n = 0, 1, 40: {sums}; the float loop card "
+          f"against CPU {werr:.3e} apart relative (tol {SURF_TOL:g})")
+    check(sums == [0, 0, 780], f"While: sums {sums}")
+    check(werr <= SURF_TOL, "While: card and CPU differ")
+    out["while"] = dict(sums=sums, rel=werr)
+
+    # the same While, and a cond, in a training step inside a captured
+    # window: the named error
+    def windowed(kind):
+        if kind == "while":
+            m2, s2, (lo,) = build_while_program(ptt, train=True)
+        else:
+            ptt.reset_default_programs()
+            m2, s2 = ptt.Program(), ptt.Program()
+            with ptt.program_guard(m2, s2):
+                x = L.data("x", shape=[64])
+                y = L.data("y", shape=[1])
+                p = L.data("p", shape=[1], dtype=np.bool_, append_batch_size=False)
+                lo = L.mean(L.square_error_cost(L.fc(x, size=1), y))
+                lo = L.cond(p, lambda: L.scale(lo, 1.0), lambda: L.scale(lo, 2.0))
+                ptt.optimizer.SGD(learning_rate=0.01).minimize(lo)
+        r = np.random.RandomState(seed + 612)
+        bs = [dict({"x": r.rand(16, 64).astype(np.float32),
+                    "y": r.rand(16, 1).astype(np.float32)},
+                   **({"p": np.array([True])} if kind == "cond" else
+                      {"n": np.array([40], np.int32)})) for _ in range(4)]
+        tr = ptt.Trainer(lo, main_program=m2, startup_program=s2, scope=ptt.Scope())
+        try:
+            tr.train(lambda: iter(bs), 1, scan_window=4, log_interval=4)
+        except RuntimeError as e:
+            err = _capture_error(e)
+            check(err is not None, f"{kind} in a window raised, but not ControlFlowCaptureError: "
+                                   f"{e}")
+            print(f"  {kind} in scan_window=4: {type(err).__name__}: {str(err)[:120]}")
+            return str(err)
+        check(False, f"{kind} ran inside a captured window without raising")
+
+    out["capture_errors"] = {k: windowed(k) for k in ("while", "cond")}
+    check(torch.cuda.is_current_stream_capturing() is False, "a capture was left open")
+
+    # cond: three SGD steps, its untaken branch 0/0 were it taken
+    ptt.reset_default_programs()
+    cmain, cstart = ptt.Program(), ptt.Program()
+    with ptt.program_guard(cmain, cstart):
+        x = L.data("x", shape=[256])
+        p = L.data("p", shape=[1], dtype=np.bool_, append_batch_size=False)
+        y = L.data("y", shape=[1])
+        h1 = L.fc(L.fc(x, size=512, act="tanh"), size=1, param_attr="w_true")
+        h2 = L.fc(x, size=1, param_attr="w_false")
+        o = L.cond(p, lambda: L.scale(h1, 1.0),
+                   lambda: L.elementwise_div(L.scale(h2, 0.0), L.scale(h2, 0.0)))
+        closs = L.mean(L.square_error_cost(o, y))
+        ptt.optimizer.SGD(learning_rate=0.1).minimize(closs)
+    r = np.random.RandomState(seed + 613)
+    cfeeds = [{"x": r.randn(128, 256).astype(np.float32), "y": r.randn(128, 1).astype(np.float32),
+               "p": np.array([True])} for _ in range(3)]
+    cerr, cserr, ccl, cgl, cst, gst = card_vs_cpu(ptt, cmain, cstart, [closs.name], cfeeds, seed)
+    cs0 = ptt.Scope()
+    ptt.Executor(device="cpu").run(cstart, scope=cs0, seed=seed)
+    w_false0 = cs0.get("w_false").numpy()
+    moved = not np.array_equal(gst["w_true"], cs0.get("w_true").numpy())
+    print(f"  cond, 3 SGD steps on the card: losses {[float(c) for c in cgl]} (cpu "
+          f"{[float(c) for c in ccl]}, {cerr:.3e} apart); w_true moved {moved}, w_false the "
+          f"startup's bits {np.array_equal(gst['w_false'], w_false0)}")
+    check(all(np.isfinite([float(c) for c in cgl])), "cond: a non-finite loss")
+    check(moved and np.array_equal(gst["w_false"], w_false0),
+          "cond: the untaken branch's weight moved, or the taken one did not")
+    check(cerr <= SURF_TOL and cserr <= 1.0, "cond: card and CPU differ")
+    out["cond"] = dict(loss_rel=cerr, state_over_bound=cserr)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  phase {n}: {out['seconds']:.1f} s")
+    return out
+
+
+def surface_cases():
+    """{case: (optimizer, its kwargs, options)} of phase 62: every new
+    optimizer, schedule and clip, ModelAverage, the per-parameter lr and
+    clips, StaticPruningHook, and each SelectedRows branch."""
+    return {
+        "adagrad": ("Adagrad", dict(learning_rate=0.01), {}),
+        "adadelta": ("Adadelta", dict(learning_rate=1.0, rho=0.9), {}),
+        "rmsprop": ("RMSProp", dict(learning_rate=0.001, momentum=0.9), {}),
+        "decayed_adagrad": ("DecayedAdagrad", dict(learning_rate=0.01), {}),
+        "adamax": ("Adamax", dict(learning_rate=0.01), {}),
+        "ftrl": ("Ftrl", dict(learning_rate=0.01, l1=0.01, l2=0.01), {}),
+        "ftrl_power": ("Ftrl", dict(learning_rate=0.01, l1=0.001, lr_power=-0.6), {}),
+        "exponential": ("SGD", dict(learning_rate=0.1), {"schedule": (
+            "ExponentialDecay", dict(decay_steps=2, decay_rate=0.5, staircase=True))}),
+        "natural_exp": ("Momentum", dict(learning_rate=0.05), {"schedule": (
+            "NaturalExpDecay", dict(decay_steps=2, decay_rate=0.3))}),
+        "inverse_time": ("SGD", dict(learning_rate=0.1), {"schedule": (
+            "InverseTimeDecay", dict(decay_steps=1, decay_rate=0.5))}),
+        "polynomial": ("Adam", dict(learning_rate=0.01), {"schedule": (
+            "PolynomialDecay", dict(decay_steps=2, end_learning_rate=0.01, power=2.0,
+                                    cycle=True))}),
+        "piecewise": ("SGD", dict(learning_rate=0.1), {"schedule": (
+            "PiecewiseDecay", dict(boundaries=[2, 4], values=[0.1, 0.05, 0.01]))}),
+        "clip_value": ("SGD", dict(learning_rate=0.1), {"clip": ("GradientClipByValue", (0.02,))}),
+        "clip_norm": ("Momentum", dict(learning_rate=0.05),
+                      {"clip": ("GradientClipByNorm", (0.05,))}),
+        "clip_global": ("Adagrad", dict(learning_rate=0.01),
+                        {"clip": ("GradientClipByGlobalNorm", (0.05,))}),
+        "param_clip_lr": ("Momentum", dict(learning_rate=0.05), {"param": True}),
+        "pruning": ("Adam", dict(learning_rate=0.01), {"prune": 0.5}),
+        "model_average": ("SGD", dict(learning_rate=0.1), {"average": True}),
+        **{f"sparse_{k.lower()}": (k, dict(learning_rate=lr), {"sparse": True}) for k, lr in
+           (("SGD", 0.1), ("Momentum", 0.05), ("Adagrad", 0.01), ("Adam", 0.01))},
+    }
+
+
+def build_surface(ptt, opt, kw, opts):
+    """x [64] (+ an is_sparse embedding) -> fc 128 tanh -> fc 1 -> squared
+    error, trained by `opt` with the case's surfaces: (main, startup, loss,
+    ModelAverage or None)."""
+    L, O = ptt.layers, ptt.optimizer
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        x = L.data("x", shape=[64])
+        y = L.data("y", shape=[1])
+        w1 = ptt.ParamAttr(name="w1", learning_rate=0.5 if opts.get("param") else 1.0,
+                           gradient_clip=O.GradientClipByValue(0.05) if opts.get("param")
+                           else None,
+                           update_hooks=[ptt.param_attr.StaticPruningHook(opts["prune"])]
+                           if "prune" in opts else None)
+        w2 = ptt.ParamAttr(name="w2", gradient_clip=O.GradientClipByNorm(0.1)
+                           if opts.get("param") else None)
+        h = L.fc(x, size=128, act="tanh", param_attr=w1)
+        if opts.get("sparse"):
+            ids = L.data("ids", shape=[1], dtype=np.int64)
+            e = L.embedding(ids, size=[SURF_VOCAB, 128], is_sparse=True, param_attr="emb")
+            h = L.elementwise_add(h, L.reshape(e, [-1, 128]))
+        loss = L.mean(L.square_error_cost(L.fc(h, size=1, param_attr=w2), y))
+        kw = dict(kw)
+        if "schedule" in opts:
+            name, skw = opts["schedule"]
+            kw["lr_schedule"] = getattr(O, name)(**skw)
+        if "clip" in opts:
+            kw["grad_clip"] = getattr(O, opts["clip"][0])(*opts["clip"][1])
+        if opts.get("sparse"):
+            kw.update(regularization=ptt.regularizer.L2Decay(0.1),
+                      grad_clip=O.GradientClipByValue(0.02))
+        getattr(O, opt)(**kw).minimize(loss)
+        avg = O.ModelAverage(0.5, min_average_window=2, max_average_window=3) \
+            if opts.get("average") else None
+    return main, startup, loss, avg
+
+
+def optimizer_surfaces_phase(ptt, smi, seed, n):
+    """Phase n: each new optimizer, schedule and clip, ModelAverage,
+    ParamAttr(learning_rate), StaticPruningHook and the SelectedRows
+    branches, SURF_STEPS steps card against CPU in f32."""
+    phase(n, f"the optimizer surfaces: {len(surface_cases())} programs (x [64] -> fc 128 -> fc "
+             f"1, B=128), {SURF_STEPS} steps each card against CPU in f32")
+    t_start = time.perf_counter()
+    rng = np.random.RandomState(seed + 620)
+    feeds = [{"x": rng.randn(128, 64).astype(np.float32), "y": rng.randn(128, 1).astype(np.float32),
+              "ids": rng.randint(0, SURF_VOCAB // 2, (128, 1)).astype(np.int64)}
+             for _ in range(SURF_STEPS)]
+    out, worst = {}, (0.0, 0.0)
+    adaptive = {"Adagrad", "Adadelta", "RMSProp", "DecayedAdagrad", "Adamax", "Adam", "Ftrl"}
+    for case, (opt, kw, opts) in surface_cases().items():
+        main_p, startup, loss, avg = build_surface(ptt, opt, kw, opts)
+        fs = feeds if opts.get("sparse") else [{k: v for k, v in f.items() if k != "ids"}
+                                               for f in feeds]
+        share = SURF_LR_SHARE * kw["learning_rate"] * SURF_STEPS if opt in adaptive else 0.0
+        lerr, serr, cl, gl, cst, gst = card_vs_cpu(ptt, main_p, startup, [loss.name], fs, seed,
+                                                   share)
+        extra = ""
+        if avg is not None:  # the averages on the card against the CPU's
+            sc = ptt.Scope()
+            ptt.io.params_from_numpy(sc, gst, CARD)
+            avg.apply(None, sc)
+            got = {p.name: sc.get(p.name).cpu().numpy() for p in main_p.parameters()}
+            want = {p.name: cst[f"@AVG@.{p.name}"] / max(float(cst[f"@AVG_N@.{p.name}"]), 1.0)
+                    for p in main_p.parameters()}
+            aerr = max(float(np.abs(got[k] - v).max()) / max(float(np.abs(v).max()), 1e-3)
+                       for k, v in want.items())
+            avg.restore(None, sc)
+            extra = f", averages {aerr:.3e}"
+            check(aerr <= SURF_TOL, f"{case}: the averages differ card against CPU")
+        if "prune" in opts:
+            m = gst["w1@PRUNE_MASK"]
+            zeros = int((m == 0).sum())
+            extra = f", mask zeros {zeros} of {m.size}, masked weights zero " \
+                    f"{bool(np.all(gst['w1'][m == 0] == 0))}"
+            check(zeros == round(opts["prune"] * m.size) and np.all(gst["w1"][m == 0] == 0),
+                  f"{case}: the mask or the masked weights")
+        if opts.get("sparse"):
+            untouched = sorted(set(range(SURF_VOCAB)) - {int(i) for f in feeds
+                                                         for i in f["ids"].ravel()})
+            same = np.array_equal(gst["emb"][untouched], cst["emb"][untouched])
+            extra = f", untouched rows {len(untouched)} kept {same}"
+        print(f"  {case}: losses card {[round(float(g), 6) for g in gl]}, {lerr:.2e} from the "
+              f"CPU's; state {serr:.3f} of its bound{extra}")
+        check(all(np.isfinite([float(g) for g in gl])), f"{case}: a non-finite loss")
+        check(lerr <= SURF_TOL and serr <= 1.0, f"{case}: card and CPU differ")
+        out[case] = dict(loss_rel=lerr, state_over_bound=serr)
+        worst = (max(worst[0], lerr), max(worst[1], serr))
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  {len(surface_cases())} programs: the largest loss difference {worst[0]:.3e} "
+          f"relative (tol {SURF_TOL:g}), the largest state difference {worst[1]:.3f} of its "
+          f"bound; phase {n}: {out['seconds']:.1f} s")
+    return out
+
+
+def seq_op_cases(rng):
+    """(op, {slot: ("lod", seqs) | ("nested", docs) | array}, attrs, the
+    float slots differentiated) for the 10 sequence op types."""
+    lens = rng.randint(1, 2 * SEQ_OPS_CAP // SEQ_OPS_SEQS, SEQ_OPS_SEQS)
+    lens = (lens * SEQ_OPS_CAP // max(int(lens.sum()), SEQ_OPS_CAP)).clip(1)
+    seqs = lambda d: ("lod", [rng.standard_normal((int(m), d)).astype(np.float32)  # noqa: E731
+                              for m in lens])
+    ties = ("lod", [np.round(rng.rand(int(m), 1) * 4).astype(np.float32) for m in lens])
+    ids = ("lod", [rng.randint(0, 8, (int(m), 1)).astype(np.int32) for m in lens])
+    docs = ("nested", [[rng.standard_normal((int(k), SEQ_OPS_W)).astype(np.float32)
+                        for k in rng.randint(1, SEQ_OPS_CAP // SEQ_OPS_SEQS // 2,
+                                             rng.randint(1, 5))]
+                       for _ in range(SEQ_OPS_SEQS)])
+    n_subs = sum(len(d) for d in docs[1])
+    return [
+        ("sequence_softmax", {"X": seqs(1)}, {}, ("X",)),
+        ("sequence_expand", {"X": rng.standard_normal((SEQ_OPS_SEQS, SEQ_OPS_W)).astype(
+            np.float32), "Y": seqs(4)}, {}, ("X",)),
+        ("sequence_last_step", {"X": seqs(SEQ_OPS_W)}, {}, ("X",)),
+        ("sequence_slice", {"X": seqs(SEQ_OPS_W),
+                            "Offset": rng.randint(0, 4, SEQ_OPS_SEQS).astype(np.int32),
+                            "Length": rng.randint(0, 40, SEQ_OPS_SEQS).astype(np.int64)}, {},
+         ("X",)),
+        ("sequence_reshape", {"X": seqs(SEQ_OPS_W)}, {"new_dim": SEQ_OPS_W // 4}, ("X",)),
+        ("sequence_reverse", {"X": seqs(SEQ_OPS_W)}, {}, ("X",)),
+        ("kmax_seq_score", {"X": ties}, {"beam_size": 5}, ()),
+        ("sub_nested_seq", {"X": docs, "Selection": rng.permutation(n_subs)[:40].astype(
+            np.int32)}, {}, ("X",)),
+        ("featmap_expand", {"X": seqs(SEQ_OPS_W)}, {"num_filters": 4}, ("X",)),
+        ("eos_id", {"X": ids}, {"eos_id": 3}, ()),
+    ]
+
+
+def run_seq_op(ptt, dev, op_type, inputs, attrs, diff):
+    """One sequence op on `dev`: its output's tensors (data, and seq_ids,
+    lengths, num_seqs of a LoD output) and the gradients of Σ out·cot for
+    the `diff` slots, as numpy."""
+    from paddle_tpu_torch.core import registry as treg
+    from paddle_tpu_torch.core.program import Operator
+
+    env, leaves = {"@AMP@": None}, []
+    for slot, v in inputs.items():
+        if isinstance(v, tuple):
+            make = ptt.LoDArray.from_nested_sequences if v[0] == "nested" else \
+                ptt.LoDArray.from_sequences
+            total = sum(len(q) for d in v[1] for q in (d if v[0] == "nested" else [d]))
+            t = make(v[1], capacity=max(2 * SEQ_OPS_CAP, total), max_seqs=len(v[1]) + 1,
+                     device=dev)
+            if slot in diff:
+                t = t.with_data(t.data.clone().requires_grad_(True))
+                leaves.append(t.data)
+        else:
+            t = torch.as_tensor(v, device=dev)
+            if slot in diff:
+                t = t.clone().requires_grad_(True)
+                leaves.append(t)
+        env[slot] = t
+    with torch.enable_grad():
+        treg.get_kernel(op_type)(treg.OpContext(
+            Operator(op_type, {k: [k] for k in inputs}, {"Out": ["out"]}, dict(attrs)), env))
+        o = env["out"]
+        parts = [o.data, o.seq_ids, o.lengths, o.num_seqs] if isinstance(o, ptt.LoDArray) \
+            else [o]
+        grads = []
+        if leaves:
+            cot = torch.as_tensor(np.random.RandomState(1).standard_normal(
+                tuple(parts[0].shape)).astype(np.float32), device=dev)
+            grads = torch.autograd.grad((parts[0].float() * cot).sum(), leaves)
+    return [p.detach().cpu().numpy() for p in parts], [g.cpu().numpy() for g in grads]
+
+
+def sequence_ops_phase(ptt, smi, seed, n):
+    """Phase n: the 10 sequence op types card against CPU, outputs and
+    gradients, f32."""
+    phase(n, f"the sequence ops, card against CPU: {SEQ_OPS_SEQS} sequences over about "
+             f"{SEQ_OPS_CAP} tokens, width {SEQ_OPS_W}; outputs (layouts exact) and gradients")
+    t_start = time.perf_counter()
+    rng = np.random.RandomState(seed + 630)
+    out, worst = {}, 0.0
+    for op, inputs, attrs, diff in seq_op_cases(rng):
+        (co, cg), (go, gg) = (run_seq_op(ptt, dev, op, inputs, attrs, diff)
+                              for dev in ("cpu", CARD))
+        errs = []
+        for c, g in zip(co + cg, go + gg):
+            check(c.shape == g.shape and c.dtype == g.dtype, f"{op}: shapes or dtypes differ")
+            if np.issubdtype(c.dtype, np.floating):
+                errs.append(float(np.abs(g - c).max()) / max(1.0, float(np.abs(c).max()))
+                            if c.size else 0.0)
+            else:
+                check(np.array_equal(c, g), f"{op}: an integer output differs card against CPU")
+        err = max(errs, default=0.0)
+        worst = max(worst, err)
+        out[op] = dict(error=err, shape=list(go[0].shape))
+        print(f"  {op}: output {list(go[0].shape)} {go[0].dtype}, {len(gg)} gradient(s); "
+              f"largest error {err:.3e} of its scale (tol {OPS_TOL[None]:g})")
+        check(err <= OPS_TOL[None], f"{op}: card and CPU differ")
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  10 op types: the largest error {worst:.3e}; phase {n}: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8275,8 +8995,12 @@ def main():
     paths["transformer_remat"], remat_launches = remat_phases(ptt, smi, args.seed, 56)
     paths["general_ops"] = op_sweep_phase(ptt, smi, args.seed, 58)
     paths["networks"] = networks_phase(ptt, smi, args.seed, 59)
+    paths["rg_lstm"] = rg_lstm_phase(ptt, smi, args.seed, 60)
+    paths["control_flow"] = control_flow_phase(ptt, smi, args.seed, 61)
+    paths["optimizer_surfaces"] = optimizer_surfaces_phase(ptt, smi, args.seed, 62)
+    paths["sequence_ops"] = sequence_ops_phase(ptt, smi, args.seed, 63)
 
-    phase(60, "the paths line, the kernels line, then the device line")
+    phase(64, "the paths line, the kernels line, then the device line")
     rows["attn_bwd_step"].update(launches_by_route=train_routes["attn_bwd_step"],
                                  kernel="attn_bwd_row_kernel on csrc/attn_row.cuh's attend_bwd")
     rows["attn_phase2"].update(kernel="attn_dep_kernel (t oldest first) + attn_dv_kernel")
@@ -8349,6 +9073,9 @@ def main():
     for net, kernels in NET_LAUNCHES.items():
         for k in kernels:
             by_path[k][f"networks_{net}_f32"] = paths["networks"][net]["launches_per_step"][k]
+    # the fused LSTM path timed beside rg_lstm (phase 60)
+    for k, c in paths["rg_lstm"]["fused_launches_per_step"].items():
+        by_path[k]["lstm_train_beside_rg_lstm"] = c
     # B3's row: the request's launch (B=128), and the training step's (B=256)
     rows["gru_fwd"] = dict(main_row, train_ms=gru_fwd_train_ms,
                            srl_step=paths["srl"]["kernels"]["gru_fwd"])

@@ -268,9 +268,12 @@ class Executor:
         without runs under inference_mode (the module docstring)."""
         env[AMP_KEY] = program.amp_dtype
         env[registry.RNG_KEY] = gen
+        env[registry.PROGRAM_KEY] = program
         block = program.global_block()
         ops = block.ops
-        env[registry.LIVE_KEY] = {n for op in ops for names in op.inputs.values()
+        # a sub-block's ops read the enclosing block's values too
+        env[registry.LIVE_KEY] = {n for b in program.blocks for op in b.ops
+                                  for names in op.inputs.values()
                                   for n in names} | set(fetch_names) | set(persist)
         runner = BlockRunner(program)
         at = [i for i, op in enumerate(ops) if op.type == "autodiff"]

@@ -237,7 +237,7 @@ class _StepGraph(CapturedStep):
         self.bufs: Dict[str, torch.Tensor] = {}  # the persistables
         self.feed: Optional[Dict[str, Any]] = None  # one step's feed
         self.outs: Optional[List[torch.Tensor]] = None  # the fetches' leaves
-        self.lod_fetches: List[bool] = []
+        self.lod_fetches: List[int] = []  # a LoDArray fetch's leaf count, else 0
         self.acc: List[torch.Tensor] = []  # the accumulator, flat
         self.warm = False
 
@@ -319,7 +319,8 @@ class _StepGraph(CapturedStep):
         leaves = [t.detach() for f in fetches for t in _leaves(f)]
         if self.outs is None:
             self.outs = [torch.empty_like(t) for t in leaves]
-            self.lod_fetches = [isinstance(f, LoDArray) for f in fetches]
+            self.lod_fetches = [len(_leaves(f)) if isinstance(f, LoDArray) else 0
+                                for f in fetches]
         srcs += leaves
         dsts += self.outs
         if self.with_acc:
@@ -401,7 +402,7 @@ def run_window(exe, program: Program, feed: Dict[str, Any], fetch_list, scope, a
         scope.set(name, buf)
     out = []
     for lod in sg.lod_fetches:
-        n = 4 if lod else 1
+        n = lod or 1
         out.append(LoDArray(*ys[:n]) if lod else ys[0])
         ys = ys[n:]
     acc_out = None

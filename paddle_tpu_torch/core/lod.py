@@ -11,6 +11,11 @@ The layout of paddle_tpu/core/lod.py, on torch tensors:
 Keeping the same layout means a feed or a fetch compares one to one with
 the JAX package's. Recurrences convert to time-major dense + mask with
 `to_batch()` and back with `from_batch()`.
+
+A second level (the sub-sequences of a hierarchical RNN's input) is
+carried as `sub_seq_ids` [capacity] int32, the sub-sequence of each token
+numbered across the batch, -1 on padding (`from_nested_sequences`); it is
+None on a 1-level batch.
 """
 
 from __future__ import annotations
@@ -28,11 +33,12 @@ def _round_up(n: int, multiple: int) -> int:
 class LoDArray:
     """Ragged batch of sequences in padded-flat form (see module docstring)."""
 
-    def __init__(self, data, seq_ids, lengths, num_seqs):
+    def __init__(self, data, seq_ids, lengths, num_seqs, sub_seq_ids=None):
         self.data = data
         self.seq_ids = seq_ids
         self.lengths = lengths
         self.num_seqs = num_seqs
+        self.sub_seq_ids = sub_seq_ids
 
     @staticmethod
     def from_sequences(
@@ -71,9 +77,34 @@ class LoDArray:
             torch.tensor(len(seqs), dtype=torch.int32, device=device),
         )
 
+    @staticmethod
+    def from_nested_sequences(
+        nested: Sequence[Sequence[np.ndarray]],
+        capacity: Optional[int] = None,
+        max_seqs: Optional[int] = None,
+        bucket: int = 128,
+        dtype=None,
+        device="cpu",
+    ) -> "LoDArray":
+        """A 2-level batch: `nested` a list of sequences, each a list of
+        [len, ...] sub-sequence arrays; `sub_seq_ids` numbers the
+        sub-sequences across the batch (paddle_tpu/core/lod.py:98)."""
+        base = LoDArray.from_sequences(
+            [np.concatenate(s, axis=0) for s in nested], capacity=capacity,
+            max_seqs=max_seqs, bucket=bucket, dtype=dtype, device=device)
+        sub_ids = np.full((base.capacity,), -1, dtype=np.int32)
+        off = g = 0
+        for s in nested:
+            for ss in s:
+                n = int(np.asarray(ss).shape[0])
+                sub_ids[off:off + n] = g
+                off += n
+                g += 1
+        return LoDArray(base.data, base.seq_ids, base.lengths, base.num_seqs,
+                        torch.as_tensor(sub_ids, device=device))
+
     def to(self, device) -> "LoDArray":
-        return LoDArray(self.data.to(device), self.seq_ids.to(device),
-                        self.lengths.to(device), self.num_seqs.to(device))
+        return LoDArray(*(t.to(device) for t in self.leaves()))
 
     @property
     def device(self) -> torch.device:
@@ -131,15 +162,18 @@ class LoDArray:
         data = torch.zeros((like.capacity + 1,) + tuple(batched.shape[2:]),
                            dtype=batched.dtype, device=batched.device)
         data[flat_idx.reshape(-1)] = batched_bm.reshape((B * T,) + tuple(batched.shape[2:]))
-        return LoDArray(data[:-1], like.seq_ids, like.lengths, like.num_seqs)
+        return LoDArray(data[:-1], like.seq_ids, like.lengths, like.num_seqs,
+                        like.sub_seq_ids)
 
     def leaves(self) -> tuple:
-        """(data, seq_ids, lengths, num_seqs): the tensors a feed signature,
-        a copy or a stack takes one by one."""
-        return (self.data, self.seq_ids, self.lengths, self.num_seqs)
+        """(data, seq_ids, lengths, num_seqs[, sub_seq_ids]): the tensors a
+        feed signature, a copy, a stack or a graph's buffers take one by
+        one; `LoDArray(*leaves)` builds it again."""
+        base = (self.data, self.seq_ids, self.lengths, self.num_seqs)
+        return base if self.sub_seq_ids is None else base + (self.sub_seq_ids,)
 
     def with_data(self, data) -> "LoDArray":
-        return LoDArray(data, self.seq_ids, self.lengths, self.num_seqs)
+        return LoDArray(data, self.seq_ids, self.lengths, self.num_seqs, self.sub_seq_ids)
 
     def __repr__(self):
         return f"LoDArray(data={tuple(self.data.shape)}, max_seqs={self.max_seqs})"

@@ -4,7 +4,8 @@ The port's copy of paddle_tpu/core/program.py, cut to what a saved
 program and the layer DSL need: the three-level structure with sub-blocks
 (`block_guard`), `set_amp`,
 `version`/`bump_version`, `clone(for_test)`,
-parameters with their regularizer, clip and trainable flag, the default
+parameters with their regularizer, clip, learning-rate multiplier, update
+hooks and trainable flag, the default
 programs and `program_guard`, `unique_name` with the JAX package's counter
 and names, and the `to_dict`/`from_dict` schema (version 1), kept field
 for field so a `program.json` written by the JAX package loads here
@@ -58,6 +59,10 @@ class Variable:
     # regularization / clipping attributes (set from a ParamAttr)
     regularizer: Any = None
     grad_clip: Any = None
+    # the learning-rate multiplier and the update hooks (set from a
+    # ParamAttr); not part of to_dict, as the JAX package's
+    optimize_attr: Dict[str, Any] = field(default_factory=lambda: {"learning_rate": 1.0})
+    update_hooks: Optional[List[Any]] = None
 
     def __repr__(self):
         return f"Var({self.name}, shape={self.shape}, lod={self.lod_level})"

@@ -29,6 +29,11 @@ LIVE_KEY = "@LIVE@"
 # env key present while a rematerialized segment's ops run (core/remat.py):
 # its recompute would take a once-only effect a second time
 REMAT_KEY = "@REMAT@"
+# env key of the program a run executes, whose sub-blocks a control-flow
+# op's `runs_once` rule reads (`sub_blocks_run_once`)
+PROGRAM_KEY = "@PROGRAM@"
+# the attrs naming the sub-blocks an op runs (recurrent groups, While, cond)
+SUB_BLOCK_ATTRS = ("sub_block", "true_block", "false_block")
 
 
 class OpContext:
@@ -115,6 +120,21 @@ def runs_once(op, env) -> bool:
     registration's `runs_once`)."""
     rule = _RUNS_ONCE.get(op.type, False)
     return rule if isinstance(rule, bool) else bool(rule(op, env))
+
+
+def sub_blocks(op, program) -> list:
+    """The blocks of `program` that `op` runs (none for a plain op)."""
+    return [program.blocks[op.attrs[k]] for k in SUB_BLOCK_ATTRS if k in op.attrs]
+
+
+def sub_blocks_run_once(op, env) -> bool:
+    """The `runs_once` rule of an op that runs sub-blocks: whether any op of
+    them, nested ones too, runs once (a dropout in a recurrent group's step
+    draws from the generator). Without the program in the env, it does."""
+    program = env.get(PROGRAM_KEY)
+    if program is None:
+        return True
+    return any(runs_once(o, env) for b in sub_blocks(op, program) for o in b.ops)
 
 
 def get_kernel(type_name: str) -> Callable:

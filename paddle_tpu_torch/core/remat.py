@@ -29,7 +29,8 @@ segment at a time:
   ctypes, never an aten product: they are recomputed under every policy,
   as a Pallas call is never a dot in the JAX package.
 - **Live values.** A segment runs on its own env, built from its inputs
-  when it starts, and hands back each name read after it (a later op's
+  (an op that runs sub-blocks, a recurrent group's or a While's, also
+  reads what their ops read of the enclosing block) when it starts, and hands back each name read after it (a later op's
   input, the loss, a fetch, a persistable) that it bound anew: its
   declared outputs, and a value an op rebinds under an input's name, as
   batch_norm, bn_stats and fused_conv_bn write the new running statistics
@@ -106,6 +107,13 @@ def _names(op, slots) -> List[str]:
     return [n for names in slots(op).values() for n in names]
 
 
+def _reads(op, program) -> List[str]:
+    """The names `op` reads: its inputs, and those of the ops of the
+    sub-blocks it runs, which close over the enclosing block's values."""
+    return _names(op, lambda o: o.inputs) + [
+        n for b in registry.sub_blocks(op, program) for o in b.ops for n in _reads(o, program)]
+
+
 def _policy_fn(kept, ctx, func, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if func in kept else CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -122,7 +130,7 @@ def run_forward(runner, ops: Sequence, env: Dict, block, policy: str, read_after
         later[s] = set(acc)
         a, b, _ = spans[s]
         for op in ops[a:b]:
-            acc.update(_names(op, lambda o: o.inputs))
+            acc.update(_reads(op, runner.program))
     special = {k: v for k, v in env.items() if k.startswith("@")}
     kept = KEPT_ATEN[policy]
     context_fn = (functools.partial(create_selective_checkpoint_contexts,
@@ -133,7 +141,7 @@ def run_forward(runner, ops: Sequence, env: Dict, block, policy: str, read_after
             continue
         ins, written = {}, set()
         for op in ops[a:b]:
-            for name in _names(op, lambda o: o.inputs):
+            for name in _reads(op, runner.program):
                 if name not in written and name in env:
                     ins[name] = env[name]
             written.update(_names(op, lambda o: o.outputs))

@@ -7,8 +7,10 @@ gradient. Each `lookup_table` site that reads it gathers the rows from the
 detached table into a leaf that requires grad and records the site on the
 run's tape; at the `autodiff` op the leaves' gradients are the values and
 the recorded ids the rows. The optimizer ops then update only those rows
-(ops/optimizer_ops.py). The sparse feed slots (`SparseArray`) are not
-ported.
+(ops/optimizer_ops.py). A regularizer or a clip would make the gradient
+dense, so such a parameter skips both, as in the JAX package
+(optimizer/__init__.py `minimize`). The sparse feed slots (`SparseArray`)
+are not ported.
 """
 
 from __future__ import annotations

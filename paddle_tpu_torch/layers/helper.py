@@ -1,6 +1,7 @@
 """LayerHelper (paddle_tpu/layers/helper.py): creates parameters in the
 main program's global block with their initializer op in the startup
-program, allocates temporary output variables, appends ops and the
+program (and their ParamAttr's learning-rate multiplier, clip and update
+hooks), allocates temporary output variables, appends ops and the
 activation a layer's `act` names."""
 
 from __future__ import annotations
@@ -34,14 +35,6 @@ class LayerHelper:
     def create_parameter(self, attr, shape, dtype=np.float32, is_bias: bool = False,
                          default_initializer=None) -> Variable:
         attr = ParamAttr.to_attr(attr)
-        if attr.update_hooks:
-            raise NotImplementedError(
-                "parameter update hooks (ParamAttr.update_hooks) are not ported "
-                "to the PyTorch port yet")
-        if attr.learning_rate != 1.0:
-            raise NotImplementedError(
-                "per-parameter learning-rate multipliers (ParamAttr.learning_rate) "
-                "are not ported to the PyTorch port yet")
         name = attr.name or unique_name(f"{self.name}.w" if not is_bias else f"{self.name}.b")
         init = attr.initializer or default_initializer or (
             ConstantInitializer(0.0) if is_bias else XavierInitializer())
@@ -58,7 +51,14 @@ class LayerHelper:
             return param
         param.regularizer = attr.regularizer
         param.grad_clip = attr.gradient_clip
+        param.optimize_attr = {"learning_rate": attr.learning_rate}
         init(param, self.startup_program)
+        if attr.update_hooks:
+            # a hook's startup ops (the pruning mask) follow the
+            # parameter's initializer; its mask lives in the global block
+            param.update_hooks = list(attr.update_hooks)
+            for hook in param.update_hooks:
+                hook.append_startup(param, gb, self.startup_program)
         return param
 
     def create_tmp_variable(self, dtype=np.float32, shape=(), lod_level=0) -> Variable:

@@ -1,20 +1,25 @@
-"""Sequence layer DSL (paddle_tpu/layers/sequence.py), cut to the layers
-the ported programs use: dynamic_lstm (:41), stacked_lstm2 (:89),
-stacked_lstm (:140), dynamic_gru (:199), simple_rnn (:233), sequence_pool
-(:252), sequence_concat (:286), sequence_first_step (:298) and
-sequence_conv (:394). All take lod_level=1 variables, a LoDArray at run
-time."""
+"""Sequence layer DSL (paddle_tpu/layers/sequence.py): dynamic_lstm
+(:41), stacked_lstm2 (:89), stacked_lstm (:140), dynamic_gru (:199),
+simple_rnn (:233), the sequence_* layers (:252-347), kmax_seq_score,
+sub_nested_seq, featmap_expand, eos_id (:350-385) and sequence_conv
+(:394). They take ragged variables, a LoDArray at run time
+(sub_nested_seq a 2-level one)."""
 
 from __future__ import annotations
 
 from typing import Optional
+
+import numpy as np
 
 from ..initializer import XavierInitializer
 from ..param_attr import ParamAttr
 from .helper import LayerHelper
 
 __all__ = ["dynamic_lstm", "stacked_lstm2", "stacked_lstm", "dynamic_gru", "simple_rnn",
-           "sequence_pool", "sequence_concat", "sequence_first_step", "sequence_conv"]
+           "sequence_pool", "sequence_softmax", "sequence_expand", "sequence_concat",
+           "sequence_first_step", "sequence_last_step", "sequence_slice", "sequence_reshape",
+           "sequence_reverse", "kmax_seq_score", "sub_nested_seq", "featmap_expand", "eos_id",
+           "sequence_conv"]
 
 
 def dynamic_lstm(input, size: int, use_peepholes: bool = False, is_reverse: bool = False,
@@ -157,6 +162,25 @@ def sequence_pool(input, pool_type: str = "sum", name=None):
     return out
 
 
+def _seq_op(layer, inputs, out_dtype, out_shape, lod_level=1, attrs=None, name=None):
+    """One op of type `layer` from `inputs` to a new variable."""
+    helper = LayerHelper(layer, name=name)
+    out = helper.create_tmp_variable(out_dtype, out_shape, lod_level=lod_level)
+    helper.append_op(type=layer, inputs=inputs, outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def sequence_softmax(input, name=None):
+    """Softmax within each sequence of a [*] or [*, 1] input."""
+    return _seq_op("sequence_softmax", {"X": [input]}, input.dtype, input.shape, name=name)
+
+
+def sequence_expand(x, y, name=None):
+    """The rows of dense `x` broadcast over the tokens of ragged `y`'s
+    sequences."""
+    return _seq_op("sequence_expand", {"X": [x], "Y": [y]}, x.dtype, x.shape, name=name)
+
+
 def sequence_concat(input, name=None):
     """The sequences of each input joined along the feature axis (equal
     lods): [*, D1 + D2 + ...]."""
@@ -174,6 +198,56 @@ def sequence_first_step(input, name=None):
     out = helper.create_tmp_variable(input.dtype, (-1,) + tuple(input.shape[1:]))
     helper.append_op(type="sequence_first_step", inputs={"X": [input]}, outputs={"Out": [out]})
     return out
+
+
+def sequence_last_step(input, name=None):
+    """Each sequence's last token, a dense [num_seqs, D]."""
+    return _seq_op("sequence_last_step", {"X": [input]}, input.dtype,
+                   (-1,) + tuple(input.shape[1:]), lod_level=0, name=name)
+
+
+def sequence_slice(input, offset, length, name=None):
+    """[offset, offset + length) of each sequence, both per sequence."""
+    return _seq_op("sequence_slice", {"X": [input], "Offset": [offset], "Length": [length]},
+                   input.dtype, input.shape, name=name)
+
+
+def sequence_reshape(input, new_dim, name=None):
+    """The feature axis refactored to `new_dim`, lengths scaled to match."""
+    return _seq_op("sequence_reshape", {"X": [input]}, input.dtype, (-1, new_dim),
+                   attrs={"new_dim": new_dim}, name=name)
+
+
+def sequence_reverse(input, name=None):
+    """Each sequence's tokens in reverse order."""
+    return _seq_op("sequence_reverse", {"X": [input]}, input.dtype, input.shape, name=name)
+
+
+def kmax_seq_score(input, beam_size=1, name=None):
+    """The indices of each sequence's `beam_size` best scores, -1 past its
+    length: an int32 [num_seqs, beam_size]."""
+    return _seq_op("kmax_seq_score", {"X": [input]}, np.int32, (-1, beam_size), lod_level=0,
+                   attrs={"beam_size": beam_size}, name=name)
+
+
+def sub_nested_seq(input, selection, name=None):
+    """The sub-sequences of a 2-level input picked by batch-wide index."""
+    return _seq_op("sub_nested_seq", {"X": [input], "Selection": [selection]}, input.dtype,
+                   input.shape, name=name)
+
+
+def featmap_expand(input, num_filters, as_row_vector=True, name=None):
+    """Each token's features repeated `num_filters` times."""
+    return _seq_op("featmap_expand", {"X": [input]}, input.dtype,
+                   (-1, input.shape[-1] * num_filters),
+                   attrs={"num_filters": num_filters, "as_row_vector": as_row_vector},
+                   name=name)
+
+
+def eos_id(input, eos_id, name=None):
+    """1.0 on the tokens whose id is `eos_id`: an f32 [*, 1]."""
+    return _seq_op("eos_id", {"X": [input]}, np.float32, (-1, 1), attrs={"eos_id": eos_id},
+                   name=name)
 
 
 def sequence_conv(input, num_filters, filter_size=3, filter_stride=1, context_start=None,

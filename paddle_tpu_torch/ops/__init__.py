@@ -13,6 +13,7 @@ from . import (  # noqa: F401
     nn_ops,
     optimizer_ops,
     quant_kernels,
+    recurrent_ops,
     rnn_ops,
     sequence_ops,
 )

@@ -1,8 +1,7 @@
 """ParamAttr: per-parameter configuration (paddle_tpu/param_attr.py):
-name, initializer, regularizer, trainable, gradient clip. A
-learning-rate multiplier other than 1 raises when the parameter is
-created; update hooks (StaticPruningHook) need the prune_mask_init
-and apply_mask ops, which are not ported yet."""
+name, initializer, learning-rate multiplier, regularizer, trainable,
+gradient clip and update hooks (Gen-1's ParameterAttribute(update_hooks=),
+ParameterUpdaterHook.cpp), consumed by LayerHelper.create_parameter."""
 
 from __future__ import annotations
 
@@ -11,13 +10,37 @@ from dataclasses import dataclass
 from typing import Any, List, Optional
 
 
+@dataclass
 class StaticPruningHook:
-    """Mask-based static sparsity: not ported yet."""
+    """Static sparsity kept through the updates
+    (ParameterUpdaterHook.cpp:39): a persistable `<param>@PRUNE_MASK`,
+    made by the startup program from the initialized weights (the
+    smallest `sparsity_ratio` share of |w| zeroed, `prune_mask_init`) and
+    applied there at once, then again after every update (`apply_mask`,
+    appended to the optimizer's ops)."""
 
-    def __init__(self, sparsity_ratio: float = 0.8):
-        raise NotImplementedError(
-            "StaticPruningHook needs the prune_mask_init and apply_mask ops, "
-            "which are not ported to the PyTorch port yet")
+    sparsity_ratio: float = 0.8
+
+    def mask_name(self, param) -> str:
+        return f"{param.name}@PRUNE_MASK"
+
+    def append_startup(self, param, main_block, startup_program) -> None:
+        """The mask variable and its startup ops, after the parameter's
+        initializer."""
+        mask = main_block.create_var(self.mask_name(param), tuple(param.shape), param.dtype,
+                                     persistable=True)
+        sb = startup_program.global_block()
+        sb.create_var(mask.name, tuple(param.shape), param.dtype, persistable=True)
+        sb.append_op("prune_mask_init", inputs={"Param": [param.name]},
+                     outputs={"Out": [mask.name]},
+                     attrs={"sparsity_ratio": float(self.sparsity_ratio)})
+        sb.append_op("apply_mask", inputs={"Param": [param.name], "Mask": [mask.name]},
+                     outputs={"ParamOut": [param.name]})
+
+    def append_update(self, helper, param) -> None:
+        mask = helper.main_program.global_block().var(self.mask_name(param))
+        helper.append_op(type="apply_mask", inputs={"Param": [param], "Mask": [mask]},
+                         outputs={"ParamOut": [param]})
 
 
 @dataclass

@@ -399,14 +399,16 @@ def test_what_is_not_ported_refuses_to_build():
             ptt.layers.data("s", shape=[10], sparse_format="binary")
         with pytest.raises(NotImplementedError):
             ptt.models.lstm_benchmark_net(x, 10, sharded_embedding_axis="mp")
-    with pytest.raises(NotImplementedError):
-        ptt.optimizer.Adam(lr_schedule=object())
-    with pytest.raises(NotImplementedError):
-        ptt.param_attr.StaticPruningHook()
-    with ptt.program_guard(ptt.Program(), ptt.Program()):
+    # schedules, pruning hooks and lr multipliers are ported: they build
+    # (tests/test_torch_optimizers.py trains them against the JAX package)
+    main = ptt.Program()
+    with ptt.program_guard(main, ptt.Program()):
         x = ptt.layers.data("x", shape=[4])
-        with pytest.raises(NotImplementedError):
-            ptt.layers.fc(x, size=3, param_attr=ptt.ParamAttr(learning_rate=0.5))
+        y = ptt.layers.fc(x, size=3, param_attr=ptt.ParamAttr(
+            learning_rate=0.5, update_hooks=[ptt.param_attr.StaticPruningHook()]))
+        ptt.optimizer.Adam(lr_schedule=ptt.optimizer.ExponentialDecay(2, 0.5)).minimize(
+            ptt.layers.mean(y))
+    assert {"lr_schedule", "apply_mask", "scale"} <= {op.type for op in main.global_block().ops}
 
 
 @pytest.mark.parametrize("case", ["kernels-reverse", "scan-peepholes-reverse"])
