@@ -478,8 +478,8 @@ at the start of a capture:
               is an LSTM cell built from layers, trained through the
               port's Trainer: the per-step loop timed (and one step under
               torch.profiler), the fused path (lstm_benchmark_net, B1/B2)
-              timed beside it, then scan_window=4: one eager step, one
-              capture, three replays, the per-step loop's bits.
+              timed beside it, then scan_window=2 (4 before PR 23): one
+              eager step, one capture, one replay, the per-step loop's bits.
   61. control a NestedRecurrentGroup over 64 documents of up to 8
               sentences of up to 32 words (hidden 512, f32, 2 SGD steps)
               card against CPU; a While card against CPU, and a While and
@@ -580,8 +580,22 @@ GRU_TC_EDGE = [(1, 3, 100), (4, 40, 301), (4, 520, 512), (3, 2, 2400)]
 GRU_F32_MAX_H = 1100
 
 
+_OPEN_PHASE = {"n": None, "t0": 0.0}
+
+
 def phase(n, name):
+    """Ends the open phase (its seconds on a line of their own), then opens
+    phase n."""
+    end_phase()
+    _OPEN_PHASE.update(n=n, t0=time.perf_counter())
     print(f"[phase {n}] {name}", flush=True)
+
+
+def end_phase():
+    if _OPEN_PHASE["n"] is not None:
+        print(f"[phase {_OPEN_PHASE['n']}] {time.perf_counter() - _OPEN_PHASE['t0']:.1f} s",
+              flush=True)
+        _OPEN_PHASE["n"] = None
 
 
 def fail(msg):
@@ -7619,7 +7633,10 @@ def networks_phase(ptt, smi, seed, n):
 # GradientClipByGlobalNorm(25). The fused path (lstm_benchmark_net, B1/B2)
 # at the same widths is timed beside it, for the record
 RG_LSTM = dict(vocab=30000, emb=128, hidden=512, seqlen=100, batch=128)
-RG_STEPS = 4  # the per-step loop's steps, and the window's K
+# the per-step loop's steps, and the window's K: 2 since PR 23 (4 before),
+# which keeps the phase's checks and cuts about half its steps, to hold the
+# whole script near 950 s
+RG_STEPS = 2
 # phase 61: the nested group over documents of sentences (card against CPU,
 # f32): up to 8 sentences of up to 32 tokens, hidden 512
 NESTED_DOCS = dict(docs=64, max_sents=8, max_words=32, vocab=30000, emb=128, hidden=512,
@@ -8288,6 +8305,1001 @@ def sequence_ops_phase(ptt, smi, seed, n):
         check(err <= OPS_TOL[None], f"{op}: card and CPU differ")
     out["seconds"] = time.perf_counter() - t_start
     print(f"  10 op types: the largest error {worst:.3e}; phase {n}: {out['seconds']:.1f} s")
+    return out
+
+
+# ------------------------------------- the last op families (phases 64-67) --
+# phase 64: DeepSpeech2's input (161-bin linear spectrogram frames, 20 ms
+# windows at a 10 ms stride) and a character CTC head: 28 characters
+# (a-z, space, apostrophe), blank 28; B=32 utterances of 200-800 frames,
+# labels of 20-120 characters, at most half the frames; fc 161 -> 512 relu,
+# networks.bidirectional_gru (hidden 512, B3/B4 f32), row_conv (4 frames
+# of lookahead), fc -> 29, warpctc(norm_by_times), Adam 5e-4
+CTC = dict(batch=32, feat=161, hidden=512, classes=29, min_frames=200, max_frames=800,
+           min_label=20, max_label=120, lookahead=4, lr=5e-4)
+CTC_STEPS = 3  # timed steps; the window takes CTC_WINDOW batches
+CTC_WINDOW = 4
+CTC_YARDSTICK_TOL = 1e-3  # the op against F.ctc_loss, relative to each loss
+# phase 65: SSD300 (Liu et al. 2016) on VOC's 21 classes: VGG16's six
+# source maps, their prior settings, 3x3 heads; B=32, up to 64 ground-truth
+# boxes an image
+SSD = dict(batch=32, classes=21, image=300, max_gt=64,
+           maps=((512, 38), (1024, 19), (512, 10), (256, 5), (256, 3), (256, 1)),
+           min_sizes=(30, 60, 111, 162, 213, 264), max_sizes=(60, 111, 162, 213, 264, 315),
+           aspect_ratios=([2], [2, 3], [2, 3], [2, 3], [2], [2]),
+           variances=[0.1, 0.1, 0.2, 0.2], lr=0.001, momentum=0.9)
+SSD_PRIORS = 8732
+SSD_STEPS = 3
+SSD_CPU_BATCH = 2  # the loss and the rows card against CPU
+SSD_ROW_MATCH = 0.99  # share of the card's rows the CPU's rows match (see ssd_phase)
+# phase 66: a Criteo-shaped CTR model: 13 dense features, 26 categorical
+# ones hashed into one sparse_binary slot of 1,000,000 columns; B=1024
+CTR = dict(batch=1024, dense=13, fields=26, dim=1_000_000, deep=(256, 256, 128), lr=1e-3)
+CTR_STEPS = 4
+# the step's device time by kind (breakdown's first matching substring)
+CTR_KINDS = {"embedding (the sparse gather and its backward)": ("embedding", "indexSelect"),
+             "segment_reduce": ("segment",), "adam and elementwise": ("elementwise", "foreach"),
+             "gemm": ("gemm", "sm90", "cutlass"), "copies and fills": ("copy", "fill", "memset")}
+# phase 67: the cost and misc ops at realistic widths
+MISC_ROWS, MISC_WIDTH = 128, 1024
+ROI = dict(channels=512, h=38, w=50, bins=7, scale=1 / 16, cpu_rois=16, card_rois=128)
+NCE_CLASSES, NCE_WIDTH, NCE_BATCH, NCE_NEG = 30000, 512, 1024, 10
+MISC_OP_TYPES = 44  # the 11 of ops/cost_ops.py and the 33 new of ops/misc_ops.py
+VOL = (8, 64, 16, 56, 56)  # conv3d and pool3d: B, channels, depth, height, width
+
+
+def ctc_batches(ptt, rng, n, batch, feat, classes, min_frames, max_frames, min_label,
+                max_label, **_):
+    """`n` batches of ragged utterances: spectrogram-like frames (log of a
+    chi-square draw, as a power spectrum's) and character labels, each at
+    most half its frames, none of them the blank (classes - 1)."""
+    out = []
+    for _ in range(n):
+        frames = rng.randint(min_frames, max_frames + 1, batch)
+        frames[0] = max_frames
+        labels = [rng.randint(0, classes - 1, min(rng.randint(min_label, max_label + 1),
+                                                  f // 2)).astype(np.int32) for f in frames]
+        specs = [np.log(rng.chisquare(2, (f, feat)) + 1e-3).astype(np.float32) for f in frames]
+        out.append({
+            "spec": ptt.LoDArray.from_sequences(specs, capacity=batch * max_frames,
+                                                max_seqs=batch),
+            "chars": ptt.LoDArray.from_sequences([y[:, None] for y in labels],
+                                                 capacity=batch * max_label, max_seqs=batch)})
+    return out
+
+
+def build_ctc_model(ptt, feat, hidden, classes, lookahead, lr, max_frames, max_label, **_):
+    """The phase's acoustic model: (main, startup, loss, logits, decoded
+    ids, decoded lengths)."""
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    L = ptt.layers
+    with ptt.program_guard(main, startup):
+        spec = L.data("spec", shape=[feat], lod_level=1)
+        chars = L.data("chars", shape=[1], dtype=np.int32, lod_level=1)
+        h = L.fc(spec, size=hidden, act="relu")
+        g = ptt.networks.bidirectional_gru(h, size=hidden, max_len=max_frames)
+        r = L.row_conv(g, future_context_size=lookahead)
+        logits = L.fc(r, size=classes)
+        loss = L.mean(L.warpctc(logits, chars, blank=classes - 1, norm_by_times=True,
+                                max_len=max_frames, max_label_len=max_label))
+        ids, lengths = L.ctc_greedy_decoder(logits, blank=classes - 1, max_len=max_frames)
+        ptt.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, loss, logits, ids, lengths
+
+
+def ctc_phase(ptt, smi, seed, n):
+    """Phase n: the CTC acoustic model through the port's Trainer (the
+    per-step loop, run twice, then scan_window), its decode scored by
+    EditDistance, and the op timed beside F.ctc_loss."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.core import graph
+    from paddle_tpu_torch.core import registry as treg
+    from paddle_tpu_torch.core.program import Operator
+    from paddle_tpu_torch.ops import ctc_ops
+
+    c = CTC
+    phase(n, f"CTC acoustic model (DeepSpeech2's input): B={c['batch']} utterances of "
+             f"{c['min_frames']}-{c['max_frames']} frames of {c['feat']} bins, labels of "
+             f"{c['min_label']}-{c['max_label']} of {c['classes'] - 1} characters; fc "
+             f"{c['hidden']} relu, bidirectional_gru {c['hidden']} (B3/B4, f32), row_conv "
+             f"({c['lookahead']}), fc {c['classes']}, warpctc(norm_by_times), Adam; "
+             f"{CTC_STEPS} steps through the Trainer, then scan_window={CTC_WINDOW}")
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(seed + 640)
+    batches = ctc_batches(ptt, rng, CTC_WINDOW, **c)
+    frames = [int(b["spec"].lengths.sum()) for b in batches]
+    main_p, startup, loss, logits, ids, lengths = build_ctc_model(ptt, **c)
+    exe = ptt.Executor()
+    scope0 = ptt.Scope()
+    exe.run(startup, scope=scope0, seed=seed)
+    state = {k: scope0.get(k).clone() for k in scope0.keys()}
+    del scope0
+    calls, restore = record_ops(treg, ("warpctc",))
+    warm_ms, _, _, warm_costs = trainer_run(ptt, exe, main_p, startup, loss, state,
+                                            batches[:1], 0)
+    restore()
+    before = graph.counter_state()
+    p_ms, _, p_moved, p_costs = trainer_run(ptt, exe, main_p, startup, loss, state,
+                                            batches[:CTC_STEPS], 0)
+    moved = graph.counter_delta(before, graph.counter_state())
+    launches = {k: moved.get((m, f"{k}_launches"), 0) / CTC_STEPS
+                for m, names in graph.LAUNCH_COUNTERS for k in ("gru_fwd", "gru_bwd")
+                if f"{k}_launches" in names}
+    print(f"  {frames[:CTC_STEPS]} frames in the timed batches; warm-up {warm_ms:.1f} ms; "
+          f"per-step loop {p_ms:.3f} ms a step, costs {p_costs}; B3/B4 launches a step "
+          f"{launches}; on {smi}")
+    check(all(np.isfinite(p_costs)) and p_costs[0] == warm_costs[0],
+          "CTC: a non-finite cost, or the first cost differs between two runs")
+    check(launches == {"gru_fwd": 2, "gru_bwd": 2}, f"CTC: B3/B4 launches a step {launches}")
+    check(p_moved["eager_steps"] == 0 and p_moved["captures"] == 0,
+          f"CTC: the per-step loop ran a window: {p_moved}")
+    # the window: one eager step, one capture, replays; the per-step bits
+    w_ms, w_params, w_moved, w_costs = trainer_run(ptt, exe, main_p, startup, loss, state,
+                                                   batches, CTC_WINDOW)
+    sg = next(sg for sg in exe._windows.values() if sg.program is main_p)
+    ref_ms, ref_params, _, ref_costs = trainer_run(ptt, exe, main_p, startup, loss, state,
+                                                   batches, 0)
+    before = graph.counter_state()
+    w2_ms, w2_params, w2_moved, _ = trainer_run(ptt, exe, main_p, startup, loss, state,
+                                                batches, CTC_WINDOW)
+    moved = graph.counter_delta(before, graph.counter_state())
+    w_launches = {k: moved.get((m, f"{k}_launches"), 0) / CTC_WINDOW
+                  for m, names in graph.LAUNCH_COUNTERS for k in ("gru_fwd", "gru_bwd")
+                  if f"{k}_launches" in names}
+    print(f"  scan_window={CTC_WINDOW}: {w_ms:.3f} ms a step ({w_moved}, capture "
+          f"{sg.capture_s:.3f} s), again {w2_ms:.3f} ms ({w2_moved}, B3/B4 launches a step "
+          f"{w_launches}); the per-step loop over the same {CTC_WINDOW} batches {ref_ms:.3f} "
+          f"ms; costs {w_costs}")
+    check(w_launches == launches, f"CTC window: B3/B4 launches a step {w_launches}")
+    check(w_moved == {"captures": 1, "replays": CTC_WINDOW - 1, "eager_steps": 1},
+          f"CTC window: {w_moved}")
+    check(w2_moved == {"captures": 0, "replays": CTC_WINDOW, "eager_steps": 0},
+          f"CTC window again: {w2_moved}")
+    # a second run of the per-step loop: the same bits run to run
+    check(ref_costs[:CTC_STEPS] == p_costs, "CTC: two runs of the per-step loop differ (an "
+                                            "op adds in no fixed order)")
+    check(w_costs == ref_costs, f"CTC window costs {w_costs} != per-step {ref_costs}")
+    for label, got in (("window", w_params), ("window again", w2_params)):
+        d = first_differing(got, ref_params)
+        check(d is None, f"CTC {label}: parameter {d} differs from the per-step loop's")
+    capture_s = sg.capture_s
+    exe._windows.clear()
+    del sg
+    # the step under the profiler, then the CTC op alone on the step's inputs
+    scope = ptt.Scope()
+    for k, v in state.items():
+        scope.set(k, v.clone())
+    feed = batches[0]
+    run = lambda: exe.run(main_p, feed, [loss.name], scope=scope)  # noqa: E731
+    run()
+    wall, busy, counts, _, nev = profile_pass(run, ["gru_fwd", "gru_bwd"])
+    print(f"  profiled step: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}%), {nev} device events; {counts}")
+    op, ins = calls["warpctc"][0]
+    lg, lb = ins[op.inputs["Logits"][0]], ins[op.inputs["Label"][0]]
+
+    def ctc_step():
+        d = lg.data.detach().requires_grad_(True)
+        nll = ctc_ops.ctc_loss(lg.with_data(d), lb, blank=op.attrs["blank"],
+                               max_len=op.attrs["max_len"],
+                               max_label_len=op.attrs["max_label_len"])
+        torch.autograd.grad(nll.sum(), [d])
+        return nll
+
+    nll = ctc_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ctc_step()
+    torch.cuda.synchronize()
+    ctc_ms = (time.perf_counter() - t0) * 1e3 / 3
+    cwall, cbusy, _, _, cnev = profile_pass(ctc_step, [])
+    print(f"  warpctc alone (forward and gradient, T={op.attrs['max_len']}, an eager loop): "
+          f"{ctc_ms:.3f} ms of host time ({100 * ctc_ms / p_ms:.1f}% of the step's "
+          f"{p_ms:.3f}), {cbusy:.3f} ms of device time ({100 * cbusy / busy:.1f}% of the "
+          f"step's {busy:.3f}), {cnev} device events (the step's {nev})")
+    # the yardstick: torch's own CTC on the same log-probabilities
+    x_tb, _ = lg.to_batch(max_len=op.attrs["max_len"])
+    lbl_bt, _ = lb.with_data(lb.data[:, 0].long()).to_batch(
+        max_len=op.attrs["max_label_len"], time_major=False)
+
+    def torch_ctc():
+        d = x_tb.detach().requires_grad_(True)
+        out = F.ctc_loss(torch.log_softmax(d, -1), lbl_bt, lg.lengths.long(),
+                         lb.lengths.long(), blank=op.attrs["blank"], reduction="none")
+        torch.autograd.grad(out.sum(), [d])
+        return out
+
+    ref = torch_ctc()
+    yard_ms = cuda_ms(torch_ctc, 5)
+    op_ms = ctc_ms  # synchronized host time of the eager op, which the host bounds
+    rel = float(((nll.detach() - ref.detach()).abs() / ref.detach().abs().clamp(min=1.0)).max())
+    print(f"  F.ctc_loss (a yardstick, not a path of the port) on the same logits: "
+          f"{yard_ms:.3f} ms forward and backward against the op's {op_ms:.3f} ms "
+          f"({op_ms / yard_ms:.1f}x), losses {rel:.3e} apart relative (tol "
+          f"{CTC_YARDSTICK_TOL:g}); on {smi}")
+    check(rel <= CTC_YARDSTICK_TOL, f"warpctc and F.ctc_loss differ by {rel:.3e}")
+    # the decode on the for-test clone, scored by EditDistance, card against
+    # CPU: from the startup's weights (3 steps leave every frame's argmax
+    # on the blank, so nothing is decoded)
+    test_p = main_p.clone(for_test=True)
+    dscope = ptt.Scope()
+    for k, v in state.items():
+        dscope.set(k, v)
+    got_ids, got_len, got_logits = exe.run(test_p, feed, [ids.name, lengths.name, logits.name],
+                                           scope=dscope, return_numpy=False)
+    trained_len = exe.run(test_p, feed, [lengths.name], scope=scope)[0]
+    env = {"l": got_logits.to("cpu")}
+    treg.get_kernel("ctc_greedy_decoder")(treg.OpContext(Operator(
+        "ctc_greedy_decoder", {"Logits": ["l"]}, {"Ids": ["i"], "Lengths": ["n"]},
+        {"blank": c["classes"] - 1, "max_len": c["max_frames"]}), env))
+    check(torch.equal(env["i"], got_ids.cpu()) and torch.equal(env["n"], got_len.cpu()),
+          "ctc_greedy_decoder: the card's ids differ from the CPU op's on the same logits")
+    ev = ptt.evaluator.EditDistance()
+    refs = [lb.data[lb.seq_ids == i, 0].cpu().numpy() for i in range(c["batch"])]
+    hyps = [got_ids[i, :int(got_len[i])].cpu().numpy() for i in range(c["batch"])]
+    ev.update(hyps, refs)
+    err = ev.eval()
+    print(f"  ctc_greedy_decoder on the for-test clone from the startup's weights: "
+          f"{int(got_len.sum())} characters decoded (the labels hold "
+          f"{sum(len(r) for r in refs)}), the CPU op's ids on the same logits; EditDistance "
+          f"{err:.4f}; after the {CTC_STEPS} steps {int(trained_len.sum())} decoded")
+    check(np.isfinite(err) and err >= 0.0 and int(got_len.sum()) > 0,
+          f"EditDistance {err}, {int(got_len.sum())} characters decoded")
+    out = dict(ms_per_step=p_ms, per_step_runs_ms=[p_ms, ref_ms],
+               window_ms=w2_ms, first_window_ms=w_ms, capture_s=capture_s,
+               frames=frames, costs=p_costs, launches_per_step=launches,
+               window_launches_per_step=w_launches,
+               profiled=dict(wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
+                             device_events=nev),
+               ctc_op=dict(host_ms=ctc_ms, host_share=ctc_ms / p_ms, device_ms=cbusy,
+                           device_share=cbusy / busy, device_events=cnev, ms=op_ms),
+               f_ctc_loss_ms=yard_ms, f_ctc_loss_rel_err=rel, edit_distance=err,
+               window_same_bits=True)
+    del scope, dscope
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  phase {n}: {out['seconds']:.1f} s")
+    return out
+
+
+def build_ssd_head(ptt, batch_gt, classes, image, maps, min_sizes, max_sizes, aspect_ratios,
+                   variances, lr, momentum, **_):
+    """SSD300's heads over the six maps: (main, startup, loss, loc, conf,
+    priors, prior variances); every map's priors from prior_box."""
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    L = ptt.layers
+    with ptt.program_guard(main, startup):
+        img = L.data("image", shape=[3, image, image])
+        gt = L.data("gt", shape=[batch_gt, 4])
+        gtl = L.data("gtl", shape=[batch_gt], dtype=np.int32)
+        locs, confs, boxes, pvars = [], [], [], []
+        for i, ((ch, size), mn, mx, ar) in enumerate(zip(maps, min_sizes, max_sizes,
+                                                         aspect_ratios)):
+            f = L.data(f"map{i}", shape=[ch, size, size])
+            per = L.num_priors([mn], [mx], ar)
+            b, v = L.prior_box(f, img, [mn], ar, variances, max_sizes=[mx])
+            boxes.append(b)
+            pvars.append(v)
+            for out, width in ((locs, 4), (confs, classes)):
+                h = L.conv2d(f, num_filters=per * width, filter_size=3, padding=1)
+                out.append(L.reshape(L.transpose(h, (0, 2, 3, 1)), (-1, size * size * per,
+                                                                    width)))
+        loc, conf = L.concat(locs, axis=1), L.concat(confs, axis=1)
+        priors, pvar = L.concat(boxes, axis=0), L.concat(pvars, axis=0)
+        loss = L.mean(L.multibox_loss(loc, conf, priors, pvar, gt, gtl,
+                                      overlap_threshold=0.5, neg_pos_ratio=3.0))
+        ptt.optimizer.Momentum(learning_rate=lr, momentum=momentum).minimize(loss)
+    return main, startup, loss, loc, conf, priors, pvar
+
+
+def ssd_test_program(ptt, main, startup, loc, conf, priors, pvar):
+    """The for-test clone with detection_output on its heads (VOC's
+    evaluation settings)."""
+    test_p = main.clone(for_test=True)
+    b = test_p.global_block()
+    with ptt.program_guard(test_p, startup):
+        dets = ptt.layers.detection_output(
+            b.var(loc.name), b.var(conf.name), b.var(priors.name), b.var(pvar.name),
+            confidence_threshold=0.01, nms_threshold=0.45, nms_top_k=400, keep_top_k=200)
+    return test_p, dets
+
+
+def ssd_feed(rng, batch, classes, image, max_gt, maps, **_):
+    """ReLU-like maps at SSD300's shapes, the image (only its size is read)
+    and 1-64 ground-truth boxes an image, label 0 padding the rest."""
+    feed = {f"map{i}": np.maximum(rng.standard_normal((batch, ch, s, s)), 0).astype(np.float32)
+            for i, (ch, s) in enumerate(maps)}
+    feed["image"] = np.zeros((batch, 3, image, image), np.float32)
+    gt = np.zeros((batch, max_gt, 4), np.float32)
+    gtl = np.zeros((batch, max_gt), np.int32)
+    for i in range(batch):
+        k = rng.randint(1, max_gt + 1)
+        lo = rng.uniform(0.0, 0.8, (k, 2))
+        wh = rng.uniform(0.05, 0.5, (k, 2))
+        gt[i, :k] = np.concatenate([lo, np.minimum(lo + wh, 1.0)], 1)
+        gtl[i, :k] = rng.randint(1, classes, k)
+    feed["gt"], feed["gtl"] = gt, gtl
+    return feed
+
+
+def rows_matched(a, b, score_tol=1e-5, box_tol=1e-4):
+    """The share of a's valid rows (label >= 0) that a row of b matches
+    (the same label, score and box within the tolerances), one to one."""
+    a, b = a[a[:, 0] >= 0], b[b[:, 0] >= 0]
+    used = np.zeros(len(b), bool)
+    hit = 0
+    for row in a:
+        ok = (~used & (b[:, 0] == row[0]) & (np.abs(b[:, 1] - row[1]) <= score_tol)
+              & (np.abs(b[:, 2:] - row[2:]).max(1) <= box_tol))
+        if ok.any():
+            used[np.argmax(ok)] = True
+            hit += 1
+    return hit / max(len(a), 1), len(a), len(b)
+
+
+def ssd_phase(ptt, smi, seed, n):
+    """Phase n: the SSD300 head trained 3 steps on the card, the multibox
+    loss and detection_output timed, the detections scored by DetectionMAP;
+    then the loss and the rows at B=2, card against CPU."""
+    from paddle_tpu_torch.core import registry as treg
+    from paddle_tpu_torch.core.program import Operator
+
+    s = SSD
+    phase(n, f"SSD300 head on VOC's {s['classes']} classes: B={s['batch']}, the six VGG16 "
+             f"source maps {[f'{c}x{h}x{h}' for c, h in s['maps']]}, prior_box, 3x3 loc and "
+             f"conf heads, multibox_loss, Momentum; {SSD_STEPS} timed steps, then "
+             f"detection_output (nms_top_k 400, keep_top_k 200) scored by DetectionMAP; B="
+             f"{SSD_CPU_BATCH} card against CPU")
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_p, startup, loss, loc, conf, priors, pvar = build_ssd_head(ptt, s["max_gt"], **s)
+    test_p, dets = ssd_test_program(ptt, main_p, startup, loc, conf, priors, pvar)
+    exe = ptt.Executor()
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope, seed=seed)
+    rng = np.random.RandomState(seed + 650)
+    host_feed = ssd_feed(rng, **s)
+    feed = {k: torch.as_tensor(v, device=CARD) for k, v in host_feed.items()}
+    calls, restore = record_ops(treg, ("multibox_loss",))
+    pri = exe.run(main_p, feed, [loss.name, priors.name], scope=scope)
+    restore()
+    losses = [float(pri[0])]
+    check(pri[1].shape == (SSD_PRIORS, 4), f"SSD: {pri[1].shape[0]} priors, not {SSD_PRIORS}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(SSD_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main_p, feed, [loss.name], scope=scope)[0]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {SSD_PRIORS} priors; losses (warm-up, then timed) {losses}; steps "
+          f"{[round(t, 3) for t in times]} ms, median {med:.3f} ms, "
+          f"{s['batch'] / med * 1e3:.1f} images/s; peak {peak:.2f} GiB on {smi}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "SSD: a non-finite loss, or the loss did not fall over the steps on one batch")
+    run = lambda: exe.run(main_p, feed, [loss.name], scope=scope)  # noqa: E731
+    wall, busy, _, _, nev = profile_pass(run, [])
+    print(f"  profiled step: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}%), {nev} device events")
+    op, ins = calls["multibox_loss"][0]
+    args = {k: ins[v[0]] for k, v in op.inputs.items()}
+
+    def mbox_step():
+        lo = args["Loc"].detach().requires_grad_(True)
+        co = args["Conf"].detach().requires_grad_(True)
+        env = dict(args, Loc=lo, Conf=co)
+        treg.get_kernel("multibox_loss")(treg.OpContext(Operator(
+            "multibox_loss", {k: [k] for k in env}, {"Out": ["o"]}, dict(op.attrs)), env))
+        torch.autograd.grad(env["o"].sum(), [lo, co])
+
+    mbox_ms = cuda_ms(mbox_step, 3)
+    _, mbusy, _, _, mnev = profile_pass(mbox_step, [])
+    d_out = exe.run(test_p, feed, [dets.name], scope=scope)[0]  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_out = exe.run(test_p, feed, [dets.name], scope=scope)[0]
+    torch.cuda.synchronize()
+    det_ms = (time.perf_counter() - t0) * 1e3
+    _, dbusy, _, _, dnev = profile_pass(lambda: exe.run(test_p, feed, [dets.name], scope=scope),
+                                        [])
+    check(d_out.shape == (s["batch"], 200, 6), f"detection_output {d_out.shape}")
+    valid = d_out[..., 0] >= 0
+    ev = ptt.evaluator.DetectionMAP(num_classes=s["classes"])
+    for i in range(s["batch"]):
+        k = host_feed["gtl"][i] > 0
+        ev.update_image(d_out[i][valid[i]], host_feed["gt"][i][k], host_feed["gtl"][i][k])
+    mAP = ev.eval()
+    print(f"  multibox_loss alone (forward and gradient): {mbox_ms:.3f} ms, {mbusy:.3f} ms of "
+          f"device time, {mnev} device events; detection_output on the for-test clone: "
+          f"{det_ms:.3f} ms host, {dbusy:.3f} ms device, {dnev} device events; "
+          f"{int(valid.sum())} rows kept, scores in [{d_out[..., 1][valid].min():.4f}, "
+          f"{d_out[..., 1][valid].max():.4f}]; DetectionMAP {mAP:.4f} from random heads")
+    check(valid.any() and np.isfinite(mAP), "detection_output kept no row, or mAP not finite")
+    check(bool((np.diff(np.where(valid, d_out[..., 1], -1), axis=1) <= 0).all()),
+          "detection_output: rows not in descending score order")
+    # B=2, card against CPU, from one CPU startup state
+    state = ptt.io.state_to_numpy(scope, [v.name for v in main_p.persistables()
+                                          if scope.has(v.name)])
+    del scope
+    small = {k: v[:SSD_CPU_BATCH] for k, v in host_feed.items()}
+    res = {}
+    for dev in ("cpu", CARD):
+        sc = ptt.Scope()
+        ptt.io.params_from_numpy(sc, state, dev)
+        e = ptt.Executor(device=dev)
+        lv = float(e.run(main_p, small, [loss.name], scope=sc)[0])
+        res[dev] = (lv, e.run(test_p, small, [dets.name], scope=sc)[0],
+                    ptt.io.state_to_numpy(sc, [p.name for p in main_p.parameters()]))
+    loss_err = abs(res[CARD][0] - res["cpu"][0]) / max(1.0, abs(res["cpu"][0]))
+    param_err = max(float(np.abs(res[CARD][2][k] - v).max()) / max(1e-2, float(np.abs(v).max()))
+                    for k, v in res["cpu"][2].items())
+    shares = [rows_matched(res[CARD][1][i], res["cpu"][1][i]) for i in range(SSD_CPU_BATCH)]
+    print(f"  B={SSD_CPU_BATCH} card against CPU: loss {res[CARD][0]:.6f} vs {res['cpu'][0]:.6f} "
+          f"({loss_err:.3e} relative), parameters after the step {param_err:.3e} of their "
+          f"scale; detection rows matched (share, card rows, CPU rows) {shares} (at least "
+          f"{SSD_ROW_MATCH:.0%}: a pick between two scores within rounding may differ)")
+    check(loss_err <= 1e-4 and param_err <= 1e-4, "SSD: card and CPU differ")
+    check(all(sh >= SSD_ROW_MATCH and na == nb for sh, na, nb in shares),
+          "SSD: the detection rows differ card against CPU")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(ms_per_step=med, steps_ms=times, losses=losses, peak_gib=peak,
+               profiled=dict(wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
+                             device_events=nev),
+               multibox_loss_ms=mbox_ms, multibox_loss_device_ms=mbusy,
+               detection_output_ms=det_ms, detection_output_device_ms=dbusy,
+               detection_output_events=dnev, rows_kept=int(valid.sum()), mAP=mAP,
+               card_vs_cpu=dict(loss=loss_err, params=param_err, rows_matched=shares))
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  phase {n}: {out['seconds']:.1f} s")
+    return out
+
+
+def ctr_samples(rng, n, batch, dense, fields, dim, **_):
+    """`n` batches of Criteo-shaped samples: 13 dense features (log of a
+    count), 26 categorical ones, field f's value drawn from 10^(2 + f % 5)
+    and hashed with its field into [0, dim); clicks at about 25%."""
+    card = [10 ** (2 + f % 5) for f in range(fields)]
+    out = []
+    for _ in range(n):
+        vals = np.stack([rng.zipf(1.3, batch) % card[f] for f in range(fields)], 1)
+        idx = (vals * 2654435761 + np.arange(fields) * 40503) % dim
+        dn = np.log1p(rng.poisson(3.0, (batch, dense))).astype(np.float32)
+        y = (rng.rand(batch, 1) < 0.25).astype(np.float32)
+        out.append([(idx[i].tolist(), dn[i], y[i]) for i in range(batch)])
+    return out
+
+
+def build_ctr(ptt, dense, dim, deep, lr, **_):
+    """Wide (the slot's fc to 1) and deep (the slot's fc to 256, the dense
+    features beside it, fc 256, 128, 1) summed; sigmoid CE, Adam."""
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    L = ptt.layers
+    with ptt.program_guard(main, startup):
+        cats = L.data("cats", shape=[dim], sparse_format="binary")
+        dn = L.data("dense", shape=[dense])
+        click = L.data("click", shape=[1])
+        wide = L.fc(cats, size=1, bias_attr=False)
+        h = L.concat([L.fc(cats, size=deep[0], act="relu"), dn], axis=1)
+        for width in deep[1:]:
+            h = L.fc(h, size=width, act="relu")
+        logit = L.elementwise_add(wide, L.fc(h, size=1))
+        loss = L.mean(L.sigmoid_cross_entropy_with_logits(logit, click))
+        ptt.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, loss, logit, [cats, dn, click]
+
+
+def ctr_run(ptt, exe, main_p, startup, loss, feeds, state, batches, window):
+    """One pass through a fresh Trainer (DataFeeder, DevicePrefetcher) from
+    `state`: (ms a step, the parameters after, cache stats moved, costs)."""
+    scope = ptt.Scope()
+    tr = ptt.Trainer(loss, main_program=main_p, startup_program=startup, scope=scope,
+                     executor=exe)
+    tr.init()
+    for k, v in state.items():
+        scope.set(k, v.clone())
+    costs = []
+    cs0 = dict(exe.cache_stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train(lambda: iter(batches), 1, feed_order=feeds, log_interval=len(batches),
+             scan_window=window, event_handler=lambda e: costs.append(e.cost) if isinstance(
+                 e, ptt.EndIteration) else None)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    moved = {k: exe.cache_stats[k] - cs0[k] for k in ("captures", "replays", "eager_steps")}
+    return ms, {p.name: scope.get(p.name).clone() for p in main_p.parameters()}, moved, \
+        [float(c) for c in costs]
+
+
+def copy_overlap(run):
+    """One call of `run` under torch.profiler's chrome trace: (host-to-device
+    copies' ms, their streams, the kernels' streams, ms of copies that ran
+    while a kernel of another stream ran)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):  # the events at a capture's start may be lost (C8)
+            torch.cuda._sleep(PROFILE_PAD_CYCLES)
+        torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_trace_"), "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    copies = [(e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream"))
+              for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    kernels = [(e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream"))
+               for e in events if e.get("cat") == "kernel"]
+    overlap = 0.0
+    for s0, e0, st in copies:
+        spans = sorted((max(s0, s1), min(e0, e1)) for s1, e1, st1 in kernels
+                       if st1 != st and s1 < e0 and e1 > s0)
+        end = s0
+        for a, b in spans:
+            if b > max(a, end):
+                overlap += b - max(a, end)
+                end = b
+    return (sum(e - s for s, e, _ in copies) / 1e3, sorted({st for _, _, st in copies}),
+            sorted({st for _, _, st in kernels}), overlap / 1e3)
+
+
+def ctr_phase(ptt, smi, seed, n):
+    """Phase n: the CTR model on a sparse slot of 1e6 columns through
+    DataFeeder -> DevicePrefetcher -> Trainer, then scan_window; the sparse
+    mul timed, the copies' streams read from a trace; Auc; a small sparse
+    program card against CPU and against its densified twin."""
+    from paddle_tpu_torch.core.sparse import SparseArray
+    from paddle_tpu_torch.data.feeder import DataFeeder
+
+    c = CTR
+    phase(n, f"Criteo-shaped CTR model: B={c['batch']}, {c['dense']} dense features, "
+             f"{c['fields']} categorical ones hashed into one sparse_binary slot of "
+             f"{c['dim']:,} columns; wide + deep {list(c['deep'])}, sigmoid CE, Adam; "
+             f"{CTR_STEPS} steps through DataFeeder, DevicePrefetcher and the Trainer, then "
+             f"scan_window={CTR_STEPS}")
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(seed + 660)
+    batches = ctr_samples(rng, CTR_STEPS, **c)
+    main_p, startup, loss, logit, feeds = build_ctr(ptt, **c)
+    exe = ptt.Executor()
+    scope0 = ptt.Scope()
+    exe.run(startup, scope=scope0, seed=seed)
+    state = {k: scope0.get(k).clone() for k in scope0.keys()}
+    del scope0
+    deep_w = next(p.name for p in main_p.parameters() if tuple(p.shape) == (c["dim"],
+                                                                          c["deep"][0]))
+    nbytes = sum(v.numel() * v.element_size() for v in state.values())
+    t0 = time.perf_counter()
+    one = DataFeeder(feeds).feed(batches[0])["cats"]
+    feed_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  state {nbytes / 2**30:.2f} GiB (the sparse weight {deep_w} "
+          f"{c['dim']} x {c['deep'][0]} and Adam's moments); a batch's slot: capacity "
+          f"{one.capacity}, {int((one.rowids < c['batch']).sum())} nonzeros; DataFeeder.feed "
+          f"{feed_ms:.3f} ms a batch on the host")
+    check(one.capacity == c["batch"] * c["fields"], f"CTR: capacity {one.capacity}")
+    torch.cuda.reset_peak_memory_stats()
+    warm_ms, _, _, warm_costs = ctr_run(ptt, exe, main_p, startup, loss, feeds, state,
+                                        batches[:1], 0)
+    p_ms, p_params, p_moved, p_costs = ctr_run(ptt, exe, main_p, startup, loss, feeds, state,
+                                               batches, 0)
+    p2_ms, p2_params, _, p2_costs = ctr_run(ptt, exe, main_p, startup, loss, feeds, state,
+                                            batches, 0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same = p2_costs == p_costs and first_differing(p2_params, p_params) is None
+    print(f"  warm-up {warm_ms:.1f} ms; per-step loop {p_ms:.3f} and {p2_ms:.3f} ms a step "
+          f"({c['batch'] / p_ms * 1e3:.0f} samples/s), costs {p_costs}; the same bits run to "
+          f"run: {same}; peak {peak:.2f} GiB on {smi}")
+    check(all(np.isfinite(p_costs)) and p_costs[0] == warm_costs[0],
+          "CTR: a non-finite cost, or the first cost differs between two runs")
+    check(p_moved["captures"] == 0 and p_moved["eager_steps"] == 0, f"CTR: {p_moved}")
+    check(same, "CTR: two runs of the per-step loop differ (an op adds in no fixed order)")
+    w_ms, w_params, w_moved, w_costs = ctr_run(ptt, exe, main_p, startup, loss, feeds, state,
+                                               batches, CTR_STEPS)
+    w2_ms, w2_params, w2_moved, _ = ctr_run(ptt, exe, main_p, startup, loss, feeds, state,
+                                            batches, CTR_STEPS)
+    print(f"  scan_window={CTR_STEPS}: {w_ms:.3f} ms a step ({w_moved}), again {w2_ms:.3f} ms "
+          f"({w2_moved}); costs {w_costs}")
+    check(w_moved == {"captures": 1, "replays": CTR_STEPS - 1, "eager_steps": 1},
+          f"CTR window: {w_moved}")
+    check(w2_moved == {"captures": 0, "replays": CTR_STEPS, "eager_steps": 0},
+          f"CTR window again: {w2_moved}")
+    check(w_costs == p_costs, f"CTR window costs {w_costs} != per-step {p_costs}")
+    for label, got in (("window", w_params), ("window again", w2_params)):
+        d = first_differing(got, p_params)
+        check(d is None, f"CTR {label}: parameter {d} differs from the per-step loop's")
+    exe._windows.clear()
+    del w_params, w2_params, p2_params
+    # where a step's device time goes
+    bscope = ptt.Scope()
+    for k, v in state.items():
+        bscope.set(k, v.clone())
+    bfeed = DataFeeder(feeds).feed(batches[0])
+    exe.run(main_p, bfeed, [loss.name], scope=bscope)
+    busy_us, by_kind = breakdown(lambda: exe.run(main_p, bfeed, [loss.name], scope=bscope),
+                                 p_ms, "step", kinds=CTR_KINDS)
+    del bscope
+    # the sparse mul alone, forward and backward, on a batch's slot
+    x = one.to(CARD)
+    w = state[deep_w].clone().requires_grad_(True)
+    fwd_ms = cuda_ms(lambda: x.matmul(w), 10)
+    g = torch.randn(c["batch"], c["deep"][0], device=CARD)
+
+    def fwd_bwd():
+        torch.autograd.grad(x.matmul(w), [w], g)
+
+    fb_ms = cuda_ms(fwd_bwd, 5)
+    print(f"  the sparse mul [{c['batch']} x {c['dim']:,}] (capacity {x.capacity}) @ "
+          f"[{c['dim']:,} x {c['deep'][0]}]: forward {fwd_ms:.4f} ms, forward and backward "
+          f"{fb_ms:.4f} ms (the backward writes the dense [{c['dim']:,} x {c['deep'][0]}] "
+          f"gradient)")
+    del w, g
+    # the copies: the prefetcher's side stream beside the step's
+    scope = ptt.Scope()
+    for k, v in state.items():
+        scope.set(k, v)
+    tr = ptt.Trainer(loss, main_program=main_p, startup_program=startup, scope=scope,
+                     executor=exe)
+    tr.init()
+    for _ in range(PROFILE_TRIES):  # a trace that lost the copies' events is taken again
+        copy_ms, copy_streams, kernel_streams, overlap_ms = copy_overlap(
+            lambda: tr.train(lambda: iter(batches), 1, feed_order=feeds,
+                             log_interval=len(batches)))
+        if copy_ms > 0:
+            break
+    print(f"  host-to-device copies of a pass of {CTR_STEPS} steps: {copy_ms:.3f} ms on "
+          f"streams {copy_streams}, the kernels on {kernel_streams}; {overlap_ms:.3f} ms of the "
+          f"copies ran beside a kernel of another stream")
+    check(copy_ms > 0, "CTR: the trace shows no host-to-device copy")
+    test_p = main_p.clone(for_test=True)
+    auc = ptt.evaluator.Auc()
+    feeder = DataFeeder(feeds)
+    for b in batches:
+        lg = exe.run(test_p, feeder.feed(b), [logit.name], scope=scope)[0]
+        auc.update(1 / (1 + np.exp(-lg)), np.asarray([s[2] for s in b]))
+    print(f"  Auc over the {CTR_STEPS} batches (the clicks drawn at random): {auc.eval():.4f}")
+    del scope, tr, state, p_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a small sparse program: card against CPU, and its densified twin
+    small = dict(c, batch=64, dim=5000, deep=(32, 16))
+    sb = ctr_samples(np.random.RandomState(seed + 661), 2, **small)
+    s_main, s_startup, s_loss, s_logit, s_feeds = build_ctr(ptt, **small)
+    errs = card_vs_cpu(ptt, s_main, s_startup, [s_loss.name, s_logit.name],
+                       [DataFeeder(s_feeds).feed(b) for b in sb], seed, lr_share=0.0)
+    print(f"  small sparse program (B=64, dim 5000) 2 Adam steps card against CPU: loss "
+          f"{errs[0]:.3e} relative, state {errs[1]:.3f} of its bound")
+    check(errs[0] <= 1e-5 and errs[1] <= 1.0, "CTR small: card and CPU differ")
+    d_main, d_startup, d_loss, d_logit, d_feeds = build_ctr(ptt, **small)
+    d_main.global_block().vars["cats"].sparse_format = None
+    sc, dc = ptt.Scope(), ptt.Scope()
+    ptt.Executor(device="cpu").run(s_startup, scope=sc, seed=seed)
+    st = ptt.io.state_to_numpy(sc, [v.name for v in s_main.persistables() if sc.has(v.name)])
+    ptt.io.params_from_numpy(sc, st, CARD)
+    ptt.io.params_from_numpy(dc, st, CARD)
+    f = DataFeeder(s_feeds).feed(sb[0])
+    fd = dict(f, cats=f["cats"].to_dense().numpy())
+    sparse_out = ptt.Executor().run(s_main, f, [s_loss.name, s_logit.name], scope=sc)
+    dense_out = ptt.Executor().run(d_main, fd, [d_loss.name, d_logit.name], scope=dc)
+    twin = max(float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+               for a, b in zip(sparse_out, dense_out))
+    print(f"  the densified twin on the card: {twin:.3e} of the scale apart (tol 1e-5)")
+    check(twin <= 1e-5, "CTR: the sparse program and its densified twin differ")
+    check(isinstance(f["cats"], SparseArray), "the feeder did not build a SparseArray")
+    out = dict(ms_per_step=statistics.mean([p_ms, p2_ms]), per_step_runs_ms=[p_ms, p2_ms],
+               window_ms=w2_ms, first_window_ms=w_ms, costs=p_costs, peak_gib=peak,
+               state_gib=nbytes / 2**30, capacity=one.capacity, feeder_ms=feed_ms,
+               sparse_mul=dict(fwd_ms=fwd_ms, fwd_bwd_ms=fb_ms),
+               copies=dict(ms=copy_ms, streams=copy_streams, kernel_streams=kernel_streams,
+                           overlap_ms=overlap_ms),
+               auc=auc.eval(), small_card_vs_cpu=list(errs[:2]), dense_twin=twin,
+               device_busy_ms=None if busy_us is None else busy_us / 1e3,
+               device_ms_by_kind={k: v / 1e3 for k, v in by_kind.items()},
+               window_same_bits=True)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  phase {n}: {out['seconds']:.1f} s")
+    return out
+
+
+def misc_cases(rng):
+    """(label, op, inputs {slot: array or [arrays] or ("lod", seqs)}, attrs,
+    output slot, differentiable, tolerance) of phase 67."""
+    R, W = MISC_ROWS, MISC_WIDTH
+    x = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    pos = lambda *s: (np.abs(x(*s)) + 0.25).astype(np.float32)  # noqa: E731
+    tied = lambda *s: np.maximum(np.round(x(*s)), 0).astype(np.float32)  # noqa: E731
+    lbl01 = (rng.rand(R, W) < 0.5).astype(np.float32)
+    perm = rng.permutation(R)[:R // 2].astype(np.int32)
+    img = lambda n: x(n, 16, 8, 8)  # noqa: E731  [n x 1024] as NCHW
+    t = OPS_TOL[None]
+    return [
+        ("sigmoid_ce", "sigmoid_cross_entropy_with_logits", {"X": x(R, W), "Label": lbl01},
+         {}, "Out", True, t),
+        ("bce", "binary_cross_entropy", {"X": 1 / (1 + np.exp(-x(R, W))), "Label": lbl01},
+         {}, "Out", True, t),
+        ("ce_selfnorm", "cross_entropy_with_selfnorm",
+         {"X": pos(R, W), "Label": rng.randint(0, W, (R, 1)).astype(np.int32)},
+         {"softmax_selfnorm_alpha": 0.1}, "Out", True, t),
+        ("smooth_l1", "smooth_l1", {"X": x(R, W), "Y": x(R, W), "InsideWeight": pos(R, W),
+                                    "OutsideWeight": pos(R, W)}, {"sigma": 2.0}, "Out", True, t),
+        ("rank_cost", "rank_cost", {"Left": x(R, 1), "Right": x(R, 1),
+                                    "Label": rng.randint(0, 3, (R, 1)).astype(np.float32) / 2},
+         {}, "Out", True, t),
+        ("margin_rank", "margin_rank_loss",
+         {"X1": x(R, 1), "X2": x(R, 1), "Label": np.sign(x(R, 1))}, {"margin": 0.1}, "Out",
+         True, t),
+        ("huber_cls", "huber_classification",
+         {"X": 2 * x(R, 1), "Label": (rng.rand(R, 1) < 0.5).astype(np.float32)}, {}, "Out",
+         True, t),
+        ("sum_cost", "sum_cost", {"X": x(R, W)}, {}, "Out", True, t),
+        ("lambda_cost", "lambda_cost", {"Score": 0.1 * x(R, 128),
+                                        "Label": rng.randint(0, 4, (R, 128)).astype(np.float32),
+                                        "Mask": (rng.rand(R, 128) < 0.9).astype(np.float32)},
+         {"NDCG_num": 10}, "Out", True, t),
+        ("hsigmoid", "hsigmoid", {"X": x(NCE_BATCH, NCE_WIDTH) / 8,
+                                  "W": x(NCE_CLASSES - 1, NCE_WIDTH) / 8,
+                                  "Label": rng.randint(0, NCE_CLASSES, (NCE_BATCH, 1)).astype(
+                                      np.int32),
+                                  "Bias": x(NCE_CLASSES - 1)},
+         {"num_classes": NCE_CLASSES}, "Cost", True, t),
+        ("gather", "gather", {"X": x(R, W), "Index": rng.randint(0, R, 256).astype(np.int32)},
+         {}, "Out", True, t),
+        ("scatter", "scatter", {"X": x(R, W), "Index": perm, "Updates": x(R // 2, W)},
+         {"overwrite": True}, "Out", True, t),
+        ("scatter_add", "scatter", {"X": x(R, W), "Index": rng.randint(0, R, R // 2).astype(
+            np.int32), "Updates": x(R // 2, W)}, {"overwrite": False}, "Out", True, t),
+        ("one_hot", "one_hot", {"X": rng.randint(0, W + 8, (R, 1)).astype(np.int32)},
+         {"depth": W}, "Out", False, t),
+        ("pad", "pad", {"X": x(R, W)}, {"paddings": [1, 2, 3, 4], "pad_value": 0.5}, "Out",
+         True, t),
+        ("multiplex", "multiplex", {"X": [x(R, W), x(R, W), x(R, W)],
+                                    "Ids": rng.randint(0, 3, (R, 1)).astype(np.int32)},
+         {}, "Out", True, t),
+        ("maxout", "maxout", {"X": tied(R, 16, 8, 8)}, {"groups": 4}, "Out", True, t),
+        ("prelu", "prelu", {"X": x(R, W), "Alpha": pos(1)}, {"mode": "all"}, "Out", True, t),
+        ("prelu_channel", "prelu", {"X": img(R), "Alpha": pos(16)}, {"mode": "channel"}, "Out",
+         True, t),
+        ("dot_prod", "dot_prod", {"X": x(R, W), "Y": x(R, W)}, {}, "Out", True, t),
+        ("out_prod", "out_prod", {"X": x(R, 32), "Y": x(R, 32)}, {}, "Out", True, t),
+        ("l2_distance", "l2_distance", {"X": x(R, W), "Y": x(R, W)}, {}, "Out", True, t),
+        ("row_l2_norm", "row_l2_norm", {"X": x(R, W)}, {}, "Out", True, t),
+        ("interpolation", "interpolation", {"X": x(R, W), "Y": x(R, W),
+                                            "W": 1 / (1 + np.exp(-x(R, 1)))}, {}, "Out", True,
+         t),
+        ("power", "power", {"X": pos(R, W), "W": pos(R, 1)}, {}, "Out", True, t),
+        ("scaling", "scaling", {"X": x(R, W), "W": x(R, 1)}, {}, "Out", True, t),
+        ("slope_intercept", "slope_intercept", {"X": x(R, W)},
+         {"slope": -0.7, "intercept": 0.3}, "Out", True, t),
+        ("sum_to_one_norm", "sum_to_one_norm", {"X": pos(R, W)}, {}, "Out", True, t),
+        ("convex_comb", "convex_comb", {"W": pos(R, 4), "X": x(R, W)}, {}, "Out", True, t),
+        ("scale_shift", "scale_shift", {"X": x(R, W), "Scale": pos(1), "Bias": x(1)}, {},
+         "Out", True, t),
+        ("scale_sub_region", "scale_sub_region", {"X": img(R)},
+         {"indices": [2, 9, 2, 6, 3, 8], "scale": 2.0}, "Out", True, t),
+        ("rotate", "rotate", {"X": img(R)}, {}, "Out", True, t),
+        ("switch_order", "switch_order", {"X": img(R)}, {}, "Out", True, t),
+        ("bilinear_interp", "bilinear_interp", {"X": x(R, 4, 16, 16)},
+         {"out_h": 31, "out_w": 23}, "Out", True, t),
+        ("im2sequence", "im2sequence", {"X": x(32, 16, 16, 16)},
+         {"block_y": 3, "block_x": 3, "stride_y": 2, "stride_x": 2, "padding_y": 1,
+          "padding_x": 1}, "Out", True, t),
+        ("row_conv", "row_conv", {"X": ("lod", [x(int(m), W) for m in
+                                                rng.randint(1, R // 4, 8)]),
+                                  "Filter": x(5, W)}, {}, "Out", True, t),
+        ("conv_shift", "conv_shift", {"X": x(R, W), "Y": x(R, 5)}, {}, "Out", True, t),
+        ("factorization_machine", "factorization_machine",
+         {"X": x(R, W), "Factor": x(W, 16) / 32}, {}, "Out", True, t),
+        ("bilinear_tensor_product", "bilinear_tensor_product",
+         {"X": x(R, 64), "Y": x(R, 64), "Weight": x(16, 64, 64) / 8, "Bias": x(16)}, {}, "Out",
+         True, t),
+        ("selective_fc", "selective_fc", {"X": x(R, W), "W": x(W, 512) / 32, "Bias": x(512),
+                                          "Mask": (rng.rand(R, 512) < 0.3).astype(np.float32)},
+         {}, "Out", True, t),
+        ("conv3d", "conv3d", {"Input": x(*VOL), "Filter": x(VOL[1], VOL[1], 3, 3, 3) / 40,
+                              "Bias": x(VOL[1])},
+         {"strides": [1, 1, 1], "paddings": [1, 1, 1]}, "Output", True, CONV3D_TOL),
+        ("pool3d_max", "pool3d", {"X": x(*VOL)},
+         {"pooling_type": "max", "ksize": [2, 2, 2], "strides": [2, 2, 2]}, "Out", True, t),
+        ("pool3d_avg", "pool3d", {"X": x(*VOL)},
+         {"pooling_type": "avg", "ksize": [3, 3, 3], "strides": [2, 2, 2],
+          "paddings": [1, 1, 1]}, "Out", True, t),
+        ("roi_pool", "roi_pool", {"X": tied(2, ROI["channels"], ROI["h"], ROI["w"]),
+                                  "ROIs": roi_boxes(rng, ROI["cpu_rois"], 2)},
+         {"pooled_height": ROI["bins"], "pooled_width": ROI["bins"],
+          "spatial_scale": ROI["scale"]}, "Out", True, t),
+        ("spp_max", "spp", {"X": tied(16, 256, 13, 13)}, {"pyramid_height": 3}, "Out", True,
+         t),
+        ("spp_avg", "spp", {"X": x(16, 256, 13, 13)},
+         {"pyramid_height": 3, "pooling_type": "avg"}, "Out", True, t),
+    ]
+
+
+# conv3d's weight gradient sums 401,408 products a value: card and CPU
+# round them in other orders
+CONV3D_TOL = 1e-4
+
+
+def roi_boxes(rng, n, images):
+    """`n` ROIs (batch index, x1, y1, x2, y2) in the 16x-downsampled map's
+    image coordinates (600 x 800), Fast R-CNN's proposals' sizes."""
+    x1 = rng.uniform(0, 700, n)
+    y1 = rng.uniform(0, 500, n)
+    w = rng.uniform(16, 400, n)
+    h = rng.uniform(16, 300, n)
+    return np.stack([rng.randint(0, images, n), x1, y1, np.minimum(x1 + w, 799),
+                     np.minimum(y1 + h, 599)], 1).astype(np.float32)
+
+
+def run_misc_op(ptt, dev, op_type, inputs, attrs, out_slot, grad, cot_seed):
+    """One op on `dev`: its output and the gradients of Σ out·cot to its
+    float inputs, as numpy (run_op with a slot of several inputs)."""
+    from paddle_tpu_torch.core import registry as treg
+    from paddle_tpu_torch.core.program import Operator
+
+    env, leaves, slots = {"@RNG@": torch.Generator(device=dev).manual_seed(0)}, [], {}
+    for slot, v in inputs.items():
+        vals = v if isinstance(v, list) else [v]
+        slots[slot] = [f"{slot}_{i}" for i in range(len(vals))]
+        for name, a in zip(slots[slot], vals):
+            if isinstance(a, tuple):
+                t = ptt.LoDArray.from_sequences(a[1], capacity=MISC_ROWS * 2, max_seqs=8).to(dev)
+                if grad:
+                    t = t.with_data(t.data.clone().requires_grad_(True))
+                    leaves.append(t.data)
+            else:
+                t = torch.as_tensor(a, device=dev)
+                if grad and t.is_floating_point() and slot != "ROIs":
+                    t = t.clone().requires_grad_(True)
+                    leaves.append(t)
+            env[name] = t
+    with torch.enable_grad():
+        treg.get_kernel(op_type)(treg.OpContext(Operator(op_type, slots, {out_slot: ["o"]},
+                                                         dict(attrs)), env))
+        out = env["o"]
+        out = out.data if isinstance(out, ptt.LoDArray) else out
+        grads = []
+        if grad:
+            cot = np.random.RandomState(cot_seed).standard_normal(tuple(out.shape))
+            loss = (out.float() * torch.as_tensor(cot.astype(np.float32), device=dev)).sum()
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    host = lambda t: None if t is None else t.detach().float().cpu().numpy() \
+        if t.is_floating_point() else t.detach().cpu().numpy()  # noqa: E731
+    return host(out), [host(g) for g in grads]
+
+
+def misc_ops_phase(ptt, smi, seed, n):
+    """Phase n: every new cost and misc op card against CPU, forward and
+    gradient; nce on fixed negatives; roi_pool at 128 ROIs timed with its
+    peak memory; sampling_id's draws against its probabilities."""
+    from paddle_tpu_torch.core import registry as treg
+    from paddle_tpu_torch.core.program import Operator
+    from paddle_tpu_torch.ops import cost_ops
+
+    phase(n, f"the cost and misc ops card against CPU: [{MISC_ROWS} x {MISC_WIDTH}] inputs, "
+             f"nce and hsigmoid over {NCE_CLASSES} classes at width {NCE_WIDTH}, B="
+             f"{NCE_BATCH}; conv3d and pool3d at B={VOL[0]}, {VOL[1]} channels, "
+             f"{VOL[2]}x{VOL[3]}x{VOL[4]}; roi_pool over "
+             f"VGG16's conv5 ({ROI['channels']}x{ROI['h']}x{ROI['w']}, {ROI['bins']}x"
+             f"{ROI['bins']} bins), {ROI['cpu_rois']} ROIs against the CPU, "
+             f"{ROI['card_rois']} on the card timed; spp, bilinear_interp, im2sequence; "
+             "sampling_id's draws")
+    ptt.Executor()  # the card's settings: no TF32 in cuDNN
+    t_start = time.perf_counter()
+    rng = np.random.RandomState(seed + 670)
+    cases = misc_cases(rng)
+    worst, ops_seen = {}, set()
+    for i, (label, op, ins, attrs, slot, grad, tol) in enumerate(cases):
+        ops_seen.add(op)
+        (co, cg), (go, gg) = (run_misc_op(ptt, dev, op, ins, attrs, slot, grad, seed + i)
+                              for dev in ("cpu", CARD))
+        errs = []
+        for c_, g_ in zip([co] + cg, [go] + gg):
+            if c_ is None:
+                check(g_ is None, f"{label}: a gradient on the card only")
+                continue
+            if not np.issubdtype(c_.dtype, np.floating):
+                check(np.array_equal(c_, g_), f"{label}: card and CPU differ")
+                errs.append(0.0)
+                continue
+            errs.append(float(np.abs(g_ - c_).max()) / max(1.0, float(np.abs(c_).max())))
+        worst[label] = max(errs)
+        check(worst[label] <= tol, f"{label}: {worst[label]:.3e} of its scale apart, card "
+                                   f"against CPU (tol {tol:g})")
+    # nce on the same negatives on both devices
+    x = rng.standard_normal((NCE_BATCH, NCE_WIDTH)).astype(np.float32) / 8
+    w = rng.standard_normal((NCE_CLASSES, NCE_WIDTH)).astype(np.float32) / 8
+    b = rng.standard_normal(NCE_CLASSES).astype(np.float32)
+    lbl = rng.randint(0, NCE_CLASSES, NCE_BATCH)
+    neg = rng.randint(0, NCE_CLASSES, (NCE_BATCH, NCE_NEG))
+    res = {}
+    for dev in ("cpu", CARD):
+        xs, ws, bs = (torch.as_tensor(a, device=dev).requires_grad_(True) for a in (x, w, b))
+        with torch.enable_grad():
+            cost = cost_ops.nce_loss(xs, ws, torch.as_tensor(lbl, device=dev),
+                                     torch.as_tensor(neg, device=dev), bs)
+            grads = torch.autograd.grad(cost.sum(), [xs, ws, bs])
+        res[dev] = [t.detach().cpu().numpy() for t in (cost,) + tuple(grads)]
+    worst["nce"] = max(float(np.abs(g_ - c_).max()) / max(1.0, float(np.abs(c_).max()))
+                       for c_, g_ in zip(res["cpu"], res[CARD]))
+    ops_seen.add("nce")
+    check(worst["nce"] <= OPS_TOL[None], f"nce: {worst['nce']:.3e} card against CPU")
+    # roi_pool at Fast R-CNN's 128 ROIs, the card alone
+    feat = torch.as_tensor(np.maximum(rng.standard_normal(
+        (2, ROI["channels"], ROI["h"], ROI["w"])), 0).astype(np.float32), device=CARD)
+    rois = torch.as_tensor(roi_boxes(rng, ROI["card_rois"], 2), device=CARD)
+    feat.requires_grad_(True)
+    attrs = {"pooled_height": ROI["bins"], "pooled_width": ROI["bins"],
+             "spatial_scale": ROI["scale"]}
+
+    def roi_fwd():
+        env = {"x": feat, "r": rois}
+        treg.get_kernel("roi_pool")(treg.OpContext(Operator(
+            "roi_pool", {"X": ["x"], "ROIs": ["r"]}, {"Out": ["o"]}, attrs), env))
+        return env["o"]
+
+    def roi_fwd_bwd():
+        o = roi_fwd()
+        torch.autograd.grad(o, [feat], torch.ones_like(o))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.enable_grad():
+        fb_ms = cuda_ms(roi_fwd_bwd, 3)
+    roi_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    with torch.no_grad():
+        f_ms = cuda_ms(roi_fwd, 5)
+    print(f"  roi_pool, {ROI['card_rois']} ROIs over [2, {ROI['channels']}, {ROI['h']}, "
+          f"{ROI['w']}]: forward {f_ms:.3f} ms, forward and gradient {fb_ms:.3f} ms, peak "
+          f"{roi_peak:.2f} GiB above its inputs (the JAX op's mask would be "
+          f"{ROI['card_rois'] * ROI['bins'] ** 2 * ROI['channels'] * ROI['h'] * ROI['w'] * 4 / 1e9:.1f}"
+          " GB)")
+    check(roi_peak < 8.0, f"roi_pool at {ROI['card_rois']} ROIs held {roi_peak:.2f} GiB")
+    del feat, rois
+    # sampling_id on the card: each column's frequency against its probability
+    p = np.array([0.05, 0.0, 0.4, 0.15, 0.3, 0.1], np.float32)
+    rows = 200_000
+    env = {"x": torch.as_tensor(np.tile(p, (rows, 1)), device=CARD),
+           "@RNG@": torch.Generator(device=CARD).manual_seed(seed)}
+    treg.get_kernel("sampling_id")(treg.OpContext(Operator(
+        "sampling_id", {"X": ["x"]}, {"Out": ["o"]}, {}), env))
+    ids = env["o"].cpu().numpy()
+    freq = np.bincount(ids, minlength=len(p)) / rows
+    sigma = np.sqrt(p * (1 - p) / rows)
+    z = float((np.abs(freq - p) / np.maximum(sigma, 1e-12)).max())
+    ops_seen.add("sampling_id")
+    print(f"  sampling_id: {rows} draws, frequencies {np.round(freq, 4).tolist()} against "
+          f"{p.tolist()}, at most {z:.2f} sigma off; the column of probability 0 never drawn")
+    check(ids.dtype == np.int32 and freq[1] == 0.0 and z <= 5.0, "sampling_id off its law")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
+    print(f"  {len(ops_seen)} op types, {len(cases) + 1} cases card against CPU (forward and "
+          f"gradient, f32): the largest errors over their scales {top} (tol "
+          f"{OPS_TOL[None]:g}, conv3d {CONV3D_TOL:g}); on {smi}")
+    out = dict(ops=len(ops_seen), cases=len(cases) + 1, worst=worst,
+               roi_pool=dict(rois=ROI["card_rois"], fwd_ms=f_ms, fwd_bwd_ms=fb_ms,
+                             peak_gib=roi_peak),
+               sampling_id_max_sigma=z)
+    check(len(ops_seen) == MISC_OP_TYPES, f"phase {n} ran {len(ops_seen)} op types, not "
+                                           f"{MISC_OP_TYPES}")
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  phase {n}: {out['seconds']:.1f} s")
     return out
 
 
@@ -8999,8 +10011,12 @@ def main():
     paths["control_flow"] = control_flow_phase(ptt, smi, args.seed, 61)
     paths["optimizer_surfaces"] = optimizer_surfaces_phase(ptt, smi, args.seed, 62)
     paths["sequence_ops"] = sequence_ops_phase(ptt, smi, args.seed, 63)
+    paths["ctc_speech"] = ctc_phase(ptt, smi, args.seed, 64)
+    paths["ssd300"] = ssd_phase(ptt, smi, args.seed, 65)
+    paths["ctr_sparse"] = ctr_phase(ptt, smi, args.seed, 66)
+    paths["cost_misc_ops"] = misc_ops_phase(ptt, smi, args.seed, 67)
 
-    phase(64, "the paths line, the kernels line, then the device line")
+    phase(68, "the paths line, the kernels line, then the device line")
     rows["attn_bwd_step"].update(launches_by_route=train_routes["attn_bwd_step"],
                                  kernel="attn_bwd_row_kernel on csrc/attn_row.cuh's attend_bwd")
     rows["attn_phase2"].update(kernel="attn_dep_kernel (t oldest first) + attn_dv_kernel")
@@ -9076,6 +10092,9 @@ def main():
     # the fused LSTM path timed beside rg_lstm (phase 60)
     for k, c in paths["rg_lstm"]["fused_launches_per_step"].items():
         by_path[k]["lstm_train_beside_rg_lstm"] = c
+    # the CTC acoustic model's bidirectional GRU in f32 (phase 64)
+    for k, c in paths["ctc_speech"]["launches_per_step"].items():
+        by_path[k]["ctc_train_f32"] = c
     # B3's row: the request's launch (B=128), and the training step's (B=256)
     rows["gru_fwd"] = dict(main_row, train_ms=gru_fwd_train_ms,
                            srl_step=paths["srl"]["kernels"]["gru_fwd"])
@@ -9092,6 +10111,7 @@ def main():
     } for name, (src, rep) in sources.items()]
     print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": kernels}))
+    end_phase()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

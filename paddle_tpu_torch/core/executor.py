@@ -36,7 +36,7 @@ from .lod import LoDArray
 from .place import resolve_device
 from .program import Program, Variable, default_main_program, grad_var_name
 from .remat import REMAT_POLICIES, run_forward
-from .sparse import SparseGradTape
+from .sparse import SparseArray, SparseGradTape, feed_leaves
 
 # the policies memory_optimize takes (paddle_tpu/core/executor.py:38): what
 # each keeps of the forward is core/remat.py's
@@ -114,14 +114,18 @@ def _feed_signature(feed: Dict[str, Any]):
     order: equal signatures take the same shapes through the program
     (paddle_tpu/core/executor.py:137). A dense slot (a numpy array or a
     tensor) has one leaf; a LoDArray's are its data, seq_ids, lengths and
-    num_seqs."""
+    num_seqs; a SparseArray's its indices, values and rowids, and its kind
+    holds its batch and dim."""
     sig = []
     for k in sorted(feed):
         v = feed[k]
         if isinstance(v, LoDArray):
-            kind, leaves = "lod", v.leaves()
+            kind = "lod"
+        elif isinstance(v, SparseArray):
+            kind = ("sparse", v.batch, v.dim)
         else:
-            kind, leaves = "dense", (v,)
+            kind = "dense"
+        leaves = feed_leaves(v)
         sig.append((k, kind,
                     tuple((tuple(l.shape), str(l.dtype).replace("torch.", ""))
                           for l in leaves)))
@@ -208,10 +212,10 @@ class Executor:
     def _to_device(self, name, v):
         if isinstance(v, np.ndarray):
             return torch.as_tensor(v, device=self.device)
-        if isinstance(v, (torch.Tensor, LoDArray)):
+        if isinstance(v, (torch.Tensor, LoDArray, SparseArray)):
             return v.to(self.device)
-        raise TypeError(f"feed {name!r}: expected a numpy array, a tensor or a "
-                        f"LoDArray, got {type(v).__name__}")
+        raise TypeError(f"feed {name!r}: expected a numpy array, a tensor, a LoDArray "
+                        f"or a SparseArray, got {type(v).__name__}")
 
     def _generator(self, seed: Optional[int]) -> torch.Generator:
         """The random ops' generator for one run: from `seed`, else a fresh

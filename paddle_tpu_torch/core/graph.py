@@ -60,6 +60,7 @@ from ..flags import FLAGS
 from .executor import _feed_signature, accum_fold
 from .lod import LoDArray
 from .program import Program, Variable
+from .sparse import feed_leaves, feed_like
 
 # the kernel wrappers' launch counters, each an int or a dict of ints by
 # route, read and written by module and name
@@ -126,14 +127,6 @@ def _copy_all(dsts: List[torch.Tensor], srcs: List[torch.Tensor]) -> None:
         g[1].append(src)
     for d, src in groups.values():
         torch._foreach_copy_(d, src)
-
-
-def _leaves(v) -> tuple:
-    return v.leaves() if isinstance(v, LoDArray) else (v,)
-
-
-def _like(v, leaves):
-    return LoDArray(*leaves) if isinstance(v, LoDArray) else leaves[0]
 
 
 def _route_flags() -> tuple:
@@ -247,7 +240,7 @@ class _StepGraph(CapturedStep):
         into them every scope entry that is not already its buffer, and the
         accumulator; the scope then holds the buffers."""
         if self.feed is None:
-            self.feed = {k: _like(v, [torch.empty_like(t) for t in _leaves(v)])
+            self.feed = {k: feed_like(v, [torch.empty_like(t) for t in feed_leaves(v)])
                          for k, v in step_feed.items()}
         srcs, dsts = [], []
         for name in self.persist:
@@ -316,10 +309,10 @@ class _StepGraph(CapturedStep):
             srcs.append(v.detach())
             dsts.append(buf)
         fetches = [env[n] for n in self.fetch_names]
-        leaves = [t.detach() for f in fetches for t in _leaves(f)]
+        leaves = [t.detach() for f in fetches for t in feed_leaves(f)]
         if self.outs is None:
             self.outs = [torch.empty_like(t) for t in leaves]
-            self.lod_fetches = [len(_leaves(f)) if isinstance(f, LoDArray) else 0
+            self.lod_fetches = [len(feed_leaves(f)) if isinstance(f, LoDArray) else 0
                                 for f in fetches]
         srcs += leaves
         dsts += self.outs
@@ -371,12 +364,12 @@ def run_window(exe, program: Program, feed: Dict[str, Any], fetch_list, scope, a
     feed = {k: exe._to_device(k, v) for k, v in (feed or {}).items()}
     if not feed:
         raise ValueError("run_window needs at least one feed slot")
-    ks = {int(t.shape[0]) for v in feed.values() for t in _leaves(v)}
+    ks = {int(t.shape[0]) for v in feed.values() for t in feed_leaves(v)}
     if len(ks) != 1 or 0 in ks:
         raise ValueError(f"run_window: the feeds' leading (window) axes differ or are "
                          f"empty: {sorted(ks)}")
     k_steps = ks.pop()
-    slots = [{k: _like(v, [t[i] for t in _leaves(v)]) for k, v in feed.items()}
+    slots = [{k: feed_like(v, [t[i] for t in feed_leaves(v)]) for k, v in feed.items()}
              for i in range(k_steps)]
     persist_names = sorted(v.name for v in program.persistables() if scope.has(v.name))
     key = _window_key(program, skip_nonfinite, acc_state is not None, slots[0], fetch_names,
@@ -389,10 +382,10 @@ def run_window(exe, program: Program, feed: Dict[str, Any], fetch_list, scope, a
     else:
         exe.cache_stats["hits"] += 1
     sg.bind(scope, slots[0], acc_state)
-    feed_bufs = [t for v in sg.feed.values() for t in _leaves(v)]
+    feed_bufs = [t for v in sg.feed.values() for t in feed_leaves(v)]
     ys: List[torch.Tensor] = []
     for i, slot in enumerate(slots):
-        _copy_all(feed_bufs, [t for k in sg.feed for t in _leaves(slot[k])])
+        _copy_all(feed_bufs, [t for k in sg.feed for t in feed_leaves(slot[k])])
         sg.step()
         if not ys:
             ys = [torch.empty((k_steps,) + tuple(t.shape), dtype=t.dtype, device=t.device)

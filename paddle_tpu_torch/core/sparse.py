@@ -1,6 +1,16 @@
-"""Row-wise (SelectedRows) gradients of `is_sparse` embedding tables
-(paddle_tpu/core/sparse.py `SelectedRows`, `SparseGradTape`), the
-reference's framework/selected_rows.h.
+"""Sparse feed slots (`SparseArray`) and row-wise (SelectedRows) gradients
+of `is_sparse` embedding tables (paddle_tpu/core/sparse.py), the
+reference's CpuSparseMatrix input slots and framework/selected_rows.h.
+
+A sparse batch is padded COO, as in the JAX package: `indices` [cap]
+int32 (padding 0), `values` [cap] (1.0 for a binary slot, padding 0) and
+`rowids` [cap] int32 (padding `batch`), with the static `batch` and `dim`.
+`from_batch` lays the nonzeros out row by row, so `rowids` is sorted; the
+product with a dense weight is then a gather and a sum over each row's
+contiguous run (`torch.segment_reduce`), never an [N, dim] tensor. Neither
+that sum nor its backward, nor the gather's (`F.embedding`, which sorts
+its indices), adds with atomics: a step's bits do not change from run to
+run.
 
 A parameter marked `sparse_update` never gets a dense [vocab, dim]
 gradient. Each `lookup_table` site that reads it gathers the rows from the
@@ -9,15 +19,121 @@ run's tape; at the `autodiff` op the leaves' gradients are the values and
 the recorded ids the rows. The optimizer ops then update only those rows
 (ops/optimizer_ops.py). A regularizer or a clip would make the gradient
 dense, so such a parameter skips both, as in the JAX package
-(optimizer/__init__.py `minimize`). The sparse feed slots (`SparseArray`)
-are not ported.
+(optimizer/__init__.py `minimize`).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+from .lod import LoDArray, _round_up
+
+
+class SparseArray:
+    """A batch of sparse feature vectors in padded COO (the module
+    docstring): the value of a `data(..., sparse_format=...)` slot."""
+
+    def __init__(self, indices, values, rowids, batch: int, dim: int):
+        self.indices = indices
+        self.values = values
+        self.rowids = rowids
+        self.batch = int(batch)
+        self.dim = int(dim)
+
+    @property
+    def capacity(self) -> int:
+        return int(self.indices.shape[-1])
+
+    @property
+    def dtype(self):
+        return self.values.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @staticmethod
+    def from_batch(samples: Sequence, dim: int, format: str = "binary",
+                   capacity: Optional[int] = None, bucket: int = 128, dtype=np.float32,
+                   device="cpu") -> "SparseArray":
+        """From each sample's nonzeros: its active column indices
+        (format="binary") or its (index, value) pairs ("float"). The
+        capacity is `capacity`, else the nonzeros rounded up to `bucket`."""
+        n = len(samples)
+        if format == "binary":
+            cols = [np.asarray(s, np.int64).reshape(-1) for s in samples]
+            vals = [np.ones(len(c)) for c in cols]
+        elif format == "float":
+            pairs = [np.asarray(s, np.float64).reshape(-1, 2) for s in samples]
+            cols = [p[:, 0].astype(np.int64) for p in pairs]
+            vals = [p[:, 1] for p in pairs]
+        else:
+            raise ValueError(f"unknown sparse format {format!r}")
+        counts = [len(c) for c in cols]
+        nnz = sum(counts)
+        cap = capacity or max(_round_up(max(nnz, 1), bucket), bucket)
+        if nnz > cap:
+            raise ValueError(f"batch nonzeros {nnz} exceed capacity {cap}")
+        flat = np.concatenate(cols) if cols else np.zeros((0,), np.int64)
+        bad = flat[(flat < 0) | (flat >= dim)]
+        if bad.size:
+            raise ValueError(f"sparse index {int(bad[0])} out of range [0, {dim})")
+        idx = np.zeros((cap,), np.int32)
+        val = np.zeros((cap,), dtype)
+        row = np.full((cap,), n, np.int32)  # padding: past the last row
+        idx[:nnz] = flat
+        if nnz:
+            val[:nnz] = np.concatenate(vals)
+        row[:nnz] = np.repeat(np.arange(n, dtype=np.int32), counts)
+        return SparseArray(*(torch.as_tensor(a, device=device) for a in (idx, val, row)),
+                           batch=n, dim=dim)
+
+    def leaves(self) -> tuple:
+        """(indices, values, rowids): the tensors a feed signature, a copy,
+        a stack or a graph's buffers take; `with_leaves` builds it again."""
+        return (self.indices, self.values, self.rowids)
+
+    def with_leaves(self, leaves) -> "SparseArray":
+        return SparseArray(*leaves, batch=self.batch, dim=self.dim)
+
+    def to(self, device) -> "SparseArray":
+        return self.with_leaves([t.to(device) for t in self.leaves()])
+
+    def matmul(self, w):
+        """self @ w for a dense w [dim, out]: each nonzero's row of w times
+        its value, summed over the rows' runs of `rowids` (padding falls
+        past the last run and is dropped)."""
+        contrib = F.embedding(self.indices, w) * self.values[:, None].to(w.dtype)
+        starts = torch.arange(self.batch + 1, dtype=self.rowids.dtype, device=self.device)
+        offsets = torch.searchsorted(self.rowids, starts)
+        return torch.segment_reduce(contrib, "sum", offsets=offsets, axis=0, unsafe=True)
+
+    def to_dense(self):
+        """[batch, dim] (tests and small dims only)."""
+        out = torch.zeros((self.batch + 1, self.dim), dtype=self.dtype, device=self.device)
+        out.index_put_((self.rowids.long(), self.indices.long()), self.values,
+                       accumulate=True)
+        return out[:-1]
+
+    def __repr__(self):
+        return f"SparseArray(batch={self.batch}, dim={self.dim}, capacity={self.capacity})"
+
+
+def feed_leaves(v) -> tuple:
+    """A feed value's tensors: a LoDArray's or a SparseArray's leaves, else
+    the value itself."""
+    return v.leaves() if isinstance(v, (LoDArray, SparseArray)) else (v,)
+
+
+def feed_like(v, leaves):
+    """The feed value of `v`'s kind on `leaves` (feed_leaves' inverse)."""
+    if isinstance(v, SparseArray):
+        return v.with_leaves(leaves)
+    return LoDArray(*leaves) if isinstance(v, LoDArray) else leaves[0]
 
 
 class SelectedRows:

@@ -2,8 +2,9 @@
 (paddle_tpu/data/feeder.py).
 
 `DataFeeder` (:23) turns a batch of samples into a feed dict: a dense slot
-stacks to a numpy array, a `lod_level=1` slot becomes a LoDArray with
-bucketed capacity, each equal to the JAX package's.
+stacks to a numpy array, a `lod_level=1` slot becomes a LoDArray and a
+sparse slot (`data(..., sparse_format=...)`) a SparseArray, each with
+bucketed capacity and equal to the JAX package's.
 
 `DevicePrefetcher` (:105) is the JAX prefetcher redone for CUDA. A
 producer thread walks the reader, converts each batch (through the
@@ -20,7 +21,8 @@ is the reader's.
 `DevicePrefetcher(window=K)` is the scan window's feed (:65-225): it
 groups consecutive batches of one feed signature and yields `FeedWindow`s
 of up to K of them, stacked on a leading window axis by `_stack_feeds` on
-the same side stream after their copies (a LoDArray leaf by leaf). A
+the same side stream after their copies (a LoDArray or a SparseArray leaf
+by leaf; a SparseArray's capacity is the feeder's, fixed for the window). A
 signature change or the end of the pass flushes a shorter window.
 """
 
@@ -36,6 +38,7 @@ import torch
 from ..core.executor import _feed_signature
 from ..core.lod import LoDArray
 from ..core.place import resolve_device
+from ..core.sparse import SparseArray, feed_leaves, feed_like
 from ..obs import trace as obs_trace
 
 __all__ = ["DataFeeder", "DevicePrefetcher", "FeedWindow"]
@@ -55,11 +58,13 @@ class DataFeeder:
         out = {}
         for slot_idx, var in enumerate(self.feed_list):
             vals = [sample[slot_idx] for sample in batch]
-            if getattr(var, "sparse_format", None):
-                raise NotImplementedError(
-                    f"feed slot {var.name!r} is sparse ({var.sparse_format}): sparse "
-                    "slots are not ported yet (ROADMAP.md, queue A, A7 core/sparse.py)")
-            if var.lod_level == 0:
+            if var.sparse_format:
+                # each sample a list of active indices, or of (index, value)
+                # pairs (SparseBinaryScanner / SparseFloatScanner)
+                out[var.name] = SparseArray.from_batch(
+                    vals, dim=int(var.shape[-1]), format=var.sparse_format,
+                    bucket=self.bucket, dtype=np.dtype(var.dtype))
+            elif var.lod_level == 0:
                 arr = np.asarray(vals, dtype=np.dtype(var.dtype))
                 want = tuple(d for d in var.shape if d != -1)
                 if arr.ndim == 1 and want:
@@ -88,18 +93,17 @@ class FeedWindow:
     def slice(self, i: int) -> Dict[str, Any]:
         """Step i's feed as a window of 1 (the leading axis kept): the
         StepGuard's cool-down runs these one at a time."""
-        return {name: (LoDArray(*(t[i:i + 1] for t in v.leaves())) if isinstance(v, LoDArray)
-                       else v[i:i + 1])
+        return {name: feed_like(v, [t[i:i + 1] for t in feed_leaves(v)])
                 for name, v in self.feed.items()}
 
 
 def _stack_feeds(feeds: List[Dict[str, Any]]) -> FeedWindow:
     """K feed dicts of one signature, already on their device, stacked to
     a leading window axis on the current stream: one `torch.stack` a dense
-    slot, one a leaf of a LoDArray slot."""
+    slot, one a leaf of a LoDArray or SparseArray slot."""
     def stack(vs):
-        if isinstance(vs[0], LoDArray):
-            return LoDArray(*(torch.stack(ts) for ts in zip(*(v.leaves() for v in vs))))
+        if isinstance(vs[0], (LoDArray, SparseArray)):
+            return feed_like(vs[0], [torch.stack(ts) for ts in zip(*map(feed_leaves, vs))])
         return torch.stack([torch.as_tensor(v) for v in vs])
 
     return FeedWindow({name: stack([f[name] for f in feeds]) for name in feeds[0]}, len(feeds))
@@ -133,8 +137,8 @@ class DevicePrefetcher:
         """One tensor on the device. On the card a host value goes through
         pinned memory and a non-blocking copy on the current (side) stream;
         the copy is listed in `copied` for the consumer's record_stream."""
-        if isinstance(v, LoDArray):
-            return LoDArray(*(self._put(t, copied) for t in v.leaves()))
+        if isinstance(v, (LoDArray, SparseArray)):
+            return feed_like(v, [self._put(t, copied) for t in v.leaves()])
         if not _is_host(v):
             if isinstance(v, torch.Tensor) and v.device == self.device:
                 return v  # already there: pass through
@@ -163,8 +167,7 @@ class DevicePrefetcher:
                 event = stream.record_event()
         if armed:
             obs_trace._end()
-        leaves = [t for v in win.feed.values()
-                  for t in (v.leaves() if isinstance(v, LoDArray) else (v,))]
+        leaves = [t for v in win.feed.values() for t in feed_leaves(v)]
         return win, event, leaves if event is not None else []
 
     def _produce(self, q: "queue.Queue", stop: threading.Event, end, err) -> None:

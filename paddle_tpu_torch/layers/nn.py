@@ -37,12 +37,14 @@ __all__ = ["data", "fc", "embedding", "conv2d", "conv2d_transpose", "pool2d", "b
 def data(name: str, shape: Sequence[int], dtype=np.float32, lod_level: int = 0,
          append_batch_size: bool = True, sparse_format: Optional[str] = None) -> Variable:
     """Declares a feed variable; shape excludes the batch dimension when
-    append_batch_size=True."""
-    if sparse_format is not None:
-        raise NotImplementedError("sparse feed slots are not ported to the PyTorch port yet")
+    append_batch_size=True. sparse_format="binary" or "float" declares a
+    sparse slot of shape [dim], fed a SparseArray (core/sparse.py)."""
+    if sparse_format not in (None, "binary", "float"):
+        raise ValueError(f"sparse_format must be 'binary'/'float', got {sparse_format!r}")
     block = default_main_program().current_block()
     full_shape = ((-1,) + tuple(shape)) if append_batch_size else tuple(shape)
-    return block.create_var(name, full_shape, dtype, lod_level=lod_level)
+    return block.create_var(name, full_shape, dtype, lod_level=lod_level,
+                            sparse_format=sparse_format)
 
 
 def fc(input, size: int, act: Optional[str] = None, num_flatten_dims: int = 1,

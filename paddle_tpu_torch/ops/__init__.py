@@ -4,7 +4,10 @@ from . import (  # noqa: F401
     activation_ops,
     attention_ops,
     control_flow_ops,
+    cost_ops,
     crf_ops,
+    ctc_ops,
+    detection_ops,
     flash_ops,
     fused_conv_ops,
     generation_ops,

@@ -18,6 +18,7 @@ import torch
 from .. import amp
 from ..core.lod import LoDArray
 from ..core.registry import SPARSE_KEY, register_op
+from ..core.sparse import SparseArray
 from .activation_ops import rounded
 
 
@@ -40,8 +41,14 @@ def dot(a, b):
 
 @register_op("mul")
 def mul_kernel(ctx):
-    """Flattens X to 2-D by x_num_col_dims, then one GEMM."""
+    """Flattens X to 2-D by x_num_col_dims, then one GEMM. A SparseArray X
+    (a sparse feed slot) takes the gather and segment sum of
+    `SparseArray.matmul` instead and is never made dense; under amp the
+    weight is cast first, as the JAX op casts it."""
     x_in = ctx.input("X")
+    if isinstance(x_in, SparseArray):
+        ctx.set_output("Out", x_in.matmul(amp.cast_inputs(ctx, _data(ctx.input("Y")))))
+        return
     x, y = _data(x_in), _data(ctx.input("Y"))
     xd = ctx.attr("x_num_col_dims", 1)
     yd = ctx.attr("y_num_col_dims", 1)

@@ -395,8 +395,9 @@ def test_what_is_not_ported_refuses_to_build():
     ptt.reset_default_programs()
     with ptt.program_guard(ptt.Program(), ptt.Program()):
         x = ptt.layers.data("x", shape=[-1, 4], lod_level=1, append_batch_size=False)
-        with pytest.raises(NotImplementedError):
-            ptt.layers.data("s", shape=[10], sparse_format="binary")
+        # sparse feed slots are ported (tests/test_torch_sparse.py): they build
+        assert ptt.layers.data("s", shape=[10], sparse_format="binary").sparse_format == \
+            "binary"
         with pytest.raises(NotImplementedError):
             ptt.models.lstm_benchmark_net(x, 10, sharded_embedding_axis="mp")
     # schedules, pruning hooks and lr multipliers are ported: they build
