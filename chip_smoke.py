@@ -492,7 +492,37 @@ at the start of a capture:
               a small program each, card against CPU in f32.
   63. seqops  the 10 sequence op types the slice adds, card against CPU:
               outputs (layouts exact) and input gradients, f32.
-  64. the paths JSON line (phases 32-63's readings), the kernels JSON
+  64. ctc     a CTC acoustic model at DeepSpeech2's widths (B3/B4 in
+              f32), through the Trainer and a window.
+  65. ssd     an SSD300 head on VOC's classes and detection_output.
+  66. ctr     a Criteo-shaped CTR model on a 1e6-column sparse slot.
+  67. misc    the cost and misc ops, card against CPU.
+  68. pipe    bench.py's pipeline grid (bench.py:1716-1860) on the
+              transformer row (dim 2048, 8 layers, B=8, T=1024, bf16,
+              Adam): one startup, its state restored for each cell;
+              gpipe with K in {1, 2, 4} stages and M in {4, 8}
+              micro-batches, 1f1b at K=4, M=8; after 2 steps every cell's
+              parameters are K=1's bits at its M; ms a step, t(K,M)/t(1,M)
+              (on one card the staging's overhead, not the bubble), the
+              analytic bubble, peak memory and B8's launches a step (8·M
+              of each kernel, 8·M more forwards under 1f1b); 1f1b's peak
+              below gpipe's.
+  69. pwin    the pipeline (K=2, M=4) through Trainer(scan_window=4): the
+              per-step loop's bits, one capture and 3 replays; then the
+              staged step's ticks under set_sync_debug_mode("error").
+  70. dp      ParallelExecutor on bench.py's lstm row: (a) 2 ranks (this
+              script again with --dp_rank, logging to
+              chiprun_out/chip_smoke_logs/dp_rank*.log) over gloo on the
+              one card, 64 rows each, 3 steps: the ranks' bits equal, B1
+              and B2 twice a rank step, within the bf16 bound of one
+              process on the 128 rows; (b) world size 1 over NCCL, plain
+              and ZeRO-1: the plain Executor's bits; (c) (a)'s sharded
+              checkpoint loads at world size 1 with (a)'s bits, and 2 more
+              steps stay within the bound of (a)'s.
+  71. sp      Ulysses (B8's bits, one launch of each kernel) and ring
+              attention at the transformer's attention shape, sp of size 1
+              over NCCL.
+  72. the paths JSON line (phases 32-71's readings), the kernels JSON
       line, then the device JSON line last.
 
 Weights are made with numpy from --seed at the shapes the program
@@ -4292,11 +4322,12 @@ def resnet_infer_phase(ptt, smi, seed, n, work, train_prog, train_scope):
 
 # the Trainer's scan window at full width (phases 35-37): the per-step async
 # loop over WINDOW_RAGGED batches (its parameters also taken at step
-# WINDOW_EVEN), scan_window=WINDOW_K over WINDOW_EVEN batches (two windows;
-# the first warms up and captures), then over WINDOW_RAGGED (a ragged tail
-# of 2, the same graph), the per-step loop again; then one profiled pass of
-# each. Every run starts from one saved state and feeds the same batches.
-WINDOW_K, WINDOW_EVEN, WINDOW_RAGGED = 4, 8, 10
+# WINDOW_EVEN), scan_window=WINDOW_K over WINDOW_EVEN batches (one window:
+# it warms up, captures and replays), then over WINDOW_RAGGED (a window and
+# a ragged tail of 2, the same graph), the per-step loop again; then one
+# profiled pass of each. Every run starts from one saved state and feeds the
+# same batches.
+WINDOW_K, WINDOW_EVEN, WINDOW_RAGGED = 4, 4, 6
 # {path: {wrapper counter: (the kernel's name in a profile, launches a step)}}
 WINDOW_KERNELS = {
     "lstm": {"lstm_fwd_launches": ("lstm_fwd_tc_kernel", 2),
@@ -9303,10 +9334,498 @@ def misc_ops_phase(ptt, smi, seed, n):
     return out
 
 
+# phase 68: bench.py's pipeline row (bench.py:1716-1860) on the transformer
+# row: (schedule, K stages, M micro-batches); K=1 is each M's reference
+PIPE_CELLS = [("gpipe", 1, 4), ("gpipe", 2, 4), ("gpipe", 4, 4), ("gpipe", 1, 8),
+              ("gpipe", 2, 8), ("gpipe", 4, 8), ("1f1b", 4, 8)]
+PIPE_TIMED = 5  # timed steps a cell, after the 2 the bits are read on
+PIPE_WINDOW = dict(K=2, M=4, steps=4)  # phase 69
+# phase 70: bench.py's lstm row split over 2 ranks of 64 rows (gloo on the
+# one card), 3 steps, then a sharded checkpoint and 2 more
+DP_RANKS, DP_STEPS, DP_MORE = 2, 3, 2
+DP_START_S = 300  # seconds for the ranks to finish
+# bf16, 2 ranks of 64 rows against one process on 128 (see dp_compare): the
+# losses within 1e-3 relative, and at most 2% of a parameter's values more
+# than 0.5 lr a step apart (Adam moves each value by about lr a step, so a
+# gradient near 0 that flips sign moves it by up to 2 lr)
+DP_LOSS_RTOL, DP_FAR_LR, DP_FAR_SHARE = 1e-3, 0.5, 0.02
+ULYSSES_TOL = 2e-2  # phase 71: ring attention in f32 against the bf16 formula
+
+
+def pipeline_phase(ptt, smi, seed, n):
+    """Phase n: bench.py's pipeline grid at the transformer row's width; one
+    startup, its state kept on the card and restored for each cell."""
+    from paddle_tpu_torch.ops import flash_kernels as fk
+    from paddle_tpu_torch.ops import flash_ops
+
+    phase(n, "the pipeline grid on bench.py's transformer row (dim 2048, 8 layers, B=8, "
+             "T=1024, bf16, Adam): gpipe K in {1, 2, 4} x M in {4, 8}, 1f1b K=4 M=8")
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # B8 at the micro-batch's B=1 (M=8) before the grid leans on it
+    rng = np.random.RandomState(seed + 68)
+    q1, k1, v1 = (torch.as_tensor(rng.standard_normal((1, 1024, 32, 64)), dtype=torch.bfloat16,
+                                  device="cuda") for _ in range(3))
+    got = fk.flash_fused(q1, k1, v1, True)
+    want = flash_ops.scaled_dot_product_attention(q1.float(), k1.float(), v1.float(), True)
+    err = float((got.float() - want).abs().max() / want.abs().max())
+    print(f"  B8 forward at B=1 (a micro-batch of M=8): max error {err:.3e} of the f32 "
+          f"formula's largest (tol {ULYSSES_TOL})")
+    check(err <= ULYSSES_TOL, f"B8 at B=1: error {err:.3e}")
+    main_p, startup, loss = build_transformer_program(ptt, **TFM_BENCH)
+    main_p.set_amp("bfloat16")
+    sc = ptt.Scope()
+    ptt.Executor().run(startup, scope=sc, seed=seed)
+    persist = [v.name for v in main_p.persistables() if sc.has(v.name)]
+    params = [p.name for p in main_p.parameters()]
+    base = {k: sc.get(k).clone() for k in persist}
+    feed = transformer_feed(np.random.RandomState(0), TFM_BENCH["vocab"], TFM_BENCH["seqlen"],
+                            TFM_BENCH["batch"])
+    refs, cells = {}, {}
+    for sched, K, M in PIPE_CELLS:
+        for k in persist:
+            sc.set(k, base[k].clone())
+        exe = ptt.PipelineExecutor(num_stages=K, num_microbatches=M, schedule=sched)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(exe.run(main_p, feed, [loss.name], scope=sc)[0]) for _ in range(2)]
+        torch.cuda.synchronize()
+        after2 = {k: sc.get(k) for k in params}
+        if K == 1:
+            refs[M] = ({k: v.clone() for k, v in after2.items()}, losses)
+            same = None
+        else:
+            same = next((k for k in params if not torch.equal(after2[k], refs[M][0][k])), None)
+            check(losses == refs[M][1], f"{sched} K={K} M={M}: losses {losses} are not K=1's "
+                                        f"{refs[M][1]}")
+            check(same is None, f"{sched} K={K} M={M}: the parameters after 2 steps differ "
+                                f"from K=1's at M={M}, first at {same}")
+        for k in TFM_STEP_LAUNCHES:
+            setattr(fk, f"{k}_launches", 0)
+        flash_ops.plain_routes = 0
+        times = []
+        for _ in range(PIPE_TIMED):
+            t0 = time.perf_counter()
+            exe.run(main_p, feed, [loss.name], scope=sc)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: getattr(fk, f"{k}_launches") / PIPE_TIMED for k in TFM_STEP_LAUNCHES}
+        want_l = {k: 8 * M for k in TFM_STEP_LAUNCHES}
+        if sched == "1f1b":
+            want_l["flash_fwd"] += 8 * M  # each stage's forward again in the drain
+        cells[(sched, K, M)] = dict(
+            schedule=sched, K=K, M=M, losses=losses, steps_ms=times,
+            ms_per_step=statistics.median(times), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            bubble=(K - 1) / (M + K - 1), launches_per_step=launches,
+            plain_routes=flash_ops.plain_routes, bits_as_k1=K == 1 or same is None,
+            stages=len(exe._staged(main_p, [loss.name]).stages))
+        check(launches == want_l, f"{sched} K={K} M={M}: B8 launches a step {launches}, not "
+                                  f"{want_l}")
+        check(flash_ops.plain_routes == 0, f"{sched} K={K} M={M}: attention routed to the plain "
+                                           "formula")
+        check(all(np.isfinite(losses)), f"{sched} K={K} M={M}: non-finite loss")
+        del exe, after2
+    print(f"  one card: t(K,M)/t(1,M) is the staging's own overhead (every stage runs on the "
+          f"one card in turn), not the bubble, which needs stages on separate cards; the "
+          f"analytic bubble (K-1)/(M+K-1) is printed beside it. On {smi}:")
+    for (sched, K, M), c in cells.items():
+        c["ratio_to_k1"] = c["ms_per_step"] / cells[("gpipe", 1, M)]["ms_per_step"]
+        print(f"    {sched} K={K} M={M}: {c['ms_per_step']:.3f} ms a step (median of "
+              f"{PIPE_TIMED}: {[round(t, 3) for t in c['steps_ms']]}), t/t(1,M) "
+              f"{c['ratio_to_k1']:.3f}, bubble {c['bubble']:.3f}, peak {c['peak_gib']:.2f} GiB, "
+              f"B8 a step {c['launches_per_step']}, plain routes {c['plain_routes']}; after 2 "
+              f"steps {'K=1 itself' if K == 1 else 'the K=1 bits'} ({len(params)} parameters)")
+    g, f = cells[("gpipe", 4, 8)]["peak_gib"], cells[("1f1b", 4, 8)]["peak_gib"]
+    check(f < g, f"1f1b's peak {f:.2f} GiB is not below gpipe's {g:.2f} GiB at K=4, M=8")
+    out = {"cells": [dict(c) for c in cells.values()], "state_gib": sum(
+        v.numel() * v.element_size() for v in base.values()) / 2**30}
+    del refs, base, sc
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    return out, main_p, startup, loss
+
+
+def pipeline_window_phase(ptt, smi, seed, n, main_p, startup, loss):
+    """Phase n: Trainer(scan_window) on a PipelineExecutor at the same width,
+    against the per-step loop from one state; the staged step's ticks under
+    torch.cuda.set_sync_debug_mode("error")."""
+    from paddle_tpu_torch.ops import flash_kernels as fk
+
+    K, M, steps = PIPE_WINDOW["K"], PIPE_WINDOW["M"], PIPE_WINDOW["steps"]
+    phase(n, f"the pipeline (K={K}, M={M}) through Trainer(scan_window={steps}) against the "
+             "per-step loop, then the staged step under set_sync_debug_mode('error')")
+    t_start = time.perf_counter()
+    feed = transformer_feed(np.random.RandomState(0), TFM_BENCH["vocab"], TFM_BENCH["seqlen"],
+                            TFM_BENCH["batch"])
+    names = [p.name for p in main_p.parameters()]
+    main_p.random_seed = seed + 69
+    out = {}
+
+    def run(window):
+        sc = ptt.Scope()
+        ptt.Executor().run(startup, scope=sc, seed=seed)
+        exe = ptt.PipelineExecutor(num_stages=K, num_microbatches=M)
+        t = ptt.Trainer(loss, main_program=main_p, startup_program=startup, scope=sc,
+                        executor=exe)
+        t._initialized = True
+        before = fk.flash_fwd_launches
+        t0 = time.perf_counter()
+        t.train(lambda: iter([feed] * steps), num_passes=1, scan_window=window)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        t.stop()
+        return sc, exe, wall, fk.flash_fwd_launches - before
+
+    sc0, _, wall0, l0 = run(None)
+    want = host_state(sc0, names)
+    del sc0
+    gc.collect()
+    torch.cuda.empty_cache()
+    sc1, wexe, wall1, l1 = run(steps)
+    got = host_state(sc1, names)
+    d = next((k for k in names if not torch.equal(got[k], want[k])), None)
+    stats = dict(wexe.cache_stats)
+    print(f"  per-step loop {wall0 / steps:.3f} ms a step, the window {wall1 / steps:.3f} ms a "
+          f"step ({steps} steps, its warm-up and capture included); cache {stats}; B8 forward "
+          f"launches {l0} and {l1} over the {steps} steps (a replay counts its capture's)")
+    check(d is None, f"the window's parameters differ from the per-step loop's, first at {d}")
+    check(stats["captures"] == 1 and stats["replays"] == steps - 1,
+          f"the window did not capture once and replay: {stats}")
+    check(l0 == l1 == 8 * M * steps, f"B8 forward launches {l0}, {l1}, not {8 * M * steps}")
+    print(f"  the window ends on the per-step loop's bits ({len(names)} parameters) on {smi}")
+    out.update(per_step_ms=wall0 / steps, window_ms=wall1 / steps, cache=stats,
+               flash_fwd_launches_per_step=l1 / steps)
+    del got, want
+    # the staged step's ticks and tail with every host sync an error
+    exe = ptt.PipelineExecutor(num_stages=K, num_microbatches=M)
+    env = {k: sc1.get(k) for k in (v.name for v in main_p.persistables()) if sc1.has(k)}
+    env.update({k: torch.as_tensor(v, device="cuda") for k, v in feed.items()})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    exe._seed_step_generators(seed)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        exe._execute(main_p, env, [loss.name], [v.name for v in main_p.persistables()], gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(env[loss.name]).all()), "the staged step's loss is not finite")
+    print("  the staged step's ticks and tail ran under set_sync_debug_mode('error') with no "
+          "host sync")
+    out["sync_debug_silent"] = True
+    main_p.random_seed = 0
+    del sc1, wexe, exe, env
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def dp_rank_main(rank, init, out_dir, seed):
+    """One rank of phase 70 (a process of its own, gloo on the one card):
+    bench.py's lstm row on its 64 rows of the global batch."""
+    sys.path.insert(0, ROOT)
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import lstm_kernels as lk
+    from paddle_tpu_torch.parallel import ParallelExecutor, distributed, mesh_from_spec
+
+    distributed.init_distributed(init, DP_RANKS, rank, backend="gloo")
+    try:
+        main_p, startup, loss = build_lstm_program(ptt, **LSTM_BENCH)
+        main_p.set_amp("bfloat16")
+        sc = ptt.Scope()
+        ptt.Executor().run(startup, scope=sc, seed=seed)
+        feed = lstm_bench_feed(ptt, LSTM_BENCH["vocab"], LSTM_BENCH["seqlen"],
+                               LSTM_BENCH["batch"], "cuda")
+        exe = ParallelExecutor(mesh_from_spec(f"dp{DP_RANKS}"))
+        print(f"rank {rank}: device {exe.device}, backend {torch.distributed.get_backend()}",
+              flush=True)
+        lk.lstm_fwd_launches = lk.lstm_bwd_launches = 0
+        losses = [float(exe.run(main_p, feed, [loss.name], scope=sc)[0])
+                  for _ in range(DP_STEPS)]
+        launches = [lk.lstm_fwd_launches, lk.lstm_bwd_launches]
+        names = [v.name for v in main_p.persistables()]
+        out = {f"s3.{k}": v for k, v in ptt.io.state_to_numpy(sc, names).items()}
+        ptt.io.save_checkpoint(os.path.join(out_dir, "ckpt"), {"step": DP_STEPS}, main_p, sc,
+                               sharded=True)
+        losses += [float(exe.run(main_p, feed, [loss.name], scope=sc)[0])
+                   for _ in range(DP_MORE)]
+        out.update({f"s5.{k}": v for k, v in ptt.io.state_to_numpy(sc, names).items()})
+        out["losses"] = np.array(losses)
+        out["launches"] = np.array(launches)
+        # (a) again with ZeRO-1, from the same startup: each rank updates its
+        # rows of every accumulator whose first dimension divides by dp, and
+        # all-gathers the parameters
+        del sc
+        sc = ptt.Scope()
+        ptt.Executor().run(startup, scope=sc, seed=seed)
+        zexe = ParallelExecutor(mesh_from_spec(f"dp{DP_RANKS}"), shard_optimizer_state=True)
+        lk.lstm_fwd_launches = lk.lstm_bwd_launches = 0
+        out["zero.losses"] = np.array([float(zexe.run(main_p, feed, [loss.name], scope=sc)[0])
+                                       for _ in range(DP_STEPS)])
+        out["zero.launches"] = np.array([lk.lstm_fwd_launches, lk.lstm_bwd_launches])
+        out.update({f"z3.{k}": v for k, v in ptt.io.state_to_numpy(sc, names).items()})
+        sliced = sorted(sc.shards)
+        out["zero.sliced"] = np.array(sliced).astype(str)
+        out["zero.slices"] = np.array([sc.shards[k]["slice"][0] for k in sliced])
+        out["zero.whole_rows"] = np.array([sc.shards[k]["shape"][0] for k in sliced])
+        out["zero.opt_state"] = np.array([main_p.global_block().var(k).is_optimizer_state
+                                          for k in sliced])
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+        print(f"rank {rank}: losses {losses}; B1, B2 launches in {DP_STEPS} steps {launches}; "
+              f"ZeRO-1: losses {out['zero.losses'].tolist()}, {len(sliced)} accumulators "
+              f"sliced, B1, B2 launches {out['zero.launches'].tolist()}", flush=True)
+    finally:
+        distributed.shutdown()
+
+
+def dp_compare(label, got, want, lr, steps):
+    """The bf16 bound of DP_FAR_*: losses, then each parameter's share of
+    values more than DP_FAR_LR lr a step from the single process's."""
+    worst, worst_name, far = 0.0, None, 0.0
+    for k, w in want.items():
+        d = np.abs(got[k] - w)
+        share = float(np.mean(d > DP_FAR_LR * lr * steps)) if w.size else 0.0
+        far = max(far, float(d.max()) / (lr * steps)) if w.size else far
+        if share > worst or worst_name is None:
+            worst, worst_name = share, k
+    print(f"  {label}: largest share of values past {DP_FAR_LR} lr a step: {worst:.4%} "
+          f"({worst_name}; bound {DP_FAR_SHARE:.0%}); the largest difference {far:.4f} lr a "
+          f"step")
+    check(worst <= DP_FAR_SHARE, f"{label}: {worst:.4%} of {worst_name}'s values past "
+                                 f"{DP_FAR_LR} lr a step")
+    return worst
+
+
+def data_parallel_phase(ptt, smi, seed, n):
+    """Phase n: ParallelExecutor on bench.py's lstm row: (a) 2 ranks over gloo
+    on the one card against one process on the whole batch, then again with
+    ZeRO-1 against (a)'s bits, (b) world size 1 over NCCL against the plain
+    Executor's bits, (c) (a)'s sharded checkpoint at world size 1."""
+    from paddle_tpu_torch.ops import lstm_kernels as lk
+    from paddle_tpu_torch.parallel import ParallelExecutor, distributed, mesh_from_spec
+
+    phase(n, f"data parallel on bench.py's lstm row (H=512, T=100, B=128, bf16): (a) "
+             f"{DP_RANKS} ranks over gloo on the one card, 64 rows each, replicated and "
+             "ZeRO-1; (b) world size 1 over NCCL; (c) (a)'s sharded checkpoint at world size 1")
+    t_start = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    os.makedirs(LOG_DIR, exist_ok=True)
+    init = f"file://{os.path.join(work, 'rendezvous')}"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    procs, logs = [], []
+    for r in range(DP_RANKS):
+        log = os.path.join(LOG_DIR, f"dp_rank{r}.log")
+        logs.append(log)
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--seed", str(seed),
+                 "--dp_rank", str(r), "--dp_init", init, "--dp_dir", work],
+                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT, start_new_session=True))
+    # meanwhile, the single process on the whole batch
+    main_p, startup, loss = build_lstm_program(ptt, **LSTM_BENCH)
+    main_p.set_amp("bfloat16")
+    names = [v.name for v in main_p.persistables()]
+    feed = lstm_bench_feed(ptt, LSTM_BENCH["vocab"], LSTM_BENCH["seqlen"], LSTM_BENCH["batch"],
+                           "cuda")
+
+    def fresh():
+        sc = ptt.Scope()
+        ptt.Executor().run(startup, scope=sc, seed=seed)
+        return sc
+    exe = ptt.Executor()
+    sc = fresh()
+    single = [float(exe.run(main_p, feed, [loss.name], scope=sc)[0]) for _ in range(DP_STEPS)]
+    s3 = ptt.io.state_to_numpy(sc, names)
+    single += [float(exe.run(main_p, feed, [loss.name], scope=sc)[0]) for _ in range(DP_MORE)]
+    s5 = ptt.io.state_to_numpy(sc, names)
+    try:
+        deadline = time.monotonic() + DP_START_S
+        for r, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            if rc != 0:
+                for log in logs:
+                    with open(log, errors="replace") as f:
+                        print(f"---- {os.path.relpath(log, ROOT)}\n" + "".join(f.readlines()[-30:]))
+                fail(f"data-parallel rank {r} exited {rc}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    ranks = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in range(DP_RANKS)]
+    out = {"a": {}, "b": {}, "c": {}}
+    for log in logs:
+        with open(log) as f:
+            print("  " + "  ".join(l for l in f if l.startswith("rank ")), end="")
+    # the replicated run's values (ZeRO-1's slices differ by rank: dp_zero_check)
+    diff = [k for k in ranks[0] if not k.startswith(("z3.", "zero."))
+            and not np.array_equal(ranks[0][k], ranks[1][k])]
+    check(not diff, f"(a) the two ranks' values differ: {diff[:4]}")
+    rl = [float(x) for x in ranks[0]["losses"]]
+    print(f"  (a) the ranks agree bit for bit ({len(names)} persistables, after step 3 and 5); "
+          f"losses {rl} against one process's {single}")
+    check(np.allclose(rl, single, rtol=DP_LOSS_RTOL, atol=0),
+          f"(a) losses {rl} are not within {DP_LOSS_RTOL} of {single}")
+    launches = list(ranks[0]["launches"])
+    check(launches == [2 * DP_STEPS, 2 * DP_STEPS],
+          f"(a) B1, B2 launched {launches} times in {DP_STEPS} rank steps, not 2 a step each")
+    share = dp_compare("(a) after 3 steps", {k[3:]: v for k, v in ranks[0].items()
+                                            if k.startswith("s3.")}, s3, LSTM_LR, DP_STEPS)
+    out["a"] = dict(losses=rl, single_losses=single, launches_per_rank_step=[
+        x / DP_STEPS for x in launches], far_share=share)
+    out["a"]["zero1"] = dp_zero_check(ranks, names)
+    # (b) world size 1 over NCCL: the plain Executor's bits
+    distributed.init_distributed(f"file://{os.path.join(work, 'nccl1')}", 1, 0)
+    try:
+        sc = fresh()
+        want = [float(exe.run(main_p, feed, [loss.name], scope=sc)[0]) for _ in range(DP_STEPS)]
+        want_p = ptt.io.state_to_numpy(sc, names)
+        sc = fresh()
+        e = ParallelExecutor(mesh_from_spec("dp1"))
+        lk.lstm_fwd_launches = lk.lstm_bwd_launches = 0
+        ls = [float(e.run(main_p, feed, [loss.name], scope=sc)[0]) for _ in range(DP_STEPS)]
+        got = ptt.io.state_to_numpy(sc, names)
+        d = next((k for k in names if not np.array_equal(got[k], want_p[k])), None)
+        print(f"  (b) ParallelExecutor over {torch.distributed.get_backend()}, world size 1: "
+              f"losses {ls}; B1, B2 launches {lk.lstm_fwd_launches}, {lk.lstm_bwd_launches}; "
+              f"the plain Executor's bits: {d is None}")
+        check(d is None, f"(b) differs from the plain Executor first at {d}")
+        check(np.allclose(ls, want, rtol=1e-6, atol=0), f"(b) losses {ls}")
+        out["b"]["plain"] = dict(losses=ls, same_bits=True)
+        del sc, got, want_p
+        # (c) (a)'s sharded checkpoint at world size 1, then 2 more steps
+        out["c"] = dp_resume(ptt, exe, main_p, loss, feed, names, work, ranks, rl)
+        ulysses = ulysses_ring_phase(ptt, smi, seed, n + 1)
+    finally:
+        distributed.shutdown()
+    del s3, s5
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_start
+    return out, ulysses
+
+
+def dp_zero_check(ranks, names):
+    """Phase 70 (a) with ZeRO-1 on the 2 ranks: the same losses and
+    parameters, bit for bit, as (a)'s replicated run; each sliced
+    accumulator is an optimizer accumulator holding rows [r·n/2, (r+1)·n/2)
+    of (a)'s, bit for bit."""
+    for r, rk in enumerate(ranks):
+        sliced = [str(k) for k in rk["zero.sliced"]]
+        check(sliced and bool(rk["zero.opt_state"].all()),
+              f"(a) ZeRO-1 rank {r}: sliced {sliced[:4]}, not optimizer accumulators only")
+        check(np.array_equal(rk["zero.losses"], rk["losses"][:DP_STEPS]),
+              f"(a) ZeRO-1 rank {r}: losses {rk['zero.losses']} against {rk['losses']}")
+        check(rk["zero.launches"].tolist() == [2 * DP_STEPS, 2 * DP_STEPS],
+              f"(a) ZeRO-1 rank {r}: B1, B2 launched {rk['zero.launches'].tolist()} times")
+        for k, (a, b), rows in zip(sliced, rk["zero.slices"], rk["zero.whole_rows"]):
+            check((a, b) == (r * rows // DP_RANKS, (r + 1) * rows // DP_RANKS)
+                  and rk[f"z3.{k}"].shape[0] == b - a,
+                  f"(a) ZeRO-1 rank {r}: {k} holds rows [{a}, {b}) of {rows}, "
+                  f"shape {rk[f'z3.{k}'].shape}")
+            check(np.array_equal(rk[f"z3.{k}"], rk[f"s3.{k}"][a:b]),
+                  f"(a) ZeRO-1 rank {r}: {k}'s rows differ from the replicated run's")
+        d = next((k for k in names if k not in sliced
+                  and not np.array_equal(rk[f"z3.{k}"], rk[f"s3.{k}"])), None)
+        check(d is None, f"(a) ZeRO-1 rank {r}: differs from the replicated run first at {d}")
+    n = len(ranks[0]["zero.sliced"])
+    print(f"  (a) ZeRO-1 on the {DP_RANKS} ranks: the replicated run's losses and bits; "
+          f"{n} accumulators sliced, each rank holding its half of their rows "
+          f"(e.g. {ranks[0]['zero.sliced'][0]}: rows {ranks[0]['zero.slices'][0].tolist()} of "
+          f"{ranks[0]['zero.whole_rows'][0]} on rank 0)")
+    return dict(sliced=n, same_bits=True)
+
+
+def dp_resume(ptt, exe, main_p, loss, feed, names, work, ranks, rl):
+    """Phase 70 (c): (a)'s sharded checkpoint loaded at world size 1 holds
+    (a)'s bits after step 3; 2 more steps stay within the bf16 bound of
+    (a)'s uninterrupted run."""
+    sc = ptt.Scope()
+    args = ptt.io.load_checkpoint(os.path.join(work, "ckpt"), main_p, sc)
+    got = ptt.io.state_to_numpy(sc, names)
+    d = next((k for k in names if not np.array_equal(got[k], ranks[0][f"s3.{k}"])), None)
+    check(args == {"step": DP_STEPS} and d is None,
+          f"(c) the sharded checkpoint did not load (a)'s bits (args {args}, first at {d})")
+    more = [float(exe.run(main_p, feed, [loss.name], scope=sc)[0]) for _ in range(DP_MORE)]
+    print(f"  (c) (a)'s sharded checkpoint loads at world size 1 with (a)'s bits; 2 more steps: "
+          f"losses {more} against (a)'s {rl[DP_STEPS:]}")
+    check(np.allclose(more, rl[DP_STEPS:], rtol=DP_LOSS_RTOL, atol=0),
+          f"(c) losses {more} are not within {DP_LOSS_RTOL} of (a)'s {rl[DP_STEPS:]}")
+    share = dp_compare("(c) after 2 more steps", ptt.io.state_to_numpy(sc, names),
+                       {k[3:]: v for k, v in ranks[0].items() if k.startswith("s5.")},
+                       LSTM_LR, DP_MORE)
+    return dict(losses=more, far_share=share)
+
+
+def ulysses_ring_phase(ptt, smi, seed, n):
+    """Phase n (inside phase 70's NCCL group of one): Ulysses and ring
+    attention at the transformer's attention shape, sp of size 1."""
+    from paddle_tpu_torch import parallel as par
+    from paddle_tpu_torch.ops import flash_kernels as fk
+    from paddle_tpu_torch.ops import flash_ops
+
+    phase(n, "Ulysses and ring attention at the transformer's attention shape (B=8, T=1024, "
+             "H=32, D=64, bf16), sp of size 1 over NCCL: their launch path")
+    mesh = par.mesh_from_spec("sp1")
+    rng = np.random.RandomState(seed + 71)
+    q, k, v, do = (torch.as_tensor(rng.standard_normal((8, 1024, 32, 64)) * 0.5,
+                                   dtype=torch.bfloat16, device="cuda") for _ in range(4))
+    out = {}
+    for kind in ("ulysses", "ring"):
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        for c in TFM_STEP_LAUNCHES:
+            setattr(fk, f"{c}_launches", 0)
+        flash_ops.plain_routes = 0
+        fn = par.ulysses_attention if kind == "ulysses" else par.ring_attention
+        o = fn(*xs, mesh, causal=True)
+        o.backward(do)
+        torch.cuda.synchronize()
+        launches = {c: getattr(fk, f"{c}_launches") for c in TFM_STEP_LAUNCHES}
+        ys = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref = flash_ops.flash_attention(*ys, causal=True) if kind == "ulysses" else \
+            flash_ops.scaled_dot_product_attention(*(y.float() for y in ys), causal=True)
+        ref.backward(do.to(ref.dtype))
+        pairs = [(o, ref)] + [(x.grad, y.grad) for x, y in zip(xs, ys)]
+        if kind == "ulysses":  # the all-to-all of one rank is a copy: the kernels' bits
+            same = all(torch.equal(a, b) for a, b in pairs)
+            check(same, "Ulysses at sp1: not flash_attention's bits")
+            check(launches == {c: 1 for c in TFM_STEP_LAUNCHES} and flash_ops.plain_routes == 0,
+                  f"Ulysses: B8 launches {launches}, plain routes {flash_ops.plain_routes}")
+            out[kind] = dict(b8_launches=launches, same_bits_as_flash=True)
+            msg = f"flash_attention's bits, B8 launches {launches}"
+        else:
+            errs = [float((a.detach().float() - b.detach().float()).abs().max()
+                          / b.detach().float().abs().max()) for a, b in pairs]
+            check(max(errs) <= ULYSSES_TOL, f"ring attention: errors {errs}")
+            out[kind] = dict(errors=errs)
+            msg = f"errors (o, dq, dk, dv) {[f'{e:.3e}' for e in errs]} of the f32 formula's " \
+                  f"largest (tol {ULYSSES_TOL})"
+        print(f"  {kind} attention, forward and backward over "
+              f"{torch.distributed.get_backend()}: {msg}")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # phase 70's ranks: the script started again, one process a rank
+    ap.add_argument("--dp_rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp_init", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp_dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dp_rank is not None:
+        dp_rank_main(args.dp_rank, args.dp_init, args.dp_dir, args.seed)
+        return
 
     phase(1, "device")
     if not torch.cuda.is_available():
@@ -10015,8 +10534,18 @@ def main():
     paths["ssd300"] = ssd_phase(ptt, smi, args.seed, 65)
     paths["ctr_sparse"] = ctr_phase(ptt, smi, args.seed, 66)
     paths["cost_misc_ops"] = misc_ops_phase(ptt, smi, args.seed, 67)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["pipeline"], tmain, tstart, tloss = pipeline_phase(ptt, smi, args.seed, 68)
+    paths["pipeline"]["window"] = pipeline_window_phase(ptt, smi, args.seed, 69, tmain,
+                                                        tstart, tloss)
+    del tmain, tstart, tloss
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["data_parallel"], paths["sequence_parallel"] = data_parallel_phase(
+        ptt, smi, args.seed, 70)
 
-    phase(68, "the paths line, the kernels line, then the device line")
+    phase(72, "the paths line, the kernels line, then the device line")
     rows["attn_bwd_step"].update(launches_by_route=train_routes["attn_bwd_step"],
                                  kernel="attn_bwd_row_kernel on csrc/attn_row.cuh's attend_bwd")
     rows["attn_phase2"].update(kernel="attn_dep_kernel (t oldest first) + attn_dv_kernel")
@@ -10095,6 +10624,19 @@ def main():
     # the CTC acoustic model's bidirectional GRU in f32 (phase 64)
     for k, c in paths["ctc_speech"]["launches_per_step"].items():
         by_path[k]["ctc_train_f32"] = c
+    # the pipeline grid (phase 68) and its window (69): B8 a step by cell
+    for c in paths["pipeline"]["cells"]:
+        for k, v in c["launches_per_step"].items():
+            by_path[k][f"transformer_pipeline_{c['schedule']}_K{c['K']}_M{c['M']}"] = v
+    by_path["flash_fwd"]["transformer_pipeline_window_K2_M4"] = \
+        paths["pipeline"]["window"]["flash_fwd_launches_per_step"]
+    # bench.py's lstm row on each of 2 data-parallel ranks (phase 70) and
+    # Ulysses attention at sp1 (phase 71)
+    for k, v in zip(("lstm_fwd", "lstm_bwd"),
+                    paths["data_parallel"]["a"]["launches_per_rank_step"]):
+        by_path[k]["lstm_train_dp2_rank"] = v
+    for k, v in paths["sequence_parallel"]["ulysses"]["b8_launches"].items():
+        by_path[k]["ulysses_attention_sp1"] = v
     # B3's row: the request's launch (B=128), and the training step's (B=256)
     rows["gru_fwd"] = dict(main_row, train_ms=gru_fwd_train_ms,
                            srl_step=paths["srl"]["kernels"]["gru_fwd"])

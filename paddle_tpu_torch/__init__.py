@@ -33,7 +33,8 @@ checkpoints it resumes from:
     trainer.train(ptt.data.batch(reader, 64), num_passes=2, feed_order=[x, y],
                   event_handler=handler)
 
-and serves saved artifacts over HTTP, with continuous batching for
+trains across processes and by stages (`parallel.ParallelExecutor` over
+torch.distributed, `PipelineExecutor`), and serves saved artifacts over HTTP, with continuous batching for
 generation models (`layers.BeamSearchDecoder`):
 
     reg = ptt.serving.ModelRegistry()
@@ -43,8 +44,8 @@ generation models (`layers.BeamSearchDecoder`):
 """
 
 from . import (data, evaluator, fleetctl, initializer, io, layers, models,  # noqa: F401
-               networks, obs, ops, optimizer, profiler, quant, regularizer, resilience,
-               serving)
+               networks, obs, ops, optimizer, parallel, pipeline, profiler, quant,
+               regularizer, resilience, serving)
 from .core.backward import append_backward
 from .core.executor import Executor, Scope, global_scope, memory_optimize, reset_global_scope
 from .core.lod import LoDArray
@@ -53,6 +54,7 @@ from .core.program import (Program, default_main_program, default_startup_progra
 from .flags import FLAGS
 from .gradient_checker import check_gradient
 from .param_attr import ParamAttr
+from .pipeline import PipelineExecutor
 from .trainer import (BeginIteration, BeginPass, CheckpointConfig, EndIteration, EndPass,
                       Trainer)
 
@@ -60,5 +62,5 @@ __all__ = ["BeginIteration", "BeginPass", "CheckpointConfig", "EndIteration", "E
            "Executor", "FLAGS", "LoDArray", "ParamAttr", "Program", "Scope", "Trainer",
            "append_backward", "check_gradient", "data", "default_main_program",
            "default_startup_program", "evaluator", "fleetctl", "global_scope", "initializer", "io", "layers", "memory_optimize", "models", "networks", "obs", "ops",
-           "optimizer", "profiler", "program_guard", "quant", "regularizer",
+           "optimizer", "parallel", "pipeline", "PipelineExecutor", "profiler", "program_guard", "quant", "regularizer",
            "reset_default_programs", "reset_global_scope", "resilience", "serving"]

@@ -55,7 +55,7 @@ Commands:
               a router over replica servers already running.
 
 The JAX package's other commands (train, merge_model, quant, stats, flags,
-version) wait for ROADMAP.md A12 and `tune` for A11; `--mesh` for A10.
+version) wait for ROADMAP.md A12 and `tune` for A11; `--mesh` for A10b.
 """
 
 from __future__ import annotations
@@ -147,7 +147,7 @@ def _cmd_serve(argv) -> int:
 
     opts = _parse_kv(argv, _SERVE_KNOWN)
     if opts.get("mesh"):
-        raise _not_ported("a mesh-sharded serving replica (serve --mesh)", "A10")
+        raise _not_ported("a mesh-sharded serving replica (serve --mesh)", "A10b")
     if int(opts.get("replicas", 0) or 0) > 0 or _on(opts, "disaggregate"):
         return _serve_fleet(opts)
     if opts.get("trace_out"):

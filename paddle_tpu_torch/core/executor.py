@@ -60,6 +60,11 @@ class Scope:
 
     def __init__(self):
         self.vars: Dict[str, Any] = {}
+        # name -> {"shape": global shape, "slice": [[start, stop], ...] of
+        # the global value this process holds, "owner": whether it writes
+        # that slice to a sharded checkpoint}, for a value a mesh executor
+        # sliced (parallel/data_parallel.py); a name not here is whole
+        self.shards: Dict[str, Dict[str, Any]] = {}
 
     def set(self, name: str, value) -> None:
         self.vars[name] = value
@@ -256,11 +261,12 @@ class Executor:
         for k, v in (feed or {}).items():
             env[k] = self._to_device(k, v)
         gen = self._generator(seed if seed is not None else program.random_seed or None)
+        self._seed_step_generators(gen.initial_seed())
         self._execute(program, env, fetch_names, persist, gen)
         for name in persist:
             if name in env:
                 scope.set(name, _detach(env[name]))
-        fetches = [_detach(env[n]) for n in fetch_names]
+        fetches = [_detach(v) for v in self._fetch_values(program, env, fetch_names)]
         if return_numpy:
             fetches = [_to_numpy(f) for f in fetches]
         return fetches
@@ -279,7 +285,7 @@ class Executor:
         env[registry.LIVE_KEY] = {n for b in program.blocks for op in b.ops
                                   for names in op.inputs.values()
                                   for n in names} | set(fetch_names) | set(persist)
-        runner = BlockRunner(program)
+        runner = self._runner(program)
         at = [i for i, op in enumerate(ops) if op.type == "autodiff"]
         if not at:
             with torch.inference_mode():
@@ -302,7 +308,33 @@ class Executor:
                     runner.run_ops(ops[:k], env, block)
                 self._run_autodiff(ops[k], env, leaves, env.pop(registry.SPARSE_KEY, None))
             with torch.no_grad():
-                runner.run_ops(ops[k + 1:], env, block, first=k + 1)
+                self._after_autodiff(program, ops[k], env)
+                self._run_tail(runner, ops[k + 1:], env, block, k + 1)
+
+    # -- the hooks a mesh or pipeline executor takes (parallel/, pipeline/) --
+    def _runner(self, program: Program) -> BlockRunner:
+        """The runner walking the program's blocks."""
+        return BlockRunner(program)
+
+    def _after_autodiff(self, program: Program, op, env) -> None:
+        """Called with the step's gradients in `env`, before the ops after
+        the autodiff op read them."""
+
+    def _run_tail(self, runner, ops, env, block, first: int) -> None:
+        """The ops after the autodiff op (clips, regularizers, updates)."""
+        runner.run_ops(ops, env, block, first=first)
+
+    def _fetch_values(self, program: Program, env, fetch_names) -> list:
+        """The fetched values, as the caller gets them."""
+        return [env[n] for n in fetch_names]
+
+    def _step_generators(self) -> tuple:
+        """Generators a step draws from besides its own (registered with a
+        captured step's graph, core/graph.py)."""
+        return ()
+
+    def _seed_step_generators(self, seed: int) -> None:
+        """Seed `_step_generators` from the step's seed, before the step."""
 
     def run_window(self, program: Program, feed: Dict[str, Any],
                    fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,

@@ -34,7 +34,8 @@ step, and a short window (the pass's ragged tail) replays the same graph.
 - **Random ops.** The step's generator is registered with its graph and
   re-seeded before every step as `Executor.run` seeds one: from
   `program.random_seed`, else a fresh seed. A window draws the per-step
-  loop's numbers.
+  loop's numbers. An executor's own step generators (the pipeline's, one
+  a micro-batch) are registered too and seeded from the same seed.
 - **Launch counters.** The kernel wrappers count their launches in Python
   (`LAUNCH_COUNTERS`); under capture they count once and replays count
   nothing. The capture's change is taken back and added at every replay,
@@ -221,6 +222,7 @@ class _StepGraph(CapturedStep):
     def __init__(self, exe, program: Program, fetch_names: Sequence[str], skip_nonfinite: bool,
                  with_acc: bool):
         super().__init__(exe.device, torch.Generator(device=exe.device))
+        self.extra_gens = tuple(exe._step_generators())
         self.exe = exe
         self.program = program
         self.fetch_names = list(fetch_names)
@@ -326,6 +328,7 @@ class _StepGraph(CapturedStep):
     def _seed(self) -> None:
         seed = self.program.random_seed or int.from_bytes(os.urandom(4), "little")
         self.gen.manual_seed(int(seed))
+        self.exe._seed_step_generators(int(seed))
 
     def step(self) -> None:
         """One training step: eager on the CPU and for the key's first step

@@ -63,6 +63,17 @@ class Variable:
     # ParamAttr); not part of to_dict, as the JAX package's
     optimize_attr: Dict[str, Any] = field(default_factory=lambda: {"learning_rate": 1.0})
     update_hooks: Optional[List[Any]] = None
+    # the op that first wrote it in its block (append_op sets it, as the JAX
+    # package's does; from_dict leaves it None); pipeline/partition.py reads
+    # it to tell feeds from activations
+    op: Optional["Operator"] = field(default=None, repr=False, compare=False)
+    # a placement over a mesh's axes, one entry a dimension (an axis name or
+    # None), as the JAX package's PartitionSpec; set by mp_axis and
+    # parallel.sharded_embedding and read by parallel.ParallelExecutor; not
+    # part of to_dict
+    sharding: Optional[tuple] = None
+    # an optimizer's accumulator (ZeRO-1 slices these); not part of to_dict
+    is_optimizer_state: bool = False
 
     def __repr__(self):
         return f"Var({self.name}, shape={self.shape}, lod={self.lod_level})"
@@ -125,6 +136,9 @@ class Block:
 
         op = Operator(type, norm(inputs), norm(outputs), dict(attrs or {}))
         self.ops.append(op)
+        for name in op.output_names():
+            if name in self.vars and self.vars[name].op is None:
+                self.vars[name].op = op
         self.program.bump_version()
         return op
 

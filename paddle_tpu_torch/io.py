@@ -203,6 +203,7 @@ def params_from_numpy(scope: Scope, arrays: Dict[str, np.ndarray], device) -> No
     for name, a in arrays.items():
         # a copy: the JAX package's arrays are read-only
         scope.set(name, torch.as_tensor(np.array(a, order="C"), device=dev))
+        scope.shards.pop(name, None)  # whole again: a mesh executor cuts it anew
 
 
 def state_to_numpy(scope: Scope, names: Iterable[str]) -> Dict[str, np.ndarray]:
@@ -416,7 +417,8 @@ def load_inference_model(dirname: str, scope: Optional[Scope] = None, device=Non
     if present:
         raise NotImplementedError(
             f"{dirname}: the artifact carries the sidecar(s) {present}, "
-            "which the PyTorch port does not support yet")
+            "which the PyTorch port does not support yet (the serving mesh, ROADMAP.md "
+            "A10b)")
     # meta["tuning"] records which TPU table the exporter's kernels were
     # tuned with; it says nothing about this card, so it is skipped on purpose
     with open(os.path.join(dirname, PROGRAM_FILE)) as f:
@@ -497,6 +499,20 @@ def verify_checkpoint(dirname: str) -> None:
         raise CheckpointCorruptError(f"{dirname}: unreadable meta ({e})") from e
     integrity = meta.get("integrity")
     if not isinstance(integrity, dict):
+        # a save without hashes: a sharded one can still be checked for
+        # every shard file its manifest names
+        smeta_path = os.path.join(dirname, SHARDED_META)
+        if os.path.exists(smeta_path):
+            try:
+                with open(smeta_path) as f:
+                    smeta = json.load(f)
+            except (OSError, ValueError) as e:
+                raise CheckpointCorruptError(f"{dirname}: unreadable sharded meta ({e})") from e
+            for p in sorted(_shard_processes(smeta)):
+                if not os.path.exists(os.path.join(dirname, f"shards_p{p}.npz")):
+                    raise CheckpointCorruptError(
+                        f"{dirname}: shard file shards_p{p}.npz referenced by the manifest "
+                        "is missing")
         return
     for fname, want in sorted(integrity.items()):
         path = os.path.join(dirname, fname)
@@ -520,10 +536,15 @@ def _quarantine_dir(dirname: str) -> str:
     return q
 
 
-def _sharded_not_ported():
-    return NotImplementedError(
-        "sharded checkpoints are not ported yet (ROADMAP.md, queue A, A10 · Parallel "
-        "and pipeline); use sharded=False")
+def _payload_files(dirname: str) -> List[str]:
+    """Checkpoint payload files subject to integrity hashing."""
+    return sorted(n for n in os.listdir(dirname)
+                  if n == PARAMS_FILE or n == SHARDED_META or re.fullmatch(r"shards_p\d+\.npz", n))
+
+
+def _meta_with_hashes(d: str, serial: int, trainer_args) -> dict:
+    return {"serial": serial, "trainer_args": trainer_args or {},
+            "integrity": {n: _sha256_file(os.path.join(d, n)) for n in _payload_files(d)}}
 
 
 def save_checkpoint(checkpoint_dir: str, trainer_args: Optional[Dict[str, Any]] = None,
@@ -533,19 +554,44 @@ def save_checkpoint(checkpoint_dir: str, trainer_args: Optional[Dict[str, Any]] 
     checkpoint, keeping the newest `max_num_checkpoints`. Returns the new
     serial. `scope` may hold tensors or a host snapshot's numpy arrays.
     Serial allocation re-lists the directory, so one thread saves into a
-    directory at a time (the Trainer's writer thread)."""
-    if sharded:
-        raise _sharded_not_ported()
+    directory at a time (the Trainer's writer thread).
+
+    sharded=True writes the JAX package's per-shard format (below): each
+    process writes the slices it owns, the chief folds the manifests, and
+    every process of a torch.distributed group must call it together (its
+    barriers; the chief picks the serial)."""
+    from .parallel import distributed
+
     serial = get_latest_checkpoint_serial(checkpoint_dir) + 1
-    d = _serial_dir(checkpoint_dir, serial)
-    os.makedirs(d, exist_ok=True)
-    save_persistables(d, main_program, scope)
-    # meta last: its presence marks the checkpoint complete, and it
-    # carries the payload hashes load verifies
-    faults.fire("ckpt.meta", serial=serial)
-    _write_json_atomic(os.path.join(d, META_FILE),
-                       {"serial": serial, "trainer_args": trainer_args or {},
-                        "integrity": {PARAMS_FILE: _sha256_file(os.path.join(d, PARAMS_FILE))}})
+    if sharded:
+        chief = distributed.is_chief()
+        multi = distributed.process_count() > 1
+        if multi:
+            # every process must agree on the serial: the chief decides
+            serial = distributed.broadcast_int(serial)
+        d = _serial_dir(checkpoint_dir, serial)
+        os.makedirs(d, exist_ok=True)
+        save_sharded_checkpoint(d, main_program, scope)  # barriers inside
+        # the completion marker: the chief's, after the fold, with a sha256
+        # a payload file; then a barrier, so no process returns before the
+        # checkpoint is loadable
+        if chief:
+            faults.fire("ckpt.meta", serial=serial)
+            _write_json_atomic(os.path.join(d, META_FILE),
+                               _meta_with_hashes(d, serial, trainer_args))
+        if multi:
+            distributed.barrier()
+        if not chief:
+            return serial  # retention runs on the chief only
+    else:
+        d = _serial_dir(checkpoint_dir, serial)
+        os.makedirs(d, exist_ok=True)
+        save_persistables(d, main_program, scope)
+        # meta last: its presence marks the checkpoint complete, and it
+        # carries the payload hashes load verifies
+        faults.fire("ckpt.meta", serial=serial)
+        _write_json_atomic(os.path.join(d, META_FILE), _meta_with_hashes(d, serial,
+                                                                          trainer_args))
     # retention sweeps complete serials only
     for s in _complete_serials(checkpoint_dir)[:-max_num_checkpoints]:
         shutil.rmtree(_serial_dir(checkpoint_dir, s), ignore_errors=True)
@@ -561,9 +607,10 @@ def load_checkpoint(checkpoint_dir: str, main_program: Optional[Program] = None,
                     scope: Optional[Scope] = None, device=None) -> Dict[str, Any]:
     """Restore the newest VALID checkpoint into `scope` on `device`
     (default: the card); returns its trainer_args. A serial whose hashes
-    mismatch, or whose payload fails to read, is quarantined to
-    `<dir>.corrupt` and the previous serial is tried. A sharded checkpoint
-    (the JAX package's `sharded_meta.json`) raises."""
+    mismatch, or whose payload fails to read (a torn shard file, a missing
+    member), is quarantined to `<dir>.corrupt` and the previous serial is
+    tried. A sharded checkpoint (`sharded_meta.json`, either package's) is
+    assembled into whole values."""
     dev = resolve_device(device)
     quarantined = 0
     while True:
@@ -572,11 +619,12 @@ def load_checkpoint(checkpoint_dir: str, main_program: Optional[Program] = None,
             extra = f" ({quarantined} corrupt serial(s) quarantined)" if quarantined else ""
             raise FileNotFoundError(f"no valid checkpoint under {checkpoint_dir}{extra}")
         d = _serial_dir(checkpoint_dir, serial)
-        if os.path.exists(os.path.join(d, "sharded_meta.json")):
-            raise _sharded_not_ported()
         try:
             verify_checkpoint(d)
-            arrays = _read_npz(os.path.join(d, PARAMS_FILE), None)
+            if os.path.exists(os.path.join(d, SHARDED_META)):
+                arrays, world = _assemble_sharded(d, main_program)
+            else:
+                arrays, world = _read_npz(os.path.join(d, PARAMS_FILE), None), None
             with open(os.path.join(d, META_FILE)) as f:
                 args = json.load(f)["trainer_args"]
         except _RECOVERABLE_LOAD_ERRORS as e:
@@ -587,7 +635,200 @@ def load_checkpoint(checkpoint_dir: str, main_program: Optional[Program] = None,
                           stacklevel=2)
             continue
         params_from_numpy(scope or global_scope(), arrays, dev)
+        _count_if_resharded(world)
         return args
+
+
+# --------------------------------------------------------- sharded checkpoints --
+# The JAX package's layout (paddle_tpu/io.py:854-1104), so a sharded
+# checkpoint crosses between the packages both ways:
+#
+#   checkpoint_<serial>/
+#     shards_p<process>.npz    # the slices this process owns, "<var>::<k>",
+#                              # and on the chief the whole values "<var>::r"
+#     manifest_p<process>.json # this process's entries
+#     sharded_meta.json        # the chief's fold: per var "replicated", or
+#                              # "sharded" with its global shape, dtype and
+#                              # each shard's key, slice and process
+#     meta.json                # written last: serial, trainer_args, hashes
+#
+# A scope value a mesh executor cut to this rank's slice carries its global
+# shape and slice in `scope.shards` (parallel/data_parallel.py); a whole
+# value is "replicated", written once, by the chief. Loading assembles
+# whole host arrays from whichever world wrote them; the restoring world's
+# mesh executor cuts its own slices.
+
+SHARDED_META = "sharded_meta.json"
+
+
+def save_sharded_checkpoint(dirname: str, main_program: Optional[Program] = None,
+                            scope: Optional[Scope] = None) -> str:
+    """Each process's slices and the chief's whole values into `dirname`
+    (the layout above); every process of the group calls it."""
+    from .parallel import distributed
+    from .pipeline.elastic import current_world
+
+    program = main_program or default_main_program()
+    scope = scope or global_scope()
+    os.makedirs(dirname, exist_ok=True)
+    pid, nproc = distributed.process_index(), distributed.process_count()
+    names = sorted(v.name for v in program.persistables() if scope.has(v.name))
+    shards = getattr(scope, "shards", {})
+    meta: Dict[str, Any] = {"vars": {}, "num_processes": nproc, "world": current_world()}
+    local: Dict[str, np.ndarray] = {}
+    for n in names:
+        info = shards.get(n)
+        if info is None:  # whole: the chief saves one copy
+            meta["vars"][n] = {"kind": "replicated"}
+            if pid == 0:
+                local[f"{n}::r"] = _host(scope.get(n))
+            continue
+        entries = []
+        host = _host(scope.get(n))
+        if info["owner"]:  # exactly one owner a slice
+            key = f"{n}::0"
+            local[key] = host
+            entries.append({"key": key, "slice": [list(x) for x in info["slice"]],
+                            "process": pid})
+        meta["vars"][n] = {"kind": "sharded", "shape": list(info["shape"]),
+                           "dtype": np.dtype(host.dtype).name, "shards": entries}
+    # a reused dirname must not leak a previous save's files into this one
+    for stale in (f"shards_p{pid}.npz", f"manifest_p{pid}.json"):
+        path = os.path.join(dirname, stale)
+        if os.path.exists(path):
+            os.remove(path)
+    if pid == 0 and os.path.exists(os.path.join(dirname, SHARDED_META)):
+        os.remove(os.path.join(dirname, SHARDED_META))
+    fd, tmp = tempfile.mkstemp(dir=dirname, suffix=".tmp")
+    os.close(fd)
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, **local)
+        if faults.fire("ckpt.write", shard=pid) == "corrupt":
+            with open(tmp, "r+b") as f:
+                f.truncate(max(os.path.getsize(tmp) // 2, 1))
+        os.replace(tmp, os.path.join(dirname, f"shards_p{pid}.npz"))
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    with open(os.path.join(dirname, f"manifest_p{pid}.json"), "w") as f:
+        json.dump(meta, f)
+    # the chief folds every process's entries only after all have written
+    if nproc > 1:
+        distributed.barrier()
+    if pid == 0:
+        _fold_sharded_manifests(dirname, meta)
+    if nproc > 1:
+        distributed.barrier()  # nobody leaves before sharded_meta.json exists
+    return dirname
+
+
+def _fold_sharded_manifests(dirname: str, chief_meta: Dict[str, Any]) -> None:
+    """The chief merges every process's shard entries into
+    sharded_meta.json; a missing expected manifest is an error."""
+    merged = json.loads(json.dumps(chief_meta))
+    nproc = chief_meta["num_processes"]
+    for p in range(1, nproc):
+        path = os.path.join(dirname, f"manifest_p{p}.json")
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"sharded save: manifest for process {p}/{nproc} missing ({path}) — did the "
+                "save barrier run on every process?")
+        with open(path) as f:
+            other = json.load(f)
+        for var, info in other["vars"].items():
+            if info.get("kind") == "sharded":
+                mine = merged["vars"].setdefault(var, info)
+                if mine is not info:
+                    mine["shards"].extend(info["shards"])
+    _write_json_atomic(os.path.join(dirname, SHARDED_META), merged)
+
+
+def _shard_processes(meta) -> set:
+    return {0} | {e["process"] for info in meta.get("vars", {}).values()
+                  if info.get("kind") == "sharded" for e in info.get("shards", [])}
+
+
+# a torn zip surfaces at open or at member access, as a container error
+# (BadZipFile, a short read) or an npy payload error (ValueError)
+_SHARD_READ_ERRORS = (OSError, ValueError, EOFError, zipfile.BadZipFile)
+
+
+def _read_shard(files, process: int, key: str, dirname: str) -> np.ndarray:
+    try:
+        return files[process][key]
+    except KeyError as e:
+        raise CheckpointCorruptError(
+            f"{dirname}: shards_p{process}.npz is missing member {key!r} (truncated or "
+            "stale shard file)") from e
+    except _SHARD_READ_ERRORS as e:
+        raise CheckpointCorruptError(
+            f"{dirname}: shard {key!r} in shards_p{process}.npz is unreadable "
+            f"({type(e).__name__}: {e})") from e
+
+
+def _assemble_sharded(dirname: str, main_program: Optional[Program] = None):
+    """({name: whole host array}, the saving world) of a sharded
+    checkpoint, every value read before any is handed on: a torn shard
+    file or a missing member raises CheckpointCorruptError naming it, and
+    a slice no shard covers raises too."""
+    with open(os.path.join(dirname, SHARDED_META)) as f:
+        meta = json.load(f)
+    if main_program is not None:
+        keep = {v.name for v in main_program.persistables()}
+        meta["vars"] = {n: i for n, i in meta["vars"].items() if n in keep}
+    files = {}
+    try:
+        for p in sorted(_shard_processes(meta)):
+            fname = f"shards_p{p}.npz"
+            try:
+                files[p] = np.load(os.path.join(dirname, fname))
+            except _SHARD_READ_ERRORS as e:
+                raise CheckpointCorruptError(f"{dirname}: shard file {fname} is unreadable "
+                                             f"({type(e).__name__}: {e})") from e
+        staging: Dict[str, np.ndarray] = {}
+        for var, info in meta["vars"].items():
+            if info["kind"] == "replicated":
+                staging[var] = _read_shard(files, 0, f"{var}::r", dirname)
+                continue
+            out = np.zeros(info["shape"], np.dtype(info["dtype"]))
+            covered = np.zeros(info["shape"], bool)
+            for e in info["shards"]:
+                sl = tuple(slice(a, b) for a, b in e["slice"])
+                out[sl] = _read_shard(files, e["process"], e["key"], dirname)
+                covered[sl] = True
+            if not covered.all():
+                raise CheckpointCorruptError(
+                    f"sharded checkpoint: {var} has uncovered slices "
+                    f"({int((~covered).sum())} of {covered.size} elements) — incomplete save?")
+            staging[var] = out
+    finally:
+        for f in files.values():
+            f.close()
+    return staging, meta.get("world")
+
+
+def _count_if_resharded(world) -> None:
+    """A restore into another world than the saving one is counted
+    (pipeline/elastic.py's pt_ckpt_reshard_total)."""
+    if not world:
+        return
+    from .pipeline.elastic import count_reshard, current_world
+
+    cur = current_world()
+    if any(int(world.get(k, v)) != v for k, v in cur.items()):
+        count_reshard()
+
+
+def load_sharded_checkpoint(dirname: str, main_program: Optional[Program] = None,
+                            scope: Optional[Scope] = None, device=None) -> List[str]:
+    """The whole values of a sharded checkpoint directory into `scope` on
+    `device` (default: the card); returns their names. A mesh executor
+    cuts them to its ranks' slices on its next run."""
+    arrays, world = _assemble_sharded(dirname, main_program)
+    params_from_numpy(scope or global_scope(), arrays, resolve_device(device))
+    _count_if_resharded(world)
+    return list(arrays)
 
 
 def clean_checkpoint(checkpoint_dir: str) -> None:

@@ -12,11 +12,16 @@ def lstm_benchmark_net(words, vocab_size, emb_dim=128, hidden=512, class_dim=2,
                        max_len=None, sharded_embedding_axis=None):
     """embedding → fc to 4H (no bias) → stacked_lstm2 (two layers) → the
     last step of each sequence → fc to the classes. `max_len` bounds the
-    time steps run (None: the LoD capacity)."""
+    time steps run (None: the LoD capacity). `sharded_embedding_axis`
+    stripes the table's rows over that mesh axis
+    (parallel/sharded_embedding.py)."""
     if sharded_embedding_axis:
-        raise NotImplementedError("the vocab-sharded embedding is not ported to the "
-                                  "PyTorch port yet")
-    emb = layers.embedding(words, size=[vocab_size, emb_dim])
+        from ..parallel.sharded_embedding import sharded_embedding
+
+        emb = sharded_embedding(words, size=[vocab_size, emb_dim],
+                                mesh_axis=sharded_embedding_axis)
+    else:
+        emb = layers.embedding(words, size=[vocab_size, emb_dim])
     proj1 = layers.fc(emb, size=hidden * 4, bias_attr=False)
     lstm2 = layers.stacked_lstm2(proj1, size=hidden * 4, max_len=max_len)
     pooled = layers.sequence_pool(lstm2, "last")

@@ -43,10 +43,15 @@ def transformer_lm(tokens, vocab_size: int, dim: int = 512, num_heads: int = 8,
     """tokens: a dense [B, T] int32 Variable, T <= max_len. Returns the
     per-position logits [B, T, vocab_size]. Parameter names are the JAX
     package's (`{name}.tok_emb`, `{name}.h{i}.attn.wq`, ...), so its state
-    loads here unchanged."""
-    if mp_axis:
-        raise NotImplementedError("tensor parallelism (mp_axis) is not ported to the "
-                                  "PyTorch port yet")
+    loads here unchanged.
+
+    mp_axis: the mesh axis of Megatron tensor parallelism, as the JAX
+    package's (models/transformer.py:56-97): qkv and ffn_in split by output
+    features (column), wo and ffn_out by input features (row), the output
+    head by vocabulary, each as a `.sharding`; the column-split layers'
+    biases are split with them, so a rank adds its own piece.
+    parallel.ParallelExecutor over a mesh with that axis runs it (an
+    all-reduce after each row-split product)."""
     ffn_dim = ffn_dim or 4 * dim
     T = int(tokens.shape[1])
     if T > max_len:
@@ -60,5 +65,31 @@ def transformer_lm(tokens, vocab_size: int, dim: int = 512, num_heads: int = 8,
     for i in range(num_layers):
         x = _block(x, num_heads, ffn_dim, f"{name}.h{i}", 0.0 if is_test else dropout_prob)
     x = layers.layer_norm(x, begin_norm_axis=2, name=f"{name}.ln_f")
-    return layers.fc(x, size=vocab_size, num_flatten_dims=2,
-                     param_attr=ParamAttr(name=f"{name}.out_w"), bias_attr=False)
+    out = layers.fc(x, size=vocab_size, num_flatten_dims=2,
+                    param_attr=ParamAttr(name=f"{name}.out_w"), bias_attr=False)
+    if mp_axis:
+        from ..core.program import default_main_program
+
+        gb = default_main_program().global_block()
+        col, row, piece = (None, mp_axis), (mp_axis, None), (mp_axis,)
+        for i in range(num_layers):
+            p = f"{name}.h{i}"
+            for w, spec in ((f"{p}.attn.wq", col), (f"{p}.attn.wk", col),
+                            (f"{p}.attn.wv", col), (f"{p}.attn.wo", row),
+                            (f"{p}.ffn_in", col), (f"{p}.ffn_out", row)):
+                gb.var(w).sharding = spec
+            for b in (f"{p}.attn.wq_b", f"{p}.attn.wk_b", f"{p}.attn.wv_b"):
+                gb.var(b).sharding = piece
+            gb.var(_fc_bias(gb, f"{p}.ffn_in")).sharding = piece
+        gb.var(f"{name}.out_w").sharding = col  # vocab-sharded head
+    return out
+
+
+def _fc_bias(gb, weight: str) -> str:
+    """The bias an fc added after the product by `weight`."""
+    for i, op in enumerate(gb.ops):
+        if op.type == "mul" and op.inputs["Y"] == [weight]:
+            nxt = gb.ops[i + 1]
+            if nxt.type == "elementwise_add" and nxt.inputs["X"] == op.outputs["Out"]:
+                return nxt.inputs["Y"][0]
+    raise KeyError(f"no bias follows the product by {weight!r}")

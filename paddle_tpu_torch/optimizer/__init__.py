@@ -172,6 +172,11 @@ class Optimizer:
             f"{self.name}.{name}.{param.name}",
             tuple(shape if shape is not None else param.shape), param.dtype,
             persistable=True)
+        acc.is_optimizer_state = True
+        # a same-shaped accumulator of a param with a placement (mp_axis, a
+        # sharded embedding) takes it, as the JAX package's does
+        if param.sharding is not None and tuple(acc.shape) == tuple(param.shape):
+            acc.sharding = param.sharding
         ConstantInitializer(fill)(acc, helper.startup_program)
         self._accumulators.setdefault(name, {})[param.name] = acc
         return acc

@@ -244,19 +244,23 @@ def validate_handoff(header: Dict[str, Any], gen_meta: Dict[str, Any]) -> None:
 def gather_handoff_rows(arrays, rows: int) -> Tuple[torch.Tensor, ...]:
     """The first `rows` rows of each device tensor, on the host, through ONE
     device-to-host copy: the row slices' bytes are joined on the device,
-    copied once (one host sync), and split back into CPU tensors."""
+    each starting at a multiple of 16 bytes (so that any dtype views its
+    own), copied once (one host sync), and split back into CPU tensors."""
     arrays = tuple(arrays)
     if not arrays:
         return ()
     parts = [a[:rows].contiguous() for a in arrays]
-    flat = torch.cat([p.view(-1).view(torch.uint8) for p in parts])
-    host = flat.cpu()
-    out, off = [], 0
+    pieces, starts, off = [], [], 0
     for p in parts:
-        nb = p.numel() * p.element_size()
-        out.append(host[off:off + nb].view(p.dtype).reshape(p.shape))
-        off += nb
-    return tuple(out)
+        pad = -off % 16
+        if pad:
+            pieces.append(torch.zeros(pad, dtype=torch.uint8, device=p.device))
+        starts.append(off + pad)
+        pieces.append(p.view(-1).view(torch.uint8))
+        off += pad + p.numel() * p.element_size()
+    host = torch.cat(pieces).cpu()
+    return tuple(host[o:o + p.numel() * p.element_size()].view(p.dtype).reshape(p.shape)
+                 for o, p in zip(starts, parts))
 
 
 def restore_handoff_rows(arrays, device, mesh=None) -> Tuple[torch.Tensor, ...]:
@@ -264,5 +268,5 @@ def restore_handoff_rows(arrays, device, mesh=None) -> Tuple[torch.Tensor, ...]:
     if mesh is not None:
         from ..engine import _not_ported
 
-        raise _not_ported("a mesh-sharded handoff restore (mesh=)", "A10")
+        raise _not_ported("a mesh-sharded handoff restore (mesh=)", "A10b")
     return tuple(torch.as_tensor(a).to(device) for a in arrays)

@@ -25,7 +25,7 @@ fence: `dispatches_total` and `syncs_total` count them, as the Trainer's
 counters do. A generation model (a `beam_search_group` op) also serves
 through `scheduler()`, the continuous-batching ContinuousScheduler.
 
-Left out until their queue items: the mesh replica (`mesh=`, ROADMAP.md A10)
+Left out until their queue items: the mesh replica (`mesh=`, ROADMAP.md A10b)
 and the autotuner's surfaces (`tune_coverage`, `check_tuned_table`,
 `decode_tune_cases`, `tune_decode_kernels`, A11); each raises
 NotImplementedError.
@@ -121,7 +121,7 @@ class ServingEngine:
                  mesh=None, batch_axis: Optional[str] = None, quantize: Optional[str] = None,
                  device=None):
         if mesh is not None or batch_axis is not None:
-            raise _not_ported("a mesh-sharded serving replica (mesh=, batch_axis=)", "A10")
+            raise _not_ported("a mesh-sharded serving replica (mesh=, batch_axis=)", "A10b")
         self.model_name = model_name
         self.model_dir = model_dir
         self.policy = policy or BucketPolicy()

@@ -41,8 +41,14 @@ show_param_stats_period set the per-step loop runs, with a warning.
 
 `host_sync_count` counts every device-to-host wait the loop pays and
 `host_dispatch_count` every `Executor.run` or `run_window` it issues, as
-the JAX package counts them. Sharded checkpoints are not ported yet
-(ROADMAP.md, queue A, A10).
+the JAX package counts them.
+
+Checkpoints: `CheckpointConfig(sharded=True)` writes the JAX package's
+per-shard format (io.py), each process its slices; a run of more than one
+process upgrades to it, loudly (a single gathered file cannot hold slices
+other processes own). A single-process sharded save rides the writer
+thread as every background save does; a multi-process one stays on the
+training thread, where every process runs its barriers.
 """
 
 from __future__ import annotations
@@ -69,6 +75,8 @@ from .data.feeder import DataFeeder, DevicePrefetcher
 from .flags import FLAGS
 from .obs import metrics as obs_metrics
 from .obs import trace as obs_trace
+from .parallel import distributed
+from .pipeline import elastic
 from .resilience import NonFiniteError, PreemptedError, faults
 from .resilience.guard import StepGuard
 
@@ -410,8 +418,6 @@ class CheckpointConfig:
     def __init__(self, checkpoint_dir: str, epoch_interval: int = 1, step_interval: int = 0,
                  max_num_checkpoints: int = 3, sharded: bool = False,
                  background: bool = True):
-        if sharded:
-            raise io._sharded_not_ported()
         self.checkpoint_dir = checkpoint_dir
         self.epoch_interval = epoch_interval
         self.step_interval = step_interval
@@ -459,6 +465,7 @@ class Trainer:
         self.host_dispatch_count = 0
         self._snapshot_copies = False
         self._register_obs_gauges()
+        elastic.declare_reshard_counter()
 
     def _register_obs_gauges(self) -> None:
         """Publish the trainer's counters into the process-wide metrics
@@ -613,13 +620,19 @@ class Trainer:
         last_metrics: Dict[str, float] = {}
         guard = self.step_guard
         if prefetch_to_device is None:
-            prefetch_to_device = FLAGS.prefetch_to_device
+            # an executor that splits feeds by rank (parallel.ParallelExecutor)
+            # is not prefetched to one device
+            prefetch_to_device = (FLAGS.prefetch_to_device
+                                  if getattr(self.exe, "prefetch_by_default", True) else 0)
         sync_every = self._resolve_sync_every(log_interval)
         scan_k = self._resolve_scan_window(scan_window)
         log = logging.getLogger("paddle_tpu_torch.trainer")
-        if scan_k and not getattr(self.exe, "scan_window_supported", False):
+        if scan_k and not (getattr(self.exe, "scan_window_supported", False)
+                           and getattr(self.exe, "device_metric_accumulation", True)):
             log.warning("scan_window=%d requested but %s does not run step windows: the "
-                        "per-step loop runs", scan_k, type(self.exe).__name__)
+                        "per-step loop runs. The meshless PipelineExecutor runs them (a "
+                        "window replays the whole staged step)", scan_k,
+                        type(self.exe).__name__)
             scan_k = 0
         if scan_k and FLAGS.show_param_stats_period:
             log.warning("scan_window disabled: show_param_stats_period needs per-step "
@@ -956,35 +969,37 @@ class Trainer:
         args = {"pass_id": pass_id, "step": self.step, "time": time.time()}
         if batch_id is not None:
             args.update({"mid_pass": True, "batch_id": batch_id})
-        if not cc.background:
+        sharded = cc.sharded
+        multi = distributed.process_count() > 1
+        if not sharded and multi:
+            # a gathered single-file save cannot hold slices other processes
+            # own; the per-shard format is the only multi-process layout, so
+            # upgrade, loudly, once, from the chief
+            if distributed.is_chief() and not getattr(self, "_warned_sharded_upgrade", False):
+                self._warned_sharded_upgrade = True
+                logging.getLogger("paddle_tpu_torch.trainer").warning(
+                    "multi-process run: upgrading checkpoint save to the sharded format "
+                    "(set CheckpointConfig(sharded=True) to silence this)")
+            sharded = True
+        if not cc.background or (sharded and multi):
+            # multi-process sharded saves barrier across processes: every
+            # process must be running the save, so they stay on this thread
             io.save_checkpoint(cc.checkpoint_dir, trainer_args=args,
                                main_program=self.main_program, scope=self.scope,
-                               max_num_checkpoints=cc.max_num_checkpoints)
+                               max_num_checkpoints=cc.max_num_checkpoints, sharded=sharded)
             return
-        # the named step's values, by reference (see the module docstring),
-        # and an event after the step's work; the writer copies them to the
-        # host on its own stream and commits
+        # the named step's values, by reference (see the module docstring);
+        # the writer copies them to the host on its own stream, after an
+        # event recorded here, and commits (pipeline/elastic.py)
         with profiler.timer("checkpointSnapshot"):
-            names = sorted(v.name for v in self.main_program.persistables()
-                           if self.scope.has(v.name))
-            refs = [self.scope.get(n) for n in names]
-            if self._snapshot_copies:
-                # the window's buffers: copied on the card before the next
-                # window writes them again
-                refs = [r.clone() for r in refs]
-            after = (torch.cuda.current_stream(self.device).record_event()
-                     if self.device.type == "cuda" else None)
-        program, max_keep, reader = self.main_program, cc.max_num_checkpoints, \
-            self._writer_reader
-
-        def commit():
-            host = Scope()
-            for n, v in zip(names, reader.read(refs, after)):
-                host.set(n, v)
-            io.save_checkpoint(cc.checkpoint_dir, trainer_args=args, main_program=program,
-                               scope=host, max_num_checkpoints=max_keep)
-
-        self._ckpt_writer.submit(commit)
+            # a window's buffers are copied on the card before the next
+            # window writes them again
+            snap = elastic.snapshot_scope_refs(self.main_program, self.scope,
+                                               copies=self._snapshot_copies)
+        elastic.submit_sharded_save(self._ckpt_writer, cc.checkpoint_dir, trainer_args=args,
+                                    main_program=self.main_program, scope=snap,
+                                    max_num_checkpoints=cc.max_num_checkpoints,
+                                    reader=self._writer_reader, sharded=sharded)
 
     def save_params(self, dirname: str) -> None:
         io.save_params(dirname, self.main_program, self.scope)

@@ -398,8 +398,12 @@ def test_what_is_not_ported_refuses_to_build():
         # sparse feed slots are ported (tests/test_torch_sparse.py): they build
         assert ptt.layers.data("s", shape=[10], sparse_format="binary").sparse_format == \
             "binary"
-        with pytest.raises(NotImplementedError):
-            ptt.models.lstm_benchmark_net(x, 10, sharded_embedding_axis="mp")
+        # the vocab-sharded embedding is ported (tests/test_torch_parallel.py
+        # trains it on two ranks): it builds, its table striped over mp
+        ptt.models.lstm_benchmark_net(x, 10, sharded_embedding_axis="mp")
+        table = next(o for o in ptt.default_main_program().global_block().ops
+                     if o.type == "lookup_table").inputs["W"][0]
+        assert ptt.default_main_program().global_block().var(table).sharding == ("mp", None)
     # schedules, pruning hooks and lr multipliers are ported: they build
     # (tests/test_torch_optimizers.py trains them against the JAX package)
     main = ptt.Program()

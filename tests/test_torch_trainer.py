@@ -442,10 +442,8 @@ def test_sigterm_writes_the_emergency_checkpoint(tmp_path):
 
 
 def test_not_ported_paths_raise(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="A10"):
-        ptt.CheckpointConfig(str(tmp_path), sharded=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tio.save_checkpoint(str(tmp_path), sharded=True)
+    # sharded checkpoints are ported (tests/test_torch_sharded_checkpoint.py)
+    assert ptt.CheckpointConfig(str(tmp_path), sharded=True).sharded
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     prog, startup, _, loss, _ = _build(ptt, "regression")
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -312,8 +312,13 @@ def test_model_refuses_what_is_not_ported():
     ptt.reset_default_programs()
     with ptt.program_guard(ptt.Program(), ptt.Program()):
         toks = ptt.layers.data("toks", shape=[8], dtype=np.int32)
-        with pytest.raises(NotImplementedError, match="mp_axis"):
-            ptt.models.transformer_lm(toks, vocab_size=16, dim=16, num_heads=2, mp_axis="mp")
+        # mp_axis is ported (tests/test_torch_parallel.py trains it on two
+        # ranks): it builds, with Megatron's placements
+        ptt.models.transformer_lm(toks, vocab_size=16, dim=16, num_heads=2, mp_axis="mp",
+                                  name="mp")
+        gb = ptt.default_main_program().global_block()
+        assert (gb.var("mp.h0.attn.wq").sharding, gb.var("mp.h0.attn.wo").sharding) == \
+            ((None, "mp"), ("mp", None))
         # train-mode dropout is ported: two dropout ops a block
         ptt.models.transformer_lm(toks, vocab_size=16, dim=16, num_heads=2, num_layers=2,
                                   dropout_prob=0.1)
